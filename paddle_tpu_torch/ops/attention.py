@@ -1,0 +1,44 @@
+"""Bahdanau attention primitives — counterpart of
+``paddle_tpu/ops/attention.py`` (``additive_attention_scores``, ``attend``).
+
+Same math as the reference: scores in float32, a masked softmax filled with
+``finfo.min`` and renormalised over the real positions, and compute-dtype
+operands for the two contractions.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from paddle_tpu_torch.ops.matmul import linear
+from paddle_tpu_torch.ops.numerics import acc_dtype, dot_dtype, mxu_cast
+
+__all__ = ["additive_attention_scores", "attend"]
+
+
+def additive_attention_scores(enc_proj: torch.Tensor, dec_state: torch.Tensor,
+                              w_dec: torch.Tensor,
+                              v: torch.Tensor) -> torch.Tensor:
+    """tanh(enc_proj + dec_state @ w_dec) @ v.  enc_proj [B, S, A],
+    dec_state [B, D], w_dec [D, A], v [A] -> [B, S] float32 scores."""
+    q = linear(dec_state, w_dec)[:, None, :]
+    enc_proj, q = mxu_cast(enc_proj, q)
+    e = torch.tanh(enc_proj + q)
+    acc = acc_dtype()
+    return torch.matmul(e.to(acc), v.to(e.dtype).to(acc))
+
+
+def attend(scores: torch.Tensor, values: torch.Tensor,
+           mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked softmax over S, then the weighted sum of values.
+    scores [B, S], values [B, S, D], mask [B, S] -> (ctx [B, D], w [B, S])."""
+    neg = torch.finfo(scores.dtype).min
+    z = torch.where(mask > 0, scores, torch.full_like(scores, neg))
+    w = torch.softmax(z, dim=-1) * mask.to(scores.dtype)
+    w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+    wc, vc = mxu_cast(w, values)
+    acc = dot_dtype()
+    ctx = torch.matmul(wc.to(acc)[:, None, :], vc.to(acc))[:, 0]
+    return ctx, w
