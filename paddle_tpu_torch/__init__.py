@@ -1,10 +1,12 @@
 """paddle_tpu_torch — the PyTorch/CUDA port of ``paddle_tpu`` for NVIDIA Hopper.
 
 The JAX package ``paddle_tpu`` stays the reference; this package is its
-counterpart on an H100, ported slice by slice (ROADMAP.md).  The first slice
-is seq2seq generation served through the slot table:
+counterpart on an H100, ported slice by slice (ROADMAP.md): seq2seq
+generation served through the slot table, and the flagship's training step:
 
-    models.Seq2SeqAttention       encoder + attention-GRU decoder, beam search
+    models.Seq2SeqAttention       encoder + attention-GRU decoder, beam
+                                  search, the teacher-forced ``loss``
+    param.Adam                    the optimizer of the training step
     serving.Seq2SeqSlotBackend    the flagship behind the slot protocol
     serving.SlotScheduler         continuous batching over the slot table
 

@@ -1,8 +1,10 @@
-// GRU forward time loop for Hopper (sm_90a), inference variant.
+// GRU forward time loop for Hopper (sm_90a), with or without the backward's
+// residual outputs.
 //
 // Replaces: paddle_tpu/ops/pallas_kernels.py::_gru_pallas_raw (the
-// _gru_kernel body, residuals=False, batch_split=0), which the encoder
-// reaches through ops/rnn_fused.py::_gru_core_fwd.
+// _gru_kernel body, batch_split=0; residuals=False for inference,
+// residuals=True for training), which the encoder reaches through
+// ops/rnn_fused.py::_gru_core_fwd.
 //
 // Computes, for t = 0 .. T-1 over a time-major batch (gate order [r, u, c],
 // r applied to h BEFORE the candidate product, as ops/rnn.py::gru_step):
@@ -14,6 +16,10 @@
 //     h_seq[t] = h * mask[t]                    (and emit zero)
 // round() is the cast of a matmul operand to the compute type (CT: float or
 // bfloat16); products accumulate in float32 and the carry stays float32.
+// With residuals (training), each step also stores, in the residual type RT
+// (ops/rnn_fused.py::residual_dtype), where _gru_kernel stores them:
+//     z[t]      = [zr, zc]   the pre-activations           [B, 3H]
+//     h_prev[t] = h          the carry entering the step   [B, H]
 //
 // What bounds it on this card: the recurrence is sequential over T and each
 // step has a row-wide dependency -- (r*h) @ W_c needs the whole r row.  At
@@ -31,7 +37,8 @@
 // alternative for a later change.  Each block computes a 32 x 32 output tile
 // with a shared-memory tiled product over k in a FIXED order, so a row's
 // arithmetic never depends on B: a merged prefill and a solo one give the
-// same rows bit for bit.
+// same rows bit for bit.  The residual stores add 8 bytes (bf16) per
+// carry element a step to a loop that is bound by launch latency, not bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,6 +68,16 @@ __device__ __forceinline__ float round_ct<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ float round_ct<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// a residual store in the residual type (round to nearest even)
+template <typename RT>
+__device__ __forceinline__ RT to_rt(float x);
+template <>
+__device__ __forceinline__ float to_rt<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_rt<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
 }
 
 __device__ __forceinline__ float sigmoid_f(float x) {
@@ -104,12 +121,14 @@ __device__ __forceinline__ void tile_product(
   }
 }
 
-// step part 1: zr = xp[:, :2H] + round(h) @ W[:, :2H]; writes r*h and u
-template <typename CT>
+// step part 1: zr = xp[:, :2H] + round(h) @ W[:, :2H]; writes r*h and u,
+// and (z_t non-null) the residuals zr and h_prev
+template <typename CT, typename RT>
 __global__ void __launch_bounds__(THREADS) gru_gates_kernel(
     const float* __restrict__ xp_t, const CT* __restrict__ W,
     const float* __restrict__ h, float* __restrict__ rh,
-    float* __restrict__ u, int B, int H) {
+    float* __restrict__ u, RT* __restrict__ z_t, RT* __restrict__ hp_t,
+    int B, int H) {
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
   float acc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
   tile_product<CT>(h, W, B, H, 3 * H, 2 * H, row0, col0, acc);
@@ -120,9 +139,13 @@ __global__ void __launch_bounds__(THREADS) gru_gates_kernel(
     for (int j = 0; j < 2; ++j) {
       const int b = row0 + ty * 2 + i, c = col0 + tx + 16 * j;
       if (b >= B || c >= 2 * H) continue;
-      const float g = sigmoid_f(xp_t[(size_t)b * 3 * H + c] + acc[i][j]);
+      const float zr = xp_t[(size_t)b * 3 * H + c] + acc[i][j];
+      const float g = sigmoid_f(zr);
+      if (z_t != nullptr) z_t[(size_t)b * 3 * H + c] = to_rt<RT>(zr);
       if (c < H) {
-        rh[(size_t)b * H + c] = g * h[(size_t)b * H + c];
+        const float hv = h[(size_t)b * H + c];
+        rh[(size_t)b * H + c] = g * hv;
+        if (hp_t != nullptr) hp_t[(size_t)b * H + c] = to_rt<RT>(hv);
       } else {
         u[(size_t)b * H + (c - H)] = g;
       }
@@ -133,12 +156,13 @@ __global__ void __launch_bounds__(THREADS) gru_gates_kernel(
 // step part 2: zc = xp[:, 2H:] + round(r*h) @ W[:, 2H:]; the update, the
 // mask hold, and h_seq[t].  Each thread reads and writes only its own h
 // entries, and the product's operand is r*h, so updating h in place is safe.
-template <typename CT>
+// (z_t non-null) also stores the residual zc.
+template <typename CT, typename RT>
 __global__ void __launch_bounds__(THREADS) gru_cand_kernel(
     const float* __restrict__ xp_t, const float* __restrict__ mask_t,
     const CT* __restrict__ W, const float* __restrict__ rh,
     const float* __restrict__ u, float* __restrict__ h,
-    float* __restrict__ hseq_t, int B, int H) {
+    float* __restrict__ hseq_t, RT* __restrict__ z_t, int B, int H) {
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
   float acc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
   tile_product<CT>(rh, W + 2 * H, B, H, 3 * H, H, row0, col0, acc);
@@ -150,8 +174,9 @@ __global__ void __launch_bounds__(THREADS) gru_cand_kernel(
       const int b = row0 + ty * 2 + i, c = col0 + tx + 16 * j;
       if (b >= B || c >= H) continue;
       const size_t o = (size_t)b * H + c;
-      const float cand = tanhf(xp_t[(size_t)b * 3 * H + 2 * H + c] +
-                               acc[i][j]);
+      const float zc = xp_t[(size_t)b * 3 * H + 2 * H + c] + acc[i][j];
+      const float cand = tanhf(zc);
+      if (z_t != nullptr) z_t[(size_t)b * 3 * H + 2 * H + c] = to_rt<RT>(zc);
       const float hp = h[o], uu = u[o];
       const float hn = uu * hp + (1.0f - uu) * cand;
       const float m = mask_t[b];
@@ -162,10 +187,10 @@ __global__ void __launch_bounds__(THREADS) gru_cand_kernel(
   }
 }
 
-template <typename CT>
+template <typename CT, typename RT>
 int gru_forward_impl(const float* xp, const float* mask, const CT* w,
-                     float* h_seq, float* h, float* rh, float* u, int T,
-                     int B, int H, cudaStream_t stream) {
+                     float* h_seq, float* h, float* rh, float* u, RT* z,
+                     RT* hprev, int T, int B, int H, cudaStream_t stream) {
   if (T < 0 || B < 0 || H < 0) return (int)cudaErrorInvalidValue;
   if (T == 0 || B == 0 || H == 0) return (int)cudaSuccess;
   const dim3 block(THREADS);
@@ -173,38 +198,62 @@ int gru_forward_impl(const float* xp, const float* mask, const CT* w,
   const dim3 grid_c((H + BN - 1) / BN, (B + BM - 1) / BM);
   const size_t xs = (size_t)B * 3 * H, hs = (size_t)B * H;
   for (int t = 0; t < T; ++t) {
-    gru_gates_kernel<CT><<<grid_g, block, 0, stream>>>(xp + t * xs, w, h, rh,
-                                                       u, B, H);
+    RT* z_t = z == nullptr ? nullptr : z + t * xs;
+    RT* hp_t = hprev == nullptr ? nullptr : hprev + t * hs;
+    gru_gates_kernel<CT, RT><<<grid_g, block, 0, stream>>>(
+        xp + t * xs, w, h, rh, u, z_t, hp_t, B, H);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    gru_cand_kernel<CT><<<grid_c, block, 0, stream>>>(
-        xp + t * xs, mask + (size_t)t * B, w, rh, u, h, h_seq + t * hs, B, H);
+    gru_cand_kernel<CT, RT><<<grid_c, block, 0, stream>>>(
+        xp + t * xs, mask + (size_t)t * B, w, rh, u, h, h_seq + t * hs, z_t,
+        B, H);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
 }
 
+// residual type by flag: z == nullptr (inference) stores no residuals
+template <typename CT>
+int gru_forward_dispatch(const void* xp, const void* mask, const void* w,
+                         void* h_seq, void* h, void* rh, void* u, void* z,
+                         void* hprev, int res_bf16, int T, int B, int H,
+                         void* stream) {
+  if ((z == nullptr) != (hprev == nullptr)) return (int)cudaErrorInvalidValue;
+  if (res_bf16) {
+    return gru_forward_impl<CT, __nv_bfloat16>(
+        (const float*)xp, (const float*)mask, (const CT*)w, (float*)h_seq,
+        (float*)h, (float*)rh, (float*)u, (__nv_bfloat16*)z,
+        (__nv_bfloat16*)hprev, T, B, H, (cudaStream_t)stream);
+  }
+  return gru_forward_impl<CT, float>(
+      (const float*)xp, (const float*)mask, (const CT*)w, (float*)h_seq,
+      (float*)h, (float*)rh, (float*)u, (float*)z, (float*)hprev, T, B, H,
+      (cudaStream_t)stream);
+}
+
 }  // namespace
 
 // xp [T, B, 3H] f32, mask [T, B] f32, w [H, 3H] in the compute type,
 // h_seq [T, B, H] f32 out, h [B, H] f32 in: h0, out: h_final,
-// rh / u [B, H] f32 scratch.  Returns a cudaError_t.
+// rh / u [B, H] f32 scratch; z [T, B, 3H] and hprev [T, B, H] residual
+// outputs in bfloat16 (res_bf16 != 0) or float32, both null for
+// inference.  Returns a cudaError_t.
 extern "C" int gru_forward_f32(const void* xp, const void* mask,
                                const void* w, void* h_seq, void* h, void* rh,
-                               void* u, int T, int B, int H, void* stream) {
-  return gru_forward_impl<float>(
-      (const float*)xp, (const float*)mask, (const float*)w, (float*)h_seq,
-      (float*)h, (float*)rh, (float*)u, T, B, H, (cudaStream_t)stream);
+                               void* u, void* z, void* hprev, int res_bf16,
+                               int T, int B, int H, void* stream) {
+  return gru_forward_dispatch<float>(xp, mask, w, h_seq, h, rh, u, z, hprev,
+                                     res_bf16, T, B, H, stream);
 }
 
 extern "C" int gru_forward_bf16(const void* xp, const void* mask,
                                 const void* w, void* h_seq, void* h, void* rh,
-                                void* u, int T, int B, int H, void* stream) {
-  return gru_forward_impl<__nv_bfloat16>(
-      (const float*)xp, (const float*)mask, (const __nv_bfloat16*)w,
-      (float*)h_seq, (float*)h, (float*)rh, (float*)u, T, B, H,
-      (cudaStream_t)stream);
+                                void* u, void* z, void* hprev, int res_bf16,
+                                int T, int B, int H, void* stream) {
+  return gru_forward_dispatch<__nv_bfloat16>(xp, mask, w, h_seq, h, rh, u, z,
+                                             hprev, res_bf16, T, B, H,
+                                             stream);
 }
 
 extern "C" const char* ptt_error_string(int err) {

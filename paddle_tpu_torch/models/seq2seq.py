@@ -1,9 +1,13 @@
-"""Attention seq2seq (WMT14 NMT) — the flagship model, generation half.
+"""Attention seq2seq (WMT14 NMT) — the flagship model.
 
 Counterpart of ``paddle_tpu/models/seq2seq.py``: a 512-d bidirectional GRU
 encoder, a Bahdanau-attention GRU decoder and a 30k-vocab readout, with
-beam-search and greedy generation through the decode engine
-(``ops/decode.py``).  ``loss`` and training wait for the training slice.
+the teacher-forced training loss (``loss``: the fused-backward decoder of
+``ops/attention_decoder.py`` and the fused readout + CE of
+``ops/losses.py``) and beam-search and greedy generation through the
+decode engine (``ops/decode.py``).  A training step is
+``loss`` -> ``torch.autograd.grad`` over the params -> an optimizer's
+``update`` (``param/optimizers.py``), as the reference's bench drives it.
 
 Parameters are a dict of float32 tensors in the reference's layout and
 under its keys (``[in, out]`` matrices, GRU gate order ``[r, u, c]``), so
@@ -124,6 +128,29 @@ class Seq2SeqAttention:
         xp = O.linear(x, params["dec_wx"], params["dec_b"])
         s_new = O.gru_step(xp, s, params["dec_wh"])
         return s_new, ctx
+
+    # ------------------------------------------------------------------
+
+    def loss(self, params: Params, batch: Mapping) -> torch.Tensor:
+        """Teacher-forced token CE (scalar, float32).  batch: src_ids
+        [B, S], src_len [B], trg_in [B, T] (starts with <s>), trg_next
+        [B, T] (ends with <e>), trg_len [B]; arrays or tensors."""
+        dev = self.device
+        src_ids, src_len, trg_in, trg_next, trg_len = (
+            torch.as_tensor(batch[k], device=dev).long()
+            for k in ("src_ids", "src_len", "trg_in", "trg_next",
+                      "trg_len"))
+        S, T = src_ids.shape[1], trg_in.shape[1]
+        src_mask = O.mask_from_lengths(src_len, S)
+        trg_mask = O.mask_from_lengths(trg_len, T)
+        enc, enc_proj, s0 = self.encode(params, src_ids, src_mask)
+        y_emb = O.embedding_lookup(params["trg_emb"], trg_in)   # [B, T, E]
+        states = O.attention_gru_decoder(
+            y_emb, s0, enc, enc_proj, src_mask, trg_mask,
+            params["att_dec_w"], params["att_v"], params["dec_wx"],
+            params["dec_b"], params["dec_wh"])                  # [B, T, D]
+        return O.sequence_softmax_ce_readout(
+            states, params["out_w"], params["out_b"], trg_next, trg_mask)
 
     # ------------------------------------------------------------------
 

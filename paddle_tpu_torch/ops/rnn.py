@@ -17,20 +17,46 @@ import torch
 
 from paddle_tpu_torch.ops.activations import get_activation
 from paddle_tpu_torch.ops.matmul import linear
+from paddle_tpu_torch.ops.numerics import bwd_mm
 
-__all__ = ["gru_step", "scan_rnn", "gru_layer", "bigru_layer"]
+__all__ = ["gru_cell", "gru_cell_bwd", "gru_step", "scan_rnn", "gru_layer",
+           "bigru_layer"]
 
 
-def gru_step(xp: torch.Tensor, h: torch.Tensor, w_h: torch.Tensor, *,
-             act="tanh", gate_act="sigmoid") -> torch.Tensor:
-    """One GRU step.  xp [B, 3H] input projection (+bias), gate layout
-    [r, u, c]; w_h [H, 3H] with the candidate block applied to (r * h)."""
+def gru_cell(xp: torch.Tensor, h: torch.Tensor, w_h: torch.Tensor, *,
+             act="tanh", gate_act="sigmoid"
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One GRU step with its pre-activations -> (h_new, zr [B, 2H],
+    zc [B, H]).  xp [B, 3H] input projection (+bias), gate layout [r, u, c];
+    w_h [H, 3H] with the candidate block applied to (r * h)."""
     ga, aa = get_activation(gate_act), get_activation(act)
     H = h.shape[-1]
     zr = xp[..., :2 * H] + linear(h, w_h[:, :2 * H])
     r, u = ga(zr).split(H, dim=-1)
-    cand = aa(xp[..., 2 * H:] + linear(r * h, w_h[:, 2 * H:]))
-    return u * h + (1.0 - u) * cand
+    zc = xp[..., 2 * H:] + linear(r * h, w_h[:, 2 * H:])
+    return u * h + (1.0 - u) * aa(zc), zr, zc
+
+
+def gru_step(xp: torch.Tensor, h: torch.Tensor, w_h: torch.Tensor, *,
+             act="tanh", gate_act="sigmoid") -> torch.Tensor:
+    """One GRU step (``gru_cell``'s new carry)."""
+    return gru_cell(xp, h, w_h, act=act, gate_act=gate_act)[0]
+
+
+def gru_cell_bwd(d_hnew: torch.Tensor, h_prev: torch.Tensor, r: torch.Tensor,
+                 u: torch.Tensor, cand: torch.Tensor, w_c_t: torch.Tensor,
+                 w_g_t: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward of the default-activation ``gru_cell`` from its gates, in
+    float32 with ``bwd_mm`` products: d_hnew [B, H], the carry h_prev and
+    the gates r, u, cand [B, H], the transposed weight blocks w_c_t [H, H]
+    and w_g_t [2H, H] -> (d_zr [B, 2H], d_zc [B, H], d_h_prev [B, H])."""
+    d_u = d_hnew * (h_prev - cand)
+    d_zc = d_hnew * (1.0 - u) * (1.0 - cand * cand)
+    d_rh = bwd_mm(d_zc, w_c_t)
+    d_zr = torch.cat([d_rh * h_prev * r * (1 - r), d_u * u * (1 - u)], -1)
+    d_hp = d_hnew * u + d_rh * r + bwd_mm(d_zr, w_g_t)
+    return d_zr, d_zc, d_hp
 
 
 def scan_rnn(step_fn: Callable, carry_init: torch.Tensor, xs_btd: torch.Tensor,

@@ -274,6 +274,9 @@ def test_kernel_sources_exist_and_name_what_they_replace():
     from paddle_tpu_torch.ops.kernels.build import LIBRARIES
 
     want = {"gru_forward": "_gru_pallas_raw",
+            "gru_backward": "_gru_bwd_pallas_raw",
+            "ce_readout_fwd": "ce_readout_fwd_pallas",
+            "ce_readout_bwd": "ce_readout_bwd_pallas",
             "topk_lse_readout": "topk_lse_readout_pallas"}
     assert set(LIBRARIES) == set(want)
     for name, lib in LIBRARIES.items():
