@@ -11,7 +11,7 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             source, all started together), with the build seconds;
 3. kernels  each kernel against its plain PyTorch version on the card at the
             shapes of the path that runs it (serving: K3, K7; training: K3
-            with residuals, K4, K1, K2), with its time (CUDA events, L2
+            with residuals, K4, K1, K2, K5, K6), with its time (CUDA events, L2
             flushed before each call), the plain version's time, the least
             time the card could take (bound) and, where one exists, a
             PyTorch call sequence computing the same function
@@ -64,7 +64,7 @@ TRAIN_B, TRAIN_S, TRAIN_T, TRAIN_STEPS = 384, 32, 32, 6
 #: kernels launched by each path
 SERVE_KERNELS = ("gru_forward", "topk_lse_readout")
 TRAIN_KERNELS = ("gru_forward", "gru_backward", "ce_readout_fwd",
-                 "ce_readout_bwd")
+                 "ce_readout_bwd", "attn_dec_fwd", "attn_dec_bwd")
 
 #: kernel-vs-plain tolerances (max abs difference) and why
 TOL = {
@@ -89,6 +89,20 @@ TOL = {
     # K4 from the same residuals, relative to the largest entry: f32
     # products with w_t summed in another order over 32 reverse steps
     "gru_backward": 1e-4,
+    # K5 states, probs, s_prev (max abs; |s| < 2.5): f32, sums of up to
+    # 1024 terms in another order, carried over 32 steps
+    "attn_dec_fwd/float32": 2e-5,
+    # bf16: a last-bit difference in a float32 sum (q, a score, a context
+    # entry) can round its bf16 operand the other way (2^-8 relative),
+    # which moves the softmax and the recurrence carries over 32 steps;
+    # ctx to the same plus one bf16 ulp
+    "attn_dec_fwd/bfloat16": 2e-2,
+    # K6 from the same residuals, relative to each output's largest entry:
+    # f32 products summed in another order over 32 reverse steps
+    "attn_dec_bwd/float32": 1e-5,
+    # bf16 enc / enc_proj: as f32, and a last-bit difference in d_ctx or q
+    # can round its bf16 operand the other way
+    "attn_dec_bwd/bfloat16": 1e-3,
 }
 
 
@@ -423,6 +437,117 @@ def check_ce(K, flush, dev):
     rows.append(_kernel_row("ce_readout_bwd", "ce_readout_bwd.cu", "1101",
                             err, ms, plain_ms, bms, by, library_ms))
     return rows
+
+
+def _attn_dec_inputs(dev):
+    """The training decoder's K5 inputs: T=32, B=384, S=32, D=A=512,
+    2H=1024, mixed source and target lengths, float32 (cast per policy)."""
+    import torch
+
+    T, B, S, D, A, H2 = TRAIN_T, TRAIN_B, TRAIN_S, 512, 512, 1024
+    g = torch.Generator().manual_seed(SEED + 5)
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g)).to(dev)
+
+    trg_len = torch.randint(1, T + 1, (B,), generator=g)
+    src_len = torch.randint(1, S + 1, (B,), generator=g)
+    trg_len[0], src_len[0] = T, S
+    return dict(
+        xp_y=rnd(T, B, 3 * D, scale=0.5),
+        m=(torch.arange(T)[:, None] < trg_len[None]).float().to(dev),
+        s0=rnd(B, D, scale=0.5), enc=rnd(B, S, H2), enc_proj=rnd(B, S, A),
+        src_mask=(torch.arange(S)[None] < src_len[:, None]).float().to(dev),
+        att_w=rnd(D, A, scale=D ** -0.5), att_v=rnd(A, scale=2 * A ** -0.5),
+        wx_c=rnd(H2, 3 * D, scale=H2 ** -0.5),
+        wh=rnd(D, 3 * D, scale=D ** -0.5), d_out=rnd(T, B, D))
+
+
+def check_attn_dec(K, flush, dev):
+    """K5 and K6 at the training decoder's shape, each held against its
+    plain version under the f32 and the bf16 policy; K6 takes K5's
+    residuals and the gates recomputed from them."""
+    import torch
+
+    from paddle_tpu_torch.ops.attention_decoder import recompute_gates
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+
+    x = _attn_dec_inputs(dev)
+    T, B, D3 = x["xp_y"].shape
+    D = D3 // 3
+    S, H2, A = x["enc"].shape[1], x["enc"].shape[2], x["enc_proj"].shape[2]
+    errs, timed = {}, {}
+    for cd in ("float32", "bfloat16"):
+        dt = getattr(torch, cd)
+        with compute_dtype_scope(cd):
+            fa = [x["xp_y"], x["m"], x["s0"], x["enc"].to(dt),
+                  x["enc_proj"].to(dt), x["src_mask"], x["att_w"].to(dt),
+                  x["att_v"].to(dt), x["wx_c"].to(dt), x["wh"].to(dt)]
+            got = K.attn_dec_fwd(*fa)
+            want = K.attn_dec_fwd_plain(*fa)
+            torch.cuda.synchronize()
+            tol = TOL[f"attn_dec_fwd/{cd}"]
+            err = max(_max_err(got[i], want[i]) for i in (0, 1, 3))
+            ctx_ok = _within_bf16_ulp(got[2], want[2], tol) \
+                if cd == "bfloat16" else _max_err(got[2], want[2]) <= tol
+            if not (err <= tol and ctx_ok and got[2].dtype == dt):
+                fail("kernels", f"attn_dec_fwd {cd}: states/probs/s_prev "
+                     f"max abs err {err} (tol {tol}) or ctx beyond it")
+            errs[f"fwd/{cd}"] = max(err, _max_err(got[2], want[2]))
+            gates = recompute_gates(x["xp_y"], got[2], got[3], x["wx_c"],
+                                    x["wh"], x["att_w"])
+            ba = [x["d_out"], x["m"], got[3], *gates, fa[3], fa[4],
+                  x["src_mask"], x["att_w"], x["att_v"], x["wh"], x["wx_c"]]
+            gk = K.attn_dec_bwd(*ba)
+            gp = K.attn_dec_bwd_plain(*ba)
+            torch.cuda.synchronize()
+            tol = TOL[f"attn_dec_bwd/{cd}"]
+            worst = max(_max_err(a, c) / c.abs().max().item()
+                        for a, c in zip(gk, gp))
+            if not worst <= tol:
+                fail("kernels", f"attn_dec_bwd {cd}: max err / max |g| "
+                     f"{worst} > {tol}")
+            errs[f"bwd/{cd}"] = worst
+            if cd == "bfloat16":                         # the working type
+                timed = {
+                    "fwd": time_ms(lambda: K.attn_dec_fwd(*fa), flush),
+                    "fwd_plain": time_ms(lambda: K.attn_dec_fwd_plain(*fa),
+                                         flush, reps=5),
+                    "bwd": time_ms(lambda: K.attn_dec_bwd(*ba), flush),
+                    "bwd_plain": time_ms(lambda: K.attn_dec_bwd_plain(*ba),
+                                         flush, reps=5)}
+    TB = T * B
+    weights_fwd = D * A + A + H2 * D3 + D * D3
+    nbytes = (TB * D3 * 4 + TB * 4 + B * D * 4 + B * S * (H2 + A) * 2
+              + B * S * 4 + weights_fwd * 2
+              + TB * D * 4 + TB * S * 4 + TB * H2 * 2 + TB * D * 4)
+    ops = 2.0 * TB * (D * A + D * 2 * D + H2 * D3 + D * D) \
+        + 2.0 * TB * S * (A + H2)
+    f_bms, f_by = bound_ms(nbytes, ops, "bfloat16")
+    nbytes = (5 * TB * D * 4 + TB * 4 + TB * A * 4 + B * S * (H2 + A) * 2
+              + B * S * 4 + A * 4 + (D * A + D * D3 + H2 * D3) * 4
+              + TB * D3 * 4 + TB * A * 4 + B * S * A * 4 + A * 4 + B * D * 4)
+    ops = 2.0 * TB * (D * D + 2 * D * D + D3 * H2 + A * D) \
+        + 2.0 * TB * S * (H2 + A)
+    b_bms, b_by = bound_ms(nbytes, ops, "float32")
+    print(f"kernels: attn_dec_fwd T={T} B={B} S={S} D=A={D} 2H={H2} "
+          f"max_abs_err f32={errs['fwd/float32']:.3e} (tol "
+          f"{TOL['attn_dec_fwd/float32']}) bf16={errs['fwd/bfloat16']:.3e} "
+          f"(tol {TOL['attn_dec_fwd/bfloat16']}, ctx + one bf16 ulp); "
+          f"ms={timed['fwd']:.4f} plain_ms={timed['fwd_plain']:.4f} "
+          f"bound_ms={f_bms:.5f} ({f_by})", flush=True)
+    print(f"kernels: attn_dec_bwd from K5's residuals, max err / max |g| "
+          f"f32={errs['bwd/float32']:.3e} (tol "
+          f"{TOL['attn_dec_bwd/float32']}) bf16={errs['bwd/bfloat16']:.3e} "
+          f"(tol {TOL['attn_dec_bwd/bfloat16']}); ms={timed['bwd']:.4f} "
+          f"plain_ms={timed['bwd_plain']:.4f} bound_ms={b_bms:.5f} ({b_by}, "
+          f"f32 products)", flush=True)
+    return [_kernel_row("attn_dec_fwd", "attn_dec_fwd.cu", "750",
+                        errs["fwd/bfloat16"], timed["fwd"],
+                        timed["fwd_plain"], f_bms, f_by, None),
+            _kernel_row("attn_dec_bwd", "attn_dec_bwd.cu", "894",
+                        errs["bwd/bfloat16"], timed["bwd"],
+                        timed["bwd_plain"], b_bms, b_by, None)]
 
 
 def check_products(flush, dev):
@@ -809,6 +934,7 @@ def main() -> int:
         rows = [check_gru(K, flush, dev), check_topk(K, flush, dev)]
         rows += check_gru_train(K, flush, dev)
         rows += check_ce(K, flush, dev)
+        rows += check_attn_dec(K, flush, dev)
         phase = "products"
         check_products(flush, dev)
         del flush
@@ -824,7 +950,7 @@ def main() -> int:
         traceback.print_exc()
         fail(phase, "raised")
     # each row's launches come from the path that runs it: K3 inference and
-    # K7 from serving; K3 with residuals, K4, K1 and K2 from training
+    # K7 from serving; K3 with residuals, K4, K1, K2, K5 and K6 from training
     for row in rows:
         if row["name"] in ("gru_forward", "topk_lse_readout"):
             row["launches"] = serve_launches[row["name"]]

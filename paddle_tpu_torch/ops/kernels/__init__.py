@@ -11,6 +11,8 @@ gru_backward        csrc/gru_backward.cu        ::_gru_bwd_pallas_raw (K4)
 ce_readout_fwd      csrc/ce_readout_fwd.cu      ::ce_readout_fwd_pallas (K1)
 ce_readout_bwd      csrc/ce_readout_bwd.cu      ::ce_readout_bwd_pallas (K2)
 topk_lse_readout    csrc/topk_lse_readout.cu    ::topk_lse_readout_pallas (K7)
+attn_dec_fwd        csrc/attn_dec_fwd.cu        ::attn_dec_fwd_pallas (K5)
+attn_dec_bwd        csrc/attn_dec_bwd.cu        ::attn_dec_bwd_pallas (K6)
 ==================  ==========================  ==============================
 
 Each wrapper runs its plain version for a CPU tensor and launches its kernel
@@ -18,6 +20,8 @@ Each wrapper runs its plain version for a CPU tensor and launches its kernel
 (``launch_counts()``).
 """
 
+from paddle_tpu_torch.ops.kernels.attention_decoder import (
+    attn_dec_bwd, attn_dec_bwd_plain, attn_dec_fwd, attn_dec_fwd_plain)
 from paddle_tpu_torch.ops.kernels.build import (LIBRARIES, build_all,
                                                 launch_counts,
                                                 reset_launch_counts)
@@ -35,4 +39,5 @@ __all__ = ["LIBRARIES", "build_all", "launch_counts", "reset_launch_counts",
            "gru_forward", "gru_forward_plain", "gru_backward",
            "gru_backward_plain", "ce_readout_fwd", "ce_readout_fwd_plain",
            "ce_readout_bwd", "ce_readout_bwd_plain", "topk_lse_readout",
-           "topk_lse_readout_plain", "stable_topk"]
+           "topk_lse_readout_plain", "stable_topk", "attn_dec_fwd",
+           "attn_dec_fwd_plain", "attn_dec_bwd", "attn_dec_bwd_plain"]

@@ -1,9 +1,11 @@
 """The port's attention GRU decoder with its hand-written backward
-(paddle_tpu_torch/ops/attention_decoder.py) against the JAX package's
-``attention_gru_decoder`` on its scan path (the path this slice ports):
-the forward and all nine gradients (every input but the two masks), with
-masked source and target rows.  Tolerance: rtol 2e-4 / atol 2e-5, the one
-``tests/test_attention_decoder.py`` pins on the CPU.
+(paddle_tpu_torch/ops/attention_decoder.py; on the CPU its K5/K6 wrappers
+run their plain versions) against the JAX package's
+``attention_gru_decoder``, on its scan path and forced through its Pallas
+branch (K5/K6 in interpret mode, as ``tests/test_pallas_attention.py``
+forces it): the forward and all nine gradients (every input but the two
+masks), with masked source and target rows.  Tolerance: rtol 2e-4 /
+atol 2e-5, the one ``tests/test_attention_decoder.py`` pins on the CPU.
 """
 
 import jax
@@ -12,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu.ops import attention_decoder as j_ad
 from paddle_tpu.ops.attention_decoder import \
     attention_gru_decoder as j_decoder
 from paddle_tpu_torch.ops.attention_decoder import attention_gru_decoder
@@ -77,6 +80,43 @@ def test_all_gradients_match_jax(seed):
         got = torch.autograd.grad((out * torch.from_numpy(ct)).sum(),
                                   [ts[i] for i in DIFF])
     assert len(got) == 9
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL,
+                                   err_msg=f"grad {ORDER[DIFF[i]]}")
+
+
+@pytest.mark.parametrize("seed,lens", [
+    (0, {}), (1, {}),
+    (2, dict(src_lens=(5, 2, 4, 1), trg_lens=(3, 6, 1, 5)))])
+def test_forward_and_gradients_match_jax_pallas_branch(monkeypatch, seed,
+                                                       lens):
+    """The JAX decoder forced through its Pallas kernels with uneven batch
+    blocks (B=4, Bb=2), the reference's default configuration on its own
+    chip: the port's forward and nine gradients match it."""
+    monkeypatch.setattr(j_ad, "_attn_pallas_block", lambda *a: 2)
+    args = make_args(seed=seed, **lens)
+    vals = [args[k] for k in ORDER]
+    ct = np.random.RandomState(200 + seed).randn(4, 6, 8).astype(np.float32)
+
+    def loss(*dv):
+        full = [jnp.asarray(v) for v in vals]
+        for i, ix in enumerate(DIFF):
+            full[ix] = dv[i]
+        out = j_decoder(*full)
+        return jnp.sum(out * ct), out
+
+    (_, want_states), want = jax.value_and_grad(
+        loss, argnums=tuple(range(len(DIFF))), has_aux=True)(
+        *(jnp.asarray(vals[i]) for i in DIFF))
+    with compute_dtype_scope("float32"):
+        ts = [torch.from_numpy(v) for v in vals]
+        for i in DIFF:
+            ts[i] = ts[i].clone().requires_grad_()
+        out = attention_gru_decoder(*ts)
+        got = torch.autograd.grad((out * torch.from_numpy(ct)).sum(),
+                                  [ts[i] for i in DIFF])
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_states),
+                               **TOL, err_msg="states")
     for i, (g, w) in enumerate(zip(got, want)):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL,
                                    err_msg=f"grad {ORDER[DIFF[i]]}")

@@ -15,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.ops.kernels import (ce_readout_bwd, ce_readout_bwd_plain,
+from paddle_tpu_torch.ops.kernels import (attn_dec_bwd, attn_dec_bwd_plain,
+                                          attn_dec_fwd, attn_dec_fwd_plain,
+                                          ce_readout_bwd, ce_readout_bwd_plain,
                                           ce_readout_fwd, ce_readout_fwd_plain,
                                           gru_backward, gru_backward_plain,
                                           gru_forward, gru_forward_plain,
@@ -252,7 +254,7 @@ def test_embedding_backward_is_deterministic(dev, n_ids):
 
 
 def test_training_step_on_the_card_matches_the_cpu(dev):
-    """A small model's loss and 19 gradients at f32: the card (the four
+    """A small model's loss and 19 gradients at f32: the card (the six
     training kernels) against the CPU (their plain versions)."""
     from paddle_tpu_torch.models import Seq2SeqAttention
 
@@ -284,9 +286,124 @@ def test_training_step_on_the_card_matches_the_cpu(dev):
             out[name] = (loss.detach().cpu(), [g.cpu() for g in grads])
     after = launch_counts()
     for k in ("gru_forward", "gru_backward", "ce_readout_fwd",
-              "ce_readout_bwd"):
+              "ce_readout_bwd", "attn_dec_fwd", "attn_dec_bwd"):
         assert after[k] > before[k], k
     torch.testing.assert_close(out["card"][0], out["cpu"][0], rtol=1e-5,
                                atol=0)
     for got, want in zip(out["card"][1], out["cpu"][1]):
+        _rel_close(got, want, 1e-4)
+
+
+def _attn_dec_inputs(B, S, T, D, A, H2, seed):
+    """K5's inputs at float32 with source and target tails (and, for B > 3,
+    a row with no source position), weights scaled by their fan-in."""
+    rng = np.random.RandomState(seed)
+    f = np.float32
+
+    def w(*shape):
+        return (rng.randn(*shape) / np.sqrt(shape[0])).astype(f)
+
+    src_len = rng.randint(1, S + 1, (B,))
+    trg_len = rng.randint(1, T + 1, (B,))
+    src_len[0], trg_len[0] = S, T
+    if B > 3:
+        src_len[1] = 0
+    arrs = dict(
+        xp_y=(0.5 * rng.randn(T, B, 3 * D)).astype(f),
+        m=(np.arange(T)[:, None] < trg_len[None]).astype(f),
+        s0=(0.5 * rng.randn(B, D)).astype(f),
+        enc=rng.randn(B, S, H2).astype(f),
+        enc_proj=rng.randn(B, S, A).astype(f),
+        src_mask=(np.arange(S)[None] < src_len[:, None]).astype(f),
+        att_w=w(D, A), att_v=(2.0 * w(A)).astype(f), wx_c=w(H2, 3 * D),
+        wh=w(D, 3 * D))
+    return {k: torch.from_numpy(v) for k, v in arrs.items()}
+
+
+@pytest.mark.parametrize("shape,cd", [
+    ((4, 5, 6, 8, 7, 10), "float32"),
+    ((33, 17, 9, 96, 80, 160), "float32"),
+    ((3, 32, 4, 128, 128, 256), "float32"),
+    ((33, 17, 9, 96, 80, 160), "bfloat16")])
+def test_attn_dec_kernels_match_plain_versions(dev, shape, cd):
+    """K5 and K6 at ragged (B, S, T, D, A, 2H), masked source and target
+    tails.  K6 takes K5's residuals and the gates recomputed from them, on
+    both sides.  f32: the same sums in another order over the steps (2e-5
+    of each output's largest entry); bf16: a last-bit difference in a
+    float32 sum can round an operand the other way (2^-8 relative), which
+    the recurrence carries (5e-3 forward, 1e-2 backward)."""
+    from paddle_tpu_torch.ops.attention_decoder import recompute_gates
+
+    x = {k: v.to(dev) for k, v in _attn_dec_inputs(*shape, seed=7).items()}
+    T, B, D = x["xp_y"].shape[0], x["xp_y"].shape[1], shape[3]
+    with compute_dtype_scope(cd):
+        dt = getattr(torch, cd)
+        fwd_args = [x["xp_y"], x["m"], x["s0"]] + [
+            x[k].to(dt) for k in ("enc", "enc_proj")] + [x["src_mask"]] + [
+            x[k].to(dt) for k in ("att_w", "att_v", "wx_c", "wh")]
+        before = launch_counts()
+        got = attn_dec_fwd(*fwd_args)
+        assert launch_counts()["attn_dec_fwd"] == before["attn_dec_fwd"] + 1
+        want = attn_dec_fwd_plain(*fwd_args)
+        states, probs, ctxs, s_prev = got
+        assert ctxs.dtype == want[2].dtype == dt
+        r, u, cand, q = recompute_gates(x["xp_y"], ctxs, s_prev, x["wx_c"],
+                                        x["wh"], x["att_w"])
+        d_out = torch.from_numpy(np.random.RandomState(8).randn(
+            T, B, D).astype(np.float32)).to(dev)
+        bwd_args = [d_out, x["m"], s_prev, r, u, cand, q,
+                    fwd_args[3], fwd_args[4], x["src_mask"], x["att_w"],
+                    x["att_v"], x["wh"], x["wx_c"]]
+        g_bwd = attn_dec_bwd(*bwd_args)
+        assert launch_counts()["attn_dec_bwd"] == before["attn_dec_bwd"] + 1
+        p_bwd = attn_dec_bwd_plain(*bwd_args)
+    torch.cuda.synchronize()
+    tol_f, tol_b = (2e-5, 2e-5) if cd == "float32" else (5e-3, 1e-2)
+    for a, b in zip(got, want):
+        _rel_close(a, b, tol_f)
+    padded = x["m"] == 0
+    assert torch.equal(states[padded], torch.zeros_like(states[padded]))
+    for a, b in zip(g_bwd, p_bwd):
+        assert torch.isfinite(a).all()
+        _rel_close(a, b, tol_b)
+
+
+def test_attention_decoder_on_the_card_matches_the_cpu(dev):
+    """The whole decoder at f32, forward and the nine gradients: the card
+    (K5, K6) against the CPU (their plain versions), uneven sizes, masked
+    rows."""
+    from paddle_tpu_torch.ops.attention_decoder import attention_gru_decoder
+
+    rng = np.random.RandomState(11)
+    B, S, T, E, H2, D, A = 5, 7, 6, 12, 20, 16, 9
+    f = np.float32
+    vals = [(0.5 * rng.randn(B, T, E)).astype(f),
+            (0.5 * rng.randn(B, D)).astype(f),
+            rng.randn(B, S, H2).astype(f), rng.randn(B, S, A).astype(f),
+            (np.arange(S)[None] < np.array([7, 3, 1, 5, 7])[:, None]
+             ).astype(f),
+            (np.arange(T)[None] < np.array([6, 2, 6, 4, 1])[:, None]
+             ).astype(f),
+            (0.3 * rng.randn(D, A)).astype(f), rng.randn(A).astype(f),
+            (0.3 * rng.randn(E + H2, 3 * D)).astype(f),
+            (0.1 * rng.randn(3 * D)).astype(f),
+            (0.3 * rng.randn(D, 3 * D)).astype(f)]
+    ct = rng.randn(B, T, D).astype(f)
+    diff = [0, 1, 2, 3, 6, 7, 8, 9, 10]
+    out = {}
+    before = launch_counts()
+    with compute_dtype_scope("float32"):
+        for name, dv in (("cpu", "cpu"), ("card", dev)):
+            ts = [torch.from_numpy(v).to(dv) for v in vals]
+            for i in diff:
+                ts[i].requires_grad_()
+            states = attention_gru_decoder(*ts)
+            grads = torch.autograd.grad(
+                (states * torch.from_numpy(ct).to(dv)).sum(),
+                [ts[i] for i in diff])
+            out[name] = [states.detach().cpu()] + [g.cpu() for g in grads]
+    after = launch_counts()
+    assert after["attn_dec_fwd"] == before["attn_dec_fwd"] + 1
+    assert after["attn_dec_bwd"] == before["attn_dec_bwd"] + 1
+    for got, want in zip(out["card"], out["cpu"]):
         _rel_close(got, want, 1e-4)

@@ -277,7 +277,9 @@ def test_kernel_sources_exist_and_name_what_they_replace():
             "gru_backward": "_gru_bwd_pallas_raw",
             "ce_readout_fwd": "ce_readout_fwd_pallas",
             "ce_readout_bwd": "ce_readout_bwd_pallas",
-            "topk_lse_readout": "topk_lse_readout_pallas"}
+            "topk_lse_readout": "topk_lse_readout_pallas",
+            "attn_dec_fwd": "attn_dec_fwd_pallas",
+            "attn_dec_bwd": "attn_dec_bwd_pallas"}
     assert set(LIBRARIES) == set(want)
     for name, lib in LIBRARIES.items():
         with open(lib.source) as f:
