@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Opt-in measurements of the PyTorch/H100 port beside ``chip_smoke.py``.
 
-    python3 chip_probe.py [chunks] [profile]      (both when none is named)
+    python3 chip_probe.py [chunks] [profile] [textclf]  (all if none named)
 
 Needs one CUDA card and the checkout beside it.  It checks nothing that
 ``chip_smoke.py`` does not; it measures what the smoke run leaves out to
@@ -17,7 +17,10 @@ chunks   the chunk sizes of the batch-invariant products (``ops/matmul.py``:
 profile  one training step at that batch under ``torch.profiler`` (CUDA
          activity only): the device's kernel time against the step's host
          time (the device's busy share) and the kernels with the most
-         device time.
+         device time;
+textclf  the same for one training step of the text-classification path
+         (``lstm_benchmark_net`` through ``nn.Topology``, B=64, T=100,
+         bf16, Adam) at each of its widths (H=256, H=1280).
 
 Prints one line per measurement and the card line first.
 """
@@ -143,12 +146,37 @@ def probe_chunks(dev):
               flush=True)
 
 
-def probe_profile(dev):
+def _textclf_setup(dev, hidden: int):
+    """One ``bench.py::_topology_step``-style step of ``chip_smoke.py``'s
+    textclf phase at width ``hidden``."""
+    import torch
+
+    from paddle_tpu_torch.param import Adam
+
+    topo, cost = smoke.textclf_net(hidden, dev)
+    params, state = topo.init(smoke.SEED)
+    params = {k: v.requires_grad_() for k, v in params.items()}
+    feed = smoke.textclf_feed(smoke.TEXTCLF_B, smoke.TEXTCLF_T, smoke.SEED)
+    opt = Adam(learning_rate=1e-3)
+    opt_state = opt.init_state(params)
+
+    def step():
+        outs, _ = topo.apply(params, state, feed, train=True)
+        loss = outs[cost.name].value
+        grads = torch.autograd.grad(loss, list(params.values()))
+        opt.update(params, dict(zip(params, grads)), opt_state)
+        return loss
+
+    return step
+
+
+def _profile_step(label: str, step, top_n: int = 8) -> None:
+    """Three unprofiled steps, then one under ``torch.profiler`` (CUDA
+    activity): device kernel time against the step's host time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    _, step = _train_setup(dev)
     warm = [_step_seconds(step) for _ in range(3)]
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -163,17 +191,30 @@ def probe_profile(dev):
     if not kernels:
         smoke.fail("profile", "the profiler recorded no device time")
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    print(f"profile: one training step at B={smoke.TRAIN_B} S=T="
-          f"{smoke.TRAIN_T} bf16 under torch.profiler (CUDA activity): "
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top_n]
+    print(f"profile: {label} under torch.profiler (CUDA activity): "
           f"host {step_s * 1e3:.2f} ms (unprofiled steps "
           f"{[round(x * 1e3, 2) for x in warm]} ms), device kernel time "
           f"{device_ms:.2f} ms = {device_ms / (step_s * 1e3):.1%} of the "
-          f"profiled step (the device's busy share); profiler set-up and "
+          f"profiled step (the device's busy share); "
+          f"{sum(e.count for e in kernels)} kernels; profiler set-up and "
           f"read-out {probe_s - step_s:.2f} s", flush=True)
     for e in top:
         print(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<5d} {e.key[:90]}", flush=True)
+
+
+def probe_profile(dev):
+    _, step = _train_setup(dev)
+    _profile_step(f"one training step at B={smoke.TRAIN_B} S=T="
+                  f"{smoke.TRAIN_T} bf16", step)
+
+
+def probe_textclf(dev):
+    for hidden in smoke.TEXTCLF_HIDDEN:
+        _profile_step(f"one textclf training step lstm_b{smoke.TEXTCLF_B}"
+                      f"h{hidden} (T={smoke.TEXTCLF_T}, bf16)",
+                      _textclf_setup(dev, hidden), top_n=12)
 
 
 def main() -> int:
@@ -185,18 +226,19 @@ def main() -> int:
         return 2
     from paddle_tpu_torch.ops import kernels as K
 
-    wanted = sys.argv[1:] or ["chunks", "profile"]
-    unknown = set(wanted) - {"chunks", "profile"}
+    probes = {"chunks": probe_chunks, "profile": probe_profile,
+              "textclf": probe_textclf}
+    wanted = sys.argv[1:] or list(probes)
+    unknown = set(wanted) - set(probes)
     if unknown:
         print(f"unknown probe(s) {sorted(unknown)}", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
     print(f"card: {smoke.card_line()}", flush=True)
     K.build_all()
-    if "chunks" in wanted:
-        probe_chunks(dev)
-    if "profile" in wanted:
-        probe_profile(dev)
+    for name, probe in probes.items():
+        if name in wanted:
+            probe(dev)
     return 0
 
 

@@ -11,11 +11,13 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             source, all started together), with the build seconds;
 3. kernels  each kernel against its plain PyTorch version on the card at the
             shapes of the path that runs it (serving: K3, K7; training: K3
-            with residuals, K4, K1, K2, K5, K6), with its time (CUDA events, L2
-            flushed before each call), the plain version's time, the least
-            time the card could take (bound) and, where one exists, a
+            with residuals, K4, K1, K2, K5, K6; text classification: K9
+            without and with residuals, K10), with its time (CUDA events,
+            L2 flushed before each call), the plain version's time, the
+            least time the card could take (bound) and, where one exists, a
             PyTorch call sequence computing the same function
-            (``library_ms``);
+            (``library_ms``; for K9/K10 cuDNN's LSTM as a yardstick, which
+            the port never calls);
 4. products the batch-invariant products (``ops/matmul.py``) timed against
             one cuBLAS call at the training and the serving shape;
 5. serve    the serving path: the full-width WMT14 ``Seq2SeqAttention``
@@ -30,13 +32,23 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             step's loss, the median step time, words/s and MFU; then the
             full-width model at B=8 in f32, its loss and 19 gradients on the
             card held against the CPU;
-7. a ``{"kernels": [...]}`` line, then the card line again, and last
+7. textclf  the text-classification path: ``lstm_benchmark_net`` (vocab
+            30000, embedding 128, 2 LSTM layers, max-pool, fc to 2 classes)
+            through ``nn.Topology`` at ``bench.py``'s rows lstm_b64h256 and
+            lstm_b64h1280 (B=64, T=100, bf16 compute), 6 ``Adam`` steps each
+            (``apply`` -> ``torch.autograd.grad`` -> ``update``) with the
+            losses, median step time, samples/s and MFU; one inference pass
+            (``apply(train=False)`` under ``torch.no_grad()``) at b64h256;
+            then the net at H=256, B=4 in f32, its loss and 15 gradients on
+            the card held against the CPU;
+8. a ``{"kernels": [...]}`` line, then the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
-Launch counters are zeroed just before each path (serve, train) is driven
-and read just after; a kernel of the path that was not launched fails the
-run.  ``chip_probe.py`` measures what this run leaves out to stay short (the
-products' chunk sizes end to end, a profiled training step).
+Launch counters are zeroed just before each path (serve, train, each
+textclf run) is driven and read just after; a kernel of the path that was
+not launched fails the run.  ``chip_probe.py`` measures what this run
+leaves out to stay short (the products' chunk sizes end to end, profiled
+training steps).
 
 Any failure exits non-zero.
 """
@@ -65,6 +77,11 @@ TRAIN_B, TRAIN_S, TRAIN_T, TRAIN_STEPS = 384, 32, 32, 6
 SERVE_KERNELS = ("gru_forward", "topk_lse_readout")
 TRAIN_KERNELS = ("gru_forward", "gru_backward", "ce_readout_fwd",
                  "ce_readout_bwd", "attn_dec_fwd", "attn_dec_bwd")
+#: the text-classification rows of bench.py:2028-2034 driven here
+#: (lstm_b64h256, lstm_b64h1280): bench.py:391-403's net and feed
+TEXTCLF_VOCAB, TEXTCLF_EMB, TEXTCLF_LAYERS = 30000, 128, 2
+TEXTCLF_B, TEXTCLF_T, TEXTCLF_HIDDEN = 64, 100, (256, 1280)
+TEXTCLF_KERNELS = ("lstm_forward", "lstm_backward")
 
 #: kernel-vs-plain tolerances (max abs difference) and why
 TOL = {
@@ -103,6 +120,27 @@ TOL = {
     # bf16 enc / enc_proj: as f32, and a last-bit difference in d_ctx or q
     # can round its bf16 operand the other way
     "attn_dec_bwd/bfloat16": 1e-3,
+    # K9 inference, f32 (max abs; |h| < 1, |c| a few units): the same f32
+    # math summed in another order, carried over 100 dependent steps
+    "lstm_forward/float32": 1e-5,
+    # bf16: a last-bit difference in the f32 carry can flip the bf16
+    # rounding of one product operand (2^-8 relative), which the recurrence
+    # carries over 100 steps
+    "lstm_forward/bfloat16": 5e-3,
+    # K9 with residuals at H = 256 under bf16: h and c as
+    # lstm_forward/bfloat16; z, h_prev and c_prev, stored in bf16, to the
+    # same plus one bf16 ulp (their rounding may go either way)
+    "lstm_forward_residuals_b64h256": 5e-3,
+    # at H = 1280 the residuals are f32: z, h_prev and c_prev differ only
+    # as h and c do (a bf16 product operand rounded the other way), so no
+    # ulp allowance
+    "lstm_forward_residuals_b64h1280": 5e-3,
+    # K10 from K9's residuals, relative to each output's largest entry:
+    # f32 products with w_t summed in another order over 100 reverse steps
+    # (bf16 residuals at H = 256, widened exactly on both sides)
+    "lstm_backward_b64h256": 1e-4,
+    # the same at H = 1280 with f32 residuals, 5120-term sums
+    "lstm_backward_b64h1280": 1e-4,
 }
 
 
@@ -550,6 +588,226 @@ def check_attn_dec(K, flush, dev):
                         timed["bwd_plain"], b_bms, b_by, None)]
 
 
+def _lstm_inputs(H, dev):
+    """A text-classification LSTM layer's K9 inputs at b64, T=100 and the
+    given width: ``bench.py:401``'s lengths (T/2 to T, one full row),
+    peepholes nonzero, and cotangents for K10."""
+    import torch
+
+    B, T = TEXTCLF_B, TEXTCLF_T
+    g = torch.Generator().manual_seed(SEED + 6)
+    lens = torch.randint(T // 2, T + 1, (B,), generator=g)
+    lens[0] = T
+    return dict(
+        xp=(0.5 * torch.randn(B, T, 4 * H, generator=g)).to(dev),
+        mask=(torch.arange(T)[None] < lens[:, None]).float().to(dev),
+        w_h=((2.0 / (5 * H)) ** 0.5
+             * torch.randn(H, 4 * H, generator=g)).to(dev),
+        peeps=[(0.1 * torch.randn(H, generator=g)).to(dev) for _ in range(3)],
+        d_out=torch.randn(T, B, H, generator=g).to(dev),
+        d_hfin=torch.randn(B, H, generator=g).to(dev),
+        d_cfin=torch.randn(B, H, generator=g).to(dev), lens=lens)
+
+
+def _cudnn_lstm(x, lens, w_h):
+    """cuDNN's LSTM (``torch.nn.LSTM``, one layer) at the shape of a K9
+    call, as a yardstick only: w_h's gate blocks reordered from the
+    reference's [i, f, o, g] to cuDNN's [i, f, g, o], no peepholes (cuDNN
+    has none), the sequences packed by length.  -> (module, packed x)."""
+    import warnings
+
+    import torch
+
+    # PyTorch compacts the bf16 weights at each call (a 4H x 2H copy, 1 MB
+    # at H = 256, 26 MB at H = 1280) and warns each time
+    warnings.filterwarnings("ignore", message="RNN module weights are not")
+    H = w_h.shape[0]
+    lstm = torch.nn.LSTM(x.shape[-1], H, batch_first=True).to(
+        x.device, x.dtype)
+    lstm.flatten_parameters()
+    i, f, o, g = w_h.t().chunk(4, 0)
+    with torch.no_grad():
+        lstm.weight_hh_l0.copy_(torch.cat([i, f, g, o], 0))
+        lstm.bias_ih_l0.zero_()
+        lstm.bias_hh_l0.zero_()
+    packed = torch.nn.utils.rnn.pack_padded_sequence(
+        x, lens, batch_first=True, enforce_sorted=False)
+    return lstm, packed
+
+
+def check_lstm(K, flush, dev):
+    """K9 (inference at b64h256; with residuals at b64h256 and b64h1280)
+    and K10 (from K9's residuals at both widths) against their plain
+    versions, bf16 policy (inference also under f32).  Yardsticks: cuDNN's
+    LSTM forward for K9, its forward + backward for K10, beside the port's
+    ``lstm_layer`` forward + backward (input projection, K9r, K10, d_w_h,
+    d_x) at the same shape."""
+    import torch
+
+    from paddle_tpu_torch.ops import lstm_layer
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+
+    B, T = TEXTCLF_B, TEXTCLF_T
+    rows = []
+    for H in TEXTCLF_HIDDEN:
+        x = _lstm_inputs(H, dev)
+        xp, mask, w_h, peeps = x["xp"], x["mask"], x["w_h"], x["peeps"]
+        n_real = float(mask.sum())
+        lib_x = torch.randn(B, T, H, device=dev, dtype=torch.bfloat16)
+        lstm, packed = _cudnn_lstm(lib_x, x["lens"], w_h.bfloat16())
+        if H == 256:                             # the inference variant
+            errs = {}
+            for cd in ("float32", "bfloat16"):
+                with compute_dtype_scope(cd):
+                    got = K.lstm_forward(xp, mask, w_h, *peeps)
+                    want = K.lstm_forward_plain(xp, mask, w_h, *peeps)
+                    torch.cuda.synchronize()
+                err = max(_max_err(a, b) for a, b in zip(got, want))
+                tol = TOL[f"lstm_forward/{cd}"]
+                if not (torch.isfinite(got[0]).all() and err <= tol):
+                    fail("kernels", f"lstm_forward {cd}: max abs err {err} "
+                         f"> {tol}")
+                if not torch.equal(got[0][mask == 0],
+                                   torch.zeros_like(got[0][mask == 0])):
+                    fail("kernels", f"lstm_forward {cd}: padded steps not "
+                         f"zero")
+                errs[cd] = err
+            with compute_dtype_scope("bfloat16"):
+                ms = time_ms(lambda: K.lstm_forward(xp, mask, w_h, *peeps),
+                             flush)
+                plain_ms = time_ms(lambda: K.lstm_forward_plain(
+                    xp, mask, w_h, *peeps), flush, reps=3)
+            with torch.no_grad():
+                lib_ms = time_ms(lambda: lstm(packed), flush)
+            nbytes = (T * B * 4 * H * 4 + T * B * 4 + H * 4 * H * 2
+                      + 3 * H * 4 + T * B * H * 4 + 2 * B * H * 4)
+            bms, by = bound_ms(nbytes, 2.0 * n_real * H * 4 * H, "bfloat16")
+            print(f"kernels: lstm_forward B={B} T={T} H={H} max_abs_err "
+                  f"f32={errs['float32']:.3e} (tol "
+                  f"{TOL['lstm_forward/float32']}) bf16="
+                  f"{errs['bfloat16']:.3e} (tol "
+                  f"{TOL['lstm_forward/bfloat16']}); ms={ms:.4f} plain_ms="
+                  f"{plain_ms:.4f} library_ms={lib_ms:.4f} (cuDNN LSTM "
+                  f"forward, input projection included, no peepholes) "
+                  f"bound_ms={bms:.5f} ({by})", flush=True)
+            row = _kernel_row("lstm_forward", "lstm_forward.cu", "126",
+                              errs["bfloat16"], ms, plain_ms, bms, by,
+                              lib_ms)
+            row["library_covers"] = ("cuDNN LSTM forward, bf16, packed by "
+                                     "length: input projection + loop, no "
+                                     "peepholes")
+            rows.append(row)
+
+        with compute_dtype_scope("bfloat16"):
+            got = K.lstm_forward(xp, mask, w_h, *peeps, residuals=True)
+            want = K.lstm_forward_plain(xp, mask, w_h, *peeps,
+                                        residuals=True)
+            torch.cuda.synchronize()
+            rd = got[3].dtype
+            tol = TOL[f"lstm_forward_residuals_b{B}h{H}"]
+            err = max(_max_err(a, b) for a, b in zip(got[:3], want[:3]))
+            if rd == torch.bfloat16:
+                res_ok = all(_within_bf16_ulp(a, b, tol)
+                             for a, b in zip(got[3:], want[3:]))
+            else:
+                res_ok = all(_max_err(a, b) <= tol
+                             for a, b in zip(got[3:], want[3:]))
+            want_rd = torch.bfloat16 if H <= 512 else torch.float32
+            if not (err <= tol and res_ok and rd == want_rd):
+                fail("kernels", f"lstm_forward residuals H={H}: h/c err "
+                     f"{err} (tol {tol}), residuals beyond tol (+ one bf16 "
+                     f"ulp) or not {want_rd} ({rd})")
+            ms = time_ms(lambda: K.lstm_forward(xp, mask, w_h, *peeps,
+                                                residuals=True), flush)
+            plain_ms = time_ms(lambda: K.lstm_forward_plain(
+                xp, mask, w_h, *peeps, residuals=True), flush, reps=3)
+            lib_w = [p.requires_grad_() for p in lstm.parameters()]
+            lib_fwd_ms = time_ms(lambda: lstm(packed), flush)
+            rs = 2 if rd == torch.bfloat16 else 4
+            nbytes = (T * B * 4 * H * 4 + T * B * 4 + H * 4 * H * 2
+                      + 3 * H * 4 + T * B * H * 4 + 2 * B * H * 4
+                      + T * B * 4 * H * rs + 2 * T * B * H * rs)
+            bms, by = bound_ms(nbytes, 2.0 * n_real * H * 4 * H, "bfloat16")
+            print(f"kernels: lstm_forward residuals=True B={B} T={T} H={H} "
+                  f"bf16, {str(rd)[6:]} residuals: h/c max_abs_err="
+                  f"{err:.3e} (tol {tol}), z/h_prev/c_prev within tol"
+                  f"{' + one bf16 ulp' if rs == 2 else ''}; ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} library_ms={lib_fwd_ms:.4f} "
+                  f"(cuDNN LSTM training forward) bound_ms={bms:.5f} ({by})",
+                  flush=True)
+            row = _kernel_row(f"lstm_forward_residuals_b{B}h{H}",
+                              "lstm_forward.cu", "126", err, ms, plain_ms,
+                              bms, by, lib_fwd_ms)
+            row["library_covers"] = ("cuDNN LSTM training forward, bf16, "
+                                     "packed by length: input projection + "
+                                     "loop + its reserve, no peepholes")
+            rows.append(row)
+
+            m_tb = mask.t().contiguous()
+            w_t = w_h.t().contiguous()
+            bargs = [x["d_out"], m_tb, got[3], got[5], w_t, *peeps,
+                     x["d_hfin"], x["d_cfin"]]
+            gk = K.lstm_backward(*bargs)
+            gp = K.lstm_backward_plain(*bargs)
+            torch.cuda.synchronize()
+            tol = TOL[f"lstm_backward_b{B}h{H}"]
+            err = max(_max_err(a, c) for a, c in zip(gk, gp))
+            worst = max(_max_err(a, c) / c.abs().max().item()
+                        for a, c in zip(gk, gp))
+            if not (all(torch.isfinite(a).all() for a in gk)
+                    and worst <= tol):
+                fail("kernels", f"lstm_backward H={H}: max err / max |g| "
+                     f"{worst} > {tol}")
+            ms = time_ms(lambda: K.lstm_backward(*bargs), flush)
+            plain_ms = time_ms(lambda: K.lstm_backward_plain(*bargs), flush,
+                               reps=3)
+            ct = torch.randn(int(packed.data.shape[0]), H, device=dev,
+                             dtype=torch.bfloat16)
+            lib_in = lib_x.clone().requires_grad_()
+
+            def library_fwd_bwd():
+                out, _ = lstm(torch.nn.utils.rnn.pack_padded_sequence(
+                    lib_in, x["lens"], batch_first=True,
+                    enforce_sorted=False))
+                return torch.autograd.grad(out.data, [lib_in, *lib_w], ct)
+
+            lib_ms = time_ms(library_fwd_bwd, flush)
+            layer_in = [lib_x.float().requires_grad_(),
+                        (H ** -0.5 * torch.randn(H, 4 * H, device=dev)
+                         ).requires_grad_(), w_h.clone().requires_grad_(),
+                        torch.zeros(4 * H, device=dev).requires_grad_(),
+                        *(p.clone().requires_grad_() for p in peeps)]
+            d_seq = x["d_out"].transpose(0, 1)
+
+            def port_fwd_bwd():
+                h_seq, _ = lstm_layer(layer_in[0], mask, *layer_in[1:4],
+                                      peep_i=layer_in[4], peep_f=layer_in[5],
+                                      peep_o=layer_in[6])
+                return torch.autograd.grad(h_seq, layer_in, d_seq)
+
+            layer_ms = time_ms(port_fwd_bwd, flush)
+        nbytes = (T * B * H * 4 + T * B * 4 + T * B * 4 * H * rs
+                  + T * B * H * rs + 4 * H * H * 4 + 3 * H * 4 + 2 * B * H * 4
+                  + T * B * 4 * H * 4 + T * B * H * 4 + 2 * B * H * 4)
+        bms, by = bound_ms(nbytes, 2.0 * n_real * 4 * H * H, "float32")
+        print(f"kernels: lstm_backward B={B} T={T} H={H} {str(rd)[6:]} "
+              f"residuals max_abs_err={err:.3e} (max err / max |g| "
+              f"{worst:.3e}, tol {tol}); ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} (cuDNN LSTM forward + backward, "
+              f"against the port's lstm_layer forward + backward "
+              f"{layer_ms:.4f} ms) bound_ms={bms:.5f} ({by}, f32 products)",
+              flush=True)
+        row = _kernel_row(f"lstm_backward_b{B}h{H}", "lstm_backward.cu",
+                          "479", err, ms, plain_ms, bms, by, lib_ms)
+        row["library_covers"] = (
+            f"cuDNN LSTM forward + backward, bf16, packed by length; the "
+            f"port's lstm_layer forward + backward (projection, K9r, K10, "
+            f"d_w_h, d_x) takes {layer_ms:.4f} ms at this shape")
+        rows.append(row)
+        del lstm, packed, lib_w, got, want, gk, gp
+    return rows
+
+
 def check_products(flush, dev):
     """What batch invariance costs: ``linear`` (fixed ``ROW_CHUNK``-row
     cuBLAS calls) against one ``torch.matmul`` at the training rows
@@ -901,6 +1159,185 @@ def train_cpu_check(dev):
         fail("train", "card and CPU disagree beyond tolerance")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the text-classification path
+# ---------------------------------------------------------------------------
+
+
+def textclf_net(hidden: int, dev):
+    """``lstm_benchmark_net`` at the reference bench's widths through the
+    port's ``nn.Topology`` -> (topology, cost layer)."""
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.models import lstm_benchmark_net
+
+    nn.reset_naming()
+    cost, _ = lstm_benchmark_net(TEXTCLF_VOCAB, emb_dim=TEXTCLF_EMB,
+                                 hid_dim=hidden, num_layers=TEXTCLF_LAYERS)
+    return nn.Topology(cost, device=dev), cost
+
+
+def textclf_feed(B: int, T: int, seed: int):
+    """``bench.py:398-403``'s feed from a numpy ``RandomState(seed)``."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return {"words": (rng.randint(3, TEXTCLF_VOCAB, (B, T)).astype(np.int32),
+                      rng.randint(T // 2, T + 1, B).astype(np.int32)),
+            "label": rng.randint(0, 2, (B, 1))}
+
+
+def textclf_flops(B: int, T: int, hidden: int) -> float:
+    """``bench.py:410-414``: 3x the analytic forward FLOPs."""
+    E, H, L = TEXTCLF_EMB, hidden, TEXTCLF_LAYERS
+    fwd = (B * T * E * 4 * H * 2 + B * T * H * 4 * H * 2
+           + (L - 1) * (B * T * H * 4 * H * 2 * 2) + B * H * 2 * 2)
+    return 3.0 * fwd
+
+
+def textclf_train(K, dev, hidden: int):
+    """6 Adam steps of ``lstm_benchmark_net`` at B=64, T=100, bf16, the
+    way ``bench.py::_topology_step`` drives it: ``apply`` ->
+    ``torch.autograd.grad`` -> ``update``.  -> (launches, topology,
+    params, state, feed)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.param import Adam
+
+    B, T = TEXTCLF_B, TEXTCLF_T
+    topo, cost = textclf_net(hidden, dev)
+    params, state = topo.init(SEED)
+    params = {k: v.requires_grad_() for k, v in params.items()}
+    feed = textclf_feed(B, T, SEED)
+    opt = Adam(learning_rate=1e-3)
+    opt_state = opt.init_state(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def step():
+        outs, _ = topo.apply(params, state, feed, train=True)
+        loss = outs[cost.name].value
+        grads = torch.autograd.grad(loss, list(params.values()))
+        opt.update(params, dict(zip(params, grads)), opt_state)
+        return loss
+
+    K.reset_launch_counts()
+    losses, secs = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step().item())                # synchronises
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = K.launch_counts()
+
+    tag = f"b{B}h{hidden}"
+    if not all(np.isfinite(losses)):
+        fail("textclf", f"{tag}: loss not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail("textclf", f"{tag}: loss did not fall: {losses}")
+    if int(opt_state["step"]) != TRAIN_STEPS:
+        fail("textclf", f"{tag}: optimizer step counter "
+             f"{int(opt_state['step'])} after {TRAIN_STEPS} updates")
+    for name in TEXTCLF_KERNELS:
+        if launches[name] <= 0:
+            fail("textclf", f"{tag}: kernel {name} was not launched on the "
+                 f"training path")
+    steady = sorted(secs[1:])
+    sec = steady[len(steady) // 2]
+    flops = textclf_flops(B, T, hidden)
+    print(f"textclf: lstm_{tag} losses {[round(x, 6) for x in losses]}",
+          flush=True)
+    print(f"textclf: lstm_{tag} (T={T}, vocab {TEXTCLF_VOCAB}, "
+          f"{TEXTCLF_LAYERS} LSTM layers, bf16) Adam, {TRAIN_STEPS} steps: "
+          f"first step {secs[0]:.3f} s, median of the rest "
+          f"{sec * 1e3:.2f} ms/step ({[round(x * 1e3, 2) for x in secs]} ms)"
+          f", {B / sec:.1f} samples/s, MFU "
+          f"{flops / sec / PEAK_OPS_PER_S['bfloat16']:.4%} of 989 TFLOP/s "
+          f"({flops:.4e} FLOP/step), peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB, "
+          f"launches {launches}", flush=True)
+    return launches, topo, params, state, feed
+
+
+def textclf_infer(K, topo, params, state, feed):
+    """One forward-only pass (``apply(train=False)`` under
+    ``torch.no_grad()``): the logits, through K9's inference variant."""
+    import torch
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        outs, _ = topo.apply(params, state, feed, train=False)
+        logits = outs["logits"].value
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = K.launch_counts()
+    B = TEXTCLF_B
+    if tuple(logits.shape) != (B, 2) or not torch.isfinite(logits).all():
+        fail("textclf", f"inference logits malformed: {tuple(logits.shape)}")
+    if launches["lstm_forward"] <= 0 or launches["lstm_backward"] != 0:
+        fail("textclf", f"inference launches {launches}: want lstm_forward "
+             f"and no lstm_backward")
+    print(f"textclf: inference b{B}h256 apply(train=False): {sec * 1e3:.2f} "
+          f"ms ({B / sec:.1f} samples/s, first call), logits "
+          f"{tuple(logits.shape)}, launches {launches}", flush=True)
+    return launches
+
+
+#: card-vs-CPU text-classification check (f32 on both sides): the loss
+#: relative, each gradient's max |diff| against its largest entry (f32
+#: sums over 100 recurrent steps and a 30k x 128 table taken in another
+#: order)
+TOL_TEXTCLF_LOSS, TOL_TEXTCLF_GRAD = 1e-5, 1e-3
+
+
+def textclf_cpu_check(dev):
+    """The net at full width (H=256) with B=4, mixed lengths, f32: loss and
+    all 15 gradients on the card (K9r, K10) against the CPU (their plain
+    versions), same parameters, peepholes and biases nonzero."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+
+    B, T = 4, TEXTCLF_T
+    card, cost = textclf_net(256, dev)
+    cpu, _ = textclf_net(256, "cpu")
+    params, _ = cpu.init(SEED + 1)
+    rng = np.random.RandomState(SEED + 1)
+    for k, v in params.items():
+        if ".check_" in k or k.endswith(".wbias"):
+            params[k] = torch.from_numpy(
+                (0.3 * rng.randn(*v.shape)).astype(np.float32))
+    # the embedding init (0.01) leaves the LSTMs near their linear regime
+    params["_emb.w0"] = params["_emb.w0"] * 50.0
+    feed = textclf_feed(B, T, SEED + 1)
+    feed["words"][1][:2] = (T, 1)
+    out = {}
+    with compute_dtype_scope("float32"):
+        for name, topo, dv in (("card", card, dev), ("cpu", cpu, "cpu")):
+            p = {k: v.to(dv).requires_grad_() for k, v in params.items()}
+            outs, _ = topo.apply(p, {}, feed, train=True)
+            loss = outs[cost.name].value
+            grads = torch.autograd.grad(loss, list(p.values()))
+            out[name] = (loss.item(), [g.cpu() for g in grads])
+    d_loss = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    worst, worst_name = 0.0, ""
+    for name, a, c in zip(params, out["card"][1], out["cpu"][1]):
+        rel = (a - c).abs().max().item() / c.abs().max().item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    n = len(out["card"][1])
+    print(f"textclf: card vs CPU at H=256, B={B}, T={T}, f32: loss "
+          f"{out['card'][0]:.7f} vs {out['cpu'][0]:.7f} (rel diff "
+          f"{d_loss:.3e}, tol {TOL_TEXTCLF_LOSS}); {n} gradients, worst max "
+          f"|diff| / max |g| {worst:.3e} ({worst_name}, tol "
+          f"{TOL_TEXTCLF_GRAD})", flush=True)
+    if n != 15 or not (d_loss <= TOL_TEXTCLF_LOSS
+                       and worst <= TOL_TEXTCLF_GRAD):
+        fail("textclf", "card and CPU disagree beyond tolerance")
+
+
 def main() -> int:
     try:
         import torch
@@ -935,6 +1372,7 @@ def main() -> int:
         rows += check_gru_train(K, flush, dev)
         rows += check_ce(K, flush, dev)
         rows += check_attn_dec(K, flush, dev)
+        rows += check_lstm(K, flush, dev)
         phase = "products"
         check_products(flush, dev)
         del flush
@@ -944,20 +1382,43 @@ def main() -> int:
         phase = "train"
         train_launches = train_path(K, dev)
         train_cpu_check(dev)
+        torch.cuda.empty_cache()
+        phase = "textclf"
+        textclf = {}
+        for hidden in TEXTCLF_HIDDEN:
+            launches, topo, params, state, feed = textclf_train(K, dev,
+                                                                hidden)
+            textclf[hidden] = launches
+            if hidden == 256:
+                infer_launches = textclf_infer(K, topo, params, state, feed)
+            del topo, params, state
+            torch.cuda.empty_cache()
+        textclf_cpu_check(dev)
     except SystemExit:
         raise
     except Exception:  # noqa: BLE001 — report the phase and fail
         traceback.print_exc()
         fail(phase, "raised")
     # each row's launches come from the path that runs it: K3 inference and
-    # K7 from serving; K3 with residuals, K4, K1, K2, K5 and K6 from training
+    # K7 from serving; K3 with residuals, K4, K1, K2, K5 and K6 from
+    # training; K9 inference from the textclf inference pass, K9 with
+    # residuals and K10 from the textclf training run at the row's width
     for row in rows:
-        if row["name"] in ("gru_forward", "topk_lse_readout"):
-            row["launches"] = serve_launches[row["name"]]
-        elif row["name"] == "gru_forward_residuals":
+        name = row["name"]
+        if name in ("gru_forward", "topk_lse_readout"):
+            row["launches"] = serve_launches[name]
+        elif name == "gru_forward_residuals":
             row["launches"] = train_launches["gru_forward"]
+        elif name == "lstm_forward":
+            row["launches"] = infer_launches["lstm_forward"]
+        elif name.startswith("lstm_"):
+            kernel, width = name.rsplit("_", 1)
+            hidden = int(width.split("h")[1])
+            row["launches"] = textclf[hidden][
+                "lstm_forward" if kernel.startswith("lstm_forward")
+                else "lstm_backward"]
         else:
-            row["launches"] = train_launches[row["name"]]
+            row["launches"] = train_launches[name]
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,23 +25,13 @@ import torch
 
 import paddle_tpu_torch.ops as O
 from paddle_tpu_torch.device import resolve_device
+from paddle_tpu_torch.param.convert import params_from_jax
 
 __all__ = ["Seq2SeqAttention", "params_from_jax", "BOS", "EOS", "UNK"]
 
 BOS, EOS, UNK = 0, 1, 2
 
 Params = Dict[str, torch.Tensor]
-
-
-def params_from_jax(np_params: Mapping[str, np.ndarray],
-                    device: Optional[Union[str, torch.device]] = None
-                    ) -> Params:
-    """The JAX package's parameter dict (``{k: np.asarray(v)}`` of
-    ``Seq2SeqAttention.init``) as the port's float32 tensors on ``device``
-    (default ``cuda``), with the same names and layouts."""
-    dev = resolve_device(device)
-    return {k: torch.from_numpy(np.array(v, np.float32)).to(dev)
-            for k, v in np_params.items()}
 
 
 class Seq2SeqAttention:

@@ -17,7 +17,13 @@ import torch.nn.functional as F
 __all__ = ["embedding_lookup"]
 
 
-def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor, *,
+                     pad_to_zero_id=None) -> torch.Tensor:
     """table [V, D], ids int [B, ...] -> [B, ..., D]; differentiable in
-    ``table`` (a dense [V, D] gradient)."""
-    return F.embedding(ids.to(torch.long), table)
+    ``table`` (a dense [V, D] gradient).  Rows whose id is
+    ``pad_to_zero_id`` come out as zeros (and send no gradient to the
+    pad row)."""
+    out = F.embedding(ids.to(torch.long), table)
+    if pad_to_zero_id is not None:
+        out = out * (ids != pad_to_zero_id)[..., None].to(out.dtype)
+    return out

@@ -13,6 +13,9 @@ ce_readout_bwd      csrc/ce_readout_bwd.cu      ::ce_readout_bwd_pallas (K2)
 topk_lse_readout    csrc/topk_lse_readout.cu    ::topk_lse_readout_pallas (K7)
 attn_dec_fwd        csrc/attn_dec_fwd.cu        ::attn_dec_fwd_pallas (K5)
 attn_dec_bwd        csrc/attn_dec_bwd.cu        ::attn_dec_bwd_pallas (K6)
+lstm_forward        csrc/lstm_forward.cu        ::_lstm_pallas_raw (K9, with
+                                                and without residuals)
+lstm_backward       csrc/lstm_backward.cu       ::_lstm_bwd_pallas_raw (K10)
 ==================  ==========================  ==============================
 
 Each wrapper runs its plain version for a CPU tensor and launches its kernel
@@ -32,6 +35,10 @@ from paddle_tpu_torch.ops.kernels.ce_readout import (ce_readout_bwd,
 from paddle_tpu_torch.ops.kernels.gru import (gru_backward,
                                               gru_backward_plain,
                                               gru_forward, gru_forward_plain)
+from paddle_tpu_torch.ops.kernels.lstm import (lstm_backward,
+                                               lstm_backward_plain,
+                                               lstm_forward,
+                                               lstm_forward_plain)
 from paddle_tpu_torch.ops.kernels.topk_readout import (
     stable_topk, topk_lse_readout, topk_lse_readout_plain)
 
@@ -40,4 +47,6 @@ __all__ = ["LIBRARIES", "build_all", "launch_counts", "reset_launch_counts",
            "gru_backward_plain", "ce_readout_fwd", "ce_readout_fwd_plain",
            "ce_readout_bwd", "ce_readout_bwd_plain", "topk_lse_readout",
            "topk_lse_readout_plain", "stable_topk", "attn_dec_fwd",
-           "attn_dec_fwd_plain", "attn_dec_bwd", "attn_dec_bwd_plain"]
+           "attn_dec_fwd_plain", "attn_dec_bwd", "attn_dec_bwd_plain",
+           "lstm_forward", "lstm_forward_plain", "lstm_backward",
+           "lstm_backward_plain"]

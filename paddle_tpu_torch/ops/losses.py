@@ -1,6 +1,9 @@
-"""Sequence losses of the training slice — counterpart of
-``paddle_tpu/ops/losses.py`` (``masked_token_mean``,
+"""Losses — counterpart of ``paddle_tpu/ops/losses.py`` (``cross_entropy``,
+``sequence_cross_entropy``, ``masked_token_mean``,
 ``sequence_softmax_ce_readout``).
+
+``cross_entropy`` takes a float32 log-softmax of the logits and gathers the
+label's entry, as the reference does (never log of probabilities).
 
 ``sequence_softmax_ce_readout`` is the fused vocab readout + token
 cross-entropy with the reference's TILED semantics (``:231-284``): the
@@ -20,7 +23,16 @@ from paddle_tpu_torch.ops.kernels.ce_readout import (ce_readout_bwd,
                                                      ce_readout_fwd)
 from paddle_tpu_torch.ops.numerics import mxu_cast
 
-__all__ = ["masked_token_mean", "sequence_softmax_ce_readout"]
+__all__ = ["cross_entropy", "sequence_cross_entropy", "masked_token_mean",
+           "sequence_softmax_ce_readout"]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Multi-class CE from logits [..., C] and integer labels [...] ->
+    per-example losses [...] (float32)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    lab = labels.to(torch.long).unsqueeze(-1)
+    return -torch.gather(logp, -1, lab).squeeze(-1)
 
 
 def masked_token_mean(per_token: torch.Tensor,
@@ -29,6 +41,13 @@ def masked_token_mean(per_token: torch.Tensor,
     reduction."""
     mask = mask.to(per_token.dtype)
     return (per_token * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def sequence_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                           mask: torch.Tensor) -> torch.Tensor:
+    """Token-level CE over a padded [B, T, C] batch, averaged over the real
+    tokens."""
+    return masked_token_mean(cross_entropy(logits, labels), mask)
 
 
 class _CEReadout(torch.autograd.Function):

@@ -21,7 +21,10 @@ from paddle_tpu_torch.ops.kernels import (attn_dec_bwd, attn_dec_bwd_plain,
                                           ce_readout_fwd, ce_readout_fwd_plain,
                                           gru_backward, gru_backward_plain,
                                           gru_forward, gru_forward_plain,
-                                          launch_counts, topk_lse_readout,
+                                          launch_counts, lstm_backward,
+                                          lstm_backward_plain, lstm_forward,
+                                          lstm_forward_plain,
+                                          topk_lse_readout,
                                           topk_lse_readout_plain)
 from paddle_tpu_torch.ops.numerics import compute_dtype_scope
 
@@ -407,3 +410,137 @@ def test_attention_decoder_on_the_card_matches_the_cpu(dev):
     assert after["attn_dec_bwd"] == before["attn_dec_bwd"] + 1
     for got, want in zip(out["card"], out["cpu"]):
         _rel_close(got, want, 1e-4)
+
+
+def _lstm_inputs(B, T, H, seed):
+    """K9's inputs at float32: mixed lengths (a full row and a length-1
+    row), a boot state, nonzero peepholes."""
+    rng = np.random.RandomState(seed)
+    f = np.float32
+    lens = rng.randint(1, T + 1, (B,))
+    lens[0], lens[-1] = T, 1
+    arrs = [(0.4 * rng.randn(B, T, 4 * H)).astype(f),
+            (np.arange(T)[None] < lens[:, None]).astype(f),
+            (rng.randn(H, 4 * H) / np.sqrt(H)).astype(f),
+            (0.3 * rng.randn(H)).astype(f), (0.3 * rng.randn(H)).astype(f),
+            (0.3 * rng.randn(H)).astype(f),
+            (0.5 * rng.randn(B, H)).astype(f),
+            (0.5 * rng.randn(B, H)).astype(f)]
+    return [torch.from_numpy(a) for a in arrs], rng
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,H", [(5, 9, 100), (64, 20, 256)])
+def test_lstm_kernels_match_plain_versions(dev, cd, B, T, H):
+    """K9 (inference and with residuals) and K10 from K9's residuals, at a
+    ragged shape (H = 100, not a multiple of the tiles) and at b64h256, with
+    a boot state, nonzero peepholes and padded rows; each wrapper launches
+    once per call.  f32: the same sums in another order (1e-5 of the
+    largest value); bf16: a last-bit difference in the f32 carry can round
+    a bf16 operand or residual the other way (5e-3).  K10 from the same
+    residuals: f32 sums in another order (1e-5)."""
+    ins, rng = _lstm_inputs(B, T, H, B + H)
+    args = [t.to(dev) for t in ins]
+    d_out = torch.from_numpy(rng.randn(T, B, H).astype(np.float32)).to(dev)
+    d_hfin = torch.from_numpy(rng.randn(B, H).astype(np.float32)).to(dev)
+    d_cfin = torch.from_numpy(rng.randn(B, H).astype(np.float32)).to(dev)
+    tol = 5e-3 if cd == "bfloat16" else 1e-5
+    with compute_dtype_scope(cd):
+        before = launch_counts()
+        inf = lstm_forward(*args)
+        got = lstm_forward(*args, residuals=True)
+        assert launch_counts()["lstm_forward"] == before["lstm_forward"] + 2
+        want = lstm_forward_plain(*args, residuals=True)
+        assert got[3].dtype == want[3].dtype
+        m_tb = args[1].t().contiguous()
+        w_t = args[2].t().contiguous()
+        bargs = [d_out, m_tb, got[3], got[5], w_t, *args[3:6], d_hfin,
+                 d_cfin]
+        g_bwd = lstm_backward(*bargs)
+        assert launch_counts()["lstm_backward"] == \
+            before["lstm_backward"] + 1
+        p_bwd = lstm_backward_plain(*bargs)
+    torch.cuda.synchronize()
+    for a, b in zip(inf, got[:3]):
+        assert torch.equal(a, b)
+    for a, b in zip(got, want):
+        _rel_close(a, b, tol)
+    padded = args[1] == 0
+    assert torch.equal(got[0][padded], torch.zeros_like(got[0][padded]))
+    for a, b in zip(g_bwd, p_bwd):
+        assert torch.isfinite(a).all()
+        _rel_close(a, b, 1e-5)
+    no_cn = lstm_backward(*bargs, want_cn=False)
+    assert no_cn[1] is None
+    for a, b in zip((no_cn[0], no_cn[2], no_cn[3]),
+                    (g_bwd[0], g_bwd[2], g_bwd[3])):
+        assert torch.equal(a, b)
+
+
+def test_lstm_wrappers_raise_on_mixed_devices(dev):
+    ins, _ = _lstm_inputs(3, 4, 8, 0)
+    args = [t.to(dev) for t in ins]
+    for i in range(len(args)):
+        mixed = list(args)
+        mixed[i] = mixed[i].cpu()
+        with pytest.raises(ValueError, match="span devices"):
+            lstm_forward(*mixed)
+    res = lstm_forward(*args, residuals=True)
+    T, B, H = res[3].shape[0], res[3].shape[1], 8
+    bargs = [torch.zeros(T, B, H, device=dev), args[1].t().contiguous(),
+             res[3], res[5], args[2].t().contiguous(), *args[3:6],
+             torch.zeros(B, H, device=dev), torch.zeros(B, H, device=dev)]
+    for i in range(len(bargs)):
+        mixed = list(bargs)
+        mixed[i] = mixed[i].cpu()
+        with pytest.raises(ValueError, match="span devices"):
+            lstm_backward(*mixed)
+
+
+def test_lstm_benchmark_net_on_the_card_matches_the_cpu(dev):
+    """The text-classification net at small widths (H = 40, not a multiple
+    of the tiles) in f32: loss and all 15 gradients on the card (K9 with
+    residuals, K10) against the CPU (their plain versions), nonzero
+    peepholes and biases, mixed lengths; the inference pass (K9 without
+    residuals) gives the same logits."""
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.models import lstm_benchmark_net
+
+    nn.reset_naming()
+    cost, _ = lstm_benchmark_net(60, emb_dim=16, hid_dim=40)
+    cpu, card = nn.Topology(cost, device="cpu"), nn.Topology(cost, device=dev)
+    params, _ = cpu.init(5)
+    rng = np.random.RandomState(5)
+    for k, v in params.items():
+        if ".check_" in k or k.endswith(".wbias"):
+            params[k] = torch.from_numpy(
+                (0.3 * rng.randn(*v.shape)).astype(np.float32))
+    params["_emb.w0"] = params["_emb.w0"] * 50.0
+    B, T = 6, 11
+    lens = rng.randint(1, T + 1, B)
+    lens[0], lens[1] = T, 1
+    feed = {"words": (rng.randint(3, 60, (B, T)), lens),
+            "label": rng.randint(0, 2, (B, 1))}
+    out = {}
+    before = launch_counts()
+    with compute_dtype_scope("float32"):
+        for name, topo, dv in (("cpu", cpu, "cpu"), ("card", card, dev)):
+            p = {k: v.to(dv).requires_grad_() for k, v in params.items()}
+            outs, _ = topo.apply(p, {}, feed, train=True)
+            loss = outs[cost.name].value
+            grads = torch.autograd.grad(loss, list(p.values()))
+            with torch.no_grad():
+                logits = topo.apply(p, {}, feed)[0]["logits"].value
+            out[name] = (loss.detach().cpu(), [g.cpu() for g in grads],
+                         outs["logits"].value.detach().cpu(), logits.cpu())
+    after = launch_counts()
+    assert after["lstm_forward"] == before["lstm_forward"] + 4
+    assert after["lstm_backward"] == before["lstm_backward"] + 2
+    torch.testing.assert_close(out["card"][0], out["cpu"][0], rtol=1e-5,
+                               atol=0)
+    assert len(out["card"][1]) == 15
+    for got, want in zip(out["card"][1], out["cpu"][1]):
+        _rel_close(got, want, 1e-4)
+    torch.testing.assert_close(out["card"][3], out["card"][2], rtol=0, atol=0)
+    torch.testing.assert_close(out["card"][3], out["cpu"][3], rtol=1e-5,
+                               atol=1e-6)

@@ -279,7 +279,9 @@ def test_kernel_sources_exist_and_name_what_they_replace():
             "ce_readout_bwd": "ce_readout_bwd_pallas",
             "topk_lse_readout": "topk_lse_readout_pallas",
             "attn_dec_fwd": "attn_dec_fwd_pallas",
-            "attn_dec_bwd": "attn_dec_bwd_pallas"}
+            "attn_dec_bwd": "attn_dec_bwd_pallas",
+            "lstm_forward": "_lstm_pallas_raw",
+            "lstm_backward": "_lstm_bwd_pallas_raw"}
     assert set(LIBRARIES) == set(want)
     for name, lib in LIBRARIES.items():
         with open(lib.source) as f:

@@ -30,6 +30,11 @@ def _forbidden(name: str) -> bool:
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     files = list(_py_files())
     assert len(files) >= 15
+    rel = {os.path.relpath(p, PKG) for p in files}
+    for mod in ("nn/graph.py", "nn/layers.py", "nn/__init__.py",
+                "models/text.py", "ops/kernels/lstm.py", "utils/error.py",
+                "param/convert.py"):
+        assert mod in rel, mod
     bad = []
     for path in files:
         with open(path) as f:
@@ -79,9 +84,38 @@ def test_port_runs_a_cpu_decode_without_loading_jax():
     assert "JAX_PACKAGE_LOADED False" in out.stdout, out.stdout
 
 
+def test_every_module_imports_without_jax_and_builds_nothing():
+    """Importing every module of the port (the nn DSL and the LSTM kernels
+    included) loads neither jax nor the JAX package, and starts no nvcc."""
+    mods = sorted(
+        "paddle_tpu_torch." + os.path.relpath(p, PKG)[:-3].replace(
+            os.sep, ".").replace(".__init__", "")
+        for p in _py_files())
+    code = textwrap.dedent(f"""
+        import importlib, os, sys
+        for m in {mods!r}:
+            importlib.import_module(m)
+        from paddle_tpu_torch.ops.kernels.build import LIBRARIES, BUILD_DIR
+        print("LIBRARIES", sorted(LIBRARIES))
+        print("LOADED", [n for n, l in LIBRARIES.items() if l._lib is not None])
+        print("JAX_LOADED", any(k == "jax" or k.startswith("jax.")
+                                for k in sys.modules))
+        print("JAX_PACKAGE_LOADED", "paddle_tpu" in sys.modules)
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "'lstm_backward', 'lstm_forward'" in out.stdout, out.stdout
+    assert "LOADED []" in out.stdout, out.stdout
+    assert "JAX_LOADED False" in out.stdout, out.stdout
+    assert "JAX_PACKAGE_LOADED False" in out.stdout, out.stdout
+
+
 def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
-    from paddle_tpu_torch import resolve_device
-    from paddle_tpu_torch.models import Seq2SeqAttention, params_from_jax
+    from paddle_tpu_torch import nn, resolve_device
+    from paddle_tpu_torch.models import (Seq2SeqAttention, lstm_benchmark_net,
+                                         params_from_jax)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -91,6 +125,12 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
                          dec_dim=4, att_dim=4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_jax({})
+    nn.reset_naming()
+    cost, _ = lstm_benchmark_net(20, emb_dim=4, hid_dim=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        nn.Topology(cost)
+    assert nn.Topology(cost, device="cpu").device.type == "cpu"
+    assert nn.params_from_jax is params_from_jax
     m = Seq2SeqAttention(src_vocab=10, trg_vocab=10, emb_dim=4, enc_dim=4,
                          dec_dim=4, att_dim=4, device="cpu")
     assert m.device.type == "cpu"
