@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Opt-in measurements of the PyTorch/H100 port beside ``chip_smoke.py``.
 
-    python3 chip_probe.py [chunks] [profile] [textclf]  (all if none named)
+    python3 chip_probe.py [chunks] [profile] [textclf] [dslgen]
+                                                        (all if none named)
 
 Needs one CUDA card and the checkout beside it.  It checks nothing that
 ``chip_smoke.py`` does not; it measures what the smoke run leaves out to
@@ -20,7 +21,10 @@ profile  one training step at that batch under ``torch.profiler`` (CUDA
          device time;
 textclf  the same for one training step of the text-classification path
          (``lstm_benchmark_net`` through ``nn.Topology``, B=64, T=100,
-         bf16, Adam) at each of its widths (H=256, H=1280).
+         bf16, Adam) at each of its widths (H=256, H=1280);
+dslgen   the same for one generation call of ``chip_smoke.py``'s dslgen
+         phase (the demo/seqToseq net's ``beam_search`` layer, 64 sources,
+         beam 3, 32 steps, bf16).
 
 Prints one line per measurement and the card line first.
 """
@@ -217,6 +221,26 @@ def probe_textclf(dev):
                       _textclf_setup(dev, hidden), top_n=12)
 
 
+def probe_dslgen(dev):
+    import torch
+
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+
+    topo = nn.Topology(smoke.dslgen_net(), device=dev)
+    params, _ = topo.init(smoke.SEED)
+    feed = smoke.dslgen_feed(smoke.DSLGEN_B, smoke.SEED)
+
+    def step():
+        with compute_dtype_scope("bfloat16"), torch.no_grad():
+            outs, _ = topo.apply(params, {}, feed)
+        return outs["gen"].state["scores"][0, 0]
+
+    _profile_step(f"one DSL generation call ({smoke.DSLGEN_B} sources, beam "
+                  f"{smoke.BEAM}, max_length {smoke.MAX_LEN}, bf16)", step,
+                  top_n=12)
+
+
 def main() -> int:
     import torch
 
@@ -227,7 +251,7 @@ def main() -> int:
     from paddle_tpu_torch.ops import kernels as K
 
     probes = {"chunks": probe_chunks, "profile": probe_profile,
-              "textclf": probe_textclf}
+              "textclf": probe_textclf, "dslgen": probe_dslgen}
     wanted = sys.argv[1:] or list(probes)
     unknown = set(wanted) - set(probes)
     if unknown:

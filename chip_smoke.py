@@ -12,7 +12,8 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
 3. kernels  each kernel against its plain PyTorch version on the card at the
             shapes of the path that runs it (serving: K3, K7; training: K3
             with residuals, K4, K1, K2, K5, K6; text classification: K9
-            without and with residuals, K10), with its time (CUDA events,
+            without and with residuals, K10; DSL generation: K8), with its
+            time (CUDA events,
             L2 flushed before each call), the plain version's time, the
             least time the card could take (bound) and, where one exists, a
             PyTorch call sequence computing the same function
@@ -41,14 +42,24 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             (``apply(train=False)`` under ``torch.no_grad()``) at b64h256;
             then the net at H=256, B=4 in f32, its loss and 15 gradients on
             the card held against the CPU;
-8. a ``{"kernels": [...]}`` line, then the card line again, and last
+8. dslgen   generation through the nn DSL's ``beam_search`` layer: the
+            reference's demo/seqToseq composition (bidirectional
+            ``grumemory`` encoder; ``simple_attention`` + ``mixed`` +
+            ``gru_unit`` + a logits ``fc`` per step) at the WMT14 widths
+            (30k/30k vocab, 512-d, bf16 compute), 64 sources of 8-32
+            tokens, beam 3, ``max_length`` 32, through ``Topology.apply``:
+            time, sentences/s, decode steps/s, peak memory, launches (K3
+            twice a call, K8 once a decode step); the layer held against
+            ``SequenceGenerator`` over a hand-written step (identical ids),
+            and the net at B=2 in f32 on the card against the CPU;
+9. a ``{"kernels": [...]}`` line, then the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed just before each path (serve, train, each
-textclf run) is driven and read just after; a kernel of the path that was
-not launched fails the run.  ``chip_probe.py`` measures what this run
-leaves out to stay short (the products' chunk sizes end to end, profiled
-training steps).
+textclf run, dslgen) is driven and read just after; a kernel of the path
+that was not launched fails the run.  ``chip_probe.py`` measures what this
+run leaves out to stay short (the products' chunk sizes end to end,
+profiled training steps).
 
 Any failure exits non-zero.
 """
@@ -82,6 +93,10 @@ TRAIN_KERNELS = ("gru_forward", "gru_backward", "ce_readout_fwd",
 TEXTCLF_VOCAB, TEXTCLF_EMB, TEXTCLF_LAYERS = 30000, 128, 2
 TEXTCLF_B, TEXTCLF_T, TEXTCLF_HIDDEN = 64, 100, (256, 1280)
 TEXTCLF_KERNELS = ("lstm_forward", "lstm_backward")
+#: DSL generation: the demo/seqToseq net at the flagship's WMT14 widths
+#: (paddle_tpu/models/seq2seq.py:40-45), 64 sources, beam BEAM, MAX_LEN
+DSLGEN_VOCAB, DSLGEN_WIDTH, DSLGEN_B = 30000, 512, 64
+DSLGEN_KERNELS = ("gru_forward", "topk_lse_logits")
 
 #: kernel-vs-plain tolerances (max abs difference) and why
 TOL = {
@@ -93,6 +108,9 @@ TOL = {
     "gru_forward/bfloat16": 5e-3,
     # exact bf16 products, f32 sums of 512 terms in another order
     "topk_lse_readout": 1e-4,
+    # K8's lse (max abs; ~10.8 here): the same f32 exps summed over 30000
+    # logits in another order (per 512-column tile, then across tiles)
+    "topk_lse_logits": 1e-5,
     # K1 statistics (lse, per_tok ~ 10): exact bf16 products, f32 sums of
     # 512 terms and of 30000 exps in another order
     "ce_readout_fwd": 1e-4,
@@ -291,6 +309,52 @@ def check_topk(K, flush, dev):
             "launches": 0, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": library_ms}
+
+
+def check_topk_logits(K, flush, dev):
+    """K8 at the DSL generation's decode step: N = 64 sources x 3 beams,
+    V = 30000, k = 3, on f32 logits (the step's ``fc`` output) and on bf16
+    ones, with an integer-valued tie row, a row of ties, a row with -inf
+    entries and an all -inf row: ids and values identical, lse within
+    tol."""
+    import torch
+
+    N, V, k = DSLGEN_B * BEAM, DSLGEN_VOCAB, BEAM
+    g = torch.Generator().manual_seed(SEED + 7)
+    logits = torch.randn(N, V, generator=g)
+    logits[0] = torch.randint(-2, 3, (V,), generator=g).float()
+    logits[1] = 0.0
+    logits[2, ::3] = -float("inf")
+    logits[3] = -float("inf")
+    logits = logits.to(dev)
+    tol = TOL["topk_lse_logits"]
+    worst = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        x = logits.to(dt)
+        kv, ki, kl = K.topk_lse_logits(x, k)
+        pv, pi, pl = K.topk_lse_logits_plain(x, k)
+        torch.cuda.synchronize()
+        err = (kl - pl).abs().max().item()
+        if not (torch.equal(ki, pi) and torch.equal(kv, pv) and err <= tol):
+            fail("kernels", f"topk_lse_logits {dt}: ids or values differ "
+                 f"from the plain version, or lse err {err} > {tol}")
+        worst = max(worst, err)
+        print(f"kernels: topk_lse_logits N={N} V={V} k={k} {str(dt)[6:]} "
+              f"logits (tie, -inf and all -inf rows): ids and values "
+              f"identical, lse max_abs_err={err:.3e} (tol {tol})",
+              flush=True)
+    x = torch.randn(N, V, generator=g).to(dev)
+    ms = time_ms(lambda: K.topk_lse_logits(x, k), flush)
+    plain_ms = time_ms(lambda: K.topk_lse_logits_plain(x, k), flush)
+    library_ms = time_ms(lambda: (torch.topk(x, k),
+                                  torch.logsumexp(x, -1)), flush)
+    nbytes = N * V * 4 + N * k * (4 + 8) + N * 4
+    bms, by = bound_ms(nbytes, 3.0 * N * V, "float32")
+    print(f"kernels: topk_lse_logits f32 k={k} ms={ms:.4f} plain_ms="
+          f"{plain_ms:.4f} library_ms={library_ms:.4f} (topk + logsumexp) "
+          f"bound_ms={bms:.5f} ({by})", flush=True)
+    return _kernel_row("topk_lse_logits", "topk_lse_logits.cu", "1346",
+                       worst, ms, plain_ms, bms, by, library_ms)
 
 
 def _kernel_row(name, source, replaces, err, ms, plain_ms, bms, by,
@@ -1338,6 +1402,212 @@ def textclf_cpu_check(dev):
         fail("textclf", "card and CPU disagree beyond tolerance")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: generation through the nn DSL's beam_search layer
+# ---------------------------------------------------------------------------
+
+
+def dslgen_net():
+    """The reference's demo/seqToseq generation net
+    (``tests/torch_seqtoseq_net.py``) with the port's DSL at the WMT14
+    widths (E = H = D = A = 512, 30k vocabularies): -> the ``beam_search``
+    layer."""
+    import paddle_tpu_torch.nn as nn
+    import paddle_tpu_torch.v2.networks as networks
+
+    if os.path.join(ROOT, "tests") not in sys.path:
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_seqtoseq_net import seqtoseq_generator
+
+    W = DSLGEN_WIDTH
+    nn.reset_naming()
+    return seqtoseq_generator(nn, networks, V=DSLGEN_VOCAB, E=W, H=W, D=W,
+                              A=W, beam=BEAM, max_len=MAX_LEN)
+
+
+def dslgen_feed(B: int, seed: int):
+    """``make_requests``' recipe as one batch: B sources of 8-32 tokens,
+    padded to SRC_LEN."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(8, SRC_LEN + 1, B)
+    ids = np.ones((B, SRC_LEN), np.int64)
+    for i, n in enumerate(lens):
+        ids[i, :n] = rng.integers(3, DSLGEN_VOCAB, n)
+    return {"src": (ids, lens)}
+
+
+def dslgen_step(outs, K: int, rows=slice(None)):
+    """The ``beam_search`` layer's step written by hand as a function of
+    (params, tokens, mems), over the encoder outputs in ``outs`` (the
+    ``enc`` and ``enc_proj`` layers' Acts) of the sources ``rows``, tiled
+    per beam."""
+    import paddle_tpu_torch.ops as O
+
+    enc, mask, proj = (x[rows].repeat_interleave(K, 0) for x in (
+        outs["enc"].value, outs["enc"].mask, outs["enc_proj"].value))
+
+    def step(p, tokens, mems):
+        s = mems["s"]
+        e = O.embedding_lookup(p["_trg_emb.w0"], tokens)
+        scores = O.additive_attention_scores(proj, s, p["_att.w0"],
+                                             p["_att.v"])
+        ctx, _ = O.attend(scores, enc, mask)
+        xp = O.linear(e, p["_dec_in.w0"]) + O.linear(ctx, p["_dec_in.w1"])
+        h = O.gru_step(xp + p["_dec_in.wbias"], s, p["_dec_gru.w0"])
+        return O.linear(h, p["_readout.w0"], p["_readout.wbias"]), {"s": h}
+
+    return step
+
+
+def dslgen_path(K, dev):
+    """The main run (bf16): 64 sources through ``Topology.apply`` on the
+    ``beam_search`` layer, then the layer against ``SequenceGenerator``
+    over ``dslgen_step`` with the same parameters.  The encoder alone and
+    the hand-written decode are timed too: the layer's time less theirs is
+    what walking the step net costs the host."""
+    import torch
+
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+
+    B = DSLGEN_B
+    topo = nn.Topology(dslgen_net(), device=dev)
+    t0 = time.perf_counter()
+    params, _ = topo.init(SEED)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    feed = dslgen_feed(B, SEED)
+    with compute_dtype_scope("bfloat16"), torch.no_grad():
+        topo.apply(params, {}, dslgen_feed(B, SEED + 1))      # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs, _ = topo.apply(params, {}, feed, train=False)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        gen = outs["gen"]
+        toks, scores = gen.value, gen.state["scores"]
+        t0 = time.perf_counter()
+        topo.apply(params, {}, feed, outputs=["enc_proj", "boot"])
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        step = dslgen_step(outs, BEAM)
+        t0 = time.perf_counter()
+        m_toks, m_scores = nn.SequenceGenerator(
+            step, vocab_size=DSLGEN_VOCAB).generate(
+                params, {"s": outs["boot"].value}, batch_size=B,
+                beam_size=BEAM, max_len=MAX_LEN)
+        torch.cuda.synchronize()
+        t_hand = time.perf_counter() - t0
+    steps = launches["topk_lse_logits"]
+    if tuple(toks.shape) != (B, BEAM, MAX_LEN) or toks.dtype != torch.int64 \
+            or int(toks.min()) < 0 or int(toks.max()) >= DSLGEN_VOCAB \
+            or not torch.isfinite(scores).all() \
+            or not bool((scores[:, :-1] >= scores[:, 1:]).all()):
+        fail("dslgen", f"malformed result: tokens {tuple(toks.shape)} "
+             f"{toks.dtype}, scores finite and best-first?")
+    if launches["gru_forward"] != 2 or not 1 <= steps <= MAX_LEN:
+        fail("dslgen", f"launches {launches}: want gru_forward 2 and "
+             f"topk_lse_logits once a decode step")
+    for name in DSLGEN_KERNELS:
+        if launches[name] <= 0:
+            fail("dslgen", f"kernel {name} was not launched on the path")
+    print(f"dslgen: beam_search layer, {B} sources (8-{SRC_LEN} tokens), "
+          f"beam {BEAM}, max_length {MAX_LEN}, bf16 compute: "
+          f"{sec * 1e3:.2f} ms, {B / sec:.2f} sentences/s, {steps} decode "
+          f"steps ({steps / sec:.1f} steps/s, {steps * B * BEAM / sec:.1f} "
+          f"beam rows/s), peak memory {peak / 2 ** 30:.2f} GiB, launches "
+          f"{launches}, param init {t_init:.2f} s", flush=True)
+    walk = sec - t_enc - t_hand
+    print(f"dslgen: encoder alone {t_enc * 1e3:.2f} ms, decode over the "
+          f"hand-written step {t_hand * 1e3:.2f} ms: walking the step net "
+          f"costs {walk * 1e3:.2f} ms "
+          f"({walk / max(steps, 1) * 1e3:.3f} ms a step)",
+          flush=True)
+    same_ids = torch.equal(toks, m_toks)
+    same_scores = torch.equal(scores, m_scores)
+    print(f"dslgen: layer vs SequenceGenerator over the hand-written step, "
+          f"same parameters: ids {'identical' if same_ids else 'DIFFER'}, "
+          f"scores {'identical' if same_scores else 'differ'}", flush=True)
+    if not same_ids:
+        fail("dslgen", "the beam_search layer and SequenceGenerator differ")
+    return launches, {k: v.cpu() for k, v in params.items()}
+
+
+#: card-vs-CPU DSL generation (f32 on both sides, abs on a beam score of
+#: about -330 from 32 steps): sums in another order, as TOL_SEARCH
+TOL_DSLGEN = 1e-3
+
+
+def dsl_rescore(step, params, s0, hyp) -> float:
+    """Teacher-forced log-prob of one hypothesis under ``step`` from state
+    ``s0`` [1, D]: the score beam search reports for it."""
+    import torch
+
+    state, y, total = {"s": s0}, 0, 0.0
+    dev = s0.device
+    for tok in (int(t) for t in hyp):
+        logits, state = step(params, torch.tensor([y], device=dev), state)
+        total += float(torch.log_softmax(logits.float(), -1)[0, tok])
+        if tok == 1:
+            break
+        y = tok
+    return total
+
+
+def dslgen_cpu_check(dev, params):
+    """The net at full width with B=2 in f32, on the card (kernels) and on
+    the CPU (plain versions), same parameters: per source, ids identical
+    and scores within TOL_DSLGEN, or (a near tie of the nearly flat
+    random-init logits) each side's best hypothesis rescored on the other
+    within TOL_DSLGEN of its own score."""
+    import torch
+
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+
+    gen = dslgen_net()
+    feed = dslgen_feed(2, SEED + 2)
+    res = {}
+    with compute_dtype_scope("float32"), torch.no_grad():
+        for name, dv in (("card", dev), ("cpu", "cpu")):
+            p = {k: v.to(dv) for k, v in params.items()}
+            outs, _ = nn.Topology(gen, device=dv).apply(p, {}, feed)
+            res[name] = (outs, p)
+        for b in range(2):
+            ct, cs = (res["card"][0]["gen"].value[b].cpu(),
+                      res["card"][0]["gen"].state["scores"][b].cpu())
+            pt, ps = (res["cpu"][0]["gen"].value[b],
+                      res["cpu"][0]["gen"].state["scores"][b])
+            d_best = abs(float(cs[0]) - float(ps[0]))
+            if torch.equal(ct, pt):
+                d = (cs - ps).abs().max().item()
+                print(f"dslgen: card vs CPU, source {b}, f32: ids identical,"
+                      f" scores max diff {d:.3e} (tol {TOL_DSLGEN})",
+                      flush=True)
+                if d > TOL_DSLGEN:
+                    fail("dslgen", f"source {b}: scores beyond tol")
+                continue
+            on_cpu, on_card = (
+                dsl_rescore(dslgen_step(outs, 1, slice(b, b + 1)), p,
+                            outs["boot"].value[b:b + 1], hyp)
+                for (outs, p), hyp in ((res["cpu"], ct[0]),
+                                       (res["card"], pt[0])))
+            d1, d2 = abs(on_cpu - float(cs[0])), abs(on_card - float(ps[0]))
+            print(f"dslgen: card vs CPU, source {b}, f32: ids differ (near "
+                  f"tie); best scores differ by {d_best:.3e}, card's best "
+                  f"rescored on the CPU {d1:.3e}, CPU's on the card "
+                  f"{d2:.3e} (tol {TOL_DSLGEN})", flush=True)
+            if max(d_best, d1, d2) > TOL_DSLGEN:
+                fail("dslgen", f"source {b}: card and CPU disagree beyond "
+                     f"a near tie")
+
+
 def main() -> int:
     try:
         import torch
@@ -1373,6 +1643,7 @@ def main() -> int:
         rows += check_ce(K, flush, dev)
         rows += check_attn_dec(K, flush, dev)
         rows += check_lstm(K, flush, dev)
+        rows.append(check_topk_logits(K, flush, dev))
         phase = "products"
         check_products(flush, dev)
         del flush
@@ -1394,6 +1665,10 @@ def main() -> int:
             del topo, params, state
             torch.cuda.empty_cache()
         textclf_cpu_check(dev)
+        torch.cuda.empty_cache()
+        phase = "dslgen"
+        dslgen_launches, dslgen_params = dslgen_path(K, dev)
+        dslgen_cpu_check(dev, dslgen_params)
     except SystemExit:
         raise
     except Exception:  # noqa: BLE001 — report the phase and fail
@@ -1402,10 +1677,13 @@ def main() -> int:
     # each row's launches come from the path that runs it: K3 inference and
     # K7 from serving; K3 with residuals, K4, K1, K2, K5 and K6 from
     # training; K9 inference from the textclf inference pass, K9 with
-    # residuals and K10 from the textclf training run at the row's width
+    # residuals and K10 from the textclf training run at the row's width;
+    # K8 from the DSL generation run
     for row in rows:
         name = row["name"]
-        if name in ("gru_forward", "topk_lse_readout"):
+        if name == "topk_lse_logits":
+            row["launches"] = dslgen_launches[name]
+        elif name in ("gru_forward", "topk_lse_readout"):
             row["launches"] = serve_launches[name]
         elif name == "gru_forward_residuals":
             row["launches"] = train_launches["gru_forward"]

@@ -31,68 +31,24 @@
 //     blockIdx.x), so the row tiles re-read that w tile from L2.
 //   pass 2 (topk_lse_merge_kernel): one warp per row merges the per-tile
 //     lists (k picks in the same total order) and the per-tile (max, sum).
+//   The per-row reduction of pass 1 and the whole of pass 2 are shared with
+//   K8 (topk_lse_logits.cu) in topk_lse_common.cuh.
 // Tile shapes are fixed, never chosen from N, and no sum is split across
 // blocks by row count: a row's result does not depend on N, so a slot
 // table's rows match a solo decode bit for bit.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-
-#include <cfloat>
-#include <cstdint>
+#include "topk_lse_common.cuh"
 
 namespace {
+
+using topk_lse::MAXK;
+using topk_lse::SENTINEL;
+using topk_lse::to_f;
 
 constexpr int RB = 32;        // rows per block (pass 1)
 constexpr int VT = 128;       // vocab columns per block (pass 1)
 constexpr int BKD = 32;       // depth of one shared-memory stage
 constexpr int THREADS = 256;  // 8 warps
-constexpr int MAXK = 16;
-constexpr int SENTINEL = 1 << 30;  // "no candidate" id, above any vocab id
-
-template <typename CT>
-__device__ __forceinline__ float to_f(CT x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// the total order of the top-k: larger value first, then lower id; a
-// sentinel id is no candidate and loses to every real one
-__device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
-  if (ai == SENTINEL) return false;
-  if (bi == SENTINEL) return true;
-  return av > bv || (av == bv && ai < bi);
-}
-
-__device__ __forceinline__ void warp_best(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-    if (better(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
-    }
-  }
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 // pass 1.  grid (ceil(N / RB), nV).  Partials: pv/pi [N, nV, k],
 // pm/ps [N, nV].
@@ -164,87 +120,8 @@ __global__ void __launch_bounds__(THREADS) topk_lse_tile_kernel(
       v[j] = L[r][lane + 32 * j];
       id[j] = gv < V ? gv : SENTINEL;  // ragged tail: no candidate
     }
-    float mx = -FLT_MAX;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (id[j] != SENTINEL) mx = fmaxf(mx, fmaxf(v[j], -FLT_MAX));
-    mx = warp_max(mx);
-    float s = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (id[j] != SENTINEL) s += expf(fmaxf(v[j], -FLT_MAX) - mx);
-    s = warp_sum(s);
-    const size_t base = (size_t)gr * nV + vt;
-    if (lane == 0) {
-      pm[base] = mx;
-      ps[base] = s;
-    }
-    for (int q = 0; q < k; ++q) {
-      float bv = -CUDART_INF_F;
-      int bi = SENTINEL;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (better(v[j], id[j], bv, bi)) {
-          bv = v[j];
-          bi = id[j];
-        }
-      warp_best(bv, bi);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (id[j] == bi) id[j] = SENTINEL;  // ids are unique: remove winner
-      if (lane == 0) {
-        pv[base * k + q] = bv;
-        pi[base * k + q] = bi;
-      }
-    }
-  }
-}
-
-// pass 2.  One warp per row; grid ceil(N / 8).
-__global__ void __launch_bounds__(THREADS) topk_lse_merge_kernel(
-    const float* __restrict__ pv, const int* __restrict__ pi,
-    const float* __restrict__ pm, const float* __restrict__ ps,
-    float* __restrict__ out_v, int64_t* __restrict__ out_i,
-    float* __restrict__ out_lse, int N, int nV, int k) {
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
-  if (row >= N) return;  // warp-uniform
-  const float* rm = pm + (size_t)row * nV;
-  const float* rs = ps + (size_t)row * nV;
-  float mx = -FLT_MAX;
-  for (int t = lane; t < nV; t += 32) mx = fmaxf(mx, rm[t]);
-  mx = warp_max(mx);
-  float s = 0.0f;
-  for (int t = lane; t < nV; t += 32) s += rs[t] * expf(rm[t] - mx);
-  s = warp_sum(s);
-  if (lane == 0) out_lse[row] = mx + logf(s);
-
-  // pick q takes the best candidate strictly after pick q-1 in the order
-  const int C = nV * k;
-  const float* cv = pv + (size_t)row * C;
-  const int* ci = pi + (size_t)row * C;
-  float prev_v = 0.0f;
-  int prev_i = -1;
-  for (int q = 0; q < k; ++q) {
-    float bv = -CUDART_INF_F;
-    int bi = SENTINEL;
-    for (int c = lane; c < C; c += 32) {
-      const float v = cv[c];
-      const int i = ci[c];
-      if (i == SENTINEL) continue;
-      if (q > 0 && !better(prev_v, prev_i, v, i)) continue;
-      if (better(v, i, bv, bi)) {
-        bv = v;
-        bi = i;
-      }
-    }
-    warp_best(bv, bi);
-    if (lane == 0) {
-      out_v[(size_t)row * k + q] = bv;
-      out_i[(size_t)row * k + q] = bi;
-    }
-    prev_v = bv;
-    prev_i = bi;
+    topk_lse::row_tile_stats<4>(v, id, k, (size_t)gr * nV + vt, lane, pm,
+                                ps, pv, pi);
   }
 }
 
@@ -262,11 +139,8 @@ int topk_lse_impl(const CT* states, const CT* w, const float* bias,
                                        V, k, nV);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int rows_per_block = THREADS / 32;
-  topk_lse_merge_kernel<<<(N + rows_per_block - 1) / rows_per_block, THREADS,
-                          0, stream>>>(pv, pi, pm, ps, out_v, out_i, out_lse,
-                                       N, nV, k);
-  return (int)cudaGetLastError();
+  return topk_lse::launch_merge(pv, pi, pm, ps, out_v, out_i, out_lse, N,
+                                nV, k, stream);
 }
 
 }  // namespace

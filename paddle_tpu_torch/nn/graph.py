@@ -31,8 +31,8 @@ from paddle_tpu_torch.ops.sequence import mask_from_lengths
 from paddle_tpu_torch.utils.error import ConfigError, layer_scope
 
 __all__ = ["Act", "ParamAttr", "ParamSpec", "LayerOutput", "ApplyContext",
-           "Topology", "next_name", "reset_naming", "naming_scope",
-           "device_pin", "PACK_KEYS"]
+           "Topology", "StepTopology", "next_name", "reset_naming",
+           "naming_scope", "device_pin", "PACK_KEYS"]
 
 #: the sequence-packing keys an ``Act.state`` carries in the reference
 PACK_KEYS = ("seg_ids", "positions", "seg_lengths")
@@ -218,9 +218,13 @@ class Topology:
 
     def __init__(self, outputs: Union[Sequence[LayerOutput], LayerOutput], *,
                  device: Optional[Union[str, torch.device]] = None):
+        self.device: Optional[torch.device] = resolve_device(device)
+        self._build(outputs)
+
+    def _build(self, outputs: Union[Sequence[LayerOutput], LayerOutput]
+               ) -> None:
         if isinstance(outputs, LayerOutput):
             outputs = [outputs]
-        self.device = resolve_device(device)
         self.outputs: List[LayerOutput] = list(outputs)
         self.layers: List[LayerOutput] = self._toposort(self.outputs)
         self.data_layers = [l for l in self.layers if l.is_data]
@@ -331,18 +335,31 @@ class Topology:
         return Topology._toposort([by_name[n] for n in want])
 
 
+class StepTopology(Topology):
+    """The step net of a recurrent group or ``beam_search``: a graph with
+    no device of its own.  It runs wherever the outer ``apply`` runs,
+    since every feed it takes is an ``Act`` already there; any other feed
+    raises."""
+
+    def __init__(self, outputs: Union[Sequence[LayerOutput], LayerOutput]):
+        self.device = None
+        self._build(outputs)
+
+
 def _as_tensor(v, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
                            device=device)
 
 
 def _coerce_feed(layer: LayerOutput, feed: Dict[str, Any],
-                 device: torch.device) -> Act:
+                 device: Optional[torch.device]) -> Act:
     if layer.name not in feed:
         raise ConfigError(f"missing feed for data layer {layer.name!r}")
     v = feed[layer.name]
     if isinstance(v, Act):
         act = v
+    elif device is None:
+        raise ConfigError(f"a step net's feed {layer.name!r} must be an Act")
     elif isinstance(v, tuple):
         if len(v) == 5:
             raise _not_ported(f"the packed sequence feed of "

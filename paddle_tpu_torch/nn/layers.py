@@ -1,7 +1,8 @@
 """User-facing layer functions — counterpart of ``paddle_tpu/nn/layers.py``
-for the layers the text-classification benchmark net is built from:
-``data``, ``fc``, ``embedding``, ``lstmemory``, ``pooling`` and
-``classification_cost``.
+for the layers the text-classification benchmark net (``data``, ``fc``,
+``embedding``, ``lstmemory``, ``pooling``, ``classification_cost``) and the
+seqToseq generation net (``concat``, ``grumemory``, ``first_seq``,
+``last_seq``) are built from.
 
 Each function returns a symbolic ``LayerOutput`` whose ``forward`` closure
 computes the op with the port's ``ops``.  Names, arguments, parameter names
@@ -25,8 +26,8 @@ from paddle_tpu_torch.nn.graph import (PACK_KEYS, Act, LayerOutput, ParamAttr,
                                        ParamSpec, _not_ported, next_name)
 from paddle_tpu_torch.utils.error import ConfigError
 
-__all__ = ["data", "fc", "embedding", "lstmemory", "pooling",
-           "classification_cost"]
+__all__ = ["data", "fc", "embedding", "concat", "lstmemory", "grumemory",
+           "pooling", "last_seq", "first_seq", "classification_cost"]
 
 AttrLike = Union[ParamAttr, bool, None]
 
@@ -164,6 +165,22 @@ def embedding(input: LayerOutput, size: int, *,
     return LayerOutput(name, "embedding", size, [input], forward, [spec])
 
 
+def concat(input: Sequence[LayerOutput], *,
+           name: Optional[str] = None) -> LayerOutput:
+    """Feature concat over the last axis; a sequence first input keeps its
+    lengths and mask."""
+    inputs = list(input)
+    name = name or next_name("concat")
+    size = sum(i.size for i in inputs)
+
+    def forward(ctx, params, *acts: Act) -> Act:
+        out = torch.cat([a.value for a in acts], dim=-1)
+        ref = acts[0]
+        return _seq_like(ref, out) if ref.is_seq else Act(value=out)
+
+    return LayerOutput(name, "concat", size, inputs, forward, [])
+
+
 # ---------------------------------------------------------------------------
 # recurrent
 # ---------------------------------------------------------------------------
@@ -229,8 +246,54 @@ def lstmemory(input: LayerOutput, size: Optional[int] = None, *,
     return LayerOutput(name, "lstmemory", H, [input], forward, specs)
 
 
+def grumemory(input: LayerOutput, size: Optional[int] = None, *,
+              reverse: bool = False, act: str = "tanh",
+              gate_act: str = "sigmoid", projected_input: bool = False,
+              name: Optional[str] = None, param_attr: AttrLike = None,
+              bias_attr: AttrLike = True) -> LayerOutput:
+    """GRU over a sequence (gate layout [r, u, c], ``r`` applied to h before
+    the candidate product).  The layer owns the input projection ``wx``
+    [D, 3H] and the recurrent weight ``w0`` [H, 3H];
+    ``projected_input=True`` takes the [B, T, 3*size] pre-projection as
+    input instead and creates no ``wx``.  Runs ``ops.gru_layer``, so the
+    default cell is the ``gru_forward`` kernel on the card."""
+    name = name or next_name("grumemory")
+    if projected_input:
+        H = size or input.size // 3
+        if input.size != 3 * H:
+            raise ConfigError(
+                f"grumemory {name!r}: projected_input needs input.size == "
+                f"3*size ({3 * H}), got {input.size}")
+    else:
+        H = size or input.size
+    D = input.size
+    pa = _pa(param_attr, f"_{name}.w0")
+    wh = ParamSpec(name=pa.name, shape=(H, 3 * H), attr=pa)
+    specs = [wh]
+    wx = None
+    if not projected_input:
+        wx = ParamSpec(name=f"_{name}.wx", shape=(D, 3 * H),
+                       attr=replace(pa, name=f"_{name}.wx"))
+        specs.insert(0, wx)
+    ba = _bias_attr(bias_attr, f"_{name}.wbias")
+    if ba:
+        specs.append(ParamSpec(name=ba.name, shape=(3 * H,), attr=ba))
+
+    def forward(ctx, params, a: Act) -> Act:
+        _refuse_packed(a, name, "grumemory")
+        b = (params[ba.name] if ba else
+             torch.zeros(3 * H, dtype=a.value.dtype, device=a.value.device))
+        h_seq, h_f = O.gru_layer(
+            a.value, a.mask, params[wx.name] if wx else None,
+            params[wh.name], b, reverse=reverse, act=act, gate_act=gate_act)
+        return Act(value=h_seq, lengths=a.lengths, mask=a.mask,
+                   state={"final_h": h_f})
+
+    return LayerOutput(name, "grumemory", H, [input], forward, specs)
+
+
 # ---------------------------------------------------------------------------
-# sequence pooling
+# sequence pooling and structure
 # ---------------------------------------------------------------------------
 
 
@@ -248,6 +311,30 @@ def pooling(input: LayerOutput, *, pooling_type: str = "max",
         return Act(value=fn(a.value, a.mask))
 
     return LayerOutput(name, "seq_pool", input.size, [input], forward, [])
+
+
+def last_seq(input: LayerOutput, *, name: Optional[str] = None
+             ) -> LayerOutput:
+    """The last real timestep of each sequence: [B, T, D] -> [B, D]."""
+    name = name or next_name("last_seq")
+
+    def forward(ctx, params, a: Act) -> Act:
+        _refuse_packed(a, name, "last_seq")
+        return Act(value=O.seq_last(a.value, a.lengths))
+
+    return LayerOutput(name, "last_seq", input.size, [input], forward, [])
+
+
+def first_seq(input: LayerOutput, *, name: Optional[str] = None
+              ) -> LayerOutput:
+    """The first timestep of each sequence: [B, T, D] -> [B, D]."""
+    name = name or next_name("first_seq")
+
+    def forward(ctx, params, a: Act) -> Act:
+        _refuse_packed(a, name, "first_seq")
+        return Act(value=O.seq_first(a.value))
+
+    return LayerOutput(name, "first_seq", input.size, [input], forward, [])
 
 
 # ---------------------------------------------------------------------------

@@ -7,6 +7,9 @@ One generation implementation for every surface of this slice: the model's
 - **Readout**: ``LinearReadout`` hands the pre-readout states to the
   ``topk_lse_readout`` kernel, which returns per row the k best logits,
   their ids and the logsumexp; the [N, V] logits never reach device memory.
+  ``LogitsReadout`` serves step nets that end in their own logits layer
+  (the nn DSL's ``beam_search``): the ``topk_lse_logits`` kernel takes the
+  same statistics from one read of the logits.
 - **Early exit**: the reference's ``lax.while_loop`` becomes a Python loop
   that stops once every beam emitted EOS (finished beams extend only with
   EOS at zero cost and token buffers are EOS-prefilled, so stopping early
@@ -37,13 +40,14 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from paddle_tpu_torch.ops.kernels.topk_readout import (stable_topk,
+from paddle_tpu_torch.ops.kernels.topk_logits import topk_lse_logits
+from paddle_tpu_torch.ops.kernels.topk_readout import (MAX_K, stable_topk,
                                                        topk_lse_readout)
 from paddle_tpu_torch.ops.numerics import compute_dtype
 
-__all__ = ["NEG", "LinearReadout", "beam_gather", "decode_step",
-           "init_slot_carry", "write_slot", "release_slot", "finalize_slots",
-           "beam_decode", "greedy_decode"]
+__all__ = ["NEG", "LinearReadout", "LogitsReadout", "beam_gather",
+           "decode_step", "init_slot_carry", "write_slot", "release_slot",
+           "finalize_slots", "beam_decode", "greedy_decode"]
 
 #: the reference's kill score for impossible candidates; scores must match
 #: it exactly
@@ -82,6 +86,31 @@ class LinearReadout:
     def __call__(self, states: torch.Tensor, k: int):
         cd = compute_dtype()
         return topk_lse_readout(states.to(cd), self._w_in(cd), self.b, k)
+
+
+class LogitsReadout:
+    """The step net returns the full logits [N, V] (the nn DSL's
+    ``beam_search`` step ends in a logits layer) and the ``topk_lse_logits``
+    kernel reads them once for ``(vals [N, k], idx [N, k], lse [N])``.
+
+    The reference's shape gate decides the route, and nothing else does:
+    k > 16 or V < k takes its unfused statistics (``_topk_lse_unfused``);
+    every other shape runs the kernel (the plain version on the CPU)."""
+
+    def __call__(self, logits: torch.Tensor, k: int):
+        if k > MAX_K or logits.shape[-1] < k:
+            return _topk_lse_unfused(logits, k)
+        return topk_lse_logits(logits, k)
+
+
+def _topk_lse_unfused(logits: torch.Tensor, k: int):
+    """The reference's ``_topk_lse_xla``: float32 logits, a two-pass
+    logsumexp (no finite-min clamp) and ``stable_topk``."""
+    lf = logits.float()
+    m = lf.max(dim=-1).values
+    lse = m + torch.log(torch.exp(lf - m[..., None]).sum(dim=-1))
+    vals, idx = stable_topk(lf, k)
+    return vals, idx, lse
 
 
 def beam_gather(tree, beam_idx: torch.Tensor):
@@ -237,8 +266,10 @@ def release_slot(carry: dict, slot: int) -> dict:
 def _finalize(tokens: torch.Tensor, logp: torch.Tensor, *, eos: int,
               length_penalty: float):
     """The shared decode epilogue: strip BOS, apply the length penalty,
-    sort beams best-first (stable, as JAX's ``argsort``).  ``beam_decode``
-    and the slot harvest both go through this one implementation."""
+    sort beams best-first (stable, as JAX's ``argsort``).  ``beam_decode``,
+    the slot harvest and ``SequenceGenerator``'s callback path all go
+    through this one implementation.  Returns (tokens, scores, order),
+    ``order`` [B, K] mapping each output beam to its slot in the input."""
     out = tokens[:, :, 1:]
     if length_penalty > 0:
         lengths = (out != eos).to(torch.float32).sum(-1) + 1.0
@@ -247,14 +278,14 @@ def _finalize(tokens: torch.Tensor, logp: torch.Tensor, *, eos: int,
         scores = logp
     order = torch.argsort(-scores, dim=1, stable=True)
     out = torch.gather(out, 1, order[..., None].expand_as(out))
-    return out, torch.gather(scores, 1, order)
+    return out, torch.gather(scores, 1, order), order
 
 
 def finalize_slots(carry: dict, *, eos: int = 1, length_penalty: float = 0.0):
     """Harvest view of the whole table: ``(tokens [S, K, max_len],
     scores [S, K])`` sorted best-first per slot."""
     return _finalize(carry["tokens"], carry["logp"], eos=eos,
-                     length_penalty=length_penalty)
+                     length_penalty=length_penalty)[:2]
 
 
 def _resolve_early_exit(early_exit: Optional[bool]) -> bool:
@@ -296,7 +327,7 @@ def beam_decode(step_fn: Callable, readout, state0: State, *,
         sc = decode_step(step_fn, readout, sc, vocab_size=vocab_size,
                          eos=eos)
     return _finalize(sc["tokens"], sc["logp"], eos=eos,
-                     length_penalty=length_penalty)
+                     length_penalty=length_penalty)[:2]
 
 
 def greedy_decode(step_fn: Callable, readout, state0: State, *,

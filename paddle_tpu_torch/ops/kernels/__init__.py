@@ -11,6 +11,7 @@ gru_backward        csrc/gru_backward.cu        ::_gru_bwd_pallas_raw (K4)
 ce_readout_fwd      csrc/ce_readout_fwd.cu      ::ce_readout_fwd_pallas (K1)
 ce_readout_bwd      csrc/ce_readout_bwd.cu      ::ce_readout_bwd_pallas (K2)
 topk_lse_readout    csrc/topk_lse_readout.cu    ::topk_lse_readout_pallas (K7)
+topk_lse_logits     csrc/topk_lse_logits.cu     ::topk_lse_logits_pallas (K8)
 attn_dec_fwd        csrc/attn_dec_fwd.cu        ::attn_dec_fwd_pallas (K5)
 attn_dec_bwd        csrc/attn_dec_bwd.cu        ::attn_dec_bwd_pallas (K6)
 lstm_forward        csrc/lstm_forward.cu        ::_lstm_pallas_raw (K9, with
@@ -39,6 +40,8 @@ from paddle_tpu_torch.ops.kernels.lstm import (lstm_backward,
                                                lstm_backward_plain,
                                                lstm_forward,
                                                lstm_forward_plain)
+from paddle_tpu_torch.ops.kernels.topk_logits import (topk_lse_logits,
+                                                      topk_lse_logits_plain)
 from paddle_tpu_torch.ops.kernels.topk_readout import (
     stable_topk, topk_lse_readout, topk_lse_readout_plain)
 
@@ -46,7 +49,8 @@ __all__ = ["LIBRARIES", "build_all", "launch_counts", "reset_launch_counts",
            "gru_forward", "gru_forward_plain", "gru_backward",
            "gru_backward_plain", "ce_readout_fwd", "ce_readout_fwd_plain",
            "ce_readout_bwd", "ce_readout_bwd_plain", "topk_lse_readout",
-           "topk_lse_readout_plain", "stable_topk", "attn_dec_fwd",
+           "topk_lse_readout_plain", "stable_topk", "topk_lse_logits",
+           "topk_lse_logits_plain", "attn_dec_fwd",
            "attn_dec_fwd_plain", "attn_dec_bwd", "attn_dec_bwd_plain",
            "lstm_forward", "lstm_forward_plain", "lstm_backward",
            "lstm_backward_plain"]

@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` source has a plain C interface and is compiled on its
 own by ``nvcc -shared`` for ``sm_90a`` into ``paddle_tpu_torch/_build/``
 (ignored by git), then loaded with ``ctypes``.  A file that included
 PyTorch's headers would take minutes to compile; these take seconds.  The
-library's name carries a hash of its source and flags, so an edited source
-is rebuilt and an unchanged one is loaded as it is.
+library's name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is.
 
 Nothing here runs at import: a library is built at its kernel's first
 launch, or by ``build_all()``, which starts one ``nvcc`` per source at once.
@@ -67,8 +68,11 @@ class CudaLibrary:
 
     def path(self) -> str:
         h = hashlib.sha256()
-        with open(self.source, "rb") as f:
-            h.update(f.read())
+        headers = sorted(os.path.join(CSRC_DIR, f)
+                         for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+        for src in [self.source] + headers:
+            with open(src, "rb") as f:
+                h.update(f.read())
         h.update(" ".join(NVCC_FLAGS).encode())
         return os.path.join(BUILD_DIR, f"{self.name}-{h.hexdigest()[:16]}.so")
 

@@ -16,7 +16,7 @@ import torch
 from paddle_tpu_torch.ops.kernels.build import ARG_INT, ARG_PTR, register
 
 __all__ = ["topk_lse_readout", "topk_lse_readout_plain", "stable_topk",
-           "TOPK_LSE_READOUT", "MAX_K"]
+           "topk_lse_stats", "TOPK_LSE_READOUT", "MAX_K"]
 
 #: static bound of the per-tile top-k (the reference's _MAX_KERNEL_K)
 MAX_K = 16
@@ -61,10 +61,18 @@ def topk_lse_readout_plain(states: torch.Tensor, w: torch.Tensor,
                            b: torch.Tensor, k: int
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
-    """The kernel's function in PyTorch ops: float32 logits, a stable sort
-    for the top-k, and the logsumexp over finite-min-clamped logits."""
+    """The kernel's function in PyTorch ops: float32 logits, then
+    ``topk_lse_stats``."""
     _check(states, w, b, k)
-    logits = torch.matmul(states.float(), w.float()) + b.float()
+    return topk_lse_stats(torch.matmul(states.float(), w.float()) + b.float(),
+                          k)
+
+
+def topk_lse_stats(logits: torch.Tensor, k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The statistics both readout kernels compute, over float32 logits
+    [N, V]: ``stable_topk`` and the logsumexp over finite-min-clamped
+    values (an all ``-inf`` row gives about ``finfo.min``, not nan)."""
     vals, idx = stable_topk(logits, k)
     lc = torch.clamp(logits, min=torch.finfo(torch.float32).min)
     m = lc.max(dim=-1, keepdim=True).values

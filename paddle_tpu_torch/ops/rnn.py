@@ -138,8 +138,9 @@ def scan_rnn(step_fn: Callable, carry_init, xs_btd: torch.Tensor,
              mask_bt: torch.Tensor, *, reverse: bool = False):
     """Run ``step_fn(carry, x_t) -> (carry, out_t)`` over time with length
     masking: where mask == 0 the carry is held and the output is zero.
-    The carry and the output are tensors or tuples of tensors (an LSTM's
-    ``(h, c)``).  xs [B, T, ...] -> (final carry, outs [B, T, ...])."""
+    The carry, the inputs and the output are tensors or tuples of tensors
+    (an LSTM's ``(h, c)``; a recurrent group's several frame inputs).
+    xs [B, T, ...] -> (final carry, outs [B, T, ...])."""
     T = mask_bt.shape[1]
     carry = carry_init
     outs = [None] * T
@@ -149,7 +150,7 @@ def scan_rnn(step_fn: Callable, carry_init, xs_btd: torch.Tensor,
         def bmask(a):  # [B] mask broadcast against [B, ...] of any rank
             return m_t.reshape(m_t.shape + (1,) * (a.dim() - 1))
 
-        new, out = step_fn(carry, xs_btd[:, t])
+        new, out = step_fn(carry, _tree_map(lambda x: x[:, t], xs_btd))
         carry = _tree_map(lambda n, o: torch.where(bmask(n) > 0, n, o), new,
                           carry)
         outs[t] = _tree_map(lambda o: o * bmask(o).to(o.dtype), out)

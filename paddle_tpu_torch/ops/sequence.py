@@ -1,5 +1,6 @@
-"""Sequence masks and pooling over padded batches — counterpart of
-``paddle_tpu/ops/sequence.py`` (``mask_from_lengths``, ``seq_pool_*``).
+"""Sequence masks, pooling and first/last steps over padded batches —
+counterpart of ``paddle_tpu/ops/sequence.py`` (``mask_from_lengths``,
+``seq_pool_*``, ``seq_first``, ``seq_last``).
 
 ``seq_pool_max`` fills the masked positions with the dtype's most negative
 finite value and reduces with ``torch.amax``, whose gradient splits ties
@@ -11,7 +12,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["mask_from_lengths", "seq_pool_sum", "seq_pool_avg",
-           "seq_pool_sqrt", "seq_pool_max"]
+           "seq_pool_sqrt", "seq_pool_max", "seq_first", "seq_last"]
 
 
 def mask_from_lengths(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -50,3 +51,15 @@ def seq_pool_max(value: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
                     torch.full((), neg, dtype=value.dtype,
                                device=value.device))
     return torch.amax(z, dim=1)
+
+
+def seq_last(value: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Last real timestep of each sequence: [B, T, ...], [B] -> [B, ...]
+    (row 0 for an empty sequence)."""
+    idx = torch.clamp(lengths.to(torch.long) - 1, min=0)
+    return value[torch.arange(value.shape[0], device=value.device), idx]
+
+
+def seq_first(value: torch.Tensor) -> torch.Tensor:
+    """First timestep: [B, T, ...] -> [B, ...]."""
+    return value[:, 0]

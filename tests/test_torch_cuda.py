@@ -24,6 +24,8 @@ from paddle_tpu_torch.ops.kernels import (attn_dec_bwd, attn_dec_bwd_plain,
                                           launch_counts, lstm_backward,
                                           lstm_backward_plain, lstm_forward,
                                           lstm_forward_plain,
+                                          topk_lse_logits,
+                                          topk_lse_logits_plain,
                                           topk_lse_readout,
                                           topk_lse_readout_plain)
 from paddle_tpu_torch.ops.numerics import compute_dtype_scope
@@ -544,3 +546,68 @@ def test_lstm_benchmark_net_on_the_card_matches_the_cpu(dev):
     torch.testing.assert_close(out["card"][3], out["card"][2], rtol=0, atol=0)
     torch.testing.assert_close(out["card"][3], out["cpu"][3], rtol=1e-5,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("N,V,k,dt", [(40, 515, 4, torch.float32),
+                                      (3, 131, 3, torch.bfloat16),
+                                      (7, 16, 16, torch.float32),
+                                      (192, 30000, 3, torch.bfloat16)])
+def test_topk_logits_kernel_matches_plain_version(dev, N, V, k, dt):
+    """K8: ragged vocab tails, k up to 16 and k == V, integer-valued tie
+    rows, -inf entries and a row that is all -inf: ids and values
+    identical (the same logits, the same order), lse to rounding."""
+    rng = np.random.RandomState(N + V)
+    x = rng.randn(N, V).astype(np.float32)
+    x[0] = rng.randint(-2, 3, V)
+    x[1, ::3] = -np.inf
+    x[2] = -np.inf
+    logits = torch.from_numpy(x).to(dev, dt)
+    before = launch_counts()["topk_lse_logits"]
+    kv, ki, kl = topk_lse_logits(logits, k)
+    assert launch_counts()["topk_lse_logits"] == before + 1
+    pv, pi, pl = topk_lse_logits_plain(logits, k)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+    assert torch.isfinite(kl).all()
+    torch.testing.assert_close(kl, pl, rtol=1e-6, atol=1e-5)
+
+
+def test_topk_logits_wrapper_checks(dev):
+    """The wrapper refuses what the kernel does not take on the card too,
+    and a strided view gives what its contiguous copy gives."""
+    x = torch.randn(6, 40, device=dev)
+    for bad, k in ((x[0], 1), (x, 0), (x, 17), (x.double(), 2)):
+        with pytest.raises(ValueError):
+            topk_lse_logits(bad, k)
+    view = torch.randn(40, 6, device=dev).t()
+    for a, b in zip(topk_lse_logits(view, 3),
+                    topk_lse_logits(view.contiguous(), 3)):
+        assert torch.equal(a, b)
+
+
+def test_seqtoseq_generation_on_the_card_matches_the_cpu(dev):
+    """The DSL's seqToseq generation net at small widths in f32: the card
+    (K3 for the encoder, K8 every decode step) against the CPU (their plain
+    versions), ids exact, scores to 1e-5."""
+    import paddle_tpu_torch.nn as nn
+    import paddle_tpu_torch.v2.networks as networks
+    from torch_seqtoseq_net import seqtoseq_generator
+
+    nn.reset_naming()
+    gen = seqtoseq_generator(nn, networks, V=300, E=16, H=24, D=20, A=8,
+                             beam=3, max_len=9)
+    cpu, card = nn.Topology(gen, device="cpu"), nn.Topology(gen, device=dev)
+    params, _ = cpu.init(3)
+    params["_readout.w0"] = params["_readout.w0"] * 8.0
+    rng = np.random.RandomState(3)
+    feed = {"src": (rng.randint(3, 300, (4, 9)), np.array([9, 4, 7, 1]))}
+    before = launch_counts()
+    with compute_dtype_scope("float32"):
+        ct = cpu.apply(params, {}, feed)[0]["gen"]
+        gt = card.apply({k: v.to(dev) for k, v in params.items()}, {},
+                        feed)[0]["gen"]
+    after = launch_counts()
+    assert after["gru_forward"] == before["gru_forward"] + 2
+    assert after["topk_lse_logits"] > before["topk_lse_logits"]
+    assert torch.equal(gt.value.cpu(), ct.value)
+    torch.testing.assert_close(gt.state["scores"].cpu(), ct.state["scores"],
+                               rtol=1e-5, atol=1e-5)

@@ -200,7 +200,9 @@ def test_finalize_sorts_ties_stably_like_jax_argsort():
                     np.float32)
     jt, js = JD._finalize(jnp.asarray(tokens.astype(np.int32)),
                           jnp.asarray(logp), eos=1, length_penalty=0.0)
-    tt, ts = TD._finalize(torch.from_numpy(tokens), torch.from_numpy(logp),
-                          eos=1, length_penalty=0.0)
+    tt, ts, order = TD._finalize(torch.from_numpy(tokens),
+                                 torch.from_numpy(logp), eos=1,
+                                 length_penalty=0.0)
     np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(order.numpy(), [[1, 3, 0, 2], [0, 1, 2, 3]])

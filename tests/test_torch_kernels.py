@@ -278,6 +278,7 @@ def test_kernel_sources_exist_and_name_what_they_replace():
             "ce_readout_fwd": "ce_readout_fwd_pallas",
             "ce_readout_bwd": "ce_readout_bwd_pallas",
             "topk_lse_readout": "topk_lse_readout_pallas",
+            "topk_lse_logits": "topk_lse_logits_pallas",
             "attn_dec_fwd": "attn_dec_fwd_pallas",
             "attn_dec_bwd": "attn_dec_bwd_pallas",
             "lstm_forward": "_lstm_pallas_raw",

@@ -33,7 +33,9 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     rel = {os.path.relpath(p, PKG) for p in files}
     for mod in ("nn/graph.py", "nn/layers.py", "nn/__init__.py",
                 "models/text.py", "ops/kernels/lstm.py", "utils/error.py",
-                "param/convert.py"):
+                "param/convert.py", "nn/recurrent.py", "nn/projections.py",
+                "nn/steps.py", "v2/networks.py",
+                "ops/kernels/topk_logits.py"):
         assert mod in rel, mod
     bad = []
     for path in files:
@@ -85,8 +87,9 @@ def test_port_runs_a_cpu_decode_without_loading_jax():
 
 
 def test_every_module_imports_without_jax_and_builds_nothing():
-    """Importing every module of the port (the nn DSL and the LSTM kernels
-    included) loads neither jax nor the JAX package, and starts no nvcc."""
+    """Importing every module of the port (the nn DSL, its recurrent
+    groups, the LSTM and K8 kernels included) loads neither jax nor the JAX
+    package, and starts no nvcc."""
     mods = sorted(
         "paddle_tpu_torch." + os.path.relpath(p, PKG)[:-3].replace(
             os.sep, ".").replace(".__init__", "")
@@ -107,6 +110,7 @@ def test_every_module_imports_without_jax_and_builds_nothing():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "'lstm_backward', 'lstm_forward'" in out.stdout, out.stdout
+    assert "'topk_lse_logits'" in out.stdout, out.stdout
     assert "LOADED []" in out.stdout, out.stdout
     assert "JAX_LOADED False" in out.stdout, out.stdout
     assert "JAX_PACKAGE_LOADED False" in out.stdout, out.stdout
