@@ -11,7 +11,11 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             source, all started together), with the build seconds;
 3. kernels  each kernel against its plain PyTorch version on the card at the
             shapes of the path that runs it (serving: K3, K7; training: K3
-            with residuals, K4, K1, K2, K5, K6; text classification: K9
+            with residuals, K4, K1, K2, K5, K6; the flagship's optional
+            paths: K11, the fused bidirectional encoder, without and with
+            residuals and its reverse, also held bit for bit against one
+            K3/K4 call per direction; K12, the row logsumexp, with -inf
+            rows and a ragged vocabulary; text classification: K9
             without and with residuals, K10; DSL generation: K8), with its
             time (CUDA events,
             L2 flushed before each call), the plain version's time, the
@@ -26,13 +30,19 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             compute) behind ``SlotScheduler`` with 64 slots, answering 96
             requests with beam-3 output; 3 requests are held against a solo
             beam search on the card (ids and scores identical), 2 against
-            the port on the CPU (plain versions, f32);
+            the port on the CPU (plain versions, f32); then the same 96
+            requests with ``fused_bigru`` on (K11 at every prefill, no K3):
+            ids and scores identical to the first run;
 6. train    the training path: the same model at ``bench.py``'s batch
             (B=384, S=32, T=32, bf16 compute) taking 6 ``Adam`` steps
-            (``loss`` -> ``torch.autograd.grad`` -> ``update``), with each
-            step's loss, the median step time, words/s and MFU; then the
-            full-width model at B=8 in f32, its loss and 19 gradients on the
-            card held against the CPU;
+            (``loss`` -> ``torch.autograd.grad`` -> ``update``) in each of
+            three configurations, in turns and twice: default, fused_bigru
+            (K11 twice a step, no K3r/K4) and lse_readout (K12 once a step,
+            no K1/K2), with each one's losses, median step time, words/s
+            and MFU (step-1 loss of fused_bigru equal to the default's, of
+            lse_readout within 1e-3); then the full-width model at B=8 in
+            f32, its loss and 19 gradients on the card held against the
+            CPU, with both switches off and with both on;
 7. textclf  the text-classification path: ``lstm_benchmark_net`` (vocab
             30000, embedding 128, 2 LSTM layers, max-pool, fc to 2 classes)
             through ``nn.Topology`` at ``bench.py``'s rows lstm_b64h256 and
@@ -55,8 +65,9 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
 9. a ``{"kernels": [...]}`` line, then the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
-Launch counters are zeroed just before each path (serve, train, each
-textclf run, dslgen) is driven and read just after; a kernel of the path
+Launch counters are zeroed just before each path (serve and its fused
+re-run, each training configuration, each textclf run, dslgen) is driven
+and read just after; a kernel of the path
 that was not launched fails the run.  ``chip_probe.py`` measures what this
 run leaves out to stay short (the products' chunk sizes end to end,
 profiled training steps).
@@ -66,6 +77,7 @@ Any failure exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -93,6 +105,16 @@ TRAIN_KERNELS = ("gru_forward", "gru_backward", "ce_readout_fwd",
 TEXTCLF_VOCAB, TEXTCLF_EMB, TEXTCLF_LAYERS = 30000, 128, 2
 TEXTCLF_B, TEXTCLF_T, TEXTCLF_HIDDEN = 64, 100, (256, 1280)
 TEXTCLF_KERNELS = ("lstm_forward", "lstm_backward")
+#: the flagship's two optional paths (the reference's use_pallas_bigru and
+#: _USE_PALLAS_LSE_READOUT, off by default): the fused bidirectional
+#: encoder (K11) and the logsumexp readout (K12), and the kernels each one
+#: replaces on the training step
+FUSED_BIGRU_KERNELS = ("bigru_forward", "bigru_backward")
+LSE_READOUT_KERNELS = ("logsumexp_rows",)
+TRAIN_CONFIGS = ("default", "fused_bigru", "lse_readout")
+#: the LSE readout's step-1 loss against K1's (rel): the bf16 logits are
+#: rounded once and then reduced, where K1 reduces the float32 logits
+TOL_LSE_LOSS = 1e-3
 #: DSL generation: the demo/seqToseq net at the flagship's WMT14 widths
 #: (paddle_tpu/models/seq2seq.py:40-45), 64 sources, beam BEAM, MAX_LEN
 DSLGEN_VOCAB, DSLGEN_WIDTH, DSLGEN_B = 30000, 512, 64
@@ -159,6 +181,13 @@ TOL = {
     "lstm_backward_b64h256": 1e-4,
     # the same at H = 1280 with f32 residuals, 5120-term sums
     "lstm_backward_b64h1280": 1e-4,
+    # K11 against its plain version (two one-direction step loops): as K3
+    # (gru_forward/*, gru_forward_residuals) and K4 (gru_backward); K11
+    # against K3/K4 themselves is held bit for bit
+    # K12 (max abs; lse ~ 10-13 here): f32 sums of 30000 exps in another
+    # order (each lane ~940 in sequence, then a 32-way tree) against the
+    # plain two-pass sum
+    "logsumexp_rows": 2e-5,
 }
 
 
@@ -457,6 +486,231 @@ def check_gru_train(K, flush, dev):
     rows.append(_kernel_row("gru_backward", "gru_backward.cu", "590", err,
                             ms, plain_ms, bms, by, None))
     return rows
+
+
+def _bigru_inputs(dev, B):
+    """The flagship encoder's two directions as K11's stacked batch: B rows
+    a direction (2B rows), T=32, H=512, mixed lengths; the backward half
+    flipped in time, as ``bigru_layer`` stacks it."""
+    import torch
+
+    T, H = TRAIN_T, 512
+    g = torch.Generator().manual_seed(SEED + 8 + B)
+    lens = torch.randint(4, T + 1, (B,), generator=g)
+    lens[0] = T
+    mask = (torch.arange(T)[None] < lens[:, None]).float()
+    xp_fw = 0.5 * torch.randn(B, T, 3 * H, generator=g)
+    xp_bw = 0.5 * torch.randn(B, T, 3 * H, generator=g)
+    w = [(2.0 / (H + 3 * H)) ** 0.5 * torch.randn(H, 3 * H, generator=g)
+         for _ in range(2)]
+    xp_tb = torch.cat([xp_fw, xp_bw.flip(1)]).transpose(0, 1).contiguous()
+    m_tb = torch.cat([mask, mask.flip(1)]).t().contiguous()
+    d_out = torch.randn(T, 2 * B, H, generator=g)
+    d_hfin = torch.randn(2 * B, H, generator=g)
+    w2 = torch.cat(w)
+    w_t = torch.cat([w[0].t(), w[1].t()], 1).contiguous()
+    return [t.to(dev) for t in (xp_tb, m_tb, w2, w_t, d_out, d_hfin)]
+
+
+def check_bigru(K, flush, dev):
+    """K11 (inference and residual variants, and the reverse loop) at the
+    flagship encoder's training shape (B=384 a direction), in f32 and
+    bf16: against its plain version, and bit for bit against K3/K4 called
+    once per direction on the same rows; timed beside that two-call pair,
+    the residual variant and the reverse at the training shape, the
+    inference variant at the serving prefill's (B=64 a direction, as
+    K3's row)."""
+    import torch
+
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+
+    xp, m, w2, w_t, d_out, d_hfin = _bigru_inputs(dev, TRAIN_B)
+    T, B2, H3 = xp.shape
+    B, H = B2 // 2, H3 // 3
+    halves = ((slice(0, B), w2[:H], w_t[:, :H].contiguous()),
+              (slice(B, None), w2[H:], w_t[:, H:].contiguous()))
+    errs = {}
+    for cd in ("float32", "bfloat16"):
+        with compute_dtype_scope(cd):
+            inf = K.bigru_forward(xp, m, w2, residuals=False, batch_split=B)
+            res = K.bigru_forward(xp, m, w2, residuals=True, batch_split=B)
+            bwd = K.bigru_backward(d_out, m, res[2], res[3], w_t, d_hfin,
+                                   batch_split=B)
+            p_inf = K.bigru_forward_plain(xp, m, w2, residuals=False,
+                                          batch_split=B)
+            p_res = K.bigru_forward_plain(xp, m, w2, residuals=True,
+                                          batch_split=B)
+            p_bwd = K.bigru_backward_plain(d_out, m, res[2], res[3], w_t,
+                                           d_hfin, batch_split=B)
+            torch.cuda.synchronize()
+            e_inf = max(_max_err(a, c) for a, c in zip(inf, p_inf))
+            e_res = max(_max_err(a, c) for a, c in zip(res[:2], p_res[:2]))
+            e_bwd = max(_max_err(a, c) for a, c in zip(bwd, p_bwd))
+            scale = max(c.abs().max().item() for c in p_bwd)
+            tol_f = TOL[f"gru_forward/{cd}"]
+            tol_r = TOL["gru_forward_residuals"]
+            tol_b = TOL["gru_backward"]
+            if not (e_inf <= tol_f and e_res <= tol_r
+                    and all(_within_bf16_ulp(a, c, tol_r)
+                            for a, c in zip(res[2:], p_res[2:]))
+                    and e_bwd <= tol_b * scale):
+                fail("kernels", f"bigru {cd}: against the plain version "
+                     f"inference {e_inf} (tol {tol_f}), residuals {e_res} "
+                     f"(tol {tol_r}), reverse {e_bwd} (tol {tol_b} x "
+                     f"{scale})")
+            # bit for bit against one K3 / K3r / K4 call per direction
+            for rows, w, wt in halves:
+                x_b, m_b = xp[:, rows].transpose(0, 1), m[:, rows].t()
+                one = K.gru_forward(x_b, m_b, w)
+                one_r = K.gru_forward(x_b, m_b, w, residuals=True)
+                one_b = K.gru_backward(d_out[:, rows], m[:, rows],
+                                       res[2][:, rows], res[3][:, rows], wt,
+                                       d_hfin[rows])
+                same = (torch.equal(inf[0][:, rows], one[0].transpose(0, 1))
+                        and torch.equal(inf[1][rows], one[1])
+                        and torch.equal(res[0][:, rows],
+                                        one_r[0].transpose(0, 1))
+                        and torch.equal(res[1][rows], one_r[1])
+                        and torch.equal(res[2][:, rows], one_r[2])
+                        and torch.equal(res[3][:, rows], one_r[3])
+                        and torch.equal(bwd[0][:, rows], one_b[0])
+                        and torch.equal(bwd[1][rows], one_b[1]))
+                if not same:
+                    fail("kernels", f"bigru {cd}: rows {rows} differ from "
+                         f"K3/K4 called on them alone")
+            errs[cd] = (e_inf, e_res, e_bwd, scale)
+            print(f"kernels: bigru_forward/backward B=2x{B} T={T} H={H} {cd}"
+                  f": vs plain inference max_abs_err={e_inf:.3e} (tol "
+                  f"{tol_f}), residuals h {e_res:.3e} (tol {tol_r}) z and "
+                  f"h_prev within tol + one bf16 ulp, reverse "
+                  f"{e_bwd:.3e} (tol {tol_b} x max {scale:.3e}); h_seq, "
+                  f"h_fin, z, h_prev, d_z, d_h0 bit-identical to one K3/K3r/"
+                  f"K4 call per direction", flush=True)
+    rows = []
+    # the inference variant at the serving prefill: 64 requests a direction
+    xs, ms_, w2s = _bigru_inputs(dev, SLOTS)[:3]
+    Bs = SLOTS
+    for cd in ("float32", "bfloat16"):
+        with compute_dtype_scope(cd):
+            got = K.bigru_forward(xs, ms_, w2s, residuals=False,
+                                  batch_split=Bs)
+            want = K.bigru_forward_plain(xs, ms_, w2s, residuals=False,
+                                         batch_split=Bs)
+            err = max(_max_err(a, c) for a, c in zip(got, want))
+            same = all(
+                torch.equal(got[0][:, r], one[0].transpose(0, 1))
+                and torch.equal(got[1][r], one[1])
+                for r, w in ((slice(0, Bs), w2s[:H]),
+                             (slice(Bs, None), w2s[H:]))
+                for one in [K.gru_forward(xs[:, r].transpose(0, 1),
+                                          ms_[:, r].t(), w)])
+            if not (err <= TOL[f"gru_forward/{cd}"] and same):
+                fail("kernels", f"bigru_forward B=2x{Bs} {cd}: max abs err "
+                     f"{err}, or rows differ from one K3 call per "
+                     f"direction")
+        errs[f"serve/{cd}"] = err
+    with compute_dtype_scope("bfloat16"):              # the working type
+        _, _, zk, pk = K.bigru_forward(xp, m, w2, residuals=True,
+                                       batch_split=B)
+
+        def pair(x, mask, w2_, residuals):
+            for r, w in ((slice(0, x.shape[1] // 2), w2_[:H]),
+                         (slice(x.shape[1] // 2, None), w2_[H:])):
+                K.gru_forward(x[:, r].transpose(0, 1), mask[:, r].t(), w,
+                              residuals=residuals)
+
+        def pair_bwd():
+            for r, _, wt in halves:
+                K.gru_backward(d_out[:, r], m[:, r], zk[:, r], pk[:, r], wt,
+                               d_hfin[r])
+
+        res_b = 2 if zk.dtype == torch.bfloat16 else 4
+        for residuals, (x, mask, w2_) in ((False, (xs, ms_, w2s)),
+                                          (True, (xp, m, w2))):
+            b2 = x.shape[1]
+            ms = time_ms(lambda: K.bigru_forward(
+                x, mask, w2_, residuals=residuals, batch_split=b2 // 2),
+                flush)
+            plain_ms = time_ms(lambda: K.bigru_forward_plain(
+                x, mask, w2_, residuals=residuals, batch_split=b2 // 2),
+                flush, reps=5)
+            pair_ms = time_ms(lambda: pair(x, mask, w2_, residuals), flush)
+            nbytes = (T * b2 * H3 * 4 + T * b2 * 4 + 2 * H * H3 * 2
+                      + T * b2 * H * 4 + b2 * H * 4
+                      + (T * b2 * (H3 + H) * res_b if residuals else 0))
+            bms, by = bound_ms(nbytes, 2.0 * T * b2 * H * H3, "bfloat16")
+            name = "bigru_forward" + ("_residuals" if residuals else "")
+            e, e32 = ((errs["bfloat16"][1], errs["float32"][1]) if residuals
+                      else (errs["serve/bfloat16"], errs["serve/float32"]))
+            print(f"kernels: {name} B=2x{b2 // 2} T={T} H={H} bf16 "
+                  f"max_abs_err={e:.3e} (f32 {e32:.3e}), "
+                  f"rows bit-identical to one K3{'r' if residuals else ''} "
+                  f"call per direction; ms={ms:.4f} plain_ms={plain_ms:.4f}"
+                  f" two K3{'r' if residuals else ''} calls {pair_ms:.4f} ms"
+                  f" bound_ms={bms:.5f} ({by})", flush=True)
+            rows.append(_kernel_row(name, "bigru_forward.cu", "308", e, ms,
+                                    plain_ms, bms, by, None))
+        ms = time_ms(lambda: K.bigru_backward(d_out, m, zk, pk, w_t, d_hfin,
+                                              batch_split=B), flush)
+        plain_ms = time_ms(lambda: K.bigru_backward_plain(
+            d_out, m, zk, pk, w_t, d_hfin, batch_split=B), flush, reps=5)
+        pair_ms = time_ms(pair_bwd, flush)
+    nbytes = (T * B2 * H * 4 + T * B2 * 4 + T * B2 * (H3 + H) * res_b
+              + H3 * 2 * H * 4 + B2 * H * 4 + T * B2 * H3 * 4 + B2 * H * 4)
+    bms, by = bound_ms(nbytes, 2.0 * T * B2 * H3 * H, "float32")
+    print(f"kernels: bigru_backward B=2x{B} T={T} H={H} bf16 residuals "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} two K4 calls (one per "
+          f"direction) {pair_ms:.4f} ms bound_ms={bms:.5f} ({by}, f32 "
+          f"products)", flush=True)
+    rows.append(_kernel_row("bigru_backward", "bigru_backward.cu", "590",
+                            errs["bfloat16"][2], ms, plain_ms, bms, by, None))
+    return rows
+
+
+def check_lse(K, flush, dev):
+    """K12 at the training readout's logits: N = B*T = 12288, V = 30000, in
+    bf16 (the compute dtype's logits) and f32, with a row holding -inf
+    entries and an all -inf row (nan, the reference's answer); then a
+    ragged V whose bf16 rows are not 16-byte aligned."""
+    import torch
+
+    N, V = TRAIN_B * TRAIN_T, 30000
+    g = torch.Generator().manual_seed(SEED + 9)
+    tol = TOL["logsumexp_rows"]
+    worst = 0.0
+    for n, v in ((N, V), (N, V + 1)):
+        logits = 3.0 * torch.randn(n, v, generator=g)
+        logits[1, ::3] = -float("inf")
+        logits[2] = -float("inf")
+        logits = logits.to(dev)
+        keep = torch.arange(n, device=dev) != 2
+        for dt in (torch.bfloat16, torch.float32):
+            x = logits.to(dt)
+            got = K.logsumexp_rows(x)
+            want = K.logsumexp_rows_plain(x)
+            torch.cuda.synchronize()
+            err = _max_err(got[keep], want[keep])
+            if not (err <= tol and bool(torch.isnan(got[2]))
+                    and bool(torch.isfinite(got[keep]).all())):
+                fail("kernels", f"logsumexp_rows N={n} V={v} {dt}: max abs "
+                     f"err {err} (tol {tol}), or the all -inf row not nan")
+            worst = max(worst, err)
+            print(f"kernels: logsumexp_rows N={n} V={v} {str(dt)[6:]} "
+                  f"(-inf entries, an all -inf row -> nan): max_abs_err="
+                  f"{err:.3e} (tol {tol})", flush=True)
+        del logits, x
+    x = (3.0 * torch.randn(N, V, generator=g)).to(dev).bfloat16()
+    ms = time_ms(lambda: K.logsumexp_rows(x), flush)
+    plain_ms = time_ms(lambda: K.logsumexp_rows_plain(x), flush, reps=10)
+    library_ms = time_ms(lambda: torch.logsumexp(x.float(), -1), flush)
+    nbytes = N * V * 2 + N * 4
+    bms, by = bound_ms(nbytes, 3.0 * N * V, "float32")
+    print(f"kernels: logsumexp_rows N={N} V={V} bf16 ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+          f"(torch.logsumexp(x.float(), -1)) bound_ms={bms:.5f} ({by})",
+          flush=True)
+    return _kernel_row("logsumexp_rows", "logsumexp_rows.cu", "648", worst,
+                       ms, plain_ms, bms, by, library_ms)
 
 
 def check_ce(K, flush, dev):
@@ -1080,6 +1334,49 @@ def serve_path(K, dev):
         if kind == "cpu" and (d_best > TOL_SEARCH or d_rescore > TOL_SEARCH):
             fail("serve", f"cpu check of request {i} beyond tol "
                  f"{TOL_SEARCH}")
+    fused_launches = serve_fused(K, model, params, reqs, results)
+    return launches, fused_launches
+
+
+def serve_fused(K, model, params, reqs_off, results_off):
+    """The same 96 requests again with ``fused_bigru`` on: every prefill's
+    encoder runs K11's inference variant in place of two K3 calls, and
+    every answer's ids and scores are those of the default run, bit for
+    bit (K11's rows are K3's)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.serving import Seq2SeqSlotBackend, SlotScheduler
+
+    reqs, _ = make_requests(np.random.default_rng(SEED), model.src_vocab)
+    with train_config("fused_bigru"):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        backend = Seq2SeqSlotBackend(model, params, src_len=SRC_LEN,
+                                     beam_size=BEAM, max_len=MAX_LEN)
+        sched = SlotScheduler(backend, slots=SLOTS)
+        results, prefills = serve(sched, reqs)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = K.launch_counts()
+    if len(results) != N_REQUESTS:
+        fail("serve", f"fused_bigru: {len(results)}/{N_REQUESTS} answered")
+    if not (launches["bigru_forward"] > 0 and launches["gru_forward"] == 0
+            and launches["topk_lse_readout"] > 0):
+        fail("serve", f"fused_bigru: launches {launches}")
+    differ = [i for i, (a, b) in enumerate(zip(reqs_off, reqs))
+              if not (np.array_equal(results_off[id(a)][0]["tokens"],
+                                     results[id(b)][0]["tokens"])
+                      and np.array_equal(results_off[id(a)][0]["scores"],
+                                         results[id(b)][0]["scores"]))]
+    print(f"serve: fused_bigru: {N_REQUESTS} requests, {elapsed:.3f} s, "
+          f"{N_REQUESTS / elapsed:.2f} requests/s, {prefills} prefills, ids "
+          f"and scores identical to the default run on "
+          f"{N_REQUESTS - len(differ)}/{N_REQUESTS}, launches {launches}",
+          flush=True)
+    if differ:
+        fail("serve", f"fused_bigru: requests {differ} differ from the "
+             f"default run")
     return launches
 
 
@@ -1118,8 +1415,27 @@ def analytic_flops(m, B, S, T) -> float:
     return 3.0 * fwd
 
 
-def train_path(K, dev):
-    """6 Adam steps of the full-width flagship at B=384, S=T=32, bf16."""
+@contextlib.contextmanager
+def train_config(config: str):
+    """The flagship's two switches for one configuration: ``default`` (both
+    off, the reference's default), ``fused_bigru`` (K11 in place of the two
+    K3r/K4 calls), ``lse_readout`` (K12 in place of K1/K2) or ``both``."""
+    from paddle_tpu_torch.ops import losses
+    from paddle_tpu_torch.utils.flags import FLAGS
+
+    old = FLAGS.fused_bigru, losses._USE_LSE_READOUT
+    FLAGS.fused_bigru = config in ("fused_bigru", "both")
+    losses._USE_LSE_READOUT = config in ("lse_readout", "both")
+    try:
+        yield
+    finally:
+        FLAGS.fused_bigru, losses._USE_LSE_READOUT = old
+
+
+def train_path(K, dev, config: str = "default"):
+    """6 Adam steps of the full-width flagship at B=384, S=T=32, bf16, in
+    one configuration, from the same initial parameters and batch.
+    Returns the launches, the losses and each step's seconds."""
     import numpy as np
     import torch
 
@@ -1141,38 +1457,83 @@ def train_path(K, dev):
         opt.update(params, dict(zip(params, grads)), state)
         return loss
 
-    K.reset_launch_counts()
-    losses, secs = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        losses.append(step().item())                # synchronises
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-    launches = K.launch_counts()
+    with train_config(config):
+        K.reset_launch_counts()
+        losses, secs = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step().item())                # synchronises
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        launches = K.launch_counts()
 
     if not all(np.isfinite(losses)):
-        fail("train", f"loss not finite: {losses}")
+        fail("train", f"{config}: loss not finite: {losses}")
     if not losses[-1] < losses[0]:
-        fail("train", f"loss did not fall: {losses}")
+        fail("train", f"{config}: loss did not fall: {losses}")
     if int(state["step"]) != TRAIN_STEPS:
-        fail("train", f"optimizer step counter {int(state['step'])} after "
-             f"{TRAIN_STEPS} updates")
-    for name in TRAIN_KERNELS:
-        if launches[name] <= 0:
-            fail("train", f"kernel {name} was not launched on the train path")
-    steady = sorted(secs[1:])
-    sec = steady[len(steady) // 2]
-    flops = analytic_flops(model, TRAIN_B, TRAIN_S, TRAIN_T)
-    print(f"train: losses {[round(x, 6) for x in losses]}", flush=True)
-    print(f"train: B={TRAIN_B} S={TRAIN_S} T={TRAIN_T} bf16 Adam, "
-          f"{TRAIN_STEPS} steps: first step {secs[0]:.3f} s, median of the "
-          f"rest {sec * 1e3:.2f} ms/step ({[round(x * 1e3, 2) for x in secs]}"
-          f" ms), {TRAIN_B * TRAIN_T / sec:.1f} words/s, MFU "
-          f"{flops / sec / PEAK_OPS_PER_S['bfloat16']:.4%} of 989 TFLOP/s "
-          f"({flops:.4e} FLOP/step), peak memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB, "
-          f"launches {launches}", flush=True)
-    return launches
+        fail("train", f"{config}: optimizer step counter "
+             f"{int(state['step'])} after {TRAIN_STEPS} updates")
+    # each configuration launches exactly its kernels: K11 twice a step in
+    # place of K3r/K4, K12 once a step in place of K1/K2
+    want = dict.fromkeys(TRAIN_KERNELS, None)
+    want.update(dict.fromkeys(FUSED_BIGRU_KERNELS + LSE_READOUT_KERNELS, 0))
+    if config == "fused_bigru":
+        want.update(gru_forward=0, gru_backward=0, bigru_forward=TRAIN_STEPS,
+                    bigru_backward=TRAIN_STEPS)
+    if config == "lse_readout":
+        want.update(ce_readout_fwd=0, ce_readout_bwd=0,
+                    logsumexp_rows=TRAIN_STEPS)
+    for name, n in want.items():
+        if (launches[name] <= 0) if n is None else (launches[name] != n):
+            fail("train", f"{config}: kernel {name} launched "
+                 f"{launches[name]} times in {TRAIN_STEPS} steps (want "
+                 f"{'some' if n is None else n})")
+    return {"launches": launches, "losses": losses, "secs": secs,
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "flops": analytic_flops(model, TRAIN_B, TRAIN_S, TRAIN_T)}
+
+
+def train_ab(K, dev):
+    """The three training configurations in one process, in turns
+    (default, fused_bigru, lse_readout, then the reverse order), 6 steps
+    each from the same parameters: each one's losses, median step time of
+    steps 2-6 over both turns, words/s, MFU and launches.  Step 1's loss
+    with the fused encoder equals the default's exactly (K11's rows are
+    K3's bit for bit); with the LSE readout it is within TOL_LSE_LOSS.
+    Returns each configuration's launches (first turn)."""
+    runs = {c: [] for c in TRAIN_CONFIGS}
+    for order in (TRAIN_CONFIGS, TRAIN_CONFIGS[::-1]):
+        for config in order:
+            runs[config].append(train_path(K, dev, config))
+    ref = [r["losses"][0] for r in runs["default"]]
+    for config in TRAIN_CONFIGS:
+        first = [r["losses"][0] for r in runs[config]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(first, ref))
+        steady = sorted(x for r in runs[config] for x in r["secs"][1:])
+        sec = steady[len(steady) // 2]
+        flops = runs[config][0]["flops"]
+        all_ms = [round(x * 1e3, 2) for r in runs[config] for x in r["secs"]]
+        print(f"train: {config}: losses "
+              f"{[round(x, 6) for x in runs[config][0]['losses']]}",
+              flush=True)
+        print(f"train: {config}: B={TRAIN_B} S={TRAIN_S} T={TRAIN_T} bf16 "
+              f"Adam, 2 x {TRAIN_STEPS} steps: first steps "
+              f"{[round(r['secs'][0], 3) for r in runs[config]]} s, median "
+              f"of the rest {sec * 1e3:.2f} ms/step ({all_ms} ms), "
+              f"{TRAIN_B * TRAIN_T / sec:.1f} words/s, MFU "
+              f"{flops / sec / PEAK_OPS_PER_S['bfloat16']:.4%} of 989 "
+              f"TFLOP/s ({flops:.4e} FLOP/step), peak memory "
+              f"{max(r['peak_gib'] for r in runs[config]):.2f} GiB, step-1 "
+              f"loss rel diff to default {rel:.3e}, launches "
+              f"{runs[config][0]['launches']}", flush=True)
+        if config == "fused_bigru" and first != ref:
+            fail("train", f"fused_bigru step-1 loss {first} differs from the "
+                 f"default's {ref}")
+        if config == "lse_readout" and not rel <= TOL_LSE_LOSS:
+            fail("train", f"lse_readout step-1 loss {first} beyond "
+                 f"{TOL_LSE_LOSS} of the default's {ref}")
+    return {c: runs[c][0]["launches"] for c in TRAIN_CONFIGS}
 
 
 #: card-vs-CPU training check (f32 on both sides): the loss relative, each
@@ -1181,10 +1542,10 @@ def train_path(K, dev):
 TOL_TRAIN_LOSS, TOL_TRAIN_GRAD = 1e-5, 1e-3
 
 
-def train_cpu_check(dev):
-    """The full-width model at B=8 (mixed lengths) in f32: loss and all 19
-    gradients on the card (kernels) against the CPU (plain versions), same
-    parameters."""
+def train_cpu_check(K, dev, config: str = "default"):
+    """The full-width model at B=8 (mixed lengths) in f32, in one training
+    configuration: loss and all 19 gradients on the card (kernels) against
+    the CPU (plain versions), same parameters."""
     import numpy as np
     import torch
 
@@ -1202,25 +1563,34 @@ def train_cpu_check(dev):
     batch = train_batch(np.random.RandomState(SEED + 1), cpu, 8, TRAIN_S,
                         TRAIN_T, mixed=True)
     out = {}
-    with compute_dtype_scope("float32"):
+    with compute_dtype_scope("float32"), train_config(config):
+        K.reset_launch_counts()
         for name, model, dv in (("card", card, dev), ("cpu", cpu, "cpu")):
             p = {k: v.to(dv).requires_grad_() for k, v in params.items()}
             loss = model.loss(p, batch)
             grads = torch.autograd.grad(loss, list(p.values()))
             out[name] = (loss.item(), [g.cpu() for g in grads])
+        launches = K.launch_counts()
+    optional = FUSED_BIGRU_KERNELS + LSE_READOUT_KERNELS
+    ran, idle = ((optional, ("gru_forward", "gru_backward", "ce_readout_fwd",
+                             "ce_readout_bwd"))
+                 if config == "both" else (TRAIN_KERNELS, optional))
+    if not (all(launches[k] > 0 for k in ran)
+            and all(launches[k] == 0 for k in idle)):
+        fail("train", f"{config} card vs CPU: launches {launches}")
     d_loss = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
     worst, worst_name = 0.0, ""
     for name, a, c in zip(params, out["card"][1], out["cpu"][1]):
         rel = (a - c).abs().max().item() / c.abs().max().item()
         if rel > worst:
             worst, worst_name = rel, name
-    print(f"train: card vs CPU at B=8, full width, f32: loss "
+    print(f"train: {config}: card vs CPU at B=8, full width, f32: loss "
           f"{out['card'][0]:.7f} vs {out['cpu'][0]:.7f} (rel diff "
           f"{d_loss:.3e}, tol {TOL_TRAIN_LOSS}); 19 gradients, worst max "
           f"|diff| / max |g| {worst:.3e} ({worst_name}, tol "
           f"{TOL_TRAIN_GRAD})", flush=True)
     if not (d_loss <= TOL_TRAIN_LOSS and worst <= TOL_TRAIN_GRAD):
-        fail("train", "card and CPU disagree beyond tolerance")
+        fail("train", f"{config}: card and CPU disagree beyond tolerance")
 
 
 # ---------------------------------------------------------------------------
@@ -1640,7 +2010,9 @@ def main() -> int:
         flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
         rows = [check_gru(K, flush, dev), check_topk(K, flush, dev)]
         rows += check_gru_train(K, flush, dev)
+        rows += check_bigru(K, flush, dev)
         rows += check_ce(K, flush, dev)
+        rows.append(check_lse(K, flush, dev))
         rows += check_attn_dec(K, flush, dev)
         rows += check_lstm(K, flush, dev)
         rows.append(check_topk_logits(K, flush, dev))
@@ -1649,10 +2021,11 @@ def main() -> int:
         del flush
         torch.cuda.empty_cache()
         phase = "serve"
-        serve_launches = serve_path(K, dev)
+        serve_launches, serve_fused_launches = serve_path(K, dev)
         phase = "train"
-        train_launches = train_path(K, dev)
-        train_cpu_check(dev)
+        train_launches = train_ab(K, dev)
+        train_cpu_check(K, dev)
+        train_cpu_check(K, dev, "both")
         torch.cuda.empty_cache()
         phase = "textclf"
         textclf = {}
@@ -1676,17 +2049,27 @@ def main() -> int:
         fail(phase, "raised")
     # each row's launches come from the path that runs it: K3 inference and
     # K7 from serving; K3 with residuals, K4, K1, K2, K5 and K6 from
-    # training; K9 inference from the textclf inference pass, K9 with
-    # residuals and K10 from the textclf training run at the row's width;
-    # K8 from the DSL generation run
+    # training (default configuration); K11 inference from serving with
+    # fused_bigru, K11 with residuals and its reverse from training with
+    # fused_bigru; K12 from training with the LSE readout; K9 inference
+    # from the textclf inference pass, K9 with residuals and K10 from the
+    # textclf training run at the row's width; K8 from the DSL generation
+    # run
     for row in rows:
         name = row["name"]
-        if name == "topk_lse_logits":
+        if name == "bigru_forward":
+            row["launches"] = serve_fused_launches[name]
+        elif name in ("bigru_forward_residuals", "bigru_backward"):
+            row["launches"] = train_launches["fused_bigru"][
+                name.replace("_residuals", "")]
+        elif name == "logsumexp_rows":
+            row["launches"] = train_launches["lse_readout"][name]
+        elif name == "topk_lse_logits":
             row["launches"] = dslgen_launches[name]
         elif name in ("gru_forward", "topk_lse_readout"):
             row["launches"] = serve_launches[name]
         elif name == "gru_forward_residuals":
-            row["launches"] = train_launches["gru_forward"]
+            row["launches"] = train_launches["default"]["gru_forward"]
         elif name == "lstm_forward":
             row["launches"] = infer_launches["lstm_forward"]
         elif name.startswith("lstm_"):
@@ -1696,7 +2079,7 @@ def main() -> int:
                 "lstm_forward" if kernel.startswith("lstm_forward")
                 else "lstm_backward"]
         else:
-            row["launches"] = train_launches[name]
+            row["launches"] = train_launches["default"][name]
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

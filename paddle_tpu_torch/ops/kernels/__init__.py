@@ -17,7 +17,15 @@ attn_dec_bwd        csrc/attn_dec_bwd.cu        ::attn_dec_bwd_pallas (K6)
 lstm_forward        csrc/lstm_forward.cu        ::_lstm_pallas_raw (K9, with
                                                 and without residuals)
 lstm_backward       csrc/lstm_backward.cu       ::_lstm_bwd_pallas_raw (K10)
+bigru_forward       csrc/bigru_forward.cu       ::_gru_pallas_raw with
+                                                batch_split (K11, with and
+                                                without residuals)
+bigru_backward      csrc/bigru_backward.cu      ::_gru_bwd_pallas_raw with
+                                                batch_split (K11 reverse)
+logsumexp_rows      csrc/logsumexp_rows.cu      ::logsumexp_rows_pallas (K12)
 ==================  ==========================  ==============================
+
+K3/K4 and K11 share their step kernels (``csrc/gru_common.cuh``).
 
 Each wrapper runs its plain version for a CPU tensor and launches its kernel
 (or raises) for a CUDA tensor, and counts its launches
@@ -26,6 +34,10 @@ Each wrapper runs its plain version for a CPU tensor and launches its kernel
 
 from paddle_tpu_torch.ops.kernels.attention_decoder import (
     attn_dec_bwd, attn_dec_bwd_plain, attn_dec_fwd, attn_dec_fwd_plain)
+from paddle_tpu_torch.ops.kernels.bigru import (bigru_backward,
+                                                bigru_backward_plain,
+                                                bigru_forward,
+                                                bigru_forward_plain)
 from paddle_tpu_torch.ops.kernels.build import (LIBRARIES, build_all,
                                                 launch_counts,
                                                 reset_launch_counts)
@@ -36,6 +48,8 @@ from paddle_tpu_torch.ops.kernels.ce_readout import (ce_readout_bwd,
 from paddle_tpu_torch.ops.kernels.gru import (gru_backward,
                                               gru_backward_plain,
                                               gru_forward, gru_forward_plain)
+from paddle_tpu_torch.ops.kernels.logsumexp import (logsumexp_rows,
+                                                    logsumexp_rows_plain)
 from paddle_tpu_torch.ops.kernels.lstm import (lstm_backward,
                                                lstm_backward_plain,
                                                lstm_forward,
@@ -53,4 +67,6 @@ __all__ = ["LIBRARIES", "build_all", "launch_counts", "reset_launch_counts",
            "topk_lse_logits_plain", "attn_dec_fwd",
            "attn_dec_fwd_plain", "attn_dec_bwd", "attn_dec_bwd_plain",
            "lstm_forward", "lstm_forward_plain", "lstm_backward",
-           "lstm_backward_plain"]
+           "lstm_backward_plain", "bigru_forward", "bigru_forward_plain",
+           "bigru_backward", "bigru_backward_plain", "logsumexp_rows",
+           "logsumexp_rows_plain"]

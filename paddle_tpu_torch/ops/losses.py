@@ -13,6 +13,16 @@ backward's residual; the backward scales each row by
 ``d * mask / max(sum(mask), 1)`` and the ``ce_readout_bwd`` kernel (K2)
 returns ``d_states``, ``d_w`` and ``d_b`` without storing ``d_logits``.
 On the CPU both kernels run their plain versions.
+
+With the module switch ``_USE_LSE_READOUT`` on (the reference's
+``_USE_PALLAS_LSE_READOUT``, ``:122-195``; off by default as there) it
+takes the logsumexp readout instead (``_CEReadoutLSE``): the logits are
+built once in the compute dtype by a plain product (``_readout_logits``),
+the ``logsumexp_rows`` kernel (K12) reads them once for each row's
+statistics, and the backward materialises ``d_logits`` in the compute
+dtype and takes two products.  The reference's ``gcd(B*T, 64) < 8``
+fallback to an XLA reduction is a TPU sublane rule and is not ported: K12
+takes any row count.
 """
 
 from __future__ import annotations
@@ -21,7 +31,9 @@ import torch
 
 from paddle_tpu_torch.ops.kernels.ce_readout import (ce_readout_bwd,
                                                      ce_readout_fwd)
-from paddle_tpu_torch.ops.numerics import mxu_cast
+from paddle_tpu_torch.ops.kernels.logsumexp import logsumexp_rows
+from paddle_tpu_torch.ops.matmul import matmul
+from paddle_tpu_torch.ops.numerics import bwd_einsum, compute_dtype, mxu_cast
 
 __all__ = ["cross_entropy", "sequence_cross_entropy", "masked_token_mean",
            "sequence_softmax_ce_readout"]
@@ -81,11 +93,68 @@ class _CEReadout(torch.autograd.Function):
                 d_b.to(b_dt), None, None)
 
 
+def _readout_logits(states: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """states [..., D] @ w [D, V] + b -> logits [..., V] in the compute
+    dtype, as the reference's ``_readout_logits``: the product of
+    compute-dtype operands accumulates in float32 and is rounded once to the
+    compute dtype, and the bias is added in that dtype."""
+    logits = matmul(states, w).to(compute_dtype())
+    return logits + b.to(logits.dtype)
+
+
+#: the logsumexp readout (``_CEReadoutLSE``, K12) in place of the tiled
+#: K1/K2 pair; the reference's ``_USE_PALLAS_LSE_READOUT``, off as there
+_USE_LSE_READOUT = False
+
+
+class _CEReadoutLSE(torch.autograd.Function):
+    """(states [B, T, D], w [D, V], b [V], labels, mask) -> scalar loss
+    through materialised logits and the one-pass row logsumexp (K12)."""
+
+    @staticmethod
+    def forward(ctx, states, w, b, labels, mask):
+        B, T, _ = states.shape
+        logits = _readout_logits(states, w, b)              # [B, T, V]
+        V = logits.shape[-1]
+        lse = logsumexp_rows(logits.reshape(B * T, V)).reshape(B, T)
+        lab = labels.long().unsqueeze(-1)
+        tok = torch.gather(logits, -1, lab).squeeze(-1).float()
+        loss = masked_token_mean(lse - tok, mask)
+        ctx.save_for_backward(states, w, logits, lse, lab, mask)
+        ctx.b_dtype = b.dtype
+        return loss
+
+    @staticmethod
+    def backward(ctx, d):
+        states, w, logits, lse, lab, mask = ctx.saved_tensors
+        mask_f = mask.float()
+        scale = d * mask_f / torch.clamp(mask_f.sum(), min=1.0)  # [B, T]
+        # d_logits = (softmax - onehot) * scale, materialised once in the
+        # compute dtype; the softmax is recomputed from the logits and lse
+        # (in place on one float32 buffer)
+        p = logits.float().sub_(lse[..., None]).exp_().mul_(scale[..., None])
+        d_logits = p.to(logits.dtype)
+        del p
+        upd = (torch.gather(d_logits, -1, lab)
+               - scale[..., None].to(d_logits.dtype))
+        d_logits.scatter_(-1, lab, upd)
+        dl_c, w_c, s_c = mxu_cast(d_logits, w, states)
+        d_states = bwd_einsum("btv,dv->btd", dl_c, w_c)
+        d_w = bwd_einsum("btd,btv->dv", s_c, dl_c)
+        d_b = d_logits.sum(dim=(0, 1), dtype=torch.float32)
+        return (d_states.to(states.dtype), d_w.to(w.dtype),
+                d_b.to(ctx.b_dtype), None, None)
+
+
 def sequence_softmax_ce_readout(states: torch.Tensor, w: torch.Tensor,
                                 b: torch.Tensor, labels: torch.Tensor,
                                 mask: torch.Tensor) -> torch.Tensor:
     """Fused vocab readout + token CE: states [B, T, D] x w [D, V] + b [V]
     against labels [B, T] int, averaged over mask [B, T] -> scalar loss
     (float32).  The [B*T, V] logits exist once, in the compute dtype; the
-    float32 logits and ``d_logits`` never reach device memory."""
+    float32 logits and ``d_logits`` never reach device memory.  With
+    ``_USE_LSE_READOUT`` the logsumexp readout runs instead (K12)."""
+    if _USE_LSE_READOUT:
+        return _CEReadoutLSE.apply(states, w, b, labels, mask)
     return _CEReadout.apply(states, w, b, labels, mask)

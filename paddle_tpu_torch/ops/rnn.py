@@ -3,7 +3,9 @@
 
 The input projection for all timesteps is one matmul outside the time loop;
 the default-activation cells run their loops in the kernels (GRU:
-``gru_forward``/``gru_backward`` through ``rnn_fused.gru_sequence_fused``;
+``gru_forward``/``gru_backward`` through ``rnn_fused.gru_sequence_fused``,
+or, for ``bigru_layer`` under ``FLAGS.fused_bigru``, ``bigru_forward``/
+``bigru_backward`` through ``rnn_fused.bigru_sequence_fused``;
 LSTM: ``lstm_forward``/``lstm_backward`` through
 ``rnn_fused.lstm_sequence_fused``), any other activation in the plain
 ``scan_rnn`` loop.  Do not swap in ``torch.nn.GRU``/``torch.nn.LSTM`` or
@@ -22,6 +24,7 @@ import torch
 from paddle_tpu_torch.ops.activations import get_activation
 from paddle_tpu_torch.ops.matmul import linear
 from paddle_tpu_torch.ops.numerics import bwd_mm
+from paddle_tpu_torch.utils.flags import FLAGS
 
 __all__ = ["gru_cell", "gru_cell_bwd", "gru_step", "lstm_cell",
            "lstm_cell_bwd", "lstm_step", "scan_rnn", "gru_layer",
@@ -191,11 +194,28 @@ def gru_layer(x: torch.Tensor, mask: torch.Tensor, w_x: Optional[torch.Tensor],
 
 def bigru_layer(x, mask, wx_fw, wh_fw, b_fw, wx_bw, wh_bw, b_bw
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Bidirectional GRU over a padded batch: two ``gru_layer`` calls, the
-    backward one reversed.  Returns (h_fw, h_bw, h_bw_final)."""
-    h_fw, _ = gru_layer(x, mask, wx_fw, wh_fw, b_fw)
-    h_bw, h_bw_fin = gru_layer(x, mask, wx_bw, wh_bw, b_bw, reverse=True)
-    return h_fw, h_bw, h_bw_fin
+    """Bidirectional GRU over a padded batch -- the flagship's encoder.
+    Returns (h_fw [B, T, H], h_bw [B, T, H], h_bw_final [B, H]).
+
+    By default two ``gru_layer`` calls, the backward one reversed.  With
+    ``FLAGS.fused_bigru`` both directions run in ONE time loop
+    (``rnn_fused.bigru_sequence_fused``, K11): the backward direction's
+    projection is flipped whole -- its padding moves to the front, where
+    the zero carry holds through the masked steps -- and stacked under the
+    forward one's, and its outputs are flipped back."""
+    if not FLAGS.fused_bigru:
+        h_fw, _ = gru_layer(x, mask, wx_fw, wh_fw, b_fw)
+        h_bw, h_bw_fin = gru_layer(x, mask, wx_bw, wh_bw, b_bw, reverse=True)
+        return h_fw, h_bw, h_bw_fin
+    from paddle_tpu_torch.ops.rnn_fused import bigru_sequence_fused
+
+    B = x.shape[0]
+    xp_fw = linear(x, wx_fw, b_fw)
+    xp_bw = linear(x, wx_bw, b_bw)
+    xp2 = torch.cat([xp_fw, torch.flip(xp_bw, [1])])
+    mask2 = torch.cat([mask, torch.flip(mask, [1])])
+    h2, h_fin2 = bigru_sequence_fused(xp2, mask2, wh_fw, wh_bw, B)
+    return h2[:B], torch.flip(h2[B:], [1]), h_fin2[B:]
 
 
 def lstm_layer(x: torch.Tensor, mask: torch.Tensor,

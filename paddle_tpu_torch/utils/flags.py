@@ -5,8 +5,14 @@ its own settings, never the JAX package's flags or its environment
 variables.  ``PADDLE_TPU_TORCH_COMPUTE_DTYPE`` overrides the compute dtype
 at import (the reference's ``PADDLE_TPU_COMPUTE_DTYPE`` analogue).
 
-There is no ``use_pallas_*`` flag: on the card a kernel always runs, and
-on the CPU its plain PyTorch version runs.  ``max_gen_length`` is not here:
+No flag chooses a plain version: on the card a kernel always runs, and on
+the CPU its plain PyTorch version runs.  ``fused_bigru`` (the reference's
+``use_pallas_bigru``, off by default as there) chooses between two kernel
+paths for a bidirectional GRU layer: two one-direction loops (K3/K4) or one
+loop over both directions (K11).  The reference's other conditions for its
+fused path (``use_pallas_rnn``, the TPU backend, ``H % 128``, ``2B % 8``,
+the VMEM cap) are TPU rules and are not ported: the port's kernel takes
+any B and H.  ``max_gen_length`` is not here:
 no module of either package reads it (the reference defines it for its
 CLI surface, which a later slice ports).
 """
@@ -28,6 +34,9 @@ class Flags:
     decode_early_exit: bool = True
     #: default beam width of the slot backend (the reference's default)
     beam_size: int = 3
+    #: a bidirectional GRU layer runs both directions in one time loop
+    #: (K11, ``ops/rnn_fused.py::bigru_sequence_fused``) instead of two
+    fused_bigru: bool = False
 
 
 FLAGS = Flags(

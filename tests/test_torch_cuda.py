@@ -17,11 +17,16 @@ import torch
 
 from paddle_tpu_torch.ops.kernels import (attn_dec_bwd, attn_dec_bwd_plain,
                                           attn_dec_fwd, attn_dec_fwd_plain,
+                                          bigru_backward,
+                                          bigru_backward_plain,
+                                          bigru_forward, bigru_forward_plain,
                                           ce_readout_bwd, ce_readout_bwd_plain,
                                           ce_readout_fwd, ce_readout_fwd_plain,
                                           gru_backward, gru_backward_plain,
                                           gru_forward, gru_forward_plain,
-                                          launch_counts, lstm_backward,
+                                          launch_counts, logsumexp_rows,
+                                          logsumexp_rows_plain,
+                                          lstm_backward,
                                           lstm_backward_plain, lstm_forward,
                                           lstm_forward_plain,
                                           topk_lse_logits,
@@ -611,3 +616,152 @@ def test_seqtoseq_generation_on_the_card_matches_the_cpu(dev):
     assert torch.equal(gt.value.cpu(), ct.value)
     torch.testing.assert_close(gt.state["scores"].cpu(), ct.state["scores"],
                                rtol=1e-5, atol=1e-5)
+
+
+def _bigru_inputs(B, T, H, seed):
+    """A stacked bidirectional batch: 2B rows, ragged lengths, the backward
+    half's mask flipped in time (padding at the front)."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(1, T + 1, (B,))
+    lens[0] = T
+    m = (np.arange(T)[None] < lens[:, None]).astype(np.float32)
+    m2 = np.concatenate([m, m[:, ::-1]]).T.copy()             # [T, 2B]
+    xp = (0.5 * rng.randn(T, 2 * B, 3 * H)).astype(np.float32)
+    w2 = ((2.0 / (4 * H)) ** 0.5 * rng.randn(2 * H, 3 * H)).astype(
+        np.float32)
+    d_out = rng.randn(T, 2 * B, H).astype(np.float32)
+    d_hfin = rng.randn(2 * B, H).astype(np.float32)
+    return [torch.from_numpy(a) for a in (xp, m2, w2, d_out, d_hfin)]
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,H", [(5, 9, 40), (384, 6, 128)])
+def test_bigru_kernels_bit_identical_to_two_gru_calls(dev, cd, B, T, H):
+    """K11 (inference and residual variants, and the reverse loop) against
+    K3/K4 called once per direction on the same rows: every output bit for
+    bit, since a row's arithmetic and its order are shared
+    (csrc/gru_common.cuh).  B = 5 leaves a partial row block on each side
+    of the split; each wrapper launches once."""
+    xp, m2, w2, d_out, d_hfin = (t.to(dev) for t in _bigru_inputs(
+        B, T, H, B + H))
+    halves = ((slice(0, B), w2[:H]), (slice(B, None), w2[H:]))
+    with compute_dtype_scope(cd):
+        before = launch_counts()
+        inf = bigru_forward(xp, m2, w2, residuals=False, batch_split=B)
+        res = bigru_forward(xp, m2, w2, residuals=True, batch_split=B)
+        w_t = torch.cat([w2[:H].t(), w2[H:].t()], 1).contiguous()
+        d_z, d_h0 = bigru_backward(d_out, m2, res[2], res[3], w_t, d_hfin,
+                                   batch_split=B)
+        after = launch_counts()
+        assert after["bigru_forward"] == before["bigru_forward"] + 2
+        assert after["bigru_backward"] == before["bigru_backward"] + 1
+        assert after["gru_forward"] == before["gru_forward"]
+        assert after["gru_backward"] == before["gru_backward"]
+        for rows, w in halves:
+            x, m = xp[:, rows].transpose(0, 1), m2[:, rows].t()
+            h_seq, h_fin = gru_forward(x, m, w)
+            assert torch.equal(inf[0][:, rows], h_seq.transpose(0, 1))
+            assert torch.equal(inf[1][rows], h_fin)
+            r = gru_forward(x, m, w, residuals=True)
+            assert torch.equal(res[0][:, rows], r[0].transpose(0, 1))
+            for got, want in zip(res[1:], (r[1], r[2], r[3])):
+                assert torch.equal(got[rows] if got.dim() == 2
+                                   else got[:, rows], want)
+            dz, dh0 = gru_backward(d_out[:, rows], m2[:, rows],
+                                   res[2][:, rows], res[3][:, rows],
+                                   w.t().contiguous(), d_hfin[rows])
+            assert torch.equal(d_z[:, rows], dz)
+            assert torch.equal(d_h0[rows], dh0)
+
+
+@pytest.mark.parametrize("B,T,H", [(3, 7, 16), (33, 5, 96)])
+def test_bigru_kernels_match_plain_versions(dev, B, T, H):
+    """K11 against its plain version (two one-direction step loops) at f32:
+    the same sums in another order."""
+    xp, m2, w2, d_out, d_hfin = (t.to(dev) for t in _bigru_inputs(
+        B, T, H, 7 * B))
+    w_t = torch.cat([w2[:H].t(), w2[H:].t()], 1)
+    with compute_dtype_scope("float32"):
+        got = bigru_forward(xp, m2, w2, residuals=True, batch_split=B)
+        want = bigru_forward_plain(xp, m2, w2, residuals=True,
+                                   batch_split=B)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        g = bigru_backward(d_out, m2, got[2], got[3], w_t, d_hfin,
+                           batch_split=B)
+        p = bigru_backward_plain(d_out, m2, got[2], got[3], w_t, d_hfin,
+                                 batch_split=B)
+    for a, b in zip(g, p):
+        _rel_close(a, b, 1e-5)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,V", [(37, 50), (9, 3), (20, 30000),
+                                 (11, 1031)])
+def test_logsumexp_kernel_matches_plain_version(dev, N, V, dt):
+    """K12 at row widths that are and are not 16-byte aligned (V = 50 in
+    bf16 is 100 bytes a row), a row with -inf entries and an all -inf row
+    (nan on both sides, the reference's answer); one launch."""
+    rng = np.random.RandomState(N + V)
+    x = (3.0 * rng.randn(N, V)).astype(np.float32)
+    x[1, ::2] = -np.inf
+    x[2] = -np.inf
+    xt = torch.from_numpy(x).to(dev, dt)
+    before = launch_counts()["logsumexp_rows"]
+    got = logsumexp_rows(xt)
+    assert launch_counts()["logsumexp_rows"] == before + 1
+    want = logsumexp_rows_plain(xt)
+    assert torch.isnan(got[2]) and torch.isnan(want[2])
+    keep = torch.arange(N, device=dev) != 2
+    torch.testing.assert_close(got[keep], want[keep], rtol=1e-6, atol=1e-5)
+    # a strided view reads as its contiguous copy (nan included)
+    torch.testing.assert_close(logsumexp_rows(xt.t().contiguous().t()), got,
+                               rtol=0, atol=0, equal_nan=True)
+
+
+def test_fused_encoder_and_lse_readout_train_on_the_card_as_on_the_cpu(dev):
+    """A small model's loss and 19 gradients at f32 with both switches on:
+    the card (K11 and K12 with the decoder's kernels) against the CPU
+    (their plain versions); the two-call encoder and K1/K2 not launched."""
+    from paddle_tpu_torch.models import Seq2SeqAttention
+    from paddle_tpu_torch.ops import losses
+    from paddle_tpu_torch.utils.flags import FLAGS
+
+    cfg = dict(src_vocab=60, trg_vocab=300, emb_dim=16, enc_dim=32,
+               dec_dim=32, att_dim=16)
+    cpu = Seq2SeqAttention(**cfg, device="cpu")
+    card = Seq2SeqAttention(**cfg, device=dev)
+    params = cpu.init(seed=4)
+    for k, f in (("src_emb", 50.0), ("trg_emb", 50.0), ("att_v", 20.0)):
+        params[k] = params[k] * f
+    rng = np.random.RandomState(4)
+    B, S, T = 5, 8, 6
+    core = rng.randint(3, 300, (B, T - 1))
+    batch = {"src_ids": rng.randint(3, 60, (B, S)),
+             "src_len": np.array([8, 3, 6, 1, 5]),
+             "trg_in": np.concatenate([np.zeros((B, 1), int), core], 1),
+             "trg_next": np.concatenate([core, np.ones((B, 1), int)], 1),
+             "trg_len": np.array([6, 2, 1, 6, 4])}
+    out = {}
+    old = FLAGS.fused_bigru, losses._USE_LSE_READOUT
+    FLAGS.fused_bigru, losses._USE_LSE_READOUT = True, True
+    try:
+        before = launch_counts()
+        with compute_dtype_scope("float32"):
+            for name, model, dv in (("cpu", cpu, "cpu"), ("card", card, dev)):
+                p = {k: v.to(dv).requires_grad_() for k, v in params.items()}
+                loss = model.loss(p, batch)
+                grads = torch.autograd.grad(loss, list(p.values()))
+                out[name] = (loss.detach().cpu(), [g.cpu() for g in grads])
+        after = launch_counts()
+    finally:
+        FLAGS.fused_bigru, losses._USE_LSE_READOUT = old
+    for k in ("bigru_forward", "bigru_backward", "logsumexp_rows"):
+        assert after[k] == before[k] + 1, k
+    for k in ("gru_forward", "gru_backward", "ce_readout_fwd",
+              "ce_readout_bwd"):
+        assert after[k] == before[k], k
+    torch.testing.assert_close(out["card"][0], out["cpu"][0], rtol=1e-5,
+                               atol=0)
+    for got, want in zip(out["card"][1], out["cpu"][1]):
+        _rel_close(got, want, 1e-4)

@@ -282,7 +282,10 @@ def test_kernel_sources_exist_and_name_what_they_replace():
             "attn_dec_fwd": "attn_dec_fwd_pallas",
             "attn_dec_bwd": "attn_dec_bwd_pallas",
             "lstm_forward": "_lstm_pallas_raw",
-            "lstm_backward": "_lstm_bwd_pallas_raw"}
+            "lstm_backward": "_lstm_bwd_pallas_raw",
+            "bigru_forward": "_gru_pallas_raw",
+            "bigru_backward": "_gru_bwd_pallas_raw",
+            "logsumexp_rows": "logsumexp_rows_pallas"}
     assert set(LIBRARIES) == set(want)
     for name, lib in LIBRARIES.items():
         with open(lib.source) as f:
@@ -319,3 +322,26 @@ def test_wrappers_refuse_devices_without_a_kernel():
         topk_lse_readout(torch.zeros(4, 8, device=meta),
                          torch.zeros(8, 20, device=meta),
                          torch.zeros(20, device=meta), 3)
+
+
+def test_bigru_and_logsumexp_wrappers_refuse_devices_without_a_kernel():
+    """K11 and K12 likewise: a device that is neither the CPU nor CUDA is
+    refused."""
+    from paddle_tpu_torch.ops.kernels import (bigru_backward, bigru_forward,
+                                              logsumexp_rows)
+
+    meta = torch.device("meta")
+    T, B, H = 3, 2, 4
+
+    def z(*shape):
+        return torch.zeros(*shape, device=meta)
+
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        bigru_forward(z(T, 2 * B, 3 * H), z(T, 2 * B), z(2 * H, 3 * H),
+                      batch_split=B)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        bigru_backward(z(T, 2 * B, H), z(T, 2 * B), z(T, 2 * B, 3 * H),
+                       z(T, 2 * B, H), z(3 * H, 2 * H), z(2 * B, H),
+                       batch_split=B)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        logsumexp_rows(z(4, 9))
