@@ -16,7 +16,8 @@ chunks   the chunk sizes of the batch-invariant products (``ops/matmul.py``:
          (B=384, S=T=32, bf16, Adam), the settings run in order and then in
          reverse so that each has two samples from one process;
 profile  one training step at that batch under ``torch.profiler`` (CUDA
-         activity only): the device's kernel time against the step's host
+         activity only), in the default and the ``fused_bigru``
+         configuration: the device's kernel time against the step's host
          time (the device's busy share) and the kernels with the most
          device time;
 textclf  the same for one training step of the text-classification path
@@ -210,8 +211,10 @@ def _profile_step(label: str, step, top_n: int = 8) -> None:
 
 def probe_profile(dev):
     _, step = _train_setup(dev)
-    _profile_step(f"one training step at B={smoke.TRAIN_B} S=T="
-                  f"{smoke.TRAIN_T} bf16", step)
+    for config in ("default", "fused_bigru"):
+        with smoke.train_config(config):
+            _profile_step(f"one training step at B={smoke.TRAIN_B} S=T="
+                          f"{smoke.TRAIN_T} bf16, {config}", step, top_n=20)
 
 
 def probe_textclf(dev):

@@ -15,7 +15,9 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             paths: K11, the fused bidirectional encoder, without and with
             residuals and its reverse, also held bit for bit against one
             K3/K4 call per direction; K12, the row logsumexp, with -inf
-            rows and a ragged vocabulary; text classification: K9
+            rows and a ragged vocabulary; K1 and K2 must take their TMA +
+            wgmma kernels at the training shape, and are also held and
+            timed on their WMMA kernels there; text classification: K9
             without and with residuals, K10; DSL generation: K8), with its
             time (CUDA events,
             L2 flushed before each call), the plain version's time, the
@@ -713,12 +715,67 @@ def check_lse(K, flush, dev):
                        ms, plain_ms, bms, by, library_ms)
 
 
-def check_ce(K, flush, dev):
-    """K1 and K2 at the training readout: N = B*T = 12288, D = 512,
-    V = 30000, bf16 operands, 1/12 of the rows masked."""
+def _ce_wmma_direct(fwd: bool, *args):
+    """The WMMA kernels (the path for bf16 shapes TMA cannot take) launched
+    at the training shape through their C entry points, to hold and time
+    them beside the wgmma path; not counted as launches."""
     import torch
 
+    from paddle_tpu_torch.ops.kernels.ce_readout import (CE_READOUT_BWD,
+                                                         CE_READOUT_FWD)
+
+    stream = torch.cuda.current_stream().cuda_stream
+    if fwd:
+        s, w, b, lab = args
+        N, V = s.shape[0], w.shape[1]
+        out = (torch.empty(N, device=s.device),
+               torch.empty(N, device=s.device),
+               torch.empty(N, V, dtype=s.dtype, device=s.device))
+        lab32 = lab.to(torch.int32)
+        CE_READOUT_FWD.call("ce_readout_fwd_bf16", s.data_ptr(), w.data_ptr(),
+                            b.data_ptr(), lab32.data_ptr(),
+                            *(t.data_ptr() for t in out), N, s.shape[1], V,
+                            stream)
+        return out
+    logits, s, w, lab, lse, scale = args
+    N, V, D = logits.shape[0], logits.shape[1], s.shape[1]
+    out = (torch.empty(N, D, device=s.device),
+           torch.empty(D, V, device=s.device), torch.empty(V, device=s.device))
+    lab32 = lab.to(torch.int32)
+    CE_READOUT_BWD.call("ce_readout_bwd_bf16", logits.data_ptr(), s.data_ptr(),
+                        w.data_ptr(), lab32.data_ptr(), lse.data_ptr(),
+                        scale.data_ptr(), *(t.data_ptr() for t in out), N, D,
+                        V, stream)
+    return out
+
+
+def _ce_paths(lib) -> dict:
+    return dict(lib.launches_by_path)
+
+
+def _ce_paths_since(lib, before: dict) -> dict:
+    """The launches by path since ``before`` (paths that moved only)."""
+    return {k: v - before.get(k, 0) for k, v in _ce_paths(lib).items()
+            if v != before.get(k, 0)}
+
+
+def check_ce(K, flush, dev):
+    """K1 and K2 at the training readout: N = B*T = 12288, D = 512,
+    V = 30000, bf16 operands, 1/12 of the rows masked.  The wrappers must
+    take the TMA + wgmma kernels here; the WMMA kernels (the path for
+    shapes TMA cannot take) are held and timed beside them."""
+    import torch
+
+    from paddle_tpu_torch.ops.kernels.ce_readout import (CE_READOUT_BWD,
+                                                         CE_READOUT_FWD,
+                                                         ce_kernel_info)
+
     N, D, V = TRAIN_B * TRAIN_T, 512, 30000
+    info = ce_kernel_info(D)
+    print("kernels: ce_readout registers / spilled bytes a thread / shared "
+          "bytes a block: " + ", ".join(
+              f"{k} {r}/{l}/{m}" for k, (r, l, m) in info.items()),
+          flush=True)
     g = torch.Generator().manual_seed(SEED + 3)
     s = torch.tanh(torch.randn(N, D, generator=g)).to(dev).bfloat16()
     w = ((2.0 / (D + V)) ** 0.5
@@ -728,16 +785,28 @@ def check_ce(K, flush, dev):
     mask = (torch.rand(N, generator=g) > 1 / 12).float().to(dev)
     scale = mask / mask.sum()
 
+    before = _ce_paths(CE_READOUT_FWD)
     pk, lk, logk = K.ce_readout_fwd(s, w, b, lab)
+    took = _ce_paths_since(CE_READOUT_FWD, before)
+    if took != {"wgmma": 1}:
+        fail("kernels", f"ce_readout_fwd at the training shape took {took}, "
+             f"not the wgmma path")
     pp, lp, logp = K.ce_readout_fwd_plain(s, w, b, lab)
+    pw, lw, logw = _ce_wmma_direct(True, s, w, b, lab)
     torch.cuda.synchronize()
     err = max(_max_err(pk, pp), _max_err(lk, lp))
+    err_w = max(_max_err(pw, pp), _max_err(lw, lp))
     tol = TOL["ce_readout_fwd"]
     if not (err <= tol and _within_bf16_ulp(logk, logp, 1e-6)):
         fail("kernels", f"ce_readout_fwd: max abs err {err} (tol {tol}) or "
              f"logits beyond one bf16 ulp")
-    del logp
+    if not (err_w <= tol and _within_bf16_ulp(logw, logp, 1e-6)):
+        fail("kernels", f"ce_readout_fwd (wmma): max abs err {err_w} (tol "
+             f"{tol}) or logits beyond one bf16 ulp")
+    del logp, logw
     ms = time_ms(lambda: K.ce_readout_fwd(s, w, b, lab), flush, reps=10)
+    wmma_ms = time_ms(lambda: _ce_wmma_direct(True, s, w, b, lab), flush,
+                      reps=10)
     plain_ms = time_ms(lambda: K.ce_readout_fwd_plain(s, w, b, lab), flush,
                        reps=10)
     b16 = b.bfloat16()
@@ -751,27 +820,41 @@ def check_ce(K, flush, dev):
     library_ms = time_ms(library_fwd, flush, reps=10)
     nbytes = N * D * 2 + D * V * 2 + V * 4 + N * 8 + N * 8 + N * V * 2
     bms, by = bound_ms(nbytes, 2.0 * N * D * V, "bfloat16")
-    print(f"kernels: ce_readout_fwd N={N} D={D} V={V} bf16 "
-          f"max_abs_err={err:.3e} (tol {tol}), logits within one bf16 ulp; "
-          f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-          f"bound_ms={bms:.5f} ({by})", flush=True)
+    print(f"kernels: ce_readout_fwd N={N} D={D} V={V} bf16 path=wgmma "
+          f"max_abs_err={err:.3e} (wmma {err_w:.3e}; tol {tol}), logits "
+          f"within one bf16 ulp; ms={ms:.4f} (share of bound "
+          f"{bms / ms:.3f}) wmma_ms={wmma_ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} bound_ms={bms:.5f} ({by})",
+          flush=True)
     rows = [_kernel_row("ce_readout_fwd", "ce_readout_fwd.cu", "1029", err,
                         ms, plain_ms, bms, by, library_ms)]
 
+    before = _ce_paths(CE_READOUT_BWD)
     gk = K.ce_readout_bwd(logk, s, w, lab, lk, scale)
+    took = _ce_paths_since(CE_READOUT_BWD, before)
+    if took != {"wgmma": 1}:
+        fail("kernels", f"ce_readout_bwd at the training shape took {took}, "
+             f"not the wgmma path")
+    gw = _ce_wmma_direct(False, logk, s, w, lab, lk, scale)
     gp = K.ce_readout_bwd_plain(logk, s, w, lab, lk, scale)
     torch.cuda.synchronize()
     tol = TOL["ce_readout_bwd"]
-    err, worst = 0.0, 0.0
-    for a, c in zip(gk, gp):
+    err, worst, worst_w = 0.0, 0.0, 0.0
+    for a, c, d in zip(gk, gp, gw):
         e = _max_err(a, c)
         err = max(err, e)
         worst = max(worst, e / c.abs().max().item())
+        worst_w = max(worst_w, _max_err(d, c) / c.abs().max().item())
     if not worst <= tol:
         fail("kernels", f"ce_readout_bwd: max err / max |g| {worst} > {tol}")
-    del gp
+    if not worst_w <= tol:
+        fail("kernels", f"ce_readout_bwd (wmma): max err / max |g| {worst_w}"
+             f" > {tol}")
+    del gp, gw
     ms = time_ms(lambda: K.ce_readout_bwd(logk, s, w, lab, lk, scale), flush,
                  reps=10)
+    wmma_ms = time_ms(lambda: _ce_wmma_direct(False, logk, s, w, lab, lk,
+                                              scale), flush, reps=10)
     plain_ms = time_ms(lambda: K.ce_readout_bwd_plain(
         logk, s, w, lab, lk, scale), flush, reps=10)
 
@@ -786,10 +869,18 @@ def check_ce(K, flush, dev):
     nbytes = (N * V * 2 + N * D * 2 + D * V * 2 + N * 12 + N * D * 4
               + D * V * 4 + V * 4)
     bms, by = bound_ms(nbytes, 4.0 * N * D * V, "bfloat16")
-    print(f"kernels: ce_readout_bwd N={N} D={D} V={V} bf16 "
-          f"max_abs_err={err:.3e} (max err / max |g| {worst:.3e}, tol {tol})"
-          f"; ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-          f"{library_ms:.4f} bound_ms={bms:.5f} ({by})", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    K.ce_readout_bwd(logk, s, w, lab, lk, scale)
+    torch.cuda.synchronize()
+    extra = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+    print(f"kernels: ce_readout_bwd N={N} D={D} V={V} bf16 path=wgmma "
+          f"max_abs_err={err:.3e} (max err / max |g| {worst:.3e}, wmma "
+          f"{worst_w:.3e}; tol {tol}); ms={ms:.4f} (share of bound "
+          f"{bms / ms:.3f}) wmma_ms={wmma_ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} bound_ms={bms:.5f} ({by}); "
+          f"outputs + scratch {extra:.1f} MiB", flush=True)
     rows.append(_kernel_row("ce_readout_bwd", "ce_readout_bwd.cu", "1101",
                             err, ms, plain_ms, bms, by, library_ms))
     return rows
@@ -1466,6 +1557,8 @@ def train_path(K, dev, config: str = "default"):
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
         launches = K.launch_counts()
+        ce_paths = [dict(K.LIBRARIES[n].launches_by_path)
+                    for n in ("ce_readout_fwd", "ce_readout_bwd")]
 
     if not all(np.isfinite(losses)):
         fail("train", f"{config}: loss not finite: {losses}")
@@ -1489,6 +1582,11 @@ def train_path(K, dev, config: str = "default"):
             fail("train", f"{config}: kernel {name} launched "
                  f"{launches[name]} times in {TRAIN_STEPS} steps (want "
                  f"{'some' if n is None else n})")
+    # K1 and K2 at the training shape take the TMA + wgmma kernels
+    want_paths = {} if config == "lse_readout" else {"wgmma": TRAIN_STEPS}
+    if any(p != want_paths for p in ce_paths):
+        fail("train", f"{config}: K1 / K2 launches by path {ce_paths} (want "
+             f"{want_paths})")
     return {"launches": launches, "losses": losses, "secs": secs,
             "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
             "flops": analytic_flops(model, TRAIN_B, TRAIN_S, TRAIN_T)}

@@ -48,6 +48,8 @@
 
 #include <cstdint>
 
+#include "hopper_tma_wgmma.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -441,6 +443,356 @@ int ce_bwd_launch(KernelA pass_a, KernelB pass_b, const void* logits,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------- TMA + wgmma (bf16)
+
+namespace k2 {
+
+constexpr int TILE = 64;        // a logits tile is 64 x 64 (8 KB)
+constexpr int STAGES = 3;
+constexpr int THREADS = 384;    // warpgroups 0, 1 consume; 2 produces
+constexpr int CONSUMERS = 256;
+constexpr int SPLIT = 2;        // vocab chunks of pass (a)
+constexpr int TILE_BYTES = TILE * TILE * 2;
+
+// a stage: the logits tile, then D x 64 of w (pass a) or of states (pass b)
+inline size_t stage_bytes(int D) { return TILE_BYTES + (size_t)D * 128; }
+inline size_t smem_bytes(int D) { return 1024 + STAGES * stage_bytes(D) + 128; }
+
+}  // namespace k2
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// d_l of the 8 logits in 16-byte chunk c of row r of a swizzled logits tile
+// whose first column is v_base, rounded to bf16 in place; the float32
+// values (0 past V) go to out
+__device__ __forceinline__ void form_dl8(uint8_t* tile, int r, int c,
+                                         int v_base, int V, float lse,
+                                         int lab, float scale, float out[8]) {
+  uint4* p = reinterpret_cast<uint4*>(tile + hopper::swz128(r, 8 * c));
+  const uint4 raw = *p;
+  const bf16* x = reinterpret_cast<const bf16*>(&raw);
+  __align__(16) bf16 o[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int v = v_base + 8 * c + q;
+    out[q] = v < V ? d_logit<bf16>(x[q], lse, lab, v, scale) : 0.0f;
+    o[q] = __float2bfloat16_rn(out[q]);
+  }
+  *p = *reinterpret_cast<const uint4*>(o);
+}
+
+template <int N_, int TA, int TB>
+__device__ __forceinline__ void wgmma_n(float (&d)[N_ / 2], uint64_t a,
+                                        uint64_t b) {
+  if constexpr (N_ == 32) hopper::wgmma_m64n32<TA, TB>(d, a, b);
+  else if constexpr (N_ == 64) hopper::wgmma_m64n64<TA, TB>(d, a, b);
+  else if constexpr (N_ == 128) hopper::wgmma_m64n128<TA, TB>(d, a, b);
+  else hopper::wgmma_m64n256<TA, TB>(d, a, b);
+}
+
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < k2::STAGES; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], 8);    // lane 0 of each consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+}
+
+// pass (a): d_states rows row0 .. +64, all D columns (NW = D / 2 a
+// consumer warpgroup), from the vocab tiles of chunk blockIdx.x; chunk 0
+// writes d_states, chunk 1 the scratch `part` [N, D]
+template <int NW>
+__global__ void __launch_bounds__(k2::THREADS, 1) ce_bwd_states_kernel_wgmma(
+    const __grid_constant__ CUtensorMap map_l,
+    const __grid_constant__ CUtensorMap map_w, const int* __restrict__ labels,
+    const float* __restrict__ lse, const float* __restrict__ scale,
+    float* __restrict__ d_states, float* __restrict__ part, int N, int V) {
+  constexpr int D = 2 * NW;
+  constexpr int SB = k2::TILE_BYTES + D * 128;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + k2::STAGES * SB);
+  uint64_t* empty = full + k2::STAGES;
+  const int row0 = blockIdx.y * k2::TILE;
+  const int nt = (V + k2::TILE - 1) / k2::TILE, half = (nt + 1) / 2;
+  const int t_begin = blockIdx.x == 0 ? 0 : half;
+  const int t_end = blockIdx.x == 0 ? half : nt;
+  const int wg = threadIdx.x / 128;
+  init_ring(full, empty);
+
+  if (wg == 2) {
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      hopper::prefetch_map(&map_l);
+      hopper::prefetch_map(&map_w);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = t_begin; t < t_end; ++t) {
+        hopper::mbar_wait(&empty[stage], phase ^ 1u);
+        hopper::mbar_expect_tx(&full[stage], SB);
+        uint8_t* dst = ring + stage * SB;
+        hopper::tma_load(dst, &map_l, &full[stage], t * k2::TILE, row0);
+        hopper::tma_load(dst + k2::TILE_BYTES, &map_w, &full[stage],
+                         t * k2::TILE, 0);
+        hopper::tma_load(dst + k2::TILE_BYTES + NW * 128, &map_w, &full[stage],
+                         t * k2::TILE, NW);
+        if (++stage == k2::STAGES) { stage = 0; phase ^= 1u; }
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<232>();
+    const int tid = threadIdx.x, warp = (tid % 128) / 32, lane = tid % 32;
+    // d_l: row r, 16-byte chunks c and c + 1
+    const int r = tid / 4, c = 2 * (tid % 4), n = row0 + r;
+    const float lse_r = n < N ? lse[n] : 0.0f;
+    const float scale_r = n < N ? scale[n] : 0.0f;
+    const int lab_r = n < N ? labels[n] : -1;
+    float acc[NW / 2];
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) acc[i] = 0.0f;
+    int stage = 0, prev = -1;
+    uint32_t phase = 0;
+    for (int t = t_begin; t < t_end; ++t) {
+      hopper::mbar_wait(&full[stage], phase);
+      uint8_t* tile = ring + stage * SB;
+      float dl[8];
+      form_dl8(tile, r, c, t * k2::TILE, V, lse_r, lab_r, scale_r, dl);
+      form_dl8(tile, r, c + 1, t * k2::TILE, V, lse_r, lab_r, scale_r, dl);
+      hopper::fence_proxy_async();
+      hopper::named_barrier(k2::CONSUMERS);       // the whole d_l tile formed
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+      const uint32_t a = hopper::smem_u32(tile);
+      const uint32_t b = a + k2::TILE_BYTES + wg * NW * 128;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        wgmma_n<NW, 0, 0>(acc, hopper::desc_kmajor(a, k),
+                          hopper::desc_kmajor(b, k));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(acc);
+      if (prev >= 0 && lane == 0) hopper::mbar_arrive(&empty[prev]);
+      prev = stage;
+      if (++stage == k2::STAGES) { stage = 0; phase ^= 1u; }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if (prev >= 0 && lane == 0) hopper::mbar_arrive(&empty[prev]);
+    float* out = blockIdx.x == 0 ? d_states : part;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 16 * warp + lane / 4 + 8 * h;
+      if (row < N) {
+#pragma unroll
+        for (int j = 0; j < NW / 8; ++j) {
+          const int col = wg * NW + 8 * j + 2 * (lane % 4);
+          *reinterpret_cast<float2*>(&out[(size_t)row * D + col]) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+// pass (b): d_w rows 0 .. D, vocab columns v0 .. +64 (MB 64-row blocks of
+// D a consumer warpgroup; at D = 64 warpgroup 1 only forms d_l), walking
+// every 64-row batch tile in order, and d_b of the same columns
+template <int MB>
+__global__ void __launch_bounds__(k2::THREADS, 1) ce_bwd_weights_kernel_wgmma(
+    const __grid_constant__ CUtensorMap map_l,
+    const __grid_constant__ CUtensorMap map_s, const int* __restrict__ labels,
+    const float* __restrict__ lse, const float* __restrict__ scale,
+    float* __restrict__ d_w, float* __restrict__ d_b, int N, int D, int V) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  const int SB = k2::TILE_BYTES + D * 128;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + k2::STAGES * SB);
+  uint64_t* empty = full + k2::STAGES;
+  const int v0 = blockIdx.x * k2::TILE;
+  const int nt = (N + k2::TILE - 1) / k2::TILE;
+  const int wg = threadIdx.x / 128;
+  init_ring(full, empty);
+
+  if (wg == 2) {
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      hopper::prefetch_map(&map_l);
+      hopper::prefetch_map(&map_s);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < nt; ++t) {
+        hopper::mbar_wait(&empty[stage], phase ^ 1u);
+        hopper::mbar_expect_tx(&full[stage], SB);
+        uint8_t* dst = ring + stage * SB;
+        hopper::tma_load(dst, &map_l, &full[stage], v0, t * k2::TILE);
+        for (int kb = 0; kb < D / 64; ++kb)
+          hopper::tma_load(dst + k2::TILE_BYTES + kb * k2::TILE_BYTES, &map_s,
+                           &full[stage], kb * 64, t * k2::TILE);
+        if (++stage == k2::STAGES) { stage = 0; phase ^= 1u; }
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<232>();
+    const int tid = threadIdx.x, warp = (tid % 128) / 32, lane = tid % 32;
+    // d_l: rows r and r + 32, 16-byte chunk c
+    const int r = tid / 8, c = tid % 8;
+    float acc[MB][32];
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[mb][i] = 0.0f;
+    float db[8] = {};
+    int stage = 0, prev = -1;
+    uint32_t phase = 0;
+    for (int t = 0; t < nt; ++t) {
+      hopper::mbar_wait(&full[stage], phase);
+      uint8_t* tile = ring + stage * SB;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = t * k2::TILE + r + 32 * h;
+        float dl[8];
+        form_dl8(tile, r + 32 * h, c, v0, V, n < N ? lse[n] : 0.0f,
+                 n < N ? labels[n] : -1, n < N ? scale[n] : 0.0f, dl);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) db[q] += dl[q];
+      }
+      hopper::fence_proxy_async();
+      hopper::named_barrier(k2::CONSUMERS);
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb) hopper::fence_regs(acc[mb]);
+      hopper::wgmma_fence();
+      const uint32_t b = hopper::smem_u32(tile);
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb) {
+        // at D = 64 warpgroup 1 repeats block 0 and stores nothing: a
+        // product under a branch would serialise every wgmma
+        const int gb = min(wg * MB + mb, D / 64 - 1);
+        const uint32_t a = b + k2::TILE_BYTES + gb * k2::TILE_BYTES;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          hopper::wgmma_m64n64<1, 1>(
+              acc[mb], hopper::desc_mnmajor(a, k, k2::TILE_BYTES),
+              hopper::desc_mnmajor(b, k, k2::TILE_BYTES));
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb) hopper::fence_regs(acc[mb]);
+      if (prev >= 0 && lane == 0) hopper::mbar_arrive(&empty[prev]);
+      prev = stage;
+      if (++stage == k2::STAGES) { stage = 0; phase ^= 1u; }
+    }
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb) hopper::fence_regs(acc[mb]);
+    if (prev >= 0 && lane == 0) hopper::mbar_arrive(&empty[prev]);
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb) {
+      const int gb = wg * MB + mb;
+      if (gb * 64 >= D) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int d = gb * 64 + 16 * warp + lane / 4 + 8 * h;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int v = v0 + 8 * j + 2 * (lane % 4);
+          if (v < V)                       // V % 8 == 0: v + 1 < V too
+            *reinterpret_cast<float2*>(&d_w[(size_t)d * V + v]) =
+                make_float2(acc[mb][4 * j + 2 * h], acc[mb][4 * j + 2 * h + 1]);
+        }
+      }
+    }
+    // d_b: the 32 row groups' partials through shared memory (the ring is
+    // free once both warpgroups' last products are done), summed in order
+    hopper::named_barrier(k2::CONSUMERS);
+    float* red = reinterpret_cast<float*>(ring);     // [32][64]
+#pragma unroll
+    for (int q = 0; q < 8; ++q) red[r * k2::TILE + 8 * c + q] = db[q];
+    hopper::named_barrier(k2::CONSUMERS);
+    if (tid < k2::TILE && v0 + tid < V) {
+      float s = 0.0f;
+      for (int g = 0; g < 32; ++g) s += red[g * k2::TILE + tid];
+      d_b[v0 + tid] = s;
+    }
+  }
+}
+
+// d_states += part (the second vocab chunk of pass a), float4 at a time
+__global__ void ce_bwd_states_combine_kernel(float4* __restrict__ d_states,
+                                             const float4* __restrict__ part,
+                                             size_t n4) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  float4 a = d_states[i];
+  const float4 b = part[i];
+  a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
+  d_states[i] = a;
+}
+
+template <int NW, int MB>
+int ce_bwd_wgmma_launch_d(const CUtensorMap& map_l, const CUtensorMap& map_w,
+                          const CUtensorMap& map_s, const void* labels,
+                          const void* lse, const void* scale, void* d_states,
+                          void* d_w, void* d_b, void* part, int N, int D,
+                          int V, cudaStream_t st) {
+  const int smem = (int)k2::smem_bytes(D);
+  auto pass_a = ce_bwd_states_kernel_wgmma<NW>;
+  auto pass_b = ce_bwd_weights_kernel_wgmma<MB>;
+  cudaError_t e = cudaFuncSetAttribute(
+      pass_a, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        pass_b, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid_a(k2::SPLIT, (N + k2::TILE - 1) / k2::TILE);
+  pass_a<<<grid_a, k2::THREADS, smem, st>>>(
+      map_l, map_w, (const int*)labels, (const float*)lse,
+      (const float*)scale, (float*)d_states, (float*)part, N, V);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const size_t n4 = (size_t)N * D / 4;
+  ce_bwd_states_combine_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, st>>>(
+      (float4*)d_states, (const float4*)part, n4);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  pass_b<<<(V + k2::TILE - 1) / k2::TILE, k2::THREADS, smem, st>>>(
+      map_l, map_s, (const int*)labels, (const float*)lse,
+      (const float*)scale, (float*)d_w, (float*)d_b, N, D, V);
+  return (int)cudaGetLastError();
+}
+
+int ce_bwd_wgmma_launch(const void* logits, const void* states,
+                        const void* w, const void* labels, const void* lse,
+                        const void* scale, void* d_states, void* d_w,
+                        void* d_b, void* part, int N, int D, int V,
+                        void* stream) {
+  if (N <= 0 || V <= 0 || V % 8 != 0 ||
+      !(D == 64 || D == 128 || D == 256 || D == 512))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map_l, map_w, map_s;
+  int err = hopper::make_map_bf16(&map_l, logits, N, V, k2::TILE);
+  if (err == 0) err = hopper::make_map_bf16(&map_w, w, D, V, D / 2);
+  if (err == 0) err = hopper::make_map_bf16(&map_s, states, N, D, k2::TILE);
+  if (err != 0) return err;
+  cudaStream_t st = (cudaStream_t)stream;
+#define CE_BWD_D(NW, MB)                                                     \
+  ce_bwd_wgmma_launch_d<NW, MB>(map_l, map_w, map_s, labels, lse, scale,     \
+                                d_states, d_w, d_b, part, N, D, V, st)
+  switch (D) {
+    case 64: return CE_BWD_D(32, 1);
+    case 128: return CE_BWD_D(64, 1);
+    case 256: return CE_BWD_D(128, 2);
+    default: return CE_BWD_D(256, 4);
+  }
+#undef CE_BWD_D
+}
+
 }  // namespace
 
 // logits [N, V], states [N, D] and w [D, V] in the compute type, labels [N]
@@ -466,6 +818,51 @@ extern "C" int ce_readout_bwd_bf16(const void* logits, const void* states,
                              ce_bwd_weights_kernel_bf16, logits, states, w,
                              labels, lse, scale, d_states, d_w, d_b, N, D, V,
                              stream);
+}
+
+// The TMA + wgmma path (bf16; see _ce_path): part [N, D] f32 is scratch for
+// pass (a)'s second vocab chunk.
+extern "C" int ce_readout_bwd_bf16_wgmma(const void* logits,
+                                         const void* states, const void* w,
+                                         const void* labels, const void* lse,
+                                         const void* scale, void* d_states,
+                                         void* d_w, void* d_b, void* part,
+                                         int N, int D, int V, void* stream) {
+  return ce_bwd_wgmma_launch(logits, states, w, labels, lse, scale, d_states,
+                             d_w, d_b, part, N, D, V, stream);
+}
+
+// registers a thread, local (spilled) bytes a thread and shared bytes a
+// block of kernel `which` at depth D: 0 / 1 wgmma pass (a) / (b), 2 / 3
+// WMMA bf16 pass (a) / (b), 4 / 5 f32 pass (a) / (b)
+extern "C" int ce_readout_bwd_info(int which, int D, int* regs,
+                                   int* local_bytes, int* smem_bytes) {
+  const void* fn;
+  switch (which) {
+    case 0:
+      fn = D == 64 ? (const void*)ce_bwd_states_kernel_wgmma<32>
+           : D == 128 ? (const void*)ce_bwd_states_kernel_wgmma<64>
+           : D == 256 ? (const void*)ce_bwd_states_kernel_wgmma<128>
+                      : (const void*)ce_bwd_states_kernel_wgmma<256>;
+      break;
+    case 1:
+      fn = D <= 128 ? (const void*)ce_bwd_weights_kernel_wgmma<1>
+           : D == 256 ? (const void*)ce_bwd_weights_kernel_wgmma<2>
+                      : (const void*)ce_bwd_weights_kernel_wgmma<4>;
+      break;
+    case 2: fn = (const void*)ce_bwd_states_kernel_bf16; break;
+    case 3: fn = (const void*)ce_bwd_weights_kernel_bf16; break;
+    case 4: fn = (const void*)ce_bwd_states_kernel<float>; break;
+    default: fn = (const void*)ce_bwd_weights_kernel<float>; break;
+  }
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return (int)e;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  *smem_bytes = (int)a.sharedSizeBytes +
+                (which <= 1 ? (int)k2::smem_bytes(D) : 0);
+  return 0;
 }
 
 extern "C" const char* ptt_error_string(int err) {

@@ -54,13 +54,16 @@ class CudaLibrary:
 
     ``functions`` maps each exported C function to its ``argtypes``; every
     exported function returns a ``cudaError_t`` as an ``int``.  ``launches``
-    counts the wrapper calls that launched this library's kernel."""
+    counts the wrapper calls that launched this library's kernel;
+    ``launches_by_path`` splits that count by kernel variant where a wrapper
+    picks one of several from the shape."""
 
     def __init__(self, name: str, functions: Dict[str, Sequence]):
         self.name = name
         self.source = os.path.join(CSRC_DIR, name + ".cu")
         self.functions = dict(functions)
         self.launches = 0
+        self.launches_by_path: Dict[str, int] = {}
         self.build_seconds: Optional[float] = None
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
@@ -120,6 +123,11 @@ class CudaLibrary:
                 self._lib = lib
             return self._lib
 
+    def count(self, path: str) -> None:
+        """One launch of the variant ``path``."""
+        self.launches += 1
+        self.launches_by_path[path] = self.launches_by_path.get(path, 0) + 1
+
     def call(self, fn: str, *args) -> None:
         """Call an exported launcher; raise on the CUDA error it returns
         (a refused launch never runs, and a later synchronize would not
@@ -170,6 +178,7 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for lib in LIBRARIES.values():
         lib.launches = 0
+        lib.launches_by_path.clear()
 
 
 #: ctypes argument types of the launchers: a device pointer or the stream

@@ -13,26 +13,89 @@ Each wrapper dispatches on the tensors' device: a CPU tensor runs the plain
 version; a CUDA tensor launches ``csrc/ce_readout_fwd.cu`` /
 ``csrc/ce_readout_bwd.cu`` or raises.  The kernels mask the ragged vocab
 tail themselves, so ``w`` is never padded per call.
+
+On the card ``_ce_path`` picks the kernel from the shape, dtype and
+operand alignment alone, never by catching a failure: ``"wgmma"`` (TMA
+loads and Hopper warpgroup products; bf16, D in {64, 128, 256, 512},
+V % 8 == 0, 16-byte aligned operands, as TMA needs), ``"wmma"`` (any other
+bf16 shape) or ``"simt"`` (float32, CUDA-core FMAs).  Each library counts
+its launches per path (``launches_by_path``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+
+from typing import Dict, Sequence, Tuple
 
 import torch
 
 from paddle_tpu_torch.ops.kernels.build import ARG_INT, ARG_PTR, register
 
 __all__ = ["ce_readout_fwd", "ce_readout_fwd_plain", "ce_readout_bwd",
-           "ce_readout_bwd_plain", "CE_READOUT_FWD", "CE_READOUT_BWD"]
+           "ce_readout_bwd_plain", "CE_READOUT_FWD", "CE_READOUT_BWD",
+           "ce_kernel_info"]
 
 _FWD_ARGS = [ARG_PTR] * 7 + [ARG_INT] * 3 + [ARG_PTR]
+_INFO_ARGS = [ARG_INT, ARG_INT] + [ARG_PTR] * 3
 CE_READOUT_FWD = register("ce_readout_fwd", {
-    "ce_readout_fwd_f32": _FWD_ARGS, "ce_readout_fwd_bf16": _FWD_ARGS})
+    "ce_readout_fwd_f32": _FWD_ARGS, "ce_readout_fwd_bf16": _FWD_ARGS,
+    "ce_readout_fwd_bf16_wgmma": [ARG_PTR] * 8 + [ARG_INT] * 3 + [ARG_PTR],
+    "ce_readout_fwd_info": _INFO_ARGS})
 _BWD_ARGS = [ARG_PTR] * 9 + [ARG_INT] * 3 + [ARG_PTR]
 CE_READOUT_BWD = register("ce_readout_bwd", {
-    "ce_readout_bwd_f32": _BWD_ARGS, "ce_readout_bwd_bf16": _BWD_ARGS})
+    "ce_readout_bwd_f32": _BWD_ARGS, "ce_readout_bwd_bf16": _BWD_ARGS,
+    "ce_readout_bwd_bf16_wgmma": [ARG_PTR] * 10 + [ARG_INT] * 3 + [ARG_PTR],
+    "ce_readout_bwd_info": _INFO_ARGS})
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+#: depths the TMA + wgmma kernels are instantiated for
+_WGMMA_DEPTHS = (64, 128, 256, 512)
+#: vocab columns a block of the wgmma forward owns (csrc k1::CHUNK)
+_FWD_CHUNK = 2048
+
+
+def _ce_path(N: int, D: int, V: int, dtype: torch.dtype,
+             ptrs: Sequence[int]) -> str:
+    """The kernel a CUDA call takes, from the shape, the compute dtype and
+    the operands' addresses: ``"wgmma"`` where TMA can take the operands
+    (bf16, D one of the instantiated depths, rows a multiple of 16 bytes,
+    every base 16-byte aligned, N > 0), else ``"wmma"`` for bf16 and
+    ``"simt"`` for float32."""
+    if dtype == torch.float32:
+        return "simt"
+    if (N > 0 and D in _WGMMA_DEPTHS and V % 8 == 0
+            and all(p % 16 == 0 for p in ptrs)):
+        return "wgmma"
+    return "wmma"
+
+
+def _ce_scratch(N: int, D: int, V: int, path: str) -> Dict[str, tuple]:
+    """The float32 scratch each wgmma kernel takes: the forward's partial
+    (max, sum-exp, label logit) per vocab chunk and row, and the backward's
+    second-chunk d_states.  The chunks depend on V alone."""
+    if path != "wgmma":
+        return {"fwd": (0,), "bwd": (0,)}
+    return {"fwd": (3, -(-V // _FWD_CHUNK), N), "bwd": (N, D)}
+
+
+def ce_kernel_info(D: int) -> Dict[str, Tuple[int, int, int]]:
+    """(registers a thread, spilled bytes a thread, shared bytes a block) of
+    every CE kernel at depth D, from ``cudaFuncGetAttributes``."""
+    out = {}
+    for lib, fn, names in (
+            (CE_READOUT_FWD, "ce_readout_fwd_info",
+             ("fwd_wgmma", "fwd_wmma", "fwd_simt")),
+            (CE_READOUT_BWD, "ce_readout_bwd_info",
+             ("bwd_a_wgmma", "bwd_b_wgmma", "bwd_a_wmma", "bwd_b_wmma",
+              "bwd_a_simt", "bwd_b_simt"))):
+        for which, name in enumerate(names):
+            vals = [ctypes.c_int() for _ in range(3)]
+            err = getattr(lib.lib(), fn)(which, D,
+                                         *(ctypes.byref(v) for v in vals))
+            if err != 0:
+                raise RuntimeError(f"{fn}({which}): CUDA error {err}")
+            out[name] = tuple(v.value for v in vals)
+    return out
 
 
 def _check_fwd(states, w, b, labels) -> Tuple[int, int, int]:
@@ -90,13 +153,20 @@ def ce_readout_fwd(states: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     per_tok = torch.empty(N, device=dev)
     lse = torch.empty(N, device=dev)
     logits = torch.empty(N, V, dtype=states.dtype, device=dev)
+    path = _ce_path(N, D, V, states.dtype,
+                    (s.data_ptr(), wc.data_ptr(), logits.data_ptr(),
+                     bf.data_ptr()))
+    args = [s.data_ptr(), wc.data_ptr(), bf.data_ptr(), lab.data_ptr(),
+            per_tok.data_ptr(), lse.data_ptr(), logits.data_ptr()]
+    fn = f"ce_readout_fwd_{_SUFFIX[states.dtype]}"
+    if path == "wgmma":
+        part = torch.empty(_ce_scratch(N, D, V, path)["fwd"], device=dev)
+        args.append(part.data_ptr())
+        fn += "_wgmma"
     with torch.cuda.device(dev):              # launch on the tensors' card
         stream = torch.cuda.current_stream(dev).cuda_stream
-        CE_READOUT_FWD.call(
-            f"ce_readout_fwd_{_SUFFIX[states.dtype]}", s.data_ptr(),
-            wc.data_ptr(), bf.data_ptr(), lab.data_ptr(), per_tok.data_ptr(),
-            lse.data_ptr(), logits.data_ptr(), N, D, V, stream)
-    CE_READOUT_FWD.launches += 1
+        CE_READOUT_FWD.call(fn, *args, N, D, V, stream)
+    CE_READOUT_FWD.count(path)
     return per_tok, lse, logits
 
 
@@ -167,12 +237,18 @@ def ce_readout_bwd(logits: torch.Tensor, states: torch.Tensor,
     d_states = torch.empty(N, D, device=dev)
     d_w = torch.empty(D, V, device=dev)
     d_b = torch.empty(V, device=dev)
+    path = _ce_path(N, D, V, logits.dtype,
+                    (lg.data_ptr(), s.data_ptr(), wc.data_ptr()))
+    args = [lg.data_ptr(), s.data_ptr(), wc.data_ptr(), lab.data_ptr(),
+            ls.data_ptr(), sc.data_ptr(), d_states.data_ptr(),
+            d_w.data_ptr(), d_b.data_ptr()]
+    fn = f"ce_readout_bwd_{_SUFFIX[logits.dtype]}"
+    if path == "wgmma":
+        part = torch.empty(_ce_scratch(N, D, V, path)["bwd"], device=dev)
+        args.append(part.data_ptr())
+        fn += "_wgmma"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        CE_READOUT_BWD.call(
-            f"ce_readout_bwd_{_SUFFIX[logits.dtype]}", lg.data_ptr(),
-            s.data_ptr(), wc.data_ptr(), lab.data_ptr(), ls.data_ptr(),
-            sc.data_ptr(), d_states.data_ptr(), d_w.data_ptr(),
-            d_b.data_ptr(), N, D, V, stream)
-    CE_READOUT_BWD.launches += 1
+        CE_READOUT_BWD.call(fn, *args, N, D, V, stream)
+    CE_READOUT_BWD.count(path)
     return d_states, d_w, d_b

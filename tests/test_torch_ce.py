@@ -185,3 +185,71 @@ def test_masked_token_mean_matches_jax(rng):
     # an all-padded batch divides by 1, not 0
     zero = masked_token_mean(torch.from_numpy(per_tok), torch.zeros(3, 5))
     assert float(zero) == 0.0
+
+
+_BF, _F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("N,D,V,dtype,ptrs,want", [
+    # the flagship's training readout and the card tests' TMA shapes
+    (12288, 512, 30000, _BF, (0, 256, 4096), "wgmma"),
+    (257, 512, 4096, _BF, (16, 32, 48), "wgmma"),
+    (128, 64, 30000, _BF, (0, 0, 0), "wgmma"),
+    (130, 64, 64, _BF, (0, 0, 0), "wgmma"),
+    # V % 8 != 0: a logits or w row is not a multiple of 16 bytes
+    (40, 128, 515, _BF, (0, 0, 0), "wmma"),
+    (12288, 512, 30001, _BF, (0, 0, 0), "wmma"),
+    (12288, 512, 30004, _BF, (0, 0, 0), "wmma"),
+    # D % 64 != 0, or a depth the kernels are not instantiated for
+    (3, 96, 131, _BF, (0, 0, 0), "wmma"),
+    (64, 96, 4096, _BF, (0, 0, 0), "wmma"),
+    (64, 384, 4096, _BF, (0, 0, 0), "wmma"),
+    (64, 1024, 4096, _BF, (0, 0, 0), "wmma"),
+    # a base that is not 16-byte aligned
+    (64, 512, 4096, _BF, (2, 0, 0), "wmma"),
+    (64, 512, 4096, _BF, (0, 0, 8), "wmma"),
+    # no rows: only the backward's zero d_w / d_b remain
+    (0, 512, 4096, _BF, (0, 0, 0), "wmma"),
+    # float32 (the f32 policy): CUDA cores at every shape
+    (12288, 512, 30000, _F32, (0, 0, 0), "simt"),
+    (40, 128, 515, _F32, (0, 0, 0), "simt"),
+])
+def test_ce_path_is_a_function_of_shape_dtype_and_alignment(N, D, V, dtype,
+                                                            ptrs, want):
+    from paddle_tpu_torch.ops.kernels.ce_readout import _ce_path
+
+    assert _ce_path(N, D, V, dtype, ptrs) == want
+
+
+@pytest.mark.parametrize("N,D,V,fwd,bwd", [
+    (12288, 512, 30000, (3, 15, 12288), (12288, 512)),
+    (257, 512, 4096, (3, 2, 257), (257, 512)),
+    (128, 64, 30000, (3, 15, 128), (128, 64)),
+    (130, 64, 64, (3, 1, 130), (130, 64)),
+    (7, 128, 2048, (3, 1, 7), (7, 128)),
+    (7, 128, 2056, (3, 2, 7), (7, 128)),
+])
+def test_ce_scratch_shapes_follow_the_vocab_chunks(N, D, V, fwd, bwd):
+    """The wgmma forward keeps (max, sum-exp, label logit) for each row and
+    2048-column vocab chunk; the backward one [N, D] partial d_states.  The
+    chunk count depends on V alone; the other paths take no scratch."""
+    from paddle_tpu_torch.ops.kernels.ce_readout import _ce_scratch
+
+    assert _ce_scratch(N, D, V, "wgmma") == {"fwd": fwd, "bwd": bwd}
+    assert _ce_scratch(N, D, V, "wmma") == {"fwd": (0,), "bwd": (0,)}
+    assert _ce_scratch(N, D, V, "simt") == {"fwd": (0,), "bwd": (0,)}
+
+
+def test_ce_path_counts_split_by_path_and_reset():
+    from paddle_tpu_torch.ops.kernels.build import reset_launch_counts
+    from paddle_tpu_torch.ops.kernels.ce_readout import CE_READOUT_FWD
+
+    before = CE_READOUT_FWD.launches
+    CE_READOUT_FWD.count("wgmma")
+    CE_READOUT_FWD.count("wmma")
+    CE_READOUT_FWD.count("wgmma")
+    assert CE_READOUT_FWD.launches == before + 3
+    assert CE_READOUT_FWD.launches_by_path["wgmma"] >= 2
+    reset_launch_counts()
+    assert CE_READOUT_FWD.launches == 0
+    assert CE_READOUT_FWD.launches_by_path == {}

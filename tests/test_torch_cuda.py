@@ -134,17 +134,14 @@ def _rel_close(got, want, tol):
     assert err <= tol * scale, (err, scale)
 
 
-@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
-@pytest.mark.parametrize("N,D,V", [(40, 128, 515), (3, 96, 131),
-                                   (130, 64, 64)])
-def test_ce_kernels_match_plain_versions(dev, cd, N, D, V):
-    """K1 and K2 at ragged row, depth and vocab counts, with a masked row
-    (scale 0) and an out-of-vocab label; each wrapper launches once.  f32:
-    the same sums in another order (1e-5); bf16: exact products, but a
-    last-bit difference in a float32 d_l can round its bf16 operand the
-    other way (1e-2 of the largest gradient)."""
-    rng = np.random.RandomState(N + V)
-    dt = getattr(torch, cd)
+#: shapes the TMA + wgmma kernels take in bf16 (D an instantiated depth,
+#: V % 8 == 0), crossing their row tiles, vocab chunks and the ragged tail
+_CE_TMA_SHAPES = [(12288, 512, 30000), (257, 512, 4096), (128, 64, 30000),
+                  (130, 64, 64)]
+
+
+def _ce_inputs(dev, dt, N, D, V, seed):
+    rng = np.random.RandomState(seed)
     s = torch.from_numpy(rng.randn(N, D).astype(np.float32)).to(dev).to(dt)
     w = torch.from_numpy((0.1 * rng.randn(D, V)).astype(np.float32)
                          ).to(dev).to(dt)
@@ -153,12 +150,42 @@ def test_ce_kernels_match_plain_versions(dev, cd, N, D, V):
     lab[-1] = V + 3
     scale = torch.from_numpy((rng.rand(N) / N).astype(np.float32)).to(dev)
     scale[0] = 0.0
+    return s, w, b, lab, scale
+
+
+def _ce_path_launches():
+    from paddle_tpu_torch.ops.kernels.ce_readout import (CE_READOUT_BWD,
+                                                         CE_READOUT_FWD)
+    return (dict(CE_READOUT_FWD.launches_by_path),
+            dict(CE_READOUT_BWD.launches_by_path))
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N,D,V", [(40, 128, 515), (3, 96, 131),
+                                   (130, 64, 64), (12288, 512, 30000),
+                                   (257, 512, 4096), (128, 64, 30000)])
+def test_ce_kernels_match_plain_versions(dev, cd, N, D, V):
+    """K1 and K2 at ragged row, depth and vocab counts, with a masked row
+    (scale 0) and an out-of-vocab label; each wrapper launches once, on the
+    path the shape asks for (bf16: TMA + wgmma where TMA takes the shape,
+    else WMMA; f32: CUDA cores).  f32: the same sums in another order
+    (1e-5); bf16: exact products, but a last-bit difference in a float32
+    d_l can round its bf16 operand the other way (1e-2 of the largest
+    gradient)."""
+    dt = getattr(torch, cd)
+    s, w, b, lab, scale = _ce_inputs(dev, dt, N, D, V, N + V)
+    path = ("simt" if cd == "float32" else
+            "wgmma" if (N, D, V) in _CE_TMA_SHAPES else "wmma")
     before = launch_counts()
+    paths_before = _ce_path_launches()
     pt, lse, logits = ce_readout_fwd(s, w, b, lab)
     ds, dw, db = ce_readout_bwd(logits, s, w, lab, lse, scale)
     after = launch_counts()
     assert after["ce_readout_fwd"] == before["ce_readout_fwd"] + 1
     assert after["ce_readout_bwd"] == before["ce_readout_bwd"] + 1
+    for got, was in zip(_ce_path_launches(), paths_before):
+        assert got.get(path, 0) == was.get(path, 0) + 1
+        assert sum(got.values()) == sum(was.values()) + 1
     ppt, plse, plogits = ce_readout_fwd_plain(s, w, b, lab)
     pds, pdw, pdb = ce_readout_bwd_plain(logits, s, w, lab, lse, scale)
     torch.cuda.synchronize()
@@ -170,6 +197,66 @@ def test_ce_kernels_match_plain_versions(dev, cd, N, D, V):
     tol = 1e-2 if cd == "bfloat16" else 1e-5
     for got, want in ((ds, pds), (dw, pdw), (db, pdb)):
         _rel_close(got, want, tol)
+
+
+@pytest.mark.parametrize("N,D,V", [(257, 512, 4096), (40, 128, 515)])
+def test_ce_kernels_are_deterministic(dev, N, D, V):
+    """Two calls on the same inputs are bit-equal on either bf16 path: no
+    atomics, every sum in a fixed order."""
+    s, w, b, lab, scale = _ce_inputs(dev, torch.bfloat16, N, D, V, 7)
+    f1 = ce_readout_fwd(s, w, b, lab)
+    f2 = ce_readout_fwd(s, w, b, lab)
+    g1 = ce_readout_bwd(f1[2], s, w, lab, f1[1], scale)
+    g2 = ce_readout_bwd(f1[2], s, w, lab, f1[1], scale)
+    for a, c in zip(f1 + g1, f2 + g2):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("D,V", [(512, 30000), (128, 515)])
+def test_ce_forward_rows_do_not_depend_on_n(dev, D, V):
+    """K1's outputs for the first 64 rows are bit-equal at N = 64 and
+    N = 12288: the vocab chunks and the order of every sum depend on V and
+    D alone (batch invariance)."""
+    s, w, b, lab, _ = _ce_inputs(dev, torch.bfloat16, 12288, D, V, 11)
+    big = ce_readout_fwd(s, w, b, lab)
+    small = ce_readout_fwd(s[:64].clone(), w, b, lab[:64].clone())
+    for a, c in zip(big, small):
+        assert torch.equal(a[:64], c)
+
+
+def test_ce_misaligned_operands_take_the_wmma_path(dev):
+    """An operand whose base is not 16-byte aligned cannot be a TMA source:
+    the bf16 call takes the WMMA kernel, with the same results."""
+    N, D, V = 96, 512, 4096
+    s, w, b, lab, scale = _ce_inputs(dev, torch.bfloat16, N, D, V, 5)
+    buf = torch.empty(N * D + 1, dtype=torch.bfloat16, device=dev)
+    s_odd = buf[1:].view(N, D)
+    s_odd.copy_(s)
+    assert s_odd.data_ptr() % 16 != 0
+    paths_before = _ce_path_launches()
+    pt, lse, logits = ce_readout_fwd(s_odd, w, b, lab)
+    ds, dw, db = ce_readout_bwd(logits, s_odd, w, lab, lse, scale)
+    for got, was in zip(_ce_path_launches(), paths_before):
+        assert got.get("wmma", 0) == was.get("wmma", 0) + 1
+    want = ce_readout_fwd(s, w, b, lab)
+    torch.testing.assert_close(lse, want[1], rtol=1e-5, atol=1e-5)
+    gw = ce_readout_bwd(want[2], s, w, lab, want[1], scale)
+    for got, ref in zip((ds, dw, db), gw):
+        _rel_close(got, ref, 1e-2)
+
+
+def test_ce_backward_with_no_rows_writes_zero_weights_grads(dev):
+    """N == 0: d_w and d_b are written, all zero."""
+    D, V = 512, 4096
+    s = torch.zeros(0, D, dtype=torch.bfloat16, device=dev)
+    w = torch.randn(D, V, device=dev).bfloat16()
+    lab = torch.zeros(0, dtype=torch.long, device=dev)
+    z = torch.zeros(0, device=dev)
+    ds, dw, db = ce_readout_bwd(torch.zeros(0, V, dtype=torch.bfloat16,
+                                            device=dev), s, w, lab, z, z)
+    torch.cuda.synchronize()
+    assert ds.shape == (0, D)
+    assert not dw.any() and not db.any()
 
 
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])
