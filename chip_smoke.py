@@ -17,9 +17,15 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             K3/K4 call per direction; K12, the row logsumexp, with -inf
             rows and a ragged vocabulary; K1 and K2 must take their TMA +
             wgmma kernels at the training shape, and are also held and
-            timed on their WMMA kernels there; text classification: K9
-            without and with residuals, K10; DSL generation: K8), with its
-            time (CUDA events,
+            timed on their WMMA kernels there; K7 must take its TMA + wgmma
+            pass 1 at the serve shape and at a solo decode's N = 3, whose
+            rows are bit-equal to the N = 192 call's, and is also timed on
+            its SIMT pass 1 there and held on it at V = 30001; text
+            classification: K9 without and with residuals, K10, which must
+            take its persistent kernel at both widths and is also held at
+            B = 37 and timed on its per-step kernel; DSL generation: K8),
+            with registers, spills and shared bytes of the redesigned
+            kernels, with its time (CUDA events,
             L2 flushed before each call), the plain version's time, the
             least time the card could take (bound) and, where one exists, a
             PyTorch call sequence computing the same function
@@ -64,8 +70,9 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             twice a call, K8 once a decode step); the layer held against
             ``SequenceGenerator`` over a hand-written step (identical ids),
             and the net at B=2 in f32 on the card against the CPU;
-9. a ``{"kernels": [...]}`` line, then the card line again, and last
-   ``{"ok": true, "device": {...}}``.
+9. a ``{"kernels": [...]}`` line (each kernel's launches on its path's
+   run, also by kernel variant: ``launches_by_path``), then the card line
+   again, and last ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed just before each path (serve and its fused
 re-run, each training configuration, each textclf run, dslgen) is driven
@@ -227,6 +234,26 @@ def time_ms(fn, flush, reps: int = 20) -> float:
     return times[len(times) // 2]
 
 
+def graph_ms(fn, flush, reps: int = 20) -> float:
+    """Median device time of one call captured in a CUDA graph and replayed
+    (CUDA events around the replay, L2 flushed before each): the kernels'
+    time without the host's, which ``time_ms`` includes wherever the host
+    enqueues a call more slowly than the card runs it.  Not for cuBLAS
+    calls: capturing one leaves a cuBLAS workspace allocated for the
+    capture stream, which every later phase's peak memory would count."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, flush, reps)
+
+
 def bound_ms(nbytes: float, ops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
@@ -284,44 +311,118 @@ def check_gru(K, flush, dev):
             "library_ms": None}
 
 
-def check_topk(K, flush, dev):
+def _host_ms(fn, reps: int = 200) -> float:
+    """Host time of one call that only enqueues work (mean of ``reps``,
+    card synchronised before and after, not inside)."""
     import torch
 
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e3
+
+
+def _topk_against_plain(K, s, w, b, k, tol, what):
+    """K7 on (s, w, b) against its plain version: values and lse within
+    tol, ids equal wherever the plain top-(k+1) values are further apart
+    than tol (elsewhere a tie within rounding may flip) and in the vocab.
+    -> (max abs err, rows with identical ids, decisive rows, results)."""
+    import torch
+
+    V = w.shape[1]
+    kv, ki, kl = K.topk_lse_readout(s, w, b, k)
+    pv, pi, pl = K.topk_lse_readout_plain(s, w, b, k)
+    torch.cuda.synchronize()
+    err = max((kv - pv).abs().max().item(), (kl - pl).abs().max().item())
+    if not err <= tol:
+        fail("kernels", f"topk_lse_readout {what} k={k}: max abs err {err} "
+             f"> {tol}")
+    logits = torch.matmul(s.float(), w.float()) + b
+    pv1 = torch.sort(logits, dim=1, descending=True).values[:, :k + 1]
+    del logits
+    gaps = (pv1[:, :-1] - pv1[:, 1:]).min(dim=1).values
+    decisive = gaps > tol
+    bad = (ki != pi).any(dim=1) & decisive
+    if bad.any():
+        fail("kernels", f"topk_lse_readout {what} k={k}: ids differ on "
+             f"{int(bad.sum())} decisive rows")
+    if int(ki.max()) >= V or int(ki.min()) < 0:
+        fail("kernels", f"topk_lse_readout {what} k={k}: id out of vocab")
+    same = int((ki == pi).all(dim=1).sum())
+    return err, same, int(decisive.sum()), (kv, ki, kl)
+
+
+def check_topk(K, flush, dev):
+    """K7 at the serve readout (N = 64 slots x 3 beams, D = 512,
+    V = 30000, bf16) and at a solo decode (N = 3), k in {1, 3, 16}: the
+    wrapper must take the TMA + wgmma pass 1 at both, hold the plain
+    version, and give the N = 3 call's rows bit for bit as the same rows of
+    the N = 192 call (rows 0-2 and 96-98, another place in the tile); the
+    SIMT pass 1 (the path for shapes TMA cannot take) held at V = 30001 and
+    timed beside the wgmma path at the serve shape."""
+    import torch
+
+    from paddle_tpu_torch.ops.kernels.topk_readout import (TOPK_LSE_READOUT,
+                                                           _launch,
+                                                           topk_kernel_info)
+
     N, D, V = SLOTS * BEAM, 512, 30000     # one decode step of the table
+    info = topk_kernel_info(D)
+    print("kernels: topk_lse_readout pass 1 registers / spilled bytes a "
+          "thread / shared bytes a block: " + ", ".join(
+              f"{k} {r}/{l}/{m}" for k, (r, l, m) in info.items()),
+          flush=True)
     g = torch.Generator().manual_seed(SEED + 1)
     s = torch.tanh(torch.randn(N, D, generator=g)).to(dev).bfloat16()
     w = ((2.0 / (D + V)) ** 0.5
-         * torch.randn(D, V, generator=g)).to(dev).bfloat16()
-    b = (0.01 * torch.randn(V, generator=g)).to(dev)
+         * torch.randn(D, V + 1, generator=g)).to(dev).bfloat16()
+    b = (0.01 * torch.randn(V + 1, generator=g)).to(dev)
+    w_r, b_r = w, b                        # V + 1 = 30001: SIMT
+    w, b = w[:, :V].contiguous(), b[:V].contiguous()
     tol = TOL["topk_lse_readout"]
     worst = 0.0
-    for k in (BEAM, 1):                    # beam search, greedy
-        kv, ki, kl = K.topk_lse_readout(s, w, b, k)
-        pv, pi, pl = K.topk_lse_readout_plain(s, w, b, k)
-        torch.cuda.synchronize()
-        err = max((kv - pv).abs().max().item(), (kl - pl).abs().max().item())
-        if not err <= tol:
-            fail("kernels", f"topk_lse_readout k={k}: max abs err {err} > "
-                 f"{tol}")
-        # ids exact wherever the plain top-(k+1) values are further apart
-        # than the tolerance (elsewhere a tie within rounding may flip)
-        pv1, _ = K.topk_lse_readout_plain(s, w, b, k + 1)[:2]
-        gaps = (pv1[:, :-1] - pv1[:, 1:]).min(dim=1).values
-        decisive = gaps > tol
-        bad = (ki != pi).any(dim=1) & decisive
-        if bad.any():
-            fail("kernels", f"topk_lse_readout k={k}: ids differ on "
-                 f"{int(bad.sum())} decisive rows")
-        if int(ki.max()) >= V or int(ki.min()) < 0:
-            fail("kernels", f"topk_lse_readout k={k}: id out of vocab")
-        worst = max(worst, err)
-        same = int((ki == pi).all(dim=1).sum())
-        print(f"kernels: topk_lse_readout N={N} D={D} V={V} k={k} "
-              f"max_abs_err={err:.3e} (tol {tol}) ids identical on "
-              f"{same}/{N} rows, on all {int(decisive.sum())} rows whose "
-              f"top-{k + 1} gaps exceed tol", flush=True)
+    for k in (BEAM, 1, 16):                # beam search, greedy, the most
+        before = _paths(TOPK_LSE_READOUT)
+        err, same, dec, (kv, ki, kl) = _topk_against_plain(
+            K, s, w, b, k, tol, f"N={N}")
+        for rows in (slice(0, 3), slice(96, 99)):
+            sv, si, sl = K.topk_lse_readout(s[rows].contiguous(), w, b, k)
+            if not (torch.equal(sv, kv[rows]) and torch.equal(si, ki[rows])
+                    and torch.equal(sl, kl[rows])):
+                fail("kernels", f"topk_lse_readout k={k}: an N=3 call's "
+                     f"rows differ from rows {rows.start}-{rows.stop - 1} "
+                     f"of the N={N} call")
+        err3 = _topk_against_plain(K, s[:3].contiguous(), w, b, k, tol,
+                                   "N=3")[0]
+        took = _paths_since(TOPK_LSE_READOUT, before)
+        if took != {"wgmma": 4}:
+            fail("kernels", f"topk_lse_readout k={k} took {took}, not the "
+                 f"wgmma path")
+        before = _paths(TOPK_LSE_READOUT)
+        err_r, same_r, dec_r, _ = _topk_against_plain(
+            K, s, w_r, b_r, k, tol, f"V={V + 1}")
+        took = _paths_since(TOPK_LSE_READOUT, before)
+        if took != {"simt": 1}:
+            fail("kernels", f"topk_lse_readout V={V + 1} took {took}, not "
+                 f"the simt path")
+        worst = max(worst, err, err3)
+        print(f"kernels: topk_lse_readout N={N} D={D} V={V} k={k} bf16 "
+              f"path=wgmma max_abs_err={err:.3e} (N=3 {err3:.3e}; tol "
+              f"{tol}) ids identical on {same}/{N} rows, on all {dec} rows "
+              f"whose top-{k + 1} gaps exceed tol; N=3 rows bit-equal to "
+              f"rows 0-2 and 96-98 of N={N}; path=simt at V={V + 1}: "
+              f"max_abs_err={err_r:.3e}, ids identical on {same_r}/{N}, on "
+              f"all {dec_r} decisive rows", flush=True)
     ms = time_ms(lambda: K.topk_lse_readout(s, w, b, BEAM), flush)
+    simt_ms = time_ms(lambda: _launch(s, w, b, BEAM, "simt"), flush)
+    dev_ms = graph_ms(lambda: _launch(s, w, b, BEAM, "wgmma"), flush)
+    simt_dev_ms = graph_ms(lambda: _launch(s, w, b, BEAM, "simt"), flush)
     plain_ms = time_ms(lambda: K.topk_lse_readout_plain(s, w, b, BEAM), flush)
+    host_ms = _host_ms(lambda: K.topk_lse_readout(s, w, b, BEAM))
     b16 = b.bfloat16()
 
     def library():
@@ -331,15 +432,18 @@ def check_topk(K, flush, dev):
     library_ms = time_ms(library, flush)
     nbytes = N * D * 2 + D * V * 2 + V * 4 + N * BEAM * (4 + 8) + N * 4
     bms, by = bound_ms(nbytes, 2.0 * N * D * V, "bfloat16")
-    print(f"kernels: topk_lse_readout k={BEAM} ms={ms:.4f} plain_ms="
-          f"{plain_ms:.4f} library_ms={library_ms:.4f} bound_ms={bms:.5f} "
-          f"({by})", flush=True)
-    return {"name": "topk_lse_readout", "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/topk_lse_readout.cu",
-            "replaces": "paddle_tpu/ops/pallas_kernels.py:1279",
-            "launches": 0, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": library_ms}
+    print(f"kernels: topk_lse_readout k={BEAM} path=wgmma ms={ms:.4f} (share "
+          f"of bound {bms / ms:.3f}) simt_ms={simt_ms:.4f} plain_ms="
+          f"{plain_ms:.4f} library_ms={library_ms:.4f} (addmm + topk + "
+          f"logsumexp) bound_ms={bms:.5f} ({by}); the wrapper's host time "
+          f"{host_ms:.4f} ms a call; device time (one call replayed from a "
+          f"CUDA graph) wgmma {dev_ms:.4f} simt {simt_dev_ms:.4f} ms",
+          flush=True)
+    row = _kernel_row("topk_lse_readout", "topk_lse_readout.cu", "1279",
+                      worst, ms, plain_ms, bms, by, library_ms)
+    row.update(simt_ms=simt_ms, wrapper_host_ms=host_ms, device_ms=dev_ms,
+               simt_device_ms=simt_dev_ms)
+    return row
 
 
 def check_topk_logits(K, flush, dev):
@@ -749,13 +853,13 @@ def _ce_wmma_direct(fwd: bool, *args):
     return out
 
 
-def _ce_paths(lib) -> dict:
+def _paths(lib) -> dict:
     return dict(lib.launches_by_path)
 
 
-def _ce_paths_since(lib, before: dict) -> dict:
+def _paths_since(lib, before: dict) -> dict:
     """The launches by path since ``before`` (paths that moved only)."""
-    return {k: v - before.get(k, 0) for k, v in _ce_paths(lib).items()
+    return {k: v - before.get(k, 0) for k, v in _paths(lib).items()
             if v != before.get(k, 0)}
 
 
@@ -785,9 +889,9 @@ def check_ce(K, flush, dev):
     mask = (torch.rand(N, generator=g) > 1 / 12).float().to(dev)
     scale = mask / mask.sum()
 
-    before = _ce_paths(CE_READOUT_FWD)
+    before = _paths(CE_READOUT_FWD)
     pk, lk, logk = K.ce_readout_fwd(s, w, b, lab)
-    took = _ce_paths_since(CE_READOUT_FWD, before)
+    took = _paths_since(CE_READOUT_FWD, before)
     if took != {"wgmma": 1}:
         fail("kernels", f"ce_readout_fwd at the training shape took {took}, "
              f"not the wgmma path")
@@ -829,9 +933,9 @@ def check_ce(K, flush, dev):
     rows = [_kernel_row("ce_readout_fwd", "ce_readout_fwd.cu", "1029", err,
                         ms, plain_ms, bms, by, library_ms)]
 
-    before = _ce_paths(CE_READOUT_BWD)
+    before = _paths(CE_READOUT_BWD)
     gk = K.ce_readout_bwd(logk, s, w, lab, lk, scale)
-    took = _ce_paths_since(CE_READOUT_BWD, before)
+    took = _paths_since(CE_READOUT_BWD, before)
     if took != {"wgmma": 1}:
         fail("kernels", f"ce_readout_bwd at the training shape took {took}, "
              f"not the wgmma path")
@@ -1044,6 +1148,34 @@ def _cudnn_lstm(x, lens, w_h):
     return lstm, packed
 
 
+#: K10's second batch: not a multiple of the persistent kernel's 64-row
+#: block, its 4-row thread tile or the step kernel's 8-row block
+LSTM_RAGGED_B = 37
+
+
+def _lstm_bwd_ragged(K, H, rd, peeps, dev) -> float:
+    """K10 at B = LSTM_RAGGED_B, T = TEXTCLF_T, width H, residuals of type
+    rd (random, as K9 would leave them), lengths from T/2 to T, nonzero
+    peepholes: max err / max |g| against the plain version."""
+    import torch
+
+    B, T = LSTM_RAGGED_B, TEXTCLF_T
+    g = torch.Generator().manual_seed(SEED + 8)
+    lens = torch.randint(T // 2, T + 1, (B,), generator=g)
+    m_tb = (torch.arange(T)[:, None] < lens[None]).float().to(dev)
+    args = [torch.randn(T, B, H, generator=g).to(dev), m_tb,
+            torch.randn(T, B, 4 * H, generator=g).to(dev).to(rd),
+            torch.randn(T, B, H, generator=g).to(dev).to(rd),
+            ((2.0 / (5 * H)) ** 0.5
+             * torch.randn(4 * H, H, generator=g)).to(dev), *peeps,
+            torch.randn(B, H, generator=g).to(dev),
+            torch.randn(B, H, generator=g).to(dev)]
+    gk = K.lstm_backward(*args)
+    gp = K.lstm_backward_plain(*args)
+    torch.cuda.synchronize()
+    return max(_max_err(a, c) / c.abs().max().item() for a, c in zip(gk, gp))
+
+
 def check_lstm(K, flush, dev):
     """K9 (inference at b64h256; with residuals at b64h256 and b64h1280)
     and K10 (from K9's residuals at both widths) against their plain
@@ -1054,9 +1186,14 @@ def check_lstm(K, flush, dev):
     import torch
 
     from paddle_tpu_torch.ops import lstm_layer
+    from paddle_tpu_torch.ops.kernels.lstm import (LSTM_BACKWARD, _device_sms,
+                                                   _launch_bwd,
+                                                   _lstm_bwd_plan,
+                                                   lstm_bwd_kernel_info)
     from paddle_tpu_torch.ops.numerics import compute_dtype_scope
 
     B, T = TEXTCLF_B, TEXTCLF_T
+    sms = _device_sms(dev)
     rows = []
     for H in TEXTCLF_HIDDEN:
         x = _lstm_inputs(H, dev)
@@ -1156,18 +1293,32 @@ def check_lstm(K, flush, dev):
             w_t = w_h.t().contiguous()
             bargs = [x["d_out"], m_tb, got[3], got[5], w_t, *peeps,
                      x["d_hfin"], x["d_cfin"]]
+            before = _paths(LSTM_BACKWARD)
             gk = K.lstm_backward(*bargs)
+            took = _paths_since(LSTM_BACKWARD, before)
+            if took != {"persistent": 1}:
+                fail("kernels", f"lstm_backward H={H} took {took}, not the "
+                     f"persistent kernel")
             gp = K.lstm_backward_plain(*bargs)
+            gs = _launch_bwd(*bargs, True, "steps")
             torch.cuda.synchronize()
             tol = TOL[f"lstm_backward_b{B}h{H}"]
             err = max(_max_err(a, c) for a, c in zip(gk, gp))
             worst = max(_max_err(a, c) / c.abs().max().item()
                         for a, c in zip(gk, gp))
+            worst_s = max(_max_err(a, c) / c.abs().max().item()
+                          for a, c in zip(gs, gp))
             if not (all(torch.isfinite(a).all() for a in gk)
-                    and worst <= tol):
+                    and worst <= tol and worst_s <= tol):
                 fail("kernels", f"lstm_backward H={H}: max err / max |g| "
-                     f"{worst} > {tol}")
+                     f"{worst} (steps kernel {worst_s}) > {tol}")
+            worst_r = _lstm_bwd_ragged(K, H, rd, peeps, dev)
+            if not worst_r <= tol:
+                fail("kernels", f"lstm_backward H={H} B={LSTM_RAGGED_B}: "
+                     f"max err / max |g| {worst_r} > {tol}")
             ms = time_ms(lambda: K.lstm_backward(*bargs), flush)
+            steps_ms = time_ms(lambda: _launch_bwd(*bargs, True, "steps"),
+                               flush)
             plain_ms = time_ms(lambda: K.lstm_backward_plain(*bargs), flush,
                                reps=3)
             ct = torch.randn(int(packed.data.shape[0]), H, device=dev,
@@ -1199,15 +1350,23 @@ def check_lstm(K, flush, dev):
                   + T * B * H * rs + 4 * H * H * 4 + 3 * H * 4 + 2 * B * H * 4
                   + T * B * 4 * H * 4 + T * B * H * 4 + 2 * B * H * 4)
         bms, by = bound_ms(nbytes, 2.0 * n_real * 4 * H * H, "float32")
+        info = ", ".join(f"{k} {r}/{l}/{m}" for k, (r, l, m)
+                         in lstm_bwd_kernel_info(H, sms).items())
         print(f"kernels: lstm_backward B={B} T={T} H={H} {str(rd)[6:]} "
-              f"residuals max_abs_err={err:.3e} (max err / max |g| "
-              f"{worst:.3e}, tol {tol}); ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"residuals path=persistent ({_lstm_bwd_plan(B, H, sms)}; "
+              f"registers / spilled bytes a thread / shared bytes a block: "
+              f"{info}) max_abs_err={err:.3e} (max err / max |g| "
+              f"{worst:.3e}, steps kernel {worst_s:.3e}, B={LSTM_RAGGED_B} "
+              f"{worst_r:.3e}; tol {tol}); ms={ms:.4f} (share of bound "
+              f"{bms / ms:.3f}) steps_ms={steps_ms:.4f} plain_ms="
+              f"{plain_ms:.4f} "
               f"library_ms={lib_ms:.4f} (cuDNN LSTM forward + backward, "
               f"against the port's lstm_layer forward + backward "
               f"{layer_ms:.4f} ms) bound_ms={bms:.5f} ({by}, f32 products)",
               flush=True)
         row = _kernel_row(f"lstm_backward_b{B}h{H}", "lstm_backward.cu",
                           "479", err, ms, plain_ms, bms, by, lib_ms)
+        row["steps_ms"] = steps_ms
         row["library_covers"] = (
             f"cuDNN LSTM forward + backward, bf16, packed by length; the "
             f"port's lstm_layer forward + backward (projection, K9r, K10, "
@@ -1368,6 +1527,12 @@ def serve_path(K, dev):
     for name in SERVE_KERNELS:
         if launches[name] <= 0:
             fail("serve", f"kernel {name} was not launched on the serve path")
+    # the bf16 readout of the slot table (N = 192) and of every solo check
+    # takes K7's TMA + wgmma pass 1
+    k7_paths = launches.by_path["topk_lse_readout"]
+    if set(k7_paths) != {"wgmma"}:
+        fail("serve", f"topk_lse_readout launches by path {k7_paths}, not "
+             f"all wgmma")
     tokens = 0
     for req in reqs:
         out, steps = results[id(req)]
@@ -1774,6 +1939,11 @@ def textclf_train(K, dev, hidden: int):
         if launches[name] <= 0:
             fail("textclf", f"{tag}: kernel {name} was not launched on the "
                  f"training path")
+    # K10 at b64 takes its persistent kernel at both widths
+    if launches.by_path["lstm_backward"] != {
+            "persistent": launches["lstm_backward"]}:
+        fail("textclf", f"{tag}: lstm_backward launches by path "
+             f"{launches.by_path['lstm_backward']}, not all persistent")
     steady = sorted(secs[1:])
     sec = steady[len(steady) // 2]
     flops = textclf_flops(B, T, hidden)
@@ -2156,28 +2326,30 @@ def main() -> int:
     for row in rows:
         name = row["name"]
         if name == "bigru_forward":
-            row["launches"] = serve_fused_launches[name]
+            src, key = serve_fused_launches, name
         elif name in ("bigru_forward_residuals", "bigru_backward"):
-            row["launches"] = train_launches["fused_bigru"][
-                name.replace("_residuals", "")]
+            src, key = (train_launches["fused_bigru"],
+                        name.replace("_residuals", ""))
         elif name == "logsumexp_rows":
-            row["launches"] = train_launches["lse_readout"][name]
+            src, key = train_launches["lse_readout"], name
         elif name == "topk_lse_logits":
-            row["launches"] = dslgen_launches[name]
+            src, key = dslgen_launches, name
         elif name in ("gru_forward", "topk_lse_readout"):
-            row["launches"] = serve_launches[name]
+            src, key = serve_launches, name
         elif name == "gru_forward_residuals":
-            row["launches"] = train_launches["default"]["gru_forward"]
+            src, key = train_launches["default"], "gru_forward"
         elif name == "lstm_forward":
-            row["launches"] = infer_launches["lstm_forward"]
+            src, key = infer_launches, "lstm_forward"
         elif name.startswith("lstm_"):
             kernel, width = name.rsplit("_", 1)
             hidden = int(width.split("h")[1])
-            row["launches"] = textclf[hidden][
+            src, key = textclf[hidden], (
                 "lstm_forward" if kernel.startswith("lstm_forward")
-                else "lstm_backward"]
+                else "lstm_backward")
         else:
-            row["launches"] = train_launches["default"][name]
+            src, key = train_launches["default"], name
+        row["launches"] = src[key]
+        row["launches_by_path"] = src.by_path[key]
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

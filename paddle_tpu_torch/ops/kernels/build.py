@@ -24,8 +24,8 @@ import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 __all__ = ["CudaLibrary", "LIBRARIES", "register", "build_all",
-           "launch_counts", "reset_launch_counts", "BUILD_DIR", "CSRC_DIR",
-           "ARG_PTR", "ARG_INT"]
+           "LaunchCounts", "launch_counts", "reset_launch_counts",
+           "BUILD_DIR", "CSRC_DIR", "ARG_PTR", "ARG_INT"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -171,8 +171,22 @@ def build_all() -> Dict[str, float]:
             for name, lib in LIBRARIES.items()}
 
 
-def launch_counts() -> Dict[str, int]:
-    return {name: lib.launches for name, lib in LIBRARIES.items()}
+class LaunchCounts(dict):
+    """Launches by library name, and in ``by_path`` by library and kernel
+    variant (``{"single": n}`` for a library whose wrapper has one)."""
+
+    def __init__(self, counts: Dict[str, int],
+                 by_path: Dict[str, Dict[str, int]]):
+        super().__init__(counts)
+        self.by_path = by_path
+
+
+def launch_counts() -> LaunchCounts:
+    return LaunchCounts(
+        {name: lib.launches for name, lib in LIBRARIES.items()},
+        {name: (dict(lib.launches_by_path) if lib.launches_by_path
+                else {"single": lib.launches} if lib.launches else {})
+         for name, lib in LIBRARIES.items()})
 
 
 def reset_launch_counts() -> None:

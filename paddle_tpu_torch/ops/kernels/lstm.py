@@ -8,7 +8,12 @@ their plain versions.
   ``residual_dtype(H)``), as the reference's training call.  Unlike the
   reference kernel, which boots from zeros, it starts from ``h0``/``c0``.
 - ``lstm_backward`` replaces ``_lstm_bwd_pallas_raw`` (K10), the reverse
-  loop, all in float32.
+  loop, all in float32.  On the card ``_lstm_bwd_path`` picks its kernel
+  from (B, H, SM count) alone: ``"persistent"``, the whole loop in one
+  cooperative launch with ``w_t`` resident in shared memory split across
+  the SMs (``_lstm_bwd_plan``), where the split fits; else ``"steps"``, one
+  launch per reverse step.  ``LSTM_BACKWARD.launches_by_path`` splits the
+  count.
 
 Gate layout ``[i, f, o, g]``; peepholes pi/pf/po [H] (zeros for the plain
 cell): i and f see ``c_prev``, o sees ``c_new``.  Each wrapper dispatches on
@@ -19,7 +24,10 @@ flag picks the plain version on the card.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+import functools
+
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -28,7 +36,8 @@ from paddle_tpu_torch.ops.numerics import compute_dtype, residual_dtype
 from paddle_tpu_torch.ops.rnn import lstm_cell, lstm_cell_bwd
 
 __all__ = ["lstm_forward", "lstm_forward_plain", "lstm_backward",
-           "lstm_backward_plain", "LSTM_FORWARD", "LSTM_BACKWARD"]
+           "lstm_backward_plain", "LSTM_FORWARD", "LSTM_BACKWARD",
+           "lstm_bwd_kernel_info"]
 
 _FWD_ARGS = [ARG_PTR] * 13 + [ARG_INT] * 4 + [ARG_PTR]
 LSTM_FORWARD = register("lstm_forward", {"lstm_forward_f32": _FWD_ARGS,
@@ -37,7 +46,21 @@ _ENTRY = {torch.float32: "lstm_forward_f32",
           torch.bfloat16: "lstm_forward_bf16"}
 
 LSTM_BACKWARD = register("lstm_backward", {
-    "lstm_backward": [ARG_PTR] * 12 + [ARG_INT] * 4 + [ARG_PTR]})
+    "lstm_backward": [ARG_PTR] * 12 + [ARG_INT] * 4 + [ARG_PTR],
+    "lstm_backward_persistent": [ARG_PTR] * 14 + [ARG_INT] * 7 + [ARG_PTR],
+    "lstm_backward_info": [ARG_INT] * 3 + [ARG_PTR] * 3})
+
+#: the persistent K10's fixed shapes (csrc/lstm_backward.cu, namespace pk):
+#: a thread computes 4 rows x 5 or 10 columns, so a column group is at most
+#: 80 or 160 units (the shared pitch of its w_t slice); a k-group's depth is
+#: a multiple of the 32-deep d_z stage; shared memory holds the slice and a
+#: ring of three [64 x 32] f32 d_z stages, within the 232,448 bytes a block
+#: may take
+_PK_PITCH, _PK_KC, _PK_SMEM = (80, 160), 32, 232448
+_PK_STAGE_BYTES = 3 * 64 * _PK_KC * 4
+#: rows the persistent kernel takes (64 at a time): the [KG, B, H] f32
+#: partials stay in L2 (21 MB at B = 256, H = 1280)
+_PK_ROWS_MAX = 256
 
 _RES_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -155,6 +178,95 @@ def lstm_forward(xp: torch.Tensor, mask: torch.Tensor, w_h: torch.Tensor,
     return (h_seq.transpose(0, 1), h, c, *res)
 
 
+def _lstm_bwd_plan(B: int, H: int, sm_count: int) -> Optional[Dict[str, int]]:
+    """The persistent K10's split of ``w_t`` [4H, H] over one block per SM,
+    or None where it does not fit.  ``cg = ceil(H / cw)`` column groups of
+    ``cw <= 160`` units and ``kg = ceil(4H / kw)`` k-groups of ``kw`` rows,
+    a multiple of 32, as many as the SMs allow.  Of the splits whose slice
+    (``kw`` x its pitch, 80 or 160 columns) and d_z stages fit 232,448
+    bytes, the one whose block computes the fewest products a step
+    (``kw`` x pitch, the critical path), then the widest columns (each
+    column group reads all of d_z[s] once a step).  None when B is outside
+    1..256 or no split fits: on 132 SMs the split fits up to H = 1280 (16 x
+    8 blocks of 320 x 160), not at H = 1300.  Depends on B only through
+    that limit, so a row's sums run in the same order at any B."""
+    if not 1 <= B <= _PK_ROWS_MAX:
+        return None
+    return _plan_for(H, sm_count)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_for(H: int, sm_count: int) -> Optional[Dict[str, int]]:
+    if H < 1 or sm_count < 1:
+        return None
+    K = 4 * H
+    best = None
+    for cg in range(-(-H // _PK_PITCH[1]), min(H, sm_count) + 1):
+        cw = -(-H // cg)
+        if -(-H // cw) != cg:              # the same width as a smaller cg
+            continue
+        kg = min(sm_count // cg, -(-K // _PK_KC))
+        kw = -(-K // kg)
+        kw = -(-kw // _PK_KC) * _PK_KC         # whole d_z stages
+        kg = -(-K // kw)
+        pitch = _PK_PITCH[0] if cw <= _PK_PITCH[0] else _PK_PITCH[1]
+        smem = kw * pitch * 4 + _PK_STAGE_BYTES
+        if smem <= _PK_SMEM and (best is None or kw * pitch < best["cost"]):
+            best = {"kg": kg, "kw": kw, "cg": cg, "cw": cw,
+                    "blocks": kg * cg, "smem": smem, "cost": kw * pitch}
+    if best is not None:
+        del best["cost"]
+    return best
+
+
+def _lstm_bwd_slices(plan: Dict[str, int], H: int
+                     ) -> List[Tuple[range, range]]:
+    """Each block's (rows of ``w_t``, columns) as the kernel cuts them:
+    block i owns k-group ``i % kg`` and column group ``i // kg``."""
+    K = 4 * H
+    out = []
+    for i in range(plan["blocks"]):
+        g, c = i % plan["kg"], i // plan["kg"]
+        out.append((range(g * plan["kw"], min(K, (g + 1) * plan["kw"])),
+                    range(c * plan["cw"], min(H, (c + 1) * plan["cw"]))))
+    return out
+
+
+def _lstm_bwd_path(B: int, H: int, sm_count: int) -> str:
+    """K10's kernel on the card: ``"persistent"`` where ``_lstm_bwd_plan``
+    finds a split, else ``"steps"``."""
+    return "persistent" if _lstm_bwd_plan(B, H, sm_count) else "steps"
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _device_sms(dev: torch.device) -> int:
+    return _sm_count(torch.cuda.current_device() if dev.index is None
+                     else dev.index)
+
+
+def lstm_bwd_kernel_info(H: int, sm_count: int
+                         ) -> Dict[str, Tuple[int, int, int]]:
+    """(registers a thread, spilled bytes a thread, shared bytes a block) of
+    K10's two kernels, the persistent one with its slice at width H, from
+    ``cudaFuncGetAttributes``."""
+    plan = _lstm_bwd_plan(1, H, sm_count)
+    out = {}
+    for which, name in enumerate(("persistent", "steps")):
+        vals = [ctypes.c_int() for _ in range(3)]
+        err = LSTM_BACKWARD.lib().lstm_backward_info(
+            which, plan["kw"] if plan else 0, plan["cw"] if plan else 0,
+            *(ctypes.byref(v) for v in vals))
+        if err != 0:
+            raise RuntimeError(f"lstm_backward_info({which}): CUDA error "
+                               f"{err}")
+        out[name] = tuple(v.value for v in vals)
+    return out
+
+
 def _check_bwd(d_out_tb, m_tb, z_tb, cp_tb, w_t, pi, pf, po, d_hfin,
                d_cfin) -> Tuple[int, int, int]:
     if z_tb.dim() != 3 or z_tb.shape[-1] % 4:
@@ -225,6 +337,20 @@ def lstm_backward(d_out_tb: torch.Tensor, m_tb: torch.Tensor,
         raise ValueError(f"lstm_backward runs on cpu or cuda, not "
                          f"{z_tb.device}")
     dev = z_tb.device
+    path = _lstm_bwd_path(B, H, _device_sms(dev))
+    out = _launch_bwd(d_out_tb, m_tb, z_tb, cp_tb, w_t, pi, pf, po, d_hfin,
+                      d_cfin, want_cn, path)
+    LSTM_BACKWARD.count(path)
+    return out
+
+
+def _launch_bwd(d_out_tb, m_tb, z_tb, cp_tb, w_t, pi, pf, po, d_hfin, d_cfin,
+                want_cn: bool, path: str):
+    """K10 on CUDA operands through the kernel of ``path``; counts nothing
+    (the wrapper counts)."""
+    T, B, H4 = z_tb.shape
+    H = H4 // 4
+    dev = z_tb.device
     dout = d_out_tb.float().contiguous()
     m = m_tb.float().contiguous()
     z = z_tb.contiguous()
@@ -235,13 +361,22 @@ def lstm_backward(d_out_tb: torch.Tensor, m_tb: torch.Tensor,
     d_c = d_cfin.float().clone().contiguous()
     d_z = torch.empty(T, B, 4 * H, device=dev)
     cn = torch.empty(T, B, H, device=dev) if want_cn else None
+    args = [dout.data_ptr(), m.data_ptr(), z.data_ptr(), cp.data_ptr(),
+            wt.data_ptr(), *(v.data_ptr() for v in p), d_z.data_ptr(),
+            None if cn is None else cn.data_ptr(), d_h.data_ptr(),
+            d_c.data_ptr()]
+    res_bf16 = int(z.dtype == torch.bfloat16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        LSTM_BACKWARD.call(
-            "lstm_backward", dout.data_ptr(), m.data_ptr(), z.data_ptr(),
-            cp.data_ptr(), wt.data_ptr(), *(v.data_ptr() for v in p),
-            d_z.data_ptr(), None if cn is None else cn.data_ptr(),
-            d_h.data_ptr(), d_c.data_ptr(), int(z.dtype == torch.bfloat16),
-            T, B, H, stream)
-    LSTM_BACKWARD.launches += 1
+        if path == "persistent":
+            plan = _lstm_bwd_plan(B, H, _device_sms(dev))
+            part = torch.empty(plan["kg"], B, H, device=dev)
+            bar = torch.zeros(1, dtype=torch.int32, device=dev)
+            LSTM_BACKWARD.call(
+                "lstm_backward_persistent", *args, part.data_ptr(),
+                bar.data_ptr(), res_bf16, T, B, H, plan["kg"], plan["kw"],
+                plan["cw"], stream)
+        else:
+            LSTM_BACKWARD.call("lstm_backward", *args, res_bf16, T, B, H,
+                               stream)
     return d_z, cn, d_h, d_c

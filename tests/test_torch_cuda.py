@@ -852,3 +852,174 @@ def test_fused_encoder_and_lse_readout_train_on_the_card_as_on_the_cpu(dev):
                                atol=0)
     for got, want in zip(out["card"][1], out["cpu"][1]):
         _rel_close(got, want, 1e-4)
+
+
+def _topk_inputs(dev, N, D, V, seed):
+    rng = np.random.RandomState(seed)
+    s = torch.from_numpy(np.tanh(rng.randn(N, D)).astype(np.float32))
+    w = torch.from_numpy((rng.randn(D, V) / np.sqrt(D)).astype(np.float32))
+    b = torch.from_numpy((0.01 * rng.randn(V)).astype(np.float32))
+    return s.to(dev).bfloat16(), w.to(dev).bfloat16(), b.to(dev)
+
+
+def _topk_paths():
+    from paddle_tpu_torch.ops.kernels.topk_readout import TOPK_LSE_READOUT
+    return dict(TOPK_LSE_READOUT.launches_by_path)
+
+
+@pytest.mark.parametrize("N,D,V,k", [(192, 512, 30000, 3), (40, 128, 4096, 16),
+                                     (3, 64, 16, 16), (7, 256, 2056, 4),
+                                     (130, 512, 392, 1)])
+def test_topk_wgmma_path_matches_plain_version(dev, N, D, V, k):
+    """K7's TMA + wgmma pass 1 (bf16, D an instantiated depth, V % 8 == 0)
+    across row blocks, vocab chunks, a chunk whose second half lies past V
+    (V = 2056, 392) and k == V: one launch on the wgmma path; values and lse
+    within 1e-5 (exact bf16 products, f32 sums in another order), ids equal
+    wherever the plain top-(k+1) values are further apart than that."""
+    s, w, b = _topk_inputs(dev, N, D, V, N + V)
+    before = _topk_paths()
+    kv, ki, kl = topk_lse_readout(s, w, b, k)
+    after = _topk_paths()
+    assert after.get("wgmma", 0) == before.get("wgmma", 0) + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    pv, pi, pl = topk_lse_readout_plain(s, w, b, k)
+    torch.testing.assert_close(kv, pv, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(kl, pl, rtol=1e-5, atol=1e-5)
+    if k < V:
+        logits = s.float() @ w.float() + b
+        pv1 = torch.sort(logits, dim=1, descending=True).values[:, :k + 1]
+        decisive = (pv1[:, :-1] - pv1[:, 1:]).min(dim=1).values > 1e-5
+    else:
+        decisive = torch.ones(N, dtype=torch.bool, device=dev)
+    assert torch.equal(ki[decisive], pi[decisive])
+
+
+@pytest.mark.parametrize("k", [1, 3, 16])
+def test_topk_wgmma_rows_do_not_depend_on_n(dev, k):
+    """A solo decode's rows (N = 3) are bit-equal to the same rows of the
+    slot table's call (N = 192), wherever they sit in the 64-row tile."""
+    s, w, b = _topk_inputs(dev, 192, 512, 30000, 5)
+    big = topk_lse_readout(s, w, b, k)
+    for r0 in (0, 61, 96, 189):
+        small = topk_lse_readout(s[r0:r0 + 3].clone(), w, b, k)
+        for a, c in zip(small, big):
+            assert torch.equal(a, c[r0:r0 + 3])
+
+
+def test_topk_wgmma_ties_and_inf_bias(dev):
+    """On the wgmma path: all-tie rows resolve to the lowest ids across
+    tiles and chunks; -inf logits stay selectable after every finite one
+    and leave the lse finite."""
+    N, D, V, k = 8, 128, 1024, 5
+    s = torch.zeros(N, D, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(D, V, device=dev, dtype=torch.bfloat16)
+    b = torch.zeros(V, device=dev)
+    before = _topk_paths()
+    _, ki, _ = topk_lse_readout(s, w, b, k)
+    assert torch.equal(ki.cpu(), torch.arange(k).repeat(N, 1))
+    b[:1021] = -float("inf")
+    kv, ki, kl = topk_lse_readout(s, w, b, k)
+    assert _topk_paths().get("wgmma", 0) == before.get("wgmma", 0) + 2
+    pv, pi, pl = topk_lse_readout_plain(s, w, b, k)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+    assert torch.equal(ki[0].cpu(), torch.tensor([1021, 1022, 1023, 0, 1]))
+    assert torch.isfinite(kl).all()
+    torch.testing.assert_close(kl, pl, rtol=1e-6, atol=1e-6)
+
+
+def test_topk_shapes_tma_cannot_take_keep_the_simt_path(dev):
+    """V % 8 != 0 and an unaligned states base take the SIMT pass 1, with
+    the plain version's results."""
+    s, w, b = _topk_inputs(dev, 96, 512, 30001, 9)
+    buf = torch.empty(96 * 512 + 1, dtype=torch.bfloat16, device=dev)
+    s_odd = buf[1:].view(96, 512)
+    s_odd.copy_(s)
+    w8, b8 = w[:, :30000].contiguous(), b[:30000].contiguous()
+    before = _topk_paths()
+    got = [topk_lse_readout(s, w, b, 3), topk_lse_readout(s_odd, w8, b8, 3)]
+    assert _topk_paths().get("simt", 0) == before.get("simt", 0) + 2
+    for (kv, ki, kl), args in zip(got, ((s, w, b), (s, w8, b8))):
+        pv, pi, pl = topk_lse_readout_plain(*args, 3)
+        torch.testing.assert_close(kv, pv, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(kl, pl, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got[1][1], topk_lse_readout(s, w8, b8, 3)[1])
+
+
+def _lstm_bwd_args(dev, T, B, H, rd, seed):
+    rng = np.random.RandomState(seed)
+    f = np.float32
+    lens = rng.randint(1, T + 1, (B,))
+    lens[0] = T
+    m_tb = (np.arange(T)[:, None] < lens[None]).astype(f)
+    arrs = [rng.randn(T, B, H), m_tb, rng.randn(T, B, 4 * H),
+            rng.randn(T, B, H), rng.randn(4 * H, H) / np.sqrt(2 * H),
+            0.3 * rng.randn(H), 0.3 * rng.randn(H), 0.3 * rng.randn(H),
+            rng.randn(B, H), rng.randn(B, H)]
+    out = [torch.from_numpy(a.astype(f)).to(dev) for a in arrs]
+    out[2], out[3] = out[2].to(rd), out[3].to(rd)
+    return out
+
+
+def _lstm_paths():
+    from paddle_tpu_torch.ops.kernels.lstm import LSTM_BACKWARD
+    return dict(LSTM_BACKWARD.launches_by_path)
+
+
+@pytest.mark.parametrize("T,B,H,rd", [(9, 37, 1280, torch.float32),
+                                      (20, 64, 256, torch.bfloat16),
+                                      (7, 5, 100, torch.float32),
+                                      (6, 200, 64, torch.bfloat16),
+                                      (4, 1, 1280, torch.float32)])
+def test_lstm_backward_persistent_matches_plain_version(dev, T, B, H, rd):
+    """K10's persistent kernel (one cooperative launch, w_t in shared
+    memory) at ragged B and H, several row blocks (B = 200), masked tails
+    and nonzero peepholes: one launch on that path; f32 sums in another
+    order (1e-5 of the largest value); the per-step kernel, reached through
+    the wrapper's internal entry, agrees to the same tolerance."""
+    from paddle_tpu_torch.ops.kernels.lstm import _launch_bwd
+
+    args = _lstm_bwd_args(dev, T, B, H, rd, B + H)
+    before = _lstm_paths()
+    got = lstm_backward(*args)
+    after = _lstm_paths()
+    assert after.get("persistent", 0) == before.get("persistent", 0) + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    want = lstm_backward_plain(*args)
+    steps = _launch_bwd(*args, True, "steps")
+    for a, c, d in zip(got, want, steps):
+        assert torch.isfinite(a).all()
+        _rel_close(a, c, 1e-5)
+        _rel_close(d, c, 1e-5)
+    again = lstm_backward(*args, want_cn=False)
+    assert again[1] is None
+    for a, c in zip((again[0], again[2], again[3]),
+                    (got[0], got[2], got[3])):
+        assert torch.equal(a, c)
+
+
+def test_lstm_backward_persistent_rows_do_not_depend_on_b(dev):
+    """Rows of a 5-row call are bit-equal to the same rows of a 70-row
+    call: the split of w_t and the order of every sum depend on H and the
+    SM count, not on B."""
+    T, B, H = 8, 70, 256
+    args = _lstm_bwd_args(dev, T, B, H, torch.float32, 3)
+    big = lstm_backward(*args)
+    rows = slice(30, 35)
+    sub = [a[:, rows] if a.dim() == 3 or i == 1 else a
+           for i, a in enumerate(args)]
+    sub[8], sub[9] = args[8][rows], args[9][rows]
+    small = lstm_backward(*[a.contiguous() for a in sub])
+    for a, c in zip(small, big):
+        ref = c[:, rows] if c.dim() == 3 else c[rows]
+        assert torch.equal(a, ref)
+
+
+def test_lstm_backward_beyond_the_persistent_limits_takes_the_steps(dev):
+    """B above the persistent kernel's row limit takes the per-step
+    kernel, with the plain version's results."""
+    args = _lstm_bwd_args(dev, 5, 300, 32, torch.float32, 4)
+    before = _lstm_paths()
+    got = lstm_backward(*args)
+    assert _lstm_paths().get("steps", 0) == before.get("steps", 0) + 1
+    for a, c in zip(got, lstm_backward_plain(*args)):
+        _rel_close(a, c, 1e-5)

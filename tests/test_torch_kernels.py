@@ -345,3 +345,71 @@ def test_bigru_and_logsumexp_wrappers_refuse_devices_without_a_kernel():
                        batch_split=B)
     with pytest.raises(ValueError, match="cpu or cuda"):
         logsumexp_rows(z(4, 9))
+
+
+_BF, _F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("N,D,V,dtype,ptrs,want", [
+    # the serve readout (64 slots x beam 3) and a solo decode
+    (192, 512, 30000, _BF, (0, 1024, 4096), "wgmma"),
+    (3, 512, 30000, _BF, (16, 32, 48), "wgmma"),
+    (40, 128, 4096, _BF, (0, 0, 0), "wgmma"),
+    (7, 64, 16, _BF, (0, 0, 0), "wgmma"),
+    # V % 8 != 0: a w row is not a multiple of 16 bytes
+    (192, 512, 30001, _BF, (0, 0, 0), "simt"),
+    (40, 128, 515, _BF, (0, 0, 0), "simt"),
+    # a depth the wgmma kernel is not instantiated for
+    (3, 96, 4096, _BF, (0, 0, 0), "simt"),
+    (192, 1024, 30000, _BF, (0, 0, 0), "simt"),
+    # a base that is not 16-byte aligned (states, w or the bias)
+    (192, 512, 30000, _BF, (2, 0, 0), "simt"),
+    (192, 512, 30000, _BF, (0, 0, 8), "simt"),
+    # no rows
+    (0, 512, 30000, _BF, (0, 0, 0), "simt"),
+    # float32 (the f32 policy): CUDA cores at every shape
+    (192, 512, 30000, _F32, (0, 0, 0), "simt"),
+])
+def test_topk_path_is_a_function_of_shape_dtype_and_alignment(N, D, V, dtype,
+                                                              ptrs, want):
+    from paddle_tpu_torch.ops.kernels.topk_readout import _topk_path
+
+    assert _topk_path(N, D, V, dtype, ptrs) == want
+
+
+@pytest.mark.parametrize("N,V,k,nv_simt,nv_wgmma", [
+    (192, 30000, 3, 235, 118), (3, 30000, 3, 235, 118),
+    (192, 30001, 16, 235, 118), (192, 30080, 1, 235, 118),
+    (7, 16, 16, 1, 1), (40, 515, 4, 5, 3), (7, 2056, 4, 17, 9)])
+def test_topk_partials_follow_the_vocab_tiles(N, V, k, nv_simt, nv_wgmma):
+    """Pass 1 keeps each row's top-k and (max, sum-exp) per 128-column
+    vocab tile on the SIMT path and per 256-column chunk on the wgmma path;
+    the count depends on V alone, and the four buffers are views of one
+    scratch allocation."""
+    from paddle_tpu_torch.ops.kernels.topk_readout import _topk_scratch
+
+    for path, nv in (("simt", nv_simt), ("wgmma", nv_wgmma)):
+        assert _topk_scratch(N, V, k, path) == {
+            "pv": (N, nv, k), "pi": (N, nv, k), "pm": (N, nv),
+            "ps": (N, nv)}
+        assert _topk_scratch(1, V, k, path)["pm"][1] == nv
+
+
+def test_launch_counts_split_by_path():
+    """``launch_counts()`` keeps the totals and, in ``by_path``, each
+    library's launches by kernel variant; a library with one kernel shows
+    it as ``single``."""
+    from paddle_tpu_torch.ops.kernels.build import (LIBRARIES,
+                                                    reset_launch_counts)
+
+    reset_launch_counts()
+    LIBRARIES["topk_lse_readout"].count("wgmma")
+    LIBRARIES["topk_lse_readout"].count("simt")
+    LIBRARIES["gru_forward"].launches += 2
+    got = launch_counts()
+    assert got["topk_lse_readout"] == 2 and got["gru_forward"] == 2
+    assert got.by_path["topk_lse_readout"] == {"wgmma": 1, "simt": 1}
+    assert got.by_path["gru_forward"] == {"single": 2}
+    assert got.by_path["lstm_backward"] == {}
+    reset_launch_counts()
+    assert launch_counts().by_path["topk_lse_readout"] == {}

@@ -363,3 +363,72 @@ def test_lstm_wrappers_refuse_devices_without_a_kernel():
                       torch.zeros(T, B, H, **meta),
                       torch.zeros(4 * H, H, **meta), p, p, p,
                       torch.zeros(B, H, **meta), torch.zeros(B, H, **meta))
+
+
+@pytest.mark.parametrize("B", [1, 64, 512])
+@pytest.mark.parametrize("H", [64, 256, 512, 1280])
+def test_lstm_bwd_split_covers_w_t_once_and_fits(B, H):
+    """The persistent K10's plan on a 132-SM card: every (k, column) of
+    w_t [4H, H] lies in exactly one block's slice, every slice fits the
+    shared memory a block may take (232,448 bytes, with the three d_z
+    stages), no block is empty, and there are no more blocks than SMs.
+    The plan does not depend on B; past the 256-row limit there is none."""
+    from paddle_tpu_torch.ops.kernels.lstm import (_lstm_bwd_plan,
+                                                   _lstm_bwd_slices)
+
+    plan = _lstm_bwd_plan(B, H, 132)
+    if B > 256:
+        assert plan is None
+        return
+    assert plan == _lstm_bwd_plan(1, H, 132)
+    assert plan["blocks"] <= 132
+    pitch = 80 if plan["cw"] <= 80 else 160
+    assert plan["cw"] <= 160 and plan["kw"] % 32 == 0
+    assert plan["smem"] == plan["kw"] * pitch * 4 + 3 * 32 * 64 * 4 <= 232448
+    cover = np.zeros((4 * H, H), np.int32)
+    for ks, cs in _lstm_bwd_slices(plan, H):
+        assert len(ks) > 0 and len(cs) > 0
+        assert len(ks) <= plan["kw"] and len(cs) <= plan["cw"]
+        cover[ks.start:ks.stop, cs.start:cs.stop] += 1
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("B,H,sms,want", [
+    (64, 256, 132, "persistent"),
+    (64, 1280, 132, "persistent"),
+    (1, 64, 132, "persistent"),
+    (37, 1280, 132, "persistent"),
+    (256, 1280, 132, "persistent"),
+    # beyond the row limit
+    (257, 256, 132, "steps"),
+    (512, 1280, 132, "steps"),
+    # f32 w_t beyond what 132 SMs hold
+    (64, 1300, 132, "steps"),
+    (64, 1408, 132, "steps"),
+    # fewer SMs: the slices grow past shared memory
+    (64, 1280, 100, "steps"),
+    (64, 256, 4, "steps"),
+    (64, 64, 1, "persistent"),
+    # no rows or units
+    (0, 256, 132, "steps"),
+    (64, 0, 132, "steps"),
+])
+def test_lstm_bwd_path_is_a_function_of_shape_and_sm_count(B, H, sms, want):
+    from paddle_tpu_torch.ops.kernels.lstm import _lstm_bwd_path
+
+    assert _lstm_bwd_path(B, H, sms) == want
+
+
+def test_lstm_bwd_plan_at_the_benchmark_widths():
+    """b64h1280: 16 k-groups of 320 rows x 8 column groups of 160 units,
+    128 blocks of 204,800 bytes of w_t (the 640 x 80 split computes as
+    many products a block but reads d_z twice as often); b64h256: 32 x 4
+    blocks of 32 x 64."""
+    from paddle_tpu_torch.ops.kernels.lstm import _lstm_bwd_plan
+
+    assert _lstm_bwd_plan(64, 1280, 132) == {
+        "kg": 16, "kw": 320, "cg": 8, "cw": 160, "blocks": 128,
+        "smem": 204800 + 24576}
+    assert _lstm_bwd_plan(64, 256, 132) == {
+        "kg": 32, "kw": 32, "cg": 4, "cw": 64, "blocks": 128,
+        "smem": 10240 + 24576}
