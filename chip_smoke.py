@@ -20,10 +20,12 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             timed on their WMMA kernels there; K7 must take its TMA + wgmma
             pass 1 at the serve shape and at a solo decode's N = 3, whose
             rows are bit-equal to the N = 192 call's, and is also timed on
-            its SIMT pass 1 there and held on it at V = 30001; text
-            classification: K9 without and with residuals, K10, which must
-            take its persistent kernel at both widths and is also held at
-            B = 37 and timed on its per-step kernel; DSL generation: K8),
+            its SIMT pass 1 there and held on it at V = 30001; K6 with its
+            device time by kernel; text classification: K9 without and
+            with residuals and K10, at both widths, which must take their
+            persistent kernels under bf16 and are also held and timed on
+            their per-step kernels (K10 also at B = 37); DSL generation:
+            K8),
             with registers, spills and shared bytes of the redesigned
             kernels, with its time (CUDA events,
             L2 flushed before each call), the plain version's time, the
@@ -57,7 +59,8 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             lstm_b64h1280 (B=64, T=100, bf16 compute), 6 ``Adam`` steps each
             (``apply`` -> ``torch.autograd.grad`` -> ``update``) with the
             losses, median step time, samples/s and MFU; one inference pass
-            (``apply(train=False)`` under ``torch.no_grad()``) at b64h256;
+            (``apply(train=False)`` under ``torch.no_grad()``) at each
+            width; K9 and K10 launches all on their persistent kernels;
             then the net at H=256, B=4 in f32, its loss and 15 gradients on
             the card held against the CPU;
 8. dslgen   generation through the nn DSL's ``beam_search`` layer: the
@@ -990,6 +993,31 @@ def check_ce(K, flush, dev):
     return rows
 
 
+def _kernel_split(fn) -> dict:
+    """Device ms by kernel of one call of ``fn`` after a warm-up call
+    (``torch.profiler``, CUDA activity): hand-written kernels by their
+    name, everything else (the wrapper's PyTorch ops) as ``other``."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        m = re.search(r"::(\w+_kernel)\b", e.key)
+        name = m.group(1) if m else "other"
+        split[name] = split.get(name, 0.0) + e.self_device_time_total / 1e3
+    return split
+
+
 def _attn_dec_inputs(dev):
     """The training decoder's K5 inputs: T=32, B=384, S=32, D=A=512,
     2H=1024, mixed source and target lengths, float32 (cast per policy)."""
@@ -1067,6 +1095,7 @@ def check_attn_dec(K, flush, dev):
                     "bwd": time_ms(lambda: K.attn_dec_bwd(*ba), flush),
                     "bwd_plain": time_ms(lambda: K.attn_dec_bwd_plain(*ba),
                                          flush, reps=5)}
+                split = _kernel_split(lambda: K.attn_dec_bwd(*ba))
     TB = T * B
     weights_fwd = D * A + A + H2 * D3 + D * D3
     nbytes = (TB * D3 * 4 + TB * 4 + B * D * 4 + B * S * (H2 + A) * 2
@@ -1091,14 +1120,23 @@ def check_attn_dec(K, flush, dev):
           f"f32={errs['bwd/float32']:.3e} (tol "
           f"{TOL['attn_dec_bwd/float32']}) bf16={errs['bwd/bfloat16']:.3e} "
           f"(tol {TOL['attn_dec_bwd/bfloat16']}); ms={timed['bwd']:.4f} "
+          f"(share of bound {b_bms / timed['bwd']:.3f}) "
           f"plain_ms={timed['bwd_plain']:.4f} bound_ms={b_bms:.5f} ({b_by}, "
           f"f32 products)", flush=True)
+    device_ms = sum(split.values())
+    print(f"kernels: attn_dec_bwd device ms by kernel (one profiled call, "
+          f"torch.profiler): "
+          f"{', '.join(f'{k} {v:.4f}' for k, v in sorted(split.items()))}; "
+          f"device {device_ms:.4f} of {timed['bwd']:.4f} ms (events): "
+          f"{1 - device_ms / timed['bwd']:.1%} of the call is launch gaps "
+          f"and the wrapper's host time", flush=True)
     return [_kernel_row("attn_dec_fwd", "attn_dec_fwd.cu", "750",
                         errs["fwd/bfloat16"], timed["fwd"],
                         timed["fwd_plain"], f_bms, f_by, None),
-            _kernel_row("attn_dec_bwd", "attn_dec_bwd.cu", "894",
-                        errs["bwd/bfloat16"], timed["bwd"],
-                        timed["bwd_plain"], b_bms, b_by, None)]
+            dict(_kernel_row("attn_dec_bwd", "attn_dec_bwd.cu", "894",
+                             errs["bwd/bfloat16"], timed["bwd"],
+                             timed["bwd_plain"], b_bms, b_by, None),
+                 split_ms=split, device_ms=device_ms)]
 
 
 def _lstm_inputs(H, dev):
@@ -1177,81 +1215,122 @@ def _lstm_bwd_ragged(K, H, rd, peeps, dev) -> float:
 
 
 def check_lstm(K, flush, dev):
-    """K9 (inference at b64h256; with residuals at b64h256 and b64h1280)
-    and K10 (from K9's residuals at both widths) against their plain
-    versions, bf16 policy (inference also under f32).  Yardsticks: cuDNN's
+    """K9 (inference and with residuals, at b64h256 and b64h1280) and K10
+    (from K9's residuals at both widths) against their plain versions,
+    bf16 policy (inference also under f32, on K9's per-step kernel).  K9
+    and K10 must take their persistent kernels under bf16; each is also
+    held and timed on its per-step kernel.  Yardsticks: cuDNN's
     LSTM forward for K9, its forward + backward for K10, beside the port's
     ``lstm_layer`` forward + backward (input projection, K9r, K10, d_w_h,
     d_x) at the same shape."""
     import torch
 
     from paddle_tpu_torch.ops import lstm_layer
-    from paddle_tpu_torch.ops.kernels.lstm import (LSTM_BACKWARD, _device_sms,
-                                                   _launch_bwd,
+    from paddle_tpu_torch.ops.kernels.lstm import (LSTM_BACKWARD,
+                                                   LSTM_FORWARD, _device_sms,
+                                                   _launch_bwd, _launch_fwd,
                                                    _lstm_bwd_plan,
-                                                   lstm_bwd_kernel_info)
+                                                   _lstm_fwd_plan,
+                                                   lstm_bwd_kernel_info,
+                                                   lstm_fwd_kernel_info)
     from paddle_tpu_torch.ops.numerics import compute_dtype_scope
 
     B, T = TEXTCLF_B, TEXTCLF_T
     sms = _device_sms(dev)
     rows = []
+
+    def fwd_info(H):
+        return ", ".join(f"{k} {r}/{l}/{m}" for k, (r, l, m)
+                         in lstm_fwd_kernel_info(H, sms).items())
+
     for H in TEXTCLF_HIDDEN:
         x = _lstm_inputs(H, dev)
         xp, mask, w_h, peeps = x["xp"], x["mask"], x["w_h"], x["peeps"]
         n_real = float(mask.sum())
         lib_x = torch.randn(B, T, H, device=dev, dtype=torch.bfloat16)
         lstm, packed = _cudnn_lstm(lib_x, x["lens"], w_h.bfloat16())
-        if H == 256:                             # the inference variant
-            errs = {}
-            for cd in ("float32", "bfloat16"):
-                with compute_dtype_scope(cd):
-                    got = K.lstm_forward(xp, mask, w_h, *peeps)
-                    want = K.lstm_forward_plain(xp, mask, w_h, *peeps)
-                    torch.cuda.synchronize()
-                err = max(_max_err(a, b) for a, b in zip(got, want))
-                tol = TOL[f"lstm_forward/{cd}"]
-                if not (torch.isfinite(got[0]).all() and err <= tol):
-                    fail("kernels", f"lstm_forward {cd}: max abs err {err} "
-                         f"> {tol}")
-                if not torch.equal(got[0][mask == 0],
-                                   torch.zeros_like(got[0][mask == 0])):
-                    fail("kernels", f"lstm_forward {cd}: padded steps not "
-                         f"zero")
-                errs[cd] = err
-            with compute_dtype_scope("bfloat16"):
-                ms = time_ms(lambda: K.lstm_forward(xp, mask, w_h, *peeps),
-                             flush)
-                plain_ms = time_ms(lambda: K.lstm_forward_plain(
-                    xp, mask, w_h, *peeps), flush, reps=3)
-            with torch.no_grad():
-                lib_ms = time_ms(lambda: lstm(packed), flush)
-            nbytes = (T * B * 4 * H * 4 + T * B * 4 + H * 4 * H * 2
-                      + 3 * H * 4 + T * B * H * 4 + 2 * B * H * 4)
-            bms, by = bound_ms(nbytes, 2.0 * n_real * H * 4 * H, "bfloat16")
-            print(f"kernels: lstm_forward B={B} T={T} H={H} max_abs_err "
-                  f"f32={errs['float32']:.3e} (tol "
-                  f"{TOL['lstm_forward/float32']}) bf16="
-                  f"{errs['bfloat16']:.3e} (tol "
-                  f"{TOL['lstm_forward/bfloat16']}); ms={ms:.4f} plain_ms="
-                  f"{plain_ms:.4f} library_ms={lib_ms:.4f} (cuDNN LSTM "
-                  f"forward, input projection included, no peepholes) "
-                  f"bound_ms={bms:.5f} ({by})", flush=True)
-            row = _kernel_row("lstm_forward", "lstm_forward.cu", "126",
-                              errs["bfloat16"], ms, plain_ms, bms, by,
-                              lib_ms)
-            row["library_covers"] = ("cuDNN LSTM forward, bf16, packed by "
-                                     "length: input projection + loop, no "
-                                     "peepholes")
-            rows.append(row)
+        # the inference variant (its own row at each width)
+        errs = {}
+        for cd in ("float32", "bfloat16"):
+            with compute_dtype_scope(cd):
+                before = _paths(LSTM_FORWARD)
+                got = K.lstm_forward(xp, mask, w_h, *peeps)
+                took = _paths_since(LSTM_FORWARD, before)
+                want = K.lstm_forward_plain(xp, mask, w_h, *peeps)
+                torch.cuda.synchronize()
+            want_path = "persistent" if cd == "bfloat16" else "steps"
+            if took != {want_path: 1}:
+                fail("kernels", f"lstm_forward {cd} H={H} took {took}, not "
+                     f"the {want_path} kernel")
+            err = max(_max_err(a, b) for a, b in zip(got, want))
+            tol = TOL[f"lstm_forward/{cd}"]
+            if not (torch.isfinite(got[0]).all() and err <= tol):
+                fail("kernels", f"lstm_forward {cd} H={H}: max abs err "
+                     f"{err} > {tol}")
+            if not torch.equal(got[0][mask == 0],
+                               torch.zeros_like(got[0][mask == 0])):
+                fail("kernels", f"lstm_forward {cd} H={H}: padded steps "
+                     f"not zero")
+            errs[cd] = err
+        with compute_dtype_scope("bfloat16"):
+            steps = _launch_fwd(xp, mask, w_h, *peeps, None, None, False,
+                                "steps")
+            torch.cuda.synchronize()
+            errs["steps"] = max(_max_err(a, b) for a, b in zip(steps, want))
+            if not errs["steps"] <= TOL["lstm_forward/bfloat16"]:
+                fail("kernels", f"lstm_forward steps kernel H={H}: max abs "
+                     f"err {errs['steps']}")
+            ms = time_ms(lambda: K.lstm_forward(xp, mask, w_h, *peeps),
+                         flush)
+            steps_ms = time_ms(lambda: _launch_fwd(
+                xp, mask, w_h, *peeps, None, None, False, "steps"), flush)
+            plain_ms = time_ms(lambda: K.lstm_forward_plain(
+                xp, mask, w_h, *peeps), flush, reps=3)
+        with torch.no_grad():
+            lib_ms = time_ms(lambda: lstm(packed), flush)
+        nbytes = (T * B * 4 * H * 4 + T * B * 4 + H * 4 * H * 2
+                  + 3 * H * 4 + T * B * H * 4 + 2 * B * H * 4)
+        bms, by = bound_ms(nbytes, 2.0 * n_real * H * 4 * H, "bfloat16")
+        print(f"kernels: lstm_forward B={B} T={T} H={H} path=persistent "
+              f"({_lstm_fwd_plan(B, H, sms)}; registers / spilled bytes a "
+              f"thread / shared bytes a block: {fwd_info(H)}) max_abs_err "
+              f"f32={errs['float32']:.3e} (steps kernel, tol "
+              f"{TOL['lstm_forward/float32']}) bf16={errs['bfloat16']:.3e} "
+              f"(steps kernel {errs['steps']:.3e}; tol "
+              f"{TOL['lstm_forward/bfloat16']}); ms={ms:.4f} (share of bound "
+              f"{bms / ms:.3f}) steps_ms={steps_ms:.4f} plain_ms="
+              f"{plain_ms:.4f} library_ms={lib_ms:.4f} (cuDNN LSTM forward, "
+              f"input projection included, no peepholes) bound_ms={bms:.5f} "
+              f"({by})", flush=True)
+        row = _kernel_row("lstm_forward" if H == 256
+                          else f"lstm_forward_b{B}h{H}", "lstm_forward.cu",
+                          "126", errs["bfloat16"], ms, plain_ms, bms, by,
+                          lib_ms)
+        row["steps_ms"] = steps_ms
+        row["library_covers"] = ("cuDNN LSTM forward, bf16, packed by "
+                                 "length: input projection + loop, no "
+                                 "peepholes")
+        rows.append(row)
 
         with compute_dtype_scope("bfloat16"):
+            before = _paths(LSTM_FORWARD)
             got = K.lstm_forward(xp, mask, w_h, *peeps, residuals=True)
+            took = _paths_since(LSTM_FORWARD, before)
+            if took != {"persistent": 1}:
+                fail("kernels", f"lstm_forward residuals H={H} took {took}, "
+                     f"not the persistent kernel")
             want = K.lstm_forward_plain(xp, mask, w_h, *peeps,
                                         residuals=True)
+            steps = _launch_fwd(xp, mask, w_h, *peeps, None, None, True,
+                                "steps")
             torch.cuda.synchronize()
             rd = got[3].dtype
             tol = TOL[f"lstm_forward_residuals_b{B}h{H}"]
             err = max(_max_err(a, b) for a, b in zip(got[:3], want[:3]))
+            err_s = max(_max_err(a, b) for a, b in zip(steps[:3], want[:3]))
+            if not err_s <= tol:
+                fail("kernels", f"lstm_forward residuals steps kernel H={H}: "
+                     f"h/c err {err_s} (tol {tol})")
             if rd == torch.bfloat16:
                 res_ok = all(_within_bf16_ulp(a, b, tol)
                              for a, b in zip(got[3:], want[3:]))
@@ -1265,6 +1344,8 @@ def check_lstm(K, flush, dev):
                      f"ulp) or not {want_rd} ({rd})")
             ms = time_ms(lambda: K.lstm_forward(xp, mask, w_h, *peeps,
                                                 residuals=True), flush)
+            steps_ms = time_ms(lambda: _launch_fwd(
+                xp, mask, w_h, *peeps, None, None, True, "steps"), flush)
             plain_ms = time_ms(lambda: K.lstm_forward_plain(
                 xp, mask, w_h, *peeps, residuals=True), flush, reps=3)
             lib_w = [p.requires_grad_() for p in lstm.parameters()]
@@ -1275,15 +1356,18 @@ def check_lstm(K, flush, dev):
                       + T * B * 4 * H * rs + 2 * T * B * H * rs)
             bms, by = bound_ms(nbytes, 2.0 * n_real * H * 4 * H, "bfloat16")
             print(f"kernels: lstm_forward residuals=True B={B} T={T} H={H} "
-                  f"bf16, {str(rd)[6:]} residuals: h/c max_abs_err="
-                  f"{err:.3e} (tol {tol}), z/h_prev/c_prev within tol"
+                  f"bf16, {str(rd)[6:]} residuals, path=persistent: h/c "
+                  f"max_abs_err={err:.3e} (steps kernel {err_s:.3e}; tol "
+                  f"{tol}), z/h_prev/c_prev within tol"
                   f"{' + one bf16 ulp' if rs == 2 else ''}; ms={ms:.4f} "
+                  f"(share of bound {bms / ms:.3f}) steps_ms={steps_ms:.4f} "
                   f"plain_ms={plain_ms:.4f} library_ms={lib_fwd_ms:.4f} "
                   f"(cuDNN LSTM training forward) bound_ms={bms:.5f} ({by})",
                   flush=True)
             row = _kernel_row(f"lstm_forward_residuals_b{B}h{H}",
                               "lstm_forward.cu", "126", err, ms, plain_ms,
                               bms, by, lib_fwd_ms)
+            row["steps_ms"] = steps_ms
             row["library_covers"] = ("cuDNN LSTM training forward, bf16, "
                                      "packed by length: input projection + "
                                      "loop + its reserve, no peepholes")
@@ -1939,11 +2023,11 @@ def textclf_train(K, dev, hidden: int):
         if launches[name] <= 0:
             fail("textclf", f"{tag}: kernel {name} was not launched on the "
                  f"training path")
-    # K10 at b64 takes its persistent kernel at both widths
-    if launches.by_path["lstm_backward"] != {
-            "persistent": launches["lstm_backward"]}:
-        fail("textclf", f"{tag}: lstm_backward launches by path "
-             f"{launches.by_path['lstm_backward']}, not all persistent")
+    # K9 and K10 at b64 take their persistent kernels at both widths
+    for name in TEXTCLF_KERNELS:
+        if launches.by_path[name] != {"persistent": launches[name]}:
+            fail("textclf", f"{tag}: {name} launches by path "
+                 f"{launches.by_path[name]}, not all persistent")
     steady = sorted(secs[1:])
     sec = steady[len(steady) // 2]
     flops = textclf_flops(B, T, hidden)
@@ -1961,9 +2045,10 @@ def textclf_train(K, dev, hidden: int):
     return launches, topo, params, state, feed
 
 
-def textclf_infer(K, topo, params, state, feed):
+def textclf_infer(K, topo, params, state, feed, hidden: int):
     """One forward-only pass (``apply(train=False)`` under
-    ``torch.no_grad()``): the logits, through K9's inference variant."""
+    ``torch.no_grad()``): the logits, through K9's inference variant on
+    its persistent kernel."""
     import torch
 
     K.reset_launch_counts()
@@ -1977,12 +2062,15 @@ def textclf_infer(K, topo, params, state, feed):
     B = TEXTCLF_B
     if tuple(logits.shape) != (B, 2) or not torch.isfinite(logits).all():
         fail("textclf", f"inference logits malformed: {tuple(logits.shape)}")
-    if launches["lstm_forward"] <= 0 or launches["lstm_backward"] != 0:
-        fail("textclf", f"inference launches {launches}: want lstm_forward "
-             f"and no lstm_backward")
-    print(f"textclf: inference b{B}h256 apply(train=False): {sec * 1e3:.2f} "
-          f"ms ({B / sec:.1f} samples/s, first call), logits "
-          f"{tuple(logits.shape)}, launches {launches}", flush=True)
+    if (launches["lstm_forward"] <= 0 or launches["lstm_backward"] != 0
+            or launches.by_path["lstm_forward"] != {
+                "persistent": launches["lstm_forward"]}):
+        fail("textclf", f"inference launches {launches} (by path "
+             f"{launches.by_path['lstm_forward']}): want lstm_forward, all "
+             f"persistent, and no lstm_backward")
+    print(f"textclf: inference b{B}h{hidden} apply(train=False): "
+          f"{sec * 1e3:.2f} ms ({B / sec:.1f} samples/s, first call), "
+          f"logits {tuple(logits.shape)}, launches {launches}", flush=True)
     return launches
 
 
@@ -2296,13 +2384,13 @@ def main() -> int:
         train_cpu_check(K, dev, "both")
         torch.cuda.empty_cache()
         phase = "textclf"
-        textclf = {}
+        textclf, infer_launches = {}, {}
         for hidden in TEXTCLF_HIDDEN:
             launches, topo, params, state, feed = textclf_train(K, dev,
                                                                 hidden)
             textclf[hidden] = launches
-            if hidden == 256:
-                infer_launches = textclf_infer(K, topo, params, state, feed)
+            infer_launches[hidden] = textclf_infer(K, topo, params, state,
+                                                   feed, hidden)
             del topo, params, state
             torch.cuda.empty_cache()
         textclf_cpu_check(dev)
@@ -2320,9 +2408,9 @@ def main() -> int:
     # training (default configuration); K11 inference from serving with
     # fused_bigru, K11 with residuals and its reverse from training with
     # fused_bigru; K12 from training with the LSE readout; K9 inference
-    # from the textclf inference pass, K9 with residuals and K10 from the
-    # textclf training run at the row's width; K8 from the DSL generation
-    # run
+    # from the textclf inference pass at its width, K9 with residuals and
+    # K10 from the textclf training run at the row's width; K8 from the DSL
+    # generation run
     for row in rows:
         name = row["name"]
         if name == "bigru_forward":
@@ -2339,7 +2427,9 @@ def main() -> int:
         elif name == "gru_forward_residuals":
             src, key = train_launches["default"], "gru_forward"
         elif name == "lstm_forward":
-            src, key = infer_launches, "lstm_forward"
+            src, key = infer_launches[256], "lstm_forward"
+        elif name == f"lstm_forward_b{TEXTCLF_B}h1280":
+            src, key = infer_launches[1280], "lstm_forward"
         elif name.startswith("lstm_"):
             kernel, width = name.rsplit("_", 1)
             hidden = int(width.split("h")[1])

@@ -51,10 +51,11 @@
 //   partials go to an L2-resident scratch [KG, B, H]; a grid barrier; (2)
 //   the thread that owns (b, j) adds the KG partials in k-group order,
 //   applies the mask and runs step s - 1's cell math; a grid barrier.  2T
-//   barriers in all.  The barrier is an arrival counter in device memory
-//   that only grows; its wait traps after ~2^35 cycles, so a fault ends in
-//   an error, never a hung card.  The plan (KG, KW, CW) depends on H and
-//   the SM count, not on B: a row's sums run in the same order at any B.
+//   barriers in all.  The barrier (csrc/persistent.cuh, shared with K9) is
+//   an arrival counter in device memory that only grows; its wait traps
+//   after ~2^35 cycles, so a fault ends in an error, never a hung card.
+//   The plan (KG, KW, CW) depends on H and the SM count, not on B: a
+//   row's sums run in the same order at any B.
 //   Rows are taken 64 at a time, up to the wrapper's row limit.
 // lstm_bwd_step_kernel ("steps": B or H beyond what the persistent kernel
 //   takes): ONE launch per reverse step, T + 1 in all, from a host loop in
@@ -73,6 +74,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "persistent.cuh"
 
 namespace {
 
@@ -228,7 +231,7 @@ int lstm_backward_impl(const float* dout, const float* mask, const RT* z,
 
 // ------------------------------------------- one persistent launch (f32)
 
-namespace pk {
+namespace k10 {
 
 constexpr int THREADS = 256;      // 16 x 16 threads, each rows 4 ty .. +3
 constexpr int ROWS = 64;          // rows of one row block
@@ -253,56 +256,12 @@ inline size_t smem_bytes(int KW, int CW) {
   return ((size_t)KW * cols_of(CW) + NST * STAGE) * sizeof(float);
 }
 
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-// Grid-wide barrier over co-resident blocks: *bar counts arrivals (zero at
-// launch) and only grows, so barrier n waits for n * gridDim.x of them; a
-// wait of more than ~2^35 cycles traps.
-__device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& target) {
-  __syncthreads();
-  target += gridDim.x;
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(bar, 1u);
-    const long long t0 = clock64();
-    while (ld_acquire(bar) < target)
-      if (clock64() - t0 > (1ll << 35)) __trap();
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// 16 bytes global -> shared, skipping L1; src_bytes 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-}  // namespace pk
+}  // namespace k10
 
 // part [KG, B, H] f32 scratch; bar [1] u32, zero.  One block per SM; NJ
 // columns a thread (CW <= 16 NJ).
 template <typename RT, int NJ>
-__global__ void __launch_bounds__(pk::THREADS, 1) lstm_bwd_persistent_kernel(
+__global__ void __launch_bounds__(k10::THREADS, 1) lstm_bwd_persistent_kernel(
     const float* __restrict__ dout, const float* __restrict__ mask,
     const RT* __restrict__ z, const RT* __restrict__ cprev,
     const float* __restrict__ w_t, const float* __restrict__ pi,
@@ -321,17 +280,17 @@ __global__ void __launch_bounds__(pk::THREADS, 1) lstm_bwd_persistent_kernel(
   const int c0 = cg * CW, cw = min(CW, H - c0);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  for (int e = threadIdx.x; e < KW * COLS; e += pk::THREADS) {
+  for (int e = threadIdx.x; e < KW * COLS; e += k10::THREADS) {
     const int kk = e / COLS, c = e % COLS;
     ws[e] = (k0 + kk < k1 && c < cw) ? w_t[(size_t)(k0 + kk) * H + c0 + c]
                                      : 0.0f;
   }
 
   const size_t zs = (size_t)B * K, hs = (size_t)B * H;
-  const int nkc = (k1 - k0 + pk::KC - 1) / pk::KC;
-  const int items = (B + pk::ROWS - 1) / pk::ROWS * nkc;
-  const int gtid = blockIdx.x * pk::THREADS + threadIdx.x;
-  const int gthreads = gridDim.x * pk::THREADS;
+  const int nkc = (k1 - k0 + k10::KC - 1) / k10::KC;
+  const int items = (B + k10::ROWS - 1) / k10::ROWS * nkc;
+  const int gtid = blockIdx.x * k10::THREADS + threadIdx.x;
+  const int gthreads = gridDim.x * k10::THREADS;
   unsigned target = 0;
 
   // item n (row block n / nkc, k chunk n % nkc) of d_z rows into stage st:
@@ -339,15 +298,15 @@ __global__ void __launch_bounds__(pk::THREADS, 1) lstm_bwd_persistent_kernel(
   // piece is whole or past the range (zeros)
   auto issue = [&](const float* src, int n, int st) {
     if (n < items) {
-      const int r0 = n / nkc * pk::ROWS, kb = k0 + n % nkc * pk::KC;
+      const int r0 = n / nkc * k10::ROWS, kb = k0 + n % nkc * k10::KC;
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
-        const int p = threadIdx.x + u * pk::THREADS;
+        const int p = threadIdx.x + u * k10::THREADS;
         const int r = p / 8, q = p % 8;
         const int b = r0 + r, kk = kb + 4 * q;
         const bool ok = b < B && kk < k1;
         pk::cp_async16(
-            dzs + st * pk::STAGE + r * pk::KC + 4 * (q ^ (r & 7)),
+            dzs + st * k10::STAGE + r * k10::KC + 4 * (q ^ (r & 7)),
             ok ? src + (size_t)b * K + kk : src, ok ? 16 : 0);
       }
     }
@@ -393,17 +352,17 @@ __global__ void __launch_bounds__(pk::THREADS, 1) lstm_bwd_persistent_kernel(
       }
       pk::cp_async_wait<1>();           // item n has landed (this thread's)
       __syncthreads();                  // ... everyone's; stage n - 1 free
-      issue(src, n + 2, (n + 2) % pk::NST);
-      const float* d = dzs + (n % pk::NST) * pk::STAGE;
-      const float* wr = ws + (size_t)c * pk::KC * COLS;
+      issue(src, n + 2, (n + 2) % k10::NST);
+      const float* d = dzs + (n % k10::NST) * k10::STAGE;
+      const float* wr = ws + (size_t)c * k10::KC * COLS;
 #pragma unroll 2
-      for (int q = 0; q < pk::KC / 4; ++q) {
+      for (int q = 0; q < k10::KC / 4; ++q) {
         float4 a[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int r = 4 * ty + i;
           a[i] = *reinterpret_cast<const float4*>(
-              d + r * pk::KC + 4 * (q ^ (r & 7)));
+              d + r * k10::KC + 4 * (q ^ (r & 7)));
         }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -420,7 +379,7 @@ __global__ void __launch_bounds__(pk::THREADS, 1) lstm_bwd_persistent_kernel(
           }
 #pragma unroll
           for (int j = 4 * (NJ / 5); j < NJ; ++j)
-            wv[j] = wk[pk::col_of<NJ>(j, tx)];
+            wv[j] = wk[k10::col_of<NJ>(j, tx)];
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const float av = e == 0 ? a[i].x : e == 1 ? a[i].y
@@ -431,7 +390,7 @@ __global__ void __launch_bounds__(pk::THREADS, 1) lstm_bwd_persistent_kernel(
         }
       }
       if (c == nkc - 1) {
-        const int r0 = n / nkc * pk::ROWS;
+        const int r0 = n / nkc * k10::ROWS;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int b = r0 + 4 * ty + i;
@@ -439,7 +398,7 @@ __global__ void __launch_bounds__(pk::THREADS, 1) lstm_bwd_persistent_kernel(
           float* prow = part + ((size_t)kg * B + b) * H + c0;
 #pragma unroll
           for (int j = 0; j < NJ; ++j) {
-            const int col = pk::col_of<NJ>(j, tx);
+            const int col = k10::col_of<NJ>(j, tx);
             if (col < cw) prow[col] = acc[i][j];
           }
         }
@@ -454,23 +413,8 @@ __global__ void __launch_bounds__(pk::THREADS, 1) lstm_bwd_persistent_kernel(
 template <typename RT, int NJ>
 int persistent_launch(void** args, int blocks, size_t smem,
                       cudaStream_t stream) {
-  auto kernel = lstm_bwd_persistent_kernel<RT, NJ>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                    pk::THREADS, smem);
-  if (e != cudaSuccess) return (int)e;
-  // every block must be resident at once, or the barrier would wait forever
-  if (!coop || per_sm * sms < blocks)
-    return (int)cudaErrorCooperativeLaunchTooLarge;
-  return (int)cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
-                                          dim3(pk::THREADS), args, smem,
-                                          stream);
+  return pk::cooperative_launch(lstm_bwd_persistent_kernel<RT, NJ>, args,
+                                blocks, k10::THREADS, smem, stream);
 }
 
 template <typename RT>
@@ -483,12 +427,12 @@ int lstm_bwd_persistent_launch(const float* dout, const float* mask,
                                int KW, int CW, cudaStream_t stream) {
   if (T < 0 || B < 0 || H < 0) return (int)cudaErrorInvalidValue;
   if (T == 0 || B == 0 || H == 0) return (int)cudaSuccess;
-  if (KG < 1 || KW < 1 || KW % pk::KC != 0 || CW < 1 || CW > 160 ||
+  if (KG < 1 || KW < 1 || KW % k10::KC != 0 || CW < 1 || CW > 160 ||
       (long long)KG * KW < 4LL * H || (long long)(KG - 1) * KW >= 4LL * H)
     return (int)cudaErrorInvalidValue;
   const int blocks = KG * ((H + CW - 1) / CW);
-  const size_t smem = pk::smem_bytes(KW, CW);
-  if (smem > pk::SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const size_t smem = k10::smem_bytes(KW, CW);
+  if (smem > k10::SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   void* args[] = {&dout, &mask, &z,  &cprev, &w_t, &pi, &pf, &po, &dz,
                   &cn,   &dh,   &dc, &part,  &bar, &T,  &B,  &H,  &KG,
                   &KW,   &CW};
@@ -564,7 +508,7 @@ extern "C" int lstm_backward_info(int which, int KW, int CW, int* regs,
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;
   *smem_bytes = (int)a.sharedSizeBytes +
-                (which == 0 ? (int)pk::smem_bytes(KW, CW) : 0);
+                (which == 0 ? (int)k10::smem_bytes(KW, CW) : 0);
   return 0;
 }
 

@@ -23,9 +23,10 @@ The forward saves ``probs`` [T, B, S] (f32), ``ctxs`` [T, B, 2H] (compute
 dtype) and ``s_prev`` [T, B, D] (the carry entering each step).  The
 backward is ``_agd_bwd``: the GRU gates and the attention queries of every
 step are recomputed as batched products before the reverse loop; the loop
-(K6) keeps only the float32 ``d_enc_proj`` and ``d_v`` accumulators and
-emits the small per-step ``d_xp`` and ``sum_dpre``; every weight gradient
-is one batched contraction after it.  The port has no flag for the scan
+(K6) emits the small per-step ``d_xp`` and ``sum_dpre`` and the float32
+``d_enc_proj`` and ``d_v`` sums (on the card, one pass after its steps
+forms them from each step's ``d_score``); every weight gradient is one
+batched contraction after it.  The port has no flag for the scan
 path on the card.
 """
 

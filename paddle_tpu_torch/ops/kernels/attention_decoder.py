@@ -6,9 +6,11 @@ wrappers and their plain versions.
   the teacher-forced target, emitting the states and the backward's
   residuals ``probs``, ``ctx`` and ``s_prev``.
 - ``attn_dec_bwd`` replaces ``attn_dec_bwd_pallas`` (K6), its reverse loop:
-  the per-step cotangents ``d_xp`` and ``sum_dpre``, the ``d_enc_proj`` and
-  ``d_v`` accumulators and ``d_s0``; every weight gradient is a batched
-  product outside (``ops/attention_decoder.py``).
+  the per-step cotangents ``d_xp`` and ``sum_dpre``, ``d_enc_proj`` and
+  ``d_v`` (on the card summed by one pass after the loop from the steps'
+  ``d_score``, over t from T-1 down to 0 as the loop would) and ``d_s0``;
+  every weight gradient is a batched product outside
+  (``ops/attention_decoder.py``).
 
 Both keep the reference kernels' time-major interfaces.  The plain versions
 are the scan path's step loops (the reference's ``_fwd_step`` and
@@ -33,7 +35,8 @@ from paddle_tpu_torch.ops.numerics import (bwd_einsum, bwd_mm, compute_dtype,
 from paddle_tpu_torch.ops.rnn import gru_cell_bwd, gru_step
 
 __all__ = ["attn_dec_fwd", "attn_dec_fwd_plain", "attn_dec_bwd",
-           "attn_dec_bwd_plain", "ATTN_DEC_FWD", "ATTN_DEC_BWD"]
+           "attn_dec_bwd_plain", "denc_dv_after_loop", "ATTN_DEC_FWD",
+           "ATTN_DEC_BWD"]
 
 _FWD_ARGS = [ARG_PTR] * 15 + [ARG_INT] * 6 + [ARG_PTR]
 ATTN_DEC_FWD = register("attn_dec_fwd", {"attn_dec_fwd_f32": _FWD_ARGS,
@@ -195,10 +198,32 @@ def attn_dec_fwd(xp_y_tb: torch.Tensor, m_tb: torch.Tensor, s0: torch.Tensor,
     return states, probs, ctx, s_prev
 
 
+def denc_dv_after_loop(q, enc_proj, att_v, d_score):
+    """``d_enc_proj`` and ``d_v`` from every step's ``d_score`` [T, B, S]
+    and query q [T, B, A], as the kernel's pass after its loop forms them:
+    ``d_enc_proj`` summed over t from T-1 down to 0 (the loop's order),
+    ``d_v`` over source positions of each position's sum over t, then over
+    rows.  ``pre`` is recomputed with the loop's casts."""
+    T, B, S = d_score.shape
+    att_v_f = att_v.float()
+    d_enc_p = torch.zeros(enc_proj.shape, device=enc_proj.device)
+    dv_pos = torch.zeros(enc_proj.shape, device=enc_proj.device)
+    for t in range(T - 1, -1, -1):
+        enc_proj_c, q_c = mxu_cast(enc_proj, q[t][:, None, :])
+        pre_f = torch.tanh(enc_proj_c + q_c).float()       # [B, S, A]
+        d = d_score[t][..., None]
+        d_enc_p = d_enc_p + (1.0 - pre_f * pre_f) * (d * att_v_f)
+        dv_pos = dv_pos + d * pre_f
+    return d_enc_p, dv_pos.sum(1).sum(0)
+
+
 def attn_dec_bwd_plain(d_out_tb, m_tb, s_prev, r, u, cand, q, enc, enc_proj,
-                       src_mask, att_w, att_v, wh, wx_c):
+                       src_mask, att_w, att_v, wh, wx_c, *,
+                       deferred: bool = False):
     """The kernel's function as a reverse step loop of PyTorch ops.  Same
-    arguments and results as ``attn_dec_bwd``."""
+    arguments and results as ``attn_dec_bwd``.  ``deferred=True`` forms
+    ``d_enc_proj`` and ``d_v`` as the kernel does, after the loop from the
+    steps' ``d_score`` (``denc_dv_after_loop``), not inside it."""
     T, B, S, D, A, H2 = _check_bwd(d_out_tb, m_tb, s_prev, r, u, cand, q,
                                    enc, enc_proj, src_mask, att_w, att_v, wh,
                                    wx_c)
@@ -214,6 +239,7 @@ def attn_dec_bwd_plain(d_out_tb, m_tb, s_prev, r, u, cand, q, enc, enc_proj,
     d_v = torch.zeros(A, device=dev)
     d_xp_tb = torch.zeros(T, B, 3 * D, device=dev)
     sum_dpre_tb = torch.zeros(T, B, A, device=dev)
+    d_score_tb = torch.zeros(T, B, S, device=dev)
     for t in range(T - 1, -1, -1):
         mcol = (m_tb[t] > 0).to(f32)[:, None]
         d_snew = mcol * (d_out_tb[t] + d_s)
@@ -240,14 +266,19 @@ def attn_dec_bwd_plain(d_out_tb, m_tb, s_prev, r, u, cand, q, enc, enc_proj,
         d_scores = torch.where(maskb, d_z, torch.zeros_like(d_z))
         pre_f = pre.float()
         d_pre = (1.0 - pre_f * pre_f) * (d_scores[..., None] * att_v_f)
-        d_enc_p = d_enc_p + d_pre
         sum_dpre = d_pre.sum(1)                             # [B, A]
         d_h = d_h + bwd_mm(sum_dpre, att_w_t)
-        d_v = d_v + bwd_einsum("bs,bsa->a", d_scores, pre_f)
+        if deferred:
+            d_score_tb[t] = d_scores
+        else:
+            d_enc_p = d_enc_p + d_pre
+            d_v = d_v + bwd_einsum("bs,bsa->a", d_scores, pre_f)
 
         d_s = (1.0 - mcol) * d_s + d_h
         d_xp_tb[t] = d_xp
         sum_dpre_tb[t] = sum_dpre
+    if deferred:
+        d_enc_p, d_v = denc_dv_after_loop(q, enc_proj, att_v, d_score_tb)
     return d_xp_tb, sum_dpre_tb, d_enc_p, d_v, d_s
 
 
@@ -285,7 +316,9 @@ def attn_dec_bwd(d_out_tb: torch.Tensor, m_tb: torch.Tensor,
     d_enc_p = torch.empty(B, S, A, device=dev)
     d_v = torch.empty(A, device=dev)
     d_s0 = torch.empty(B, D, device=dev)
-    work = torch.empty(B * (2 * D + H2 + A), device=dev)
+    # the step's scratch and d_score [T, B, S], kept for the pass that sums
+    # d_enc_proj and d_v after the loop
+    work = torch.empty(B * (2 * D + H2 + A) + T * B * S, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ATTN_DEC_BWD.call(

@@ -7,6 +7,12 @@ their plain versions.
   pre-peephole pre-activations), ``h_prev`` and ``c_prev`` (time-major, in
   ``residual_dtype(H)``), as the reference's training call.  Unlike the
   reference kernel, which boots from zeros, it starts from ``h0``/``c0``.
+  On the card ``_lstm_fwd_path`` picks its kernel from (compute dtype, B,
+  H, SM count) alone: ``"persistent"``, the whole loop in one cooperative
+  launch with bf16 ``w_h`` resident in shared memory split by units across
+  the SMs (``_lstm_fwd_plan``) and its products on the tensor cores, under
+  the bfloat16 policy where the split fits; else ``"steps"``, one launch
+  per step.  ``LSTM_FORWARD.launches_by_path`` splits the count.
 - ``lstm_backward`` replaces ``_lstm_bwd_pallas_raw`` (K10), the reverse
   loop, all in float32.  On the card ``_lstm_bwd_path`` picks its kernel
   from (B, H, SM count) alone: ``"persistent"``, the whole loop in one
@@ -37,20 +43,31 @@ from paddle_tpu_torch.ops.rnn import lstm_cell, lstm_cell_bwd
 
 __all__ = ["lstm_forward", "lstm_forward_plain", "lstm_backward",
            "lstm_backward_plain", "LSTM_FORWARD", "LSTM_BACKWARD",
-           "lstm_bwd_kernel_info"]
+           "lstm_fwd_kernel_info", "lstm_bwd_kernel_info"]
 
 _FWD_ARGS = [ARG_PTR] * 13 + [ARG_INT] * 4 + [ARG_PTR]
-LSTM_FORWARD = register("lstm_forward", {"lstm_forward_f32": _FWD_ARGS,
-                                         "lstm_forward_bf16": _FWD_ARGS})
+LSTM_FORWARD = register("lstm_forward", {
+    "lstm_forward_f32": _FWD_ARGS, "lstm_forward_bf16": _FWD_ARGS,
+    "lstm_forward_persistent": [ARG_PTR] * 14 + [ARG_INT] * 5 + [ARG_PTR],
+    "lstm_forward_info": [ARG_INT] * 3 + [ARG_PTR] * 3})
 _ENTRY = {torch.float32: "lstm_forward_f32",
           torch.bfloat16: "lstm_forward_bf16"}
+
+#: the persistent K9's fixed shapes (csrc/lstm_forward.cu, namespace k9):
+#: rows in blocks of 64 and at most 256 (the f32 carries' room in shared
+#: memory); units a block even (whole n8 tiles of four gate columns) and
+#: at most 16; at least 4, so that at small H fewer blocks meet at each
+#: step's barrier; the product's depth in 64-deep stages, four in the ring
+_PF_ROWS, _PF_ROWS_MAX, _PF_KC, _PF_NST = 64, 256, 64, 4
+_PF_NU_MIN, _PF_NU_MAX = 4, 16
+_PF_SMEM = 232448
 
 LSTM_BACKWARD = register("lstm_backward", {
     "lstm_backward": [ARG_PTR] * 12 + [ARG_INT] * 4 + [ARG_PTR],
     "lstm_backward_persistent": [ARG_PTR] * 14 + [ARG_INT] * 7 + [ARG_PTR],
     "lstm_backward_info": [ARG_INT] * 3 + [ARG_PTR] * 3})
 
-#: the persistent K10's fixed shapes (csrc/lstm_backward.cu, namespace pk):
+#: the persistent K10's fixed shapes (csrc/lstm_backward.cu, namespace k10):
 #: a thread computes 4 rows x 5 or 10 columns, so a column group is at most
 #: 80 or 160 units (the shared pitch of its w_t slice); a k-group's depth is
 #: a multiple of the 32-deep d_z stage; shared memory holds the slice and a
@@ -147,10 +164,20 @@ def lstm_forward(xp: torch.Tensor, mask: torch.Tensor, w_h: torch.Tensor,
     if xp.device.type != "cuda":
         raise ValueError(f"lstm_forward runs on cpu or cuda, not "
                          f"{xp.device}")
+    path = _lstm_fwd_path(compute_dtype(), B, H, _device_sms(xp.device))
+    out = _launch_fwd(xp, mask, w_h, pi, pf, po, h0, c0, residuals, path)
+    LSTM_FORWARD.count(path)
+    return out
+
+
+def _launch_fwd(xp, mask, w_h, pi, pf, po, h0, c0, residuals: bool,
+                path: str):
+    """K9 on CUDA operands through the kernel of ``path``; counts nothing
+    (the wrapper counts)."""
+    B, T, H4 = xp.shape
+    H = H4 // 4
     cd = compute_dtype()
     dev = xp.device
-    xp_tb = xp.float().transpose(0, 1).contiguous()        # time-major
-    m_tb = mask.float().transpose(0, 1).contiguous()
     w = w_h.to(cd).contiguous()
     p = [v.float().contiguous() for v in (pi, pf, po)]
 
@@ -159,23 +186,110 @@ def lstm_forward(xp: torch.Tensor, mask: torch.Tensor, w_h: torch.Tensor,
                 else v.float().clone().contiguous())
 
     h, c = carry(h0), carry(c0)
-    h_tmp = torch.empty(B, H, device=dev)
     h_seq = torch.empty(T, B, H, device=dev)
     rd = residual_dtype(H)
     res = ([torch.empty(T, B, n, dtype=rd, device=dev)
             for n in (4 * H, H, H)] if residuals else [None] * 3)
+    res_ptrs = [None if r is None else r.data_ptr() for r in res]
+    res_bf16 = int(rd == torch.bfloat16)
     with torch.cuda.device(dev):              # launch on the tensors' card
         stream = torch.cuda.current_stream(dev).cuda_stream
-        LSTM_FORWARD.call(
-            _ENTRY[cd], xp_tb.data_ptr(), m_tb.data_ptr(), w.data_ptr(),
-            *(v.data_ptr() for v in p), h_seq.data_ptr(), h.data_ptr(),
-            h_tmp.data_ptr(), c.data_ptr(),
-            *(None if r is None else r.data_ptr() for r in res),
-            int(rd == torch.bfloat16), T, B, H, stream)
-    LSTM_FORWARD.launches += 1
+        if path == "persistent":
+            plan = _lstm_fwd_plan(B, H, _device_sms(dev))
+            x = xp.float().contiguous()           # read batch-major
+            m = mask.float().contiguous()
+            hb = torch.empty(2, B, H, dtype=torch.bfloat16, device=dev)
+            bar = torch.zeros(1, dtype=torch.int32, device=dev)
+            LSTM_FORWARD.call(
+                "lstm_forward_persistent", x.data_ptr(), m.data_ptr(),
+                w.data_ptr(), *(v.data_ptr() for v in p), h_seq.data_ptr(),
+                h.data_ptr(), c.data_ptr(), hb.data_ptr(), *res_ptrs,
+                bar.data_ptr(), res_bf16, T, B, H, plan["nu"], stream)
+        else:
+            xp_tb = xp.float().transpose(0, 1).contiguous()  # time-major
+            m_tb = mask.float().transpose(0, 1).contiguous()
+            h_tmp = torch.empty(B, H, device=dev)
+            LSTM_FORWARD.call(
+                _ENTRY[cd], xp_tb.data_ptr(), m_tb.data_ptr(), w.data_ptr(),
+                *(v.data_ptr() for v in p), h_seq.data_ptr(), h.data_ptr(),
+                h_tmp.data_ptr(), c.data_ptr(), *res_ptrs, res_bf16, T, B,
+                H, stream)
     if not residuals:
         return h_seq.transpose(0, 1), h, c
     return (h_seq.transpose(0, 1), h, c, *res)
+
+
+def _fwd_smem(H: int, nu: int) -> int:
+    """Shared bytes of a persistent K9 block (``k9::smem_bytes``): the w_h
+    slice (bf16, depth padded to whole stages), the h ring, the two
+    k-groups' partial z, the f32 h and c carries and the peepholes."""
+    kp = -(-H // _PF_KC) * _PF_KC
+    return (kp * 4 * nu * 2 + _PF_NST * _PF_ROWS * _PF_KC * 2
+            + 2 * _PF_ROWS * 4 * nu * 4 + 2 * _PF_ROWS_MAX * nu * 4
+            + 3 * nu * 4)
+
+
+def _lstm_fwd_plan(B: int, H: int, sm_count: int
+                   ) -> Optional[Dict[str, int]]:
+    """The persistent K9's split of ``w_h`` [H, 4H] over the SMs, or None
+    where it does not fit.  Block i owns units ``i * nu`` .. ``+ nu - 1``
+    and their four gate columns over the full depth: ``nu``, the smallest
+    even count >= 4 that needs no more blocks than SMs (10 at H = 1280 on
+    132 SMs, 128 blocks; 4 at H = 256, 64 blocks).  None when B is outside
+    1..256, H is not a multiple of 8 (16-byte rows of the bf16 h stream),
+    or the slice with its ring, partials and carries passes 232,448 bytes
+    (``nu`` > 16 too): on 132 SMs up to H = 1536.  Depends on B only
+    through that limit, so a row's sums run in the same order at any B."""
+    if not 1 <= B <= _PF_ROWS_MAX:
+        return None
+    return _fwd_plan_for(H, sm_count)
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_plan_for(H: int, sm_count: int) -> Optional[Dict[str, int]]:
+    if H < 1 or H % 8 or sm_count < 1:
+        return None
+    nu = max(_PF_NU_MIN, -(-H // sm_count))
+    nu += nu % 2
+    smem = _fwd_smem(H, nu)
+    if nu > _PF_NU_MAX or smem > _PF_SMEM:
+        return None
+    return {"nu": nu, "blocks": -(-H // nu), "smem": smem}
+
+
+def _lstm_fwd_units(plan: Dict[str, int], H: int) -> List[range]:
+    """Each block's units as the kernel cuts them: block i owns ``nu``
+    units from ``i * nu`` (the last block fewer)."""
+    nu = plan["nu"]
+    return [range(i * nu, min(H, (i + 1) * nu))
+            for i in range(plan["blocks"])]
+
+
+def _lstm_fwd_path(dtype: torch.dtype, B: int, H: int, sm_count: int) -> str:
+    """K9's kernel on the card: ``"persistent"`` under the bfloat16 policy
+    where ``_lstm_fwd_plan`` finds a split, else ``"steps"`` (f32 ``w_h``
+    at H = 1280 is 26 MB, and the port's policy keeps TF32 off)."""
+    return ("persistent" if dtype == torch.bfloat16
+            and _lstm_fwd_plan(B, H, sm_count) else "steps")
+
+
+def lstm_fwd_kernel_info(H: int, sm_count: int
+                         ) -> Dict[str, Tuple[int, int, int]]:
+    """(registers a thread, spilled bytes a thread, shared bytes a block) of
+    K9's two kernels, the persistent one with its plan at width H, from
+    ``cudaFuncGetAttributes``."""
+    plan = _lstm_fwd_plan(1, H, sm_count)
+    out = {}
+    for which, name in enumerate(("persistent", "steps")):
+        vals = [ctypes.c_int() for _ in range(3)]
+        err = LSTM_FORWARD.lib().lstm_forward_info(
+            which, H, plan["nu"] if plan else 2,
+            *(ctypes.byref(v) for v in vals))
+        if err != 0:
+            raise RuntimeError(f"lstm_forward_info({which}): CUDA error "
+                               f"{err}")
+        out[name] = tuple(v.value for v in vals)
+    return out
 
 
 def _lstm_bwd_plan(B: int, H: int, sm_count: int) -> Optional[Dict[str, int]]:

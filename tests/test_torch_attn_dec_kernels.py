@@ -117,6 +117,34 @@ def test_bwd_plain_matches_pallas(case, whole_batch):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("case", sorted(SHAPES))
+def test_bwd_deferred_denc_dv_matches_the_loop_and_pallas(case):
+    """The card's order for d_enc_proj and d_v (one pass after the loop
+    from the steps' d_score, ``denc_dv_after_loop``) against the plain
+    loop's in-loop sums and the Pallas kernel (batch blocks of 2 rows);
+    the other three outputs do not move."""
+    x, res = bwd_inputs(case)
+    j = {k: jnp.asarray(v) for k, v in {**x, **res}.items()}
+    want = attn_dec_bwd_pallas(
+        j["d_out"], j["m"], j["s_prev"], j["r"], j["u"], j["cand"], j["q"],
+        j["enc"], j["enc_proj"], j["src_mask"], j["att_w"], j["att_v"],
+        j["att_v"], j["wh"], j["wx_c"], block_b=2)
+    t = {k: torch.from_numpy(v) for k, v in {**x, **res}.items()}
+    args = [t[k] for k in ("d_out", "m", "s_prev", "r", "u", "cand", "q",
+                           "enc", "enc_proj", "src_mask", "att_w", "att_v",
+                           "wh", "wx_c")]
+    with compute_dtype_scope("float32"):
+        got = attn_dec_bwd_plain(*args, deferred=True)
+        loop = attn_dec_bwd_plain(*args)
+    for g, lp, w, name in zip(got, loop, want, BWD_NAMES):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL,
+                                   err_msg=name)
+        np.testing.assert_allclose(g.numpy(), lp.numpy(), **TOL,
+                                   err_msg=name)
+    for i in (0, 1, 4):
+        assert torch.equal(got[i], loop[i])
+
+
 def test_wrappers_on_cpu_run_plain_versions_and_count_no_launch():
     x, res = bwd_inputs("tails")
     t = {k: torch.from_numpy(v) for k, v in {**x, **res}.items()}

@@ -1023,3 +1023,118 @@ def test_lstm_backward_beyond_the_persistent_limits_takes_the_steps(dev):
     assert _lstm_paths().get("steps", 0) == before.get("steps", 0) + 1
     for a, c in zip(got, lstm_backward_plain(*args)):
         _rel_close(a, c, 1e-5)
+
+
+def _lstm_fwd_paths():
+    from paddle_tpu_torch.ops.kernels.lstm import LSTM_FORWARD
+    return dict(LSTM_FORWARD.launches_by_path)
+
+
+def _lstm_fwd_args(dev, B, T, H, seed):
+    """K9's inputs at the text-classification scale: lengths from T/2 to T
+    with a full row and a length-1 row, boot state, nonzero peepholes."""
+    rng = np.random.RandomState(seed)
+    f = np.float32
+    lens = rng.randint(T // 2, T + 1, (B,))
+    lens[0], lens[-1] = T, 1
+    arrs = [0.5 * rng.randn(B, T, 4 * H),
+            np.arange(T)[None] < lens[:, None],
+            rng.randn(H, 4 * H) * np.sqrt(2.0 / (5 * H)),
+            0.1 * rng.randn(H), 0.1 * rng.randn(H), 0.1 * rng.randn(H),
+            0.5 * rng.randn(B, H), 0.5 * rng.randn(B, H)]
+    return [torch.from_numpy(a.astype(f)).to(dev) for a in arrs]
+
+
+@pytest.mark.parametrize("H", [256, 1280])
+@pytest.mark.parametrize("residuals", [False, True])
+def test_lstm_forward_persistent_matches_plain_version(dev, H, residuals):
+    """K9's persistent kernel (one cooperative launch, bf16 w_h in shared
+    memory, tensor-core products) at b64 and the benchmark widths, ragged
+    lengths, both variants, under the bf16 policy: one launch on that path;
+    a last-bit difference in the f32 carry can round a bf16 operand or
+    residual the other way (5e-3 of the largest value, as the step
+    kernel's test); padded steps emit exact zeros."""
+    args = _lstm_fwd_args(dev, 64, 30, H, H)
+    with compute_dtype_scope("bfloat16"):
+        before = _lstm_fwd_paths()
+        got = lstm_forward(*args, residuals=residuals)
+        after = _lstm_fwd_paths()
+        want = lstm_forward_plain(*args, residuals=residuals)
+    torch.cuda.synchronize()
+    assert after.get("persistent", 0) == before.get("persistent", 0) + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.isfinite(a).all()
+        _rel_close(a, b, 5e-3)
+    padded = args[1] == 0
+    assert torch.equal(got[0][padded], torch.zeros_like(got[0][padded]))
+
+
+def test_lstm_forward_persistent_rows_do_not_depend_on_b(dev):
+    """Rows 0..36 of a 64-row call are bit-equal to a 37-row call on the
+    same rows, with residuals: the split of w_h and every k order depend
+    on H and the SM count, not on B."""
+    T, H = 12, 1280
+    args = _lstm_fwd_args(dev, 64, T, H, 5)
+    n = 37
+    sub = [a[:n].contiguous() if i in (0, 1, 6, 7) else a
+           for i, a in enumerate(args)]
+    with compute_dtype_scope("bfloat16"):
+        big = lstm_forward(*args, residuals=True)
+        small = lstm_forward(*sub, residuals=True)
+    for i, (s, b) in enumerate(zip(small, big)):
+        assert torch.equal(s, b[:, :n] if i >= 3 else b[:n])
+
+
+def test_lstm_forward_beyond_the_persistent_limits_takes_the_steps(dev):
+    """The f32 policy, H not a multiple of 8 and B above the row limit take
+    the per-step kernel, with the plain version's results."""
+    cases = [("float32", 5, 64), ("bfloat16", 5, 100),
+             ("bfloat16", 300, 32)]
+    for cd, B, H in cases:
+        args = _lstm_fwd_args(dev, B, 6, H, B + H)
+        with compute_dtype_scope(cd):
+            before = _lstm_fwd_paths()
+            got = lstm_forward(*args, residuals=True)
+            assert _lstm_fwd_paths().get("steps", 0) == \
+                before.get("steps", 0) + 1
+            want = lstm_forward_plain(*args, residuals=True)
+        for a, b in zip(got, want):
+            _rel_close(a, b, 1e-5 if cd == "float32" else 5e-3)
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_attn_dec_bwd_rows_do_not_depend_on_b(dev, cd):
+    """K6's rows 0..36 of a 96-row call are bit-equal to a 37-row call on
+    the same rows (d_xp, sum_dpre, d_enc_proj, d_s0): every product's k
+    order and the attention's sums depend on the widths alone; d_v sums
+    over the rows and is held against the plain version instead."""
+    from paddle_tpu_torch.ops.attention_decoder import recompute_gates
+
+    shape = (96, 17, 7, 128, 96, 256)
+    x = {k: v.to(dev) for k, v in _attn_dec_inputs(*shape, seed=3).items()}
+    T, D = shape[2], shape[3]
+    dt = getattr(torch, cd)
+    n = 37
+    with compute_dtype_scope(cd):
+        fa = [x["xp_y"], x["m"], x["s0"], x["enc"].to(dt),
+              x["enc_proj"].to(dt), x["src_mask"], x["att_w"].to(dt),
+              x["att_v"].to(dt), x["wx_c"].to(dt), x["wh"].to(dt)]
+        _, _, ctxs, s_prev = attn_dec_fwd(*fa)
+        r, u, cand, q = recompute_gates(x["xp_y"], ctxs, s_prev, x["wx_c"],
+                                        x["wh"], x["att_w"])
+        d_out = torch.from_numpy(np.random.RandomState(4).randn(
+            T, shape[0], D).astype(np.float32)).to(dev)
+        args = [d_out, x["m"], s_prev, r, u, cand, q, fa[3], fa[4],
+                x["src_mask"], x["att_w"], x["att_v"], x["wh"], x["wx_c"]]
+        big = attn_dec_bwd(*args)
+        sub = [a[:, :n] if i <= 6 else a[:n] if i <= 9 else a
+               for i, a in enumerate(args)]
+        small = attn_dec_bwd(*[a.contiguous() for a in sub])
+        plain = attn_dec_bwd_plain(*[a.contiguous() for a in sub])
+    torch.cuda.synchronize()
+    assert torch.equal(small[0], big[0][:, :n])
+    assert torch.equal(small[1], big[1][:, :n])
+    assert torch.equal(small[2], big[2][:n])
+    assert torch.equal(small[4], big[4][:n])
+    _rel_close(small[3], plain[3], 1e-5 if cd == "float32" else 1e-2)

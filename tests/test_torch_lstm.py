@@ -432,3 +432,78 @@ def test_lstm_bwd_plan_at_the_benchmark_widths():
     assert _lstm_bwd_plan(64, 256, 132) == {
         "kg": 32, "kw": 32, "cg": 4, "cw": 64, "blocks": 128,
         "smem": 10240 + 24576}
+
+
+@pytest.mark.parametrize("B", [1, 64, 512])
+@pytest.mark.parametrize("H", [64, 256, 512, 1280])
+def test_lstm_fwd_plan_covers_w_h_once_and_fits(B, H):
+    """The persistent K9's plan on a 132-SM card: every (k, gate column) of
+    w_h [H, 4H] lies in exactly one block's slice (its units' four gate
+    columns over the full depth), every block's shared memory (slice,
+    ring, partials, carries) fits 232,448 bytes, no block is empty, units a
+    block are even and at most 16, and there are no more blocks than SMs.
+    The plan does not depend on B; past the 256-row limit there is none."""
+    from paddle_tpu_torch.ops.kernels.lstm import (_fwd_smem,
+                                                   _lstm_fwd_plan,
+                                                   _lstm_fwd_units)
+
+    plan = _lstm_fwd_plan(B, H, 132)
+    if B > 256:
+        assert plan is None
+        return
+    assert plan == _lstm_fwd_plan(1, H, 132)
+    assert plan["blocks"] <= 132
+    assert plan["nu"] % 2 == 0 and 4 <= plan["nu"] <= 16
+    assert plan["smem"] == _fwd_smem(H, plan["nu"]) <= 232448
+    cover = np.zeros((H, 4 * H), np.int32)
+    for units in _lstm_fwd_units(plan, H):
+        assert 0 < len(units) <= plan["nu"]
+        for gate in range(4):
+            cover[:, gate * H + units.start:gate * H + units.stop] += 1
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("dtype,B,H,sms,want", [
+    (torch.bfloat16, 64, 256, 132, "persistent"),
+    (torch.bfloat16, 64, 1280, 132, "persistent"),
+    (torch.bfloat16, 37, 1280, 132, "persistent"),
+    (torch.bfloat16, 256, 1280, 132, "persistent"),
+    (torch.bfloat16, 1, 8, 132, "persistent"),
+    (torch.bfloat16, 64, 1536, 132, "persistent"),
+    # the f32 policy: f32 w_h does not fit, and TF32 stays off
+    (torch.float32, 64, 256, 132, "steps"),
+    (torch.float32, 64, 1280, 132, "steps"),
+    # beyond the row limit
+    (torch.bfloat16, 257, 256, 132, "steps"),
+    # H not a multiple of 8 (16-byte rows of the bf16 h stream)
+    (torch.bfloat16, 64, 100, 132, "steps"),
+    (torch.bfloat16, 64, 1300, 132, "steps"),
+    # w_h beyond what the SMs hold
+    (torch.bfloat16, 64, 1544, 132, "steps"),
+    (torch.bfloat16, 64, 2048, 132, "steps"),
+    (torch.bfloat16, 64, 1280, 100, "steps"),
+    (torch.bfloat16, 64, 256, 8, "steps"),
+    (torch.bfloat16, 64, 64, 1, "steps"),
+    # no rows or units
+    (torch.bfloat16, 0, 256, 132, "steps"),
+    (torch.bfloat16, 64, 0, 132, "steps"),
+])
+def test_lstm_fwd_path_is_a_function_of_dtype_shape_and_sm_count(
+        dtype, B, H, sms, want):
+    from paddle_tpu_torch.ops.kernels.lstm import _lstm_fwd_path
+
+    assert _lstm_fwd_path(dtype, B, H, sms) == want
+
+
+def test_lstm_fwd_plan_at_the_benchmark_widths():
+    """b64h1280: 128 blocks of 10 units (40 gate columns, 102,400 bytes of
+    bf16 w_h each); b64h256: 64 blocks of 4 units, so that half as many
+    blocks meet at each of the 100 barriers as 2 units a block would
+    need."""
+    from paddle_tpu_torch.ops.kernels.lstm import _lstm_fwd_plan
+
+    assert _lstm_fwd_plan(64, 1280, 132) == {
+        "nu": 10, "blocks": 128,
+        "smem": 102400 + 32768 + 20480 + 20480 + 120}
+    assert _lstm_fwd_plan(64, 256, 132) == {
+        "nu": 4, "blocks": 64, "smem": 8192 + 32768 + 8192 + 8192 + 48}
