@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Opt-in measurements of the PyTorch/H100 port beside ``chip_smoke.py``.
 
-    python3 chip_probe.py [chunks] [profile] [textclf] [dslgen]
+    python3 chip_probe.py [chunks] [profile] [textclf] [dslgen] [variants]
                                                         (all if none named)
 
 Needs one CUDA card and the checkout beside it.  It checks nothing that
@@ -25,13 +25,23 @@ textclf  the same for one training step of the text-classification path
          bf16, Adam) at each of its widths (H=256, H=1280);
 dslgen   the same for one generation call of ``chip_smoke.py``'s dslgen
          phase (the demo/seqToseq net's ``beam_search`` layer, 64 sources,
-         beam 3, 32 steps, bf16).
+         beam 3, 32 steps, bf16);
+variants where the persistent K4 (the GRU reverse loop, B=384, T=32,
+         H=512) and K5 (the decoder forward, T=32, B=384, S=32,
+         D=A=512, bf16) spend their time: edited copies of their sources,
+         each with one phase switched off at compile time (their results
+         are wrong by design), built into ``paddle_tpu_torch/_build/
+         variants`` and timed in turns with the copy as committed, twice.
 
 Prints one line per measurement and the card line first.
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
+import shutil
+import subprocess
 import sys
 import time
 
@@ -244,6 +254,142 @@ def probe_dslgen(dev):
                   top_n=12)
 
 
+#: the edits of ``variants``: each puts one phase of the persistent K4
+#: (``csrc/gru_common.cuh``) or K5 (``csrc/attn_dec_fwd.cu``) under a
+#: compile-time switch that is 0 in the copy as committed
+VARIANT_EDITS = {
+    "gru_common.cuh": [
+        ("for (int q4 = 0; q4 < k4::KS / 4; ++q4) {",
+         "for (int q4 = 0; q4 < (NO_FMA ? 0 : k4::KS / 4); ++q4) {"),
+        ("pk::grid_sync(bar, target);         // d_z[t] complete",
+         "if (!NO_BARRIER) pk::grid_sync(bar, target);"),
+        ("pk::grid_sync(bar, target);  // d_zc of step t - 1 complete",
+         "if (!NO_BARRIER) pk::grid_sync(bar, target);"),
+        ("          epi(rbase + r0 + r, c0 + c, v, pv[u]);",
+         "          if (!NO_EPILOGUE) epi(rbase + r0 + r, c0 + c, v, pv[u]);"),
+    ],
+    "attn_dec_fwd.cu": [
+        ("      k5::warp_product(sb,", "      if (!NO_PRODUCTS) k5::warp_product(sb,"),
+        ("      k5::warp_product(ctx_t,",
+         "      if (!NO_PRODUCTS) k5::warp_product(ctx_t,"),
+        ("      k5::warp_product(rsb,", "      if (!NO_PRODUCTS) k5::warp_product(rsb,"),
+        ("for (int k0 = 0; blockIdx.x + k0 * gridDim.x < B;",
+         "for (int k0 = 0; blockIdx.x + k0 * gridDim.x < (NO_ATTENTION ? 0 : B);"),
+        ("for (int p0 = warp; p0 < nr * S;",
+         "for (int p0 = warp; p0 < (NO_SCORES ? 0 : nr * S);"),
+        ("for (int it = threadIdx.x; it < nr * H4;",
+         "for (int it = threadIdx.x; it < (NO_CONTEXT ? 0 : nr * H4);"),
+        ("    pk::grid_sync(bar, target);         // q complete",
+         "    if (!NO_BARRIER) pk::grid_sync(bar, target);"),
+        ("    pk::grid_sync(bar, target);         // ctx[t] complete",
+         "    if (!NO_BARRIER) pk::grid_sync(bar, target);"),
+        ("    pk::grid_sync(bar, target);         // round(r s) complete",
+         "    if (!NO_BARRIER) pk::grid_sync(bar, target);"),
+        ("    if (t + 1 < T) pk::grid_sync(bar, target);",
+         "    if (t + 1 < T && !NO_BARRIER) pk::grid_sync(bar, target);"),
+    ],
+}
+VARIANT_SWITCHES = ("NO_FMA", "NO_BARRIER", "NO_EPILOGUE", "NO_PRODUCTS",
+                    "NO_ATTENTION", "NO_SCORES", "NO_CONTEXT")
+K4_VARIANTS = {"as committed": (), "no FMA loop": ("NO_FMA",),
+               "no barriers": ("NO_BARRIER",),
+               "no epilogues": ("NO_EPILOGUE",),
+               "no FMA loop, no barriers": ("NO_FMA", "NO_BARRIER")}
+K5_VARIANTS = {"as committed": (), "no products": ("NO_PRODUCTS",),
+               "no attention": ("NO_ATTENTION",), "no scores": ("NO_SCORES",),
+               "no context": ("NO_CONTEXT",), "no barriers": ("NO_BARRIER",),
+               "no products, no attention": ("NO_PRODUCTS", "NO_ATTENTION")}
+
+
+def _build_variants(B):
+    """Edited copies of csrc/ built with each variant's switches (one nvcc
+    each, all at once) -> {(library, variant): path of the .so}."""
+    out = os.path.join(B.BUILD_DIR, "variants")
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(B.CSRC_DIR, out)
+    for name, edits in VARIANT_EDITS.items():
+        path = os.path.join(out, name)
+        with open(path) as f:
+            text = f.read()
+        for old, new in edits:
+            if old not in text:
+                smoke.fail("variants", f"{name} no longer holds {old!r}")
+            text = text.replace(old, new)
+        with open(path, "w") as f:
+            f.write(text)
+    jobs = {}
+    for lib, source, variants in (("gru_backward", "gru_backward.cu",
+                                   K4_VARIANTS),
+                                  ("attn_dec_fwd", "attn_dec_fwd.cu",
+                                   K5_VARIANTS)):
+        for i, (tag, on) in enumerate(variants.items()):
+            so = os.path.join(out, f"{lib}-{i}.so")
+            flags = [f"-D{s}={int(s in on)}" for s in VARIANT_SWITCHES]
+            cmd = [B._nvcc(), *B.NVCC_FLAGS, *flags, "-I", out, "-o", so,
+                   os.path.join(out, source)]
+            jobs[(lib, tag)] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), so)
+    built = {}
+    for key, (proc, so) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            smoke.fail("variants", f"nvcc {key}: {log[-2000:]}")
+        built[key] = so
+    return built
+
+
+def _load_as(lib, so):
+    """Load ``so`` with ``lib``'s exported functions and swap it in."""
+    cdll = ctypes.CDLL(so)
+    for fn, argtypes in lib.functions.items():
+        f = getattr(cdll, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    cdll.ptt_error_string.argtypes = [ctypes.c_int]
+    cdll.ptt_error_string.restype = ctypes.c_char_p
+    lib._lib = cdll
+
+
+def probe_variants(dev):
+    import torch
+
+    from paddle_tpu_torch.ops.kernels import attention_decoder as AD
+    from paddle_tpu_torch.ops.kernels import build as B
+    from paddle_tpu_torch.ops.kernels import gru as G
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+
+    built = _build_variants(B)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    xp, mask, w_h, d_out, d_hfin = smoke._train_gru_inputs(dev)
+    with compute_dtype_scope("bfloat16"):
+        _, _, z, hp = G.gru_forward(xp, mask, w_h, residuals=True)
+    k4_args = (d_out, mask.t().contiguous(), z, hp, w_h.t().contiguous(),
+               d_hfin)
+    x = smoke._attn_dec_inputs(dev)
+    bf = torch.bfloat16
+    k5_args = [x["xp_y"], x["m"], x["s0"], x["enc"].to(bf),
+               x["enc_proj"].to(bf), x["src_mask"], x["att_w"].to(bf),
+               x["att_v"].to(bf), x["wx_c"].to(bf), x["wh"].to(bf)]
+    runs = (("gru_backward", "K4 B=384 T=32 H=512", K4_VARIANTS,
+             lambda: G._launch_bwd(*k4_args, "persistent")),
+            ("attn_dec_fwd", "K5 T=32 B=384 S=32 D=A=512 bf16", K5_VARIANTS,
+             lambda: AD._launch_fwd(*k5_args, "persistent")))
+    for lib_name, label, variants, call in runs:
+        lib = B.LIBRARIES[lib_name]
+        committed = lib._lib
+        times = {tag: [] for tag in variants}
+        with compute_dtype_scope("bfloat16"):
+            for _ in range(2):
+                for tag in variants:
+                    _load_as(lib, built[(lib_name, tag)])
+                    times[tag].append(smoke.time_ms(call, flush))
+        lib._lib = committed
+        print(f"variants: {label}, persistent kernel, ms (two turns): "
+              + "; ".join(f"{tag} {a:.4f} / {b:.4f}"
+                          for tag, (a, b) in times.items()), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -254,7 +400,8 @@ def main() -> int:
     from paddle_tpu_torch.ops import kernels as K
 
     probes = {"chunks": probe_chunks, "profile": probe_profile,
-              "textclf": probe_textclf, "dslgen": probe_dslgen}
+              "textclf": probe_textclf, "dslgen": probe_dslgen,
+              "variants": probe_variants}
     wanted = sys.argv[1:] or list(probes)
     unknown = set(wanted) - set(probes)
     if unknown:

@@ -14,7 +14,11 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             with residuals, K4, K1, K2, K5, K6; the flagship's optional
             paths: K11, the fused bidirectional encoder, without and with
             residuals and its reverse, also held bit for bit against one
-            K3/K4 call per direction; K12, the row logsumexp, with -inf
+            K3/K4 call per direction; K4, K11's reverse and K5 (under
+            bf16) must take their persistent kernels, are also held and
+            timed on their steps kernels, and K4's and K5's rows at
+            B = 37 are held bit for bit against B = 384; K12, the row
+            logsumexp, with -inf
             rows and a ragged vocabulary; K1 and K2 must take their TMA +
             wgmma kernels at the training shape, and are also held and
             timed on their WMMA kernels there; K7 must take its TMA + wgmma
@@ -50,7 +54,8 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             (K11 twice a step, no K3r/K4) and lse_readout (K12 once a step,
             no K1/K2), with each one's losses, median step time, words/s
             and MFU (step-1 loss of fused_bigru equal to the default's, of
-            lse_readout within 1e-3); then the full-width model at B=8 in
+            lse_readout within 1e-3; every K4, K11-reverse and K5 launch on
+            its persistent kernel); then the full-width model at B=8 in
             f32, its loss and 19 gradients on the card held against the
             CPU, with both switches off and with both on;
 7. textclf  the text-classification path: ``lstm_benchmark_net`` (vocab
@@ -122,6 +127,8 @@ TEXTCLF_KERNELS = ("lstm_forward", "lstm_backward")
 #: encoder (K11) and the logsumexp readout (K12), and the kernels each one
 #: replaces on the training step
 FUSED_BIGRU_KERNELS = ("bigru_forward", "bigru_backward")
+#: the training kernels whose every launch must take the persistent kernel
+PERSISTENT_TRAIN_KERNELS = ("gru_backward", "bigru_backward", "attn_dec_fwd")
 LSE_READOUT_KERNELS = ("logsumexp_rows",)
 TRAIN_CONFIGS = ("default", "fused_bigru", "lse_readout")
 #: the LSE readout's step-1 loss against K1's (rel): the bf16 logits are
@@ -505,6 +512,16 @@ def _kernel_row(name, source, replaces, err, ms, plain_ms, bms, by,
             "library_ms": library_ms}
 
 
+def _persistent_fields(ms, steps_ms, bms, info) -> dict:
+    """The ``kernels`` line's extra keys of a kernel with a persistent and a
+    steps path: the steps kernels' time in the same run, each path's share
+    of the bound, and [registers a thread, spilled bytes a thread, shared
+    bytes a block] of each kernel."""
+    return {"steps_ms": steps_ms, "share_of_bound": bms / ms,
+            "steps_share_of_bound": bms / steps_ms,
+            "kernel_info": {k: list(v) for k, v in info.items()}}
+
+
 def _max_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
@@ -534,11 +551,25 @@ def _train_gru_inputs(dev):
     return xp, mask, w_h, d_out, d_hfin
 
 
+#: K4's second batch: not a multiple of the persistent kernel's 16-row
+#: tile or the steps kernels' 32-row block
+GRU_RAGGED_B = 37
+
+
 def check_gru_train(K, flush, dev):
-    """K3 with residuals and K4 at the training shape."""
+    """K3 with residuals and K4 at the training shape.  K4 must take its
+    persistent kernel; it is also held and timed on its steps kernels, and
+    its first 37 rows are held bit for bit against a 37-row call."""
     import torch
 
+    from paddle_tpu_torch.ops.kernels.gru import (GRU_BACKWARD, _device_sms,
+                                                  _gru_bwd_plan,
+                                                  gru_bwd_kernel_info)
+    from paddle_tpu_torch.ops.kernels.gru import _launch_bwd as \
+        _gru_launch_bwd
     from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+
+    sms = _device_sms(dev)
 
     xp, mask, w_h, d_out, d_hfin = _train_gru_inputs(dev)
     B, T, H3 = xp.shape
@@ -572,28 +603,54 @@ def check_gru_train(K, flush, dev):
 
         m_tb = mask.t().contiguous()
         w_t = w_h.t().contiguous()
-        dk, d0k = K.gru_backward(d_out, m_tb, zk, pk, w_t, d_hfin)
-        dp, d0p = K.gru_backward_plain(d_out, m_tb, zk, pk, w_t, d_hfin)
+        bargs = [d_out, m_tb, zk, pk, w_t, d_hfin]
+        before = _paths(GRU_BACKWARD)
+        dk, d0k = K.gru_backward(*bargs)
+        took = _paths_since(GRU_BACKWARD, before)
+        if took != {"persistent": 1}:
+            fail("kernels", f"gru_backward took {took}, not the persistent "
+                 f"kernel")
+        dp, d0p = K.gru_backward_plain(*bargs)
+        ds, d0s = _gru_launch_bwd(*bargs, "steps")
         torch.cuda.synchronize()
         err = max(_max_err(dk, dp), _max_err(d0k, d0p))
+        err_s = max(_max_err(ds, dp), _max_err(d0s, d0p))
         scale = max(dp.abs().max().item(), d0p.abs().max().item())
         tol = TOL["gru_backward"]
-        if not (torch.isfinite(dk).all() and err <= tol * scale):
-            fail("kernels", f"gru_backward: max abs err {err} > {tol} x "
-                 f"{scale}")
-        ms = time_ms(lambda: K.gru_backward(d_out, m_tb, zk, pk, w_t,
-                                            d_hfin), flush)
-        plain_ms = time_ms(lambda: K.gru_backward_plain(
-            d_out, m_tb, zk, pk, w_t, d_hfin), flush, reps=5)
+        if not (torch.isfinite(dk).all() and err <= tol * scale
+                and err_s <= tol * scale):
+            fail("kernels", f"gru_backward: max abs err {err} (steps kernel "
+                 f"{err_s}) > {tol} x {scale}")
+        # rows do not depend on B: the first GRU_RAGGED_B rows alone
+        n = GRU_RAGGED_B
+        sub = K.gru_backward(d_out[:, :n].contiguous(),
+                             m_tb[:, :n].contiguous(),
+                             zk[:, :n].contiguous(), pk[:, :n].contiguous(),
+                             w_t, d_hfin[:n].contiguous())
+        if not (torch.equal(sub[0], dk[:, :n]) and torch.equal(sub[1],
+                                                               d0k[:n])):
+            fail("kernels", f"gru_backward rows 0..{n - 1} differ between "
+                 f"B={B} and B={n}")
+        ms = time_ms(lambda: K.gru_backward(*bargs), flush)
+        steps_ms = time_ms(lambda: _gru_launch_bwd(*bargs, "steps"), flush)
+        plain_ms = time_ms(lambda: K.gru_backward_plain(*bargs), flush,
+                           reps=5)
     nbytes = (T * B * H * 4 + T * B * 4 + T * B * H3 * 2 + T * B * H * 2
               + H3 * H * 4 + B * H * 4 + T * B * H3 * 4 + B * H * 4)
     bms, by = bound_ms(nbytes, 2.0 * T * B * H3 * H, "float32")
+    k4_info = gru_bwd_kernel_info(H)
+    info = ", ".join(f"{k} {r}/{l}/{m}" for k, (r, l, m) in k4_info.items())
     print(f"kernels: gru_backward B={B} T={T} H={H} bf16 residuals "
-          f"max_abs_err={err:.3e} (tol {tol} x max {scale:.3e}); "
-          f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.5f} ({by}, "
-          f"f32 products)", flush=True)
-    rows.append(_kernel_row("gru_backward", "gru_backward.cu", "590", err,
-                            ms, plain_ms, bms, by, None))
+          f"path=persistent ({_gru_bwd_plan(B, H, sms)}; registers / "
+          f"spilled bytes a thread / shared bytes a block: {info}) "
+          f"max_abs_err={err:.3e} (steps kernel {err_s:.3e}; tol {tol} x "
+          f"max {scale:.3e}), rows bit-equal at B={n}; ms={ms:.4f} (share "
+          f"of bound {bms / ms:.3f}) steps_ms={steps_ms:.4f} (share "
+          f"{bms / steps_ms:.3f}) plain_ms={plain_ms:.4f} bound_ms="
+          f"{bms:.5f} ({by}, f32 products)", flush=True)
+    rows.append(dict(_kernel_row("gru_backward", "gru_backward.cu", "590",
+                                 err, ms, plain_ms, bms, by, None),
+                     **_persistent_fields(ms, steps_ms, bms, k4_info)))
     return rows
 
 
@@ -631,6 +688,10 @@ def check_bigru(K, flush, dev):
     K3's row)."""
     import torch
 
+    from paddle_tpu_torch.ops.kernels.bigru import BIGRU_BACKWARD
+    from paddle_tpu_torch.ops.kernels.gru import gru_bwd_kernel_info
+    from paddle_tpu_torch.ops.kernels.bigru import _launch_bwd as \
+        _bigru_launch_bwd
     from paddle_tpu_torch.ops.numerics import compute_dtype_scope
 
     xp, m, w2, w_t, d_out, d_hfin = _bigru_inputs(dev, TRAIN_B)
@@ -643,8 +704,13 @@ def check_bigru(K, flush, dev):
         with compute_dtype_scope(cd):
             inf = K.bigru_forward(xp, m, w2, residuals=False, batch_split=B)
             res = K.bigru_forward(xp, m, w2, residuals=True, batch_split=B)
+            before = _paths(BIGRU_BACKWARD)
             bwd = K.bigru_backward(d_out, m, res[2], res[3], w_t, d_hfin,
                                    batch_split=B)
+            took = _paths_since(BIGRU_BACKWARD, before)
+            if took != {"persistent": 1}:
+                fail("kernels", f"bigru_backward {cd} took {took}, not the "
+                     f"persistent kernel")
             p_inf = K.bigru_forward_plain(xp, m, w2, residuals=False,
                                           batch_split=B)
             p_res = K.bigru_forward_plain(xp, m, w2, residuals=True,
@@ -759,20 +825,35 @@ def check_bigru(K, flush, dev):
                   f" bound_ms={bms:.5f} ({by})", flush=True)
             rows.append(_kernel_row(name, "bigru_forward.cu", "308", e, ms,
                                     plain_ms, bms, by, None))
-        ms = time_ms(lambda: K.bigru_backward(d_out, m, zk, pk, w_t, d_hfin,
-                                              batch_split=B), flush)
+        bargs = (d_out, m, zk, pk, w_t, d_hfin)
+        steps = _bigru_launch_bwd(*bargs, B, "steps")
+        e_steps = max(_max_err(a, c) for a, c in zip(
+            steps, K.bigru_backward_plain(*bargs, batch_split=B)))
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: K.bigru_backward(*bargs, batch_split=B), flush)
+        steps_ms = time_ms(lambda: _bigru_launch_bwd(*bargs, B, "steps"),
+                           flush)
         plain_ms = time_ms(lambda: K.bigru_backward_plain(
-            d_out, m, zk, pk, w_t, d_hfin, batch_split=B), flush, reps=5)
+            *bargs, batch_split=B), flush, reps=5)
         pair_ms = time_ms(pair_bwd, flush)
     nbytes = (T * B2 * H * 4 + T * B2 * 4 + T * B2 * (H3 + H) * res_b
               + H3 * 2 * H * 4 + B2 * H * 4 + T * B2 * H3 * 4 + B2 * H * 4)
     bms, by = bound_ms(nbytes, 2.0 * T * B2 * H3 * H, "float32")
+    if not e_steps <= TOL["gru_backward"] * errs["bfloat16"][3]:
+        fail("kernels", f"bigru_backward steps kernel: max abs err "
+             f"{e_steps}")
     print(f"kernels: bigru_backward B=2x{B} T={T} H={H} bf16 residuals "
-          f"ms={ms:.4f} plain_ms={plain_ms:.4f} two K4 calls (one per "
-          f"direction) {pair_ms:.4f} ms bound_ms={bms:.5f} ({by}, f32 "
-          f"products)", flush=True)
-    rows.append(_kernel_row("bigru_backward", "bigru_backward.cu", "590",
-                            errs["bfloat16"][2], ms, plain_ms, bms, by, None))
+          f"path=persistent (steps kernel max_abs_err {e_steps:.3e}) "
+          f"ms={ms:.4f} (share of bound {bms / ms:.3f}) steps_ms="
+          f"{steps_ms:.4f} (share {bms / steps_ms:.3f}) plain_ms="
+          f"{plain_ms:.4f} two K4 calls (one per direction, persistent) "
+          f"{pair_ms:.4f} ms bound_ms={bms:.5f} ({by}, f32 products)",
+          flush=True)
+    rows.append(dict(_kernel_row("bigru_backward", "bigru_backward.cu",
+                                 "590", errs["bfloat16"][2], ms, plain_ms,
+                                 bms, by, None),
+                     **_persistent_fields(ms, steps_ms, bms,
+                                          gru_bwd_kernel_info(H))))
     return rows
 
 
@@ -1042,13 +1123,25 @@ def _attn_dec_inputs(dev):
         wh=rnd(D, 3 * D, scale=D ** -0.5), d_out=rnd(T, B, D))
 
 
+#: K5's second batch, as K4's: rows 0..36 alone against the 384-row call
+ATTN_RAGGED_B = 37
+
+
 def check_attn_dec(K, flush, dev):
     """K5 and K6 at the training decoder's shape, each held against its
     plain version under the f32 and the bf16 policy; K6 takes K5's
-    residuals and the gates recomputed from them."""
+    residuals and the gates recomputed from them.  K5 must take its
+    persistent kernel under bf16 and its steps kernels under f32; under
+    bf16 it is also held and timed on the steps kernels, and its first 37
+    rows are held bit for bit against a 37-row call."""
     import torch
 
     from paddle_tpu_torch.ops.attention_decoder import recompute_gates
+    from paddle_tpu_torch.ops.kernels.attention_decoder import (
+        ATTN_DEC_FWD, _attn_dec_fwd_plan, _device_sms,
+        attn_dec_fwd_kernel_info)
+    from paddle_tpu_torch.ops.kernels.attention_decoder import _launch_fwd \
+        as _attn_launch_fwd
     from paddle_tpu_torch.ops.numerics import compute_dtype_scope
 
     x = _attn_dec_inputs(dev)
@@ -1062,17 +1155,43 @@ def check_attn_dec(K, flush, dev):
             fa = [x["xp_y"], x["m"], x["s0"], x["enc"].to(dt),
                   x["enc_proj"].to(dt), x["src_mask"], x["att_w"].to(dt),
                   x["att_v"].to(dt), x["wx_c"].to(dt), x["wh"].to(dt)]
+            before = _paths(ATTN_DEC_FWD)
             got = K.attn_dec_fwd(*fa)
+            took = _paths_since(ATTN_DEC_FWD, before)
+            want_path = "persistent" if cd == "bfloat16" else "steps"
+            if took != {want_path: 1}:
+                fail("kernels", f"attn_dec_fwd {cd} took {took}, not the "
+                     f"{want_path} kernel")
             want = K.attn_dec_fwd_plain(*fa)
             torch.cuda.synchronize()
             tol = TOL[f"attn_dec_fwd/{cd}"]
-            err = max(_max_err(got[i], want[i]) for i in (0, 1, 3))
-            ctx_ok = _within_bf16_ulp(got[2], want[2], tol) \
-                if cd == "bfloat16" else _max_err(got[2], want[2]) <= tol
-            if not (err <= tol and ctx_ok and got[2].dtype == dt):
+
+            def fwd_ok(out):
+                err = max(_max_err(out[i], want[i]) for i in (0, 1, 3))
+                ctx_ok = _within_bf16_ulp(out[2], want[2], tol) \
+                    if cd == "bfloat16" else _max_err(out[2], want[2]) <= tol
+                return err <= tol and ctx_ok and out[2].dtype == dt, err
+
+            ok, err = fwd_ok(got)
+            if not ok:
                 fail("kernels", f"attn_dec_fwd {cd}: states/probs/s_prev "
                      f"max abs err {err} (tol {tol}) or ctx beyond it")
             errs[f"fwd/{cd}"] = max(err, _max_err(got[2], want[2]))
+            if cd == "bfloat16":
+                steps = _attn_launch_fwd(*fa, "steps")
+                ok, err_s = fwd_ok(steps)
+                if not ok:
+                    fail("kernels", f"attn_dec_fwd steps kernels bf16: max "
+                         f"abs err {err_s} (tol {tol}) or ctx beyond it")
+                errs["fwd/steps"] = max(err_s, _max_err(steps[2], want[2]))
+                n = ATTN_RAGGED_B
+                sub = [a[:, :n] if i < 2 else a[:n] if i < 6 else a
+                       for i, a in enumerate(fa)]
+                small = K.attn_dec_fwd(*[a.contiguous() for a in sub])
+                if not all(torch.equal(a, b[:, :n])
+                           for a, b in zip(small, got)):
+                    fail("kernels", f"attn_dec_fwd rows 0..{n - 1} differ "
+                         f"between B={B} and B={n}")
             gates = recompute_gates(x["xp_y"], got[2], got[3], x["wx_c"],
                                     x["wh"], x["att_w"])
             ba = [x["d_out"], x["m"], got[3], *gates, fa[3], fa[4],
@@ -1090,6 +1209,8 @@ def check_attn_dec(K, flush, dev):
             if cd == "bfloat16":                         # the working type
                 timed = {
                     "fwd": time_ms(lambda: K.attn_dec_fwd(*fa), flush),
+                    "fwd_steps": time_ms(lambda: _attn_launch_fwd(
+                        *fa, "steps"), flush),
                     "fwd_plain": time_ms(lambda: K.attn_dec_fwd_plain(*fa),
                                          flush, reps=5),
                     "bwd": time_ms(lambda: K.attn_dec_bwd(*ba), flush),
@@ -1110,12 +1231,23 @@ def check_attn_dec(K, flush, dev):
     ops = 2.0 * TB * (D * D + 2 * D * D + D3 * H2 + A * D) \
         + 2.0 * TB * S * (H2 + A)
     b_bms, b_by = bound_ms(nbytes, ops, "float32")
+    k5_info = attn_dec_fwd_kernel_info(S, D, A, H2)
+    info = ", ".join(f"{k} {r}/{l}/{m}" for k, (r, l, m) in k5_info.items())
+    plan = _attn_dec_fwd_plan(B, S, D, A, H2, _device_sms(dev))
     print(f"kernels: attn_dec_fwd T={T} B={B} S={S} D=A={D} 2H={H2} "
-          f"max_abs_err f32={errs['fwd/float32']:.3e} (tol "
+          f"path=persistent under bf16 ({plan}; registers / spilled bytes "
+          f"a thread / shared "
+          f"bytes a block: {info}) max_abs_err f32="
+          f"{errs['fwd/float32']:.3e} (steps kernels, tol "
           f"{TOL['attn_dec_fwd/float32']}) bf16={errs['fwd/bfloat16']:.3e} "
-          f"(tol {TOL['attn_dec_fwd/bfloat16']}, ctx + one bf16 ulp); "
-          f"ms={timed['fwd']:.4f} plain_ms={timed['fwd_plain']:.4f} "
-          f"bound_ms={f_bms:.5f} ({f_by})", flush=True)
+          f"(steps kernels {errs['fwd/steps']:.3e}; tol "
+          f"{TOL['attn_dec_fwd/bfloat16']}, ctx + one bf16 ulp), rows "
+          f"bit-equal at B={ATTN_RAGGED_B}; ms={timed['fwd']:.4f} (share of "
+          f"bound {f_bms / timed['fwd']:.3f}) steps_ms="
+          f"{timed['fwd_steps']:.4f} (share "
+          f"{f_bms / timed['fwd_steps']:.3f}) plain_ms="
+          f"{timed['fwd_plain']:.4f} bound_ms={f_bms:.5f} ({f_by})",
+          flush=True)
     print(f"kernels: attn_dec_bwd from K5's residuals, max err / max |g| "
           f"f32={errs['bwd/float32']:.3e} (tol "
           f"{TOL['attn_dec_bwd/float32']}) bf16={errs['bwd/bfloat16']:.3e} "
@@ -1130,9 +1262,11 @@ def check_attn_dec(K, flush, dev):
           f"device {device_ms:.4f} of {timed['bwd']:.4f} ms (events): "
           f"{1 - device_ms / timed['bwd']:.1%} of the call is launch gaps "
           f"and the wrapper's host time", flush=True)
-    return [_kernel_row("attn_dec_fwd", "attn_dec_fwd.cu", "750",
-                        errs["fwd/bfloat16"], timed["fwd"],
-                        timed["fwd_plain"], f_bms, f_by, None),
+    return [dict(_kernel_row("attn_dec_fwd", "attn_dec_fwd.cu", "750",
+                             errs["fwd/bfloat16"], timed["fwd"],
+                             timed["fwd_plain"], f_bms, f_by, None),
+                 **_persistent_fields(timed["fwd"], timed["fwd_steps"],
+                                      f_bms, k5_info)),
             dict(_kernel_row("attn_dec_bwd", "attn_dec_bwd.cu", "894",
                              errs["bwd/bfloat16"], timed["bwd"],
                              timed["bwd_plain"], b_bms, b_by, None),
@@ -1831,6 +1965,13 @@ def train_path(K, dev, config: str = "default"):
             fail("train", f"{config}: kernel {name} launched "
                  f"{launches[name]} times in {TRAIN_STEPS} steps (want "
                  f"{'some' if n is None else n})")
+    # K4, K11's reverse and K5 at the training shape take their persistent
+    # kernels, every launch
+    for name in PERSISTENT_TRAIN_KERNELS:
+        n = launches[name]
+        if n and launches.by_path[name] != {"persistent": n}:
+            fail("train", f"{config}: {name} launches by path "
+                 f"{launches.by_path[name]}, not all persistent")
     # K1 and K2 at the training shape take the TMA + wgmma kernels
     want_paths = {} if config == "lse_readout" else {"wgmma": TRAIN_STEPS}
     if any(p != want_paths for p in ce_paths):

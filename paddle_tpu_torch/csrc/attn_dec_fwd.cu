@@ -30,35 +30,68 @@
 // GFLOP a call, 0.066 ms at the bf16 tensor-core peak, against ~0.19 GB of
 // unavoidable traffic (0.057 ms): operations bound it.  But every product
 // of a step needs the whole previous row of the carry, and the attention
-// needs the whole query row, so a step is a chain of grid-wide
-// dependencies: the loop is bound by the latency of its dependent launches
-// and by how well a small product fills 132 SMs, far above both bounds.
+// needs the whole query row, so a step is a chain of four grid-wide
+// dependencies, and the attention reads enc and enc_proj (96 KB a row,
+// 37 MB a step) every step.
 //
-// Design: the time loop runs on the host in this file, four small kernels
-// a step (the launch boundary is the grid-wide barrier each needs):
+// Two kernels, picked by the wrapper from (compute type, B, S, D, A, 2H,
+// SM count) alone (ops/kernels/attention_decoder.py::_attn_dec_fwd_path):
+//
+// attn_dec_fwd_persistent_kernel ("persistent", bf16 compute): the whole
+//   loop in ONE cooperative launch (csrc/persistent.cuh), the weights
+//   resident in shared memory split across the blocks.  Block i serves
+//   column group i % CG: NU = 16 units j (all three gate columns of each
+//   in wh and wx_c) and QC = 16 columns of att_w (160 KB of bf16 at the
+//   training shape; _attn_dec_fwd_plan: 32 groups x 4 row groups = 128
+//   blocks).  Its warps each own one 16-row tile, so a lane's accumulator
+//   entries are the same (row, unit) pairs in every product, and the
+//   carry s, the gate pre-activations zr_h and the gates stay in its
+//   registers from phase to phase.  Four phases a step, each ended by a
+//   grid barrier:
+//     (1) [q | zr_h] = round(s) @ [att_w | wh[:, :2D]]; q to a global
+//         [B, A] buffer;
+//     (2) the attention of batch rows i, i + 128, ..., four at a time:
+//         scores with lanes over 8 contiguous columns of enc_proj (16-byte
+//         loads), one warp a (row, source position) pair, four pairs'
+//         loads in flight; the masked softmax of each row in its own
+//         warp; the context with each thread over 4 columns of enc, 16
+//         positions' loads in flight; -> probs[t], ctx[t];
+//     (3) xp = xp_y[t] + ctx @ wx_c, the gates r and u, round(r * s) to a
+//         global bf16 buffer;
+//     (4) round(r * s) @ wh[:, 2D:], the candidate, the update and the
+//         mask hold; states[t], s_prev[t], round(s) to a global bf16
+//         buffer.
+//   The products run on the tensor cores: mma.sync m16n8k16, bf16 operands
+//   (exact products), f32 accumulators, each lane's operand a 16-byte load
+//   from L2, the weights kept in the B fragments' register order.  Each
+//   output's k order depends on the widths alone and each row's attention
+//   runs in one block, so a row's result does not depend on B.
+// The "steps" path (f32 compute, or shapes the plan cannot take): the
+//   time loop runs on the host in this file, four small kernels a step
+//   (the launch boundary is the grid-wide barrier each needs):
 //   query_gate_kernel  [q | zr_h] = round(s) @ [att_w | wh[:, :2D]], as two
 //                      jobs of one launch (blockIdx.z)
 //   attention_kernel   one block per batch row: scores (one warp per source
 //                      position), the masked softmax (one warp), the
 //                      context (one thread per column); enc / enc_proj are
-//                      streamed from device memory (96 KB a row at the
-//                      training shape, 37 MB a step: they do not stay in
-//                      the 50 MB L2 against the other streams)
+//                      streamed from device memory
 //   xp_gate_kernel     ctx @ wx_c, then xp, the gates r * s and u
 //   cand_kernel        round(r * s) @ wh[:, 2D:], tanh, the update and the
 //                      mask hold; writes states[t] and s_prev[t]
-// The weights (5 MB in bf16) stay in L2 across steps.  Each product block
-// owns a 32 x 32 output tile and sums over k in a fixed order, and every
-// reduction of the attention runs in a fixed order, so a row's result does
-// not depend on B and repeated calls give the same bits.  The products
-// run on the CUDA cores (float32 FMAs on CT operands widened to float32,
-// which is exact for bfloat16); tensor cores are work for a later change.
+//   The weights stay in L2 across steps.  Each product block owns a 32 x
+//   32 output tile and sums over k in a fixed order on the CUDA cores
+//   (float32 FMAs on CT operands widened to float32, exact for bfloat16),
+//   and every reduction of the attention runs in a fixed order, so a row's
+//   result does not depend on B and repeated calls give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
+#include <cstdint>
 #include <math_constants.h>
+
+#include "persistent.cuh"
 
 namespace {
 
@@ -380,6 +413,438 @@ int attn_dec_fwd_entry(const void* xp_y, const void* mask, const void* s0,
       T, B, S, D, A, H2, (cudaStream_t)stream);
 }
 
+
+// ------------------------------------- one persistent launch (bf16 policy)
+
+namespace k5 {
+
+constexpr int THREADS = 256;      // 8 warps, one 16-row tile of the products
+constexpr int WARPS = THREADS / 32;
+constexpr int ATT_ROWS = 4;       // batch rows the attention takes at once
+constexpr size_t SMEM_LIMIT = 232448;
+
+// the three products' B fragments (bf16) and the attention's f32 scratch:
+// ATT_ROWS rows' weights and rounded queries, and att_v
+inline size_t smem_bytes(int S, int D, int A, int H2, int NU, int QC) {
+  return ((size_t)D * (QC + 2 * NU) + (size_t)H2 * 3 * NU +
+          (size_t)D * NU) * 2 +
+         ((size_t)ATT_ROWS * S + (size_t)(ATT_ROWS + 1) * A) * 4;
+}
+
+// d += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, f32 sum
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(bf16 x) {
+  return (uint32_t)__bfloat16_as_ushort(x);
+}
+
+// acc[nt] += A[rows row0 .. row0 + 15, :K] @ W for the NT n8 tiles of the
+// fragments wf, A bf16 with row stride lda (rows at or past B read as 0),
+// written by other blocks in this launch (read through L2).  The depth is
+// taken 32 at a time; lane (g, c) loads the 16 bytes at k = 8c .. 8c + 7 of
+// rows g and g + 8, which the fragments' packing maps onto the mma's k
+// order (k16 step j of the 32 takes k = 8c + 4j + {0, 1} as its k pair 2c
+// and 8c + 4j + {2, 3} as its pair 2c + 8): every k order depends on K
+// alone.  The loads run one group of four 32-deep pieces ahead of the
+// products.
+template <int NT>
+__device__ __forceinline__ void warp_product(const bf16* __restrict__ A,
+                                             int lda, int row0, int B, int K,
+                                             const uint2* __restrict__ wf,
+                                             float (&acc)[NT][4]) {
+  const int lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
+  const bool ok0 = row0 + g < B, ok1 = row0 + g + 8 < B;
+  const bf16* p0 = A + (size_t)(row0 + g) * lda + 8 * c;
+  const bf16* p1 = p0 + (size_t)8 * lda;
+  const int nk = K / 32;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  uint4 nlo[4], nhi[4];
+  auto load = [&](int kb) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const bool in = kb + u < nk;
+      nlo[u] = in && ok0 ? __ldcg(reinterpret_cast<const uint4*>(
+                               p0 + (size_t)(kb + u) * 32))
+                         : zero;
+      nhi[u] = in && ok1 ? __ldcg(reinterpret_cast<const uint4*>(
+                               p1 + (size_t)(kb + u) * 32))
+                         : zero;
+    }
+  };
+  load(0);
+  for (int kb = 0; kb < nk; kb += 4) {
+    uint4 lo[4], hi[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      lo[u] = nlo[u];
+      hi[u] = nhi[u];
+    }
+    if (kb + 4 < nk) load(kb + 4);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (kb + u >= nk) break;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const uint32_t a[4] = {j ? lo[u].z : lo[u].x, j ? hi[u].z : hi[u].x,
+                               j ? lo[u].w : lo[u].y, j ? hi[u].w : hi[u].y};
+        const uint2* wk = wf + (size_t)((kb + u) * 2 + j) * NT * 32 + lane;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const uint2 bv = wk[nt * 32];
+          mma_bf16(acc[nt], a, bv.x, bv.y);
+        }
+      }
+    }
+  }
+}
+
+}  // namespace k5
+
+// The decoder's whole time loop, bf16 compute.  Block i serves column group
+// cg = i % CG (its NU = D / CG units and QC = A / CG query columns) and row
+// group rg = i / CG (warp w takes the 16-row tile rg * tpg + w, tpg =
+// ceil(ceil(B / 16) / RG) <= 8), and batch rows i, i + CG * RG, ... of the
+// attention.  NU = 8 NUT and QC = 8 QCT.  q [B, A] f32, sb / rsb [B, D]
+// bf16 scratch; bar [1] u32, zero.
+template <int NUT, int QCT>
+__global__ void __launch_bounds__(k5::THREADS, 1)
+    attn_dec_fwd_persistent_kernel(
+        const float* __restrict__ xp_y, const float* __restrict__ mask,
+        const float* __restrict__ s0, const bf16* __restrict__ enc,
+        const bf16* __restrict__ enc_proj, const float* __restrict__ src_mask,
+        const bf16* __restrict__ att_w, const bf16* __restrict__ att_v,
+        const bf16* __restrict__ wx_c, const bf16* __restrict__ wh,
+        float* __restrict__ states, float* __restrict__ probs,
+        bf16* __restrict__ ctx, float* __restrict__ s_prev,
+        float* __restrict__ q, bf16* __restrict__ sb, bf16* __restrict__ rsb,
+        unsigned* bar, int T, int B, int S, int D, int A, int H2, int CG,
+        int RG) {
+  constexpr int NU = 8 * NUT, QC = 8 * QCT;
+  constexpr int NT1 = QCT + 2 * NUT, NT3 = 3 * NUT;
+  extern __shared__ float4 smem4[];
+  // B fragments [K / 16][NT][32 lanes] of the three products:
+  // [q | zr] = round(s) @ [att_w | wh_r | wh_u], xp = ctx @ [wx_c r|u|c],
+  // round(r s) @ wh_c, each over this block's columns
+  uint2* wf1 = reinterpret_cast<uint2*>(smem4);
+  uint2* wf3 = wf1 + (size_t)D / 16 * NT1 * 32;
+  uint2* wf4 = wf3 + (size_t)H2 / 16 * NT3 * 32;
+  // the attention's [ATT_ROWS][S] scores, then weights; its rows'
+  // [ATT_ROWS][A] round(q); att_v [A]
+  float* ws = reinterpret_cast<float*>(wf4 + (size_t)D / 16 * NUT * 32);
+  float* qs = ws + k5::ATT_ROWS * S;
+  float* vs = qs + k5::ATT_ROWS * A;
+  const int cg = blockIdx.x % CG, rg = blockIdx.x / CG;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, c = lane % 4;
+  const int D3 = 3 * D;
+
+  // lane l of n8 tile nt at k16 step ks: column n = 8 nt + l / 4, rows
+  // k = 32 (ks / 2) + 8 (l % 4) + 4 (ks % 2) + {0, 1} and + {2, 3}
+  // col(n, ld) gives column n's first element and the row stride
+  auto pack = [&](uint2* wf, int K, int NT, auto col) {
+    for (int e = threadIdx.x; e < K / 16 * NT * 32; e += k5::THREADS) {
+      const int l = e % 32, nt = e / 32 % NT, ks = e / 32 / NT;
+      const int n = nt * 8 + l / 4;
+      const int k = ks / 2 * 32 + 8 * (l % 4) + 4 * (ks % 2);
+      int ld;
+      const bf16* w = col(n, ld);
+      uint32_t v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = k5::bits(w[(size_t)(k + i) * ld]);
+      wf[e] = make_uint2(v[0] | (v[1] << 16), v[2] | (v[3] << 16));
+    }
+  };
+  pack(wf1, D, NT1, [&](int n, int& ld) {
+    ld = n < QC ? A : D3;
+    return n < QC ? att_w + cg * QC + n
+                  : wh + (n - QC) / NU * D + cg * NU + (n - QC) % NU;
+  });
+  pack(wf3, H2, NT3, [&](int n, int& ld) {
+    ld = D3;
+    return wx_c + n / NU * D + cg * NU + n % NU;
+  });
+  pack(wf4, D, NUT, [&](int n, int& ld) {
+    ld = D3;
+    return wh + 2 * D + cg * NU + n;
+  });
+  for (int a = threadIdx.x; a < A; a += k5::THREADS)
+    vs[a] = to_f(att_v[a]);
+
+  // this warp's tile and its lane's entries: rows row0 + g + 8 (i / 2),
+  // units cg NU + 8 ut + 2c + i % 2 (the mma accumulator's layout)
+  const int ntile = (B + 15) / 16, tpg = (ntile + RG - 1) / RG;
+  const int tile = rg * tpg + warp;
+  const bool has = warp < tpg && tile < ntile;
+  const int row0 = tile * 16;
+  auto row_of = [&](int i) { return row0 + g + 8 * (i / 2); };
+  auto unit_of = [&](int ut, int i) {
+    return cg * NU + 8 * ut + 2 * c + i % 2;
+  };
+  float sr[NUT][4], zr_r[NUT][4], zr_u[NUT][4], ur[NUT][4], xpc[NUT][4];
+#pragma unroll
+  for (int ut = 0; ut < NUT; ++ut)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      sr[ut][i] = 0.0f;
+      const int b = row_of(i), j = unit_of(ut, i);
+      if (has && b < B) {
+        sr[ut][i] = s0[(size_t)b * D + j];
+        sb[(size_t)b * D + j] = __float2bfloat16_rn(sr[ut][i]);
+      }
+    }
+  unsigned target = 0;
+  pk::grid_sync(bar, target);           // round(s0) complete
+
+  for (int t = 0; t < T; ++t) {
+    // (1) [q | zr_h] = round(s) @ [att_w | wh[:, :2D]]
+    if (has) {
+      float acc[NT1][4] = {};
+      k5::warp_product(sb, D, row0, B, D, wf1, acc);
+#pragma unroll
+      for (int qt = 0; qt < QCT; ++qt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int b = row_of(i);
+          if (b < B)
+            q[(size_t)b * A + cg * QC + 8 * qt + 2 * c + i % 2] = acc[qt][i];
+        }
+      }
+#pragma unroll
+      for (int ut = 0; ut < NUT; ++ut)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          zr_r[ut][i] = acc[QCT + ut][i];
+          zr_u[ut][i] = acc[QCT + NUT + ut][i];
+        }
+    }
+    pk::grid_sync(bar, target);         // q complete
+
+    // (2) the attention of this block's batch rows -> probs[t], ctx[t],
+    // ATT_ROWS rows at a time (rows blockIdx.x + k gridDim.x)
+    bf16* ctx_t = ctx + (size_t)t * B * H2;
+    for (int k0 = 0; blockIdx.x + k0 * gridDim.x < B; k0 += k5::ATT_ROWS) {
+      // rows br(0) .. br(nr - 1)
+      const auto br = [&](int r) { return blockIdx.x + (k0 + r) * gridDim.x; };
+      const int nr =
+          min(k5::ATT_ROWS, (B - 1 - (int)blockIdx.x) / (int)gridDim.x - k0 + 1);
+      for (int e = threadIdx.x; e < nr * A; e += k5::THREADS)
+        qs[e] = round_ct<bf16>(__ldcg(q + (size_t)br(e / A) * A + e % A));
+      __syncthreads();
+      // scores: warp w takes (row, position) pairs w, w + 8, ..., four at
+      // a time with their loads issued together; lane l the columns
+      // 8 l .. 8 l + 7 of each 256, summed in column order, then across
+      // the lanes
+      for (int p0 = warp; p0 < nr * S; p0 += 4 * k5::WARPS) {
+        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        for (int a0 = 8 * lane; a0 < A; a0 += 512) {
+          uint4 raw[4][2];
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            const int pr = p0 + p * k5::WARPS;
+            const int row = pr < nr * S ? br(pr / S) : 0;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int a = a0 + 256 * h;
+              raw[p][h] = pr < nr * S && a < A
+                              ? __ldg(reinterpret_cast<const uint4*>(
+                                    enc_proj + ((size_t)row * S + pr % S) * A
+                                    + a))
+                              : make_uint4(0u, 0u, 0u, 0u);
+            }
+          }
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            const float* qr = qs + (p0 + p * k5::WARPS) / S * A;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int a = a0 + 256 * h;
+              if (p0 + p * k5::WARPS >= nr * S || a >= A) continue;
+              const bf16* e8 = reinterpret_cast<const bf16*>(&raw[p][h]);
+#pragma unroll
+              for (int i = 0; i < 8; ++i) {
+                const float x = round_ct<bf16>(to_f(e8[i]) + qr[a + i]);
+                part[p] += round_ct<bf16>(tanhf(x)) * vs[a + i];
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const float v = warp_sum(part[p]);
+          const int pr = p0 + p * k5::WARPS;
+          if (lane == 0 && pr < nr * S) ws[pr] = v;
+        }
+      }
+      __syncthreads();
+      if (warp < nr) {                 // masked softmax of row `warp`
+        float* w = ws + warp * S;
+        const int b = br(warp);
+        const float* mk = src_mask + (size_t)b * S;
+        float mx = -CUDART_INF_F;
+        for (int sp = lane; sp < S; sp += 32) {
+          const float zz = mk[sp] > 0.0f ? w[sp] : -FLT_MAX;
+          w[sp] = zz;
+          mx = fmaxf(mx, zz);
+        }
+        mx = warp_max(mx);
+        float sum = 0.0f;
+        for (int sp = lane; sp < S; sp += 32) {
+          const float e = expf(w[sp] - mx);
+          w[sp] = e;
+          sum += e;
+        }
+        sum = warp_sum(sum);
+        float nrm = 0.0f;
+        for (int sp = lane; sp < S; sp += 32) {
+          const float w1 = (w[sp] / sum) * mk[sp];
+          w[sp] = w1;
+          nrm += w1;
+        }
+        nrm = fmaxf(warp_sum(nrm), 1e-9f);
+        for (int sp = lane; sp < S; sp += 32) {
+          const float wv = w[sp] / nrm;
+          w[sp] = round_ct<bf16>(wv);  // the context's operand
+          probs[((size_t)t * B + b) * S + sp] = wv;
+        }
+      }
+      __syncthreads();
+      // the context: each thread 4 columns of a row at a time, over the
+      // positions in order, 16 positions' loads issued together
+      const int H4 = H2 / 4;
+      for (int it = threadIdx.x; it < nr * H4; it += k5::THREADS) {
+        const int r = it / H4, h = 4 * (it % H4);
+        const bf16* eb = enc + (size_t)br(r) * S * H2 + h;
+        const float* w = ws + r * S;
+        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        for (int sp0 = 0; sp0 < S; sp0 += 16) {
+          uint2 raw[16];
+#pragma unroll
+          for (int u = 0; u < 16; ++u)
+            raw[u] = sp0 + u < S ? __ldg(reinterpret_cast<const uint2*>(
+                                       eb + (size_t)(sp0 + u) * H2))
+                                 : make_uint2(0u, 0u);
+#pragma unroll
+          for (int u = 0; u < 16; ++u) {
+            if (sp0 + u >= S) break;
+            const bf16* e4 = reinterpret_cast<const bf16*>(&raw[u]);
+            const float wr = w[sp0 + u];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[i] += wr * to_f(e4[i]);
+          }
+        }
+        bf16 o[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[i] = __float2bfloat16_rn(acc[i]);
+        *reinterpret_cast<uint2*>(ctx_t + (size_t)br(r) * H2 + h) =
+            *reinterpret_cast<const uint2*>(o);
+      }
+      __syncthreads();                 // qs and ws are free
+    }
+    pk::grid_sync(bar, target);         // ctx[t] complete
+
+    // (3) xp = xp_y[t] + ctx @ wx_c; the gates r and u; round(r s)
+    const float* xp_t = xp_y + (size_t)t * B * D3;
+    if (has) {
+      float xv[3][NUT][4];             // xp_y[t], loaded before the product
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt)
+#pragma unroll
+        for (int ut = 0; ut < NUT; ++ut)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int b = row_of(i);
+            xv[gt][ut][i] = b < B ? xp_t[(size_t)b * D3 + gt * D
+                                         + unit_of(ut, i)]
+                                  : 0.0f;
+          }
+      float acc[NT3][4] = {};
+      k5::warp_product(ctx_t, H2, row0, B, H2, wf3, acc);
+#pragma unroll
+      for (int ut = 0; ut < NUT; ++ut)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int b = row_of(i), j = unit_of(ut, i);
+          if (b >= B) continue;
+          const float r = sigmoid_f(xv[0][ut][i] + acc[ut][i] + zr_r[ut][i]);
+          ur[ut][i] =
+              sigmoid_f(xv[1][ut][i] + acc[NUT + ut][i] + zr_u[ut][i]);
+          xpc[ut][i] = xv[2][ut][i] + acc[2 * NUT + ut][i];
+          rsb[(size_t)b * D + j] = __float2bfloat16_rn(r * sr[ut][i]);
+        }
+    }
+    pk::grid_sync(bar, target);         // round(r s) complete
+
+    // (4) cand = tanh(xp_c + round(r s) @ wh[:, 2D:]); the update and hold
+    if (has) {
+      const float mv[2] = {row_of(0) < B ? mask[(size_t)t * B + row_of(0)]
+                                         : 0.0f,
+                           row_of(2) < B ? mask[(size_t)t * B + row_of(2)]
+                                         : 0.0f};
+      float acc[NUT][4] = {};
+      k5::warp_product(rsb, D, row0, B, D, wf4, acc);
+#pragma unroll
+      for (int ut = 0; ut < NUT; ++ut)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int b = row_of(i), j = unit_of(ut, i);
+          if (b >= B) continue;
+          const size_t o = ((size_t)t * B + b) * D + j;
+          const float cand = tanhf(xpc[ut][i] + acc[ut][i]);
+          const float sv = sr[ut][i], uu = ur[ut][i];
+          const float sn = uu * sv + (1.0f - uu) * cand;
+          const float m = mv[i / 2];
+          const float sk = m > 0.0f ? sn : sv;
+          s_prev[o] = sv;
+          states[o] = sk * m;
+          sr[ut][i] = sk;
+          sb[(size_t)b * D + j] = __float2bfloat16_rn(sk);
+        }
+    }
+    if (t + 1 < T) pk::grid_sync(bar, target);  // round(s) complete
+  }
+}
+
+int attn_dec_fwd_persistent_launch(
+    const float* xp_y, const float* mask, const float* s0, const bf16* enc,
+    const bf16* enc_proj, const float* src_mask, const bf16* att_w,
+    const bf16* att_v, const bf16* wx_c, const bf16* wh, float* states,
+    float* probs, bf16* ctx, float* s_prev, float* q, bf16* sb, bf16* rsb,
+    unsigned* bar, int T, int B, int S, int D, int A, int H2, int CG, int RG,
+    cudaStream_t stream) {
+  if (T < 0 || B < 0 || S <= 0 || S > MAX_S || D <= 0 || A <= 0 || H2 <= 0 ||
+      CG <= 0 || RG <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (T == 0 || B == 0) return (int)cudaSuccess;
+  const int NU = D / CG, QC = A / CG;
+  if (D % CG || A % CG || (NU != 8 && NU != 16) || (QC != 8 && QC != 16) ||
+      D % 32 || H2 % 32 || (B + 15) / 16 > RG * k5::WARPS)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = k5::smem_bytes(S, D, A, H2, NU, QC);
+  if (smem > k5::SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  void* args[] = {&xp_y,  &mask,  &s0,     &enc, &enc_proj, &src_mask,
+                  &att_w, &att_v, &wx_c,   &wh,  &states,   &probs,
+                  &ctx,   &s_prev, &q,     &sb,  &rsb,      &bar,
+                  &T,     &B,     &S,      &D,   &A,        &H2,
+                  &CG,    &RG};
+  const auto launch = [&](auto kernel) {
+    return pk::cooperative_launch(kernel, args, CG * RG, k5::THREADS, smem,
+                                  stream);
+  };
+  if (NU == 16)
+    return QC == 16 ? launch(attn_dec_fwd_persistent_kernel<2, 2>)
+                    : launch(attn_dec_fwd_persistent_kernel<2, 1>);
+  return QC == 16 ? launch(attn_dec_fwd_persistent_kernel<1, 2>)
+                  : launch(attn_dec_fwd_persistent_kernel<1, 1>);
+}
+
 }  // namespace
 
 // xp_y [T, B, 3D] f32, mask [T, B] f32, s0 [B, D] f32, enc [B, S, 2H],
@@ -412,6 +877,47 @@ extern "C" int attn_dec_fwd_bf16(const void* xp_y, const void* mask,
   return attn_dec_fwd_entry<bf16>(xp_y, mask, s0, enc, enc_proj, src_mask,
                                   att_w, att_v, wx_c, wh, states, probs, ctx,
                                   s_prev, work, T, B, S, D, A, H2, stream);
+}
+
+// The persistent kernel (see _attn_dec_fwd_path / _attn_dec_fwd_plan),
+// bf16 compute only: the arguments of attn_dec_fwd_bf16 up to s_prev, then
+// q [B, A] f32, sb and rsb [B, D] bf16 scratch, bar [1] u32 zeroed, the
+// sizes, and the plan's CG column groups (D / CG and A / CG each 8 or 16)
+// and RG row groups (CG * RG blocks; B <= 128 RG).
+extern "C" int attn_dec_fwd_persistent(
+    const void* xp_y, const void* mask, const void* s0, const void* enc,
+    const void* enc_proj, const void* src_mask, const void* att_w,
+    const void* att_v, const void* wx_c, const void* wh, void* states,
+    void* probs, void* ctx, void* s_prev, void* q, void* sb, void* rsb,
+    void* bar, int T, int B, int S, int D, int A, int H2, int CG, int RG,
+    void* stream) {
+  return attn_dec_fwd_persistent_launch(
+      (const float*)xp_y, (const float*)mask, (const float*)s0,
+      (const bf16*)enc, (const bf16*)enc_proj, (const float*)src_mask,
+      (const bf16*)att_w, (const bf16*)att_v, (const bf16*)wx_c,
+      (const bf16*)wh, (float*)states, (float*)probs, (bf16*)ctx,
+      (float*)s_prev, (float*)q, (bf16*)sb, (bf16*)rsb, (unsigned*)bar, T, B,
+      S, D, A, H2, CG, RG, (cudaStream_t)stream);
+}
+
+// registers a thread, local (spilled) bytes a thread and shared bytes a
+// block of kernel `which` (0: persistent with 16 units and 16 query
+// columns a block, the flagship's plan, at (S, D, A, H2); 1: the steps
+// path's attention kernel, bf16; 2: its candidate product, bf16)
+extern "C" int attn_dec_fwd_info(int which, int S, int D, int A, int H2,
+                                 int* regs, int* local_bytes,
+                                 int* smem_bytes) {
+  cudaFuncAttributes a;
+  const void* fn = which == 0 ? (const void*)attn_dec_fwd_persistent_kernel<2, 2>
+                   : which == 1 ? (const void*)attention_kernel<bf16>
+                                : (const void*)cand_kernel<bf16>;
+  const cudaError_t e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return (int)e;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  *smem_bytes = (int)a.sharedSizeBytes +
+                (which == 0 ? (int)k5::smem_bytes(S, D, A, H2, 16, 16) : 0);
+  return 0;
 }
 
 extern "C" const char* ptt_error_string(int err) {

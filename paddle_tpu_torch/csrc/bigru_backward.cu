@@ -14,15 +14,19 @@
 // transposed weights stacked on columns, w_t [3H, 2H] f32 (direction 0 in
 // columns [0, H), direction 1 in [H, 2H)), each read with row stride 2H.
 //
-// What bounds it on this card: as K4 (gru_backward.cu), 2T dependent
-// launches with two row-wide f32 products a step.  One loop for both
-// directions halves the layer's dependent launches (2T instead of 4T),
-// each with twice the row blocks.
+// What bounds it on this card: as K4 (gru_backward.cu), two row-wide f32
+// products a step over twice the rows (0.58 ms of f32 FMA time at 2 x 384
+// rows, H = 512), each needing the whole row of the step before.
 //
-// Design: the K4 host loop and step kernels of gru_common.cuh with the row
-// split of bigru_forward.cu (per-direction row blocks, none straddling the
-// split), so a row's arithmetic and its order are those of a K4 call:
-// K11's reverse is bit-identical to two K4 calls.
+// Design: K4's two kernels of gru_common.cuh, picked by the same function
+// of (rows a direction, H, SM count) (ops/kernels/gru.py::_gru_bwd_path):
+// "persistent", ONE cooperative launch whose blocks each serve one
+// direction (2 x 16 column groups x 4 row groups = 128 blocks at 2 x 384
+// rows, H = 512), each holding its direction's w_t slice; or "steps", the
+// host loop with per-direction row blocks.  Either way each row meets the
+// arithmetic of a K4 call, in the same order (the plan's column groups,
+// row tiles and k order depend on H alone), so K11's reverse is
+// bit-identical to two K4 calls on the same path.
 
 #include "gru_common.cuh"
 
@@ -39,6 +43,22 @@ extern "C" int bigru_backward(const void* dout, const void* mask,
   if (split <= 0) return (int)cudaErrorInvalidValue;
   return gru::backward_dispatch(dout, mask, z, hprev, w_t, dz, dc, part,
                                 res_bf16, T, B2, H, split, stream);
+}
+
+// The persistent kernel: the same arguments as bigru_backward, then dzc
+// [2B, H] f32 scratch, bar [1] u32 zeroed, and the plan's CG = ceil(H / 32)
+// column groups and RG row groups a direction (2 * CG * RG blocks).
+extern "C" int bigru_backward_persistent(const void* dout, const void* mask,
+                                         const void* z, const void* hprev,
+                                         const void* w_t, void* dz, void* dc,
+                                         void* part, void* dzc, void* bar,
+                                         int res_bf16, int T, int B2, int H,
+                                         int split, int CG, int RG,
+                                         void* stream) {
+  if (split <= 0) return (int)cudaErrorInvalidValue;
+  return gru::backward_persistent_dispatch(dout, mask, z, hprev, w_t, dz, dc,
+                                           dzc, part, bar, res_bf16, T, B2,
+                                           H, split, CG, RG, stream);
 }
 
 extern "C" const char* ptt_error_string(int err) {

@@ -21,26 +21,30 @@
 // float32 weight w_t [3H, H] (= W^T), as the reference does (f32 operands,
 // the backward's deliberate accumulation policy: ops/numerics.py::bwd_mm).
 //
-// What bounds it on this card: as in the forward, the loop is sequential
-// over T and each step has two dependent row-wide products (d_rh needs the
-// whole d_zc row; the second product needs the whole d_zr row).  At the
-// training shape (B = 384, H = 512, T = 32) a step is 0.6 GFLOP of f32
-// products and reads w_t (3 MB, resident in the 50 MB L2 after the first
-// step); the whole call's bound is ~0.3 ms of f32 FMA time, and it runs as
-// 2T dependent launches, so launch latency and per-block k-loops bound it.
+// What bounds it on this card: the loop is sequential over T and each step
+// has two dependent row-wide products (d_rh needs the whole d_zc row; the
+// second product needs the whole d_zr row).  At the training shape (B =
+// 384, H = 512, T = 32) a step is 0.6 GFLOP of f32 products; the whole
+// call's bound is ~0.29 ms of f32 FMA time (67 TFLOP/s, no tensor cores:
+// the backward keeps f32 operands).  The grid-wide dependency twice a step
+// is what costs.
 //
-// Design: two small kernels per step from a host loop (the launch boundary
-// is the grid-wide barrier each product needs), shared with the
-// bidirectional K11 (bigru_backward.cu) in gru_common.cuh:
-//   gru_bwd_cand_kernel  d_rh = d_zc @ W_c^T, with d_zc formed elementwise
-//                        while its tile is loaded (it is never stored
-//                        before the product); the epilogue writes all
-//                        three gate blocks of d_z[t] and the partial
-//                        d_hnew * u + d_rh * r
-//   gru_bwd_gate_kernel  d_zr @ W_g^T from the d_z[t] just written, then
-//                        the carry update d_c = (1 - m) d_c + d_hp
-// Each block owns a 32 x 32 output tile and sums over k in a fixed order,
-// so a row's result does not depend on B.
+// Two kernels, picked by the wrapper from (B, H, SM count) alone
+// (ops/kernels/gru.py::_gru_bwd_path), both in gru_common.cuh and shared
+// with the bidirectional K11 (bigru_backward.cu):
+//   "persistent"  gru_bwd_persistent_kernel: the whole reverse loop in ONE
+//                 cooperative launch, w_t resident in shared memory split
+//                 by 32-column groups across the SMs (16 x 8 = 128 blocks
+//                 at H = 512, B = 384), two grid barriers a step, each
+//                 product's epilogue fusing the step's elementwise math
+//   "steps"       gru_bwd_cand_kernel + gru_bwd_gate_kernel, two launches
+//                 a step from a host loop (shapes the plan cannot take):
+//                 the first forms d_zc elementwise while its tile loads and
+//                 writes all three gate blocks of d_z[t] and the partial
+//                 d_hnew * u + d_rh * r; the second adds d_zr @ W_g^T and
+//                 updates the carry
+// Each sums every output over k in an order fixed by H, so a row's result
+// does not depend on B.
 
 #include "gru_common.cuh"
 
@@ -55,6 +59,29 @@ extern "C" int gru_backward(const void* dout, const void* mask, const void* z,
                             int H, void* stream) {
   return gru::backward_dispatch(dout, mask, z, hprev, w_t, dz, dc, part,
                                 res_bf16, T, B, H, 0, stream);
+}
+
+// The persistent kernel (see _gru_bwd_path / _gru_bwd_plan): the same
+// arguments as gru_backward, then dzc [B, H] f32 scratch, bar [1] u32
+// zeroed, and the plan's CG = ceil(H / 32) column groups and RG row groups
+// (CG * RG blocks).  H % 4 == 0.
+extern "C" int gru_backward_persistent(const void* dout, const void* mask,
+                                       const void* z, const void* hprev,
+                                       const void* w_t, void* dz, void* dc,
+                                       void* part, void* dzc, void* bar,
+                                       int res_bf16, int T, int B, int H,
+                                       int CG, int RG, void* stream) {
+  return gru::backward_persistent_dispatch(dout, mask, z, hprev, w_t, dz, dc,
+                                           dzc, part, bar, res_bf16, T, B, H,
+                                           0, CG, RG, stream);
+}
+
+// registers a thread, local (spilled) bytes a thread and shared bytes a
+// block of kernel `which` (0: persistent at width H; 1, 2: the steps
+// path's two kernels), f32 residuals
+extern "C" int gru_backward_info(int which, int H, int* regs,
+                                 int* local_bytes, int* smem_bytes) {
+  return gru::backward_info(which, H, regs, local_bytes, smem_bytes);
 }
 
 extern "C" const char* ptt_error_string(int err) {

@@ -29,21 +29,46 @@
 //     d_c    = (1 - m) * d_c + d_hp
 //     d_z[t] = [d_zr, d_zc]
 //
-// Two small kernels a step, from a host loop (the launch boundary is the
-// grid-wide barrier each step's row-wide products need).  Each block owns
-// a 32 x 32 output tile and sums over k in a FIXED order, so a row's bits
-// depend only on that row's inputs and its direction's weight: never on B,
-// nor on which other rows share the call.
+// The forward and the reverse's "steps" path: two small kernels a step,
+// from a host loop (the launch boundary is the grid-wide barrier each
+// step's row-wide products need).  Each block owns a 32 x 32 output tile
+// and sums over k in a FIXED order, so a row's bits depend only on that
+// row's inputs and its direction's weight: never on B, nor on which other
+// rows share the call.
+//
+// The reverse's "persistent" path (K4 and K11's reverse where
+// ops/kernels/gru.py::_gru_bwd_plan fits): the whole reverse loop in ONE
+// cooperative launch (csrc/persistent.cuh), w_t resident in shared memory.
+// Block (direction, column group cg, row group rg) holds its direction's
+// w_t[:, 32 cg .. 32 cg + 31] over the full depth 3H (196,608 bytes of f32
+// at H = 512), so every output it computes is complete: no partial sums
+// cross blocks, and each product's epilogue fuses the step's elementwise
+// math, its inputs loaded as the tile starts so that their latency hides
+// behind the tile's products.  A step is two phases, each ended by a grid
+// barrier:
+//   (1) d_rh = d_zc @ W_c^T over the block's row tiles; the epilogue
+//       writes d_z[t] (all three gate blocks) and part = d_hnew u + d_rh r;
+//   (2) d_zr @ W_g^T from the d_z[t] rows just written; the epilogue adds
+//       part, updates the carry d_c and forms the next step's d_zc, the
+//       operand of the next phase (1).
+// Rows are taken in 16-row tiles, round-robin over the row groups, so any
+// B up to the wrapper's limit runs on the same blocks.  Each tile's
+// operand streams from L2 through a two-stage cp.async ring of [16 x 256]
+// f32 stages; the 8 warps take interleaved 32-deep slices of each stage,
+// each thread a 4-row x 4-column register tile, and the 8 slices' partials
+// meet in shared memory, added in slice order.  Every order depends on H
+// alone, so a row's bits do not depend on B or on the row group that
+// computes it, and K11's rows equal two K4 calls' bit for bit.
 //
 // The bidirectional batch (split > 0, B = 2 * split): rows [0, split) use
-// direction 0's weight and rows [split, B) direction 1's.  The grid's row
-// blocks are cut per direction -- ceil(split / BM) blocks over [0, split),
-// then as many over [split, B) -- so no 32-row tile straddles the split for
-// any split, and each row meets exactly the arithmetic of a one-direction
-// call (K11 against two K3/K4 calls is bit-identical).  The forward's
-// weight is the reference's [2H, 3H] (direction 1 starts H * 3H elements
-// in); the reverse's is the reference's column-stacked [3H, 2H] (direction
-// 1 starts H columns in, row stride 2H).
+// direction 0's weight and rows [split, B) direction 1's.  The steps
+// kernels' row blocks are cut per direction -- ceil(split / BM) blocks over
+// [0, split), then as many over [split, B) -- and the persistent kernel's
+// blocks each serve one direction, so no tile straddles the split for any
+// split, and each row meets exactly the arithmetic of a one-direction call.
+// The forward's weight is the reference's [2H, 3H] (direction 1 starts
+// H * 3H elements in); the reverse's is the reference's column-stacked
+// [3H, 2H] (direction 1 starts H columns in, row stride 2H).
 
 #pragma once
 
@@ -51,6 +76,8 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "persistent.cuh"
 
 namespace gru {
 
@@ -285,17 +312,28 @@ struct CandGrad {
   float d_hnew, u, cand, d_zc;
 };
 
+// from the values: d_out[t], the mask, the pre-activations z_u and z_c
+// (widened) and the carry d_c
+__device__ __forceinline__ CandGrad cand_grad_v(float dout, float m,
+                                                float zu, float zc,
+                                                float dc) {
+  CandGrad g;
+  const float mcol = m > 0.0f ? 1.0f : 0.0f;
+  g.d_hnew = mcol * (dout + dc);
+  g.u = sigmoid_f(zu);
+  g.cand = tanhf(zc);
+  g.d_zc = g.d_hnew * (1.0f - g.u) * (1.0f - g.cand * g.cand);
+  return g;
+}
+
 template <typename RT>
 __device__ __forceinline__ CandGrad cand_grad(
     const float* __restrict__ dout_t, float m, const RT* __restrict__ z_t,
     const float* __restrict__ dc, int b, int k, int H) {
-  CandGrad g;
-  const float mcol = m > 0.0f ? 1.0f : 0.0f;
-  g.d_hnew = mcol * (dout_t[(size_t)b * H + k] + dc[(size_t)b * H + k]);
-  g.u = sigmoid_f(to_f<RT>(z_t[(size_t)b * 3 * H + H + k]));
-  g.cand = tanhf(to_f<RT>(z_t[(size_t)b * 3 * H + 2 * H + k]));
-  g.d_zc = g.d_hnew * (1.0f - g.u) * (1.0f - g.cand * g.cand);
-  return g;
+  return cand_grad_v(dout_t[(size_t)b * H + k], m,
+                     to_f<RT>(z_t[(size_t)b * 3 * H + H + k]),
+                     to_f<RT>(z_t[(size_t)b * 3 * H + 2 * H + k]),
+                     dc[(size_t)b * H + k]);
 }
 
 // acc[i][j] += sum_k A(row, k) * w_t[k0w + k, col] over k < K for the
@@ -456,6 +494,314 @@ inline int backward_dispatch(const void* dout, const void* mask,
       (const float*)dout, (const float*)mask, (const float*)z,
       (const float*)hprev, (const float*)w_t, (float*)dz, (float*)dc,
       (float*)part, T, B, H, split, (cudaStream_t)stream);
+}
+
+
+// ---------------------------------------------------------------------------
+// reverse, one persistent launch
+// ---------------------------------------------------------------------------
+
+namespace k4 {
+
+constexpr int THREADS = 256;      // 8 warps, one 32-deep slice of a stage each
+constexpr int WARPS = THREADS / 32;
+constexpr int CW = 32;            // w_t columns a block
+constexpr int ROWS = 16;          // rows of one tile
+constexpr int KC = 256;           // depth of one operand stage
+constexpr int KS = KC / WARPS;    // a warp's slice of a stage
+constexpr int NST = 2;            // operand stages in the ring
+constexpr int STAGE = ROWS * KC;  // floats of one stage
+constexpr size_t SMEM_LIMIT = 232448;
+
+// a product's depth, padded to whole stages (w_t's pad rows are zeros)
+__host__ __device__ inline int kpad(int K) { return (K + KC - 1) / KC * KC; }
+
+inline size_t smem_bytes(int H) {
+  return ((size_t)kpad(H) + kpad(2 * H)) * CW * sizeof(float) +
+         (size_t)NST * STAGE * sizeof(float);
+}
+
+}  // namespace k4
+
+// the epilogues' inputs of one (row, column) pair, loaded as its tile
+// starts: (1) d_out[t], mask[t], z[t]'s r, u, c, h_prev[t], d_c; (2) the
+// partial, d_c, mask[t], and step t - 1's d_out, mask, z_u and z_c
+struct Pre1 {
+  float dout, m, zr, zu, zc, hp, dc;
+};
+struct Pre2 {
+  float part, dc, m, dout_n, m_n, zu_n, zc_n;
+};
+
+// dzc [B, H] f32 scratch (each step's d_zc, the first product's operand),
+// part [B, H] f32 scratch; bar [1] u32, zero.  ndir = split > 0 ? 2 : 1
+// directions x CG column groups (CG = ceil(H / 32)) x RG row groups.
+template <typename RT>
+__global__ void __launch_bounds__(k4::THREADS, 1) gru_bwd_persistent_kernel(
+    const float* __restrict__ dout, const float* __restrict__ mask,
+    const RT* __restrict__ z, const RT* __restrict__ hprev,
+    const float* __restrict__ w_t, float* __restrict__ dz,
+    float* __restrict__ dc, float* __restrict__ dzc,
+    float* __restrict__ part, unsigned* bar, int T, int B, int H, int split,
+    int CG, int RG) {
+  extern __shared__ float4 smem4[];
+  const int K1p = k4::kpad(H), K2p = k4::kpad(2 * H);
+  // w_t rows [0, 2H) (the second product's), then rows [2H, 3H) (the
+  // first's), each [depth][CW], zero past H or 2H and past the columns
+  float* ws2 = reinterpret_cast<float*>(smem4);
+  float* ws1 = ws2 + (size_t)K2p * k4::CW;
+  // the operand ring: [NST][ROWS][KC], the 16-byte piece q of row r at
+  // q ^ (r % 8); a stage also takes the 8 slices' partials of a tile
+  float* ring = ws1 + (size_t)K1p * k4::CW;
+  const int per_dir = CG * RG;
+  const int dir = blockIdx.x / per_dir;
+  const int cg = blockIdx.x % per_dir % CG, rg = blockIdx.x % per_dir / CG;
+  const int rows = split > 0 ? split : B;    // rows of this direction
+  const int rbase = dir * rows;              // its first row
+  const int c0 = cg * k4::CW, cw = min(k4::CW, H - c0);
+  const int ldw = split > 0 ? 2 * H : H;
+  const float* wd = w_t + (size_t)dir * H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rq = lane / 8, cq = lane % 8;    // rows rq + 4 i, columns 4 cq..
+
+  for (int e = threadIdx.x; e < (K1p + K2p) * k4::CW; e += k4::THREADS) {
+    const int kk = e / k4::CW, c = e % k4::CW;
+    const int k = kk < K2p ? kk : 2 * H + (kk - K2p);
+    const bool ok = (kk < K2p ? kk < 2 * H : kk - K2p < H) && c < cw;
+    ws2[e] = ok ? wd[(size_t)k * ldw + c0 + c] : 0.0f;
+  }
+
+  const int ntile = (rows + k4::ROWS - 1) / k4::ROWS;
+  const int mine = rg < ntile ? (ntile - rg + RG - 1) / RG : 0;
+  const size_t zs = (size_t)B * 3 * H, hs = (size_t)B * H;
+
+  // one product over this block's tiles: out(b, j) = sum_k A[b, k] *
+  // wsm[k, j - c0] for k < K, A's rows lda apart; epi(b, j, out, pre(b,
+  // j)) for each of this block's (row, column) pairs, each by one thread
+  // (the same in both products); pre's loads are issued as the tile
+  // starts, so their latency hides behind the tile's products
+  constexpr int OWN = k4::ROWS * k4::CW / k4::THREADS;   // pairs a thread
+  auto product = [&](const float* A, int lda, int K, const float* wsm,
+                     auto pre, auto epi) {
+    decltype(pre(0, 0)) pv[OWN];
+    const int nkc = (K + k4::KC - 1) / k4::KC;
+    const int items = mine * nkc;
+    // item n (tile n / nkc, stage n % nkc of the depth) into its stage:
+    // four 16-byte pieces a thread; K % 4 == 0, so a piece is whole or
+    // past the end (zeros)
+    auto issue = [&](int n) {
+      if (n < items) {
+        const int r0 = (rg + n / nkc * RG) * k4::ROWS, kb = n % nkc * k4::KC;
+        float* st = ring + (n % k4::NST) * k4::STAGE;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int p = threadIdx.x + u * k4::THREADS;
+          const int r = p / (k4::KC / 4), q = p % (k4::KC / 4);
+          const int lr = r0 + r, k = kb + 4 * q;
+          const bool ok = lr < rows && k < K;
+          pk::cp_async16(st + r * k4::KC + 4 * (q ^ (r & 7)),
+                         ok ? A + (size_t)(rbase + lr) * lda + k : A,
+                         ok ? 16 : 0);
+        }
+      }
+      pk::cp_async_commit();            // an empty group past the end
+    };
+    issue(0);
+    issue(1);
+    float acc[4][4];
+    for (int n = 0; n < items; ++n) {
+      const int kc = n % nkc;
+      if (kc == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+        const int r0 = (rg + n / nkc * RG) * k4::ROWS;
+#pragma unroll
+        for (int u = 0; u < OWN; ++u) {
+          const int e = threadIdx.x + u * k4::THREADS;
+          const int r = e / k4::CW, c = e % k4::CW;
+          if (r0 + r < rows && c < cw) pv[u] = pre(rbase + r0 + r, c0 + c);
+        }
+      }
+      pk::cp_async_wait<1>();           // item n has landed (this thread's)
+      __syncthreads();                  // ... everyone's
+      float* st = ring + (n % k4::NST) * k4::STAGE;
+      const float* wk = wsm + (size_t)(kc * k4::KC + warp * k4::KS) * k4::CW
+                        + 4 * cq;
+#pragma unroll 2
+      for (int q4 = 0; q4 < k4::KS / 4; ++q4) {
+        const int q = warp * (k4::KS / 4) + q4;
+        float4 a[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = rq + 4 * i;
+          a[i] = *reinterpret_cast<const float4*>(st + r * k4::KC
+                                                  + 4 * (q ^ (r & 7)));
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float4 w = *reinterpret_cast<const float4*>(
+              wk + (size_t)(4 * q4 + e) * k4::CW);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float av = e == 0 ? a[i].x : e == 1 ? a[i].y
+                           : e == 2 ? a[i].z : a[i].w;
+            acc[i][0] += av * w.x;
+            acc[i][1] += av * w.y;
+            acc[i][2] += av * w.z;
+            acc[i][3] += av * w.w;
+          }
+        }
+      }
+      if (kc == nkc - 1) {              // the tile's depth is done
+        __syncthreads();                // every warp is done with the stage
+        // the slices' partials [WARPS][ROWS][CW] into the stage
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          *reinterpret_cast<float4*>(
+              st + (warp * k4::ROWS + rq + 4 * i) * k4::CW + 4 * cq) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        __syncthreads();
+        const int r0 = (rg + n / nkc * RG) * k4::ROWS;
+#pragma unroll
+        for (int u = 0; u < OWN; ++u) {
+          const int e = threadIdx.x + u * k4::THREADS;
+          const int r = e / k4::CW, c = e % k4::CW;
+          if (r0 + r >= rows || c >= cw) continue;
+          float v = 0.0f;
+#pragma unroll
+          for (int g = 0; g < k4::WARPS; ++g)
+            v += st[(g * k4::ROWS + r) * k4::CW + c];
+          epi(rbase + r0 + r, c0 + c, v, pv[u]);
+        }
+      }
+      __syncthreads();                  // stage n % NST is free
+      issue(n + 2);
+    }
+    pk::cp_async_wait<0>();
+  };
+
+  // d_zc of step T - 1 from d_hfin, for this block's pairs
+  for (int i = 0; i < mine; ++i) {
+    const int r0 = (rg + i * RG) * k4::ROWS;
+    for (int e = threadIdx.x; e < k4::ROWS * k4::CW; e += k4::THREADS) {
+      const int r = e / k4::CW, c = e % k4::CW;
+      const int b = rbase + r0 + r, j = c0 + c;
+      if (r0 + r < rows && c < cw)
+        dzc[(size_t)b * H + j] =
+            cand_grad<RT>(dout + (T - 1) * hs, mask[(size_t)(T - 1) * B + b],
+                          z + (T - 1) * zs, dc, b, j, H).d_zc;
+    }
+  }
+  unsigned target = 0;
+  pk::grid_sync(bar, target);           // d_zc of step T - 1 complete
+
+  for (int t = T - 1; t >= 0; --t) {
+    const float* dout_t = dout + t * hs;
+    const float* mask_t = mask + (size_t)t * B;
+    const RT* z_t = z + t * zs;
+    const RT* hp_t = hprev + t * hs;
+    float* dz_t = dz + t * zs;
+    // (1) d_rh = d_zc @ W_c^T; d_z[t] and part from the step's inputs
+    const auto pre1 = [&](int b, int j) {
+      const size_t o = (size_t)b * H + j;
+      const RT* zr = z_t + (size_t)b * 3 * H;
+      return Pre1{dout_t[o], mask_t[b], to_f<RT>(zr[j]), to_f<RT>(zr[H + j]),
+                  to_f<RT>(zr[2 * H + j]), to_f<RT>(hp_t[o]), dc[o]};
+    };
+    product(dzc, H, H, ws1, pre1, [&](int b, int j, float d_rh,
+                                      const Pre1& p) {
+      const CandGrad g = cand_grad_v(p.dout, p.m, p.zu, p.zc, p.dc);
+      const float r = sigmoid_f(p.zr);
+      const float d_u = g.d_hnew * (p.hp - g.cand);
+      const float d_r = d_rh * p.hp;
+      float* dzr = dz_t + (size_t)b * 3 * H;
+      dzr[j] = d_r * r * (1.0f - r);
+      dzr[H + j] = d_u * g.u * (1.0f - g.u);
+      dzr[2 * H + j] = g.d_zc;
+      part[(size_t)b * H + j] = g.d_hnew * g.u + d_rh * r;
+    });
+    pk::grid_sync(bar, target);         // d_z[t] complete
+    // (2) d_hp = part + d_zr @ W_g^T; the carry; step t - 1's d_zc
+    const float* dout_n = dout + (t > 0 ? t - 1 : 0) * hs;
+    const float* mask_n = mask + (size_t)(t > 0 ? t - 1 : 0) * B;
+    const RT* z_n = z + (t > 0 ? t - 1 : 0) * zs;
+    const auto pre2 = [&](int b, int j) {
+      const size_t o = (size_t)b * H + j;
+      const RT* zr = z_n + (size_t)b * 3 * H;
+      return Pre2{part[o], dc[o], mask_t[b], dout_n[o], mask_n[b],
+                  to_f<RT>(zr[H + j]), to_f<RT>(zr[2 * H + j])};
+    };
+    product(dz_t, 3 * H, 2 * H, ws2, pre2, [&](int b, int j, float acc,
+                                               const Pre2& p) {
+      const size_t o = (size_t)b * H + j;
+      const float mcol = p.m > 0.0f ? 1.0f : 0.0f;
+      const float d_hp = p.part + acc;
+      const float d_c = (1.0f - mcol) * p.dc + d_hp;
+      dc[o] = d_c;
+      if (t > 0)
+        dzc[o] = cand_grad_v(p.dout_n, p.m_n, p.zu_n, p.zc_n, d_c).d_zc;
+    });
+    if (t > 0) pk::grid_sync(bar, target);  // d_zc of step t - 1 complete
+  }
+}
+
+template <typename RT>
+int backward_persistent(const float* dout, const float* mask, const RT* z,
+                        const RT* hprev, const float* w_t, float* dz,
+                        float* dc, float* dzc, float* part, unsigned* bar,
+                        int T, int B, int H, int split, int CG, int RG,
+                        cudaStream_t stream) {
+  if (T < 0 || B < 0 || H < 0 || split < 0) return (int)cudaErrorInvalidValue;
+  if (split > 0 && B != 2 * split) return (int)cudaErrorInvalidValue;
+  if (T == 0 || B == 0 || H == 0) return (int)cudaSuccess;
+  if (H % 4 != 0 || CG != (H + k4::CW - 1) / k4::CW || RG < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = k4::smem_bytes(H);
+  if (smem > k4::SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const int blocks = (split > 0 ? 2 : 1) * CG * RG;
+  void* args[] = {&dout, &mask, &z, &hprev, &w_t, &dz, &dc, &dzc, &part,
+                  &bar,  &T,    &B, &H,     &split, &CG, &RG};
+  return pk::cooperative_launch(gru_bwd_persistent_kernel<RT>, args, blocks,
+                                k4::THREADS, smem, stream);
+}
+
+inline int backward_persistent_dispatch(
+    const void* dout, const void* mask, const void* z, const void* hprev,
+    const void* w_t, void* dz, void* dc, void* dzc, void* part, void* bar,
+    int res_bf16, int T, int B, int H, int split, int CG, int RG,
+    void* stream) {
+  if (res_bf16) {
+    return backward_persistent<__nv_bfloat16>(
+        (const float*)dout, (const float*)mask, (const __nv_bfloat16*)z,
+        (const __nv_bfloat16*)hprev, (const float*)w_t, (float*)dz,
+        (float*)dc, (float*)dzc, (float*)part, (unsigned*)bar, T, B, H, split,
+        CG, RG, (cudaStream_t)stream);
+  }
+  return backward_persistent<float>(
+      (const float*)dout, (const float*)mask, (const float*)z,
+      (const float*)hprev, (const float*)w_t, (float*)dz, (float*)dc,
+      (float*)dzc, (float*)part, (unsigned*)bar, T, B, H, split, CG, RG,
+      (cudaStream_t)stream);
+}
+
+// registers a thread, local (spilled) bytes a thread and shared bytes a
+// block of the reverse kernel `which` (0: persistent at width H, 1: the
+// steps path's cand kernel, 2: its gate kernel), f32 residuals
+inline int backward_info(int which, int H, int* regs, int* local_bytes,
+                         int* smem_bytes) {
+  cudaFuncAttributes a;
+  const void* fn = which == 0 ? (const void*)gru_bwd_persistent_kernel<float>
+                   : which == 1 ? (const void*)gru_bwd_cand_kernel<float>
+                                : (const void*)gru_bwd_gate_kernel;
+  const cudaError_t e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return (int)e;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  *smem_bytes = (int)a.sharedSizeBytes +
+                (which == 0 ? (int)k4::smem_bytes(H) : 0);
+  return 0;
 }
 
 }  // namespace gru

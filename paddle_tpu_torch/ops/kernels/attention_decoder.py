@@ -4,7 +4,14 @@ wrappers and their plain versions.
 - ``attn_dec_fwd`` replaces ``paddle_tpu/ops/pallas_kernels.py::
   attn_dec_fwd_pallas`` (K5): the Bahdanau attention and the GRU step over
   the teacher-forced target, emitting the states and the backward's
-  residuals ``probs``, ``ctx`` and ``s_prev``.
+  residuals ``probs``, ``ctx`` and ``s_prev``.  On the card
+  ``_attn_dec_fwd_path`` picks its kernel from (compute dtype, B, S, D, A,
+  2H, SM count) alone: ``"persistent"``, the whole loop in one cooperative
+  launch with the bf16 weights resident in shared memory split by units
+  across the SMs (``_attn_dec_fwd_plan``) and the products on the tensor
+  cores, under the bfloat16 policy where the split fits; else ``"steps"``,
+  four launches per step.  ``ATTN_DEC_FWD.launches_by_path`` splits the
+  count.
 - ``attn_dec_bwd`` replaces ``attn_dec_bwd_pallas`` (K6), its reverse loop:
   the per-step cotangents ``d_xp`` and ``sum_dpre``, ``d_enc_proj`` and
   ``d_v`` (on the card summed by one pass after the loop from the steps'
@@ -22,13 +29,16 @@ flag picks the plain version on the card.
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from paddle_tpu_torch.ops.attention import (additive_attention_scores, attend,
                                             score_product)
 from paddle_tpu_torch.ops.kernels.build import ARG_INT, ARG_PTR, register
+from paddle_tpu_torch.ops.kernels.build import device_sms as _device_sms
 from paddle_tpu_torch.ops.matmul import linear
 from paddle_tpu_torch.ops.numerics import (bwd_einsum, bwd_mm, compute_dtype,
                                            mxu_cast)
@@ -36,11 +46,13 @@ from paddle_tpu_torch.ops.rnn import gru_cell_bwd, gru_step
 
 __all__ = ["attn_dec_fwd", "attn_dec_fwd_plain", "attn_dec_bwd",
            "attn_dec_bwd_plain", "denc_dv_after_loop", "ATTN_DEC_FWD",
-           "ATTN_DEC_BWD"]
+           "ATTN_DEC_BWD", "attn_dec_fwd_kernel_info"]
 
 _FWD_ARGS = [ARG_PTR] * 15 + [ARG_INT] * 6 + [ARG_PTR]
-ATTN_DEC_FWD = register("attn_dec_fwd", {"attn_dec_fwd_f32": _FWD_ARGS,
-                                         "attn_dec_fwd_bf16": _FWD_ARGS})
+ATTN_DEC_FWD = register("attn_dec_fwd", {
+    "attn_dec_fwd_f32": _FWD_ARGS, "attn_dec_fwd_bf16": _FWD_ARGS,
+    "attn_dec_fwd_persistent": [ARG_PTR] * 18 + [ARG_INT] * 8 + [ARG_PTR],
+    "attn_dec_fwd_info": [ARG_INT] * 5 + [ARG_PTR] * 3})
 _BWD_ARGS = [ARG_PTR] * 21 + [ARG_INT] * 6 + [ARG_PTR]
 ATTN_DEC_BWD = register("attn_dec_bwd", {"attn_dec_bwd_f32": _BWD_ARGS,
                                          "attn_dec_bwd_bf16": _BWD_ARGS})
@@ -51,6 +63,106 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_S = 4096
 
 Dims = Tuple[int, int, int, int, int, int]
+
+#: the persistent K5's fixed shapes (csrc/attn_dec_fwd.cu, namespace k5):
+#: a block's units NU and query columns QC are whole n8 tiles, at most two
+#: (8 or 16); its warps each own one 16-row tile, so a row group takes at
+#: most 8 tiles (128 rows); the products' depths D and 2H are whole 32-deep
+#: operand loads; shared memory holds the block's bf16 weight columns, and
+#: the f32 scores and rounded queries of the 4 batch rows its attention
+#: takes at once, and att_v
+_PA_UNITS, _PA_ROWS, _PA_SMEM, _PA_ATT_ROWS = (16, 8), 128, 232448, 4
+
+
+def _attn_dec_fwd_smem(S: int, D: int, A: int, H2: int, nu: int,
+                       qc: int) -> int:
+    return ((D * (qc + 2 * nu) + H2 * 3 * nu + D * nu) * 2
+            + (_PA_ATT_ROWS * S + (_PA_ATT_ROWS + 1) * A) * 4)
+
+
+def _attn_dec_fwd_plan(B: int, S: int, D: int, A: int, H2: int,
+                       sm_count: int) -> Optional[Dict[str, int]]:
+    """The persistent K5's split over one block per SM, or None where it
+    does not fit: ``cg`` column groups (``nu = D / cg`` units with all
+    their gate columns, ``qc = A / cg`` query columns, each 16 where the
+    widths allow, else 8) x ``rg = sm_count // cg`` row groups.  The
+    fewest column groups whose weights fit 232,448 bytes, since every
+    column group reads each product's operand rows once a step.  None when
+    B is outside 1..128 rg, D or 2H is not a multiple of 32, S exceeds
+    MAX_S or no split fits.  Depends on B only through that limit; no
+    order of a row's sums depends on the plan, only on the widths."""
+    plan = _attn_plan_for(S, D, A, H2, sm_count)
+    if plan is None or not 1 <= B <= _PA_ROWS * plan["rg"]:
+        return None
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _attn_plan_for(S: int, D: int, A: int, H2: int, sm_count: int
+                   ) -> Optional[Dict[str, int]]:
+    if (min(S, D, A, H2, sm_count) < 1 or S > MAX_S or D % 32
+            or H2 % 32):
+        return None
+    for nu in _PA_UNITS:
+        if D % nu:
+            continue
+        cg = D // nu
+        qc = A // cg if A % cg == 0 else 0
+        smem = _attn_dec_fwd_smem(S, D, A, H2, nu, qc)
+        if qc not in _PA_UNITS or smem > _PA_SMEM or cg > sm_count:
+            continue
+        rg = sm_count // cg
+        return {"cg": cg, "rg": rg, "nu": nu, "qc": qc, "blocks": cg * rg,
+                "smem": smem}
+    return None
+
+
+def _attn_dec_fwd_slices(plan: Dict[str, int], B: int, D: int
+                         ) -> List[Tuple[List[int], List[int], List[int]]]:
+    """Each block's (columns of each gate block of ``wh`` and ``wx_c``, i.e.
+    its units; columns of ``att_w``; batch rows of its products) as the
+    kernel cuts them: block i serves column group ``i % cg`` and row group
+    ``i // cg``, whose warp w takes the 16-row tile ``rg * tpg + w``."""
+    ntile = -(-B // 16)
+    tpg = -(-ntile // plan["rg"])
+    out = []
+    for i in range(plan["blocks"]):
+        c, g = i % plan["cg"], i // plan["cg"]
+        rows = [b for t in range(g * tpg, min(ntile, (g + 1) * tpg))
+                for b in range(16 * t, min(B, 16 * t + 16))]
+        out.append((list(range(c * plan["nu"], (c + 1) * plan["nu"])),
+                    list(range(c * plan["qc"], (c + 1) * plan["qc"])),
+                    rows))
+    return out
+
+
+def _attn_dec_fwd_path(dtype: torch.dtype, B: int, S: int, D: int, A: int,
+                       H2: int, sm_count: int) -> str:
+    """K5's kernel on the card: ``"persistent"`` under the bfloat16 policy
+    where ``_attn_dec_fwd_plan`` finds a split, else ``"steps"``."""
+    if dtype == torch.bfloat16 and _attn_dec_fwd_plan(B, S, D, A, H2,
+                                                      sm_count):
+        return "persistent"
+    return "steps"
+
+
+def attn_dec_fwd_kernel_info(S: int, D: int, A: int, H2: int
+                             ) -> Dict[str, Tuple[int, int, int]]:
+    """(registers a thread, spilled bytes a thread, shared bytes a block) of
+    the persistent K5 (16 units and query columns a block, at these widths)
+    and of the steps path's attention and candidate kernels (bf16), from
+    ``cudaFuncGetAttributes``."""
+    out = {}
+    for which, name in enumerate(("persistent", "steps_attention",
+                                  "steps_cand")):
+        vals = [ctypes.c_int() for _ in range(3)]
+        err = ATTN_DEC_FWD.lib().attn_dec_fwd_info(
+            which, S, D, A, H2, *(ctypes.byref(v) for v in vals))
+        if err != 0:
+            raise RuntimeError(f"attn_dec_fwd_info({which}): CUDA error "
+                               f"{err}")
+        out[name] = tuple(v.value for v in vals)
+    return out
 
 
 def _check_shapes(want, where: str) -> None:
@@ -180,6 +292,21 @@ def attn_dec_fwd(xp_y_tb: torch.Tensor, m_tb: torch.Tensor, s0: torch.Tensor,
         return attn_dec_fwd_plain(xp_y_tb, m_tb, s0, enc, enc_proj, src_mask,
                                   att_w, att_v, wx_c, wh)
     dev = _device_of(xp_y_tb, "attn_dec_fwd", S)
+    path = _attn_dec_fwd_path(compute_dtype(), B, S, D, A, H2,
+                              _device_sms(dev))
+    out = _launch_fwd(xp_y_tb, m_tb, s0, enc, enc_proj, src_mask, att_w,
+                      att_v, wx_c, wh, path)
+    ATTN_DEC_FWD.count(path)
+    return out
+
+
+def _launch_fwd(xp_y_tb, m_tb, s0, enc, enc_proj, src_mask, att_w, att_v,
+                wx_c, wh, path: str):
+    """K5 on CUDA operands through the kernel of ``path``; counts nothing
+    (the wrapper counts)."""
+    T, B, S, D, A, H2 = _check_fwd(xp_y_tb, m_tb, s0, enc, enc_proj,
+                                   src_mask, att_w, att_v, wx_c, wh)
+    dev = xp_y_tb.device
     cd = compute_dtype()
     ins = [t.contiguous() for t in (xp_y_tb, m_tb, s0, enc, enc_proj,
                                     src_mask, att_w, att_v, wx_c, wh)]
@@ -187,14 +314,25 @@ def attn_dec_fwd(xp_y_tb: torch.Tensor, m_tb: torch.Tensor, s0: torch.Tensor,
     probs = torch.empty(T, B, S, device=dev)
     ctx = torch.empty(T, B, H2, dtype=cd, device=dev)
     s_prev = torch.empty(T, B, D, device=dev)
-    work = torch.empty(B * (A + 6 * D), device=dev)       # carry + scratch
+    outs = [states.data_ptr(), probs.data_ptr(), ctx.data_ptr(),
+            s_prev.data_ptr()]
     with torch.cuda.device(dev):              # launch on the tensors' card
         stream = torch.cuda.current_stream(dev).cuda_stream
-        ATTN_DEC_FWD.call(
-            f"attn_dec_fwd_{_SUFFIX[cd]}", *(t.data_ptr() for t in ins),
-            states.data_ptr(), probs.data_ptr(), ctx.data_ptr(),
-            s_prev.data_ptr(), work.data_ptr(), T, B, S, D, A, H2, stream)
-    ATTN_DEC_FWD.launches += 1
+        if path == "persistent":
+            plan = _attn_dec_fwd_plan(B, S, D, A, H2, _device_sms(dev))
+            q = torch.empty(B, A, device=dev)
+            sb = torch.empty(2, B, D, dtype=torch.bfloat16, device=dev)
+            bar = torch.zeros(1, dtype=torch.int32, device=dev)
+            ATTN_DEC_FWD.call(
+                "attn_dec_fwd_persistent", *(t.data_ptr() for t in ins),
+                *outs, q.data_ptr(), sb[0].data_ptr(), sb[1].data_ptr(),
+                bar.data_ptr(), T, B, S, D, A, H2, plan["cg"], plan["rg"],
+                stream)
+        else:
+            work = torch.empty(B * (A + 6 * D), device=dev)  # carry + scratch
+            ATTN_DEC_FWD.call(
+                f"attn_dec_fwd_{_SUFFIX[cd]}", *(t.data_ptr() for t in ins),
+                *outs, work.data_ptr(), T, B, S, D, A, H2, stream)
     return states, probs, ctx, s_prev
 
 

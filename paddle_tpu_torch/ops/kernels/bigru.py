@@ -7,7 +7,11 @@ their plain versions.
   is the inference variant, ``residuals=True`` adds the backward's
   residuals ``z``/``h_prev`` in ``residual_dtype(H)``.
 - ``bigru_backward`` replaces ``_gru_bwd_pallas_raw`` with
-  ``batch_split=B``, the reverse loop.
+  ``batch_split=B``, the reverse loop.  It picks K4's kernel by K4's
+  function (``gru._gru_bwd_path`` with two directions):
+  ``"persistent"``, one cooperative launch whose blocks each serve one
+  direction, or ``"steps"``; ``BIGRU_BACKWARD.launches_by_path`` splits
+  the count.
 
 The interfaces are the reference's, time-major: the stacked batch holds
 ``2 * batch_split`` rows, the forward direction's first and then the
@@ -30,7 +34,9 @@ from typing import Tuple
 import torch
 
 from paddle_tpu_torch.ops.kernels.build import ARG_INT, ARG_PTR, register
-from paddle_tpu_torch.ops.kernels.gru import (gru_backward_plain,
+from paddle_tpu_torch.ops.kernels.build import device_sms as _device_sms
+from paddle_tpu_torch.ops.kernels.gru import (_gru_bwd_path, _gru_bwd_plan,
+                                              gru_backward_plain,
                                               gru_forward_plain)
 from paddle_tpu_torch.ops.numerics import compute_dtype, residual_dtype
 
@@ -44,7 +50,8 @@ _ENTRY = {torch.float32: "bigru_forward_f32",
           torch.bfloat16: "bigru_forward_bf16"}
 
 BIGRU_BACKWARD = register("bigru_backward", {
-    "bigru_backward": [ARG_PTR] * 8 + [ARG_INT] * 5 + [ARG_PTR]})
+    "bigru_backward": [ARG_PTR] * 8 + [ARG_INT] * 5 + [ARG_PTR],
+    "bigru_backward_persistent": [ARG_PTR] * 10 + [ARG_INT] * 7 + [ARG_PTR]})
 
 _RES_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -196,6 +203,19 @@ def bigru_backward(dout_tb: torch.Tensor, m_tb: torch.Tensor,
     if z_tb.device.type != "cuda":
         raise ValueError(f"bigru_backward runs on cpu or cuda, not "
                          f"{z_tb.device}")
+    path = _gru_bwd_path(batch_split, H, _device_sms(z_tb.device), ndir=2)
+    out = _launch_bwd(dout_tb, m_tb, z_tb, hp_tb, w_t, d_hfin, batch_split,
+                      path)
+    BIGRU_BACKWARD.count(path)
+    return out
+
+
+def _launch_bwd(dout_tb, m_tb, z_tb, hp_tb, w_t, d_hfin, batch_split: int,
+                path: str):
+    """K11's reverse on CUDA operands through the kernel of ``path``; counts
+    nothing (the wrapper counts)."""
+    T, B2, H3 = z_tb.shape
+    H = H3 // 3
     dev = z_tb.device
     dout = dout_tb.float().contiguous()
     m = m_tb.float().contiguous()
@@ -205,12 +225,20 @@ def bigru_backward(dout_tb: torch.Tensor, m_tb: torch.Tensor,
     d_c = d_hfin.float().clone().contiguous()
     d_z = torch.empty(T, B2, 3 * H, device=dev)
     part = torch.empty(B2, H, device=dev)
+    args = [dout.data_ptr(), m.data_ptr(), z.data_ptr(), hp.data_ptr(),
+            wt.data_ptr(), d_z.data_ptr(), d_c.data_ptr(), part.data_ptr()]
+    res_bf16 = int(z.dtype == torch.bfloat16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        BIGRU_BACKWARD.call(
-            "bigru_backward", dout.data_ptr(), m.data_ptr(), z.data_ptr(),
-            hp.data_ptr(), wt.data_ptr(), d_z.data_ptr(), d_c.data_ptr(),
-            part.data_ptr(), int(z.dtype == torch.bfloat16), T, B2, H,
-            batch_split, stream)
-    BIGRU_BACKWARD.launches += 1
+        if path == "persistent":
+            plan = _gru_bwd_plan(batch_split, H, _device_sms(dev), ndir=2)
+            dzc = torch.empty(B2, H, device=dev)
+            bar = torch.zeros(1, dtype=torch.int32, device=dev)
+            BIGRU_BACKWARD.call(
+                "bigru_backward_persistent", *args, dzc.data_ptr(),
+                bar.data_ptr(), res_bf16, T, B2, H, batch_split, plan["cg"],
+                plan["rg"], stream)
+        else:
+            BIGRU_BACKWARD.call("bigru_backward", *args, res_bf16, T, B2, H,
+                                batch_split, stream)
     return d_z, d_c

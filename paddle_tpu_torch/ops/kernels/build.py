@@ -15,6 +15,7 @@ launch, or by ``build_all()``, which starts one ``nvcc`` per source at once.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -25,7 +26,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 __all__ = ["CudaLibrary", "LIBRARIES", "register", "build_all",
            "LaunchCounts", "launch_counts", "reset_launch_counts",
-           "BUILD_DIR", "CSRC_DIR", "ARG_PTR", "ARG_INT"]
+           "device_sms", "BUILD_DIR", "CSRC_DIR", "ARG_PTR", "ARG_INT"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -193,6 +194,22 @@ def reset_launch_counts() -> None:
     for lib in LIBRARIES.values():
         lib.launches = 0
         lib.launches_by_path.clear()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_sms(dev) -> int:
+    """The SM count of the card ``dev`` (a CUDA ``torch.device``), which the
+    persistent kernels' split plans depend on."""
+    import torch
+
+    return _sm_count(torch.cuda.current_device() if dev.index is None
+                     else dev.index)
 
 
 #: ctypes argument types of the launchers: a device pointer or the stream

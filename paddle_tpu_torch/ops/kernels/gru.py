@@ -5,7 +5,14 @@ plain versions.
   _gru_pallas_raw`` (K3): ``residuals=False`` is the inference variant,
   ``residuals=True`` adds the backward's residual outputs ``z``/``h_prev``
   (time-major, in ``residual_dtype(H)``), as the reference's training call.
-- ``gru_backward`` replaces ``_gru_bwd_pallas_raw`` (K4), the reverse loop.
+- ``gru_backward`` replaces ``_gru_bwd_pallas_raw`` (K4), the reverse loop,
+  all in float32.  On the card ``_gru_bwd_path`` picks its kernel from (B,
+  H, SM count) alone: ``"persistent"``, the whole loop in one cooperative
+  launch with ``w_t`` resident in shared memory split by 32-column groups
+  across the SMs (``_gru_bwd_plan``), where the split fits; else
+  ``"steps"``, two launches per reverse step.
+  ``GRU_BACKWARD.launches_by_path`` splits the count.  K11's reverse
+  (``ops/kernels/bigru.py``) shares both kernels and the plan.
 
 Each wrapper dispatches on the tensors' device: a CPU tensor runs the plain
 version; a CUDA tensor launches ``csrc/gru_forward.cu`` /
@@ -15,16 +22,20 @@ card.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from paddle_tpu_torch.ops.kernels.build import ARG_INT, ARG_PTR, register
+from paddle_tpu_torch.ops.kernels.build import device_sms as _device_sms
 from paddle_tpu_torch.ops.numerics import compute_dtype, residual_dtype
 from paddle_tpu_torch.ops.rnn import gru_cell, gru_cell_bwd
 
 __all__ = ["gru_forward", "gru_forward_plain", "gru_backward",
-           "gru_backward_plain", "GRU_FORWARD", "GRU_BACKWARD"]
+           "gru_backward_plain", "GRU_FORWARD", "GRU_BACKWARD",
+           "gru_bwd_kernel_info"]
 
 _FWD_ARGS = [ARG_PTR] * 9 + [ARG_INT] * 4 + [ARG_PTR]
 GRU_FORWARD = register("gru_forward", {"gru_forward_f32": _FWD_ARGS,
@@ -33,7 +44,19 @@ _ENTRY = {torch.float32: "gru_forward_f32",
           torch.bfloat16: "gru_forward_bf16"}
 
 GRU_BACKWARD = register("gru_backward", {
-    "gru_backward": [ARG_PTR] * 8 + [ARG_INT] * 4 + [ARG_PTR]})
+    "gru_backward": [ARG_PTR] * 8 + [ARG_INT] * 4 + [ARG_PTR],
+    "gru_backward_persistent": [ARG_PTR] * 10 + [ARG_INT] * 6 + [ARG_PTR],
+    "gru_backward_info": [ARG_INT] * 2 + [ARG_PTR] * 3})
+
+#: the persistent reverse kernel's fixed shapes (csrc/gru_common.cuh,
+#: namespace k4): a block holds 32 columns of w_t over the full depth 3H,
+#: each product's depth padded to whole 256-deep operand stages, and a ring
+#: of two [16 x 256] f32 stages, within the 232,448 bytes a block may take
+_PG_CW, _PG_KC, _PG_SMEM = 32, 256, 232448
+_PG_STAGE_BYTES = 2 * 16 * _PG_KC * 4
+#: rows a direction the persistent kernel takes (16 at a time): a step's
+#: d_z rows, the d_zc stream and the carries (~9 MB at H = 512) stay in L2
+_PG_ROWS_MAX = 1024
 
 _RES_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -134,6 +157,85 @@ def gru_forward(xp: torch.Tensor, mask: torch.Tensor, w_h: torch.Tensor,
     return h_seq.transpose(0, 1), h, z, hp
 
 
+def _kpad(k: int) -> int:
+    return -(-k // _PG_KC) * _PG_KC
+
+
+def _gru_bwd_plan(B: int, H: int, sm_count: int, ndir: int = 1
+                  ) -> Optional[Dict[str, int]]:
+    """The persistent reverse kernel's split over one block per SM, or None
+    where it does not fit: ``ndir`` directions (1 for K4, 2 for K11's
+    reverse) x ``cg = ceil(H / 32)`` column groups x ``rg`` row groups, as
+    many as the SMs allow.  A block holds its direction's ``w_t`` columns
+    ``32 cg ..`` over the full depth 3H (zero-padded to whole 256-deep
+    stages) and computes those columns complete for the 16-row tiles ``rg,
+    rg + rgs, ...`` of its direction.  None when B (rows a direction) is
+    outside 1..1024, H % 4 != 0, the slice does not fit 232,448 bytes (H
+    above 512) or there are fewer SMs than column groups.  Depends on B
+    only through that limit; and no order of a row's sums depends on the
+    plan at all, only on H."""
+    if not 1 <= B <= _PG_ROWS_MAX:
+        return None
+    return _gru_plan_for(H, sm_count, ndir)
+
+
+@functools.lru_cache(maxsize=None)
+def _gru_plan_for(H: int, sm_count: int, ndir: int
+                  ) -> Optional[Dict[str, int]]:
+    if H < 1 or H % 4 or sm_count < 1 or ndir not in (1, 2):
+        return None
+    cg = -(-H // _PG_CW)
+    rg = sm_count // (ndir * cg)
+    smem = (_kpad(H) + _kpad(2 * H)) * _PG_CW * 4 + _PG_STAGE_BYTES
+    if rg < 1 or smem > _PG_SMEM:
+        return None
+    return {"cw": _PG_CW, "cg": cg, "rg": rg, "blocks": ndir * cg * rg,
+            "smem": smem}
+
+
+def _gru_bwd_slices(plan: Dict[str, int], H: int, rows: int, ndir: int = 1
+                    ) -> List[Tuple[int, range, range, List[int]]]:
+    """Each block's (direction, rows of ``w_t``, columns, batch rows of its
+    direction) as the kernel cuts them: block i serves direction ``i //
+    (cg * rg)``, column group ``i % (cg * rg) % cg`` and row group ``i %
+    (cg * rg) // cg``, which takes the 16-row tiles ``rg, rg + rgs, ...``
+    of its direction's ``rows`` rows."""
+    cg, rgs = plan["cg"], plan["rg"]
+    ntile = -(-rows // 16)
+    out = []
+    for i in range(plan["blocks"]):
+        d, c, g = i // (cg * rgs), i % (cg * rgs) % cg, i % (cg * rgs) // cg
+        mine = [b for t in range(g, ntile, rgs)
+                for b in range(16 * t, min(rows, 16 * t + 16))]
+        out.append((d, range(3 * H),
+                    range(c * _PG_CW, min(H, (c + 1) * _PG_CW)), mine))
+    return out
+
+
+def _gru_bwd_path(B: int, H: int, sm_count: int, ndir: int = 1) -> str:
+    """The reverse kernel on the card: ``"persistent"`` where
+    ``_gru_bwd_plan`` finds a split, else ``"steps"``."""
+    return ("persistent" if _gru_bwd_plan(B, H, sm_count, ndir)
+            else "steps")
+
+
+def gru_bwd_kernel_info(H: int) -> Dict[str, Tuple[int, int, int]]:
+    """(registers a thread, spilled bytes a thread, shared bytes a block) of
+    the reverse kernels, the persistent one at width H, from
+    ``cudaFuncGetAttributes``."""
+    out = {}
+    for which, name in enumerate(("persistent", "steps_cand",
+                                  "steps_gate")):
+        vals = [ctypes.c_int() for _ in range(3)]
+        err = GRU_BACKWARD.lib().gru_backward_info(
+            which, H, *(ctypes.byref(v) for v in vals))
+        if err != 0:
+            raise RuntimeError(f"gru_backward_info({which}): CUDA error "
+                               f"{err}")
+        out[name] = tuple(v.value for v in vals)
+    return out
+
+
 def _check_bwd(d_out_tb, m_tb, z_tb, hp_tb, w_t, d_hfin) -> Tuple[int, int,
                                                                   int]:
     if z_tb.dim() != 3 or z_tb.shape[-1] % 3:
@@ -198,6 +300,17 @@ def gru_backward(d_out_tb: torch.Tensor, m_tb: torch.Tensor,
     if z_tb.device.type != "cuda":
         raise ValueError(f"gru_backward runs on cpu or cuda, not "
                          f"{z_tb.device}")
+    path = _gru_bwd_path(B, H, _device_sms(z_tb.device))
+    out = _launch_bwd(d_out_tb, m_tb, z_tb, hp_tb, w_t, d_hfin, path)
+    GRU_BACKWARD.count(path)
+    return out
+
+
+def _launch_bwd(d_out_tb, m_tb, z_tb, hp_tb, w_t, d_hfin, path: str):
+    """K4 on CUDA operands through the kernel of ``path``; counts nothing
+    (the wrapper counts)."""
+    T, B, H3 = z_tb.shape
+    H = H3 // 3
     dev = z_tb.device
     dout = d_out_tb.float().contiguous()
     m = m_tb.float().contiguous()
@@ -207,11 +320,20 @@ def gru_backward(d_out_tb: torch.Tensor, m_tb: torch.Tensor,
     d_c = d_hfin.float().clone().contiguous()
     d_z = torch.empty(T, B, 3 * H, device=dev)
     part = torch.empty(B, H, device=dev)
+    args = [dout.data_ptr(), m.data_ptr(), z.data_ptr(), hp.data_ptr(),
+            wt.data_ptr(), d_z.data_ptr(), d_c.data_ptr(), part.data_ptr()]
+    res_bf16 = int(z.dtype == torch.bfloat16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        GRU_BACKWARD.call(
-            "gru_backward", dout.data_ptr(), m.data_ptr(), z.data_ptr(),
-            hp.data_ptr(), wt.data_ptr(), d_z.data_ptr(), d_c.data_ptr(),
-            part.data_ptr(), int(z.dtype == torch.bfloat16), T, B, H, stream)
-    GRU_BACKWARD.launches += 1
+        if path == "persistent":
+            plan = _gru_bwd_plan(B, H, _device_sms(dev))
+            dzc = torch.empty(B, H, device=dev)
+            bar = torch.zeros(1, dtype=torch.int32, device=dev)
+            GRU_BACKWARD.call(
+                "gru_backward_persistent", *args, dzc.data_ptr(),
+                bar.data_ptr(), res_bf16, T, B, H, plan["cg"], plan["rg"],
+                stream)
+        else:
+            GRU_BACKWARD.call("gru_backward", *args, res_bf16, T, B, H,
+                              stream)
     return d_z, d_c

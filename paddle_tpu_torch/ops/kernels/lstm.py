@@ -38,6 +38,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from paddle_tpu_torch.ops.kernels.build import ARG_INT, ARG_PTR, register
+from paddle_tpu_torch.ops.kernels.build import device_sms as _device_sms
 from paddle_tpu_torch.ops.numerics import compute_dtype, residual_dtype
 from paddle_tpu_torch.ops.rnn import lstm_cell, lstm_cell_bwd
 
@@ -350,16 +351,6 @@ def _lstm_bwd_path(B: int, H: int, sm_count: int) -> str:
     """K10's kernel on the card: ``"persistent"`` where ``_lstm_bwd_plan``
     finds a split, else ``"steps"``."""
     return "persistent" if _lstm_bwd_plan(B, H, sm_count) else "steps"
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _device_sms(dev: torch.device) -> int:
-    return _sm_count(torch.cuda.current_device() if dev.index is None
-                     else dev.index)
 
 
 def lstm_bwd_kernel_info(H: int, sm_count: int

@@ -1138,3 +1138,194 @@ def test_attn_dec_bwd_rows_do_not_depend_on_b(dev, cd):
     assert torch.equal(small[2], big[2][:n])
     assert torch.equal(small[4], big[4][:n])
     _rel_close(small[3], plain[3], 1e-5 if cd == "float32" else 1e-2)
+
+
+def _gru_bwd_args(dev, T, B, H, rd, seed):
+    """K4's inputs: cotangents, a mask with a full row and ragged tails,
+    residuals in ``rd`` and a transposed weight scaled by its fan-in."""
+    rng = np.random.RandomState(seed)
+    f = np.float32
+    lens = rng.randint(1, T + 1, (B,))
+    lens[0] = T
+    arrs = [rng.randn(T, B, H), (np.arange(T)[:, None] < lens[None]),
+            rng.randn(T, B, 3 * H), rng.randn(T, B, H),
+            rng.randn(3 * H, H) / np.sqrt(2 * H), rng.randn(B, H)]
+    out = [torch.from_numpy(a.astype(f)).to(dev) for a in arrs]
+    out[2], out[3] = out[2].to(rd), out[3].to(rd)
+    return out
+
+
+def _gru_bwd_paths(name="gru_backward"):
+    from paddle_tpu_torch.ops.kernels.build import LIBRARIES
+    return dict(LIBRARIES[name].launches_by_path)
+
+
+@pytest.mark.parametrize("rd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H", [(9, 37, 512), (6, 384, 128), (5, 3, 40),
+                                   (4, 70, 96)])
+def test_gru_backward_persistent_matches_plain_version(dev, T, B, H, rd):
+    """K4's persistent kernel (one cooperative launch, w_t in shared
+    memory) at ragged B and H, several 16-row tiles a row group (B = 384),
+    masked tails, f32 and bf16 residuals: one launch on that path; f32
+    sums in another order (1e-5 of the largest value); the steps kernels,
+    reached through the wrapper's internal entry, agree to the same."""
+    from paddle_tpu_torch.ops.kernels.gru import _launch_bwd
+
+    args = _gru_bwd_args(dev, T, B, H, rd, B + H)
+    before = _gru_bwd_paths()
+    got = gru_backward(*args)
+    after = _gru_bwd_paths()
+    assert after.get("persistent", 0) == before.get("persistent", 0) + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    want = gru_backward_plain(*args)
+    steps = _launch_bwd(*args, "steps")
+    for a, c, d in zip(got, want, steps):
+        assert torch.isfinite(a).all()
+        _rel_close(a, c, 1e-5)
+        _rel_close(d, c, 1e-5)
+
+
+def test_gru_backward_persistent_rows_do_not_depend_on_b(dev):
+    """The first 37 rows of a 384-row call are bit-equal to a 37-row call
+    on the same rows: every output's k order depends on H alone, and the
+    row groups only decide which block computes a row."""
+    T, B, H, n = 7, 384, 512, 37
+    args = _gru_bwd_args(dev, T, B, H, torch.bfloat16, 5)
+    big = gru_backward(*args)
+    sub = [a[:, :n] for a in args[:4]] + [args[4], args[5][:n]]
+    small = gru_backward(*[a.contiguous() for a in sub])
+    assert torch.equal(small[0], big[0][:, :n])
+    assert torch.equal(small[1], big[1][:n])
+
+
+@pytest.mark.parametrize("B,H", [(384, 512), (37, 96)])
+def test_bigru_backward_persistent_bit_identical_to_two_gru_calls(dev, B, H):
+    """K11's reverse on its persistent path (blocks each serving one
+    direction) against K4 on its persistent path, once per direction:
+    identical bits, as the fused encoder's step-1 loss requires."""
+    T = 6
+    fw = _gru_bwd_args(dev, T, B, H, torch.bfloat16, 1)
+    bw = _gru_bwd_args(dev, T, B, H, torch.bfloat16, 2)
+    both = [torch.cat([a, b], 1) for a, b in zip(fw[:4], bw[:4])]
+    w_t = torch.cat([fw[4], bw[4]], 1).contiguous()
+    d_hfin = torch.cat([fw[5], bw[5]])
+    before = _gru_bwd_paths("bigru_backward")
+    got = bigru_backward(*both, w_t, d_hfin, batch_split=B)
+    assert _gru_bwd_paths("bigru_backward").get("persistent", 0) == \
+        before.get("persistent", 0) + 1
+    before = _gru_bwd_paths()
+    for rows, one_args in ((slice(0, B), fw), (slice(B, None), bw)):
+        one = gru_backward(*one_args)
+        assert torch.equal(got[0][:, rows], one[0])
+        assert torch.equal(got[1][rows], one[1])
+    assert _gru_bwd_paths().get("persistent", 0) == \
+        before.get("persistent", 0) + 2
+    want = bigru_backward_plain(*both, w_t, d_hfin, batch_split=B)
+    for a, c in zip(got, want):
+        _rel_close(a, c, 1e-5)
+
+
+@pytest.mark.parametrize("B,H", [(1025, 16), (5, 516), (5, 42)])
+def test_gru_backward_beyond_the_persistent_limits_takes_the_steps(dev, B,
+                                                                    H):
+    """Past the row limit, past the w_t slice's room (H > 512) and with
+    rows not in 16-byte pieces (H % 4), K4 and K11's reverse take the
+    steps kernels, with the plain versions' results."""
+    args = _gru_bwd_args(dev, 3, B, H, torch.float32, 6)
+    before = _gru_bwd_paths()
+    got = gru_backward(*args)
+    assert _gru_bwd_paths().get("steps", 0) == before.get("steps", 0) + 1
+    for a, c in zip(got, gru_backward_plain(*args)):
+        _rel_close(a, c, 1e-5)
+    both = [torch.cat([a, a], 1) for a in args[:4]]
+    w_t = torch.cat([args[4], args[4]], 1).contiguous()
+    before = _gru_bwd_paths("bigru_backward")
+    got = bigru_backward(*both, w_t, torch.cat([args[5], args[5]]),
+                         batch_split=B)
+    assert _gru_bwd_paths("bigru_backward").get("steps", 0) == \
+        before.get("steps", 0) + 1
+    for a, c in zip(got, bigru_backward_plain(
+            *both, w_t, torch.cat([args[5], args[5]]), batch_split=B)):
+        _rel_close(a, c, 1e-5)
+
+
+def _attn_fwd_paths():
+    from paddle_tpu_torch.ops.kernels.attention_decoder import ATTN_DEC_FWD
+    return dict(ATTN_DEC_FWD.launches_by_path)
+
+
+def _attn_fwd_args(shape, dt, dev, seed):
+    x = {k: v.to(dev) for k, v in _attn_dec_inputs(*shape, seed=seed).items()}
+    return [x["xp_y"], x["m"], x["s0"]] + [
+        x[k].to(dt) for k in ("enc", "enc_proj")] + [x["src_mask"]] + [
+        x[k].to(dt) for k in ("att_w", "att_v", "wx_c", "wh")]
+
+
+@pytest.mark.parametrize("shape", [(37, 17, 9, 128, 128, 256),
+                                   (40, 5, 4, 64, 128, 96),
+                                   (3, 7, 5, 32, 32, 64),
+                                   (384, 32, 3, 512, 512, 1024)])
+def test_attn_dec_fwd_persistent_matches_plain_version(dev, shape):
+    """K5's persistent kernel (bf16: one cooperative launch, weights in
+    shared memory, mma.sync products) at ragged B and S, 8 and 16 units a
+    block, masked source and target tails and a row with no source
+    position: one launch on that path; a last-bit difference in a float32
+    sum can round an operand the other way (2^-8 relative), which the
+    recurrence carries (5e-3, as the steps kernels); the steps kernels
+    agree to the same."""
+    from paddle_tpu_torch.ops.kernels.attention_decoder import _launch_fwd
+
+    with compute_dtype_scope("bfloat16"):
+        args = _attn_fwd_args(shape, torch.bfloat16, dev, 9)
+        before = _attn_fwd_paths()
+        got = attn_dec_fwd(*args)
+        after = _attn_fwd_paths()
+        assert after.get("persistent", 0) == before.get("persistent", 0) + 1
+        assert sum(after.values()) == sum(before.values()) + 1
+        want = attn_dec_fwd_plain(*args)
+        steps = _launch_fwd(*args, "steps")
+    assert got[2].dtype == torch.bfloat16
+    for a, c, d in zip(got, want, steps):
+        assert torch.isfinite(a.float()).all()
+        _rel_close(a, c, 5e-3)
+        _rel_close(d, c, 5e-3)
+    padded = args[1] == 0
+    assert torch.equal(got[0][padded], torch.zeros_like(got[0][padded]))
+
+
+def test_attn_dec_fwd_persistent_rows_do_not_depend_on_b(dev):
+    """The first 37 rows of a 384-row call (bf16, the training widths) are
+    bit-equal to a 37-row call on the same rows: each output's k order
+    depends on the widths alone and each row's attention runs in one
+    block."""
+    n = 37
+    with compute_dtype_scope("bfloat16"):
+        args = _attn_fwd_args((384, 32, 4, 512, 512, 1024), torch.bfloat16,
+                              dev, 4)
+        big = attn_dec_fwd(*args)
+        sub = [a[:, :n] if i < 2 else a[:n] if i < 6 else a
+               for i, a in enumerate(args)]
+        small = attn_dec_fwd(*[a.contiguous() for a in sub])
+    for a, c in zip(small, big):
+        assert torch.equal(a, c[:, :n])
+
+
+@pytest.mark.parametrize("shape,cd", [((513, 5, 2, 512, 512, 1024),
+                                       "bfloat16"),
+                                      ((33, 17, 3, 96, 80, 160), "bfloat16"),
+                                      ((37, 17, 3, 128, 128, 256),
+                                       "float32")])
+def test_attn_dec_fwd_beyond_the_persistent_limits_takes_the_steps(dev, shape,
+                                                                   cd):
+    """Past the row limit (B > 128 a row group), widths the plan cannot
+    split, and the f32 policy: K5 takes the steps kernels, with the plain
+    version's results."""
+    with compute_dtype_scope(cd):
+        args = _attn_fwd_args(shape, getattr(torch, cd), dev, 5)
+        before = _attn_fwd_paths()
+        got = attn_dec_fwd(*args)
+        assert _attn_fwd_paths().get("steps", 0) == \
+            before.get("steps", 0) + 1
+        want = attn_dec_fwd_plain(*args)
+    for a, c in zip(got, want):
+        _rel_close(a, c, 2e-5 if cd == "float32" else 5e-3)
