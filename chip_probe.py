@@ -26,12 +26,14 @@ textclf  the same for one training step of the text-classification path
 dslgen   the same for one generation call of ``chip_smoke.py``'s dslgen
          phase (the demo/seqToseq net's ``beam_search`` layer, 64 sources,
          beam 3, 32 steps, bf16);
-variants where the persistent K4 (the GRU reverse loop, B=384, T=32,
-         H=512) and K5 (the decoder forward, T=32, B=384, S=32,
-         D=A=512, bf16) spend their time: edited copies of their sources,
-         each with one phase switched off at compile time (their results
-         are wrong by design), built into ``paddle_tpu_torch/_build/
-         variants`` and timed in turns with the copy as committed, twice.
+variants where the persistent K3 (the GRU forward loop: K3r at B=384
+         and K3 at B=64, T=32, H=512, bf16; K11r at 2x384 on the same
+         kernel), K4 (the GRU reverse loop, B=384, T=32, H=512) and K5
+         (the decoder forward, T=32, B=384, S=32, D=A=512, bf16) spend
+         their time: edited copies of their sources, each with one phase
+         switched off at compile time (their results are wrong by
+         design), built into ``paddle_tpu_torch/_build/variants`` and
+         timed in turns with the copy as committed, twice.
 
 Prints one line per measurement and the card line first.
 """
@@ -254,11 +256,20 @@ def probe_dslgen(dev):
                   top_n=12)
 
 
-#: the edits of ``variants``: each puts one phase of the persistent K4
-#: (``csrc/gru_common.cuh``) or K5 (``csrc/attn_dec_fwd.cu``) under a
+#: the edits of ``variants``: each puts one phase of the persistent K3 or
+#: K4 (``csrc/gru_common.cuh``) or K5 (``csrc/attn_dec_fwd.cu``) under a
 #: compile-time switch that is 0 in the copy as committed
 VARIANT_EDITS = {
     "gru_common.cuh": [
+        ("      pk::warp_product(hb_d,",
+         "      if (!NO_PRODUCTS) pk::warp_product(hb_d,"),
+        ("      pk::warp_product(rhb_d,",
+         "      if (!NO_PRODUCTS) pk::warp_product(rhb_d,"),
+        ("    pk::grid_sync(bar, target);         // round(r h) of step t",
+         "    if (!NO_BARRIER) pk::grid_sync(bar, target);  //"),
+        ("    if (t + 1 < T) pk::grid_sync(bar, target);  // round(h) of",
+         "    if (t + 1 < T && !NO_BARRIER) pk::grid_sync(bar, target);  //"),
+        ("k3::store2(", "if (!NO_STORES) k3::store2("),
         ("for (int q4 = 0; q4 < k4::KS / 4; ++q4) {",
          "for (int q4 = 0; q4 < (NO_FMA ? 0 : k4::KS / 4); ++q4) {"),
         ("pk::grid_sync(bar, target);         // d_z[t] complete",
@@ -269,10 +280,10 @@ VARIANT_EDITS = {
          "          if (!NO_EPILOGUE) epi(rbase + r0 + r, c0 + c, v, pv[u]);"),
     ],
     "attn_dec_fwd.cu": [
-        ("      k5::warp_product(sb,", "      if (!NO_PRODUCTS) k5::warp_product(sb,"),
-        ("      k5::warp_product(ctx_t,",
-         "      if (!NO_PRODUCTS) k5::warp_product(ctx_t,"),
-        ("      k5::warp_product(rsb,", "      if (!NO_PRODUCTS) k5::warp_product(rsb,"),
+        ("      pk::warp_product(sb,", "      if (!NO_PRODUCTS) pk::warp_product(sb,"),
+        ("      pk::warp_product(ctx_t,",
+         "      if (!NO_PRODUCTS) pk::warp_product(ctx_t,"),
+        ("      pk::warp_product(rsb,", "      if (!NO_PRODUCTS) pk::warp_product(rsb,"),
         ("for (int k0 = 0; blockIdx.x + k0 * gridDim.x < B;",
          "for (int k0 = 0; blockIdx.x + k0 * gridDim.x < (NO_ATTENTION ? 0 : B);"),
         ("for (int p0 = warp; p0 < nr * S;",
@@ -290,7 +301,11 @@ VARIANT_EDITS = {
     ],
 }
 VARIANT_SWITCHES = ("NO_FMA", "NO_BARRIER", "NO_EPILOGUE", "NO_PRODUCTS",
-                    "NO_ATTENTION", "NO_SCORES", "NO_CONTEXT")
+                    "NO_ATTENTION", "NO_SCORES", "NO_CONTEXT", "NO_STORES")
+K3_VARIANTS = {"as committed": (), "no products": ("NO_PRODUCTS",),
+               "no barriers": ("NO_BARRIER",),
+               "no epilogue stores": ("NO_STORES",),
+               "no products, no barriers": ("NO_PRODUCTS", "NO_BARRIER")}
 K4_VARIANTS = {"as committed": (), "no FMA loop": ("NO_FMA",),
                "no barriers": ("NO_BARRIER",),
                "no epilogues": ("NO_EPILOGUE",),
@@ -318,7 +333,11 @@ def _build_variants(B):
         with open(path, "w") as f:
             f.write(text)
     jobs = {}
-    for lib, source, variants in (("gru_backward", "gru_backward.cu",
+    for lib, source, variants in (("gru_forward", "gru_forward.cu",
+                                   K3_VARIANTS),
+                                  ("bigru_forward", "bigru_forward.cu",
+                                   K3_VARIANTS),
+                                  ("gru_backward", "gru_backward.cu",
                                    K4_VARIANTS),
                                   ("attn_dec_fwd", "attn_dec_fwd.cu",
                                    K5_VARIANTS)):
@@ -355,6 +374,7 @@ def probe_variants(dev):
     import torch
 
     from paddle_tpu_torch.ops.kernels import attention_decoder as AD
+    from paddle_tpu_torch.ops.kernels import bigru as BG
     from paddle_tpu_torch.ops.kernels import build as B
     from paddle_tpu_torch.ops.kernels import gru as G
     from paddle_tpu_torch.ops.numerics import compute_dtype_scope
@@ -366,12 +386,22 @@ def probe_variants(dev):
         _, _, z, hp = G.gru_forward(xp, mask, w_h, residuals=True)
     k4_args = (d_out, mask.t().contiguous(), z, hp, w_h.t().contiguous(),
                d_hfin)
+    x64, m64 = xp[:64].contiguous(), mask[:64].contiguous()
+    xb, mb, w2 = smoke._bigru_inputs(dev, smoke.TRAIN_B)[:3]
     x = smoke._attn_dec_inputs(dev)
     bf = torch.bfloat16
     k5_args = [x["xp_y"], x["m"], x["s0"], x["enc"].to(bf),
                x["enc_proj"].to(bf), x["src_mask"], x["att_w"].to(bf),
                x["att_v"].to(bf), x["wx_c"].to(bf), x["wh"].to(bf)]
-    runs = (("gru_backward", "K4 B=384 T=32 H=512", K4_VARIANTS,
+    runs = (("gru_forward", "K3r B=384 T=32 H=512 bf16", K3_VARIANTS,
+             lambda: G._launch_fwd(xp, mask, w_h, None, True, "persistent")),
+            ("gru_forward", "K3 B=64 T=32 H=512 bf16", K3_VARIANTS,
+             lambda: G._launch_fwd(x64, m64, w_h, None, False,
+                                   "persistent")),
+            ("bigru_forward", "K11r B=2x384 T=32 H=512 bf16", K3_VARIANTS,
+             lambda: BG._launch_fwd(xb, mb, w2, True, smoke.TRAIN_B,
+                                    "persistent")),
+            ("gru_backward", "K4 B=384 T=32 H=512", K4_VARIANTS,
              lambda: G._launch_bwd(*k4_args, "persistent")),
             ("attn_dec_fwd", "K5 T=32 B=384 S=32 D=A=512 bf16", K5_VARIANTS,
              lambda: AD._launch_fwd(*k5_args, "persistent")))

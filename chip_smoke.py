@@ -14,22 +14,22 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             with residuals, K4, K1, K2, K5, K6; the flagship's optional
             paths: K11, the fused bidirectional encoder, without and with
             residuals and its reverse, also held bit for bit against one
-            K3/K4 call per direction; K4, K11's reverse and K5 (under
-            bf16) must take their persistent kernels, are also held and
-            timed on their steps kernels, and K4's and K5's rows at
-            B = 37 are held bit for bit against B = 384; K12, the row
-            logsumexp, with -inf
-            rows and a ragged vocabulary; K1 and K2 must take their TMA +
-            wgmma kernels at the training shape, and are also held and
-            timed on their WMMA kernels there; K7 must take its TMA + wgmma
-            pass 1 at the serve shape and at a solo decode's N = 3, whose
-            rows are bit-equal to the N = 192 call's, and is also timed on
-            its SIMT pass 1 there and held on it at V = 30001; K6 with its
-            device time by kernel; text classification: K9 without and
-            with residuals and K10, at both widths, which must take their
-            persistent kernels under bf16 and are also held and timed on
-            their per-step kernels (K10 also at B = 37); DSL generation:
-            K8),
+            K3/K4 call per direction; K3, K3r, K4, K11 (both loops) and
+            K5 (under bf16) must take their persistent kernels, are also
+            held and timed on their steps kernels, and K3r's, K4's and
+            K5's rows at B = 37 are held bit for bit against B = 384;
+            K3 and K11 under f32 take their steps kernels; K12, the row
+            logsumexp, with -inf rows and a ragged vocabulary; K1 and K2
+            must take their TMA + wgmma kernels at the training shape, and
+            are also held and timed on their WMMA kernels there; K7 must
+            take its TMA + wgmma pass 1 at the serve shape and at a solo
+            decode's N = 3, whose rows are bit-equal to the N = 192
+            call's, and is also timed on its SIMT pass 1 there and held on
+            it at V = 30001; K6 with its device time by kernel; text
+            classification: K9 without and with residuals and K10, at
+            both widths, which must take their persistent kernels under
+            bf16 and are also held and timed on their per-step kernels
+            (K10 also at B = 37); DSL generation: K8),
             with registers, spills and shared bytes of the redesigned
             kernels, with its time (CUDA events,
             L2 flushed before each call), the plain version's time, the
@@ -46,7 +46,8 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             beam search on the card (ids and scores identical), 2 against
             the port on the CPU (plain versions, f32); then the same 96
             requests with ``fused_bigru`` on (K11 at every prefill, no K3):
-            ids and scores identical to the first run;
+            ids and scores identical to the first run; every K3 and K11
+            launch on its persistent kernel;
 6. train    the training path: the same model at ``bench.py``'s batch
             (B=384, S=32, T=32, bf16 compute) taking 6 ``Adam`` steps
             (``loss`` -> ``torch.autograd.grad`` -> ``update``) in each of
@@ -54,10 +55,10 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             (K11 twice a step, no K3r/K4) and lse_readout (K12 once a step,
             no K1/K2), with each one's losses, median step time, words/s
             and MFU (step-1 loss of fused_bigru equal to the default's, of
-            lse_readout within 1e-3; every K4, K11-reverse and K5 launch on
-            its persistent kernel); then the full-width model at B=8 in
-            f32, its loss and 19 gradients on the card held against the
-            CPU, with both switches off and with both on;
+            lse_readout within 1e-3; every K3r, K4, K11 (both loops) and
+            K5 launch on its persistent kernel); then the full-width model
+            at B=8 in f32, its loss and 19 gradients on the card held
+            against the CPU, with both switches off and with both on;
 7. textclf  the text-classification path: ``lstm_benchmark_net`` (vocab
             30000, embedding 128, 2 LSTM layers, max-pool, fc to 2 classes)
             through ``nn.Topology`` at ``bench.py``'s rows lstm_b64h256 and
@@ -75,9 +76,10 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             (30k/30k vocab, 512-d, bf16 compute), 64 sources of 8-32
             tokens, beam 3, ``max_length`` 32, through ``Topology.apply``:
             time, sentences/s, decode steps/s, peak memory, launches (K3
-            twice a call, K8 once a decode step); the layer held against
-            ``SequenceGenerator`` over a hand-written step (identical ids),
-            and the net at B=2 in f32 on the card against the CPU;
+            twice a call, both persistent, K8 once a decode step); the
+            layer held against ``SequenceGenerator`` over a hand-written
+            step (identical ids), and the net at B=2 in f32 on the card
+            against the CPU;
 9. a ``{"kernels": [...]}`` line (each kernel's launches on its path's
    run, also by kernel variant: ``launches_by_path``), then the card line
    again, and last ``{"ok": true, "device": {...}}``.
@@ -128,7 +130,8 @@ TEXTCLF_KERNELS = ("lstm_forward", "lstm_backward")
 #: replaces on the training step
 FUSED_BIGRU_KERNELS = ("bigru_forward", "bigru_backward")
 #: the training kernels whose every launch must take the persistent kernel
-PERSISTENT_TRAIN_KERNELS = ("gru_backward", "bigru_backward", "attn_dec_fwd")
+PERSISTENT_TRAIN_KERNELS = ("gru_forward", "gru_backward", "bigru_forward",
+                            "bigru_backward", "attn_dec_fwd")
 LSE_READOUT_KERNELS = ("logsumexp_rows",)
 TRAIN_CONFIGS = ("default", "fused_bigru", "lse_readout")
 #: the LSE readout's step-1 loss against K1's (rel): the bf16 logits are
@@ -276,8 +279,16 @@ def bound_ms(nbytes: float, ops: float, dtype: str):
 
 
 def check_gru(K, flush, dev):
+    """K3 (inference) at a full serve prefill: against its plain version
+    under f32 (its steps kernels) and bf16 (its persistent kernel, also
+    held and timed on its steps kernels)."""
     import torch
 
+    from paddle_tpu_torch.ops.kernels.gru import (GRU_FORWARD, _device_sms,
+                                                  _gru_fwd_plan,
+                                                  gru_fwd_kernel_info)
+    from paddle_tpu_torch.ops.kernels.gru import _launch_fwd as \
+        _gru_launch_fwd
     from paddle_tpu_torch.ops.numerics import compute_dtype_scope
 
     B, T, H = 64, 32, 512                 # one full prefill, WMT14 widths
@@ -291,7 +302,13 @@ def check_gru(K, flush, dev):
     errs = {}
     for cd in ("float32", "bfloat16"):
         with compute_dtype_scope(cd):
+            want_path = "persistent" if cd == "bfloat16" else "steps"
+            before = _paths(GRU_FORWARD)
             hk, fk = K.gru_forward(xp, mask, w_h)
+            took = _paths_since(GRU_FORWARD, before)
+            if took != {want_path: 1}:
+                fail("kernels", f"gru_forward {cd} took {took}, not "
+                     f"{want_path}")
             hp, fp = K.gru_forward_plain(xp, mask, w_h)
             torch.cuda.synchronize()
             err = max((hk - hp).abs().max().item(),
@@ -303,22 +320,36 @@ def check_gru(K, flush, dev):
                 fail("kernels", f"gru_forward {cd}: padded steps not zero")
             errs[cd] = err
     with compute_dtype_scope("bfloat16"):                  # the working type
+        hs, fs = _gru_launch_fwd(xp, mask, w_h, None, False, "steps")
+        err_s = max(_max_err(hs, hp), _max_err(fs, fp))
+        if not err_s <= TOL["gru_forward/bfloat16"]:
+            fail("kernels", f"gru_forward steps kernels bf16: max abs err "
+                 f"{err_s}")
         ms = time_ms(lambda: K.gru_forward(xp, mask, w_h), flush)
+        steps_ms = time_ms(lambda: _gru_launch_fwd(xp, mask, w_h, None,
+                                                   False, "steps"), flush)
         plain_ms = time_ms(lambda: K.gru_forward_plain(xp, mask, w_h), flush)
     nbytes = (T * B * 3 * H * 4 + T * B * 4 + H * 3 * H * 2 + T * B * H * 4
               + B * H * 4)
     bms, by = bound_ms(nbytes, 2.0 * T * B * H * 3 * H, "bfloat16")
+    sms = _device_sms(dev)
+    info = gru_fwd_kernel_info(B, H, sms)
     print(f"kernels: gru_forward B={B} T={T} H={H} max_abs_err f32="
-          f"{errs['float32']:.3e} (tol {TOL['gru_forward/float32']}) bf16="
-          f"{errs['bfloat16']:.3e} (tol {TOL['gru_forward/bfloat16']}) "
-          f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.5f} ({by})",
-          flush=True)
-    return {"name": "gru_forward", "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/gru_forward.cu",
-            "replaces": "paddle_tpu/ops/pallas_kernels.py:308",
-            "launches": 0, "max_abs_err": errs["bfloat16"], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None}
+          f"{errs['float32']:.3e} (tol {TOL['gru_forward/float32']}, steps "
+          f"kernels) bf16={errs['bfloat16']:.3e} (tol "
+          f"{TOL['gru_forward/bfloat16']}, path=persistent "
+          f"{_gru_fwd_plan(B, H, sms)}; steps kernels {err_s:.3e}; "
+          f"{_info_text(info)}) ms={ms:.4f} (share of bound {bms / ms:.3f})"
+          f" steps_ms={steps_ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={bms:.5f} ({by})", flush=True)
+    return dict(_kernel_row("gru_forward", "gru_forward.cu", "308",
+                            errs["bfloat16"], ms, plain_ms, bms, by, None),
+                **_persistent_fields(ms, steps_ms, bms, info))
+
+
+def _info_text(info) -> str:
+    return ("registers / spilled bytes a thread / shared bytes a block: "
+            + ", ".join(f"{k} {r}/{l}/{m}" for k, (r, l, m) in info.items()))
 
 
 def _host_ms(fn, reps: int = 200) -> float:
@@ -514,10 +545,12 @@ def _kernel_row(name, source, replaces, err, ms, plain_ms, bms, by,
 
 def _persistent_fields(ms, steps_ms, bms, info) -> dict:
     """The ``kernels`` line's extra keys of a kernel with a persistent and a
-    steps path: the steps kernels' time in the same run, each path's share
-    of the bound, and [registers a thread, spilled bytes a thread, shared
-    bytes a block] of each kernel."""
-    return {"steps_ms": steps_ms, "share_of_bound": bms / ms,
+    steps path: the path its timed call took (the caller fails the run
+    unless it is the persistent one), the steps kernels' time in the same
+    run, each path's share of the bound, and [registers a thread, spilled
+    bytes a thread, shared bytes a block] of each kernel."""
+    return {"path": "persistent", "steps_ms": steps_ms,
+            "share_of_bound": bms / ms,
             "steps_share_of_bound": bms / steps_ms,
             "kernel_info": {k: list(v) for k, v in info.items()}}
 
@@ -557,16 +590,20 @@ GRU_RAGGED_B = 37
 
 
 def check_gru_train(K, flush, dev):
-    """K3 with residuals and K4 at the training shape.  K4 must take its
-    persistent kernel; it is also held and timed on its steps kernels, and
-    its first 37 rows are held bit for bit against a 37-row call."""
+    """K3 with residuals and K4 at the training shape.  Each must take its
+    persistent kernel; each is also held and timed on its steps kernels,
+    and its first 37 rows are held bit for bit against a 37-row call."""
     import torch
 
-    from paddle_tpu_torch.ops.kernels.gru import (GRU_BACKWARD, _device_sms,
-                                                  _gru_bwd_plan,
-                                                  gru_bwd_kernel_info)
+    from paddle_tpu_torch.ops.kernels.gru import (GRU_BACKWARD, GRU_FORWARD,
+                                                  _device_sms, _gru_bwd_plan,
+                                                  _gru_fwd_plan,
+                                                  gru_bwd_kernel_info,
+                                                  gru_fwd_kernel_info)
     from paddle_tpu_torch.ops.kernels.gru import _launch_bwd as \
         _gru_launch_bwd
+    from paddle_tpu_torch.ops.kernels.gru import _launch_fwd as \
+        _gru_launch_fwd
     from paddle_tpu_torch.ops.numerics import compute_dtype_scope
 
     sms = _device_sms(dev)
@@ -576,30 +613,57 @@ def check_gru_train(K, flush, dev):
     H = H3 // 3
     rows = []
     with compute_dtype_scope("bfloat16"):
+        before = _paths(GRU_FORWARD)
         hk, fk, zk, pk = K.gru_forward(xp, mask, w_h, residuals=True)
+        took = _paths_since(GRU_FORWARD, before)
+        if took != {"persistent": 1}:
+            fail("kernels", f"gru_forward residuals took {took}, not the "
+                 f"persistent kernel")
         hp, fp, zp, pp = K.gru_forward_plain(xp, mask, w_h, residuals=True)
+        steps = _gru_launch_fwd(xp, mask, w_h, None, True, "steps")
         torch.cuda.synchronize()
-        err = max(_max_err(hk, hp), _max_err(fk, fp))
         tol = TOL["gru_forward_residuals"]
-        if not (err <= tol and _within_bf16_ulp(zk, zp, tol)
-                and _within_bf16_ulp(pk, pp, tol)) \
-                or zk.dtype != torch.bfloat16:
-            fail("kernels", f"gru_forward residuals: h err {err} (tol {tol})"
-                 f", z/h_prev beyond tol + one bf16 ulp or not bf16 "
-                 f"({zk.dtype})")
+        errs = {}
+        for what, (h_, f_, z_, p_) in (("persistent", (hk, fk, zk, pk)),
+                                       ("steps", steps)):
+            errs[what] = max(_max_err(h_, hp), _max_err(f_, fp))
+            if not (errs[what] <= tol and _within_bf16_ulp(z_, zp, tol)
+                    and _within_bf16_ulp(p_, pp, tol)) \
+                    or z_.dtype != torch.bfloat16:
+                fail("kernels", f"gru_forward residuals ({what} kernels): "
+                     f"h err {errs[what]} (tol {tol}), z/h_prev beyond tol "
+                     f"+ one bf16 ulp or not bf16 ({z_.dtype})")
+        err, err_s = errs["persistent"], errs["steps"]
+        # rows do not depend on B: the first GRU_RAGGED_B rows alone
+        n = GRU_RAGGED_B
+        sub = K.gru_forward(xp[:n].contiguous(), mask[:n].contiguous(), w_h,
+                            residuals=True)
+        if not all(torch.equal(a, b) for a, b in (
+                (sub[0], hk[:n]), (sub[1], fk[:n]), (sub[2], zk[:, :n]),
+                (sub[3], pk[:, :n]))):
+            fail("kernels", f"gru_forward residuals rows 0..{n - 1} differ "
+                 f"between B={B} and B={n}")
         ms = time_ms(lambda: K.gru_forward(xp, mask, w_h, residuals=True),
                      flush)
+        steps_ms = time_ms(lambda: _gru_launch_fwd(xp, mask, w_h, None, True,
+                                                   "steps"), flush)
         plain_ms = time_ms(lambda: K.gru_forward_plain(
             xp, mask, w_h, residuals=True), flush, reps=5)
         nbytes = (T * B * H3 * 4 + T * B * 4 + H * H3 * 2 + T * B * H * 4
                   + B * H * 4 + T * B * H3 * 2 + T * B * H * 2)
         bms, by = bound_ms(nbytes, 2.0 * T * B * H * H3, "bfloat16")
+        k3_info = gru_fwd_kernel_info(B, H, sms)
         print(f"kernels: gru_forward residuals=True B={B} T={T} H={H} bf16 "
-              f"h max_abs_err={err:.3e} (tol {tol}), z and h_prev within "
-              f"tol + one bf16 ulp; ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={bms:.5f} ({by})", flush=True)
-        rows.append(_kernel_row("gru_forward_residuals", "gru_forward.cu",
-                                "308", err, ms, plain_ms, bms, by, None))
+              f"path=persistent ({_gru_fwd_plan(B, H, sms)}; "
+              f"{_info_text(k3_info)}) h max_abs_err={err:.3e} (steps "
+              f"kernels {err_s:.3e}; tol {tol}), z and h_prev within tol + "
+              f"one bf16 ulp, rows bit-equal at B={n}; ms={ms:.4f} (share "
+              f"of bound {bms / ms:.3f}) steps_ms={steps_ms:.4f} plain_ms="
+              f"{plain_ms:.4f} bound_ms={bms:.5f} ({by})", flush=True)
+        rows.append(dict(_kernel_row("gru_forward_residuals",
+                                     "gru_forward.cu", "308", err, ms,
+                                     plain_ms, bms, by, None),
+                         **_persistent_fields(ms, steps_ms, bms, k3_info)))
 
         m_tb = mask.t().contiguous()
         w_t = w_h.t().contiguous()
@@ -639,10 +703,9 @@ def check_gru_train(K, flush, dev):
               + H3 * H * 4 + B * H * 4 + T * B * H3 * 4 + B * H * 4)
     bms, by = bound_ms(nbytes, 2.0 * T * B * H3 * H, "float32")
     k4_info = gru_bwd_kernel_info(H)
-    info = ", ".join(f"{k} {r}/{l}/{m}" for k, (r, l, m) in k4_info.items())
     print(f"kernels: gru_backward B={B} T={T} H={H} bf16 residuals "
-          f"path=persistent ({_gru_bwd_plan(B, H, sms)}; registers / "
-          f"spilled bytes a thread / shared bytes a block: {info}) "
+          f"path=persistent ({_gru_bwd_plan(B, H, sms)}; "
+          f"{_info_text(k4_info)}) "
           f"max_abs_err={err:.3e} (steps kernel {err_s:.3e}; tol {tol} x "
           f"max {scale:.3e}), rows bit-equal at B={n}; ms={ms:.4f} (share "
           f"of bound {bms / ms:.3f}) steps_ms={steps_ms:.4f} (share "
@@ -688,10 +751,15 @@ def check_bigru(K, flush, dev):
     K3's row)."""
     import torch
 
-    from paddle_tpu_torch.ops.kernels.bigru import BIGRU_BACKWARD
-    from paddle_tpu_torch.ops.kernels.gru import gru_bwd_kernel_info
+    from paddle_tpu_torch.ops.kernels.bigru import (BIGRU_BACKWARD,
+                                                    BIGRU_FORWARD)
     from paddle_tpu_torch.ops.kernels.bigru import _launch_bwd as \
         _bigru_launch_bwd
+    from paddle_tpu_torch.ops.kernels.bigru import _launch_fwd as \
+        _bigru_launch_fwd
+    from paddle_tpu_torch.ops.kernels.gru import (_device_sms,
+                                                  gru_bwd_kernel_info,
+                                                  gru_fwd_kernel_info)
     from paddle_tpu_torch.ops.numerics import compute_dtype_scope
 
     xp, m, w2, w_t, d_out, d_hfin = _bigru_inputs(dev, TRAIN_B)
@@ -702,8 +770,14 @@ def check_bigru(K, flush, dev):
     errs = {}
     for cd in ("float32", "bfloat16"):
         with compute_dtype_scope(cd):
+            before = _paths(BIGRU_FORWARD)
             inf = K.bigru_forward(xp, m, w2, residuals=False, batch_split=B)
             res = K.bigru_forward(xp, m, w2, residuals=True, batch_split=B)
+            took = _paths_since(BIGRU_FORWARD, before)
+            want_path = "persistent" if cd == "bfloat16" else "steps"
+            if took != {want_path: 2}:
+                fail("kernels", f"bigru_forward {cd} took {took}, not "
+                     f"{want_path}")
             before = _paths(BIGRU_BACKWARD)
             bwd = K.bigru_backward(d_out, m, res[2], res[3], w_t, d_hfin,
                                    batch_split=B)
@@ -767,8 +841,14 @@ def check_bigru(K, flush, dev):
     Bs = SLOTS
     for cd in ("float32", "bfloat16"):
         with compute_dtype_scope(cd):
+            before = _paths(BIGRU_FORWARD)
             got = K.bigru_forward(xs, ms_, w2s, residuals=False,
                                   batch_split=Bs)
+            took = _paths_since(BIGRU_FORWARD, before)
+            want_path = "persistent" if cd == "bfloat16" else "steps"
+            if took != {want_path: 1}:
+                fail("kernels", f"bigru_forward B=2x{Bs} {cd} took {took}, "
+                     f"not {want_path}")
             want = K.bigru_forward_plain(xs, ms_, w2s, residuals=False,
                                          batch_split=Bs)
             err = max(_max_err(a, c) for a, c in zip(got, want))
@@ -810,6 +890,17 @@ def check_bigru(K, flush, dev):
                 x, mask, w2_, residuals=residuals, batch_split=b2 // 2),
                 flush, reps=5)
             pair_ms = time_ms(lambda: pair(x, mask, w2_, residuals), flush)
+            steps_ms = time_ms(lambda: _bigru_launch_fwd(
+                x, mask, w2_, residuals, b2 // 2, "steps"), flush)
+            steps_out = _bigru_launch_fwd(x, mask, w2_, residuals, b2 // 2,
+                                          "steps")
+            e_steps = max(_max_err(a, c) for a, c in zip(
+                steps_out[:2], K.bigru_forward_plain(
+                    x, mask, w2_, residuals=residuals,
+                    batch_split=b2 // 2)[:2]))
+            if not e_steps <= TOL["gru_forward/bfloat16"]:
+                fail("kernels", f"bigru_forward steps kernels: max abs err "
+                     f"{e_steps}")
             nbytes = (T * b2 * H3 * 4 + T * b2 * 4 + 2 * H * H3 * 2
                       + T * b2 * H * 4 + b2 * H * 4
                       + (T * b2 * (H3 + H) * res_b if residuals else 0))
@@ -817,14 +908,19 @@ def check_bigru(K, flush, dev):
             name = "bigru_forward" + ("_residuals" if residuals else "")
             e, e32 = ((errs["bfloat16"][1], errs["float32"][1]) if residuals
                       else (errs["serve/bfloat16"], errs["serve/float32"]))
+            info = gru_fwd_kernel_info(b2 // 2, H, _device_sms(dev), 2)
             print(f"kernels: {name} B=2x{b2 // 2} T={T} H={H} bf16 "
-                  f"max_abs_err={e:.3e} (f32 {e32:.3e}), "
-                  f"rows bit-identical to one K3{'r' if residuals else ''} "
-                  f"call per direction; ms={ms:.4f} plain_ms={plain_ms:.4f}"
-                  f" two K3{'r' if residuals else ''} calls {pair_ms:.4f} ms"
-                  f" bound_ms={bms:.5f} ({by})", flush=True)
-            rows.append(_kernel_row(name, "bigru_forward.cu", "308", e, ms,
-                                    plain_ms, bms, by, None))
+                  f"path=persistent ({_info_text(info)}) "
+                  f"max_abs_err={e:.3e} (f32 {e32:.3e}; steps kernels "
+                  f"{e_steps:.3e}), rows bit-identical to one "
+                  f"K3{'r' if residuals else ''} call per direction; "
+                  f"ms={ms:.4f} (share of bound {bms / ms:.3f}) steps_ms="
+                  f"{steps_ms:.4f} plain_ms={plain_ms:.4f} two "
+                  f"K3{'r' if residuals else ''} calls {pair_ms:.4f} ms "
+                  f"bound_ms={bms:.5f} ({by})", flush=True)
+            rows.append(dict(_kernel_row(name, "bigru_forward.cu", "308", e,
+                                         ms, plain_ms, bms, by, None),
+                             **_persistent_fields(ms, steps_ms, bms, info)))
         bargs = (d_out, m, zk, pk, w_t, d_hfin)
         steps = _bigru_launch_bwd(*bargs, B, "steps")
         e_steps = max(_max_err(a, c) for a, c in zip(
@@ -935,6 +1031,16 @@ def _ce_wmma_direct(fwd: bool, *args):
                         scale.data_ptr(), *(t.data_ptr() for t in out), N, D,
                         V, stream)
     return out
+
+
+def _all_persistent(phase: str, label: str, launches, names) -> None:
+    """Fail unless every launch of each kernel ``names`` in ``launches``
+    took its persistent kernel."""
+    for name in names:
+        n = launches[name]
+        if n and launches.by_path[name] != {"persistent": n}:
+            fail(phase, f"{label}: {name} launches by path "
+                 f"{launches.by_path[name]}, not all persistent")
 
 
 def _paths(lib) -> dict:
@@ -1751,6 +1857,8 @@ def serve_path(K, dev):
     if set(k7_paths) != {"wgmma"}:
         fail("serve", f"topk_lse_readout launches by path {k7_paths}, not "
              f"all wgmma")
+    # every prefill's K3 (B = 1 .. 64 rows) takes the persistent kernel
+    _all_persistent("serve", "default", launches, ("gru_forward",))
     tokens = 0
     for req in reqs:
         out, steps = results[id(req)]
@@ -1838,6 +1946,7 @@ def serve_fused(K, model, params, reqs_off, results_off):
     if not (launches["bigru_forward"] > 0 and launches["gru_forward"] == 0
             and launches["topk_lse_readout"] > 0):
         fail("serve", f"fused_bigru: launches {launches}")
+    _all_persistent("serve", "fused_bigru", launches, ("bigru_forward",))
     differ = [i for i, (a, b) in enumerate(zip(reqs_off, reqs))
               if not (np.array_equal(results_off[id(a)][0]["tokens"],
                                      results[id(b)][0]["tokens"])
@@ -1965,13 +2074,9 @@ def train_path(K, dev, config: str = "default"):
             fail("train", f"{config}: kernel {name} launched "
                  f"{launches[name]} times in {TRAIN_STEPS} steps (want "
                  f"{'some' if n is None else n})")
-    # K4, K11's reverse and K5 at the training shape take their persistent
-    # kernels, every launch
-    for name in PERSISTENT_TRAIN_KERNELS:
-        n = launches[name]
-        if n and launches.by_path[name] != {"persistent": n}:
-            fail("train", f"{config}: {name} launches by path "
-                 f"{launches.by_path[name]}, not all persistent")
+    # K3r, K4, K11 (both loops) and K5 at the training shape take their
+    # persistent kernels, every launch
+    _all_persistent("train", config, launches, PERSISTENT_TRAIN_KERNELS)
     # K1 and K2 at the training shape take the TMA + wgmma kernels
     want_paths = {} if config == "lse_readout" else {"wgmma": TRAIN_STEPS}
     if any(p != want_paths for p in ce_paths):
@@ -2384,6 +2489,7 @@ def dslgen_path(K, dev):
     for name in DSLGEN_KERNELS:
         if launches[name] <= 0:
             fail("dslgen", f"kernel {name} was not launched on the path")
+    _all_persistent("dslgen", "beam_search layer", launches, ("gru_forward",))
     print(f"dslgen: beam_search layer, {B} sources (8-{SRC_LEN} tokens), "
           f"beam {BEAM}, max_length {MAX_LEN}, bf16 compute: "
           f"{sec * 1e3:.2f} ms, {B / sec:.2f} sentences/s, {steps} decode "

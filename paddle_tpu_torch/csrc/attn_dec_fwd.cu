@@ -431,81 +431,6 @@ inline size_t smem_bytes(int S, int D, int A, int H2, int NU, int QC) {
          ((size_t)ATT_ROWS * S + (size_t)(ATT_ROWS + 1) * A) * 4;
 }
 
-// d += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, f32 sum
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(bf16 x) {
-  return (uint32_t)__bfloat16_as_ushort(x);
-}
-
-// acc[nt] += A[rows row0 .. row0 + 15, :K] @ W for the NT n8 tiles of the
-// fragments wf, A bf16 with row stride lda (rows at or past B read as 0),
-// written by other blocks in this launch (read through L2).  The depth is
-// taken 32 at a time; lane (g, c) loads the 16 bytes at k = 8c .. 8c + 7 of
-// rows g and g + 8, which the fragments' packing maps onto the mma's k
-// order (k16 step j of the 32 takes k = 8c + 4j + {0, 1} as its k pair 2c
-// and 8c + 4j + {2, 3} as its pair 2c + 8): every k order depends on K
-// alone.  The loads run one group of four 32-deep pieces ahead of the
-// products.
-template <int NT>
-__device__ __forceinline__ void warp_product(const bf16* __restrict__ A,
-                                             int lda, int row0, int B, int K,
-                                             const uint2* __restrict__ wf,
-                                             float (&acc)[NT][4]) {
-  const int lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
-  const bool ok0 = row0 + g < B, ok1 = row0 + g + 8 < B;
-  const bf16* p0 = A + (size_t)(row0 + g) * lda + 8 * c;
-  const bf16* p1 = p0 + (size_t)8 * lda;
-  const int nk = K / 32;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  uint4 nlo[4], nhi[4];
-  auto load = [&](int kb) {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const bool in = kb + u < nk;
-      nlo[u] = in && ok0 ? __ldcg(reinterpret_cast<const uint4*>(
-                               p0 + (size_t)(kb + u) * 32))
-                         : zero;
-      nhi[u] = in && ok1 ? __ldcg(reinterpret_cast<const uint4*>(
-                               p1 + (size_t)(kb + u) * 32))
-                         : zero;
-    }
-  };
-  load(0);
-  for (int kb = 0; kb < nk; kb += 4) {
-    uint4 lo[4], hi[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      lo[u] = nlo[u];
-      hi[u] = nhi[u];
-    }
-    if (kb + 4 < nk) load(kb + 4);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      if (kb + u >= nk) break;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const uint32_t a[4] = {j ? lo[u].z : lo[u].x, j ? hi[u].z : hi[u].x,
-                               j ? lo[u].w : lo[u].y, j ? hi[u].w : hi[u].y};
-        const uint2* wk = wf + (size_t)((kb + u) * 2 + j) * NT * 32 + lane;
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const uint2 bv = wk[nt * 32];
-          mma_bf16(acc[nt], a, bv.x, bv.y);
-        }
-      }
-    }
-  }
-}
-
 }  // namespace k5
 
 // The decoder's whole time loop, bf16 compute.  Block i serves column group
@@ -546,32 +471,17 @@ __global__ void __launch_bounds__(k5::THREADS, 1)
   const int g = lane / 4, c = lane % 4;
   const int D3 = 3 * D;
 
-  // lane l of n8 tile nt at k16 step ks: column n = 8 nt + l / 4, rows
-  // k = 32 (ks / 2) + 8 (l % 4) + 4 (ks % 2) + {0, 1} and + {2, 3}
-  // col(n, ld) gives column n's first element and the row stride
-  auto pack = [&](uint2* wf, int K, int NT, auto col) {
-    for (int e = threadIdx.x; e < K / 16 * NT * 32; e += k5::THREADS) {
-      const int l = e % 32, nt = e / 32 % NT, ks = e / 32 / NT;
-      const int n = nt * 8 + l / 4;
-      const int k = ks / 2 * 32 + 8 * (l % 4) + 4 * (ks % 2);
-      int ld;
-      const bf16* w = col(n, ld);
-      uint32_t v[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) v[i] = k5::bits(w[(size_t)(k + i) * ld]);
-      wf[e] = make_uint2(v[0] | (v[1] << 16), v[2] | (v[3] << 16));
-    }
-  };
-  pack(wf1, D, NT1, [&](int n, int& ld) {
+  // the weights' columns in B-fragment order (csrc/persistent.cuh)
+  pk::pack_b_fragments(wf1, D, NT1, [&](int n, int& ld) {
     ld = n < QC ? A : D3;
     return n < QC ? att_w + cg * QC + n
                   : wh + (n - QC) / NU * D + cg * NU + (n - QC) % NU;
   });
-  pack(wf3, H2, NT3, [&](int n, int& ld) {
+  pk::pack_b_fragments(wf3, H2, NT3, [&](int n, int& ld) {
     ld = D3;
     return wx_c + n / NU * D + cg * NU + n % NU;
   });
-  pack(wf4, D, NUT, [&](int n, int& ld) {
+  pk::pack_b_fragments(wf4, D, NUT, [&](int n, int& ld) {
     ld = D3;
     return wh + 2 * D + cg * NU + n;
   });
@@ -607,7 +517,7 @@ __global__ void __launch_bounds__(k5::THREADS, 1)
     // (1) [q | zr_h] = round(s) @ [att_w | wh[:, :2D]]
     if (has) {
       float acc[NT1][4] = {};
-      k5::warp_product(sb, D, row0, B, D, wf1, acc);
+      pk::warp_product(sb, D, row0, B, D, wf1, acc);
 #pragma unroll
       for (int qt = 0; qt < QCT; ++qt) {
 #pragma unroll
@@ -766,7 +676,7 @@ __global__ void __launch_bounds__(k5::THREADS, 1)
                                   : 0.0f;
           }
       float acc[NT3][4] = {};
-      k5::warp_product(ctx_t, H2, row0, B, H2, wf3, acc);
+      pk::warp_product(ctx_t, H2, row0, B, H2, wf3, acc);
 #pragma unroll
       for (int ut = 0; ut < NUT; ++ut)
 #pragma unroll
@@ -789,7 +699,7 @@ __global__ void __launch_bounds__(k5::THREADS, 1)
                            row_of(2) < B ? mask[(size_t)t * B + row_of(2)]
                                          : 0.0f};
       float acc[NUT][4] = {};
-      k5::warp_product(rsb, D, row0, B, D, wf4, acc);
+      pk::warp_product(rsb, D, row0, B, D, wf4, acc);
 #pragma unroll
       for (int ut = 0; ut < NUT; ++ut)
 #pragma unroll

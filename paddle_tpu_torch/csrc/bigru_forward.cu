@@ -15,18 +15,19 @@
 // z [T, 2B, 3H] and h_prev [T, 2B, H] in the residual type.
 //
 // What bounds it on this card: as K3 (gru_forward.cu), the 2T dependent
-// launches of a sequential recurrence.  The two directions of a
+// grid-wide steps of a sequential recurrence.  The two directions of a
 // bidirectional layer are independent, so running them in one loop halves
-// the dependent launches of the layer (2T instead of 4T), each launch
-// with twice the row blocks: at the training shape (B = 384, H = 512) a K3
-// step's gate product is 12 x 32 = 384 blocks of 256 threads and its
-// candidate product 192, here 768 and 384, on 132 SMs.
+// the dependent steps of the layer (2T instead of 4T).
 //
-// Design: the K3 host loop and step kernels of gru_common.cuh with the row
-// split: the grid's row blocks are cut per direction (ceil(B / 32) on W,
-// then ceil(B / 32) on W + H * 3H), so no 32-row tile straddles the split
-// for any B.  A row meets exactly the arithmetic of a one-direction K3
-// call, in the same order, so K11's rows are bit-identical to two K3 calls.
+// Design: K3's two paths of gru_common.cuh with the row split, picked by
+// K3's function (ops/kernels/gru.py::_gru_fwd_path with two directions):
+// "persistent" (bf16 compute), one cooperative launch whose blocks each
+// serve one direction (2 x 32 unit groups x 2 row groups at H = 512, each
+// direction's rows in 16-row tiles); "steps", the host loop, whose grid's
+// row blocks are cut per direction (ceil(B / 32) on W, then ceil(B / 32)
+// on W + H * 3H).  No tile straddles the split for any B, so a row meets
+// exactly the arithmetic of a one-direction K3 call on the same path, in
+// the same order, and K11's rows are bit-identical to two K3 calls.
 
 #include "gru_common.cuh"
 
@@ -55,6 +56,23 @@ extern "C" int bigru_forward_bf16(const void* xp, const void* mask,
   return gru::forward_dispatch<__nv_bfloat16>(xp, mask, w2, h_seq, h, rh, u,
                                               z, hprev, res_bf16, T, B2, H,
                                               split, stream);
+}
+
+// The persistent kernel (see _gru_fwd_path / _gru_fwd_plan with two
+// directions), bf16 compute only: the arguments of bigru_forward_bf16 with
+// hb and rhb [2B, H] bf16 scratch in place of rh and u, then bar [1] u32
+// zeroed, and the plan's UG = H / 16 unit groups and RG row groups (2 * UG
+// * RG blocks).  H % 32 == 0.
+extern "C" int bigru_forward_persistent(const void* xp, const void* mask,
+                                        const void* w2, void* h_seq, void* h,
+                                        void* hb, void* rhb, void* z,
+                                        void* hprev, void* bar, int res_bf16,
+                                        int T, int B2, int H, int split,
+                                        int UG, int RG, void* stream) {
+  if (split <= 0) return (int)cudaErrorInvalidValue;
+  return gru::forward_persistent_dispatch(xp, mask, w2, h_seq, h, hb, rhb, z,
+                                          hprev, bar, res_bf16, T, B2, H,
+                                          split, UG, RG, stream);
 }
 
 extern "C" const char* ptt_error_string(int err) {

@@ -29,12 +29,40 @@
 //     d_c    = (1 - m) * d_c + d_hp
 //     d_z[t] = [d_zr, d_zc]
 //
-// The forward and the reverse's "steps" path: two small kernels a step,
-// from a host loop (the launch boundary is the grid-wide barrier each
-// step's row-wide products need).  Each block owns a 32 x 32 output tile
-// and sums over k in a FIXED order, so a row's bits depend only on that
-// row's inputs and its direction's weight: never on B, nor on which other
-// rows share the call.
+// The "steps" paths (the forward under f32, and either loop where its
+// plan does not fit): two small kernels a step, from a host loop (the
+// launch boundary is the grid-wide barrier each step's row-wide products
+// need).  Each block owns a 32 x 32 output tile and sums over k in a FIXED
+// order, so a row's bits depend only on that row's inputs and its
+// direction's weight: never on B, nor on which other rows share the call.
+//
+// The forward's "persistent" path (K3, K3r and K11's forward under bf16
+// where ops/kernels/gru.py::_gru_fwd_plan fits): the whole forward loop in
+// ONE cooperative launch (csrc/persistent.cuh), bf16 W resident in shared
+// memory.  Block (direction, unit group ug, row group rg) holds the three
+// gate columns j, H + j and 2H + j of its NU = 16 units j = 16 ug .. over
+// the full depth H (49,152 bytes at H = 512), so every output it computes
+// is complete.  Its warps each take one 16-row tile at a time (the tiles
+// rg, rg + RG, ... of its direction), and a lane's mma accumulator entries
+// are the same (row, unit) pairs in both products, so the f32 carry h and
+// the gate u of those pairs stay in the block's shared memory, each read
+// and written by its own thread.  A step is two phases, each ended by a
+// grid barrier:
+//   (A) [zr_r | zr_u] = xp[t, :, :2H] + round(h) @ W[:, :2H] for the
+//       block's units; the epilogue forms r and u, keeps u, stores the
+//       residuals zr and h_prev[t], and writes round(r * h) (rounded once,
+//       from the f32 product, as the steps path does) to a global bf16
+//       buffer;
+//   (B) zc = xp[t, :, 2H:] + round(r * h) @ W[:, 2H:]; the epilogue stores
+//       zc, updates the carry with the mask hold, writes h_seq[t] and
+//       round(h) to a global bf16 buffer, the next phase A's operand.
+// The products run on the tensor cores (mma.sync m16n8k16, bf16 operands,
+// f32 accumulators), each lane's operand a 16-byte load from L2 (ld.cg:
+// other blocks wrote it), W kept in the B fragments' register order.  A
+// product's k order depends on H alone, so a row's bits depend neither on
+// B nor on the block that computes it, and the elementwise math is the
+// steps kernels' (the same functions, in the same order): the two paths
+// differ only in the products' summation order.
 //
 // The reverse's "persistent" path (K4 and K11's reverse where
 // ops/kernels/gru.py::_gru_bwd_plan fits): the whole reverse loop in ONE
@@ -65,10 +93,11 @@
 // kernels' row blocks are cut per direction -- ceil(split / BM) blocks over
 // [0, split), then as many over [split, B) -- and the persistent kernel's
 // blocks each serve one direction, so no tile straddles the split for any
-// split, and each row meets exactly the arithmetic of a one-direction call.
-// The forward's weight is the reference's [2H, 3H] (direction 1 starts
-// H * 3H elements in); the reverse's is the reference's column-stacked
-// [3H, 2H] (direction 1 starts H columns in, row stride 2H).
+// split, and each row meets exactly the arithmetic of a one-direction call
+// on the same path.  The forward's weight is the reference's [2H, 3H]
+// (direction 1 starts H * 3H elements in); the reverse's is the
+// reference's column-stacked [3H, 2H] (direction 1 starts H columns in,
+// row stride 2H).
 
 #pragma once
 
@@ -301,6 +330,274 @@ int forward_dispatch(const void* xp, const void* mask, const void* w,
       (const float*)xp, (const float*)mask, (const CT*)w, (float*)h_seq,
       (float*)h, (float*)rh, (float*)u, (float*)z, (float*)hprev, T, B, H,
       split, (cudaStream_t)stream);
+}
+
+// ---------------------------------------------------------------------------
+// forward, one persistent launch (bf16 compute)
+// ---------------------------------------------------------------------------
+
+namespace k3 {
+
+constexpr int THREADS = 256;      // 8 warps, one 16-row tile at a time each
+constexpr int WARPS = THREADS / 32;
+constexpr int NUT = 2;            // n8 tiles of units a block
+constexpr int NU = 8 * NUT;       // units a block, three gate columns each
+constexpr size_t SMEM_LIMIT = 232448;
+
+// W's B fragments (the gate product's [H / 16][2 NUT][32] and the
+// candidate's [H / 16][NUT][32], 8 bytes a lane) and the f32 carry h and
+// gate u of R rows x NU units
+inline size_t smem_bytes(int H, int R) {
+  return (size_t)H / 16 * 3 * NUT * 32 * 8 + (size_t)2 * R * NU * 4;
+}
+
+// two neighbouring entries in the residual type
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+}  // namespace k3
+
+// xp [T, B, 3H] f32 and mask [T, B] f32 time-major, w [ndir H, 3H] bf16;
+// h [B, H] f32 in: h0, out: h_final; hb and rhb [B, H] bf16 scratch
+// (round(h), round(r * h)); bar [1] u32, zero.  ndir = split > 0 ? 2 : 1
+// directions x UG = H / NU unit groups x RG row groups; R rows of carry a
+// block (16 x the most tiles a row group takes).  z == nullptr: no
+// residuals.
+template <typename RT>
+__global__ void __launch_bounds__(k3::THREADS, 1) gru_fwd_persistent_kernel(
+    const float* __restrict__ xp, const float* __restrict__ mask,
+    const __nv_bfloat16* __restrict__ w, float* __restrict__ h_seq,
+    float* __restrict__ h, __nv_bfloat16* __restrict__ hb,
+    __nv_bfloat16* __restrict__ rhb, RT* __restrict__ z,
+    RT* __restrict__ hprev, unsigned* bar, int T, int B, int H, int split,
+    int UG, int RG, int R) {
+  constexpr int NU = k3::NU, NUT = k3::NUT;
+  extern __shared__ float4 smem4[];
+  const int K16 = H / 16, H3 = 3 * H;
+  uint2* wf1 = reinterpret_cast<uint2*>(smem4);       // [K16][2 NUT][32]
+  uint2* wf2 = wf1 + (size_t)K16 * 2 * NUT * 32;       // [K16][NUT][32]
+  float* hs = reinterpret_cast<float*>(wf2 + (size_t)K16 * NUT * 32);
+  float* us = hs + (size_t)R * NU;                     // [R][NU] each
+  const int per_dir = UG * RG;
+  const int dir = blockIdx.x / per_dir;
+  const int ug = blockIdx.x % per_dir % UG, rg = blockIdx.x % per_dir / UG;
+  const int rows = split > 0 ? split : B;    // rows of this direction
+  const int rbase = dir * rows;              // its first row
+  const int u0 = ug * NU;
+  const __nv_bfloat16* wd = w + (size_t)dir * H * H3;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, c = lane % 4;
+
+  // W's columns in B-fragment order (the row stride is 3H)
+  pk::pack_b_fragments(wf1, H, 2 * NUT, [&](int n, int& ld) {
+    ld = H3;                            // r columns, then u columns
+    return wd + (n < NU ? u0 + n : H + u0 + (n - NU));
+  });
+  pk::pack_b_fragments(wf2, H, NUT, [&](int n, int& ld) {
+    ld = H3;
+    return wd + 2 * H + u0 + n;
+  });
+
+  const int ntile = (rows + 15) / 16;
+  const int mine = rg < ntile ? (ntile - rg + RG - 1) / RG : 0;
+  // the carry from h0 for this block's pairs, [local tile][row][unit];
+  // round(h0) is step 0's operand
+  for (int e = threadIdx.x; e < mine * 16 * NU; e += k3::THREADS) {
+    const int b = (rg + e / (16 * NU) * RG) * 16 + e / NU % 16;
+    float hv = 0.0f;
+    if (b < rows) {
+      const size_t o = (size_t)(rbase + b) * H + u0 + e % NU;
+      hv = h[o];
+      hb[o] = __float2bfloat16_rn(hv);
+    }
+    hs[e] = hv;
+  }
+  unsigned target = 0;
+  pk::grid_sync(bar, target);           // round(h0) complete
+
+  const size_t hsz = (size_t)B * H, xsz = (size_t)B * H3;
+  const __nv_bfloat16* hb_d = hb + (size_t)rbase * H;
+  const __nv_bfloat16* rhb_d = rhb + (size_t)rbase * H;
+  for (int t = 0; t < T; ++t) {
+    const float* xp_t = xp + t * xsz;
+    const float* mask_t = mask + (size_t)t * B;
+    // (A) [zr_r | zr_u] = xp[t, :, :2H] + round(h) @ W[:, :2H]; lane
+    // entry (ut, i) is row row0 + g + 8 (i / 2), unit u0 + 8 ut + 2c + i % 2
+    for (int lt = warp; lt < mine; lt += k3::WARPS) {
+      const int row0 = (rg + lt * RG) * 16;
+      float2 xr[NUT][2], xu[NUT][2];   // xp[t], loaded before the product
+#pragma unroll
+      for (int ut = 0; ut < NUT; ++ut)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int b = row0 + g + 8 * hr;
+          const float* x = xp_t + (size_t)(rbase + b) * H3 + u0 + 8 * ut
+                           + 2 * c;
+          xr[ut][hr] = b < rows ? *reinterpret_cast<const float2*>(x)
+                                : make_float2(0.0f, 0.0f);
+          xu[ut][hr] = b < rows ? *reinterpret_cast<const float2*>(x + H)
+                                : make_float2(0.0f, 0.0f);
+        }
+      float acc[2 * NUT][4] = {};
+      pk::warp_product(hb_d, H, row0, rows, H, wf1, acc);
+#pragma unroll
+      for (int ut = 0; ut < NUT; ++ut)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int b = row0 + g + 8 * hr;
+          if (b >= rows) continue;
+          const int j = u0 + 8 * ut + 2 * c;
+          float* hsp = hs + (size_t)(lt * 16 + g + 8 * hr) * NU + 8 * ut
+                       + 2 * c;
+          float* usp = us + (hsp - hs);
+          float zr[2], zu[2], rh[2];
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            zr[q] = (q ? xr[ut][hr].y : xr[ut][hr].x) + acc[ut][2 * hr + q];
+            zu[q] = (q ? xu[ut][hr].y : xu[ut][hr].x)
+                    + acc[NUT + ut][2 * hr + q];
+            const float r = sigmoid_f(zr[q]);
+            usp[q] = sigmoid_f(zu[q]);
+            rh[q] = r * hsp[q];
+          }
+          const size_t bg = (size_t)(rbase + b);
+          k3::store2(rhb + bg * H + j, rh[0], rh[1]);
+          if (z != nullptr) {
+            RT* zt = z + t * xsz + bg * H3 + j;
+            k3::store2(zt, zr[0], zr[1]);
+            k3::store2(zt + H, zu[0], zu[1]);
+            k3::store2(hprev + t * hsz + bg * H + j, hsp[0], hsp[1]);
+          }
+        }
+    }
+    pk::grid_sync(bar, target);         // round(r h) of step t complete
+    // (B) zc = xp[t, :, 2H:] + round(r h) @ W[:, 2H:]; the update, the
+    // mask hold, h_seq[t] and round(h)
+    for (int lt = warp; lt < mine; lt += k3::WARPS) {
+      const int row0 = (rg + lt * RG) * 16;
+      float2 xc[NUT][2];
+      float mv[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int b = row0 + g + 8 * hr;
+        mv[hr] = b < rows ? mask_t[rbase + b] : 0.0f;
+#pragma unroll
+        for (int ut = 0; ut < NUT; ++ut)
+          xc[ut][hr] = b < rows ? *reinterpret_cast<const float2*>(
+                                      xp_t + (size_t)(rbase + b) * H3 + 2 * H
+                                      + u0 + 8 * ut + 2 * c)
+                                : make_float2(0.0f, 0.0f);
+      }
+      float acc[NUT][4] = {};
+      pk::warp_product(rhb_d, H, row0, rows, H, wf2, acc);
+#pragma unroll
+      for (int ut = 0; ut < NUT; ++ut)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int b = row0 + g + 8 * hr;
+          if (b >= rows) continue;
+          const int j = u0 + 8 * ut + 2 * c;
+          float* hsp = hs + (size_t)(lt * 16 + g + 8 * hr) * NU + 8 * ut
+                       + 2 * c;
+          const float* usp = us + (hsp - hs);
+          float zc[2], hk[2];
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            zc[q] = (q ? xc[ut][hr].y : xc[ut][hr].x) + acc[ut][2 * hr + q];
+            const float cand = tanhf(zc[q]);
+            const float hp = hsp[q], uu = usp[q];
+            const float hn = uu * hp + (1.0f - uu) * cand;
+            hk[q] = mv[hr] > 0.0f ? hn : hp;
+            hsp[q] = hk[q];
+          }
+          const size_t bg = (size_t)(rbase + b);
+          if (z != nullptr)
+            k3::store2(z + t * xsz + bg * H3 + 2 * H + j, zc[0], zc[1]);
+          k3::store2(h_seq + t * hsz + bg * H + j, hk[0] * mv[hr],
+                     hk[1] * mv[hr]);
+          k3::store2(hb + bg * H + j, hk[0], hk[1]);
+        }
+    }
+    if (t + 1 < T) pk::grid_sync(bar, target);  // round(h) of step t done
+  }
+  __syncthreads();                      // the carry, in the init's order
+  for (int e = threadIdx.x; e < mine * 16 * NU; e += k3::THREADS) {
+    const int b = (rg + e / (16 * NU) * RG) * 16 + e / NU % 16;
+    if (b < rows) h[(size_t)(rbase + b) * H + u0 + e % NU] = hs[e];
+  }
+}
+
+// rows of carry a block of the persistent forward holds: 16 x the tiles
+// of its direction's first row group
+inline int fwd_rows_a_block(int rows, int RG) {
+  return ((rows + 15) / 16 + RG - 1) / RG * 16;
+}
+
+template <typename RT>
+int forward_persistent(const float* xp, const float* mask,
+                       const __nv_bfloat16* w, float* h_seq, float* h,
+                       __nv_bfloat16* hb, __nv_bfloat16* rhb, RT* z,
+                       RT* hprev, unsigned* bar, int T, int B, int H,
+                       int split, int UG, int RG, cudaStream_t stream) {
+  if (T < 0 || B < 0 || H < 0 || split < 0) return (int)cudaErrorInvalidValue;
+  if (split > 0 && B != 2 * split) return (int)cudaErrorInvalidValue;
+  if (T == 0 || B == 0 || H == 0) return (int)cudaSuccess;
+  if (H % 32 != 0 || UG != H / k3::NU || RG < 1)
+    return (int)cudaErrorInvalidValue;
+  int R = fwd_rows_a_block(split > 0 ? split : B, RG);
+  const size_t smem = k3::smem_bytes(H, R);
+  if (smem > k3::SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const int blocks = (split > 0 ? 2 : 1) * UG * RG;
+  void* args[] = {&xp, &mask, &w, &h_seq, &h, &hb,    &rhb, &z,  &hprev,
+                  &bar, &T,   &B, &H,     &split, &UG, &RG, &R};
+  return pk::cooperative_launch(gru_fwd_persistent_kernel<RT>, args, blocks,
+                                k3::THREADS, smem, stream);
+}
+
+// residual type by flag: z == nullptr (inference) stores no residuals
+inline int forward_persistent_dispatch(
+    const void* xp, const void* mask, const void* w, void* h_seq, void* h,
+    void* hb, void* rhb, void* z, void* hprev, void* bar, int res_bf16,
+    int T, int B, int H, int split, int UG, int RG, void* stream) {
+  if ((z == nullptr) != (hprev == nullptr)) return (int)cudaErrorInvalidValue;
+  if (res_bf16) {
+    return forward_persistent<__nv_bfloat16>(
+        (const float*)xp, (const float*)mask, (const __nv_bfloat16*)w,
+        (float*)h_seq, (float*)h, (__nv_bfloat16*)hb, (__nv_bfloat16*)rhb,
+        (__nv_bfloat16*)z, (__nv_bfloat16*)hprev, (unsigned*)bar, T, B, H,
+        split, UG, RG, (cudaStream_t)stream);
+  }
+  return forward_persistent<float>(
+      (const float*)xp, (const float*)mask, (const __nv_bfloat16*)w,
+      (float*)h_seq, (float*)h, (__nv_bfloat16*)hb, (__nv_bfloat16*)rhb,
+      (float*)z, (float*)hprev, (unsigned*)bar, T, B, H, split, UG, RG,
+      (cudaStream_t)stream);
+}
+
+// registers a thread, local (spilled) bytes a thread and shared bytes a
+// block of the forward kernel `which` (0: persistent at width H with R rows
+// of carry a block; 1: the steps path's gates kernel, 2: its candidate
+// kernel), bf16 compute and bf16 residuals
+inline int forward_info(int which, int H, int R, int* regs, int* local_bytes,
+                        int* smem_bytes) {
+  cudaFuncAttributes a;
+  const void* fn =
+      which == 0
+          ? (const void*)gru_fwd_persistent_kernel<__nv_bfloat16>
+          : which == 1
+                ? (const void*)gru_gates_kernel<__nv_bfloat16, __nv_bfloat16>
+                : (const void*)gru_cand_kernel<__nv_bfloat16, __nv_bfloat16>;
+  const cudaError_t e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return (int)e;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  *smem_bytes = (int)a.sharedSizeBytes +
+                (which == 0 ? (int)k3::smem_bytes(H, R) : 0);
+  return 0;
 }
 
 // ---------------------------------------------------------------------------

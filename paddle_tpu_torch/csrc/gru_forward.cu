@@ -22,24 +22,29 @@
 //     h_prev[t] = h          the carry entering the step   [B, H]
 //
 // What bounds it on this card: the recurrence is sequential over T and each
-// step has a row-wide dependency -- (r*h) @ W_c needs the whole r row.  At
-// the serving shape (B <= 64, H = 512, T = 32) one step is 0.1 GFLOP and
-// reads W (1.5 MB in bf16, resident in the 50 MB L2 after the first step),
-// so the loop is bound by the latency of 2T dependent kernel launches, far
-// above both the byte and the FLOP bound of the whole call.
+// step has two dependent row-wide products -- (r*h) @ W_c needs the whole r
+// row, and the next step's gate product the whole h row.  At the serving
+// shape (B <= 64, H = 512, T = 32) the call's bytes bound it at ~0.006 ms
+// and its products (0.1 GFLOP a step) at less; at the training shape (B =
+// 384, residuals) its bytes at ~0.046 ms.  What costs is the 2T grid-wide
+// dependencies.
 //
-// Design: two small kernels per step, launched from a host loop over T
-// (one library call per direction), shared with the bidirectional K11
-// (bigru_forward.cu) in gru_common.cuh:
-//   gru_gates_kernel   the [B, 2H] gate product + sigmoid -> r*h, u
-//   gru_cand_kernel    the [B, H] candidate product + tanh + update + mask
-// The launch boundary is the grid-wide barrier the row dependency needs; a
-// cooperative persistent kernel with two grid syncs per step is the faster
-// alternative for a later change.  Each block computes a 32 x 32 output tile
-// with a shared-memory tiled product over k in a FIXED order, so a row's
-// arithmetic never depends on B: a merged prefill and a solo one give the
-// same rows bit for bit.  The residual stores add 8 bytes (bf16) per
-// carry element a step to a loop that is bound by launch latency, not bytes.
+// Two paths, picked by the wrapper from (compute type, B, H, SM count)
+// alone (ops/kernels/gru.py::_gru_fwd_path), both in gru_common.cuh and
+// shared with the bidirectional K11 (bigru_forward.cu):
+//   "persistent"  gru_fwd_persistent_kernel (bf16 compute): the whole loop
+//                 in ONE cooperative launch, bf16 W resident in shared
+//                 memory split by 16-unit groups across the SMs (32 unit
+//                 groups x 4 row groups = 128 blocks at H = 512), two grid
+//                 barriers a step, mma.sync products, each product's
+//                 epilogue fusing the step's elementwise math and stores
+//   "steps"       gru_gates_kernel + gru_cand_kernel, two launches a step
+//                 from a host loop (f32 compute, or shapes the plan cannot
+//                 take): the [B, 2H] gate product + sigmoid -> r*h, u;
+//                 the [B, H] candidate product + tanh + update + mask
+// Each sums every output over k in an order fixed by H, so a row's result
+// does not depend on B: a merged prefill and a solo one give the same rows
+// bit for bit.
 
 #include "gru_common.cuh"
 
@@ -63,6 +68,29 @@ extern "C" int gru_forward_bf16(const void* xp, const void* mask,
   return gru::forward_dispatch<__nv_bfloat16>(xp, mask, w, h_seq, h, rh, u,
                                               z, hprev, res_bf16, T, B, H, 0,
                                               stream);
+}
+
+// The persistent kernel (see _gru_fwd_path / _gru_fwd_plan), bf16 compute
+// only: the arguments of gru_forward_bf16 with hb and rhb [B, H] bf16
+// scratch in place of rh and u, then bar [1] u32 zeroed, and the plan's
+// UG = H / 16 unit groups and RG row groups (UG * RG blocks).  H % 32 == 0.
+extern "C" int gru_forward_persistent(const void* xp, const void* mask,
+                                      const void* w, void* h_seq, void* h,
+                                      void* hb, void* rhb, void* z,
+                                      void* hprev, void* bar, int res_bf16,
+                                      int T, int B, int H, int UG, int RG,
+                                      void* stream) {
+  return gru::forward_persistent_dispatch(xp, mask, w, h_seq, h, hb, rhb, z,
+                                          hprev, bar, res_bf16, T, B, H, 0,
+                                          UG, RG, stream);
+}
+
+// registers a thread, local (spilled) bytes a thread and shared bytes a
+// block of kernel `which` (0: persistent at width H with R rows of carry a
+// block; 1, 2: the steps path's two kernels), bf16 compute and residuals
+extern "C" int gru_forward_info(int which, int H, int R, int* regs,
+                                int* local_bytes, int* smem_bytes) {
+  return gru::forward_info(which, H, R, regs, local_bytes, smem_bytes);
 }
 
 extern "C" const char* ptt_error_string(int err) {

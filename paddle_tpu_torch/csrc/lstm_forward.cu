@@ -302,17 +302,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* p) {
       : "r"(s));
 }
 
-// d += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, f32 sum
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t bf16_bits(const __nv_bfloat16* w,
                                               bool ok) {
   return ok ? (uint32_t)__bfloat16_as_ushort(*w) : 0u;
@@ -452,7 +441,7 @@ __global__ void __launch_bounds__(k9::THREADS, 1) lstm_fwd_persistent_kernel(
           for (int nt = 0; nt < k9::NT_MAX; ++nt) {
             if (nt < NT) {
               const uint2 bv = wk[nt * 32];
-              k9::mma_bf16(acc[nt], a, bv.x, bv.y);
+              pk::mma_bf16(acc[nt], a, bv.x, bv.y);
             }
           }
         }

@@ -25,8 +25,9 @@ bigru_backward      csrc/bigru_backward.cu      ::_gru_bwd_pallas_raw with
 logsumexp_rows      csrc/logsumexp_rows.cu      ::logsumexp_rows_pallas (K12)
 ==================  ==========================  ==============================
 
-K3/K4 and K11 share their step kernels, and K4 and K11's reverse their
-persistent kernel (``csrc/gru_common.cuh``).
+K3/K4 and K11 share their step kernels, K3 and K11's forward one
+persistent kernel and K4 and K11's reverse another
+(``csrc/gru_common.cuh``).
 
 Each wrapper runs its plain version for a CPU tensor and launches its kernel
 (or raises) for a CUDA tensor, and counts its launches

@@ -5,7 +5,11 @@ their plain versions.
 - ``bigru_forward`` replaces ``paddle_tpu/ops/pallas_kernels.py::
   _gru_pallas_raw`` called with ``batch_split=B`` (K11): ``residuals=False``
   is the inference variant, ``residuals=True`` adds the backward's
-  residuals ``z``/``h_prev`` in ``residual_dtype(H)``.
+  residuals ``z``/``h_prev`` in ``residual_dtype(H)``.  It picks K3's
+  kernel by K3's function (``gru._gru_fwd_path`` with two directions):
+  ``"persistent"`` under bf16, one cooperative launch whose blocks each
+  serve one direction, or ``"steps"``; ``BIGRU_FORWARD.launches_by_path``
+  splits the count.
 - ``bigru_backward`` replaces ``_gru_bwd_pallas_raw`` with
   ``batch_split=B``, the reverse loop.  It picks K4's kernel by K4's
   function (``gru._gru_bwd_path`` with two directions):
@@ -36,6 +40,7 @@ import torch
 from paddle_tpu_torch.ops.kernels.build import ARG_INT, ARG_PTR, register
 from paddle_tpu_torch.ops.kernels.build import device_sms as _device_sms
 from paddle_tpu_torch.ops.kernels.gru import (_gru_bwd_path, _gru_bwd_plan,
+                                              _gru_fwd_path, _gru_fwd_plan,
                                               gru_backward_plain,
                                               gru_forward_plain)
 from paddle_tpu_torch.ops.numerics import compute_dtype, residual_dtype
@@ -44,8 +49,9 @@ __all__ = ["bigru_forward", "bigru_forward_plain", "bigru_backward",
            "bigru_backward_plain", "BIGRU_FORWARD", "BIGRU_BACKWARD"]
 
 _FWD_ARGS = [ARG_PTR] * 9 + [ARG_INT] * 5 + [ARG_PTR]
-BIGRU_FORWARD = register("bigru_forward", {"bigru_forward_f32": _FWD_ARGS,
-                                           "bigru_forward_bf16": _FWD_ARGS})
+BIGRU_FORWARD = register("bigru_forward", {
+    "bigru_forward_f32": _FWD_ARGS, "bigru_forward_bf16": _FWD_ARGS,
+    "bigru_forward_persistent": [ARG_PTR] * 10 + [ARG_INT] * 7 + [ARG_PTR]})
 _ENTRY = {torch.float32: "bigru_forward_f32",
           torch.bfloat16: "bigru_forward_bf16"}
 
@@ -116,26 +122,54 @@ def bigru_forward(xp_tb: torch.Tensor, m_tb: torch.Tensor, w2: torch.Tensor,
         raise ValueError(f"bigru_forward runs on cpu or cuda, not "
                          f"{xp_tb.device}")
     cd = compute_dtype()
+    path = _gru_fwd_path(cd, batch_split, H, _device_sms(xp_tb.device),
+                         ndir=2)
+    out = _launch_fwd(xp_tb, m_tb, w2, residuals, batch_split, path)
+    BIGRU_FORWARD.count(path)
+    return out
+
+
+def _launch_fwd(xp_tb, m_tb, w2, residuals: bool, batch_split: int,
+                path: str):
+    """K11's forward on CUDA operands through the kernel of ``path``;
+    counts nothing (the wrapper counts)."""
+    T, B2, H3 = xp_tb.shape
+    H = H3 // 3
+    cd = compute_dtype()
     dev = xp_tb.device
     xp = xp_tb.float().contiguous()
     m = m_tb.float().contiguous()
     w = w2.to(cd).contiguous()
     h = torch.zeros(B2, H, device=dev)
     h_seq = torch.empty(T, B2, H, device=dev)
-    rh = torch.empty(B2, H, device=dev)
-    u = torch.empty(B2, H, device=dev)
     rd = residual_dtype(H)
     z = torch.empty(T, B2, 3 * H, dtype=rd, device=dev) if residuals else None
     hp = torch.empty(T, B2, H, dtype=rd, device=dev) if residuals else None
+    res = [z.data_ptr() if residuals else None,
+           hp.data_ptr() if residuals else None]
     with torch.cuda.device(dev):              # launch on the tensors' card
         stream = torch.cuda.current_stream(dev).cuda_stream
-        BIGRU_FORWARD.call(
-            _ENTRY[cd], xp.data_ptr(), m.data_ptr(), w.data_ptr(),
-            h_seq.data_ptr(), h.data_ptr(), rh.data_ptr(), u.data_ptr(),
-            z.data_ptr() if residuals else None,
-            hp.data_ptr() if residuals else None,
-            int(rd == torch.bfloat16), T, B2, H, batch_split, stream)
-    BIGRU_FORWARD.launches += 1
+        if path == "persistent":
+            plan = _gru_fwd_plan(batch_split, H, _device_sms(dev), ndir=2)
+            if cd != torch.bfloat16 or plan is None:
+                raise ValueError(f"the persistent forward takes bf16 "
+                                 f"compute and a plan, not {cd} at B=2x"
+                                 f"{batch_split}, H={H}")
+            hb = torch.empty(2, B2, H, dtype=torch.bfloat16, device=dev)
+            bar = torch.zeros(1, dtype=torch.int32, device=dev)
+            BIGRU_FORWARD.call(
+                "bigru_forward_persistent", xp.data_ptr(), m.data_ptr(),
+                w.data_ptr(), h_seq.data_ptr(), h.data_ptr(),
+                hb[0].data_ptr(), hb[1].data_ptr(), *res, bar.data_ptr(),
+                int(rd == torch.bfloat16), T, B2, H, batch_split, plan["ug"],
+                plan["rg"], stream)
+        else:
+            rh_u = torch.empty(2, B2, H, device=dev)
+            BIGRU_FORWARD.call(
+                _ENTRY[cd], xp.data_ptr(), m.data_ptr(), w.data_ptr(),
+                h_seq.data_ptr(), h.data_ptr(), rh_u[0].data_ptr(),
+                rh_u[1].data_ptr(), *res, int(rd == torch.bfloat16), T, B2,
+                H, batch_split, stream)
     if not residuals:
         return h_seq, h
     return h_seq, h, z, hp

@@ -5,6 +5,13 @@ plain versions.
   _gru_pallas_raw`` (K3): ``residuals=False`` is the inference variant,
   ``residuals=True`` adds the backward's residual outputs ``z``/``h_prev``
   (time-major, in ``residual_dtype(H)``), as the reference's training call.
+  On the card ``_gru_fwd_path`` picks its kernel from (compute dtype, B,
+  H, SM count) alone: ``"persistent"`` under bf16, the whole loop in one
+  cooperative launch with bf16 ``W`` resident in shared memory split by
+  16-unit groups across the SMs (``_gru_fwd_plan``), where the split
+  fits; else ``"steps"``, two launches per step.
+  ``GRU_FORWARD.launches_by_path`` splits the count.  K11's forward
+  (``ops/kernels/bigru.py``) shares both kernels and the plan.
 - ``gru_backward`` replaces ``_gru_bwd_pallas_raw`` (K4), the reverse loop,
   all in float32.  On the card ``_gru_bwd_path`` picks its kernel from (B,
   H, SM count) alone: ``"persistent"``, the whole loop in one cooperative
@@ -35,11 +42,13 @@ from paddle_tpu_torch.ops.rnn import gru_cell, gru_cell_bwd
 
 __all__ = ["gru_forward", "gru_forward_plain", "gru_backward",
            "gru_backward_plain", "GRU_FORWARD", "GRU_BACKWARD",
-           "gru_bwd_kernel_info"]
+           "gru_fwd_kernel_info", "gru_bwd_kernel_info"]
 
 _FWD_ARGS = [ARG_PTR] * 9 + [ARG_INT] * 4 + [ARG_PTR]
-GRU_FORWARD = register("gru_forward", {"gru_forward_f32": _FWD_ARGS,
-                                       "gru_forward_bf16": _FWD_ARGS})
+GRU_FORWARD = register("gru_forward", {
+    "gru_forward_f32": _FWD_ARGS, "gru_forward_bf16": _FWD_ARGS,
+    "gru_forward_persistent": [ARG_PTR] * 10 + [ARG_INT] * 6 + [ARG_PTR],
+    "gru_forward_info": [ARG_INT] * 3 + [ARG_PTR] * 3})
 _ENTRY = {torch.float32: "gru_forward_f32",
           torch.bfloat16: "gru_forward_bf16"}
 
@@ -57,6 +66,15 @@ _PG_STAGE_BYTES = 2 * 16 * _PG_KC * 4
 #: rows a direction the persistent kernel takes (16 at a time): a step's
 #: d_z rows, the d_zc stream and the carries (~9 MB at H = 512) stay in L2
 _PG_ROWS_MAX = 1024
+
+#: the persistent forward kernel's fixed shapes (csrc/gru_common.cuh,
+#: namespace k3): a block holds the three gate columns of 16 units over the
+#: full depth H in bf16 (96 H bytes of mma B fragments) and the f32 carry
+#: and update gate of those units for each of its rows (128 bytes a row)
+_PF_NU = 16
+#: rows a direction the persistent forward takes (16 at a time), above
+#: every batch the port runs (serve and dslgen B <= 64, training 384)
+_PF_ROWS_MAX = 1024
 
 _RES_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -131,6 +149,18 @@ def gru_forward(xp: torch.Tensor, mask: torch.Tensor, w_h: torch.Tensor,
         raise ValueError(f"gru_forward runs on cpu or cuda, not "
                          f"{xp.device}")
     cd = compute_dtype()
+    path = _gru_fwd_path(cd, B, H, _device_sms(xp.device))
+    out = _launch_fwd(xp, mask, w_h, h0, residuals, path)
+    GRU_FORWARD.count(path)
+    return out
+
+
+def _launch_fwd(xp, mask, w_h, h0, residuals: bool, path: str):
+    """K3 on CUDA operands through the kernel of ``path``; counts nothing
+    (the wrapper counts)."""
+    B, T, H3 = xp.shape
+    H = H3 // 3
+    cd = compute_dtype()
     dev = xp.device
     xp_tb = xp.float().transpose(0, 1).contiguous()        # time-major
     m_tb = mask.float().transpose(0, 1).contiguous()
@@ -138,23 +168,138 @@ def gru_forward(xp: torch.Tensor, mask: torch.Tensor, w_h: torch.Tensor,
     h = (torch.zeros(B, H, device=dev) if h0 is None
          else h0.float().clone().contiguous())
     h_seq = torch.empty(T, B, H, device=dev)
-    rh = torch.empty(B, H, device=dev)
-    u = torch.empty(B, H, device=dev)
     rd = residual_dtype(H)
     z = torch.empty(T, B, 3 * H, dtype=rd, device=dev) if residuals else None
     hp = torch.empty(T, B, H, dtype=rd, device=dev) if residuals else None
+    res = [z.data_ptr() if residuals else None,
+           hp.data_ptr() if residuals else None]
     with torch.cuda.device(dev):              # launch on the tensors' card
         stream = torch.cuda.current_stream(dev).cuda_stream
-        GRU_FORWARD.call(
-            _ENTRY[cd], xp_tb.data_ptr(), m_tb.data_ptr(), w.data_ptr(),
-            h_seq.data_ptr(), h.data_ptr(), rh.data_ptr(), u.data_ptr(),
-            z.data_ptr() if residuals else None,
-            hp.data_ptr() if residuals else None,
-            int(rd == torch.bfloat16), T, B, H, stream)
-    GRU_FORWARD.launches += 1
+        if path == "persistent":
+            plan = _gru_fwd_plan(B, H, _device_sms(dev))
+            if cd != torch.bfloat16 or plan is None:
+                raise ValueError(f"the persistent forward takes bf16 "
+                                 f"compute and a plan, not {cd} at B={B}, "
+                                 f"H={H}")
+            hb = torch.empty(2, B, H, dtype=torch.bfloat16, device=dev)
+            bar = torch.zeros(1, dtype=torch.int32, device=dev)
+            GRU_FORWARD.call(
+                "gru_forward_persistent", xp_tb.data_ptr(), m_tb.data_ptr(),
+                w.data_ptr(), h_seq.data_ptr(), h.data_ptr(),
+                hb[0].data_ptr(), hb[1].data_ptr(), *res, bar.data_ptr(),
+                int(rd == torch.bfloat16), T, B, H, plan["ug"], plan["rg"],
+                stream)
+        else:
+            rh_u = torch.empty(2, B, H, device=dev)
+            GRU_FORWARD.call(
+                _ENTRY[cd], xp_tb.data_ptr(), m_tb.data_ptr(), w.data_ptr(),
+                h_seq.data_ptr(), h.data_ptr(), rh_u[0].data_ptr(),
+                rh_u[1].data_ptr(), *res, int(rd == torch.bfloat16), T, B, H,
+                stream)
     if not residuals:
         return h_seq.transpose(0, 1), h
     return h_seq.transpose(0, 1), h, z, hp
+
+
+def _gru_fwd_plan(B: int, H: int, sm_count: int, ndir: int = 1
+                  ) -> Optional[Dict[str, int]]:
+    """The persistent forward kernel's split over one block per SM, or None
+    where it does not fit: ``ndir`` directions (1 for K3, 2 for K11's
+    forward) x ``ug = H / 16`` unit groups x ``rg`` row groups, as many as
+    the SMs allow.  A block holds the three gate columns of its direction's
+    units ``16 ug ..`` over the full depth H and computes them complete for
+    the 16-row tiles ``rg, rg + rgs, ...`` of its direction.  ``smem`` is
+    what a block takes at the row limit.  None when B (rows a direction)
+    is outside 1..1024, H % 32 != 0, the block's share does not fit
+    232,448 bytes or there are fewer SMs than unit groups.  Depends on B
+    only through that limit; and no order of a row's sums depends on the
+    plan at all, only on H."""
+    if not 1 <= B <= _PF_ROWS_MAX:
+        return None
+    return _gru_fwd_plan_for(H, sm_count, ndir)
+
+
+def _gru_fwd_smem(H: int, rows: int, rg: int) -> int:
+    """Shared bytes a block of the persistent forward takes: W's fragments
+    and the carry and gate of the most rows a row group holds."""
+    return 96 * H + 128 * _gru_fwd_rows_a_block(rows, rg)
+
+
+def _gru_fwd_rows_a_block(rows: int, rg: int) -> int:
+    """Rows of carry a block holds: 16 x the tiles of row group 0."""
+    ntile = -(-rows // 16)
+    return -(-ntile // rg) * 16
+
+
+@functools.lru_cache(maxsize=None)
+def _gru_fwd_plan_for(H: int, sm_count: int, ndir: int
+                      ) -> Optional[Dict[str, int]]:
+    if H < 1 or H % 32 or sm_count < 1 or ndir not in (1, 2):
+        return None
+    ug = H // _PF_NU
+    rg = sm_count // (ndir * ug)
+    if rg < 1:
+        return None
+    smem = _gru_fwd_smem(H, _PF_ROWS_MAX, rg)
+    if smem > _PG_SMEM:
+        return None
+    return {"nu": _PF_NU, "ug": ug, "rg": rg, "blocks": ndir * ug * rg,
+            "smem": smem}
+
+
+def _gru_fwd_slices(plan: Dict[str, int], H: int, rows: int, ndir: int = 1
+                    ) -> List[Tuple[int, List[int], List[int]]]:
+    """Each block's (direction, columns of ``W`` it holds, batch rows of
+    its direction) as the kernel cuts them: block i serves direction ``i //
+    (ug * rg)``, unit group ``i % (ug * rg) % ug`` (columns ``j``, ``H +
+    j`` and ``2H + j`` of each of its 16 units ``j``) and row group ``i %
+    (ug * rg) // ug``, which takes the 16-row tiles ``rg, rg + rgs, ...``
+    of its direction's ``rows`` rows."""
+    ug, rgs, nu = plan["ug"], plan["rg"], plan["nu"]
+    ntile = -(-rows // 16)
+    out = []
+    for i in range(plan["blocks"]):
+        d, u, g = i // (ug * rgs), i % (ug * rgs) % ug, i % (ug * rgs) // ug
+        units = range(u * nu, (u + 1) * nu)
+        cols = [gate * H + j for gate in range(3) for j in units]
+        mine = [b for t in range(g, ntile, rgs)
+                for b in range(16 * t, min(rows, 16 * t + 16))]
+        out.append((d, cols, mine))
+    return out
+
+
+def _gru_fwd_path(dtype: torch.dtype, B: int, H: int, sm_count: int,
+                  ndir: int = 1) -> str:
+    """The forward kernel on the card: ``"persistent"`` under the bf16
+    compute policy where ``_gru_fwd_plan`` finds a split, else
+    ``"steps"`` (always under f32)."""
+    return ("persistent" if dtype == torch.bfloat16
+            and _gru_fwd_plan(B, H, sm_count, ndir) else "steps")
+
+
+def gru_fwd_kernel_info(B: int, H: int, sm_count: int, ndir: int = 1
+                        ) -> Dict[str, Tuple[int, int, int]]:
+    """(registers a thread, spilled bytes a thread, shared bytes a block) of
+    the forward kernels under bf16, the persistent one at ``B`` rows a
+    direction, width H and its plan on ``sm_count`` SMs, from
+    ``cudaFuncGetAttributes``."""
+    plan = _gru_fwd_plan(B, H, sm_count, ndir)
+    rows = _gru_fwd_rows_a_block(B, plan["rg"]) if plan else 0
+    return _kernel_info(GRU_FORWARD, "gru_forward_info",
+                        ("persistent", "steps_gates", "steps_cand"), H, rows)
+
+
+def _kernel_info(lib, fn: str, names, *args
+                 ) -> Dict[str, Tuple[int, int, int]]:
+    out = {}
+    for which, name in enumerate(names):
+        vals = [ctypes.c_int() for _ in range(3)]
+        err = getattr(lib.lib(), fn)(which, *args,
+                                     *(ctypes.byref(v) for v in vals))
+        if err != 0:
+            raise RuntimeError(f"{fn}({which}): CUDA error {err}")
+        out[name] = tuple(v.value for v in vals)
+    return out
 
 
 def _kpad(k: int) -> int:
@@ -223,17 +368,8 @@ def gru_bwd_kernel_info(H: int) -> Dict[str, Tuple[int, int, int]]:
     """(registers a thread, spilled bytes a thread, shared bytes a block) of
     the reverse kernels, the persistent one at width H, from
     ``cudaFuncGetAttributes``."""
-    out = {}
-    for which, name in enumerate(("persistent", "steps_cand",
-                                  "steps_gate")):
-        vals = [ctypes.c_int() for _ in range(3)]
-        err = GRU_BACKWARD.lib().gru_backward_info(
-            which, H, *(ctypes.byref(v) for v in vals))
-        if err != 0:
-            raise RuntimeError(f"gru_backward_info({which}): CUDA error "
-                               f"{err}")
-        out[name] = tuple(v.value for v in vals)
-    return out
+    return _kernel_info(GRU_BACKWARD, "gru_backward_info",
+                        ("persistent", "steps_cand", "steps_gate"), H)
 
 
 def _check_bwd(d_out_tb, m_tb, z_tb, hp_tb, w_t, d_hfin) -> Tuple[int, int,

@@ -1329,3 +1329,149 @@ def test_attn_dec_fwd_beyond_the_persistent_limits_takes_the_steps(dev, shape,
         want = attn_dec_fwd_plain(*args)
     for a, c in zip(got, want):
         _rel_close(a, c, 2e-5 if cd == "float32" else 5e-3)
+
+
+def _gru_fwd_args(dev, T, B, H, seed, boot=True):
+    """K3's inputs, batch-major: an input projection, a mask with a full row
+    and ragged tails, a recurrent weight scaled by its fan-in and (``boot``)
+    a boot state."""
+    rng = np.random.RandomState(seed)
+    f = np.float32
+    lens = rng.randint(1, T + 1, (B,))
+    lens[0] = T
+    arrs = [0.5 * rng.randn(B, T, 3 * H),
+            np.arange(T)[None] < lens[:, None],
+            rng.randn(H, 3 * H) * np.sqrt(2.0 / (4 * H))]
+    if boot:
+        arrs.append(0.5 * rng.randn(B, H))
+    return [torch.from_numpy(a.astype(f)).to(dev) for a in arrs]
+
+
+def _gru_fwd_paths(name="gru_forward"):
+    from paddle_tpu_torch.ops.kernels.build import LIBRARIES
+    return dict(LIBRARIES[name].launches_by_path)
+
+
+def _gru_fwd_close(got, want, tol=5e-3):
+    """chip_smoke.py's bf16 tolerances: h_seq and h_final within ``tol``
+    (max abs); the bf16 residuals within ``tol`` plus one bf16 rounding
+    step, which a last-bit difference in the f32 carry can flip."""
+    for a, c in zip(got[:2], want[:2]):
+        assert torch.isfinite(a).all()
+        assert (a - c).abs().max().item() <= tol
+    for a, c in zip(got[2:], want[2:]):
+        assert a.dtype == c.dtype
+        assert bool(((a.float() - c.float()).abs()
+                     <= tol + 2.0 ** -7 * c.float().abs()).all())
+
+
+@pytest.mark.parametrize("residuals", [False, True])
+@pytest.mark.parametrize("T,B,H", [(9, 37, 512), (6, 384, 128), (5, 3, 96),
+                                   (4, 70, 64), (3, 20, 544)])
+def test_gru_forward_persistent_matches_plain_version(dev, T, B, H,
+                                                      residuals):
+    """K3's persistent kernel (bf16: one cooperative launch, W in shared
+    memory, mma.sync products) at ragged B, several 16-row tiles a warp
+    (B = 384 at H = 128: 8 unit groups x 16 row groups), masked tails and a
+    boot state, with and without residuals (bf16 up to H = 512, f32 at
+    H = 544):
+    one launch on that path, the plain version's results within the
+    smoke's bf16 tolerances, and the steps kernels, reached through the
+    wrapper's internal entry, within the same."""
+    from paddle_tpu_torch.ops.kernels.gru import _launch_fwd
+
+    xp, mask, w_h, h0 = _gru_fwd_args(dev, T, B, H, B + H)
+    with compute_dtype_scope("bfloat16"):
+        before = _gru_fwd_paths()
+        got = gru_forward(xp, mask, w_h, h0, residuals=residuals)
+        after = _gru_fwd_paths()
+        assert after.get("persistent", 0) == before.get("persistent", 0) + 1
+        assert sum(after.values()) == sum(before.values()) + 1
+        want = gru_forward_plain(xp, mask, w_h, h0, residuals=residuals)
+        steps = _launch_fwd(xp, mask, w_h, h0, residuals, "steps")
+    assert len(got) == (4 if residuals else 2)
+    _gru_fwd_close(got, want)
+    _gru_fwd_close(steps, want)
+    padded = mask == 0
+    assert torch.equal(got[0][padded], torch.zeros_like(got[0][padded]))
+
+
+def test_gru_forward_persistent_rows_do_not_depend_on_b(dev):
+    """The first rows of a 384-row call (bf16, the flagship's width, with
+    residuals) are bit-equal to calls of 1, 37 and 64 rows on the same rows
+    (a solo decode, a ragged batch, a full prefill): each output's k order
+    depends on H alone, and the row groups only decide which block computes
+    a row.  The inference variant's rows equal the residual variant's."""
+    xp, mask, w_h = _gru_fwd_args(dev, 8, 384, 512, 3, boot=False)
+    with compute_dtype_scope("bfloat16"):
+        big = gru_forward(xp, mask, w_h, residuals=True)
+        for n in (1, 37, 64):
+            small = gru_forward(xp[:n].contiguous(), mask[:n].contiguous(),
+                                w_h, residuals=True)
+            assert torch.equal(small[0], big[0][:n])
+            assert torch.equal(small[1], big[1][:n])
+            assert torch.equal(small[2], big[2][:, :n])
+            assert torch.equal(small[3], big[3][:, :n])
+        inf = gru_forward(xp[:64].contiguous(), mask[:64].contiguous(), w_h)
+    assert torch.equal(inf[0], big[0][:64])
+    assert torch.equal(inf[1], big[1][:64])
+
+
+@pytest.mark.parametrize("B,T,H", [(384, 6, 512), (37, 5, 96)])
+def test_bigru_forward_persistent_bit_identical_to_two_gru_calls(dev, B, T,
+                                                                  H):
+    """K11's forward on its persistent path (blocks each serving one
+    direction) against K3 on its persistent path, once per direction, with
+    and without residuals: identical bits, as the fused encoder's step-1
+    loss and the fused serve's ids require."""
+    xp, m2, w2, _, _ = (t.to(dev) for t in _bigru_inputs(B, T, H, 11))
+    with compute_dtype_scope("bfloat16"):
+        before = _gru_fwd_paths("bigru_forward")
+        inf = bigru_forward(xp, m2, w2, residuals=False, batch_split=B)
+        res = bigru_forward(xp, m2, w2, residuals=True, batch_split=B)
+        assert _gru_fwd_paths("bigru_forward").get("persistent", 0) == \
+            before.get("persistent", 0) + 2
+        before = _gru_fwd_paths()
+        for rows, w in ((slice(0, B), w2[:H]), (slice(B, None), w2[H:])):
+            x, m = xp[:, rows].transpose(0, 1), m2[:, rows].t()
+            one = gru_forward(x, m, w)
+            assert torch.equal(inf[0][:, rows], one[0].transpose(0, 1))
+            assert torch.equal(inf[1][rows], one[1])
+            one = gru_forward(x, m, w, residuals=True)
+            assert torch.equal(res[0][:, rows], one[0].transpose(0, 1))
+            assert torch.equal(res[1][rows], one[1])
+            assert torch.equal(res[2][:, rows], one[2])
+            assert torch.equal(res[3][:, rows], one[3])
+        assert _gru_fwd_paths().get("persistent", 0) == \
+            before.get("persistent", 0) + 4
+        want = bigru_forward_plain(xp, m2, w2, residuals=True,
+                                   batch_split=B)
+    _gru_fwd_close(res, want)
+
+
+@pytest.mark.parametrize("cd,B,H", [("float32", 37, 512),
+                                    ("bfloat16", 5, 40),
+                                    ("bfloat16", 1025, 32)])
+def test_gru_forward_beyond_the_persistent_limits_takes_the_steps(dev, cd, B,
+                                                                  H):
+    """Under the f32 policy, with H % 32 != 0 and past the row limit, K3
+    and K11's forward take the steps kernels, with the plain versions'
+    results (f32: the same sums in another order)."""
+    tol = 1e-5 if cd == "float32" else 5e-3
+    xp, mask, w_h, h0 = _gru_fwd_args(dev, 4, B, H, 8)
+    with compute_dtype_scope(cd):
+        before = _gru_fwd_paths()
+        got = gru_forward(xp, mask, w_h, h0, residuals=True)
+        assert _gru_fwd_paths().get("steps", 0) == \
+            before.get("steps", 0) + 1
+        _gru_fwd_close(got, gru_forward_plain(xp, mask, w_h, h0,
+                                              residuals=True), tol)
+        xb = torch.cat([xp, xp]).transpose(0, 1).contiguous()
+        mb = torch.cat([mask, mask]).t().contiguous()
+        w2 = torch.cat([w_h, w_h])
+        before = _gru_fwd_paths("bigru_forward")
+        got = bigru_forward(xb, mb, w2, residuals=True, batch_split=B)
+        assert _gru_fwd_paths("bigru_forward").get("steps", 0) == \
+            before.get("steps", 0) + 1
+        _gru_fwd_close(got, bigru_forward_plain(xb, mb, w2, residuals=True,
+                                                batch_split=B), tol)

@@ -1,5 +1,6 @@
-"""The split plans and path pickers of the persistent GRU reverse kernel
-(K4, and K11's reverse with two directions) and the persistent attention
+"""The split plans and path pickers of the persistent GRU forward kernel
+(K3 and K3r, and K11's forward with two directions), the persistent GRU
+reverse kernel (K4, and K11's reverse) and the persistent attention
 decoder forward (K5): pure functions of the shapes and the SM count, so
 they are held here on the CPU; the kernels themselves are held on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
@@ -11,10 +12,87 @@ from paddle_tpu_torch.ops.kernels.attention_decoder import (
     MAX_S, _attn_dec_fwd_path, _attn_dec_fwd_plan, _attn_dec_fwd_slices,
     _attn_dec_fwd_smem)
 from paddle_tpu_torch.ops.kernels.gru import (_gru_bwd_path, _gru_bwd_plan,
-                                              _gru_bwd_slices)
+                                              _gru_bwd_slices, _gru_fwd_path,
+                                              _gru_fwd_plan, _gru_fwd_slices,
+                                              _gru_fwd_smem)
 
 SMS = 132          # an H100 SXM
 SMEM = 232448      # shared bytes a block may take on it
+
+
+@pytest.mark.parametrize("B,H,ndir", [(384, 512, 1), (384, 512, 2),
+                                      (64, 512, 1), (64, 512, 2), (1, 512, 1),
+                                      (37, 96, 1), (5, 32, 2), (33, 128, 2),
+                                      (1024, 1024, 2), (1024, 256, 1)])
+def test_gru_fwd_split_covers_w_and_the_rows_once(B, H, ndir):
+    """Within each (direction, row group), the unit groups cut [0, H) into
+    disjoint 16-unit ranges, each block holding the r, u and c columns of
+    its units over the full depth H, so every column of a direction's W
+    [H, 3H] is held once; every row of a direction lies in exactly one row
+    group; the plan does not depend on B, and a block's rows of carry fit
+    its shared memory at any B up to the limit."""
+    plan = _gru_fwd_plan(B, H, SMS, ndir)
+    assert plan == _gru_fwd_plan(1, H, SMS, ndir)
+    assert plan["blocks"] == ndir * plan["ug"] * plan["rg"] <= SMS
+    assert plan["ug"] == H // 16 and plan["nu"] == 16
+    assert _gru_fwd_smem(H, B, plan["rg"]) <= plan["smem"] <= SMEM
+    slices = _gru_fwd_slices(plan, H, B, ndir)
+    per_dir = plan["ug"] * plan["rg"]
+    for d in range(ndir):
+        rows = []
+        for g in range(plan["rg"]):
+            group = [s for i, s in enumerate(slices)
+                     if s[0] == d and i % per_dir // plan["ug"] == g]
+            assert len(group) == plan["ug"]
+            cols = sorted(c for _, cs, _ in group for c in cs)
+            assert cols == list(range(3 * H))
+            assert all(s[2] == group[0][2] for s in group)
+            rows += group[0][2]
+        assert sorted(rows) == list(range(B))
+
+
+def test_gru_fwd_plan_at_the_flagship_shapes():
+    """The default training step's K3r (B = 384), the fused_bigru step's
+    K11r (2 x 384 rows), a serve prefill's K3 and K11 (64 and 2 x 64 rows)
+    and a solo decode's (1 row) take the persistent kernel under bf16 on
+    the same blocks: 32 unit groups of 16 units (49,152 bytes of bf16 W a
+    block) x 4 row groups = 128 blocks, or x 2 a direction for K11."""
+    one = {"nu": 16, "ug": 32, "rg": 4, "blocks": 128, "smem": 81920}
+    two = {"nu": 16, "ug": 32, "rg": 2, "blocks": 128, "smem": 114688}
+    for B in (384, 64, 1):
+        assert _gru_fwd_plan(B, 512, SMS) == one
+        assert _gru_fwd_plan(B, 512, SMS, 2) == two
+        for ndir in (1, 2):
+            assert _gru_fwd_path(torch.bfloat16, B, 512, SMS,
+                                 ndir) == "persistent"
+            assert _gru_fwd_path(torch.float32, B, 512, SMS, ndir) == "steps"
+    # shared bytes a block takes at these batches: W's fragments and 128
+    # bytes a row of carry (6 tiles at B = 384, 12 a block for K11)
+    assert _gru_fwd_smem(512, 384, 4) == 49152 + 128 * 96
+    assert _gru_fwd_smem(512, 384, 2) == 49152 + 128 * 192
+    assert _gru_fwd_smem(512, 1, 4) == 49152 + 128 * 16
+
+
+@pytest.mark.parametrize("dt,B,H,sms,ndir,want", [
+    (torch.bfloat16, 384, 512, SMS, 1, "persistent"),
+    (torch.bfloat16, 384, 512, SMS, 2, "persistent"),
+    (torch.bfloat16, 1024, 512, SMS, 2, "persistent"),
+    (torch.bfloat16, 1024, 1024, SMS, 2, "persistent"),   # rg = 1
+    (torch.float32, 384, 512, SMS, 1, "steps"),           # the f32 policy
+    (torch.float32, 1, 32, SMS, 2, "steps"),
+    (torch.bfloat16, 1025, 512, SMS, 1, "steps"),         # past the rows
+    (torch.bfloat16, 0, 512, SMS, 1, "steps"),
+    (torch.bfloat16, 5, 40, SMS, 1, "steps"),             # H % 32
+    (torch.bfloat16, 5, 16, SMS, 2, "steps"),
+    (torch.bfloat16, 384, 1088, SMS, 1, "steps"),         # shared bytes
+    (torch.bfloat16, 384, 1056, SMS, 2, "persistent"),    # at the limit
+    (torch.bfloat16, 384, 1088, SMS, 2, "steps"),         # SMs < 2 ug
+    (torch.bfloat16, 384, 512, 31, 1, "steps"),           # SMs < ug
+    (torch.bfloat16, 384, 512, 32, 1, "persistent")])
+def test_gru_fwd_path_is_a_function_of_dtype_shape_and_sm_count(dt, B, H,
+                                                                sms, ndir,
+                                                                want):
+    assert _gru_fwd_path(dt, B, H, sms, ndir) == want
 
 
 @pytest.mark.parametrize("B,H,ndir", [(384, 512, 1), (384, 512, 2),
