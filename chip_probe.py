@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Opt-in measurements of the PyTorch/H100 port beside ``chip_smoke.py``.
 
-    python3 chip_probe.py [chunks] [profile] [textclf] [dslgen] [variants]
-                                                        (all if none named)
+    python3 chip_probe.py [chunks] [profile] [textclf] [dslgen] [k8plans]
+                          [k8variants] [variants] [build]  (all if none named)
 
 Needs one CUDA card and the checkout beside it.  It checks nothing that
 ``chip_smoke.py`` does not; it measures what the smoke run leaves out to
@@ -25,7 +25,20 @@ textclf  the same for one training step of the text-classification path
          bf16, Adam) at each of its widths (H=256, H=1280);
 dslgen   the same for one generation call of ``chip_smoke.py``'s dslgen
          phase (the demo/seqToseq net's ``beam_search`` layer, 64 sources,
-         beam 3, 32 steps, bf16);
+         beam 3, 32 steps, bf16), K8's kernels listed wherever they rank;
+k8plans  K8 (top-k + logsumexp over logits) at the DSL generation's
+         readout (N = 192, V = 30000, k = 3, f32 and bf16) under every plan
+         of 1, 2, 4 or 8 blocks a row and chunks of 8 to 64 KB, at the
+         committed 256 threads a block and in edited copies of its source
+         built for 128 and 512: the device time of one call replayed from a
+         CUDA graph (L2 flushed) and of 20 calls back to back in one graph
+         (L2 warm), in turns (forward, then backward), and whether ids and
+         values equal the plain version's; the measurement ``_k8_plan``
+         was chosen by;
+k8variants where K8 spends its time at that readout: edited copies of
+         its source, each with a piece of its top-k or logsumexp work
+         switched off at compile time (results wrong by design), timed in
+         turns with the copy as committed, twice;
 variants where the persistent K3 (the GRU forward loop: K3r at B=384
          and K3 at B=64, T=32, H=512, bf16; K11r at 2x384 on the same
          kernel), K4 (the GRU reverse loop, B=384, T=32, H=512) and K5
@@ -33,7 +46,10 @@ variants where the persistent K3 (the GRU forward loop: K3r at B=384
          their time: edited copies of their sources, each with one phase
          switched off at compile time (their results are wrong by
          design), built into ``paddle_tpu_torch/_build/variants`` and
-         timed in turns with the copy as committed, twice.
+         timed in turns with the copy as committed, twice;
+build    cold builds of the kernel libraries into a scratch directory:
+         each source alone, one ``nvcc`` at a time, then all at once as
+         ``build_all`` starts them (the smoke run's build time).
 
 Prints one line per measurement and the card line first.
 """
@@ -187,9 +203,11 @@ def _textclf_setup(dev, hidden: int):
     return step
 
 
-def _profile_step(label: str, step, top_n: int = 8) -> None:
+def _profile_step(label: str, step, top_n: int = 8, keep: str = "") -> None:
     """Three unprofiled steps, then one under ``torch.profiler`` (CUDA
-    activity): device kernel time against the step's host time."""
+    activity): device kernel time against the step's host time; the
+    ``top_n`` kernels with the most device time, and besides them every
+    kernel whose name holds ``keep`` (where given)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -208,7 +226,9 @@ def _profile_step(label: str, step, top_n: int = 8) -> None:
     if not kernels:
         smoke.fail("profile", "the profiler recorded no device time")
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top_n]
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    top = ranked[:top_n] + [e for e in ranked[top_n:]
+                            if keep and keep in e.key]
     print(f"profile: {label} under torch.profiler (CUDA activity): "
           f"host {step_s * 1e3:.2f} ms (unprofiled steps "
           f"{[round(x * 1e3, 2) for x in warm]} ms), device kernel time "
@@ -253,7 +273,88 @@ def probe_dslgen(dev):
 
     _profile_step(f"one DSL generation call ({smoke.DSLGEN_B} sources, beam "
                   f"{smoke.BEAM}, max_length {smoke.MAX_LEN}, bf16)", step,
-                  top_n=12)
+                  top_n=12, keep="topk")
+
+
+#: the K8 plans ``k8plans`` times: blocks a row and bytes of a staged
+#: chunk; and the block widths of edited copies it times them at besides
+#: the committed 256 threads
+K8_CLUSTERS, K8_CHUNKS = (1, 2, 4, 8), (8192, 16384, 32768, 65536)
+K8_WIDTHS = {128: ("K8_T128",), 512: ("K8_T512",)}
+
+
+def _stream_ms(fn, calls: int = 20) -> float:
+    """Device time a call of ``calls`` calls captured back to back in one
+    CUDA graph and replayed, L2 not flushed (a decode step's logits were
+    just written, and 23 MB stay in the 50 MB L2)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
+
+
+def probe_k8plans(dev):
+    import torch
+
+    from paddle_tpu_torch.ops.kernels import build as B
+    from paddle_tpu_torch.ops.kernels import topk_logits as TL
+
+    built = _build_variants(B, (("topk_lse_logits", "topk_lse_logits.cu",
+                                 K8_WIDTHS),))
+    lib = TL.TOPK_LSE_LOGITS
+    committed = lib._lib
+    builds = {TL._THREADS: None, **{t: built[("topk_lse_logits", t)]
+                                    for t in K8_WIDTHS}}
+    N, V, k = smoke.DSLGEN_B * smoke.BEAM, smoke.DSLGEN_VOCAB, smoke.BEAM
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    g = torch.Generator().manual_seed(smoke.SEED + 7)
+    x32 = torch.randn(N, V, generator=g).to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        x = x32.to(dt)
+        pv, pi, pl = TL.topk_lse_logits_plain(x, k)
+        runs = [(t, p) for t in builds for p in dict.fromkeys(
+            TL._plan_for(V, dt, c, b) for c in K8_CLUSTERS
+            for b in K8_CHUNKS)]
+        times = {r: [] for r in runs}
+        checks = {}
+        for order in (runs, runs[::-1]):
+            for t, p in order:
+                if builds[t] is None:
+                    lib._lib = committed
+                else:
+                    _load_as(lib, builds[t])
+                kv, ki, kl = TL._launch(x, k, p)
+                torch.cuda.synchronize()
+                checks[(t, p)] = (torch.equal(kv, pv) and torch.equal(ki, pi),
+                                  (kl - pl).abs().max().item())
+                times[(t, p)].append((
+                    smoke.graph_ms(lambda: TL._launch(x, k, p), flush),
+                    _stream_ms(lambda: TL._launch(x, k, p))))
+        lib._lib = committed
+        chosen = (TL._THREADS, TL._k8_plan(V, dt))
+        for t, p in runs:
+            same, err = checks[(t, p)]
+            (g1, s1), (g2, s2) = times[(t, p)]
+            print(f"k8plans: {str(dt)[6:]} N={N} V={V} k={k} C="
+                  f"{p.clusters} T={t} S={p.slice} CH={p.chunk}: "
+                  f"device ms (one call, L2 flushed) {g1:.5f} / {g2:.5f}, "
+                  f"(20 calls back to back) {s1:.5f} / {s2:.5f}"
+                  f"{' (_k8_plan)' if (t, p) == chosen else ''}; ids and "
+                  f"values identical {same}, lse max abs err {err:.2e}",
+                  flush=True)
 
 
 #: the edits of ``variants``: each puts one phase of the persistent K3 or
@@ -300,8 +401,30 @@ VARIANT_EDITS = {
          "    if (t + 1 < T && !NO_BARRIER) pk::grid_sync(bar, target);"),
     ],
 }
+VARIANT_EDITS["topk_lse_logits.cu"] = [
+    ("constexpr int THREADS = 256;",
+     "constexpr int THREADS = K8_T128 ? 128 : K8_T512 ? 512 : 256;"),
+    ("k8::warp_kth_largest(lmax, k, lane, wmax, thr);",
+     "k8::warp_kth_largest(lmax, ONE_THETA ? 1 : k, lane, wmax, thr);"),
+    ("        t[e] = e < n ? k8::ex2(", "        t[e] = e < n && !NO_LSE ? k8::ex2("),
+    ("    if (lmax >= thr) {",
+     "    if (NO_RESCAN) {\n      if (lmax >= thr) {\n        tv[0] = lmax;\n"
+     "        ti[0] = g0 + tid;\n      }\n    } else if (lmax >= thr) {"),
+    ("  for (int q = 0; q < k; ++q) {\n    float bv = tv[0];",
+     "  if (NO_ROUNDS && lane == 0) {\n#pragma unroll\n"
+     "    for (int q = 0; q < KB; ++q)\n      if (q < k) {\n"
+     "        w_v[warp * KB + q] = tv[q];\n        w_i[warp * KB + q] = ti[q];\n"
+     "      }\n  }\n  for (int q = 0; q < (NO_ROUNDS ? 0 : k); ++q) {\n"
+     "    float bv = tv[0];"),
+    ("    for (int q = 0; q < k; ++q) {\n      k8::warp_next<PB>",
+     "    if (NO_ROUNDS && lane < k) {\n      ov = cv[0];\n      oi = ci[0];\n"
+     "    }\n    for (int q = 0; q < (NO_ROUNDS ? 0 : k); ++q) {\n"
+     "      k8::warp_next<PB>"),
+]
 VARIANT_SWITCHES = ("NO_FMA", "NO_BARRIER", "NO_EPILOGUE", "NO_PRODUCTS",
-                    "NO_ATTENTION", "NO_SCORES", "NO_CONTEXT", "NO_STORES")
+                    "NO_ATTENTION", "NO_SCORES", "NO_CONTEXT", "NO_STORES",
+                    "ONE_THETA", "NO_LSE", "NO_RESCAN", "NO_ROUNDS",
+                    "K8_T128", "K8_T512")
 K3_VARIANTS = {"as committed": (), "no products": ("NO_PRODUCTS",),
                "no barriers": ("NO_BARRIER",),
                "no epilogue stores": ("NO_STORES",),
@@ -310,15 +433,32 @@ K4_VARIANTS = {"as committed": (), "no FMA loop": ("NO_FMA",),
                "no barriers": ("NO_BARRIER",),
                "no epilogues": ("NO_EPILOGUE",),
                "no FMA loop, no barriers": ("NO_FMA", "NO_BARRIER")}
+#: K8's top-k machinery: the threshold's k rounds, the lanes' rescan, the
+#: warp's and the block's k selection rounds (a warp's lists taken as they
+#: are, the block's first candidates), and the lse's 2^x terms
+K8_VARIANTS = {"as committed": (), "no lse terms": ("NO_LSE",),
+               "no rescan": ("NO_RESCAN",),
+               "no warp and block rounds": ("NO_ROUNDS",),
+               "no top-k work": ("ONE_THETA", "NO_RESCAN", "NO_ROUNDS")}
 K5_VARIANTS = {"as committed": (), "no products": ("NO_PRODUCTS",),
                "no attention": ("NO_ATTENTION",), "no scores": ("NO_SCORES",),
                "no context": ("NO_CONTEXT",), "no barriers": ("NO_BARRIER",),
                "no products, no attention": ("NO_PRODUCTS", "NO_ATTENTION")}
 
 
-def _build_variants(B):
-    """Edited copies of csrc/ built with each variant's switches (one nvcc
-    each, all at once) -> {(library, variant): path of the .so}."""
+#: the libraries ``variants`` builds edited copies of: (library, source,
+#: variants)
+VARIANT_BUILDS = (("gru_forward", "gru_forward.cu", K3_VARIANTS),
+                  ("bigru_forward", "bigru_forward.cu", K3_VARIANTS),
+                  ("gru_backward", "gru_backward.cu", K4_VARIANTS),
+                  ("attn_dec_fwd", "attn_dec_fwd.cu", K5_VARIANTS),
+                  ("topk_lse_logits", "topk_lse_logits.cu", K8_VARIANTS))
+
+
+def _build_variants(B, builds):
+    """Edited copies of csrc/ built for ``builds`` with each variant's
+    switches (one nvcc each, all at once) -> {(library, variant): path of
+    the .so}."""
     out = os.path.join(B.BUILD_DIR, "variants")
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(B.CSRC_DIR, out)
@@ -333,14 +473,7 @@ def _build_variants(B):
         with open(path, "w") as f:
             f.write(text)
     jobs = {}
-    for lib, source, variants in (("gru_forward", "gru_forward.cu",
-                                   K3_VARIANTS),
-                                  ("bigru_forward", "bigru_forward.cu",
-                                   K3_VARIANTS),
-                                  ("gru_backward", "gru_backward.cu",
-                                   K4_VARIANTS),
-                                  ("attn_dec_fwd", "attn_dec_fwd.cu",
-                                   K5_VARIANTS)):
+    for lib, source, variants in builds:
         for i, (tag, on) in enumerate(variants.items()):
             so = os.path.join(out, f"{lib}-{i}.so")
             flags = [f"-D{s}={int(s in on)}" for s in VARIANT_SWITCHES]
@@ -379,7 +512,7 @@ def probe_variants(dev):
     from paddle_tpu_torch.ops.kernels import gru as G
     from paddle_tpu_torch.ops.numerics import compute_dtype_scope
 
-    built = _build_variants(B)
+    built = _build_variants(B, VARIANT_BUILDS[:4])
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     xp, mask, w_h, d_out, d_hfin = smoke._train_gru_inputs(dev)
     with compute_dtype_scope("bfloat16"):
@@ -420,6 +553,66 @@ def probe_variants(dev):
                           for tag, (a, b) in times.items()), flush=True)
 
 
+def probe_k8variants(dev):
+    import torch
+
+    from paddle_tpu_torch.ops.kernels import build as B
+    from paddle_tpu_torch.ops.kernels import topk_logits as TL
+
+    built = _build_variants(B, VARIANT_BUILDS[4:])
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    N, V, k = smoke.DSLGEN_B * smoke.BEAM, smoke.DSLGEN_VOCAB, smoke.BEAM
+    g = torch.Generator().manual_seed(smoke.SEED + 7)
+    x32 = torch.randn(N, V, generator=g).to(dev)
+    lib = TL.TOPK_LSE_LOGITS
+    committed = lib._lib
+    for dt in (torch.float32, torch.bfloat16):
+        x = x32.to(dt)
+        plan = TL._k8_plan(V, dt)
+        times = {tag: [] for tag in K8_VARIANTS}
+        for order in (list(K8_VARIANTS), list(K8_VARIANTS)[::-1]):
+            for tag in order:
+                _load_as(lib, built[("topk_lse_logits", tag)])
+                times[tag].append((
+                    smoke.graph_ms(lambda: TL._launch(x, k, plan), flush),
+                    _stream_ms(lambda: TL._launch(x, k, plan))))
+        lib._lib = committed
+        print(f"k8variants: {str(dt)[6:]} N={N} V={V} k={k} plan "
+              f"{tuple(plan)}, device ms (one call, L2 flushed; 20 calls back to back), "
+              f"two turns: " + "; ".join(
+                  f"{tag} {a:.5f} / {c:.5f}, {b:.5f} / {d:.5f}"
+                  for tag, ((a, b), (c, d)) in times.items()), flush=True)
+
+
+def probe_build(dev):
+    from paddle_tpu_torch.ops.kernels import build as B
+
+    out = os.path.join(B.BUILD_DIR, "cold")
+
+    def nvcc(lib):
+        return subprocess.Popen(
+            [B._nvcc(), *B.NVCC_FLAGS, "-o",
+             os.path.join(out, f"{lib.name}.so"), lib.source],
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+
+    def seconds(libs):
+        shutil.rmtree(out, ignore_errors=True)
+        os.makedirs(out)
+        t0 = time.perf_counter()
+        procs = [nvcc(lib) for lib in libs]
+        if any(p.wait() for p in procs):
+            smoke.fail("build", "nvcc failed")
+        return time.perf_counter() - t0
+
+    alone = {name: seconds([lib]) for name, lib in B.LIBRARIES.items()}
+    together = seconds(list(B.LIBRARIES.values()))
+    shutil.rmtree(out, ignore_errors=True)
+    print(f"build: all at once {together:.2f} s; each alone "
+          + ", ".join(f"{n} {t:.2f} s" for n, t in
+                      sorted(alone.items(), key=lambda x: -x[1])),
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -431,7 +624,8 @@ def main() -> int:
 
     probes = {"chunks": probe_chunks, "profile": probe_profile,
               "textclf": probe_textclf, "dslgen": probe_dslgen,
-              "variants": probe_variants}
+              "k8plans": probe_k8plans, "k8variants": probe_k8variants,
+              "variants": probe_variants, "build": probe_build}
     wanted = sys.argv[1:] or list(probes)
     unknown = set(wanted) - set(probes)
     if unknown:

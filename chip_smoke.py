@@ -29,7 +29,10 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             classification: K9 without and with residuals and K10, at
             both widths, which must take their persistent kernels under
             bf16 and are also held and timed on their per-step kernels
-            (K10 also at B = 37); DSL generation: K8),
+            (K10 also at B = 37); DSL generation: K8, one launch with
+            each row split over a thread block cluster, ids and values
+            identical to its plain version, rows at N = 37 bit-equal to
+            N = 192's, also timed from a CUDA graph and by its host time),
             with registers, spills and shared bytes of the redesigned
             kernels, with its time (CUDA events,
             L2 flushed before each call), the plain version's time, the
@@ -152,8 +155,9 @@ TOL = {
     "gru_forward/bfloat16": 5e-3,
     # exact bf16 products, f32 sums of 512 terms in another order
     "topk_lse_readout": 1e-4,
-    # K8's lse (max abs; ~10.8 here): the same f32 exps summed over 30000
-    # logits in another order (per 512-column tile, then across tiles)
+    # K8's lse (max abs; ~10.8 here): f32 sums of 30000 terms in another
+    # order (per lane, warp, block, then across the cluster), each term
+    # 2^(x log2 e) from the card's ex2 (relative error about 2^-22)
     "topk_lse_logits": 1e-5,
     # K1 statistics (lse, per_tok ~ 10): exact bf16 products, f32 sums of
     # 512 terms and of 30000 exps in another order
@@ -491,9 +495,15 @@ def check_topk_logits(K, flush, dev):
     """K8 at the DSL generation's decode step: N = 64 sources x 3 beams,
     V = 30000, k = 3, on f32 logits (the step's ``fc`` output) and on bf16
     ones, with an integer-valued tie row, a row of ties, a row with -inf
-    entries and an all -inf row: ids and values identical, lse within
-    tol."""
+    entries and an all -inf row: ids and values identical, lse within tol;
+    an N = 37 call's rows bit-equal to the same rows of the N = 192 call
+    (rows 0-36 and 96-132).  Timed as the wrapper (``ms``), as one call
+    replayed from a CUDA graph (``device_ms``) and as the wrapper's host
+    time a call."""
     import torch
+
+    from paddle_tpu_torch.ops.kernels.topk_logits import (
+        _THREADS, TOPK_LSE_LOGITS, _k8_plan, _launch, topk_logits_kernel_info)
 
     N, V, k = DSLGEN_B * BEAM, DSLGEN_VOCAB, BEAM
     g = torch.Generator().manual_seed(SEED + 7)
@@ -505,32 +515,68 @@ def check_topk_logits(K, flush, dev):
     logits = logits.to(dev)
     tol = TOL["topk_lse_logits"]
     worst = 0.0
+    plans = {}
     for dt in (torch.float32, torch.bfloat16):
         x = logits.to(dt)
+        before = TOPK_LSE_LOGITS.launches
         kv, ki, kl = K.topk_lse_logits(x, k)
+        if TOPK_LSE_LOGITS.launches != before + 1:
+            fail("kernels", f"topk_lse_logits {dt}: a call counted "
+                 f"{TOPK_LSE_LOGITS.launches - before} launches")
         pv, pi, pl = K.topk_lse_logits_plain(x, k)
         torch.cuda.synchronize()
         err = (kl - pl).abs().max().item()
         if not (torch.equal(ki, pi) and torch.equal(kv, pv) and err <= tol):
             fail("kernels", f"topk_lse_logits {dt}: ids or values differ "
                  f"from the plain version, or lse err {err} > {tol}")
+        for rows in (slice(0, 37), slice(96, 133)):
+            part = K.topk_lse_logits(x[rows].contiguous(), k)
+            if not all(torch.equal(a, b[rows])
+                       for a, b in zip(part, (kv, ki, kl))):
+                fail("kernels", f"topk_lse_logits {dt}: an N=37 call's rows "
+                     f"differ from rows {rows.start}-{rows.stop - 1} of the "
+                     f"N={N} call")
         worst = max(worst, err)
+        plan = _k8_plan(V, dt)
+        plans[str(dt)[6:]] = dict(plan._asdict(), threads=_THREADS)
         print(f"kernels: topk_lse_logits N={N} V={V} k={k} {str(dt)[6:]} "
               f"logits (tie, -inf and all -inf rows): ids and values "
-              f"identical, lse max_abs_err={err:.3e} (tol {tol})",
+              f"identical, lse max_abs_err={err:.3e} (tol {tol}); N=37 rows "
+              f"bit-equal to rows 0-36 and 96-132 of N={N}; plan "
+              f"{plan.clusters} blocks (one cluster) x {_THREADS} "
+              f"threads a row, slice {plan.slice}, chunk {plan.chunk}; "
+              f"registers / spilled bytes / static shared bytes "
+              f"{'/'.join(map(str, topk_logits_kernel_info(dt, k)))}",
               flush=True)
     x = torch.randn(N, V, generator=g).to(dev)
+    xb = x.bfloat16()
+    plan32, plan16 = _k8_plan(V, x.dtype), _k8_plan(V, xb.dtype)
     ms = time_ms(lambda: K.topk_lse_logits(x, k), flush)
+    dev_ms = graph_ms(lambda: _launch(x, k, plan32), flush)
+    bf16_ms = time_ms(lambda: K.topk_lse_logits(xb, k), flush)
+    bf16_dev_ms = graph_ms(lambda: _launch(xb, k, plan16), flush)
+    host_ms = _host_ms(lambda: K.topk_lse_logits(x, k))
     plain_ms = time_ms(lambda: K.topk_lse_logits_plain(x, k), flush)
     library_ms = time_ms(lambda: (torch.topk(x, k),
                                   torch.logsumexp(x, -1)), flush)
     nbytes = N * V * 4 + N * k * (4 + 8) + N * 4
     bms, by = bound_ms(nbytes, 3.0 * N * V, "float32")
-    print(f"kernels: topk_lse_logits f32 k={k} ms={ms:.4f} plain_ms="
-          f"{plain_ms:.4f} library_ms={library_ms:.4f} (topk + logsumexp) "
-          f"bound_ms={bms:.5f} ({by})", flush=True)
-    return _kernel_row("topk_lse_logits", "topk_lse_logits.cu", "1346",
-                       worst, ms, plain_ms, bms, by, library_ms)
+    bms16, _ = bound_ms(N * V * 2 + N * k * (4 + 8) + N * 4, 3.0 * N * V,
+                        "float32")
+    print(f"kernels: topk_lse_logits f32 k={k} ms={ms:.4f} (share of bound "
+          f"{bms / ms:.3f}) device_ms={dev_ms:.5f} (one call replayed from a "
+          f"CUDA graph; share of bound {bms / dev_ms:.3f}) the wrapper's "
+          f"host time {host_ms:.4f} ms a call; plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} (topk + logsumexp) bound_ms="
+          f"{bms:.5f} ({by}); bf16 ms={bf16_ms:.4f} device_ms="
+          f"{bf16_dev_ms:.5f} bound_ms={bms16:.5f}", flush=True)
+    row = _kernel_row("topk_lse_logits", "topk_lse_logits.cu", "1346",
+                      worst, ms, plain_ms, bms, by, library_ms)
+    row.update(device_ms=dev_ms, wrapper_host_ms=host_ms,
+               share_of_bound=bms / ms, device_share_of_bound=bms / dev_ms,
+               bf16_ms=bf16_ms, bf16_device_ms=bf16_dev_ms,
+               bf16_bound_ms=bms16, plan=plans)
+    return row
 
 
 def _kernel_row(name, source, replaces, err, ms, plain_ms, bms, by,

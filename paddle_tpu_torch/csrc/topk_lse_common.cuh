@@ -1,16 +1,23 @@
-// Shared by the two vocab-tiled top-k + logsumexp kernels:
-// topk_lse_readout.cu (K7, logits built from states @ w + b inside the
-// kernel) and topk_lse_logits.cu (K8, logits read from memory).
+// Shared by the two top-k + logsumexp kernels: topk_lse_readout.cu (K7,
+// logits built from states @ w + b inside the kernel) and
+// topk_lse_logits.cu (K8, logits read from memory).
 //
-// Both split the reference's sequential grid over vocab tiles into two
-// passes.  Pass 1 reduces one row's slice of one vocab tile in one warp
-// (row_tile_stats) to the tile's max, sum-exp and top-k; pass 2
-// (topk_lse_merge_kernel) merges the per-tile lists and statistics of each
-// row in one warp.  The order is larger value first, then lower vocab id
-// (lax.top_k's); the logsumexp runs over finite-min-clamped values, so an
-// all -inf tile contributes exp(-FLT_MAX - m) == 0 and never a nan.  Sums
-// are taken in a fixed order that depends on the vocabulary only, never on
-// the number of rows.
+// The order is larger value first, then lower vocab id (lax.top_k's); the
+// logsumexp runs over finite-min-clamped values, so an all -inf stretch
+// contributes exp(-FLT_MAX - m) == 0 and never a nan.  Sums are taken in a
+// fixed order that depends on the vocabulary only, never on the number of
+// rows.
+//
+// - better / warp_best / consider_after: the total order, a warp's best
+//   candidate, and a candidate taken only strictly after the previous
+//   pick (selection rounds over lists: K7's merge pass, K8's block and
+//   cluster merges);
+// - fold_stats: two (max, sum-exp) pairs folded into one, with the same
+//   bits whichever side is which (K7's epilogue, K8's merges);
+// - row_tile_stats and topk_lse_merge_kernel (launch_merge): K7's two
+//   passes.  Pass 1 reduces one row's slice of one vocab tile in one warp
+//   (row_tile_stats) to the tile's max, sum-exp and top-k; pass 2 merges
+//   the per-tile lists and statistics of each row in one warp.
 
 #pragma once
 
@@ -54,6 +61,28 @@ __device__ __forceinline__ void warp_best(float& v, int& i) {
       i = oi;
     }
   }
+}
+
+// (bv, bi) <- (v, i) if i is a candidate, lies strictly after the previous
+// pick (pv, pi) in the order (any candidate when pi < 0) and beats (bv, bi)
+__device__ __forceinline__ void consider_after(float v, int i, float pv,
+                                               int pi, float& bv, int& bi) {
+  if (i == SENTINEL) return;
+  if (pi >= 0 && !better(pv, pi, v, i)) return;
+  if (better(v, i, bv, bi)) {
+    bv = v;
+    bi = i;
+  }
+}
+
+// (m, s) <- the (max, sum-exp) of the union of (m, s) and (om, os).  The
+// products are rounded before the sum (no FMA contraction), so both sides
+// of a pair compute the same bits whichever of them is (m, s).
+__device__ __forceinline__ void fold_stats(float& m, float& s, float om,
+                                           float os) {
+  const float nm = fmaxf(m, om);
+  s = __fadd_rn(__fmul_rn(s, expf(m - nm)), __fmul_rn(os, expf(om - nm)));
+  m = nm;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -145,16 +174,8 @@ __global__ void __launch_bounds__(MERGE_THREADS) topk_lse_merge_kernel(
   for (int q = 0; q < k; ++q) {
     float bv = -CUDART_INF_F;
     int bi = SENTINEL;
-    for (int c = lane; c < C; c += 32) {
-      const float v = cv[c];
-      const int i = ci[c];
-      if (i == SENTINEL) continue;
-      if (q > 0 && !better(prev_v, prev_i, v, i)) continue;
-      if (better(v, i, bv, bi)) {
-        bv = v;
-        bi = i;
-      }
-    }
+    for (int c = lane; c < C; c += 32)
+      consider_after(cv[c], ci[c], prev_v, prev_i, bv, bi);
     warp_best(bv, bi);
     if (lane == 0) {
       out_v[(size_t)row * k + q] = bv;

@@ -24,7 +24,7 @@
 // blocks run in no order, so the state is split into two passes.  Pass 1
 // reduces each row over each vocab slice to the slice's max, sum-exp and
 // top-k (partials pv/pi [N, nV, k], pm/ps [N, nV]); pass 2
-// (topk_lse_merge_kernel, shared with K8 in topk_lse_common.cuh) merges
+// (topk_lse_merge_kernel, in topk_lse_common.cuh) merges
 // them per row in one warp.  Pass 1 has two kernels, picked by the wrapper
 // from shape, dtype and alignment (ops/kernels/topk_readout.py::
 // _topk_path):
@@ -50,8 +50,8 @@
 //   take): blocks over (32-row tile, 128-column vocab tile, nV =
 //   ceil(V / 128)); each computes its logits tile with a shared-memory
 //   tiled product on the CUDA cores (fixed k order), adds the bias, and
-//   reduces each row in one warp (topk_lse::row_tile_stats, shared with
-//   K8).  The ragged last vocab tile is masked here: w is never padded.
+//   reduces each row in one warp (topk_lse::row_tile_stats).  The ragged
+//   last vocab tile is masked here: w is never padded.
 // Tile shapes are fixed, never chosen from N, and no sum is split across
 // blocks by row count: a row's result does not depend on N, so a slot
 // table's rows match a solo decode bit for bit.
@@ -375,10 +375,10 @@ __global__ void __launch_bounds__(k7::THREADS, 1) topk_lse_tile_kernel_wgmma(
       // their two ordered lists merged
       const int r = threadIdx.x;
       const size_t base = (size_t)(row0 + r) * nC + chunk;
-      const float m0 = ex.m[0][r], m1 = ex.m[1][r];
-      const float mx = fmaxf(m0, m1);
+      float mx = ex.m[0][r], sum = ex.s[0][r];
+      topk_lse::fold_stats(mx, sum, ex.m[1][r], ex.s[1][r]);
       pm[base] = mx;
-      ps[base] = ex.s[0][r] * expf(m0 - mx) + ex.s[1][r] * expf(m1 - mx);
+      ps[base] = sum;
       int i0 = 0, i1 = 0;
       for (int q = 0; q < k; ++q) {
         const float v0 = ex.v[0][r][i0], v1 = ex.v[1][r][i1];

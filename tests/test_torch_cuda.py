@@ -676,6 +676,113 @@ def test_topk_logits_wrapper_checks(dev):
         assert torch.equal(a, b)
 
 
+def _k8_rows(N, V, seed):
+    """Gaussian logits with an integer-valued tie row, a row of zeros, a
+    row with every third logit -inf and an all -inf row."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(N, V).astype(np.float32)
+    x[0] = rng.randint(-2, 3, V)
+    x[1] = 0.0
+    x[2, ::3] = -np.inf
+    x[3] = -np.inf
+    return x
+
+
+def _k8_same_as_plain(got, logits, k):
+    pv, pi, pl = topk_lse_logits_plain(logits, k)
+    assert torch.equal(got[1], pi) and torch.equal(got[0], pv)
+    assert torch.isfinite(got[2]).all()
+    torch.testing.assert_close(got[2], pl, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V", [30000, 30001])
+def test_topk_logits_rows_do_not_depend_on_n(dev, dt, V):
+    """K8: an N = 1 or N = 37 call gives the same rows as the N = 192
+    call, bit for bit, lse included; at V = 30001 the rows of a call on
+    rows 5..41 start at other 16-byte offsets than in the N = 192 call."""
+    x = torch.from_numpy(_k8_rows(192, V, 8)).to(dev, dt)
+    full = topk_lse_logits(x, 3)
+    for rows in (slice(0, 1), slice(0, 37), slice(5, 42), slice(155, 192)):
+        part = topk_lse_logits(x[rows].contiguous(), 3)
+        for a, b in zip(part, full):
+            assert torch.equal(a, b[rows])
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V", [30001, 29999])
+def test_topk_logits_misaligned_rows_match_plain_version(dev, dt, V):
+    """K8 on a contiguous view whose base lies one element past the
+    allocation's (no row starts 16-byte aligned in the usual way) and on
+    ragged vocabularies: ids and values identical to the plain version."""
+    N = 40
+    flat = torch.from_numpy(_k8_rows(N, V, V).reshape(-1))
+    buf = torch.empty(N * V + 1, dtype=dt, device=dev)
+    buf[1:] = flat.to(dev, dt)
+    view = buf[1:].view(N, V)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    _k8_same_as_plain(topk_lse_logits(view, 3), view, 3)
+    for a, b in zip(topk_lse_logits(view, 3),
+                    topk_lse_logits(view.clone(), 3)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 3, 16])
+def test_topk_logits_ties_and_inf_rows_match_plain_version(dev, dt, k):
+    """K8 at the generation vocabulary: tie rows, a row with -inf entries
+    and an all -inf row (whose top-k are -inf logits at the lowest ids)
+    give ids and values identical to the plain version."""
+    x = _k8_rows(16, 30000, k)
+    x[4, 7:] = -np.inf                   # fewer finite logits than k = 16
+    logits = torch.from_numpy(x).to(dev, dt)
+    got = topk_lse_logits(logits, k)
+    _k8_same_as_plain(got, logits, k)
+    assert got[1][3].tolist() == list(range(k))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_topk_logits_every_plan_matches_plain_version(dev, dt):
+    """K8 under every split the kernel takes (1, 2, 4 or 8 blocks a row;
+    slices staged in one chunk or in many): ids and values identical to
+    the plain version."""
+    from paddle_tpu_torch.ops.kernels import topk_logits as TL
+
+    logits = torch.from_numpy(_k8_rows(12, 30001, 4)).to(dev, dt)
+    for clusters in (1, 2, 4, 8):
+        for chunk_bytes in (4096, TL._MAX_CHUNK_BYTES):
+            plan = TL._plan_for(30001, dt, clusters, chunk_bytes)
+            _k8_same_as_plain(TL._launch(logits, 16, plan), logits, 16)
+
+
+def test_topk_logits_is_one_launch_a_call(dev):
+    """Each K8 call adds one to its count and runs one device kernel (the
+    outputs are allocated, nothing else); N = 0 launches nothing.  The
+    trace opens with one fill kernel of its own: the tracer can miss the
+    first kernel after it starts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(192, 30000, device=dev)
+    topk_lse_logits(x, 3)
+    torch.cuda.synchronize()
+    before = launch_counts()["topk_lse_logits"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device=dev)
+        torch.cuda.synchronize()
+        for _ in range(3):
+            topk_lse_logits(x, 3)
+        torch.cuda.synchronize()
+    assert launch_counts()["topk_lse_logits"] == before + 3
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    k8 = [n for n in kernels if "topk_logits_cluster_kernel" in n]
+    assert len(k8) == 3, kernels
+    assert len(kernels) - len(k8) <= 1, kernels
+    out = topk_lse_logits(x[:0], 3)
+    assert [tuple(t.shape) for t in out] == [(0, 3), (0, 3), (0,)]
+    assert launch_counts()["topk_lse_logits"] == before + 3
+
+
 def test_seqtoseq_generation_on_the_card_matches_the_cpu(dev):
     """The DSL's seqToseq generation net at small widths in f32: the card
     (K3 for the encoder, K8 every decode step) against the CPU (their plain

@@ -19,6 +19,7 @@ import paddle_tpu.ops.decode as JD
 from paddle_tpu.ops.pallas_kernels import topk_lse_logits_pallas
 import paddle_tpu_torch.ops as TO
 import paddle_tpu_torch.ops.decode as TD
+import paddle_tpu_torch.ops.kernels.topk_logits as TL
 from paddle_tpu_torch.ops.kernels import (launch_counts, topk_lse_logits,
                                           topk_lse_logits_plain)
 from paddle_tpu_torch.ops.numerics import compute_dtype_scope
@@ -101,6 +102,44 @@ def test_plain_k8_reads_bf16_logits_as_the_reference_does():
 def test_k8_wrapper_refuses_what_the_kernel_does_not_take(bad, k, match):
     with pytest.raises(ValueError, match=match):
         topk_lse_logits(bad, k)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 3, 16])
+@pytest.mark.parametrize("V", [1, 16, 131, 515, 29999, 30000, 30001])
+def test_k8_plan_covers_each_column_once(V, k, dt):
+    """The kernel's split of a row depends on V and the dtype alone (no N,
+    no k: the function takes neither), and its slices cover [0, V) once:
+    no empty slice, no overlap, lengths the kernel takes (multiples of 8
+    columns, a chunk within its staging buffer, at most 8 blocks a row)."""
+    import inspect
+
+    assert list(inspect.signature(TL._k8_plan).parameters) == ["V", "dtype"]
+    plan = TL._k8_plan(V, dt)
+    TL._k8_plan.cache_clear()
+    assert TL._k8_plan(V, dt) == plan
+    C, S, CH = plan
+    assert 1 <= C <= TL._MAX_CLUSTER
+    assert S % TL._ALIGN == 0 and CH % TL._ALIGN == 0 and 0 < CH <= S
+    assert CH * torch.finfo(dt).bits // 8 <= TL._MAX_CHUNK_BYTES
+    cover = np.zeros(V, np.int64)
+    for r in range(C):
+        lo, hi = r * S, min((r + 1) * S, V)
+        assert lo < hi
+        cover[lo:hi] += 1
+    assert (cover == 1).all()
+    if k <= V:                      # what the wrapper takes for this k
+        topk_lse_logits(torch.zeros(2, V, dtype=dt), k)
+
+
+def test_k8_plan_at_the_generation_readout():
+    """The measured split at the DSL generation's readout (N = 192,
+    V = 30000): 2 blocks a row, each slice staged in one chunk, in f32 and
+    bf16; a larger vocabulary takes more blocks, up to 8, and stages a
+    slice in several chunks."""
+    assert TL._k8_plan(30000, torch.float32) == (2, 15000, 15000)
+    assert TL._k8_plan(30000, torch.bfloat16) == (2, 15000, 15000)
+    assert TL._k8_plan(250000, torch.float32) == (8, 31256, 16384)
 
 
 @pytest.mark.parametrize("N,V,k,forced", [
