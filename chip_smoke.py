@@ -51,7 +51,24 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             requests with ``fused_bigru`` on (K11 at every prefill, no K3):
             ids and scores identical to the first run; every K3 and K11
             launch on its persistent kernel;
-6. train    the training path: the same model at ``bench.py``'s batch
+6. server   the served entry point: ``InferenceServer(mode="generation")``
+            over ``Seq2SeqSlotBackend`` (the serve phase's model, 64 slots),
+            in three parts: the serve phase's 96 requests submitted at
+            once, each answer identical to the direct scheduler run's,
+            requests/s and tokens/s beside serve's, cold start and peak
+            memory; 192 requests with Poisson arrivals at half the closed
+            batch's requests/s (fixed seed, 1000 ms deadline), latency
+            p50/p90/p99 and the counts of completed, shed, expired and
+            evicted requests and the mean slot occupancy; one request
+            whose deadline ends mid-decode beside 8 ordinary ones (it fails
+            ``DeadlineExceeded`` and its slots recycle; the 8 answer as
+            their solo decodes).  K3 (persistent) and K7 (wgmma) must
+            launch in each part, only from the server's worker thread, and
+            no other kernel may launch; the device memory the phase leaves
+            allocated once its servers are closed and dropped is printed
+            (the worker thread's cuBLAS workspace, which PyTorch keeps past
+            the thread's end), then released, and nothing else may remain;
+7. train    the training path: the same model at ``bench.py``'s batch
             (B=384, S=32, T=32, bf16 compute) taking 6 ``Adam`` steps
             (``loss`` -> ``torch.autograd.grad`` -> ``update``) in each of
             three configurations, in turns and twice: default, fused_bigru
@@ -62,7 +79,7 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             K5 launch on its persistent kernel); then the full-width model
             at B=8 in f32, its loss and 19 gradients on the card held
             against the CPU, with both switches off and with both on;
-7. textclf  the text-classification path: ``lstm_benchmark_net`` (vocab
+8. textclf  the text-classification path: ``lstm_benchmark_net`` (vocab
             30000, embedding 128, 2 LSTM layers, max-pool, fc to 2 classes)
             through ``nn.Topology`` at ``bench.py``'s rows lstm_b64h256 and
             lstm_b64h1280 (B=64, T=100, bf16 compute), 6 ``Adam`` steps each
@@ -72,7 +89,7 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             width; K9 and K10 launches all on their persistent kernels;
             then the net at H=256, B=4 in f32, its loss and 15 gradients on
             the card held against the CPU;
-8. dslgen   generation through the nn DSL's ``beam_search`` layer: the
+9. dslgen   generation through the nn DSL's ``beam_search`` layer: the
             reference's demo/seqToseq composition (bidirectional
             ``grumemory`` encoder; ``simple_attention`` + ``mixed`` +
             ``gru_unit`` + a logits ``fc`` per step) at the WMT14 widths
@@ -83,12 +100,15 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             layer held against ``SequenceGenerator`` over a hand-written
             step (identical ids), and the net at B=2 in f32 on the card
             against the CPU;
-9. a ``{"kernels": [...]}`` line (each kernel's launches on its path's
-   run, also by kernel variant: ``launches_by_path``), then the card line
-   again, and last ``{"ok": true, "device": {...}}``.
+10. a ``{"server_launches": {...}}`` line (each part of the server
+   phase: every kernel library's launches, by kernel variant and by
+   thread), a ``{"kernels": [...]}`` line (each kernel's launches on its
+   path's run, also by kernel variant: ``launches_by_path``), then the card
+   line again, and last ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed just before each path (serve and its fused
-re-run, each training configuration, each textclf run, dslgen) is driven
+re-run, each part of the server phase, each training configuration, each
+textclf run, dslgen) is driven
 and read just after; a kernel of the path
 that was not launched fails the run.  ``chip_probe.py`` measures what this
 run leaves out to stay short (the products' chunk sizes end to end,
@@ -116,6 +136,10 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
 SEED = 0
 SLOTS, BEAM, SRC_LEN, MAX_LEN, N_REQUESTS = 64, 3, 32, 32, 96
+#: the server phase: queue bound, default deadline, open-loop requests, the
+#: longest wait for one answer, and part 3's deadline in table steps
+SERVER_MAX_QUEUE, SERVER_DEADLINE_MS, SERVER_OPEN_N = 192, 1000.0, 192
+SERVER_WAIT_S, SERVER_DEADLINE_STEPS = 120.0, 6
 #: the training batch of bench.py:253-265 and its step count here
 TRAIN_B, TRAIN_S, TRAIN_T, TRAIN_STEPS = 384, 32, 32, 6
 #: kernels launched by each path
@@ -1864,6 +1888,15 @@ def padded_source(feed):
     return full, np.asarray(lens)
 
 
+def _tensor_bytes(tree) -> int:
+    """Bytes of the tensors in a nest of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tensor_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
 def serve_path(K, dev):
     import numpy as np
     import torch
@@ -1920,7 +1953,9 @@ def serve_path(K, dev):
           f"{tokens / elapsed:.1f} tokens/s ({tokens} decode steps), "
           f"{sched.steps_run} table steps, {prefills} prefills, recycled "
           f"{sched.recycled}, launches {launches}, param init "
-          f"{t_init:.2f} s", flush=True)
+          f"{t_init:.2f} s; parameters {_tensor_bytes(params)} bytes, slot "
+          f"table {_tensor_bytes(sched.carry)} bytes on the card",
+          flush=True)
 
     # 3 requests against a solo beam search on the card (bf16, the served
     # policy): ids and scores identical; 2 against the port on the CPU
@@ -1963,7 +1998,10 @@ def serve_path(K, dev):
             fail("serve", f"cpu check of request {i} beyond tol "
                  f"{TOL_SEARCH}")
     fused_launches = serve_fused(K, model, params, reqs, results)
-    return launches, fused_launches
+    served = {"model": model, "params": params, "reqs": reqs,
+              "feeds": feeds, "results": results, "elapsed": elapsed,
+              "tokens": tokens}
+    return launches, fused_launches, served
 
 
 def serve_fused(K, model, params, reqs_off, results_off):
@@ -2010,7 +2048,282 @@ def serve_fused(K, model, params, reqs_off, results_off):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the training path
+# phase 6: the served entry point, InferenceServer over the slot table
+# ---------------------------------------------------------------------------
+
+
+def _server_launches(K, part: str):
+    """This part's launches; fail unless K3 and K7 launched, only from the
+    server's worker thread, K3 on its persistent kernel and K7 on its
+    TMA + wgmma pass 1, and no other kernel launched."""
+    launches = K.launch_counts()
+    other = {n: c for n, c in launches.items()
+             if c and n not in SERVE_KERNELS}
+    if other:
+        fail("server", f"{part}: kernels {other} launched, the server path "
+             f"runs {SERVE_KERNELS} only")
+    for name in SERVE_KERNELS:
+        if launches[name] <= 0:
+            fail("server", f"{part}: kernel {name} was not launched")
+        threads = launches.by_thread[name]
+        if not all(t.startswith("serving-worker-") for t in threads):
+            fail("server", f"{part}: {name} launches by thread {threads}, "
+                 f"not all from the server's worker")
+    _all_persistent("server", part, launches, ("gru_forward",))
+    k7 = launches.by_path["topk_lse_readout"]
+    if set(k7) != {"wgmma"}:
+        fail("server", f"{part}: topk_lse_readout launches by path {k7}, "
+             f"not all wgmma")
+    return launches
+
+
+def _launch_text(launches) -> str:
+    return ", ".join(f"{n} {launches[n]} {launches.by_path[n]} "
+                     f"{launches.by_thread[n]}" for n in SERVE_KERNELS)
+
+
+def _gen_server(backend, **kw):
+    from paddle_tpu_torch.serving import InferenceServer
+
+    kw.setdefault("default_deadline_ms", SERVER_DEADLINE_MS)
+    return InferenceServer(backend, mode="generation", slots=SLOTS,
+                           max_queue=SERVER_MAX_QUEUE, batch_delay_ms=0.0,
+                           **kw)
+
+
+def _resolve_all(futs, part: str):
+    """Every future resolves, to a result or a typed error; returns the
+    errors by index (None for a result)."""
+    from paddle_tpu_torch.serving import ServingError
+
+    errs = {}
+    for i, f in futs.items():
+        try:
+            errs[i] = f.error(SERVER_WAIT_S)
+        except TimeoutError:
+            fail("server", f"{part}: request {i} unresolved after "
+                 f"{SERVER_WAIT_S} s")
+        if errs[i] is not None and not isinstance(errs[i], ServingError):
+            fail("server", f"{part}: request {i} failed untyped: "
+                 f"{type(errs[i]).__name__}: {errs[i]}")
+    return errs
+
+
+def server_closed_batch(K, backend, served):
+    """Part 1: the serve phase's 96 requests submitted at once; each answer
+    identical to the direct scheduler run's."""
+    import numpy as np
+    import torch
+
+    reqs, feeds, results = served["reqs"], served["feeds"], served["results"]
+    torch.cuda.reset_peak_memory_stats()
+    srv = _gen_server(backend)
+    with srv:
+        srv.start(warmup_feed=feeds[0])
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        futs = {i: srv.submit(f) for i, f in enumerate(feeds)}
+        errs = _resolve_all(futs, "closed batch")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = _server_launches(K, "closed batch")
+        hz = srv.healthz()
+    differ = [i for i, e in errs.items() if e is not None
+              or not np.array_equal(futs[i].result(0)["tokens"],
+                                    results[id(reqs[i])][0]["tokens"])
+              or not np.array_equal(futs[i].result(0)["scores"],
+                                    results[id(reqs[i])][0]["scores"])]
+    rps, serve_rps = N_REQUESTS / elapsed, N_REQUESTS / served["elapsed"]
+    tokens = served["tokens"]   # identical answers: the same decode steps
+    print(f"server: closed batch: {N_REQUESTS} requests submitted at once "
+          f"to InferenceServer(generation, {SLOTS} slots, max_queue "
+          f"{SERVER_MAX_QUEUE}): {elapsed:.3f} s from the first submit to "
+          f"the last answer, {rps:.2f} requests/s, {tokens / elapsed:.1f} "
+          f"tokens/s; the direct scheduler run (serve) "
+          f"{served['elapsed']:.3f} s, {serve_rps:.2f} requests/s, "
+          f"{tokens / served['elapsed']:.1f} tokens/s; server/direct "
+          f"{rps / serve_rps:.3f}; {hz['slots']['steps']} table steps, "
+          f"mean request steps {hz['mean_request_steps']}, mean slot "
+          f"occupancy {hz['mean_slot_occupancy']}, cold_start_s "
+          f"{srv.cold_start_s:.3f} (warmup_compiles "
+          f"{hz['cold_start']['warmup_compiles']}), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; ids and "
+          f"scores identical to the direct run on "
+          f"{N_REQUESTS - len(differ)}/{N_REQUESTS}; launches "
+          f"{_launch_text(launches)}", flush=True)
+    if differ:
+        fail("server", f"closed batch: requests {differ} differ from the "
+             f"direct scheduler run (or failed)")
+    if hz["counters"]["completed"] != N_REQUESTS:
+        fail("server", f"closed batch: counters {hz['counters']}")
+    return launches, rps, elapsed / max(1, hz["slots"]["steps"])
+
+
+def server_open_loop(K, backend, vocab, rate):
+    """Part 2: SERVER_OPEN_N requests with Poisson arrivals at ``rate``
+    requests/s (arrival times from a fixed numpy seed), each with the
+    default deadline; latency percentiles from ``metrics.percentile_ms``."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.serving import (CircuitOpenError,
+                                          DeadlineExceeded, ShedError)
+
+    rng = np.random.default_rng(SEED + 7)
+    arrivals = np.cumsum(rng.exponential(1.0 / rate, SERVER_OPEN_N))
+    feeds = []
+    for _ in range(SERVER_OPEN_N):
+        n = int(rng.integers(8, SRC_LEN + 1))
+        feeds.append({"src": (rng.integers(3, vocab, (1, n)),
+                              np.asarray([n]))})
+    srv = _gen_server(backend)
+    rejected = {}
+    with srv:
+        srv.start(warmup_feed=feeds[0])
+        K.reset_launch_counts()
+        futs = {}
+        t0 = time.perf_counter()
+        for i, (t_i, feed) in enumerate(zip(arrivals, feeds)):
+            wait = t0 + t_i - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            try:
+                futs[i] = srv.submit(feed)
+            except (ShedError, DeadlineExceeded, CircuitOpenError) as e:
+                rejected[i] = type(e).__name__
+        errs = _resolve_all(futs, "open loop")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = _server_launches(K, "open loop")
+        hz = srv.healthz()
+        pct = {p: srv.metrics.percentile_ms(p) for p in (50, 90, 99)}
+    completed = sum(e is None for e in errs.values())
+    expired = sum(isinstance(e, DeadlineExceeded) for e in errs.values())
+    other = {type(e).__name__ for e in errs.values()
+             if e is not None and not isinstance(e, DeadlineExceeded)}
+    c = hz["counters"]
+    print(f"server: open loop: {SERVER_OPEN_N} requests, Poisson arrivals "
+          f"at {rate:.2f} requests/s (half the closed batch's), deadline "
+          f"{SERVER_DEADLINE_MS:.0f} ms, {elapsed:.3f} s: latency p50 "
+          f"{pct[50]:.2f} ms, p90 {pct[90]:.2f} ms, p99 {pct[99]:.2f} ms "
+          f"(completed requests, metrics.percentile_ms); completed "
+          f"{completed}, shed {c['shed']}, rejected at submit "
+          f"{len(rejected)} {sorted(set(rejected.values()))}, deadline "
+          f"expired {expired} (counter {c['deadline_expired']}), evicted "
+          f"{c['slot_evicted']} slots, other errors {sorted(other)}; mean "
+          f"slot occupancy {hz['mean_slot_occupancy']}, mean request steps "
+          f"{hz['mean_request_steps']}, {hz['slots']['steps']} table steps; "
+          f"launches {_launch_text(launches)}", flush=True)
+    if completed == 0 or other:
+        fail("server", f"open loop: {completed} completed, other errors "
+             f"{other}")
+    return launches
+
+
+def server_deadline(K, backend, served, step_s):
+    """Part 3: one request whose decode (MAX_LEN steps in the serve run)
+    outlasts its deadline, SERVER_DEADLINE_STEPS times ``step_s`` (the
+    closed batch's seconds a table step, prefills included), admitted
+    beside 8 ordinary ones: it fails ``DeadlineExceeded`` and its slots
+    are recycled; the 8 answer as their solo decodes do."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.serving import DeadlineExceeded
+
+    model, params = served["model"], served["params"]
+    reqs, feeds, results = served["reqs"], served["feeds"], served["results"]
+    full = [i for i, r in enumerate(reqs)
+            if results[id(r)][1] == MAX_LEN]
+    if len(full) < 9:
+        fail("server", f"deadline: {len(full)} requests decode {MAX_LEN} "
+             f"steps, 9 needed")
+    long_i, ordinary = full[0], full[1:9]
+    deadline_ms = 1e3 * SERVER_DEADLINE_STEPS * step_s
+    srv = _gen_server(backend, default_deadline_ms=60000.0)
+    with srv:
+        srv.start(warmup=False)
+        K.reset_launch_counts()
+        f_long = srv.submit(feeds[long_i], deadline_ms=deadline_ms)
+        futs = {i: srv.submit(feeds[i]) for i in ordinary}
+        err = _resolve_all({long_i: f_long}, "deadline")[long_i]
+        errs = _resolve_all(futs, "deadline")
+        torch.cuda.synchronize()
+        launches = _server_launches(K, "deadline")
+        hz = srv.healthz()
+    differ = []
+    for i in ordinary:
+        ids, lens = padded_source(feeds[i])
+        st, ss = model.beam_search(params, ids, lens, beam_size=BEAM,
+                                   max_len=MAX_LEN)
+        if errs[i] is not None or not (
+                np.array_equal(futs[i].result(0)["tokens"], st.cpu().numpy())
+                and np.array_equal(futs[i].result(0)["scores"],
+                                   ss.cpu().numpy())):
+            differ.append(i)
+    evicted = hz["counters"]["slot_evicted"]
+    print(f"server: deadline: request {long_i} ({MAX_LEN} decode steps, "
+          f"~{1e3 * step_s * MAX_LEN:.1f} ms) with a {deadline_ms:.2f} ms "
+          f"deadline beside 8 ordinary ones: {type(err).__name__}: {err}; "
+          f"slots evicted {evicted}, recycled {hz['slots']['recycled']}, "
+          f"occupied {hz['slots']['occupied']}; the 8 ordinary ids and "
+          f"scores identical to their solo decode on {8 - len(differ)}/8; "
+          f"launches {_launch_text(launches)}", flush=True)
+    if not (isinstance(err, DeadlineExceeded)
+            and "mid-generation" in str(err)):
+        fail("server", f"deadline: the long request ended with {err!r}, "
+             f"not an eviction")
+    if evicted != 1 or hz["slots"]["occupied"] != 0 \
+            or hz["slots"]["recycled"] != 9:
+        fail("server", f"deadline: slots {hz['slots']}, evicted {evicted}")
+    if differ:
+        fail("server", f"deadline: requests {differ} differ from their "
+             f"solo decode (or failed)")
+    return launches
+
+
+def server_path(K, dev, served):
+    """The served entry point at full width: ``InferenceServer`` in
+    generation mode over ``Seq2SeqSlotBackend`` (the serve phase's model,
+    parameters and requests), in three parts; returns each part's
+    launches.  Then the device memory the phase left allocated: the
+    servers' worker threads ran cuBLAS on a handle of their own, and
+    PyTorch keeps a cuBLAS workspace for each handle and stream past the
+    thread's end.  That is printed and freed (every handle's workspace,
+    the main thread's too, which its next product makes anew); anything
+    else left fails the phase."""
+    import torch
+
+    from paddle_tpu_torch.serving import Seq2SeqSlotBackend
+
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    backend = Seq2SeqSlotBackend(served["model"], served["params"],
+                                 src_len=SRC_LEN, beam_size=BEAM,
+                                 max_len=MAX_LEN)
+    launches = {}
+    launches["closed batch"], rps, step_s = server_closed_batch(
+        K, backend, served)
+    launches["open loop"] = server_open_loop(
+        K, backend, served["model"].src_vocab, rps / 2)
+    launches["deadline"] = server_deadline(K, backend, served, step_s)
+    del backend
+    torch.cuda.synchronize(dev)
+    left = torch.cuda.memory_allocated(dev) - before
+    torch._C._cuda_clearCublasWorkspaces()
+    cleared = torch.cuda.memory_allocated(dev) - before
+    print(f"server: device memory left allocated by the phase, its servers "
+          f"closed and dropped: {left} bytes; after freeing the cuBLAS "
+          f"workspaces (every handle's, the main thread's included): "
+          f"{cleared} bytes", flush=True)
+    if cleared > 0:
+        fail("server", f"{cleared} bytes of device memory left allocated "
+             f"beyond the cuBLAS workspaces")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the training path
 # ---------------------------------------------------------------------------
 
 
@@ -2233,7 +2546,7 @@ def train_cpu_check(K, dev, config: str = "default"):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the text-classification path
+# phase 8: the text-classification path
 # ---------------------------------------------------------------------------
 
 
@@ -2421,7 +2734,7 @@ def textclf_cpu_check(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: generation through the nn DSL's beam_search layer
+# phase 9: generation through the nn DSL's beam_search layer
 # ---------------------------------------------------------------------------
 
 
@@ -2670,7 +2983,11 @@ def main() -> int:
         del flush
         torch.cuda.empty_cache()
         phase = "serve"
-        serve_launches, serve_fused_launches = serve_path(K, dev)
+        serve_launches, serve_fused_launches, served = serve_path(K, dev)
+        phase = "server"
+        server_launches = server_path(K, dev, served)
+        del served
+        torch.cuda.empty_cache()
         phase = "train"
         train_launches = train_ab(K, dev)
         train_cpu_check(K, dev)
@@ -2733,6 +3050,12 @@ def main() -> int:
             src, key = train_launches["default"], name
         row["launches"] = src[key]
         row["launches_by_path"] = src.by_path[key]
+    # the server phase's launches as counted, by kernel library
+    print(json.dumps({"server_launches": {
+        part: {n: {"launches": c, "by_path": counts.by_path[n],
+                   "by_thread": counts.by_thread[n]}
+               for n, c in counts.items()}
+        for part, counts in server_launches.items()}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -38,9 +38,11 @@ __all__ = ["Act", "ParamAttr", "ParamSpec", "LayerOutput", "ApplyContext",
 PACK_KEYS = ("seg_ids", "positions", "seg_lengths")
 
 
-def _not_ported(what: str) -> ConfigError:
+def _not_ported(what: str, item: int = 3) -> ConfigError:
+    """``item``: the ROADMAP.md Queue 1 item that ports it (3, groups,
+    feeds and config, unless the caller names another)."""
     return ConfigError(f"{what} is not ported to paddle_tpu_torch yet "
-                       f"(ROADMAP.md, Queue 1 item 5)")
+                       f"(ROADMAP.md, Queue 1 item {item})")
 
 
 def device_pin(node: "LayerOutput", tag: str) -> "LayerOutput":
@@ -307,7 +309,7 @@ class Topology:
                               "placement)")
         if param_overrides is not None:
             raise _not_ported("apply(param_overrides=) (the pserver tier's "
-                              "table proxies)")
+                              "table proxies)", 8)
         ctx = ApplyContext(train, rng)
         env: Dict[str, Act] = {}
         all_params = {**params, **state}

@@ -146,7 +146,7 @@ def embedding(input: LayerOutput, size: int, *,
     name = name or next_name("embedding")
     if sparse_grad:
         raise _not_ported(f"the row-sparse table of embedding {name!r} "
-                          f"(sparse_grad=True)")
+                          f"(sparse_grad=True)", 8)
     V = vocab_size or input.size
     pa = _pa(param_attr, f"_{name}.w0", initial_std=0.01, init="normal")
     spec = ParamSpec(name=pa.name, shape=(V, size), attr=pa)

@@ -7,6 +7,8 @@ from typing import Callable, Dict, Optional, Union
 
 import torch
 
+from paddle_tpu_torch.ops.numerics import pointwise
+
 __all__ = ["ACTIVATIONS", "get_activation", "sigmoid", "tanh"]
 
 
@@ -15,11 +17,11 @@ def linear(x: torch.Tensor) -> torch.Tensor:
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
-    return torch.sigmoid(x)
+    return pointwise(torch.sigmoid, x)
 
 
 def tanh(x: torch.Tensor) -> torch.Tensor:
-    return torch.tanh(x)
+    return pointwise(torch.tanh, x)
 
 
 ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {

@@ -464,5 +464,5 @@ def attn_dec_bwd(d_out_tb: torch.Tensor, m_tb: torch.Tensor,
             *(t.data_ptr() for t in ins + weights), d_xp.data_ptr(),
             sum_dpre.data_ptr(), d_enc_p.data_ptr(), d_v.data_ptr(),
             d_s0.data_ptr(), work.data_ptr(), T, B, S, D, A, H2, stream)
-    ATTN_DEC_BWD.launches += 1
+    ATTN_DEC_BWD.count("single")
     return d_xp, sum_dpre, d_enc_p, d_v, d_s0

@@ -57,7 +57,9 @@ class CudaLibrary:
     exported function returns a ``cudaError_t`` as an ``int``.  ``launches``
     counts the wrapper calls that launched this library's kernel;
     ``launches_by_path`` splits that count by kernel variant where a wrapper
-    picks one of several from the shape."""
+    picks one of several from the shape, and ``launches_by_thread`` by the
+    name of the launching thread (the server's worker is
+    ``serving-worker-<generation>``)."""
 
     def __init__(self, name: str, functions: Dict[str, Sequence]):
         self.name = name
@@ -65,6 +67,7 @@ class CudaLibrary:
         self.functions = dict(functions)
         self.launches = 0
         self.launches_by_path: Dict[str, int] = {}
+        self.launches_by_thread: Dict[str, int] = {}
         self.build_seconds: Optional[float] = None
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
@@ -125,9 +128,12 @@ class CudaLibrary:
             return self._lib
 
     def count(self, path: str) -> None:
-        """One launch of the variant ``path``."""
+        """One launch of the variant ``path`` (``"single"`` where the
+        wrapper has one kernel)."""
         self.launches += 1
         self.launches_by_path[path] = self.launches_by_path.get(path, 0) + 1
+        t = threading.current_thread().name
+        self.launches_by_thread[t] = self.launches_by_thread.get(t, 0) + 1
 
     def call(self, fn: str, *args) -> None:
         """Call an exported launcher; raise on the CUDA error it returns
@@ -173,13 +179,16 @@ def build_all() -> Dict[str, float]:
 
 
 class LaunchCounts(dict):
-    """Launches by library name, and in ``by_path`` by library and kernel
-    variant (``{"single": n}`` for a library whose wrapper has one)."""
+    """Launches by library name, in ``by_path`` by library and kernel
+    variant (``{"single": n}`` for a library whose wrapper has one), and in
+    ``by_thread`` by library and launching thread."""
 
     def __init__(self, counts: Dict[str, int],
-                 by_path: Dict[str, Dict[str, int]]):
+                 by_path: Dict[str, Dict[str, int]],
+                 by_thread: Dict[str, Dict[str, int]]):
         super().__init__(counts)
         self.by_path = by_path
+        self.by_thread = by_thread
 
 
 def launch_counts() -> LaunchCounts:
@@ -187,6 +196,8 @@ def launch_counts() -> LaunchCounts:
         {name: lib.launches for name, lib in LIBRARIES.items()},
         {name: (dict(lib.launches_by_path) if lib.launches_by_path
                 else {"single": lib.launches} if lib.launches else {})
+         for name, lib in LIBRARIES.items()},
+        {name: dict(lib.launches_by_thread)
          for name, lib in LIBRARIES.items()})
 
 
@@ -194,6 +205,7 @@ def reset_launch_counts() -> None:
     for lib in LIBRARIES.values():
         lib.launches = 0
         lib.launches_by_path.clear()
+        lib.launches_by_thread.clear()
 
 
 @functools.lru_cache(maxsize=None)

@@ -120,7 +120,7 @@ def topk_lse_logits(logits: torch.Tensor, k: int
                          f"{logits.device}")
     out = _launch(logits, k, _k8_plan(V, logits.dtype))
     if N:
-        TOPK_LSE_LOGITS.launches += 1
+        TOPK_LSE_LOGITS.count("single")
     return out
 
 

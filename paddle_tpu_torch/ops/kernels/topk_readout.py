@@ -26,6 +26,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from paddle_tpu_torch.ops.kernels.build import ARG_INT, ARG_PTR, register
+from paddle_tpu_torch.ops.numerics import pointwise
 
 __all__ = ["topk_lse_readout", "topk_lse_readout_plain", "stable_topk",
            "topk_lse_stats", "TOPK_LSE_READOUT", "MAX_K", "topk_kernel_info"]
@@ -134,7 +135,8 @@ def topk_lse_stats(logits: torch.Tensor, k: int
     vals, idx = stable_topk(logits, k)
     lc = torch.clamp(logits, min=torch.finfo(torch.float32).min)
     m = lc.max(dim=-1, keepdim=True).values
-    lse = m[:, 0] + torch.log(torch.exp(lc - m).sum(dim=-1))
+    lse = m[:, 0] + pointwise(
+        torch.log, pointwise(torch.exp, lc - m).sum(dim=-1))
     return vals, idx, lse
 
 

@@ -32,9 +32,13 @@ product takes 64 matrices a call: 192 and 384 are whole multiples.
 ``chip_probe.py chunks`` times the serve and training paths under each
 setting; 384 and 1024 rows could not be told apart end to end there, 192
 rows slowed training, and the 6144-row score chunk sped both paths up
-(``PERF.md``).  On the CPU nothing is chunked: there the products are
-batch-invariant already (the CPU tests hold slot decode equal to solo
-decode bit for bit).
+(``PERF.md``).  The CPU's GEMM is not batch-invariant either (a row's
+bits at 1, 3 or 7 rows differ from the same row among 12 for [*, 8] x
+[8, 24]), so on the CPU the row products run as calls of at most
+``CPU_ROW_CHUNK`` rows, each padded to a multiple of ``CPU_ROW_PAD``
+rows.  That is a cost paid only for the CPU tests, which hold slot decode
+equal to solo decode bit for bit: a 3-row product does 8 rows' work.
+Products with batched right operands stay one call there.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ import torch.nn.functional as F
 from paddle_tpu_torch.ops.numerics import dot_dtype, mxu_cast
 
 __all__ = ["matmul", "linear", "rows_mm", "batch_bmm", "ROW_CHUNK",
-           "VECTOR_ROW_CHUNK", "BATCH_CHUNK"]
+           "VECTOR_ROW_CHUNK", "BATCH_CHUNK", "CPU_ROW_CHUNK", "CPU_ROW_PAD"]
 
 #: rows of one cuBLAS call on the card (``rows_mm``)
 ROW_CHUNK = 384
@@ -56,6 +60,10 @@ ROW_CHUNK = 384
 VECTOR_ROW_CHUNK = 6144
 #: matrices of one batched cuBLAS call on the card (``batch_bmm``)
 BATCH_CHUNK = 64
+#: the most rows of one call on the CPU (``rows_mm``), and the multiple
+#: each call's rows are padded to: a row's bits there are the same in every
+#: call of 8 to 64 rows that is a multiple of 8 (PyTorch 2.13's CPU GEMM)
+CPU_ROW_CHUNK, CPU_ROW_PAD = 64, 8
 
 
 def _chunked(fn, a: torch.Tensor, chunk: int, *rest: torch.Tensor
@@ -76,12 +84,15 @@ def _chunked(fn, a: torch.Tensor, chunk: int, *rest: torch.Tensor
 
 
 def rows_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a [M, K] @ b [K, N]; on CUDA as calls of one shape (``ROW_CHUNK``
-    rows, ``VECTOR_ROW_CHUNK`` when N = 1), so row i of the result does not
-    depend on M."""
-    if a.device.type != "cuda":
-        return torch.matmul(a, b)
-    chunk = VECTOR_ROW_CHUNK if b.shape[-1] == 1 else ROW_CHUNK
+    """a [M, K] @ b [K, N] in calls whose shape does not depend on M (on
+    CUDA ``ROW_CHUNK`` rows, ``VECTOR_ROW_CHUNK`` when N = 1; on the CPU
+    M rounded up to ``CPU_ROW_PAD``, at most ``CPU_ROW_CHUNK``), so row i
+    of the result does not depend on M."""
+    if a.device.type == "cuda":
+        chunk = VECTOR_ROW_CHUNK if b.shape[-1] == 1 else ROW_CHUNK
+    else:
+        chunk = min(CPU_ROW_CHUNK, max(1, -(-a.shape[0] // CPU_ROW_PAD))
+                    * CPU_ROW_PAD)
     return _chunked(lambda x: torch.matmul(x, b), a, chunk)
 
 
@@ -100,7 +111,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b = mxu_cast(a, b)
     acc = dot_dtype()
     a, b = a.to(acc), b.to(acc)
-    if a.device.type != "cuda":
+    if a.device.type != "cuda" and b.dim() != 2:
         return torch.matmul(a, b)
     if b.dim() != 2:
         raise ValueError(f"matmul on the card takes a [K, N] matrix, got "

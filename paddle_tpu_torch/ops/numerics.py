@@ -11,6 +11,14 @@ the reference's policy with ``--amp`` off.  ``--amp`` (bfloat16 matmul
 outputs and bfloat16 backward operands) is not ported.
 ``residual_dtype(H)`` is the dtype of the GRU's saved ``z``/``h_prev``
 streams (``paddle_tpu/ops/rnn_fused.py:48-58``).
+
+``pointwise(fn, x)`` applies a transcendental elementwise op so that each
+element's bits do not depend on the tensor's size on the CPU: there
+PyTorch runs the vector version of ``exp``/``tanh``/``sigmoid`` over whole
+vectors and a scalar version, which may round differently, over a tail,
+so an element's bits would depend on where the tail falls.  It is a cost
+paid only for the CPU tests, which hold slot decode equal to solo decode
+bit for bit; on the card it is ``fn(x)``.
 """
 
 from __future__ import annotations
@@ -19,11 +27,18 @@ from contextlib import contextmanager
 from typing import Iterator, Union
 
 import torch
+import torch.nn.functional as F
 
 from paddle_tpu_torch.utils.flags import FLAGS
 
 __all__ = ["compute_dtype", "acc_dtype", "dot_dtype", "mxu_cast",
-           "compute_dtype_scope", "bwd_mm", "bwd_einsum", "residual_dtype"]
+           "compute_dtype_scope", "bwd_mm", "bwd_einsum", "residual_dtype",
+           "pointwise"]
+
+#: ``pointwise`` on the CPU: elements per call (below ATen's parallel
+#: grain, so one thread runs each call) and the multiple every call is
+#: padded to (two 16-lane vectors, ATen's unrolled vector step)
+_PIECE, _LANES = 16384, 32
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -92,3 +107,24 @@ def compute_dtype_scope(dtype: Union[str, torch.dtype]) -> Iterator[None]:
         yield
     finally:
         FLAGS.compute_dtype = old
+
+
+def pointwise(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for an elementwise ``fn``.  On the CPU ``x`` is run through
+    ``fn`` flattened, in calls of at most ``_PIECE`` elements padded to a
+    multiple of ``_LANES``, so that every element takes the vector path and
+    a row's result does not depend on how many rows share the tensor (the
+    slot table's batch invariance).  Elsewhere it is ``fn(x)``: a CUDA
+    kernel computes every element alike."""
+    if x.device.type != "cpu" or not x.is_floating_point():
+        return fn(x)
+    flat = x.reshape(-1)
+    n = flat.numel()
+    outs = []
+    for p0 in range(0, max(n, 1), _PIECE):
+        part = flat[p0:p0 + _PIECE]
+        k = part.numel()
+        pad = -k % _LANES
+        outs.append(fn(F.pad(part, (0, pad)) if pad else part)[:k])
+    out = outs[0] if len(outs) == 1 else torch.cat(outs)
+    return out.reshape(x.shape)

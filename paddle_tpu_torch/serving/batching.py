@@ -1,25 +1,33 @@
-"""Request plumbing for the slot table — a copy of the framework-free parts
-of ``paddle_tpu/serving/batching.py``: ``ServingFuture``, ``Request``,
-``canonicalize_feed``, ``batch_bucket`` and ``merge_feeds``.
+"""Bounded, deadline-aware dynamic micro-batching — the port's copy of
+``paddle_tpu/serving/batching.py``.
 
 Requests batch together iff their feed signatures match: sequence dims are
 padded up the feeder's bucket ladder, and a merged batch is padded to a
-power-of-two row bucket by REPLICATING rows (real, valid data).  The bounded
-``BatchQueue`` waits for the server slice.
+power-of-two row bucket by REPLICATING rows (real, valid data), so a batch
+never invents a new shape or a zero-length sequence.
+
+Admission is bounded: ``BatchQueue.offer`` raises :class:`ShedError` the
+moment the queue is full.  Requests whose deadline expires while queued are
+swept out at pop time and returned to the caller, which completes them with
+:class:`DeadlineExceeded`; they never reach the device.
 """
 
 from __future__ import annotations
 
 import threading
+import time
+from collections import deque
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from paddle_tpu_torch.data.feeder import bucket_length
+from paddle_tpu_torch.serving.errors import ShedError
 
-__all__ = ["ServingFuture", "Request", "canonicalize_feed", "batch_bucket",
-           "merge_feeds"]
+__all__ = ["ServingFuture", "Request", "BatchQueue", "canonicalize_feed",
+           "merge_feeds", "split_outputs", "batch_bucket",
+           "warmup_bucket_feeds"]
 
 
 class ServingFuture:
@@ -65,8 +73,19 @@ class Request:
     future: ServingFuture
     deadline: Optional[float]     # absolute, clock() domain; None = none
     t_submit: float
+    deadline_ms: Optional[float] = None   # original budget, for reporting
+    tier: int = 0                 # degradation tier chosen at execution
     max_len: Optional[int] = None  # per-request decode budget (None = the
     #                                backend's max_len)
+    session_id: Optional[str] = None  # chat session scope of the prefix
+    #                                   cache (not ported yet; carried)
+    tenant: Optional[str] = None  # fleet tenancy attribution (None =
+    #                               untenanted)
+    # request tracing (the reference's obs/trace.py, not ported yet: these
+    # stay ""/None)
+    req_id: str = ""
+    span: Any = None
+    qspan: Any = None
 
 
 def _pad_dim1(arr: np.ndarray, to: int) -> np.ndarray:
@@ -128,6 +147,22 @@ def _pad_rows(arr: np.ndarray, to: int) -> np.ndarray:
     return np.concatenate([arr, reps], axis=0)
 
 
+def warmup_bucket_feeds(feed: Dict[str, Any],
+                        buckets) -> List[Dict[str, Any]]:
+    """One warmup feed per batch bucket: canonicalize, slice to ONE row (a
+    multi-row feed must not leave the small buckets cold), replicate up
+    each bucket — built from the primitives ``merge_feeds`` batches with,
+    so warmed shapes never drift from the hot path's."""
+    canon, _, _ = canonicalize_feed(feed)
+    one = {name: (tuple(p[:1] for p in v) if isinstance(v, tuple)
+                  else v[:1])
+           for name, v in canon.items()}
+    return [{name: (tuple(_pad_rows(p, bucket) for p in v)
+                    if isinstance(v, tuple) else _pad_rows(v, bucket))
+             for name, v in one.items()}
+            for bucket in buckets]
+
+
 def merge_feeds(reqs: List[Request], max_batch: int
                 ) -> Tuple[Dict[str, Any], List[Tuple[int, int]], int]:
     """Concatenate same-signature request feeds along the batch dim and pad
@@ -151,3 +186,115 @@ def merge_feeds(reqs: List[Request], max_batch: int
             merged[name] = _pad_rows(
                 np.concatenate([r.feed[name] for r in reqs], axis=0), bucket)
     return merged, slices, row
+
+
+def split_outputs(outputs: Dict[str, np.ndarray],
+                  slices: List[Tuple[int, int]]) -> List[Dict[str, np.ndarray]]:
+    """Per-request row slices of a merged batch's outputs; a rank-0 output
+    (a cost or metric head) goes to every request whole."""
+    res = []
+    for a, b in slices:
+        per: Dict[str, np.ndarray] = {}
+        for k, v in outputs.items():
+            arr = np.asarray(v)
+            per[k] = arr if arr.ndim == 0 else arr[a:b]
+        res.append(per)
+    return res
+
+
+class BatchQueue:
+    """FIFO of :class:`Request` with a hard depth bound and shape-aware
+    batch extraction.  The head request defines the batch's signature; the
+    pop waits up to ``batch_delay_s`` for more same-signature rows (or
+    until the batch bucket is full), then sweeps expired requests out.
+    Multi-producer-safe; one consumer (the supervised worker) at a time."""
+
+    def __init__(self, max_queue: int) -> None:
+        self.max_queue = int(max_queue)
+        self._q: deque = deque()
+        self._cv = threading.Condition()
+        self._closed = False  # tpu-lint: guarded-by=none - monotonic False->True flag; a stale lock-free read only delays observing shutdown by one poll (close() still wakes waiters under _cv)
+
+    def depth(self) -> int:
+        with self._cv:
+            return len(self._q)
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    def offer(self, req: Request) -> None:
+        with self._cv:
+            if self._closed:
+                raise ShedError("queue is closed")
+            if len(self._q) >= self.max_queue:
+                raise ShedError(
+                    f"queue full ({self.max_queue} requests) — shedding")
+            self._q.append(req)
+            self._cv.notify_all()
+
+    def pop_batch(self, *, max_rows: int, batch_delay_s: float,
+                  timeout: float, est_service_s: float = 0.0,
+                  clock=time.monotonic
+                  ) -> Tuple[List[Request], List[Request]]:
+        """Extract one batch.  Returns ``(batch, expired)``: ``batch`` is
+        same-signature requests totalling <= ``max_rows`` rows, oldest
+        first; ``expired`` are same-signature requests whose deadline
+        cannot survive ``est_service_s`` more seconds, and other-signature
+        requests already past their deadline — the caller completes those
+        with ``DeadlineExceeded`` (never a silent drop).  Both empty on
+        timeout or close."""
+        hard_deadline = clock() + timeout
+        with self._cv:
+            while not self._q:
+                if self._closed:
+                    return [], []
+                rem = hard_deadline - clock()
+                if rem <= 0:
+                    return [], []
+                self._cv.wait(min(rem, 0.05))
+            sig = self._q[0].signature
+            # coalescing window: wait for more same-signature rows
+            window_end = clock() + batch_delay_s
+            while not self._closed:
+                rows = sum(r.rows for r in self._q if r.signature == sig)
+                if rows >= max_rows:
+                    break
+                rem = window_end - clock()
+                if rem <= 0:
+                    break
+                self._cv.wait(min(rem, 0.05))
+            batch: List[Request] = []
+            keep: List[Request] = []
+            expired: List[Request] = []
+            now = clock()
+            rows = 0
+            for r in self._q:
+                if r.signature != sig:
+                    # already-dead work must not occupy the bounded queue
+                    # and shed live traffic
+                    if r.deadline is not None and now > r.deadline:
+                        expired.append(r)
+                    else:
+                        keep.append(r)
+                elif (r.deadline is not None
+                      and now + est_service_s > r.deadline):
+                    expired.append(r)
+                elif rows + r.rows <= max_rows:
+                    batch.append(r)
+                    rows += r.rows
+                else:
+                    keep.append(r)
+            self._q = deque(keep)
+            self._cv.notify_all()
+            return batch, expired
+
+    def close(self) -> List[Request]:
+        """Close the queue and return every still-queued request so the
+        caller can fail them with a typed error."""
+        with self._cv:
+            self._closed = True
+            drained = list(self._q)
+            self._q.clear()
+            self._cv.notify_all()
+        return drained

@@ -9,14 +9,16 @@ from queued requests with ``write_slot``.  Every per-row computation of
 the engine is row-independent and frozen slots are held bit for bit, so a
 request's output does not depend on its neighbours in the table.
 
-Speculative decoding, the prefix cache, host paging, deadline eviction and
-the compile-cache ``prime`` wait for later slices (PyTorch runs eagerly;
-there is nothing to prime).
+Deadline eviction (``evict_expired``) releases a resident whose deadline
+passed mid-generation.  Speculative decoding, the prefix cache, host paging
+and the compile-cache ``prime`` wait for later slices (ROADMAP.md Queue 1
+items 2 and 7).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -138,6 +140,9 @@ class _SlotEntry:
     request: Request
     row: int          # which row of its (possibly multi-row) request
     limit: int        # per-request max_len, <= the table depth
+    t_admit: float
+    admit_step: int = 0   # steps_run at admission: per-request step
+    #                       participation stays host-side (no device sync)
 
 
 @dataclass
@@ -159,16 +164,22 @@ class SlotScheduler:
     interleave with them, and a step's new carry is committed only when the
     caller's ``commit()`` still holds after the device call."""
 
-    def __init__(self, backend: SlotBackend, *, slots: int):
+    def __init__(self, backend: SlotBackend, *, slots: int,
+                 clock=time.monotonic):
         if slots < 1:
             raise ValueError("slot table needs at least 1 slot")
         self.backend = backend
         self.slots = int(slots)
+        self._clock = clock
         self._lock = threading.Lock()
         # the state template: one prefill of a synthetic one-row feed
         tpl = backend.prefill(backend.example_feed(1))
+        # binds the slot count, not ``self``: a scheduler that referred to
+        # itself would keep its table and backend alive until the cycle
+        # collector runs
+        slots = self.slots
         self._init_carry = lambda: init_slot_carry(
-            tpl, slots=self.slots, beam_size=backend.beam_size,
+            tpl, slots=slots, beam_size=backend.beam_size,
             max_len=backend.max_len, eos=backend.eos)
         self.carry = self._init_carry()
         self._entries: List[Optional[_SlotEntry]] = [None] * self.slots
@@ -188,6 +199,38 @@ class SlotScheduler:
         with self._lock:
             return self.slots - len(self._free)
 
+    def resident_requests(self) -> List[Request]:
+        """The distinct requests currently holding slots (oldest first) —
+        the server's in-flight set for crash attribution."""
+        with self._lock:
+            return [p.request for p in self._pending.values()]
+
+    def resident_view(self) -> List[Tuple[Request, List[int], int]]:
+        """Per-resident ``(request, slots, steps_since_admit)``, from host
+        bookkeeping alone (no device read)."""
+        with self._lock:
+            by_req: Dict[int, List[Any]] = {}
+            for slot, e in enumerate(self._entries):
+                if e is None:
+                    continue
+                ent = by_req.setdefault(id(e.request), [e.request, [], 0])
+                ent[1].append(slot)
+                ent[2] = max(ent[2], self.steps_run - e.admit_step)
+            return [(r, s, n) for r, s, n in by_req.values()]
+
+    @staticmethod
+    def compiled_programs() -> int:
+        """The port's counterpart of the reference's count of jit compiles:
+        the kernel libraries (one CUDA extension module per
+        ``csrc/<name>.cu``, built by ``nvcc`` or found built and then
+        loaded at the first launch) loaded in this process so far.  The
+        server's warmup reports the change across its cycle as
+        ``warmup_compiles``; on the CPU, where only plain versions run, it
+        stays 0."""
+        from paddle_tpu_torch.ops.kernels.build import LIBRARIES
+
+        return sum(lib._lib is not None for lib in LIBRARIES.values())
+
     def reset(self) -> List[Request]:
         """Fresh table (worker relaunch): drops every resident request's
         state and returns those requests so the caller can fail them."""
@@ -203,16 +246,21 @@ class SlotScheduler:
 
     @torch.no_grad()
     def admit(self, reqs: List[Request], *,
+              limit_cap: Optional[int] = None,
               commit: Callable[[], bool] = lambda: True) -> int:
         """Prefill ``reqs`` (same signature) in ONE merged encoder call and
         write each REAL row into a free slot; ``merge_feeds``' replicated
-        pad rows never take a slot.  The caller guarantees
-        ``sum(rows) <= free_count()``.  Returns slots filled (0 when
-        ``commit()`` no longer holds after the prefill)."""
+        pad rows never take a slot.  ``limit_cap`` caps the decode budget
+        of these requests (the server's degradation ladder).  The caller
+        guarantees ``sum(rows) <= free_count()``.  Returns slots filled (0
+        when ``commit()`` no longer holds after the prefill: an abandoned
+        worker must not write into the fresh worker's table).  Raises on a
+        prefill failure, with nothing admitted."""
         if not reqs:
             return 0
         merged, slices, _rows = merge_feeds(reqs, self.slots)
         state0 = self.backend.prefill(merged)
+        now = self._clock()
         n = 0
         with self._lock:
             if not commit():
@@ -224,14 +272,16 @@ class SlotScheduler:
                     f"{len(self._free)} free slots")
             for req, (a, b) in zip(reqs, slices):
                 limit = max(1, min(req.max_len or self.backend.max_len,
-                                   self.backend.max_len))
+                                   self.backend.max_len,
+                                   limit_cap or self.backend.max_len))
                 self._pending[id(req)] = _PendingRequest(
                     request=req, rows=b - a, results=[None] * (b - a))
                 for row in range(a, b):
                     slot = self._free.pop()
                     write_slot(self.carry, slot, state0, bos=self.backend.bos,
                                eos=self.backend.eos, row=row)
-                    self._entries[slot] = _SlotEntry(req, row - a, limit)
+                    self._entries[slot] = _SlotEntry(req, row - a, limit,
+                                                     now, self.steps_run)
                     n += 1
             self.admitted += n
         return n
@@ -260,6 +310,36 @@ class SlotScheduler:
         self._entries[slot] = None
         self._free.append(slot)
         self.recycled += 1
+
+    def _drop_request(self, req: Request) -> int:
+        # callers hold _lock: release EVERY slot the request occupies
+        n = 0
+        for slot, e in enumerate(self._entries):
+            if e is not None and e.request is req:
+                self._release(slot)
+                n += 1
+        self._pending.pop(id(req), None)
+        return n
+
+    def evict_expired(self, now: float,
+                      commit: Callable[[], bool] = lambda: True
+                      ) -> List[Tuple[Request, int]]:
+        """Release every slot whose request's deadline has passed
+        mid-generation; returns ``(request, slots_freed)`` pairs (each
+        request once) so the caller completes them with
+        ``DeadlineExceeded``.  ``slots_freed`` counts the slots released
+        NOW: rows of a multi-row request that already harvested are not
+        counted again."""
+        with self._lock:
+            if not commit():
+                return []
+            expired: List[Request] = []
+            for e in self._entries:
+                if (e is not None and e.request.deadline is not None
+                        and now > e.request.deadline
+                        and not any(r is e.request for r in expired)):
+                    expired.append(e.request)
+            return [(req, self._drop_request(req)) for req in expired]
 
     def done_slots(self) -> List[int]:
         """Slots whose request finished: all beams EOS, or the request's own

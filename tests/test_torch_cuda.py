@@ -1582,3 +1582,152 @@ def test_gru_forward_beyond_the_persistent_limits_takes_the_steps(dev, cd, B,
             before.get("steps", 0) + 1
         _gru_fwd_close(got, bigru_forward_plain(xb, mb, w2, residuals=True,
                                                 batch_split=B), tol)
+
+
+# ---------------------------------------------------------------------------
+# the served entry point: InferenceServer over the slot table on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def hard_alarm():
+    """A hard ``signal.alarm`` around a server test, as the reference's
+    serving tests have: a wedged worker fails the test, never the run."""
+    import signal
+
+    def _abort(signum, frame):
+        raise RuntimeError("server test exceeded 120 s")
+
+    prev = signal.signal(signal.SIGALRM, _abort)
+    signal.alarm(120)
+    yield
+    signal.alarm(0)
+    signal.signal(signal.SIGALRM, prev)
+
+
+#: a small flagship whose prefill takes K3's persistent kernel (H % 32 ==
+#: 0) and whose readout takes K7's wgmma pass 1 (D = 128, V % 8 == 0)
+_SERVE_CFG = dict(src_vocab=200, trg_vocab=256, emb_dim=64, enc_dim=64,
+                  dec_dim=128, att_dim=64)
+
+
+def _served_flagship(dev, *, max_len=12, never_eos=False):
+    from paddle_tpu_torch.models import Seq2SeqAttention
+    from paddle_tpu_torch.models.seq2seq import EOS
+    from paddle_tpu_torch.serving import Seq2SeqSlotBackend
+
+    m = Seq2SeqAttention(**_SERVE_CFG, device=dev)
+    p = m.init(seed=3)
+    if never_eos:       # the flagship's straggler: EOS never scores
+        p = dict(p, out_b=p["out_b"].clone())
+        p["out_b"][EOS] = -1e4
+    return Seq2SeqSlotBackend(m, p, src_len=16, beam_size=3,
+                              max_len=max_len)
+
+
+def _src_feeds(n, seed=0):
+    rng = np.random.default_rng(seed)
+    feeds = []
+    for _ in range(n):
+        t = int(rng.integers(3, 17))
+        feeds.append({"src": (rng.integers(3, 200, (1, t)),
+                              np.asarray([t]))})
+    return feeds
+
+
+def _direct(backend, feeds, slots):
+    """The oracle: the same requests through a SlotScheduler driven by
+    hand (admit as slots free up, step, harvest)."""
+    from paddle_tpu_torch.serving import (Request, ServingFuture,
+                                          SlotScheduler, canonicalize_feed)
+
+    reqs = []
+    for f in feeds:
+        canon, rows, sig = canonicalize_feed(f)
+        reqs.append(Request(feed=canon, rows=rows, signature=sig,
+                            future=ServingFuture(), deadline=None,
+                            t_submit=0.0))
+    sched = SlotScheduler(backend, slots=slots)
+    out, pending = {}, list(reqs)
+    while pending or sched.occupied():
+        for req, res, _ in sched.harvest():
+            out[id(req)] = res
+        while pending and sched.free_count():
+            sched.admit([pending.pop(0)])
+        if sched.occupied():
+            sched.step()
+    return [out[id(r)] for r in reqs]
+
+
+def _serve(backend, feeds, slots, **kw):
+    """The same requests through InferenceServer(mode="generation"); the
+    launch counts are those of the submits alone (after the warmup)."""
+    from paddle_tpu_torch.ops.kernels import reset_launch_counts
+    from paddle_tpu_torch.serving import InferenceServer
+
+    srv = InferenceServer(backend, mode="generation", slots=slots,
+                          max_queue=64, batch_delay_ms=0.0,
+                          default_deadline_ms=60000.0, **kw)
+    with srv:
+        srv.start(warmup_feed=feeds[0])
+        reset_launch_counts()
+        futs = [srv.submit(f) for f in feeds]
+        results = [f.result(120) for f in futs]
+        torch.cuda.synchronize()
+        return results, launch_counts(), srv.healthz()
+
+
+def test_server_on_the_card_matches_a_direct_slot_table_run(dev,
+                                                            hard_alarm):
+    """Per request, ids and scores identical to a direct SlotScheduler run
+    of the same requests (bf16 compute, 4 slots, 10 requests)."""
+    with compute_dtype_scope("bfloat16"):
+        backend = _served_flagship(dev)
+        feeds = _src_feeds(10)
+        want = _direct(backend, feeds, slots=4)
+        got, _, hz = _serve(backend, feeds, slots=4)
+    assert hz["counters"]["completed"] == 10
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g["tokens"], w["tokens"])
+        np.testing.assert_array_equal(g["scores"], w["scores"])
+
+
+def test_server_kernels_launch_from_the_worker_thread(dev, hard_alarm):
+    """K3 (persistent) and K7 (wgmma pass 1) launch for the served
+    requests, and only from the server's worker thread."""
+    with compute_dtype_scope("bfloat16"):
+        _, launches, _ = _serve(_served_flagship(dev), _src_feeds(6, 1),
+                                slots=4)
+    for name, path in (("gru_forward", "persistent"),
+                       ("topk_lse_readout", "wgmma")):
+        n = launches[name]
+        assert n > 0, name
+        assert launches.by_path[name] == {path: n}, launches.by_path[name]
+        assert all(t.startswith("serving-worker-")
+                   for t in launches.by_thread[name]), \
+            launches.by_thread[name]
+        assert sum(launches.by_thread[name].values()) == n
+
+
+def test_server_evicts_an_expired_request_typed_on_the_card(dev,
+                                                            hard_alarm):
+    """A never-EOS request whose deadline (50 ms) is far shorter than its
+    256-step decode fails DeadlineExceeded mid-generation, its slot is
+    recycled, and the next request is served."""
+    from paddle_tpu_torch.serving import DeadlineExceeded, InferenceServer
+
+    with compute_dtype_scope("bfloat16"):
+        backend = _served_flagship(dev, max_len=256, never_eos=True)
+        feeds = _src_feeds(2, 2)
+        srv = InferenceServer(backend, mode="generation", slots=2,
+                              max_queue=8, batch_delay_ms=0.0,
+                              default_deadline_ms=60000.0)
+        with srv:
+            srv.start(warmup_feed=feeds[0])
+            err = srv.submit(feeds[0], deadline_ms=50.0).error(120)
+            assert isinstance(err, DeadlineExceeded), err
+            assert "mid-generation" in str(err)
+            ok = srv.submit(feeds[1], max_len=4).result(120)
+            hz = srv.healthz()
+    assert ok["tokens"].shape == (1, 3, 4)
+    assert hz["counters"]["slot_evicted"] == 1
+    assert hz["slots"]["occupied"] == 0 and hz["slots"]["recycled"] == 2

@@ -413,3 +413,32 @@ def test_launch_counts_split_by_path():
     assert got.by_path["lstm_backward"] == {}
     reset_launch_counts()
     assert launch_counts().by_path["topk_lse_readout"] == {}
+
+
+def test_cpu_products_and_pointwise_are_batch_invariant():
+    """On the CPU a row's product and its tanh / sigmoid / exp / log do not
+    depend on how many rows share the call (torch's CPU GEMM and vector
+    math alone would give other bits at 1, 3 or 7 rows than among 12),
+    which the slot table's bit-identity to solo decode rests on."""
+    from paddle_tpu_torch.ops import linear
+    from paddle_tpu_torch.ops.activations import sigmoid, tanh
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope, pointwise
+
+    g = torch.Generator().manual_seed(0)
+    with compute_dtype_scope("float32"):
+        for K, N in ((8, 24), (8, 16), (24, 12), (40, 1)):
+            w = torch.randn(K, N, generator=g)
+            x = torch.randn(150, K, generator=g)
+            full = linear(x, w)
+            for m in (1, 3, 7, 9, 12, 65, 130):
+                for off in (0, 5):
+                    torch.testing.assert_close(
+                        linear(x[off:off + m], w), full[off:off + m],
+                        rtol=0, atol=0)
+        z = 3 * torch.randn(150, 8, generator=g)
+        for fn in (tanh, sigmoid, lambda t: pointwise(torch.exp, t),
+                   lambda t: pointwise(torch.log, t.abs() + 1e-3)):
+            full = fn(z)
+            for m in (1, 3, 7, 12, 101):
+                torch.testing.assert_close(fn(z[2:2 + m]), full[2:2 + m],
+                                           rtol=0, atol=0)
