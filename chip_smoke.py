@@ -25,7 +25,9 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             take its TMA + wgmma pass 1 at the serve shape and at a solo
             decode's N = 3, whose rows are bit-equal to the N = 192
             call's, and is also timed on its SIMT pass 1 there and held on
-            it at V = 30001; K6 with its device time by kernel; text
+            it at V = 30001; K7 greedy at the spec phase's wide verify
+            (N = 320), each 64-row block bit-equal to an N = 64 call, both
+            on wgmma, both timed; K6 with its device time by kernel; text
             classification: K9 without and with residuals and K10, at
             both widths, which must take their persistent kernels under
             bf16 and are also held and timed on their per-step kernels
@@ -68,7 +70,25 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             allocated once its servers are closed and dropped is printed
             (the worker thread's cuBLAS workspace, which PyTorch keeps past
             the thread's end), then released, and nothing else may remain;
-7. train    the training path: the same model at ``bench.py``'s batch
+7. spec     speculative decoding, the prefix cache and host paging on the
+            same model behind ``Seq2SeqSlotBackend(beam_size=1)``, 64
+            slots, 192 single-row requests over 16 distinct sources (the
+            template/session traffic they are for), in three arms: plain;
+            full (spec_k 4, the prefix cache, the host page pool, a forced
+            page-out every 3 cycles); server (the same requests submitted
+            at once to ``InferenceServer(mode="generation")`` with those
+            settings, whose own page-out fires as the queue outruns the
+            table).  The full arm's tokens and scores equal the plain
+            arm's bit for bit, the server's the full arm's, each source's
+            answer its solo greedy decode; the cache hits and K3 launches
+            fall by exactly the prefills it saved; pages out = pages in >
+            0; drafts are accepted; K7 launches once a table step on its
+            wgmma pass 1, at 64 rows on a plain step and 320 on a wide
+            one (the kernels phase holds the N = 320 call's rows bit for
+            bit against N = 64 calls and times both); requests/s,
+            tokens/s, tokens a table step, acceptance, cache hits and the
+            bytes parked print beside the card's name and power limit;
+8. train    the training path: the same model at ``bench.py``'s batch
             (B=384, S=32, T=32, bf16 compute) taking 6 ``Adam`` steps
             (``loss`` -> ``torch.autograd.grad`` -> ``update``) in each of
             three configurations, in turns and twice: default, fused_bigru
@@ -79,7 +99,7 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             K5 launch on its persistent kernel); then the full-width model
             at B=8 in f32, its loss and 19 gradients on the card held
             against the CPU, with both switches off and with both on;
-8. textclf  the text-classification path: ``lstm_benchmark_net`` (vocab
+9. textclf  the text-classification path: ``lstm_benchmark_net`` (vocab
             30000, embedding 128, 2 LSTM layers, max-pool, fc to 2 classes)
             through ``nn.Topology`` at ``bench.py``'s rows lstm_b64h256 and
             lstm_b64h1280 (B=64, T=100, bf16 compute), 6 ``Adam`` steps each
@@ -89,7 +109,7 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             width; K9 and K10 launches all on their persistent kernels;
             then the net at H=256, B=4 in f32, its loss and 15 gradients on
             the card held against the CPU;
-9. dslgen   generation through the nn DSL's ``beam_search`` layer: the
+10. dslgen  generation through the nn DSL's ``beam_search`` layer: the
             reference's demo/seqToseq composition (bidirectional
             ``grumemory`` encoder; ``simple_attention`` + ``mixed`` +
             ``gru_unit`` + a logits ``fc`` per step) at the WMT14 widths
@@ -100,15 +120,15 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             layer held against ``SequenceGenerator`` over a hand-written
             step (identical ids), and the net at B=2 in f32 on the card
             against the CPU;
-10. a ``{"server_launches": {...}}`` line (each part of the server
+11. a ``{"server_launches": {...}}`` line (each part of the server
    phase: every kernel library's launches, by kernel variant and by
    thread), a ``{"kernels": [...]}`` line (each kernel's launches on its
    path's run, also by kernel variant: ``launches_by_path``), then the card
    line again, and last ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed just before each path (serve and its fused
-re-run, each part of the server phase, each training configuration, each
-textclf run, dslgen) is driven
+re-run, each part of the server phase, each arm of the spec phase, each
+training configuration, each textclf run, dslgen) is driven
 and read just after; a kernel of the path
 that was not launched fails the run.  ``chip_probe.py`` measures what this
 run leaves out to stay short (the products' chunk sizes end to end,
@@ -140,6 +160,14 @@ SLOTS, BEAM, SRC_LEN, MAX_LEN, N_REQUESTS = 64, 3, 32, 32, 96
 #: longest wait for one answer, and part 3's deadline in table steps
 SERVER_MAX_QUEUE, SERVER_DEADLINE_MS, SERVER_OPEN_N = 192, 1000.0, 192
 SERVER_WAIT_S, SERVER_DEADLINE_STEPS = 120.0, 6
+#: the spec phase: greedy (beam 1) decode of SPEC_REQUESTS single-row
+#: requests over SPEC_SOURCES distinct sources (template/session traffic),
+#: spec_k, the prefix cache and host page pool sizes (the cache holds every
+#: distinct prefill, ~0.2 MiB each), and a forced page-out every
+#: SPEC_PAGE_EVERY cycles in the full arm
+SPEC_K, SPEC_REQUESTS, SPEC_SOURCES = 4, 192, 16
+SPEC_CACHE_MB, SPEC_POOL_MB, SPEC_PAGE_EVERY = 64.0, 256.0, 3
+SPEC_SERVER_QUEUE = 256
 #: the training batch of bench.py:253-265 and its step count here
 TRAIN_B, TRAIN_S, TRAIN_T, TRAIN_STEPS = 384, 32, 32, 6
 #: kernels launched by each path
@@ -513,6 +541,66 @@ def check_topk(K, flush, dev):
     row.update(simt_ms=simt_ms, wrapper_host_ms=host_ms, device_ms=dev_ms,
                simt_device_ms=simt_dev_ms)
     return row
+
+
+def check_topk_wide(K, flush, dev, card):
+    """K7 at the speculative wide verify: greedy (k = 1) over (SPEC_K + 1)
+    x SLOTS = 320 rows, where the plain table step reads SLOTS = 64.
+    Greedy verification is bit-identical only if a row's (vals, idx, lse)
+    do not depend on N: every 64-row block of the N = 320 call equals an
+    N = 64 call on those rows bit for bit, both take the wgmma pass 1, and
+    the N = 320 call holds the plain version.  Returns the K7 row's spec
+    fields: each N's time and bound."""
+    import torch
+
+    from paddle_tpu_torch.ops.kernels.topk_readout import TOPK_LSE_READOUT
+
+    n_wide, D, V = (SPEC_K + 1) * SLOTS, 512, 30000
+    g = torch.Generator().manual_seed(SEED + 3)
+    s = torch.tanh(torch.randn(n_wide, D, generator=g)).to(dev).bfloat16()
+    w = ((2.0 / (D + V)) ** 0.5
+         * torch.randn(D, V, generator=g)).to(dev).bfloat16()
+    b = (0.01 * torch.randn(V, generator=g)).to(dev)
+    tol = TOL["topk_lse_readout"]
+    before = _paths(TOPK_LSE_READOUT)
+    err, same, dec, (kv, ki, kl) = _topk_against_plain(
+        K, s, w, b, 1, tol, f"N={n_wide}")
+    for r0 in range(0, n_wide, SLOTS):
+        rows = slice(r0, r0 + SLOTS)
+        sv, si, sl = K.topk_lse_readout(s[rows].contiguous(), w, b, 1)
+        if not (torch.equal(sv, kv[rows]) and torch.equal(si, ki[rows])
+                and torch.equal(sl, kl[rows])):
+            fail("kernels", f"topk_lse_readout k=1: an N={SLOTS} call's rows "
+                 f"differ from rows {r0}-{r0 + SLOTS - 1} of the "
+                 f"N={n_wide} call")
+    took = _paths_since(TOPK_LSE_READOUT, before)
+    if took != {"wgmma": 1 + n_wide // SLOTS}:
+        fail("kernels", f"topk_lse_readout at N={n_wide} and N={SLOTS} took "
+             f"{took}, not the wgmma path")
+    out = {}
+    for n in (SLOTS, n_wide):
+        sn = s[:n].contiguous()
+        ms = time_ms(lambda: K.topk_lse_readout(sn, w, b, 1), flush)
+        plain_ms = time_ms(lambda: K.topk_lse_readout_plain(sn, w, b, 1),
+                           flush)
+        nbytes = n * D * 2 + D * V * 2 + V * 4 + n * (4 + 8) + n * 4
+        bms, by = bound_ms(nbytes, 2.0 * n * D * V, "bfloat16")
+        out[n] = (ms, plain_ms, bms, by)
+        print(f"kernels: topk_lse_readout N={n} D={D} V={V} k=1 bf16 "
+              f"path=wgmma ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
+              f"{bms:.5f} ({by}; share of bound {bms / ms:.3f}) [{card}]",
+              flush=True)
+    print(f"kernels: topk_lse_readout k=1 N={n_wide} (the wide verify) "
+          f"max_abs_err={err:.3e} (tol {tol}), ids identical on "
+          f"{same}/{n_wide} rows, on all {dec} decisive rows; each "
+          f"{SLOTS}-row block bit-equal to an N={SLOTS} call; both on "
+          f"wgmma; N={n_wide} takes {out[n_wide][0] / out[SLOTS][0]:.2f}x "
+          f"the N={SLOTS} time [{card}]", flush=True)
+    return {"wide_rows": n_wide, "wide_max_abs_err": err,
+            "ms_n320": out[n_wide][0], "plain_ms_n320": out[n_wide][1],
+            "bound_ms_n320": out[n_wide][2], "bound_by_n320": out[n_wide][3],
+            "ms_n64": out[SLOTS][0], "plain_ms_n64": out[SLOTS][1],
+            "bound_ms_n64": out[SLOTS][2], "bound_by_n64": out[SLOTS][3]}
 
 
 def check_topk_logits(K, flush, dev):
@@ -2086,9 +2174,9 @@ def _gen_server(backend, **kw):
     from paddle_tpu_torch.serving import InferenceServer
 
     kw.setdefault("default_deadline_ms", SERVER_DEADLINE_MS)
+    kw.setdefault("max_queue", SERVER_MAX_QUEUE)
     return InferenceServer(backend, mode="generation", slots=SLOTS,
-                           max_queue=SERVER_MAX_QUEUE, batch_delay_ms=0.0,
-                           **kw)
+                           batch_delay_ms=0.0, **kw)
 
 
 def _resolve_all(futs, part: str):
@@ -2323,7 +2411,288 @@ def server_path(K, dev, served):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the training path
+# phase 7: speculative decoding, the prefix cache and host paging
+# ---------------------------------------------------------------------------
+
+
+def spec_requests(vocab):
+    """SPEC_REQUESTS single-row feeds over SPEC_SOURCES distinct sources of
+    8..SRC_LEN tokens, each source SPEC_REQUESTS / SPEC_SOURCES times, in a
+    fixed seeded order; and each request's source index."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 11)
+    sources = []
+    for _ in range(SPEC_SOURCES):
+        n = int(rng.integers(8, SRC_LEN + 1))
+        sources.append((rng.integers(3, vocab, (1, n)), np.asarray([n])))
+    order = rng.permutation(np.repeat(np.arange(SPEC_SOURCES),
+                                      SPEC_REQUESTS // SPEC_SOURCES))
+    return [{"src": sources[i]} for i in order], [int(i) for i in order]
+
+
+def spec_drive(sched, feeds, hook=None):
+    """The continuous loop of the reference's spec test: page in, harvest,
+    admit one request at a time as slots free up, step.  Returns per
+    request (outputs, steps) and the seconds it took, ended by a
+    synchronize."""
+    import torch
+
+    from paddle_tpu_torch.serving import (Request, ServingFuture,
+                                          canonicalize_feed)
+
+    reqs = []
+    for f in feeds:
+        canon, rows, sig = canonicalize_feed(f)
+        reqs.append(Request(feed=canon, rows=rows, signature=sig,
+                            future=ServingFuture(), deadline=None,
+                            t_submit=time.monotonic()))
+    out, pending, cycle = {}, list(reqs), 0
+    t0 = time.perf_counter()
+    while (pending or sched.occupied()
+           or (sched.pager is not None and len(sched.pager))):
+        if hook is not None:
+            hook(sched, cycle)
+        cycle += 1
+        if sched.pager is not None:
+            sched.page_in()
+        for req, res, steps in sched.harvest():
+            out[id(req)] = (res, steps)
+        while pending and sched.free_count():
+            sched.admit([pending.pop(0)])
+        if sched.occupied():
+            sched.step()
+    torch.cuda.synchronize()
+    return [out[id(r)] for r in reqs], time.perf_counter() - t0
+
+
+def _same_answers(a, b) -> list:
+    """Indexes whose tokens or scores differ between two lists of
+    outputs."""
+    import numpy as np
+
+    return [i for i, (x, y) in enumerate(zip(a, b))
+            if not (np.array_equal(x["tokens"], y["tokens"])
+                    and np.array_equal(x["scores"], y["scores"]))]
+
+
+def spec_solo_check(backend, feeds, src_of, full, card):
+    """Each distinct source's answer against its solo ``greedy_decode`` on
+    the card: ids identical (scores then within TOL_SEARCH; they are
+    printed identical or not), or — a near tie of the random-init logits —
+    both hypotheses rescored within TOL_SEARCH of each other's scores."""
+    import numpy as np
+
+    from paddle_tpu_torch.ops.decode import greedy_decode
+    from paddle_tpu_torch.serving import canonicalize_feed
+
+    model, params = backend.model, backend.params
+    identical = same_ids = 0
+    for src in range(SPEC_SOURCES):
+        i = src_of.index(src)
+        canon = canonicalize_feed(feeds[i])[0]
+        st, ss = greedy_decode(backend.step_fn, backend.readout,
+                               backend.prefill(canon), batch_size=1,
+                               vocab_size=backend.vocab_size,
+                               max_len=backend.max_len, bos=backend.bos,
+                               eos=backend.eos)
+        solo_t, solo_s = st.cpu().numpy()[0], float(ss.cpu().numpy()[0])
+        got_t = full[i]["tokens"][0, 0]
+        got_s = float(full[i]["scores"][0, 0])
+        if np.array_equal(got_t, solo_t):
+            same_ids += 1
+            identical += got_s == solo_s
+            if abs(got_s - solo_s) > TOL_SEARCH:
+                fail("spec", f"source {src}: ids identical to the solo "
+                     f"greedy decode, scores {got_s} vs {solo_s}")
+            continue
+        ids, lens = padded_source(feeds[i])
+        r_got = rescore(model, params, ids, lens, got_t)
+        r_solo = rescore(model, params, ids, lens, solo_t)
+        d = max(abs(got_s - solo_s), abs(r_got - got_s),
+                abs(r_solo - solo_s))
+        print(f"spec: source {src}: ids differ from the solo greedy decode "
+              f"(near tie?): scores {got_s} vs {solo_s}, rescored {r_got} "
+              f"and {r_solo}", flush=True)
+        if d > TOL_SEARCH:
+            fail("spec", f"source {src}: served and solo greedy decodes "
+                 f"disagree beyond a near tie ({d:.3e} > {TOL_SEARCH})")
+    print(f"spec: solo check, {SPEC_SOURCES} distinct sources against "
+          f"their solo greedy decode on the card: ids identical on "
+          f"{same_ids}/{SPEC_SOURCES}, ids and scores identical on "
+          f"{identical}/{SPEC_SOURCES} [{card}]", flush=True)
+
+
+def spec_path(K, dev, served, card):
+    """The spec phase: the serve phase's model (30k/30k, 512-d, weights
+    from SEED) behind ``Seq2SeqSlotBackend(beam_size=1)`` with SLOTS slots,
+    SPEC_REQUESTS requests over SPEC_SOURCES sources, in three arms: plain
+    (no speculation, cache or pager); full (spec_k = SPEC_K, the prefix
+    cache, the page pool, a forced page-out every SPEC_PAGE_EVERY cycles);
+    server (the same requests submitted at once to
+    ``InferenceServer(mode="generation")`` with the same settings, whose
+    own page-out fires as the queue outruns the table).  Fails unless the
+    full arm's tokens and scores equal the plain arm's bit for bit, the
+    server's equal the full arm's, each source's answer its solo greedy
+    decode, the cache hit and cut K3's launches by exactly the prefills it
+    saved, pages out = pages in > 0, drafts were accepted, and every K7
+    launch (N = SLOTS at a plain step, (SPEC_K + 1) x SLOTS at a wide one)
+    took the wgmma pass 1.  Returns the full arm's launches and its wide
+    steps."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.serving import Seq2SeqSlotBackend, SlotScheduler
+
+    backend = Seq2SeqSlotBackend(served["model"], served["params"],
+                                 src_len=SRC_LEN, beam_size=1,
+                                 max_len=MAX_LEN)
+    feeds, src_of = spec_requests(served["model"].src_vocab)
+    arms = {}
+
+    # each arm's counts start after its table is built (the table's state
+    # template is one prefill of its own)
+    plain = SlotScheduler(backend, slots=SLOTS)
+    K.reset_launch_counts()
+    res, secs = spec_drive(plain, feeds)
+    arms["plain"] = (plain, res, secs, K.launch_counts())
+
+    parked = {"peak_bytes": 0, "records": 0, "forced": 0}
+
+    def page_out(sched, cycle):
+        if cycle % SPEC_PAGE_EVERY == SPEC_PAGE_EVERY - 1 \
+                and sched.page_out_victim():
+            parked["forced"] += 1
+            parked["peak_bytes"] = max(parked["peak_bytes"],
+                                       sched.pager.bytes_used())
+            parked["records"] = max(parked["records"], len(sched.pager))
+
+    backend.fingerprint()           # hashed once, outside the timed arm
+    full = SlotScheduler(backend, slots=SLOTS, spec_k=SPEC_K,
+                         prefix_cache_mb=SPEC_CACHE_MB,
+                         page_pool_mb=SPEC_POOL_MB)
+    K.reset_launch_counts()
+    res, secs = spec_drive(full, feeds, hook=page_out)
+    arms["full"] = (full, res, secs, K.launch_counts())
+
+    srv = _gen_server(backend, spec_k=SPEC_K, prefix_cache_mb=SPEC_CACHE_MB,
+                      slot_page_pool_mb=SPEC_POOL_MB,
+                      max_queue=SPEC_SERVER_QUEUE,
+                      default_deadline_ms=60000.0)
+    with srv:
+        srv.start(warmup_feed=feeds[0])
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        futs = {i: srv.submit(f) for i, f in enumerate(feeds)}
+        errs = _resolve_all(futs, "spec server")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = K.launch_counts()
+        hz = srv.healthz()
+        sched = srv._scheduler
+    failed = [(i, e) for i, e in errs.items() if e is not None]
+    if failed:
+        fail("spec", f"server arm: {len(failed)} requests failed: "
+             f"{failed[:4]}")
+    res = [(futs[i].result(0), None) for i in range(len(feeds))]
+    arms["server"] = (sched, res, secs, launches)
+
+    tokens = sum(st for _, st in arms["plain"][1])
+    for name, (sc, res, secs, la) in arms.items():
+        line = (f"spec: {name}: {len(feeds)} requests over {SPEC_SOURCES} "
+                f"sources, {SLOTS} slots, beam 1, max_len {MAX_LEN}, bf16: "
+                f"{secs:.3f} s, {len(feeds) / secs:.2f} requests/s, "
+                f"{tokens / secs:.1f} tokens/s ({tokens} tokens), "
+                f"{sc.steps_run} table steps, {tokens / sc.steps_run:.2f} "
+                f"tokens a table step")
+        if sc.spec_k:
+            line += (f", {sc.spec_steps} wide steps, acceptance "
+                     f"{sc.spec_accepted}/{sc.spec_drafted} = "
+                     f"{sc.spec_accepted / max(1, sc.spec_drafted):.4f}")
+        if sc.prefix_cache is not None:
+            line += f", prefix cache {sc.prefix_cache.stats()}"
+        if sc.pager is not None:
+            line += f", pager {sc.pager.stats()}"
+        line += (f"; launches {_launch_text(la)} [{card}]")
+        print(line, flush=True)
+    print(f"spec: full arm: {parked['forced']} forced page-outs, peak "
+          f"{parked['peak_bytes']} bytes parked in the pager in "
+          f"{parked['records']} record(s) "
+          f"({parked['peak_bytes'] // max(1, parked['records'])} bytes a "
+          f"record); server arm: pages out {hz['counters']['slots_paged_out']}"
+          f", in {hz['counters']['slots_paged_in']}, prefix cache hits "
+          f"{hz['counters']['prefix_cache_hits']}, misses "
+          f"{hz['counters']['prefix_cache_misses']}, spec drafts "
+          f"{hz['counters']['spec_draft_tokens_total']}, accepted "
+          f"{hz['counters']['spec_accepted_tokens_total']}, emitted "
+          f"{hz['counters'].get('spec_emitted_tokens_total')} [{card}]",
+          flush=True)
+
+    plain_res = [r for r, _ in arms["plain"][1]]
+    full_res = [r for r, _ in arms["full"][1]]
+    server_res = [r for r, _ in arms["server"][1]]
+    for r in plain_res:
+        t, sc_ = r["tokens"], r["scores"]
+        if t.shape != (1, 1, MAX_LEN) or not np.isfinite(sc_).all():
+            fail("spec", f"malformed result: tokens {t.shape}, scores {sc_}")
+    differ = _same_answers(plain_res, full_res)
+    print(f"spec: full arm vs plain arm: tokens and scores identical on "
+          f"{len(feeds) - len(differ)}/{len(feeds)}; server arm vs full "
+          f"arm: {len(feeds) - len(_same_answers(full_res, server_res))}"
+          f"/{len(feeds)}", flush=True)
+    if differ:
+        fail("spec", f"full arm: requests {differ[:8]} differ from the plain "
+             f"arm")
+    differ = _same_answers(full_res, server_res)
+    if differ:
+        fail("spec", f"server arm: requests {differ[:8]} differ from the "
+             f"full arm")
+    spec_solo_check(backend, feeds, src_of, full_res, card)
+
+    full, la_full = arms["full"][0], arms["full"][3]
+    la_plain = arms["plain"][3]
+    hits = full.prefix_cache.hits
+    per_prefill = la_plain["gru_forward"] / len(feeds)
+    if not (hits > 0 and per_prefill == int(per_prefill)
+            and la_plain["gru_forward"] - la_full["gru_forward"]
+            == int(per_prefill) * hits):
+        fail("spec", f"prefix cache: {hits} hits, K3 launches plain "
+             f"{la_plain['gru_forward']}, full {la_full['gru_forward']}")
+    st = full.pager.stats()
+    if not st["paged_out"] == st["paged_in"] > 0:
+        fail("spec", f"full arm pager {st}")
+    c = hz["counters"]
+    if not c["slots_paged_out"] == c["slots_paged_in"] > 0:
+        fail("spec", f"server arm pages out {c['slots_paged_out']}, in "
+             f"{c['slots_paged_in']}")
+    if not (full.spec_accepted > 0 and full.spec_steps > 0
+            and c["spec_accepted_tokens_total"] > 0):
+        fail("spec", f"no draft accepted: full {full.spec_accepted} of "
+             f"{full.spec_drafted}, server {c['spec_accepted_tokens_total']}")
+    for name, (sc, _, _, la) in arms.items():
+        for kernel in SERVE_KERNELS:
+            if la[kernel] <= 0:
+                fail("spec", f"{name} arm: kernel {kernel} not launched")
+        other = {n: v for n, v in la.items() if v and n not in SERVE_KERNELS}
+        if other:
+            fail("spec", f"{name} arm: kernels {other} launched")
+        # K7 once a table step: at N = SLOTS on a plain step, at
+        # (SPEC_K + 1) x SLOTS on a wide one, every launch on wgmma
+        if la.by_path["topk_lse_readout"] != {"wgmma": sc.steps_run}:
+            fail("spec", f"{name} arm: topk_lse_readout launches "
+                 f"{la.by_path['topk_lse_readout']} for {sc.steps_run} "
+                 f"table steps ({getattr(sc, 'spec_steps', 0)} wide), not "
+                 f"one wgmma launch each")
+        _all_persistent("spec", name, la, ("gru_forward",))
+    if not all(t.startswith("serving-worker-") for t in
+               arms["server"][3].by_thread["topk_lse_readout"]):
+        fail("spec", f"server arm: K7 launched by "
+             f"{arms['server'][3].by_thread['topk_lse_readout']}")
+    return la_full, full.spec_steps
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the training path
 # ---------------------------------------------------------------------------
 
 
@@ -2546,7 +2915,7 @@ def train_cpu_check(K, dev, config: str = "default"):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the text-classification path
+# phase 9: the text-classification path
 # ---------------------------------------------------------------------------
 
 
@@ -2734,7 +3103,7 @@ def textclf_cpu_check(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: generation through the nn DSL's beam_search layer
+# phase 10: generation through the nn DSL's beam_search layer
 # ---------------------------------------------------------------------------
 
 
@@ -2971,6 +3340,7 @@ def main() -> int:
         phase = "kernels"
         flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
         rows = [check_gru(K, flush, dev), check_topk(K, flush, dev)]
+        k7_wide = check_topk_wide(K, flush, dev, card)
         rows += check_gru_train(K, flush, dev)
         rows += check_bigru(K, flush, dev)
         rows += check_ce(K, flush, dev)
@@ -2986,6 +3356,8 @@ def main() -> int:
         serve_launches, serve_fused_launches, served = serve_path(K, dev)
         phase = "server"
         server_launches = server_path(K, dev, served)
+        phase = "spec"
+        spec_launches, spec_wide_steps = spec_path(K, dev, served, card)
         del served
         torch.cuda.empty_cache()
         phase = "train"
@@ -3050,6 +3422,12 @@ def main() -> int:
             src, key = train_launches["default"], name
         row["launches"] = src[key]
         row["launches_by_path"] = src.by_path[key]
+        if name == "topk_lse_readout":
+            # the spec phase's full arm: one launch a table step, its wide
+            # steps at N = 320
+            row.update(k7_wide, spec_launches=spec_launches[name],
+                       spec_launches_by_path=spec_launches.by_path[name],
+                       spec_launches_n320=spec_wide_steps)
     # the server phase's launches as counted, by kernel library
     print(json.dumps({"server_launches": {
         part: {n: {"launches": c, "by_path": counts.by_path[n],

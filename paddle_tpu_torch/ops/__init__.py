@@ -28,9 +28,13 @@ from paddle_tpu_torch.ops.losses import (cross_entropy, masked_token_mean,
                                          sequence_softmax_ce_readout)
 from paddle_tpu_torch.ops.decode import (NEG, LinearReadout, LogitsReadout,
                                          beam_decode, beam_gather, decode_step,
-                                         finalize_slots, greedy_decode,
-                                         init_slot_carry, release_slot,
-                                         write_slot)
+                                         extract_slot, finalize_slots,
+                                         greedy_decode, init_slot_carry,
+                                         release_slot, restore_slot,
+                                         spec_verify_step, write_slot)
+from paddle_tpu_torch.ops.speculative import (AdversarialProposer,
+                                              CallableDraftProposer,
+                                              DraftProposer, NGramProposer)
 
 __all__ = [
     "acc_dtype", "compute_dtype", "compute_dtype_scope", "dot_dtype",
@@ -46,5 +50,7 @@ __all__ = [
     "sequence_cross_entropy", "sequence_softmax_ce_readout", "NEG",
     "LinearReadout", "LogitsReadout", "beam_decode", "beam_gather",
     "decode_step", "finalize_slots", "greedy_decode", "init_slot_carry",
-    "release_slot", "write_slot",
+    "release_slot", "write_slot", "spec_verify_step", "extract_slot",
+    "restore_slot", "DraftProposer", "NGramProposer",
+    "CallableDraftProposer", "AdversarialProposer",
 ]

@@ -28,15 +28,17 @@ The carry of a slot table of S slots, each holding one request's K beams::
     active   [S] bool                slot occupancy (host-managed)
     step     [S] i64                 per-slot step count
 
-``decode_step`` returns a new carry and leaves its input untouched (the
+``decode_step`` and ``spec_verify_step`` (the speculative wide step over a
+greedy table) return a new carry and leave their input untouched (the
 slot scheduler commits a step only if its ``commit()`` still holds);
-``write_slot`` and ``release_slot`` update the carry in place, which saves
-a copy of the whole table per admitted row, and return it.
+``write_slot``, ``release_slot`` and ``restore_slot`` update the carry in
+place, which saves a copy of the whole table per admitted row, and return
+it.  ``extract_slot`` copies one slot's context out for host paging.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -47,6 +49,7 @@ from paddle_tpu_torch.ops.numerics import compute_dtype
 
 __all__ = ["NEG", "LinearReadout", "LogitsReadout", "beam_gather",
            "decode_step", "init_slot_carry", "write_slot", "release_slot",
+           "spec_verify_step", "extract_slot", "restore_slot",
            "finalize_slots", "beam_decode", "greedy_decode"]
 
 #: the reference's kill score for impossible candidates; scores must match
@@ -260,6 +263,198 @@ def release_slot(carry: dict, slot: int) -> dict:
     ``decode_step`` freezes it until the next ``write_slot``."""
     carry["active"][slot] = False
     carry["finished"][slot] = True
+    return carry
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    out: List[torch.Tensor] = []
+    _tree_map(out.append, tree)
+    return out
+
+
+def _unflatten(tree, leaves: List[torch.Tensor]):
+    """``tree``'s structure with ``leaves`` in ``_leaves`` order."""
+    it = iter(leaves)
+    return _tree_map(lambda _: next(it), tree)
+
+
+def spec_verify_step(step_fn: Callable, readout, carry: dict, drafts, cap, *,
+                     vocab_size: int, eos: int = 1):
+    """ONE wide-verify step for speculative decoding over a GREEDY
+    (``beam_size == 1``) slot table: per active slot, score the current
+    token plus ``k`` host-proposed draft tokens in one call and emit the
+    longest prefix the model itself would have produced — between 1 and
+    ``k + 1`` tokens per slot per step.
+
+    ``drafts`` is ``[S, k]`` (host draft proposals per slot,
+    ``ops/speculative.py``); ``cap`` is ``[S]``, the per-slot remaining
+    decode budget (``limit - tokens_emitted``): emission stops there, so a
+    score never accumulates past the request's own ``max_len``.  Returns
+    ``(new_carry, aux)`` with ``aux = {"emitted": [S, k+1], "n": [S],
+    "accepted": [S]}``: the emitted tokens (EOS past ``n``), the tokens
+    emitted and the draft tokens accepted.  The input carry is not
+    modified.
+
+    Bit-identity with the one-token path (``decode_step``), as in the
+    reference:
+
+    - position ``j``'s input is the previous emission of the solo run
+      while every earlier draft matched the model's own greedy emission
+      (or the row already finished, where emissions are forced EOS at
+      zero cost whatever the state); ``step_fn`` runs at S rows at every
+      position, as the one-token step does, and the readout's rows do
+      not depend on how many rows share the call;
+    - ``logp`` accumulates position by position in the one-token path's
+      float order (``logp + (val - lse)``, ``+ 0.0`` once finished);
+    - the carried state is SELECTED from the sweep: row ``r``'s state
+      after position ``n - 1`` saw exactly the solo inputs.
+
+    The readout runs ONCE over the ``(k+1)·S`` rows of one contiguous
+    stacked tensor (so its operand is a fresh aligned allocation and K7
+    takes the same pass-1 kernel as at S rows).  State leaves that
+    ``step_fn`` returns unmodified (the same tensor object: the encoder
+    outputs, projections and mask of ``Seq2SeqSlotBackend``) are detected
+    by identity on the first position and neither stacked nor selected.
+    Inactive slots are frozen bit for bit.  Beam search has no greedy
+    verify: ``beam_size > 1`` raises."""
+    tokens, logp = carry["tokens"], carry["logp"]
+    state, finished = carry["state"], carry["finished"]
+    active, step = carry["active"], carry["step"]
+    S, K, Lp1 = tokens.shape
+    if K != 1:
+        raise ValueError(
+            f"spec_verify_step is a greedy path: beam_size must be 1, "
+            f"got K={K} (beam search falls back to decode_step)")
+    dev = tokens.device
+    drafts = torch.as_tensor(drafts, device=dev).long()
+    cap = torch.as_tensor(cap, device=dev).long()
+    if drafts.dim() != 2 or drafts.shape[0] != S or tuple(cap.shape) != (S,):
+        raise ValueError(f"drafts [S={S}, k] and cap [S] expected, got "
+                         f"{tuple(drafts.shape)} and {tuple(cap.shape)}")
+    k = int(drafts.shape[1])
+
+    # position inputs: x_0 = each slot's current token, x_j = draft j-1
+    y0 = torch.gather(tokens[:, 0], 1, step[:, None])[:, 0]
+    xs = torch.cat([y0[None], drafts.T], dim=0)            # [k+1, S]
+
+    # the sweep: the recurrence through all k+1 positions, keeping each
+    # position's readout input and its changed state leaves
+    in_leaves = _leaves(state)
+    changed: Optional[List[bool]] = None
+    r_list, st_list = [], []
+    st = state
+    for j in range(k + 1):
+        r_in, st = step_fn(xs[j], st)
+        out_leaves = _leaves(st)
+        if changed is None:
+            changed = [o is not i for o, i in zip(out_leaves, in_leaves)]
+        r_list.append(r_in)
+        st_list.append([o for o, c in zip(out_leaves, changed) if c])
+    r_all = torch.stack(r_list)                            # [k+1, S, D]
+    vals, idx, lse = readout(r_all.reshape((k + 1) * S, -1), 1)
+    g = idx[:, 0].reshape(k + 1, S)            # greedy token per position
+    lp = (vals[:, 0] - lse).reshape(k + 1, S)  # its log-prob
+
+    # accept/emit: 'emitting' is sticky per row — a position emits only
+    # while every earlier draft matched the row's own emission (or the row
+    # is finished: forced EOS at zero cost) and the budget is not spent
+    fin = finished[:, 0]
+    logp_new = logp[:, 0]
+    emitting = active & (cap > 0)
+    n = torch.zeros(S, dtype=torch.long, device=dev)
+    acc = torch.zeros(S, dtype=torch.long, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    em = []
+    for j in range(k + 1):
+        if j:
+            matched = drafts[:, j - 1] == em[j - 1]
+            emitting = emitting & (fin | matched) & (n < cap)
+            acc = acc + (emitting & ~fin).long()
+        e_j = torch.where(fin, torch.full_like(g[j], eos), g[j])
+        logp_new = torch.where(
+            emitting, logp_new + torch.where(fin, zero, lp[j]), logp_new)
+        em.append(torch.where(emitting, e_j, torch.full_like(e_j, eos)))
+        n = n + emitting.long()
+        fin = fin | (emitting & (e_j == eos))
+    em_arr = torch.stack(em, dim=1)                        # [S, k+1]
+
+    # token-buffer epilogue: the n emitted tokens at each slot's own
+    # position (offsets past n keep the EOS-prefilled buffer)
+    off = (torch.arange(Lp1, device=dev)[None, :] - (step[:, None] + 1))
+    sel = (off >= 0) & (off < n[:, None])                  # [S, Lp1]
+    gathered = torch.gather(em_arr, 1, off.clamp(0, k))
+    tokens_new = torch.where(sel[:, None, :], gathered[:, None, :], tokens)
+
+    # state select: each row keeps its sweep state at position n-1; rows
+    # that emitted nothing keep the original, bit for bit
+    pos = (n - 1).clamp(0, k)
+    live = n > 0
+    rows = torch.arange(S, device=dev)
+    picked = iter(zip(*st_list))          # per changed leaf: k+1 states
+    new_leaves = []
+    for leaf, ch in zip(in_leaves, changed):
+        if not ch:
+            new_leaves.append(leaf)
+            continue
+        stacked = torch.stack(next(picked))                # [k+1, S, ...]
+        m = live.reshape((S,) + (1,) * (leaf.dim() - 1))
+        new_leaves.append(torch.where(m, stacked[pos, rows], leaf))
+
+    new_carry = {
+        "tokens": tokens_new,
+        "logp": logp_new[:, None],
+        "state": _unflatten(state, new_leaves),
+        "finished": fin[:, None],
+        "active": active,
+        "step": step + n,
+    }
+    return new_carry, {"emitted": em_arr, "n": n, "accepted": acc}
+
+
+def _slot_rows(leaf: torch.Tensor, S: int, K: int, slot: int) -> slice:
+    if leaf.shape[0] == S * K:
+        return slice(slot * K, (slot + 1) * K)
+    if leaf.shape[0] == S:
+        return slice(slot, slot + 1)
+    raise ValueError(f"slot leaf has no slot axis: shape "
+                     f"{tuple(leaf.shape)} with S={S}, K={K}")
+
+
+def extract_slot(carry: dict, slot: int) -> dict:
+    """Page-out: one slot's full decode context — token buffer, scores,
+    state rows, finished mask, step — as copies on the table's device
+    (``serving/paging.py`` moves them to the host).  The copies preserve
+    every bit, so a slot paged out and restored decodes exactly as if it
+    had never left the table."""
+    tokens = carry["tokens"]
+    S, K, _ = tokens.shape
+    return {
+        "tokens": tokens[slot:slot + 1].clone(),
+        "logp": carry["logp"][slot:slot + 1].clone(),
+        "state": _tree_map(
+            lambda x: x[_slot_rows(x, S, K, slot)].clone(), carry["state"]),
+        "finished": carry["finished"][slot:slot + 1].clone(),
+        "step": carry["step"][slot:slot + 1].clone(),
+    }
+
+
+def restore_slot(carry: dict, slot: int, saved: dict) -> dict:
+    """Page-in: write an :func:`extract_slot` snapshot (on any device)
+    back into slot ``slot`` IN PLACE and re-activate it at its saved step
+    — the inverse of :func:`extract_slot` up to bit identity.  Returns
+    ``carry``."""
+    tokens = carry["tokens"]
+    S, K, _ = tokens.shape
+
+    def put(table, piece):
+        table[_slot_rows(table, S, K, slot)] = piece.to(table.dtype)
+
+    _tree_map(put, carry["state"], saved["state"])
+    tokens[slot:slot + 1] = saved["tokens"].to(tokens.dtype)
+    carry["logp"][slot:slot + 1] = saved["logp"].to(torch.float32)
+    carry["finished"][slot:slot + 1] = saved["finished"]
+    carry["step"][slot:slot + 1] = saved["step"].to(carry["step"].dtype)
+    carry["active"][slot] = True
     return carry
 
 

@@ -13,19 +13,25 @@ without a silent drop (docs/serving.md):
 - ``straggler_request`` marks a generation request never-EOS (the
   batch-hostage request continuous batching must contain);
 - ``slow_client`` paces a feed stream (the trickling client admission
-  control must not starve).
+  control must not starve);
+- ``bad_draft`` swaps a speculative scheduler's proposer for an
+  always-wrong one (throughput may drop, output must not change);
+- ``corrupt_prefix_cache`` flips bits inside cached prefill state (the
+  cache's crc must catch it and the request must prefill afresh).
 """
 
 from __future__ import annotations
 
 import functools
 import time as _time
-from typing import Any, Callable, Iterable
+from typing import Any, Callable, Iterable, Optional
 
 import numpy as np
+import torch
 
 __all__ = ["nan_feed", "kill_worker", "latency_injection", "crash_calls",
-           "straggler_request", "slow_client"]
+           "straggler_request", "slow_client", "bad_draft",
+           "corrupt_prefix_cache"]
 
 
 def nan_feed(batch: Any) -> Any:
@@ -106,3 +112,55 @@ def slow_client(feeds: Iterable, *, delay_s: float = 0.05,
     for f in feeds:
         yield f
         sleep(delay_s)
+
+
+def bad_draft(scheduler, *, token: Optional[int] = None):
+    """Sabotage speculative decoding with an ALWAYS-WRONG draft proposer:
+    every draft position gets one constant token (default ``vocab - 1``),
+    so the wide verify rejects essentially every draft and each step
+    degrades to the baseline of >= 1 emitted token.  A wrong draft can slow
+    decoding but never change it: outputs stay bit-identical to solo
+    decode.  Returns the displaced proposer so the caller can restore
+    it."""
+    from paddle_tpu_torch.ops.speculative import AdversarialProposer
+
+    if scheduler.spec_k <= 0:
+        raise ValueError("bad_draft needs a speculative scheduler "
+                         "(spec_k > 0)")
+    if token is None:
+        token = int(scheduler.backend.vocab_size) - 1
+    prev = scheduler.proposer
+    scheduler.proposer = AdversarialProposer(token)
+    return prev
+
+
+def corrupt_prefix_cache(scheduler, *, key: Optional[str] = None) -> int:
+    """Flip bits inside resident prefix-cache payloads (one entry when
+    ``key`` is given, else every entry): the bit-rot / torn-write fault of
+    the host-side prefill cache.  The cache's crc over the key and the
+    payload bytes must catch it at ``get``: the entry is dropped, counted
+    as a miss AND a ``poisoned`` detection, and the request prefills
+    afresh.  Returns the number of entries corrupted."""
+    cache = scheduler.prefix_cache
+    if cache is None:
+        raise ValueError("corrupt_prefix_cache needs a scheduler with a "
+                         "prefix cache (prefix_cache_mb > 0)")
+    keys = [key] if key is not None else cache.keys()
+    n = 0
+    for k in keys:
+        payload = cache.peek(k)
+        if not payload:
+            continue
+        name = sorted(payload)[0]
+        # damage a copy and splice it into the entry's own payload dict,
+        # so the entry now holds bytes that no longer match its crc
+        t = payload[name].clone()
+        flat = t.reshape(-1)
+        if flat.dtype == torch.bool:
+            flat[: max(1, flat.numel() // 997)] ^= True
+        else:
+            raw = flat.view(torch.uint8)
+            raw[: max(1, raw.numel() // 997)] ^= 0xFF
+        payload[name] = t
+        n += 1
+    return n

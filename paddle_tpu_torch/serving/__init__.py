@@ -15,12 +15,15 @@ port (the reference's ``paddle_tpu/serving``; docs/serving.md):
   the persistent decode slot table (``SlotScheduler``), finished requests'
   slots recycled to queued requests between steps, expired residents
   evicted mid-generation;
+- **decode speed** — speculative decoding over a greedy table (the draft
+  proposers of ``ops/speculative.py``), the prefix cache of prefill state
+  (``PrefixCache``) and host paging of slots (``SlotPager``), none of which
+  changes an answer;
 - **observability** — ``ServerMetrics`` over the shared metrics registry
   (``paddle_tpu_torch.obs``), behind ``InferenceServer.healthz()``.
 
-Speculative decoding, the prefix cache, paging, the compile cache,
-preflight, request tracing, the fleet, router, tenancy, reload and cli are
-not ported yet (ROADMAP.md Queue 1 items 2, 7 and 9).
+The compile cache, preflight, request tracing, the fleet, router, tenancy,
+reload and cli are not ported yet (ROADMAP.md Queue 1 items 2, 7 and 9).
 """
 
 from paddle_tpu_torch.serving.errors import (CircuitOpenError,
@@ -41,6 +44,11 @@ from paddle_tpu_torch.serving.server import InferenceServer
 from paddle_tpu_torch.serving.worker import WorkerSupervisor
 from paddle_tpu_torch.serving.slots import (Seq2SeqSlotBackend, SlotBackend,
                                             SlotScheduler)
+from paddle_tpu_torch.serving.prefix_cache import PrefixCache, feed_key
+from paddle_tpu_torch.serving.paging import PagedSlot, SlotPager
+from paddle_tpu_torch.ops.speculative import (AdversarialProposer,
+                                              CallableDraftProposer,
+                                              DraftProposer, NGramProposer)
 
 __all__ = [
     "ServingError", "InvalidRequestError", "ShedError", "DeadlineExceeded",
@@ -49,5 +57,7 @@ __all__ = [
     "canonicalize_feed", "merge_feeds", "split_outputs", "batch_bucket",
     "warmup_bucket_feeds", "CircuitBreaker", "ServerMetrics",
     "InferenceServer", "WorkerSupervisor", "SlotBackend",
-    "Seq2SeqSlotBackend", "SlotScheduler",
+    "Seq2SeqSlotBackend", "SlotScheduler", "PrefixCache", "feed_key",
+    "PagedSlot", "SlotPager", "DraftProposer", "NGramProposer",
+    "CallableDraftProposer", "AdversarialProposer",
 ]

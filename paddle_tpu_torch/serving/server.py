@@ -35,11 +35,15 @@ The worker thread runs with grad mode off and on the backend's CUDA device
 starts with grad mode on and device 0.  The compute dtype is process-wide
 (``FLAGS``), so the worker serves under the caller's policy.
 
+Generation mode takes the slot table's decode-speed options: speculative
+decoding (``spec_k``, ``draft``), the prefix cache (``prefix_cache_mb``)
+and host paging of slots (``slot_page_pool_mb``).  Each cycle re-admits
+parked slots before new requests, and pages one cold resident out when the
+table is full and requests queue.
+
 Not ported yet; each raises :class:`~paddle_tpu_torch.utils.error
-.ConfigError` naming its ROADMAP.md item: speculative decoding
-(``spec_k``, ``draft``), the prefix cache (``prefix_cache_mb``) and host
-paging (``slot_page_pool_mb``), Queue 1 item 2; ``start(compile_cache=)``
-and an ``InferenceModel`` in bucket mode, item 7; ``start(preflight=True)``
+.ConfigError` naming its ROADMAP.md item: ``start(compile_cache=)`` and an
+``InferenceModel`` in bucket mode, Queue 1 item 7; ``start(preflight=True)``
 and request tracing (``submit(trace_attrs=)``), item 9.
 """
 
@@ -114,7 +118,11 @@ class InferenceServer:
     (evict -> harvest -> admit -> one decode step); ``slots`` bounds both
     the decode table and admission (a request's rows must fit the table),
     and the degradation ladder's ``{"max_len": n}`` tiers cap the decode
-    budget of newly admitted requests under queue pressure.
+    budget of newly admitted requests under queue pressure.  ``spec_k``,
+    ``draft``, ``prefix_cache_mb`` and ``slot_page_pool_mb`` arm the slot
+    table's speculative decoding, prefix cache and host page pool
+    (``SlotScheduler``'s ``spec_k``, ``draft``, ``prefix_cache_mb`` and
+    ``page_pool_mb``); none of them changes an answer.
     """
 
     RUNNING, FAILED, CLOSED = "running", "failed", "closed"
@@ -150,12 +158,6 @@ class InferenceServer:
             raise ValueError("nonfinite must be 'error' or 'allow'")
         if mode not in ("bucket", "generation"):
             raise ValueError("mode must be 'bucket' or 'generation'")
-        if spec_k > 0 or draft is not None:
-            raise _not_ported("speculative decoding (spec_k, draft)", 2)
-        if prefix_cache_mb > 0:
-            raise _not_ported("the prefix cache (prefix_cache_mb)", 2)
-        if slot_page_pool_mb > 0:
-            raise _not_ported("host paging of slots (slot_page_pool_mb)", 2)
         self.model = model
         self.mode = mode
         if mode == "generation":
@@ -180,7 +182,10 @@ class InferenceServer:
                     "mode='generation' needs a SlotBackend (prefill/"
                     "step_fn/readout — serving/slots.py), got "
                     f"{type(model).__name__}")
-            self._scheduler = SlotScheduler(model, slots=slots, clock=clock)
+            self._scheduler = SlotScheduler(
+                model, slots=slots, clock=clock, spec_k=spec_k,
+                draft=draft, prefix_cache_mb=prefix_cache_mb,
+                page_pool_mb=slot_page_pool_mb)
             self._runner = None
         else:
             self._runner = self._make_runner(model)
@@ -212,6 +217,7 @@ class InferenceServer:
         #: generation-mode hot-swap staging: (scheduler, model, info),
         #: flipped by the worker once the current table fully drains
         self._swap_next = None
+        self._spec_seen = None   # the last wide step's stats counted
         self.supervisor = WorkerSupervisor(
             (self._serve_generation_once if mode == "generation"
              else self._serve_once),
@@ -349,6 +355,14 @@ class InferenceServer:
             sched.reset()
         # the synthetic traffic must not read as served traffic on healthz
         sched.admitted = sched.recycled = sched.steps_run = 0
+        sched.spec_drafted = sched.spec_accepted = sched.spec_steps = 0
+        sched.last_spec = None
+        if sched.prefix_cache is not None:
+            # the synthetic feed's entry and its hit/miss counts are
+            # warmup noise, not traffic
+            sched.prefix_cache.clear()
+            sched.prefix_cache.hits = sched.prefix_cache.misses = 0
+            sched.prefix_cache.evictions = 0
         self.metrics.inc("warmup_compiles",
                          max(0, sched.compiled_programs() - before))
         logger.info("generation warmup: %d admission bucket(s) over %d "
@@ -371,9 +385,12 @@ class InferenceServer:
         :class:`~paddle_tpu_torch.serving.slots.SlotBackend` is built in
         THIS caller's thread, then the swap is staged — the worker stops
         admitting, lets resident requests finish on the old table, and
-        flips scheduler and model once it is empty.  The incoming backend
-        must live on the served device (the worker thread's).  Returns the
-        previous model."""
+        flips scheduler and model once it is empty, host page pool
+        included.  The new table keeps the old one's speculation, prefix
+        cache and page pool settings; the old prefix cache is cleared at
+        the flip (its keys embed the retired fingerprint).  The incoming
+        backend must live on the served device (the worker thread's).
+        Returns the previous model."""
         if self.mode != "bucket":
             from paddle_tpu_torch.serving.slots import SlotScheduler
 
@@ -386,8 +403,14 @@ class InferenceServer:
                 raise ValueError(
                     f"generation swap onto device {dev} from the served "
                     f"device {self._device}")
-            sched = SlotScheduler(model, slots=self._scheduler.slots,
-                                  clock=self._clock)
+            old = self._scheduler
+            sched = SlotScheduler(
+                model, slots=old.slots, clock=self._clock,
+                spec_k=old.spec_k, draft=old.proposer,
+                prefix_cache_mb=(0.0 if old.prefix_cache is None else
+                                 old.prefix_cache.max_bytes / (1 << 20)),
+                page_pool_mb=(0.0 if old.pager is None else
+                              old.pager.max_bytes / (1 << 20)))
             prev = self.model
             self._swap_next = (sched, model, info)
             return prev
@@ -447,8 +470,8 @@ class InferenceServer:
 
         ``max_len`` (generation mode) is the request's own decode budget;
         it must fit the slot table's depth (the backend's ``max_len``).
-        ``session_id`` is carried on the request (the prefix cache that
-        reads it is not ported yet)."""
+        ``session_id`` scopes the request's prefix-cache and draft-corpus
+        keys to its chat session."""
         if trace_attrs is not None:
             raise _not_ported("request tracing (submit(trace_attrs=))", 9)
         self.metrics.inc("submitted")
@@ -704,11 +727,15 @@ class InferenceServer:
         path's reply-or-typed-error guarantees."""
         sched = self._scheduler
         # staged hot-swap: admission is paused while a swap is pending
-        # (free=0 below), so the table drains; once empty, flip scheduler
-        # and model
-        if self._swap_next is not None and sched.occupied() == 0:
+        # (free=0 below), so the table drains; once empty — host page pool
+        # included — flip scheduler and model, and clear the old prefix
+        # cache (its keys embed the retired fingerprint)
+        if (self._swap_next is not None and sched.occupied() == 0
+                and (sched.pager is None or len(sched.pager) == 0)):
             new_sched, new_model, info = self._swap_next
             self._swap_next = None
+            if sched.prefix_cache is not None:
+                sched.prefix_cache.clear()
             self.model = new_model
             self._scheduler = sched = new_sched
             self.set_model_info(info)
@@ -739,6 +766,14 @@ class InferenceServer:
                 return  # abandoned worker: its results are unwanted
             self.metrics.inc("slot_recycled", req.rows)
             self._complete_harvested(gen, req, outputs, steps)
+        if sched.pager is not None and self._swap_next is None:
+            # re-admit parked slots FIRST: paged work predates anything in
+            # the queue and must not be overtaken indefinitely
+            self.supervisor.note_busy(gen)
+            try:
+                sched.page_in(commit=live)
+            finally:
+                self.supervisor.note_idle(gen)
         # admit into freed slots: with residents decoding, the pop must not
         # block — the coalescing window only applies to an idle table.  The
         # pop runs even with a FULL table (max_rows=0 selects nothing): its
@@ -799,6 +834,16 @@ class InferenceServer:
                 self._fail_requests(batch, _mk, "inference_failed")
             finally:
                 self.supervisor.note_idle(gen)
+        # paging: with the table full and work still queued, move ONE cold
+        # resident to the host pool a cycle so the next cycle's admission
+        # has a slot (one a cycle bounds the copies and the churn)
+        if (sched.pager is not None and self._swap_next is None
+                and self.queue.depth() > 0 and sched.free_count() == 0):
+            self.supervisor.note_busy(gen)
+            try:
+                sched.page_out_victim(commit=live)
+            finally:
+                self.supervisor.note_idle(gen)
         # the table's residents are the in-flight set: a worker death past
         # this point must fail exactly these futures (WorkerCrashed)
         self._in_flight = sched.resident_requests()
@@ -836,6 +881,15 @@ class InferenceServer:
         if ran:
             self.metrics.inc("gen_steps")
             self.metrics.observe_slots(sched.occupied(), sched.slots)
+            spec = sched.last_spec
+            if spec is not None and spec is not self._spec_seen:
+                # the per-step speculation stats: the tokens each drained
+                # wide step emitted (the reference stamps them, and the
+                # accepted drafts, on each resident's trace span; the
+                # accepted count is spec_accepted_tokens_total)
+                self._spec_seen = spec
+                self.metrics.inc("spec_emitted_tokens_total",
+                                 int(spec[0].sum()))
 
     # ------------------------------------------------------------------
     # supervision callbacks + chaos hooks
@@ -870,6 +924,12 @@ class InferenceServer:
         # registry view FIRST so healthz, /metrics, and worker.restarts
         # never disagree
         self.metrics.set_count("worker_restarts", self.supervisor.restarts)
+        if self._scheduler is not None:
+            # the scheduler owns the decode-speed counters (speculation,
+            # prefix cache, paging; forced page-outs included): mirror them
+            # into the registry BEFORE the snapshot so healthz and the
+            # registry agree
+            self._mirror_decode_counters(self._scheduler)
         snap = self.metrics.snapshot()
         out = {
             "ready": self.ready,
@@ -921,6 +981,24 @@ class InferenceServer:
                 "steps": sched.steps_run,
             }
         return out
+
+    def _mirror_decode_counters(self, sched) -> None:
+        if sched.pager is not None:
+            p = sched.pager.stats()
+            self.metrics.set_count("slots_paged_out", p["paged_out"])
+            self.metrics.set_count("slots_paged_in", p["paged_in"])
+        if sched.spec_k > 0:
+            self.metrics.set_count("spec_draft_tokens_total",
+                                   sched.spec_drafted)
+            self.metrics.set_count("spec_accepted_tokens_total",
+                                   sched.spec_accepted)
+            self.metrics.gauge("spec_accept_rate").set(round(
+                sched.spec_accepted / sched.spec_drafted
+                if sched.spec_drafted else 0.0, 4))
+        if sched.prefix_cache is not None:
+            c = sched.prefix_cache.stats()
+            self.metrics.set_count("prefix_cache_hits", c["hits"])
+            self.metrics.set_count("prefix_cache_misses", c["misses"])
 
     def __enter__(self) -> "InferenceServer":
         return self

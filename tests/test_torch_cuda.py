@@ -1731,3 +1731,227 @@ def test_server_evicts_an_expired_request_typed_on_the_card(dev,
     assert ok["tokens"].shape == (1, 3, 4)
     assert hz["counters"]["slot_evicted"] == 1
     assert hz["slots"]["occupied"] == 0 and hz["slots"]["recycled"] == 2
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding, the prefix cache and host paging on the card
+# ---------------------------------------------------------------------------
+
+
+def test_topk_wgmma_rows_identical_at_the_wide_verify_row_count(dev):
+    """The wide verify reads out (k+1)·S = 320 rows where the plain step
+    reads 64: greedy verification is bit-identical only if a row's
+    (vals, idx, lse) do not depend on N.  Rows at N = 64, 128 and 192 are
+    bit-equal to the same rows of the N = 320 call, and every call takes
+    the wgmma pass 1."""
+    s, w, b = _topk_inputs(dev, 320, 512, 30000, 11)
+    before = _topk_paths()
+    big = topk_lse_readout(s, w, b, 1)
+    calls = 1
+    for n in (64, 128, 192):
+        for r0 in range(0, 320 - n + 1, 64):
+            part = topk_lse_readout(s[r0:r0 + n].clone(), w, b, 1)
+            calls += 1
+            for a, c in zip(part, big):
+                assert torch.equal(a, c[r0:r0 + n]), (n, r0)
+    after = _topk_paths()
+    assert after.get("wgmma", 0) - before.get("wgmma", 0) == calls
+    assert sum(after.values()) - sum(before.values()) == calls
+
+
+def _greedy_flagship(dev, width=None, max_len=16):
+    from paddle_tpu_torch.models import Seq2SeqAttention
+    from paddle_tpu_torch.serving import Seq2SeqSlotBackend
+
+    m = (Seq2SeqAttention(device=dev) if width is None
+         else Seq2SeqAttention(**width, device=dev))
+    p = m.init(seed=4)
+    return Seq2SeqSlotBackend(m, p, src_len=16, beam_size=1,
+                              max_len=max_len)
+
+
+def _requests(feeds):
+    from paddle_tpu_torch.serving import (Request, ServingFuture,
+                                          canonicalize_feed)
+
+    reqs = []
+    for f in feeds:
+        canon, rows, sig = canonicalize_feed(f)
+        reqs.append(Request(feed=canon, rows=rows, signature=sig,
+                            future=ServingFuture(), deadline=None,
+                            t_submit=0.0))
+    return reqs
+
+
+def _drive(sched, reqs, hook=None):
+    out, pending, cycle = {}, list(reqs), 0
+    while (pending or sched.occupied()
+           or (sched.pager is not None and len(sched.pager))):
+        if hook is not None:
+            hook(sched, cycle)
+        cycle += 1
+        if sched.pager is not None:
+            sched.page_in()
+        for req, res, _ in sched.harvest():
+            out[id(req)] = res
+        while pending and sched.free_count():
+            sched.admit([pending.pop(0)])
+        if sched.occupied():
+            sched.step()
+    return [out[id(r)] for r in reqs]
+
+
+def test_extract_restore_slot_round_trip_through_the_host(dev):
+    """A slot's decode context copied to the host and written back into
+    its slot of a table that has since been overwritten gives the
+    original table back, bit for bit (bf16 state leaves included)."""
+    from paddle_tpu_torch.ops.decode import (decode_step, extract_slot,
+                                             init_slot_carry, restore_slot,
+                                             write_slot)
+    from paddle_tpu_torch.serving import canonicalize_feed
+
+    with compute_dtype_scope("bfloat16"), torch.no_grad():
+        be = _greedy_flagship(dev, width=_SERVE_CFG)
+        feeds = _src_feeds(3, 7)
+        tpl = be.prefill(be.example_feed(1))
+        c = init_slot_carry(tpl, slots=3, beam_size=1, max_len=be.max_len)
+        for slot, f in enumerate(feeds):
+            write_slot(c, slot, be.prefill(canonicalize_feed(f)[0]))
+        for _ in range(3):
+            c = decode_step(be.step_fn, be.readout, c,
+                            vocab_size=be.vocab_size)
+        # a bf16 leaf, which numpy cannot hold, rides the round trip too
+        c["state"]["enc"] = c["state"]["enc"].bfloat16()
+        saved = extract_slot(c, 1)
+        host = {k: ({n: t.cpu() for n, t in v.items()}
+                    if isinstance(v, dict) else v.cpu())
+                for k, v in saved.items()}
+        assert host["state"]["enc"].dtype == torch.bfloat16
+        orig = {k: ({n: t.clone() for n, t in v.items()}
+                    if isinstance(v, dict) else v.clone())
+                for k, v in c.items()}
+        write_slot(c, 1, be.prefill(canonicalize_feed(feeds[0])[0]))
+        c["active"][1] = False
+        restore_slot(c, 1, host)
+        torch.cuda.synchronize()
+    for name in ("tokens", "logp", "finished", "active", "step"):
+        assert torch.equal(c[name], orig[name]), name
+    for name in orig["state"]:
+        assert torch.equal(c["state"][name], orig["state"][name]), name
+
+
+def test_spec_cache_paging_arm_equals_plain_arm_at_full_width(dev,
+                                                              hard_alarm):
+    """The flagship at its full width (30k/30k, 512-d), beam 1, bf16: 12
+    requests over 3 sources through 4 slots with spec_k=4, the prefix
+    cache and a page-out every 3 cycles give the plain arm's tokens and
+    scores bit for bit, and each equals the request's solo greedy decode;
+    every K7 launch (N = 4 at the plain step, 20 at the wide one) takes
+    the wgmma pass 1."""
+    from paddle_tpu_torch.ops.decode import greedy_decode
+    from paddle_tpu_torch.ops.kernels import reset_launch_counts
+    from paddle_tpu_torch.serving import SlotScheduler, canonicalize_feed
+
+    with compute_dtype_scope("bfloat16"):
+        be = _greedy_flagship(dev)
+        src = _src_feeds(3, 9)
+        feeds = [src[i % 3] for i in range(12)]
+        plain = _drive(SlotScheduler(be, slots=4), _requests(feeds))
+        reset_launch_counts()
+        full = SlotScheduler(be, slots=4, spec_k=4, prefix_cache_mb=64.0,
+                             page_pool_mb=64.0)
+        got = _drive(full, _requests(feeds),
+                     hook=lambda s, cyc: cyc % 3 == 2 and s.page_out_victim())
+        launches = launch_counts()
+        solo = []
+        for f in src:
+            st0 = be.prefill(canonicalize_feed(f)[0])
+            t, sc = greedy_decode(be.step_fn, be.readout, st0, batch_size=1,
+                                  vocab_size=be.vocab_size,
+                                  max_len=be.max_len)
+            solo.append((t.cpu().numpy(), sc.cpu().numpy()))
+    for i, (g, w) in enumerate(zip(got, plain)):
+        np.testing.assert_array_equal(g["tokens"], w["tokens"])
+        np.testing.assert_array_equal(g["scores"], w["scores"])
+        np.testing.assert_array_equal(g["tokens"][:, 0], solo[i % 3][0])
+        np.testing.assert_array_equal(g["scores"][:, 0], solo[i % 3][1])
+    assert full.spec_steps > 0 and full.spec_accepted > 0
+    assert full.prefix_cache.hits == 9
+    assert full.pager.paged_out == full.pager.paged_in > 0
+    assert launches["topk_lse_readout"] == full.steps_run
+    assert launches.by_path["topk_lse_readout"] == {
+        "wgmma": full.steps_run}
+
+
+def test_server_worker_relaunch_under_load(dev, hard_alarm):
+    """``chaos.kill_worker`` three times while requests are in flight:
+    every request resolves (an answer, or ``WorkerCrashed`` for those the
+    dead worker held); resubmitted, every answer equals the direct run;
+    after the last relaunch K3/K7 launch only from the live worker
+    (``serving-worker-<generation>``); and device memory does not grow by
+    a cuBLAS workspace (32 MiB) per relaunch."""
+    import time
+
+    from paddle_tpu_torch.ops.kernels import reset_launch_counts
+    from paddle_tpu_torch.resilience import chaos
+    from paddle_tpu_torch.serving import InferenceServer, WorkerCrashed
+
+    workspace = 32 * 2 ** 20
+    with compute_dtype_scope("bfloat16"):
+        backend = _served_flagship(dev)
+        feeds = _src_feeds(12, 4)
+        want = _direct(backend, feeds, slots=4)
+        srv = InferenceServer(backend, mode="generation", slots=4,
+                              max_queue=64, batch_delay_ms=0.0,
+                              default_deadline_ms=60000.0, max_restarts=5,
+                              restart_backoff_s=0.01,
+                              max_restart_backoff_s=0.05)
+        with srv:
+            srv.start(warmup_feed=feeds[0])
+            got = {i: f.result(120) for i, f in
+                   enumerate([srv.submit(f) for f in feeds])}
+            torch.cuda.synchronize()
+            mem = [torch.cuda.memory_allocated(dev)]
+            crashed = 0
+            for kill in range(3):
+                futs = {i: srv.submit(f) for i, f in enumerate(feeds)}
+                chaos.kill_worker(srv)
+                for i, f in futs.items():
+                    err = f.error(120)
+                    if err is None:
+                        got[i] = f.result(0)
+                    else:
+                        assert isinstance(err, WorkerCrashed), err
+                        crashed += 1
+                deadline = time.monotonic() + 30
+                while (srv.supervisor.restarts < kill + 1
+                       or not srv.supervisor.alive()):
+                    assert time.monotonic() < deadline, "no relaunch"
+                    time.sleep(0.01)
+                again = {i: srv.submit(f) for i, f in enumerate(feeds)}
+                for i, f in again.items():
+                    np.testing.assert_array_equal(f.result(120)["tokens"],
+                                                  want[i]["tokens"])
+                    np.testing.assert_array_equal(
+                        f.result(0)["scores"], want[i]["scores"])
+                torch.cuda.synchronize()
+                mem.append(torch.cuda.memory_allocated(dev))
+            reset_launch_counts()
+            live = f"serving-worker-{srv.supervisor._generation}"
+            for f in [srv.submit(f) for f in feeds]:
+                f.result(120)
+            launches = launch_counts()
+            hz = srv.healthz()
+    assert crashed > 0, "no kill landed on a resident request"
+    assert hz["worker"]["restarts"] == 3
+    for i, g in got.items():
+        np.testing.assert_array_equal(g["tokens"], want[i]["tokens"])
+        np.testing.assert_array_equal(g["scores"], want[i]["scores"])
+    for name in ("gru_forward", "topk_lse_readout"):
+        assert launches[name] > 0
+        assert launches.by_thread[name] == {live: launches[name]}, \
+            launches.by_thread[name]
+    growth = (mem[-1] - mem[0]) / 3
+    print(f"device memory after each relaunch: {mem} bytes; growth "
+          f"{growth:.0f} bytes a relaunch")
+    assert growth < workspace, mem

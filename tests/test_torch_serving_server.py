@@ -13,7 +13,8 @@ Three parts:
   within rtol 1e-5 / atol 1e-6 (``tests/test_rnn_fused.py``'s f32
   tolerance);
 - the options the port does not have yet raise ``ConfigError`` naming
-  their ROADMAP.md item.
+  their ROADMAP.md item (items 7 and 9); item 2's decode-speed options
+  are accepted.
 
 Every test runs under a hard ``signal.alarm``, and every server is closed
 in a ``with`` block or a ``finally``, as the reference's serving tests do.
@@ -1024,8 +1025,22 @@ def test_flagship_served_matches_the_jax_server(rng):
     (dict(prefix_cache_mb=8.0), 2), (dict(slot_page_pool_mb=8.0), 2)],
     ids=["spec_k", "draft", "prefix_cache_mb", "slot_page_pool_mb"])
 def test_unported_generation_options_raise_config_error(rng, kw, item):
-    with pytest.raises(ConfigError, match=f"Queue 1 item {item}\\b"):
-        _gen_server(ToyLM(rng, max_len=4), **kw)
+    """Queue 1 item 2's decode-speed options are ported now: the server
+    takes them without a ``ConfigError`` and hands them to its slot table
+    (the toy LM's table is beam 3, so speculation is turned off there, as
+    in the reference; ``tests/test_torch_spec_decode.py`` serves with all
+    of them on a greedy table)."""
+    srv = _gen_server(ToyLM(rng, max_len=4), **kw)
+    with srv:
+        sched = srv._scheduler
+        assert sched.spec_k == 0 and sched.proposer is None
+        assert (sched.prefix_cache is None) == ("prefix_cache_mb" not in kw)
+        assert (sched.pager is None) == ("slot_page_pool_mb" not in kw)
+        for name, mb in kw.items():
+            if name == "prefix_cache_mb":
+                assert sched.prefix_cache.max_bytes == int(mb * (1 << 20))
+            if name == "slot_page_pool_mb":
+                assert sched.pager.max_bytes == int(mb * (1 << 20))
 
 
 @pytest.mark.parametrize("kw,item", [
