@@ -120,15 +120,30 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             layer held against ``SequenceGenerator`` over a hand-written
             step (identical ids), and the net at B=2 in f32 on the card
             against the CPU;
-11. a ``{"server_launches": {...}}`` line (each part of the server
+11. trainer  the trainer and its command line on the textclf net at
+            lstm_b64h256 (bf16): ``SGDTrainer(cost, Adam(1e-3),
+            seed=SEED).train_batch`` six times on textclf's feed, with
+            the bad-step guard on, giving the textclf phase's six losses
+            bit for bit; ``python -m paddle_tpu_torch --job=train`` on
+            ``tests/torch_textclf_conf.py`` for two passes of 3 batches
+            (losses finite and falling, both checkpoints valid), resumed
+            from pass 0 with ``--start_pass=1`` (pass 1's losses bit for
+            bit or within ``TOL_TRAINER_RESUME``), ``--job=test`` from the
+            last checkpoint (K9, no K10), ``--job=checkgrad`` under f32,
+            and ``--job=time`` over 20 batches beside textclf's direct
+            median; every K9r/K10 launch ``persistent``;
+12. a ``{"server_launches": {...}}`` line (each part of the server
    phase: every kernel library's launches, by kernel variant and by
    thread), a ``{"kernels": [...]}`` line (each kernel's launches on its
-   path's run, also by kernel variant: ``launches_by_path``), then the card
-   line again, and last ``{"ok": true, "device": {...}}``.
+   path's run, also by kernel variant: ``launches_by_path``; the K9,
+   K9r and K10 rows at b64h256 also by trainer part:
+   ``trainer_launches``), then the card line again, and last
+   ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed just before each path (serve and its fused
 re-run, each part of the server phase, each arm of the spec phase, each
-training configuration, each textclf run, dslgen) is driven
+training configuration, each textclf run, dslgen, each part of the
+trainer phase) is driven
 and read just after; a kernel of the path
 that was not launched fails the run.  ``chip_probe.py`` measures what this
 run leaves out to stay short (the products' chunk sizes end to end,
@@ -196,6 +211,18 @@ TOL_LSE_LOSS = 1e-3
 #: (paddle_tpu/models/seq2seq.py:40-45), 64 sources, beam BEAM, MAX_LEN
 DSLGEN_VOCAB, DSLGEN_WIDTH, DSLGEN_B = 30000, 512, 64
 DSLGEN_KERNELS = ("gru_forward", "topk_lse_logits")
+
+#: the trainer phase: the command line's config (``lstm_benchmark_net`` at
+#: lstm_b64h256), its batches a pass in the train run, the batches of
+#: ``--job=time``, and the kernel rows that report its launches
+TRAINER_CONF = os.path.join(ROOT, "tests", "torch_textclf_conf.py")
+TRAINER_PASS_BATCHES, TRAINER_TIME_BATCHES = 3, 20
+TRAINER_ROWS = ("lstm_forward", "lstm_forward_residuals_b64h256",
+                "lstm_backward_b64h256")
+#: the run resumed from pass 0 against the uninterrupted run's pass-1
+#: losses (rel), where they are not bit-equal: bf16 products of the same
+#: values, so only a different reduction order could move them
+TOL_TRAINER_RESUME = 1e-4
 
 #: kernel-vs-plain tolerances (max abs difference) and why
 TOL = {
@@ -2953,7 +2980,7 @@ def textclf_train(K, dev, hidden: int):
     """6 Adam steps of ``lstm_benchmark_net`` at B=64, T=100, bf16, the
     way ``bench.py::_topology_step`` drives it: ``apply`` ->
     ``torch.autograd.grad`` -> ``update``.  -> (launches, topology,
-    params, state, feed)."""
+    params, state, feed, losses, median step seconds)."""
     import numpy as np
     import torch
 
@@ -3016,7 +3043,7 @@ def textclf_train(K, dev, hidden: int):
           f"({flops:.4e} FLOP/step), peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB, "
           f"launches {launches}", flush=True)
-    return launches, topo, params, state, feed
+    return launches, topo, params, state, feed, losses, sec
 
 
 def textclf_infer(K, topo, params, state, feed, hidden: int):
@@ -3309,6 +3336,199 @@ def dslgen_cpu_check(dev, params):
                      f"a near tie")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the trainer and its command line
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def recorded_losses():
+    """Every ``SGDTrainer.train_batch`` loss, as a float, while inside: how
+    this script reads the command line's per-batch losses."""
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    losses = []
+    step = SGDTrainer.train_batch
+
+    def recording(self, feed):
+        loss = step(self, feed)
+        losses.append(loss.item())
+        return loss
+
+    SGDTrainer.train_batch = recording
+    try:
+        yield losses
+    finally:
+        SGDTrainer.train_batch = step
+
+
+@contextlib.contextmanager
+def cli_run(n_samples: int):
+    """The command line's config at ``n_samples`` a pass; the port's flags
+    (which the command line sets) and the environment restored after."""
+    from paddle_tpu_torch.utils.flags import FLAGS
+
+    keep, old = FLAGS.as_dict(), os.environ.get("TORCH_TEXTCLF_N")
+    os.environ["TORCH_TEXTCLF_N"] = str(n_samples)
+    try:
+        yield
+    finally:
+        for k, v in keep.items():
+            setattr(FLAGS, k, v)
+        if old is None:
+            os.environ.pop("TORCH_TEXTCLF_N")
+        else:
+            os.environ["TORCH_TEXTCLF_N"] = old
+
+
+def cli(argv):
+    """``main(argv)`` of ``python -m paddle_tpu_torch`` on the trainer
+    config -> what it printed; fails unless it returns 0."""
+    import io
+
+    from paddle_tpu_torch.__main__ import main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main([f"--config={TRAINER_CONF}", "--log_period=0", *argv])
+    if rc != 0:
+        fail("trainer", f"{argv}: exit code {rc}")
+    return out.getvalue()
+
+
+def trainer_path(K, dev, card, direct_losses, direct_sec):
+    """``SGDTrainer`` and ``python -m paddle_tpu_torch`` on
+    ``lstm_benchmark_net`` at lstm_b64h256 (bf16): the textclf phase's six
+    losses from ``train_batch`` bit for bit; ``--job=train`` for two
+    passes, then resumed from pass 0 with ``--start_pass=1``;
+    ``--job=test``, ``--job=checkgrad`` (f32) and ``--job=time``.  ->
+    {part: launches}."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.param import Adam
+    from paddle_tpu_torch.resilience import validate_checkpoint
+    from paddle_tpu_torch.resilience.checkpoint_io import pass_dir
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    launches = {}
+    # 1. the direct loop's losses, through the guarded trainer step
+    _, cost = textclf_net(256, dev)
+    tr = SGDTrainer(cost, Adam(learning_rate=1e-3), seed=SEED, device=dev)
+    feed = textclf_feed(TEXTCLF_B, TEXTCLF_T, SEED)
+    K.reset_launch_counts()
+    losses = [tr.train_batch(feed).item() for _ in range(TRAIN_STEPS)]
+    launches["train_batch"] = got = K.launch_counts()
+    print(f"trainer: SGDTrainer(Adam(1e-3), seed={SEED}, guard "
+          f"{tr.guard_nonfinite}).train_batch x {TRAIN_STEPS} at b64h256: "
+          f"losses {losses}; the textclf phase's direct loop "
+          f"{direct_losses}: {'bit for bit' if losses == direct_losses else 'DIFFERENT'}"
+          f"; launches {got}", flush=True)
+    if not tr.guard_nonfinite or losses != direct_losses:
+        fail("trainer", "train_batch's losses differ from the direct loop's")
+    if int(tr.opt_state["step"]) != TRAIN_STEPS or tr.bad_steps_total:
+        fail("trainer", f"step counter {int(tr.opt_state['step'])}, bad "
+             f"steps {tr.bad_steps_total}")
+    for name in TEXTCLF_KERNELS:
+        if got[name] != 2 * TRAIN_STEPS:
+            fail("trainer", f"{name}: {got[name]} launches, want "
+                 f"{2 * TRAIN_STEPS} (2 LSTM layers a step)")
+    _all_persistent("trainer", "train_batch", got, TEXTCLF_KERNELS)
+    del tr
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        full, part = os.path.join(tmp, "full"), os.path.join(tmp, "part")
+        n = TEXTCLF_B * TRAINER_PASS_BATCHES
+        # 2. two passes through the command line
+        K.reset_launch_counts()
+        with cli_run(n), recorded_losses() as run:
+            t0 = time.perf_counter()
+            cli(["--job=train", f"--save_dir={full}", "--num_passes=2"])
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        launches["cli_train"] = got = K.launch_counts()
+        per = TRAINER_PASS_BATCHES
+        print(f"trainer: --job=train, 2 passes of {per} batches (B="
+              f"{TEXTCLF_B}, T={TEXTCLF_T}, bf16, a test pass after each): "
+              f"{sec:.2f} s, losses {run}, launches {got}", flush=True)
+        if len(run) != 2 * per or not all(np.isfinite(run)) or not (
+                run[-1] < run[0]):
+            fail("trainer", f"--job=train losses {run}: want {2 * per} "
+                 f"finite, falling")
+        for p in (0, 1):
+            why = validate_checkpoint(pass_dir(full, p))
+            if why is not None:
+                fail("trainer", f"pass {p} checkpoint: {why}")
+        if got["lstm_backward"] != 2 * 2 * per or got["lstm_forward"] <= \
+                got["lstm_backward"]:
+            fail("trainer", f"--job=train launches {got}: want "
+                 f"{4 * per} lstm_backward and K9 beyond them (test passes)")
+        _all_persistent("trainer", "--job=train", got, TEXTCLF_KERNELS)
+
+        # 3. resumed from pass 0: pass 1 again
+        shutil.copytree(pass_dir(full, 0), pass_dir(part, 0))
+        K.reset_launch_counts()
+        with cli_run(n), recorded_losses() as resumed:
+            cli(["--job=train", f"--save_dir={part}", "--num_passes=2",
+                 "--start_pass=1"])
+        launches["cli_resume"] = got = K.launch_counts()
+        want = run[per:]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, want))
+        same = resumed == want
+        print(f"trainer: --start_pass=1 from the pass-0 checkpoint: pass-1 "
+              f"losses {resumed} vs the uninterrupted run's {want}: "
+              f"{'bit for bit' if same else f'max rel diff {rel:.3e} (tol {TOL_TRAINER_RESUME})'}"
+              f", launches {got}", flush=True)
+        if len(resumed) != per or rel > TOL_TRAINER_RESUME:
+            fail("trainer", "the resumed pass 1 differs from the "
+                 "uninterrupted run's")
+        _all_persistent("trainer", "--start_pass=1", got, TEXTCLF_KERNELS)
+
+        # 4. the test job from the last checkpoint: K9, no K10
+        K.reset_launch_counts()
+        with cli_run(n):
+            out = cli(["--job=test", f"--save_dir={full}"])
+        launches["cli_test"] = got = K.launch_counts()
+        result = out.strip().splitlines()[-1]
+        print(f"trainer: --job=test from pass 1: {result}, launches {got}",
+              flush=True)
+        if (got["lstm_forward"] <= 0 or got["lstm_backward"] != 0
+                or "cost" not in result):
+            fail("trainer", "--job=test must launch K9 and no K10")
+        _all_persistent("trainer", "--job=test", got, TEXTCLF_KERNELS)
+
+        # 5. finite differences against autograd, under f32
+        K.reset_launch_counts()
+        with cli_run(n):
+            out = cli(["--job=checkgrad", "--compute_dtype=float32"])
+        launches["cli_checkgrad"] = got = K.launch_counts()
+        print(f"trainer: --job=checkgrad (f32): {out.strip()}, launches "
+              f"{got}", flush=True)
+        if "checkgrad OK (15 parameters" not in out:
+            fail("trainer", "--job=checkgrad did not pass")
+
+    # 6. the time job beside the direct loop
+    K.reset_launch_counts()
+    with cli_run(TEXTCLF_B * TRAINER_TIME_BATCHES):
+        out = cli(["--job=time", f"--time_batches={TRAINER_TIME_BATCHES}"])
+    launches["cli_time"] = got = K.launch_counts()
+    ms = float(out.split(" ms/batch")[0].split()[-1])
+    print(f"trainer: --job=time: {ms:.2f} ms/batch over "
+          f"{TRAINER_TIME_BATCHES} batches (B={TEXTCLF_B}, T={TEXTCLF_T}, "
+          f"bf16, synthetic imdb, guarded Adam step); the textclf phase's "
+          f"direct loop median {direct_sec * 1e3:.2f} ms/step "
+          f"[{card}]; launches {got}", flush=True)
+    _all_persistent("trainer", "--job=time", got, TEXTCLF_KERNELS)
+    if got["lstm_backward"] != 2 * (TRAINER_TIME_BATCHES + 1):
+        fail("trainer", f"--job=time launches {got}: want "
+             f"{2 * (TRAINER_TIME_BATCHES + 1)} lstm_backward")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3366,10 +3586,10 @@ def main() -> int:
         train_cpu_check(K, dev, "both")
         torch.cuda.empty_cache()
         phase = "textclf"
-        textclf, infer_launches = {}, {}
+        textclf, infer_launches, textclf_run = {}, {}, {}
         for hidden in TEXTCLF_HIDDEN:
-            launches, topo, params, state, feed = textclf_train(K, dev,
-                                                                hidden)
+            (launches, topo, params, state, feed,
+             *textclf_run[hidden]) = textclf_train(K, dev, hidden)
             textclf[hidden] = launches
             infer_launches[hidden] = textclf_infer(K, topo, params, state,
                                                    feed, hidden)
@@ -3380,6 +3600,10 @@ def main() -> int:
         phase = "dslgen"
         dslgen_launches, dslgen_params = dslgen_path(K, dev)
         dslgen_cpu_check(dev, dslgen_params)
+        del dslgen_params
+        torch.cuda.empty_cache()
+        phase = "trainer"
+        trainer_launches = trainer_path(K, dev, card, *textclf_run[256])
     except SystemExit:
         raise
     except Exception:  # noqa: BLE001 — report the phase and fail
@@ -3422,6 +3646,15 @@ def main() -> int:
             src, key = train_launches["default"], name
         row["launches"] = src[key]
         row["launches_by_path"] = src.by_path[key]
+        if name in TRAINER_ROWS:
+            # the trainer phase's launches of the same library, each part
+            # counted on its own (K9 and K9r share lstm_forward's count)
+            row["trainer_launches"] = {
+                part: counts[key] for part, counts in
+                trainer_launches.items()}
+            row["trainer_launches_by_path"] = {
+                part: counts.by_path[key] for part, counts in
+                trainer_launches.items()}
         if name == "topk_lse_readout":
             # the spec phase's full arm: one launch a table step, its wide
             # steps at N = 320

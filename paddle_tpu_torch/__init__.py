@@ -1,14 +1,19 @@
 """paddle_tpu_torch — the PyTorch/CUDA port of ``paddle_tpu`` for NVIDIA Hopper.
 
 The JAX package ``paddle_tpu`` stays the reference; this package is its
-counterpart on an H100, ported slice by slice (ROADMAP.md): seq2seq
-generation served through the slot table, and the flagship's training step:
+counterpart on an H100, ported slice by slice (ROADMAP.md).  Its entry points:
 
     models.Seq2SeqAttention       encoder + attention-GRU decoder, beam
                                   search, the teacher-forced ``loss``
-    param.Adam                    the optimizer of the training step
-    serving.Seq2SeqSlotBackend    the flagship behind the slot protocol
+    nn.Topology                   the layer DSL's graph
+    trainer.SGDTrainer            the training loop: events, the
+                                  bad-step guard, checkpoints, resume
+    param                         the optimizers and schedules
+    serving.InferenceServer       the served entry point over
     serving.SlotScheduler         continuous batching over the slot table
+
+and the command line ``python -m paddle_tpu_torch --job=train|test|
+checkgrad|time --config=CONF.py [--device=cpu]``.
 
 Every Pallas kernel on that path is a hand-written CUDA kernel under
 ``csrc/`` (built at first use, see ``ops/kernels/build.py``).  Entry points

@@ -1,0 +1,224 @@
+"""The ``paddle_trainer`` command line of the port:
+``python -m paddle_tpu_torch --job=... --config=...`` — counterpart of
+``paddle_tpu/__main__.py``.
+
+Reference: the paddle_trainer binary drives train / test / checkgrad / time
+from gflags and a Python config (paddle/trainer/TrainerMain.cpp:32-65;
+Trainer.h:43-202; TrainerBenchmark.cpp for --job=time).
+
+The ``--config`` file is a Python module defining ``get_config()``, which
+returns a dict built with the port's modules:
+
+    cost         LayerOutput (or list) — required
+    optimizer    Optimizer (default SGD lr=0.01)
+    reader       () -> iterable of batches — required for train/time
+    feeder       batch -> feed dict (optional)
+    test_reader  () -> iterable (optional; falls back to reader for --job=test)
+    trainer_kwargs  extra SGDTrainer kwargs (optional)
+
+The trainer runs on ``--device`` (``cuda`` by default: without a card the
+command raises; ``--device=cpu`` runs the kernels' plain versions).
+
+Not ported here, and refused with a ``ConfigError`` naming the ROADMAP.md
+Queue 1 item that ports them: the ``lint`` (item 9), ``serve`` (item 7),
+``obs`` (item 9), ``data`` (item 6) and ``fsck`` (item 9) subcommands, and
+the reference's flags of parts not ported yet
+(``utils/flags.py::NOT_PORTED_FLAGS``).
+"""
+
+from __future__ import annotations
+
+import runpy
+import sys
+import time
+from typing import List, Optional
+
+#: the reference's subcommands and the ROADMAP.md Queue 1 item porting each
+NOT_PORTED_COMMANDS = {"lint": 9, "serve": 7, "obs": 9, "data": 6,
+                       "fsck": 9}
+
+
+def _load_config(path: str):
+    from paddle_tpu_torch.utils.error import ConfigError
+
+    ns = runpy.run_path(path)
+    if "get_config" not in ns:
+        raise ConfigError(f"config {path!r} does not define get_config()")
+    conf = ns["get_config"]()
+    if "cost" not in conf:
+        raise ConfigError(f"get_config() in {path!r} returned no 'cost'")
+    return conf
+
+
+def _build_trainer(conf):
+    from paddle_tpu_torch.param.optimizers import SGD
+    from paddle_tpu_torch.trainer import SGDTrainer
+    from paddle_tpu_torch.utils.flags import FLAGS
+
+    return SGDTrainer(conf["cost"],
+                      conf.get("optimizer") or SGD(learning_rate=0.01),
+                      device=FLAGS.device, **conf.get("trainer_kwargs", {}))
+
+
+def _first_feed(conf):
+    feeder = conf.get("feeder")
+    batch = next(iter(conf["reader"]()))
+    return feeder(batch) if feeder else batch
+
+
+def job_train(conf) -> int:
+    from paddle_tpu_torch.resilience import resilient_reader
+    from paddle_tpu_torch.trainer import events as ev
+    from paddle_tpu_torch.trainer.checkpoint import latest_pass
+    from paddle_tpu_torch.utils.flags import FLAGS
+    from paddle_tpu_torch.utils.log import logger
+
+    trainer = _build_trainer(conf)
+    # --resume=auto self-locates inside train(); --start_pass remains the
+    # explicit-pass resume
+    if FLAGS.resume != "auto" and FLAGS.save_dir and FLAGS.start_pass > 0:
+        resume = min(FLAGS.start_pass - 1, latest_pass(FLAGS.save_dir))
+        if resume >= 0:
+            logger.info("resuming from pass %d", resume)
+            trainer.load(FLAGS.save_dir, resume)
+
+    def handler(e):
+        if isinstance(e, ev.EndPass):
+            logger.info("pass %d done: %s", e.pass_id, e.evaluator)
+
+    reader = conf["reader"]
+    if FLAGS.reader_retries > 0:
+        reader = resilient_reader(reader, max_retries=FLAGS.reader_retries)
+    trainer.train(reader, num_passes=FLAGS.num_passes,
+                  feeder=conf.get("feeder"),
+                  test_reader=conf.get("test_reader"),
+                  event_handler=handler,
+                  resume="auto" if FLAGS.resume == "auto" else None)
+    if trainer.preempted:
+        logger.warning("training preempted; relaunch with --resume=auto")
+    return 0
+
+
+def job_test(conf) -> int:
+    from paddle_tpu_torch.trainer.checkpoint import latest_pass
+    from paddle_tpu_torch.utils.error import ConfigError
+    from paddle_tpu_torch.utils.flags import FLAGS
+    from paddle_tpu_torch.utils.log import logger
+
+    trainer = _build_trainer(conf)
+    if FLAGS.save_dir:
+        p = (FLAGS.test_pass if FLAGS.test_pass >= 0
+             else latest_pass(FLAGS.save_dir))
+        if p < 0:
+            raise ConfigError(f"no checkpoint under {FLAGS.save_dir!r}")
+        trainer.load(FLAGS.save_dir, p)
+        logger.info("testing checkpoint pass %d", p)
+    reader = conf.get("test_reader") or conf["reader"]
+    result = trainer.test(reader, feeder=conf.get("feeder"))
+    logger.info("test result: %s", result)
+    print({k: round(v, 6) for k, v in result.items()})
+    return 0
+
+
+def job_checkgrad(conf) -> int:
+    """Finite-difference check of the whole-model gradient on one batch
+    (Trainer::checkGradient analog)."""
+    from paddle_tpu_torch.trainer.checkgrad import check_gradients
+    from paddle_tpu_torch.utils.flags import FLAGS
+    from paddle_tpu_torch.utils.log import logger
+
+    trainer = _build_trainer(conf)
+    feed = trainer._device_feed(_first_feed(conf))
+
+    def loss_fn(params):
+        outs, _ = trainer.topology.apply(params, trainer.state, feed,
+                                         train=False)
+        return trainer._total_cost(outs)
+
+    # whole-model FD through kinks (max-pool) is rougher than per-op
+    # checks: the reference's tolerances
+    report = check_gradients(loss_fn, trainer.params,
+                             eps=FLAGS.checkgrad_eps, rtol=1e-1, atol=5e-3)
+    worst = max(report.values()) if report else 0.0
+    logger.info("checkgrad OK: %d params, worst abs err %.3g", len(report),
+                worst)
+    print(f"checkgrad OK ({len(report)} parameters, worst abs err "
+          f"{worst:.3g})")
+    return 0
+
+
+def job_time(conf) -> int:
+    """--job=time: ms/batch over N timed batches after a warm-up batch
+    (TrainerBenchmark.cpp analog)."""
+    from paddle_tpu_torch.utils.flags import FLAGS
+    from paddle_tpu_torch.utils.log import logger
+
+    trainer = _build_trainer(conf)
+    feeder = conf.get("feeder")
+    n = max(1, FLAGS.time_batches)
+    feeds = []
+    for i, batch in enumerate(conf["reader"]()):
+        if i >= n:
+            break
+        feeds.append(feeder(batch) if feeder else batch)
+    float(trainer.train_batch(feeds[0]))  # warm-up: builds, first launch
+    t0 = time.perf_counter()
+    for feed in feeds:
+        loss = trainer.train_batch(feed)
+    float(loss)  # waits for the last step
+    ms = (time.perf_counter() - t0) / len(feeds) * 1e3
+    logger.info("%d batches, %.3f ms/batch", len(feeds), ms)
+    print(f"{ms:.3f} ms/batch over {len(feeds)} batches")
+    return 0
+
+
+JOBS = {
+    "train": job_train,
+    "test": job_test,
+    "checkgrad": job_checkgrad,
+    "time": job_time,
+}
+
+
+_USAGE = """\
+usage: python -m paddle_tpu_torch --job={train|test|checkgrad|time} --config=CONF.py [--device=cuda|cpu] [--flag=value ...]
+
+The paddle_trainer command line of the PyTorch port.  CONF.py defines
+get_config() (see the module docstring of paddle_tpu_torch/__main__.py).
+The trainer runs on --device (cuda by default).  Flags (also settable via
+PADDLE_TPU_TORCH_<NAME> environment variables):
+"""
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    from paddle_tpu_torch.utils.error import ConfigError, not_ported
+    from paddle_tpu_torch.utils.flags import (FLAGS, NOT_PORTED_FLAGS,
+                                              flags_help, parse_flags)
+
+    argv = list(sys.argv[1:]) if argv is None else list(argv)
+    if argv and argv[0] in NOT_PORTED_COMMANDS:
+        raise not_ported(f"the {argv[0]!r} subcommand",
+                         NOT_PORTED_COMMANDS[argv[0]])
+    if "-h" in argv or "--help" in argv:
+        print(_USAGE)
+        print(flags_help())
+        return 0
+    rest = parse_flags(argv)
+    for arg in rest:
+        name = arg[2:].split("=", 1)[0].replace("-", "_") \
+            if arg.startswith("--") else None
+        if name in NOT_PORTED_FLAGS:
+            raise not_ported(f"--{name}", NOT_PORTED_FLAGS[name])
+    if rest:
+        raise ConfigError(f"unrecognized arguments: {rest}")
+    if FLAGS.job not in JOBS:
+        raise ConfigError(
+            f"--job must be one of {sorted(JOBS)}, got {FLAGS.job!r}")
+    if not FLAGS.config:
+        raise ConfigError("--config=<file.py> is required")
+    conf = _load_config(FLAGS.config)
+    return JOBS[FLAGS.job](conf)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

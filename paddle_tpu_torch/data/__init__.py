@@ -1,5 +1,19 @@
-"""Data helpers of the port (the reference's ``paddle_tpu/data``)."""
+"""Data helpers of the port (the reference's ``paddle_tpu/data``): the
+reader decorators, the ``DataFeeder``, the typed input slots and the
+synthetic datasets.  ``resilient_reader`` (``resilience/reader.py``) is
+surfaced here beside the other reader decorators, as in the reference."""
 
-from paddle_tpu_torch.data.feeder import bucket_length
+from paddle_tpu_torch.data import datasets
+from paddle_tpu_torch.data.feeder import (DataFeeder, PreparedFeed,
+                                          PrepareError, bucket_length,
+                                          feeder_kind_for_layer,
+                                          note_padding)
+from paddle_tpu_torch.data.reader import (batch, buffered, cache, chain,
+                                          compose, firstn, map_readers,
+                                          shuffle)
+from paddle_tpu_torch.resilience.reader import resilient_reader
 
-__all__ = ["bucket_length"]
+__all__ = ["batch", "shuffle", "buffered", "map_readers", "compose",
+           "chain", "firstn", "cache", "DataFeeder", "PreparedFeed",
+           "PrepareError", "bucket_length", "feeder_kind_for_layer",
+           "note_padding", "datasets", "resilient_reader"]

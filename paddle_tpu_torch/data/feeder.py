@@ -1,12 +1,29 @@
-"""Sequence-length buckets — a copy of
-``paddle_tpu/data/feeder.py::bucket_length`` (framework-free; the port keeps
-its own copy so that it never imports the JAX package)."""
+"""DataFeeder: python samples -> padded numpy arrays — counterpart of
+``paddle_tpu/data/feeder.py``.
+
+Analog of the reference's DataProviderConverter / py_paddle feeder
+(py_paddle/dataprovider_converter.py): converts a minibatch of python rows
+into the feed dict ``Topology.apply`` expects.  Sequences are padded to a
+*bucketed* max length so a run sees a small, finite set of shapes.  The
+feeder stays on the host (numpy); ``SGDTrainer`` moves each prepared batch
+to its device once.
+
+Not ported here: ``BatchPrefetcher`` (``--prefetch_depth``) waits for the
+rest of ROADMAP.md Queue 1 item 4, and so does the native C++ pad core
+(``data/native.py``): the Python loop below gives the same arrays.
+"""
 
 from __future__ import annotations
 
-from typing import Sequence
+import threading
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-__all__ = ["bucket_length"]
+import numpy as np
+
+from paddle_tpu_torch.utils.log import logger
+
+__all__ = ["DataFeeder", "bucket_length", "feeder_kind_for_layer",
+           "PreparedFeed", "PrepareError", "note_padding"]
 
 _DEFAULT_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024)
 
@@ -17,3 +34,291 @@ def bucket_length(n: int, buckets: Sequence[int] = _DEFAULT_BUCKETS) -> int:
         if n <= b:
             return b
     return n
+
+
+# per-bucket cumulative (real, padded) token totals behind the
+# ``data_bucket_occupancy`` gauge — process-wide like the registry itself
+_BUCKET_TOTALS: Dict[int, List[int]] = {}
+_BUCKET_LOCK = threading.Lock()
+
+
+def note_padding(real: int, padded: int, bucket: int, *,
+                 waste: float) -> None:
+    """Record one padded batch on the pad-waste gauges of the port's
+    registry: ``data_pad_waste`` (the cumulative padded-but-dead token
+    fraction) and per-bucket ``data_bucket_occupancy`` (how full the rows
+    landing in each T-bucket are).  Host-side only."""
+    from paddle_tpu_torch.obs import get_registry
+
+    reg = get_registry()
+    reg.gauge("data_pad_waste",
+              "cumulative padded-but-dead token fraction").set(waste)
+    with _BUCKET_LOCK:
+        tot = _BUCKET_TOTALS.setdefault(int(bucket), [0, 0])
+        tot[0] += int(real)
+        tot[1] += int(padded)
+        occ = tot[0] / max(tot[1], 1)
+    reg.gauge("data_bucket_occupancy",
+              "real-token fraction of batches padded to this T bucket",
+              labels=("bucket",), bucket=int(bucket)).set(occ)
+
+
+def feeder_kind_for_layer(layer) -> str:
+    """Derive the feeder slot kind for a data LayerOutput — the single
+    mapping from data_spec (or a v2 input type in ``meta``) to DataFeeder
+    kinds."""
+    t = layer.meta.get("v2_type")
+    if t is not None:
+        return t.feeder_kind
+    spec = layer.data_spec or {}
+    if spec.get("sparse") == "binary":
+        return "sparse_ids_seq" if spec.get("is_seq") else "sparse_ids"
+    if spec.get("sparse") == "float":
+        return "sparse_pairs_seq" if spec.get("is_seq") else "sparse_pairs"
+    is_int = spec.get("dtype") == "int32"
+    if spec.get("nested"):
+        return "ids_nested" if is_int else "dense_nested"
+    if spec.get("is_seq"):
+        return "ids_seq" if is_int else "dense_seq"
+    return "int" if is_int else "dense"
+
+
+class PrepareError(Exception):
+    """A batch failed in the feeder's prepare stage, not in the reader
+    (the reference raises it from its prefetcher; the trainer unwraps it
+    so a feeder bug keeps its own type)."""
+
+
+class PreparedFeed:
+    """Marker wrapper for a batch already pushed through the feeder: the
+    trainer consumes ``.feed`` directly."""
+
+    __slots__ = ("feed",)
+
+    def __init__(self, feed: Any) -> None:
+        self.feed = feed
+
+
+class DataFeeder:
+    """feeding: {data_layer_name: slot_index}; types: {name: kind} with kind
+    in 'dense' | 'int' | 'ids_seq' | 'dense_seq' (and the sparse and nested
+    kinds, whose feeds the port's ``Topology`` refuses until ROADMAP.md
+    Queue 1 item 3).  Returns numpy arrays: the trainer moves each batch to
+    its device once."""
+
+    def __init__(
+        self,
+        types: Dict[str, str],
+        feeding: Optional[Dict[str, int]] = None,
+        *,
+        buckets: Sequence[int] = _DEFAULT_BUCKETS,
+        max_len: Optional[int] = None,
+        max_nnz: Optional[int] = None,
+        dtype: str = "float32",
+    ) -> None:
+        self.types = types
+        self.feeding = feeding or {name: i for i, name in enumerate(types)}
+        self.buckets = tuple(buckets)
+        self.max_len = max_len
+        # per-timestep feature-bag cap for sparse *sequence* slots — a
+        # separate axis from max_len (which caps TIMESTEPS): reusing
+        # max_len as the bag cap silently truncated bags whenever
+        # sequences were capped.  None = bags never truncated (the nnz
+        # width just buckets up).
+        self.max_nnz = max_nnz
+        self.dtype = dtype
+        #: running count of sparse features dropped by max_len/max_nnz
+        #: truncation (logged whenever a batch drops any).  Surfaced as an
+        #: observable, not just a log line: the trainer mirrors it into
+        #: ``_last_extras['dropped_features']`` each batch, and a serving
+        #: process that ``attach_feeder()``s reports it in ``healthz()``.
+        self.dropped_features = 0
+        #: cumulative real/padded token totals over every padded seq slot
+        #: — behind the ``data_pad_waste`` gauge (see ``note_padding``)
+        self.tokens_real = 0
+        self.tokens_padded = 0
+
+    @property
+    def pad_waste(self) -> float:
+        """Cumulative padded-but-dead token fraction across every padded
+        sequence slot this feeder has produced."""
+        if not self.tokens_padded:
+            return 0.0
+        return 1.0 - self.tokens_real / self.tokens_padded
+
+    def __call__(self, batch_rows: List[Tuple]) -> Dict[str, Any]:
+        feed: Dict[str, Any] = {}
+        for name, kind in self.types.items():
+            idx = self.feeding.get(name)
+            if idx is None:
+                raise ValueError(
+                    f"slot {name!r} is missing from the feeding map "
+                    f"{self.feeding} — every typed slot needs a field "
+                    f"index")
+            try:
+                col = [row[idx] for row in batch_rows]
+            except (IndexError, KeyError) as e:
+                raise ValueError(
+                    f"input rows do not carry slot {name!r} (field index "
+                    f"{idx}): a row has too few fields — feeding map is "
+                    f"{self.feeding}") from e
+            if kind == "dense":
+                feed[name] = np.asarray(col, self.dtype)
+            elif kind == "int":
+                arr = np.asarray(col, np.int32)
+                if arr.ndim == 1:
+                    arr = arr[:, None]
+                feed[name] = arr
+            elif kind in ("ids_seq", "dense_seq"):
+                feed[name] = self._pad_seq(col, kind)
+            elif kind in ("sparse_ids", "sparse_pairs"):
+                feed[name] = self._pad_sparse(col, kind)
+            elif kind in ("sparse_ids_seq", "sparse_pairs_seq"):
+                feed[name] = self._pad_sparse_seq(col, kind)
+            elif kind in ("ids_nested", "dense_nested"):
+                feed[name] = self._pad_nested(col, kind)
+            else:
+                raise ValueError(f"unknown slot kind {kind!r} for {name!r}")
+        return feed
+
+    def _pad_nested(self, col: List, kind: str):
+        """Nested sequences (rows are lists of sub-sequences; the
+        subSequenceStartPositions analog, Argument.h:90) -> padded
+        (value [B, To, Ti(, D)], outer_lengths [B], sub_lengths [B, To])."""
+        outer = np.asarray([len(s) for s in col], np.int32)
+        n_outer = max(int(outer.max()) if len(outer) else 1, 1)
+        ti_max = max((len(sub) for row in col for sub in row), default=1)
+        if self.max_len:  # cap BOTH levels, like the flat _pad_seq path
+            n_outer = min(n_outer, self.max_len)
+            ti_max = min(max(ti_max, 1), self.max_len)
+            outer = np.minimum(outer, self.max_len)
+        To = bucket_length(n_outer, self.buckets)
+        Ti = bucket_length(max(ti_max, 1), self.buckets)
+        # buckets round To/Ti UP, so slice to the max_len caps themselves —
+        # data beyond the cap must not survive (mirrors _pad_seq's lengths[i])
+        row_cap = min(To, self.max_len) if self.max_len else To
+        ti_cap = min(Ti, self.max_len) if self.max_len else Ti
+        sub_lengths = np.zeros((len(col), To), np.int32)
+        if kind == "ids_nested":
+            out = np.zeros((len(col), To, Ti), np.int32)
+            for i, row in enumerate(col):
+                for j, sub in enumerate(list(row)[:row_cap]):
+                    sub = list(sub)[:ti_cap]
+                    out[i, j, : len(sub)] = sub
+                    sub_lengths[i, j] = len(sub)
+        else:
+            D = next((len(sub[0]) for row in col for sub in row if len(sub)), 1)
+            out = np.zeros((len(col), To, Ti, D), self.dtype)
+            for i, row in enumerate(col):
+                for j, sub in enumerate(list(row)[:row_cap]):
+                    sub = np.asarray(sub, self.dtype).reshape(-1, D)[:ti_cap]
+                    out[i, j, : len(sub)] = sub
+                    sub_lengths[i, j] = len(sub)
+        return out, outer, sub_lengths
+
+    def _pad_sparse(self, col: List, kind: str):
+        """Sparse rows -> padded COO: 'sparse_ids' rows are id lists
+        (sparse_binary_vector), 'sparse_pairs' rows are (id, weight) lists
+        (sparse_float_vector).  Returns (ids, nnz) or (ids, weights, nnz)
+        with the nnz width bucketed like sequence lengths."""
+        nnz = np.asarray([len(s) for s in col], np.int32)
+        N = int(nnz.max()) if len(nnz) else 1
+        if self.max_len:
+            N = min(max(N, 1), self.max_len)
+            nnz = np.minimum(nnz, self.max_len)
+        N = bucket_length(max(N, 1), self.buckets)
+        ids = np.zeros((len(col), N), np.int32)
+        if kind == "sparse_ids":
+            for i, s in enumerate(col):
+                s = list(s)[: nnz[i]]
+                ids[i, : len(s)] = s
+            return ids, nnz
+        weights = np.zeros((len(col), N), self.dtype)
+        for i, s in enumerate(col):
+            s = list(s)[: nnz[i]]
+            for j, (idx, w) in enumerate(s):
+                ids[i, j] = idx
+                weights[i, j] = w
+        return ids, weights, nnz
+
+    def _pad_sparse_seq(self, col: List, kind: str):
+        """Sparse *sequence* rows (one sparse bag per timestep, the
+        reference's sparse_*_vector_sequence input types) -> padded
+        (ids [B,T,N], nnz [B,T], lengths [B]) for 'sparse_ids_seq', with an
+        extra weights [B,T,N] slot before nnz for 'sparse_pairs_seq'.  T and
+        N are bucketed like sequence lengths; the bag width N is capped by
+        ``max_nnz`` (NOT ``max_len`` — that caps timesteps), and any
+        features dropped by either cap are counted in
+        ``self.dropped_features`` and logged."""
+        lengths = np.asarray([len(s) for s in col], np.int32)
+        T = max(int(lengths.max()) if len(lengths) else 1, 1)
+        if self.max_len:
+            T = min(T, self.max_len)
+            lengths = np.minimum(lengths, self.max_len)
+        # width over SURVIVING timesteps only: a wide bag in a timestep
+        # max_len discards must not inflate the padded feed shape
+        n_max = max((len(bag) for i, row in enumerate(col)
+                     for bag in list(row)[: lengths[i]]), default=1)
+        if self.max_nnz:
+            n_max = min(max(n_max, 1), self.max_nnz)
+        T = bucket_length(T, self.buckets)
+        N = bucket_length(max(n_max, 1), self.buckets)
+        # buckets round N UP; the hard bag cap stays max_nnz itself
+        cap = min(N, self.max_nnz) if self.max_nnz else N
+        B = len(col)
+        ids = np.zeros((B, T, N), np.int32)
+        nnz = np.zeros((B, T), np.int32)
+        dropped = 0
+        weights = (np.zeros((B, T, N), self.dtype)
+                   if kind != "sparse_ids_seq" else None)
+        for i, row in enumerate(col):
+            row = list(row)
+            for t, bag in enumerate(row):
+                bag = list(bag)
+                if t >= lengths[i]:  # timestep beyond the max_len cap
+                    dropped += len(bag)
+                    continue
+                if len(bag) > cap:
+                    dropped += len(bag) - cap
+                    bag = bag[:cap]
+                if weights is None:
+                    ids[i, t, : len(bag)] = bag
+                else:
+                    for j, (idx, w) in enumerate(bag):
+                        ids[i, t, j] = idx
+                        weights[i, t, j] = w
+                nnz[i, t] = len(bag)
+        if dropped:
+            self.dropped_features += dropped
+            logger.warning(
+                "DataFeeder: dropped %d sparse feature(s) this batch "
+                "(max_len=%s, max_nnz=%s; %d dropped total)",
+                dropped, self.max_len, self.max_nnz, self.dropped_features)
+        if weights is None:
+            return ids, nnz, lengths
+        return ids, weights, nnz, lengths
+
+    def _pad_seq(self, col: List, kind: str) -> Tuple[np.ndarray, np.ndarray]:
+        lengths = np.asarray([len(s) for s in col], np.int32)
+        T = int(lengths.max()) if len(lengths) else 1
+        T = max(T, 1)
+        if self.max_len:
+            T = min(max(T, 1), self.max_len)
+            lengths = np.minimum(lengths, self.max_len)
+        T = bucket_length(T, self.buckets)
+        self.tokens_real += int(lengths.sum())
+        self.tokens_padded += len(col) * T
+        note_padding(int(lengths.sum()), len(col) * T, T,
+                     waste=self.pad_waste)
+        if kind == "ids_seq":
+            out = np.zeros((len(col), T), np.int32)
+            for i, s in enumerate(col):
+                s = list(s)[: lengths[i]]
+                out[i, : len(s)] = s
+        else:
+            D = len(col[0][0])
+            out = np.zeros((len(col), T, D), self.dtype)
+            for i, s in enumerate(col):
+                s = np.asarray(s, self.dtype)[: lengths[i]]
+                out[i, : len(s)] = s
+        return out, lengths

@@ -28,7 +28,7 @@ import torch
 
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.ops.sequence import mask_from_lengths
-from paddle_tpu_torch.utils.error import ConfigError, layer_scope
+from paddle_tpu_torch.utils.error import ConfigError, layer_scope, not_ported
 
 __all__ = ["Act", "ParamAttr", "ParamSpec", "LayerOutput", "ApplyContext",
            "Topology", "StepTopology", "next_name", "reset_naming",
@@ -41,8 +41,7 @@ PACK_KEYS = ("seg_ids", "positions", "seg_lengths")
 def _not_ported(what: str, item: int = 3) -> ConfigError:
     """``item``: the ROADMAP.md Queue 1 item that ports it (3, groups,
     feeds and config, unless the caller names another)."""
-    return ConfigError(f"{what} is not ported to paddle_tpu_torch yet "
-                       f"(ROADMAP.md, Queue 1 item {item})")
+    return not_ported(what, item)
 
 
 def device_pin(node: "LayerOutput", tag: str) -> "LayerOutput":
@@ -81,10 +80,10 @@ class Act:
 @dataclass(frozen=True)
 class ParamAttr:
     """Per-parameter attributes (the reference's ParameterConfig): shared
-    name, init scheme, learning-rate scale, decay, static flag.  The
-    optimizers of the port do not read the per-parameter settings yet
-    (``learning_rate``, ``l2_decay``, ``is_static``, ``sparse_grad``,
-    ``pruning_ratio``; ROADMAP.md)."""
+    name, init scheme, learning-rate scale, decay, static flag.
+    ``SGDTrainer`` reads ``learning_rate``, ``l2_decay``, ``is_static`` and
+    ``pruning_ratio``; ``sparse_grad`` (row-sparse table updates) raises
+    ``ConfigError`` there until ROADMAP.md Queue 1 item 8."""
 
     name: Optional[str] = None
     initial_std: Optional[float] = None

@@ -18,11 +18,24 @@ without a silent drop (docs/serving.md):
   always-wrong one (throughput may drop, output must not change);
 - ``corrupt_prefix_cache`` flips bits inside cached prefill state (the
   cache's crc must catch it and the request must prefill afresh).
+
+and the training faults the trainer must survive:
+
+- ``corrupt_file``, ``truncate_file`` and ``corrupt_checkpoint`` damage a
+  checkpoint (validation must refuse it; resume must skip it);
+- ``inject_nan_batches`` poisons chosen batches of a reader (the bad-step
+  guard must skip them);
+- ``flaky_reader`` makes a reader raise at a chosen sample
+  (``resilient_reader`` must absorb it, or the trainer attribute it);
+- ``preempt_at`` requests a preemption at a chosen batch (the trainer must
+  checkpoint there and resume to the same losses).
 """
 
 from __future__ import annotations
 
 import functools
+import os
+import signal as _signal
 import time as _time
 from typing import Any, Callable, Iterable, Optional
 
@@ -31,7 +44,9 @@ import torch
 
 __all__ = ["nan_feed", "kill_worker", "latency_injection", "crash_calls",
            "straggler_request", "slow_client", "bad_draft",
-           "corrupt_prefix_cache"]
+           "corrupt_prefix_cache", "corrupt_file", "truncate_file",
+           "corrupt_checkpoint", "inject_nan_batches", "flaky_reader",
+           "preempt_at"]
 
 
 def nan_feed(batch: Any) -> Any:
@@ -164,3 +179,113 @@ def corrupt_prefix_cache(scheduler, *, key: Optional[str] = None) -> int:
         payload[name] = t
         n += 1
     return n
+
+
+# ---------------------------------------------------------------------------
+# training faults: storage, numerics, input pipeline, preemption
+# ---------------------------------------------------------------------------
+
+
+def corrupt_file(path: str, *, offset: Optional[int] = None,
+                 nbytes: int = 64) -> None:
+    """Bit-flip ``nbytes`` bytes in place (default: the middle of the
+    file) — the silent-corruption model CRC validation must catch."""
+    size = os.path.getsize(path)
+    if size == 0:
+        return
+    if offset is None:
+        offset = max(0, size // 2 - nbytes // 2)
+    n = min(nbytes, size - offset)
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        chunk = f.read(n)
+        f.seek(offset)
+        f.write(bytes(b ^ 0xFF for b in chunk))
+
+
+def truncate_file(path: str, *, keep_bytes: Optional[int] = None,
+                  frac: float = 0.5) -> None:
+    """Cut the file to ``keep_bytes`` (or ``frac`` of its size) — the
+    torn-write / full-disk model."""
+    size = os.path.getsize(path)
+    keep = keep_bytes if keep_bytes is not None else int(size * frac)
+    with open(path, "r+b") as f:
+        f.truncate(max(0, keep))
+
+
+def corrupt_checkpoint(ckpt_dir: str, *, target: str = "params.npz",
+                       mode: str = "corrupt") -> None:
+    """Damage one file of a checkpoint dir: ``corrupt`` (bit-flip),
+    ``truncate``, or ``delete``."""
+    path = os.path.join(ckpt_dir, target)
+    if mode == "corrupt":
+        corrupt_file(path)
+    elif mode == "truncate":
+        truncate_file(path)
+    elif mode == "delete":
+        os.remove(path)
+    else:
+        raise ValueError(f"unknown chaos mode {mode!r}")
+
+
+def inject_nan_batches(reader: Callable, batches: Iterable[int]) -> Callable:
+    """Wrap a reader creator: batch indices in ``batches`` (per epoch) are
+    delivered NaN-poisoned via ``nan_feed``."""
+    bad = frozenset(batches)
+
+    def creator():
+        for i, b in enumerate(reader()):
+            yield nan_feed(b) if i in bad else b
+
+    return creator
+
+
+def flaky_reader(reader: Callable, *, fail_at: int, times: int = 1,
+                 exc: Callable[..., Exception] = IOError) -> Callable:
+    """Raise ``exc`` instead of yielding sample ``fail_at``, for the first
+    ``times`` attempts across re-creations.  The failing ``__next__``
+    consumes the underlying record (the corrupt-record-in-a-file model),
+    so ``resilient_reader(..., skip_bad=True)`` can iterate past it."""
+    remaining = [times]
+
+    class _Flaky:
+        def __init__(self):
+            self._it = iter(reader())
+            self._i = 0
+
+        def __iter__(self):
+            return self
+
+        def __next__(self):
+            i = self._i
+            self._i += 1
+            if i == fail_at and remaining[0] > 0:
+                remaining[0] -= 1
+                next(self._it)  # the bad record is consumed regardless
+                raise exc(f"chaos: injected reader failure at sample {i}")
+            return next(self._it)
+
+    return _Flaky
+
+
+def preempt_at(handler, *, batch: int, pass_id: int = 0,
+               inner: Optional[Callable] = None,
+               use_signal: bool = False) -> Callable:
+    """Event handler that delivers a preemption when batch ``batch`` of
+    pass ``pass_id`` begins (the trainer then checkpoints at that batch
+    boundary, before stepping it).  ``handler`` is a PreemptionHandler;
+    with ``use_signal=True`` a real SIGTERM is sent to this process
+    instead.  ``inner`` chains the user's own event handler."""
+    from paddle_tpu_torch.trainer import events as ev
+
+    def event_handler(e):
+        if (isinstance(e, ev.BeginIteration) and e.pass_id == pass_id
+                and e.batch_id == batch):
+            if use_signal:
+                os.kill(os.getpid(), _signal.SIGTERM)
+            else:
+                handler.request()
+        if inner is not None:
+            inner(e)
+
+    return event_handler

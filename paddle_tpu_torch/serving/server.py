@@ -71,7 +71,7 @@ from paddle_tpu_torch.serving.errors import (CircuitOpenError,
                                              WorkerCrashed)
 from paddle_tpu_torch.serving.metrics import ServerMetrics
 from paddle_tpu_torch.serving.worker import WorkerSupervisor
-from paddle_tpu_torch.utils.error import ConfigError
+from paddle_tpu_torch.utils.error import not_ported
 from paddle_tpu_torch.utils.log import logger
 
 __all__ = ["InferenceServer"]
@@ -79,11 +79,6 @@ __all__ = ["InferenceServer"]
 
 class _WorkerKilled(Exception):
     """Chaos-injected worker death (resilience.chaos.kill_worker)."""
-
-
-def _not_ported(what: str, item: int) -> ConfigError:
-    return ConfigError(f"{what} is not ported to paddle_tpu_torch yet "
-                       f"(ROADMAP.md, Queue 1 item {item})")
 
 
 def _host(v):
@@ -246,7 +241,7 @@ class InferenceServer:
         """Normalize the backend to ``runner(feed, tier_opts)``."""
         if getattr(model, "infer", None) is not None and hasattr(
                 model, "topology"):
-            raise _not_ported("bucket mode over an InferenceModel "
+            raise not_ported("bucket mode over an InferenceModel "
                               "(config/deploy.py)", 7)
         if not callable(model):
             raise TypeError(
@@ -281,9 +276,9 @@ class InferenceServer:
         then start the supervised worker.  ``warmup_feed`` is one feed dict
         or a list of them (one per expected sequence-length bucket)."""
         if preflight:
-            raise _not_ported("start(preflight=True) (the analysis tier)", 9)
+            raise not_ported("start(preflight=True) (the analysis tier)", 9)
         if compile_cache is not None:
-            raise _not_ported("start(compile_cache=)", 7)
+            raise not_ported("start(compile_cache=)", 7)
         t_start = self._clock()
         feeds = (warmup_feed if isinstance(warmup_feed, (list, tuple))
                  else [warmup_feed] if warmup_feed is not None else [])
@@ -473,7 +468,7 @@ class InferenceServer:
         ``session_id`` scopes the request's prefix-cache and draft-corpus
         keys to its chat session."""
         if trace_attrs is not None:
-            raise _not_ported("request tracing (submit(trace_attrs=))", 9)
+            raise not_ported("request tracing (submit(trace_attrs=))", 9)
         self.metrics.inc("submitted")
         if self._state != self.RUNNING:
             self.metrics.inc("server_closed")

@@ -11,7 +11,8 @@ import threading
 from contextlib import contextmanager
 from typing import Iterator, List
 
-__all__ = ["PaddleTpuError", "ConfigError", "ShapeError", "layer_scope"]
+__all__ = ["PaddleTpuError", "ConfigError", "ShapeError", "layer_scope",
+           "not_ported"]
 
 
 class PaddleTpuError(Exception):
@@ -24,6 +25,13 @@ class ConfigError(PaddleTpuError):
 
 class ShapeError(PaddleTpuError):
     """Shape/dtype mismatch when wiring or applying layers."""
+
+
+def not_ported(what: str, item: int) -> ConfigError:
+    """The error for a part of the reference the port does not have yet,
+    naming the ROADMAP.md Queue 1 item that ports it."""
+    return ConfigError(f"{what} is not ported to paddle_tpu_torch yet "
+                       f"(ROADMAP.md, Queue 1 item {item})")
 
 
 _tls = threading.local()

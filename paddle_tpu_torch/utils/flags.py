@@ -1,9 +1,18 @@
-"""The port's settings: only the flags the ported slice reads.
+"""The port's settings — counterpart of ``paddle_tpu/utils/flags.py``.
 
-Counterpart of ``paddle_tpu/utils/flags.py`` for this slice.  The port reads
-its own settings, never the JAX package's flags or its environment
-variables.  ``PADDLE_TPU_TORCH_COMPUTE_DTYPE`` overrides the compute dtype
-at import (the reference's ``PADDLE_TPU_COMPUTE_DTYPE`` analogue).
+A typed flag registry (the reference's gflags plane): ``define_flag``
+registers a flag, ``parse_flags`` reads ``--name=value`` / ``--name value``
+from argv, ``FLAGS.name`` reads a value.  The port reads its own settings,
+never the JAX package's flags or its environment variables: a flag's
+environment override is ``PADDLE_TPU_TORCH_<NAME>`` (so
+``PADDLE_TPU_TORCH_COMPUTE_DTYPE`` sets the compute dtype at import, the
+reference's ``PADDLE_TPU_COMPUTE_DTYPE`` analogue).  ``Flags()`` is a
+fresh store holding every registered flag's default.
+
+Only the flags of ported parts are defined.  The command line
+(``paddle_tpu_torch/__main__.py``) refuses the reference's other flags with
+a ``ConfigError`` naming the ROADMAP.md Queue 1 item that ports them
+(``NOT_PORTED_FLAGS``).
 
 No flag chooses a plain version: on the card a kernel always runs, and on
 the CPU its plain PyTorch version runs.  ``fused_bigru`` (the reference's
@@ -12,33 +21,226 @@ paths for a bidirectional GRU layer: two one-direction loops (K3/K4) or one
 loop over both directions (K11).  The reference's other conditions for its
 fused path (``use_pallas_rnn``, the TPU backend, ``H % 128``, ``2B % 8``,
 the VMEM cap) are TPU rules and are not ported: the port's kernel takes
-any B and H.  ``max_gen_length`` is not here:
-no module of either package reads it (the reference defines it for its
-CLI surface, which a later slice ports).
+any B and H.  ``max_gen_length`` is not here: no module of either package
+reads it.  ``fused_apply`` is accepted for the reference's sake; the
+port's optimizers run the per-leaf loop either way (the values are the
+fused apply's, elementwise).
 """
 
 from __future__ import annotations
 
 import os
+import sys
+import threading
 from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional
 
-__all__ = ["FLAGS", "Flags"]
+__all__ = ["FLAGS", "Flags", "define_flag", "parse_flags", "flags_help",
+           "NOT_PORTED_FLAGS"]
+
+_ENV_PREFIX = "PADDLE_TPU_TORCH_"
 
 
 @dataclass
+class _FlagSpec:
+    name: str
+    default: Any
+    help: str
+    type: type
+    validator: Optional[Callable[[Any], bool]] = None
+
+
+_SPECS: Dict[str, _FlagSpec] = {}
+_LOCK = threading.Lock()
+
+
+def _coerce(value: Any, typ: type) -> Any:
+    if isinstance(value, typ):
+        return value
+    if typ is bool:
+        if isinstance(value, str):
+            return value.lower() in ("1", "true", "yes", "on")
+        return bool(value)
+    return typ(value)
+
+
 class Flags:
-    #: matmul operand dtype (``float32`` or ``bfloat16``); accumulation is
-    #: always float32
-    compute_dtype: str = "bfloat16"
-    #: beam/greedy decode stops its token loop once every beam emitted EOS
-    decode_early_exit: bool = True
-    #: default beam width of the slot backend (the reference's default)
-    beam_size: int = 3
-    #: a bidirectional GRU layer runs both directions in one time loop
-    #: (K11, ``ops/rnn_fused.py::bigru_sequence_fused``) instead of two
-    fused_bigru: bool = False
+    """A typed flag store: one value per registered flag, read and written
+    as attributes (``FLAGS.log_period``); unknown names raise
+    ``AttributeError``.  ``Flags()`` holds the defaults."""
+
+    def __init__(self, *, environ: bool = False) -> None:
+        values = {}
+        for spec in _SPECS.values():
+            values[spec.name] = _initial(spec, environ)
+        object.__setattr__(self, "_values", values)
+        object.__setattr__(self, "_environ", environ)
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self._values[name]
+        except KeyError:
+            raise AttributeError(f"unknown flag {name!r}") from None
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        spec = _SPECS.get(name)
+        if spec is None:
+            raise AttributeError(f"unknown flag {name!r}")
+        value = _coerce(value, spec.type)
+        if spec.validator is not None and not spec.validator(value):
+            raise ValueError(f"invalid value {value!r} for flag {name!r}")
+        self._values[name] = value
+
+    def as_dict(self) -> Dict[str, Any]:
+        return dict(self._values)
 
 
-FLAGS = Flags(
-    compute_dtype=os.environ.get("PADDLE_TPU_TORCH_COMPUTE_DTYPE",
-                                 "bfloat16"))
+def _initial(spec: _FlagSpec, environ: bool) -> Any:
+    env = os.environ.get(_ENV_PREFIX + spec.name.upper()) if environ else None
+    return _coerce(env, spec.type) if env is not None else spec.default
+
+
+FLAGS = Flags(environ=True)
+
+
+def _builtin_type(v: Any) -> type:
+    for t in (bool, int, float, str):
+        if isinstance(v, t):
+            return t
+    return object
+
+
+def define_flag(name: str, default: Any, help: str = "", *,
+                type: Optional[type] = None,
+                validator: Optional[Callable[[Any], bool]] = None) -> None:
+    """Register a flag; its value starts at ``default`` (or its
+    ``PADDLE_TPU_TORCH_<NAME>`` environment override)."""
+    spec = _FlagSpec(name, default, help, type or _builtin_type(default),
+                     validator)
+    with _LOCK:
+        if name in _SPECS:
+            raise ValueError(f"flag {name!r} already defined")
+        _SPECS[name] = spec
+        FLAGS._values[name] = _initial(spec, True)
+
+
+def parse_flags(argv: Optional[List[str]] = None) -> List[str]:
+    """Parse ``--name=value`` / ``--name value`` args into ``FLAGS``;
+    returns the arguments that name no registered flag."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    rest = []
+    i = 0
+    while i < len(argv):
+        arg = argv[i]
+        if arg.startswith("--"):
+            body = arg[2:]
+            if "=" in body:
+                name, value = body.split("=", 1)
+            else:
+                name = body
+                if name in _SPECS and _SPECS[name].type is bool:
+                    value = "true"
+                elif i + 1 < len(argv):
+                    value = argv[i + 1]
+                    i += 1
+                else:
+                    value = "true"
+            name = name.replace("-", "_")
+            if name in _SPECS:
+                setattr(FLAGS, name, value)
+            else:
+                rest.append(arg)
+        else:
+            rest.append(arg)
+        i += 1
+    return rest
+
+
+def flags_help() -> str:
+    """One line per registered flag — the ``--help`` surface of the
+    command line."""
+    lines = []
+    for name in sorted(_SPECS):
+        spec = _SPECS[name]
+        head = f"  --{name}={spec.default!r}"
+        lines.append(f"{head:<40} {spec.help}" if spec.help else head)
+    return "\n".join(lines)
+
+
+# --- numerics and kernel paths ----------------------------------------------
+
+define_flag("compute_dtype", "bfloat16", "matmul operand dtype (float32 or "
+            "bfloat16); accumulation is always float32")
+define_flag("decode_early_exit", True, "beam/greedy decode stops its token "
+            "loop once every beam emitted EOS")
+define_flag("beam_size", 3, "default beam width of the slot backend")
+define_flag("fused_bigru", False, "a bidirectional GRU layer runs both "
+            "directions in one time loop (K11) instead of two")
+
+# --- the command line (paddle_trainer analog) -------------------------------
+
+define_flag("job", "train", "CLI mode: train | test | checkgrad | time")
+define_flag("config", "", "python config file defining get_config()")
+define_flag("device", "cuda", "device the CLI's trainer runs on: cuda "
+            "(raises without a card) or cpu (the kernels' plain versions)")
+define_flag("num_passes", 1, "training passes for the CLI train job")
+define_flag("test_pass", -1, "checkpoint pass to test (-1 = latest)")
+define_flag("time_batches", 10, "batches to time in --job=time")
+define_flag("seed", 1, "global seed of the trainer's initial parameters")
+define_flag("checkgrad_eps", 1e-3, "epsilon for finite-difference gradient "
+            "checks")
+
+# --- the trainer loop --------------------------------------------------------
+
+define_flag("log_period", 100, "log every N batches")
+define_flag("test_period", 0, "test every N batches (0 = per pass)")
+define_flag("show_parameter_stats_period", 0, "print param stats every N "
+            "batches")
+define_flag("save_dir", "", "checkpoint root; pass dirs saved under it "
+            "('' = no saving)")
+define_flag("start_pass", 0, "resume training from this pass")
+define_flag("saving_period", 1, "save checkpoint every N passes")
+define_flag("fused_apply", True, "the reference's fused multi-tensor "
+            "optimizer apply; the port's per-leaf loop gives the same "
+            "values either way")
+
+# --- fault tolerance ---------------------------------------------------------
+
+define_flag("resume", "", "'' = --start_pass behavior; 'auto' = resume from "
+            "the newest VALID checkpoint under --save_dir",
+            validator=lambda v: v in ("", "auto"))
+define_flag("keep_last_n", 0, "checkpoint retention: keep only the newest N "
+            "pass dirs under --save_dir (0 = keep all)")
+define_flag("guard_nonfinite", True, "bad-step guard: hold the parameters, "
+            "slots and step counter when the loss or the gradient norm is "
+            "non-finite (decided on the device)")
+define_flag("max_bad_steps", 8, "abort training after N CONSECUTIVE "
+            "guard-skipped bad steps (0 = never abort)")
+define_flag("checkpoint_on_preemption", True, "on SIGTERM/SIGINT, write an "
+            "atomic checkpoint at the next batch boundary and exit cleanly "
+            "(needs --save_dir; resume with --resume=auto)")
+define_flag("reader_retries", 0, "CLI: wrap the config's reader in "
+            "resilience.resilient_reader with this retry budget (0 = off)")
+
+
+#: the reference's flags of parts the port does not have yet, and the
+#: ROADMAP.md Queue 1 item that ports each; the command line refuses them
+NOT_PORTED_FLAGS: Dict[str, int] = {
+    **dict.fromkeys(("amp", "loss_scale", "loss_scale_growth",
+                     "loss_scale_max", "remat", "prefetch_depth"), 4),
+    **dict.fromkeys(("data_pack", "data_shards", "shuffle_seed"), 6),
+    **dict.fromkeys(("publish_dir", "publish_every", "reload_probation",
+                     "compile_cache_dir", "deploy_quantize", "deploy_lint"),
+                    7),
+    **dict.fromkeys(("pserver_axis", "pserver_pad_vocab", "mesh_shape",
+                     "mesh_axes", "num_virtual_devices", "dcn_axis",
+                     "dcn_compress", "dcn_timeout_s", "dcn_retries"), 8),
+    **dict.fromkeys(("sdc_check_every", "scrub_every_s", "obs_timeline",
+                     "obs_journal", "obs_peak_flops", "metrics_port",
+                     "trace_sample", "trace_tail_p99", "profile_dir",
+                     "profile_steps", "enable_timers", "check_nan",
+                     "gang_max_restarts", "gang_heartbeat_s",
+                     "gang_watchdog_s", "gang_elastic", "gang_min_ranks",
+                     "gang_grow_back", "gang_resize_timeout_s",
+                     "gang_backoff_jitter"), 9),
+}

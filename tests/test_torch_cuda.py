@@ -1955,3 +1955,145 @@ def test_server_worker_relaunch_under_load(dev, hard_alarm):
     print(f"device memory after each relaunch: {mem} bytes; growth "
           f"{growth:.0f} bytes a relaunch")
     assert growth < workspace, mem
+
+
+# ---------------------------------------------------------------------------
+# the trainer on the card
+# ---------------------------------------------------------------------------
+
+
+def _textclf_trainer(device, seed=0, **kw):
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.models import lstm_benchmark_net
+    from paddle_tpu_torch.param import Adam
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    nn.reset_naming()
+    cost, _ = lstm_benchmark_net(48, emb_dim=8, hid_dim=16, num_layers=2)
+    return SGDTrainer(cost, Adam(learning_rate=1e-2), seed=seed,
+                      device=device, **kw)
+
+
+def _textclf_feeds(n=3, B=6, T=10):
+    rng = np.random.RandomState(4)
+    return [{"words": (rng.randint(3, 48, (B, T)).astype(np.int32),
+                       rng.randint(2, T + 1, B).astype(np.int32)),
+             "label": rng.randint(0, 2, (B, 1))} for _ in range(n)]
+
+
+def _trainer_state(tr):
+    from paddle_tpu_torch.param.optimizers import slot_leaves
+
+    return ({k: v.detach().cpu() for k, v in tr.params.items()},
+            {k: [s.cpu() for s in slot_leaves(v)]
+             for k, v in tr.opt_state["slots"].items()},
+            int(tr.opt_state["step"]))
+
+
+def test_trainer_on_the_card_matches_the_cpu_trainer(dev):
+    """Three ``train_batch`` calls of a small ``lstm_benchmark_net`` in f32
+    on the card (K9r, K10 on their steps kernels under f32) and on the CPU
+    (plain versions), from the same ``seed``: losses within rtol 1e-5, each
+    parameter and slot within 1e-4 of its largest entry (f32 sums in
+    another order, carried through Adam's normalised update)."""
+    feeds = _textclf_feeds()
+    with compute_dtype_scope("float32"):
+        card, cpu = _textclf_trainer(dev), _textclf_trainer("cpu")
+        before = launch_counts()
+        got = [float(card.train_batch(f)) for f in feeds]
+        after = launch_counts()
+        want = [float(cpu.train_batch(f)) for f in feeds]
+    assert after["lstm_forward"] - before["lstm_forward"] == 6
+    assert after["lstm_backward"] - before["lstm_backward"] == 6
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    a, b = _trainer_state(card), _trainer_state(cpu)
+    assert a[2] == b[2] == 3
+    worst = 0.0
+    for k in a[0]:
+        for x, y in zip([a[0][k], *a[1][k]], [b[0][k], *b[1][k]]):
+            rel = (x - y).abs().max().item() / max(y.abs().max().item(),
+                                                   1e-12)
+            worst = max(worst, rel)
+            assert rel <= 1e-4, k
+    print(f"trainer card vs CPU, 3 f32 steps: loss max rel diff "
+          f"{max(abs(g - w) / abs(w) for g, w in zip(got, want)):.3e}, "
+          f"worst array max |diff| / max |entry| {worst:.3e}")
+
+
+def test_trainer_checkpoints_cross_the_card_and_the_cpu(dev, tmp_path):
+    """A checkpoint written on the card loads on the CPU, and one written
+    on the CPU loads on the card, every array bit for bit and on the
+    loader's device."""
+    feeds = _textclf_feeds(2)
+    card = _textclf_trainer(dev)
+    card.train_batch(feeds[0])
+    card.save(str(tmp_path / "card"), 0)
+    cpu = _textclf_trainer("cpu", seed=9)
+    cpu.load(str(tmp_path / "card"), 0)
+    a, b = _trainer_state(card), _trainer_state(cpu)
+    for k in a[0]:
+        assert torch.equal(a[0][k], b[0][k]), k
+        for x, y in zip(a[1][k], b[1][k]):
+            assert torch.equal(x, y), k
+    assert a[2] == b[2] == 1
+    cpu.train_batch(feeds[1])
+    cpu.save(str(tmp_path / "cpu"), 0)
+    back = _textclf_trainer(dev, seed=3)
+    back.load(str(tmp_path / "cpu"), 0)
+    assert back.opt_state["step"].device.type == "cuda"
+    assert all(v.device.type == "cuda" and v.requires_grad
+               for v in back.params.values())
+    a, b = _trainer_state(cpu), _trainer_state(back)
+    for k in a[0]:
+        assert torch.equal(a[0][k], b[0][k]), k
+    assert a[2] == b[2] == 2
+
+
+def test_guard_skip_on_the_card_holds_every_bit(dev):
+    """A NaN batch on the card: the parameters, the slots and the step
+    counter stay bit for bit (selected on the card), the counters move,
+    and the next finite batch trains."""
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.param import Adam
+    from paddle_tpu_torch.resilience import chaos
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    nn.reset_naming()
+    x = nn.data("x", size=4)
+    lab = nn.data("label", size=1, dtype="int32")
+    cost = nn.classification_cost(nn.fc(nn.fc(x, 8, act="tanh"), 3,
+                                        act="linear"), lab)
+    tr = SGDTrainer(cost, Adam(learning_rate=0.05), seed=0, device=dev)
+    rng = np.random.RandomState(0)
+    feeds = [{"x": rng.randn(4, 4).astype(np.float32),
+              "label": rng.randint(0, 3, (4, 1))} for _ in range(2)]
+    tr.train_batch(feeds[0])
+    before = {k: v.detach().clone() for k, v in tr.params.items()}
+    slots = {k: [s.clone() for s in v] for k, v in
+             tr.opt_state["slots"].items()}
+    step = tr.opt_state["step"].clone()
+    loss = tr.train_batch(chaos.nan_feed(feeds[1]))
+    assert not torch.isfinite(loss) and tr.bad_steps_total == 1
+    for k, v in tr.params.items():
+        assert torch.equal(v.detach(), before[k]), k
+        for s, s0 in zip(tr.opt_state["slots"][k], slots[k]):
+            assert torch.equal(s, s0), k
+    assert torch.equal(tr.opt_state["step"], step)
+    assert tr.opt_state["step"].device.type == "cuda"
+    tr.train_batch(feeds[1])
+    assert int(tr.opt_state["step"]) == 2 and tr.bad_steps_streak == 0
+
+
+def test_trainer_test_and_infer_launch_k9_only(dev):
+    """``test`` and ``infer`` run the inference variant: K9 launches, K10
+    does not."""
+    tr = _textclf_trainer(dev)
+    feeds = _textclf_feeds(2)
+    before = launch_counts()
+    res = tr.test(lambda: iter(feeds))
+    out = tr.infer([l for l in tr.topology.layers if l.name == "logits"],
+                   feeds[0])
+    after = launch_counts()
+    assert after["lstm_forward"] - before["lstm_forward"] == 6
+    assert after["lstm_backward"] == before["lstm_backward"]
+    assert np.isfinite(res["cost"]) and out["logits"].shape == (6, 2)
