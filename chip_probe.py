@@ -2,7 +2,8 @@
 """Opt-in measurements of the PyTorch/H100 port beside ``chip_smoke.py``.
 
     python3 chip_probe.py [chunks] [profile] [textclf] [dslgen] [k8plans]
-                          [k8variants] [variants] [build]  (all if none named)
+                          [k8variants] [variants] [vision] [build]
+                          (all if none named)
 
 Needs one CUDA card and the checkout beside it.  It checks nothing that
 ``chip_smoke.py`` does not; it measures what the smoke run leaves out to
@@ -47,6 +48,13 @@ variants where the persistent K3 (the GRU forward loop: K3r at B=384
          switched off at compile time (their results are wrong by
          design), built into ``paddle_tpu_torch/_build/variants`` and
          timed in turns with the copy as committed, twice;
+vision   the image tier (``chip_smoke.py``'s vision rows, bf16,
+         Momentum): resnet20_b256's step with ``torch.backends.cudnn.
+         deterministic`` off and on, in turns (off, on, on, off), 6 steps
+         each from one initialisation, with whether two runs from it give
+         the same losses bit for bit (and for each other row, two runs of
+         3 steps); then one profiled step of each row
+         (device busy share, the kernels with the most device time);
 build    cold builds of the kernel libraries into a scratch directory:
          each source alone, one ``nvcc`` at a time, then all at once as
          ``build_all`` starts them (the smoke run's build time).
@@ -254,6 +262,85 @@ def probe_textclf(dev):
         _profile_step(f"one textclf training step lstm_b{smoke.TEXTCLF_B}"
                       f"h{hidden} (T={smoke.TEXTCLF_T}, bf16)",
                       _textclf_setup(dev, hidden), top_n=12)
+
+
+def _vision_setup(dev, row):
+    """One direct-loop step of ``chip_smoke.py``'s vision ``row`` from
+    ``Topology.init(SEED)``: -> step (returns the loss)."""
+    import torch
+
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.param import Momentum
+
+    _, model, kwargs, B, side, classes, lr, _ = row
+    cost, logits = smoke.vision_net(model, kwargs)
+    topo = nn.Topology([cost, logits], device=dev)
+    params, state = topo.init(smoke.SEED)
+    params = {k: v.requires_grad_() for k, v in params.items()}
+    feed = smoke.vision_feed(B, side, classes, smoke.SEED, dev)
+    opt = Momentum(learning_rate=lr)
+    ost = opt.init_state(params)
+    carry = {"state": state}
+
+    def step():
+        outs, carry["state"] = topo.apply(params, carry["state"], feed,
+                                          train=True)
+        loss = outs[cost.name].value
+        grads = torch.autograd.grad(loss, list(params.values()))
+        opt.update(params, dict(zip(params, grads)), ost)
+        return loss
+
+    return step
+
+
+def probe_vision(dev):
+    import torch
+
+    row = smoke.VISION_ROWS[0]
+    keep = torch.backends.cudnn.deterministic
+    runs = {False: [], True: []}
+    for det in (False, True, True, False):
+        torch.backends.cudnn.deterministic = det
+        step = _vision_setup(dev, row)
+        secs, losses = [], []
+        for _ in range(smoke.TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(step().item())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        rest = sorted(secs[1:])
+        runs[det].append(losses)
+        print(f"vision: {row[0]} cudnn.deterministic={det}: median of steps "
+              f"2-{smoke.TRAIN_STEPS} {rest[len(rest) // 2] * 1e3:.3f} "
+              f"ms/step (min {rest[0] * 1e3:.3f}, max {rest[-1] * 1e3:.3f}),"
+              f" losses {losses}", flush=True)
+        del step
+        torch.cuda.empty_cache()
+    for det, (a, b) in runs.items():
+        print(f"vision: cudnn.deterministic={det}: two runs from one "
+              f"initialisation {'bit for bit' if a == b else 'DIFFER'} "
+              f"(max rel diff "
+              f"{max(abs(x - y) / abs(y) for x, y in zip(a, b)):.3e})",
+              flush=True)
+    torch.backends.cudnn.deterministic = keep
+    for row in smoke.VISION_ROWS[1:]:
+        twice = []
+        for _ in range(2):
+            step = _vision_setup(dev, row)
+            twice.append([step().item() for _ in range(3)])
+            del step
+        print(f"vision: {row[0]} cudnn.deterministic={keep}: two runs of 3 "
+              f"steps from one initialisation "
+              f"{'bit for bit' if twice[0] == twice[1] else 'DIFFER'} "
+              f"({twice[0]} / {twice[1]})", flush=True)
+        torch.cuda.empty_cache()
+    for row in smoke.VISION_ROWS:
+        _profile_step(f"one {row[0]} training step (bf16, Momentum, "
+                      f"cudnn.deterministic={keep})",
+                      _vision_setup(dev, row), top_n=20 if row is
+                      smoke.VISION_ROWS[0] else 10)
+        torch.cuda.empty_cache()
 
 
 def probe_dslgen(dev):
@@ -625,7 +712,8 @@ def main() -> int:
     probes = {"chunks": probe_chunks, "profile": probe_profile,
               "textclf": probe_textclf, "dslgen": probe_dslgen,
               "k8plans": probe_k8plans, "k8variants": probe_k8variants,
-              "variants": probe_variants, "build": probe_build}
+              "variants": probe_variants, "vision": probe_vision,
+              "build": probe_build}
     wanted = sys.argv[1:] or list(probes)
     unknown = set(wanted) - set(probes)
     if unknown:

@@ -132,7 +132,29 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             last checkpoint (K9, no K10), ``--job=checkgrad`` under f32,
             and ``--job=time`` over 20 batches beside textclf's direct
             median; every K9r/K10 launch ``persistent``;
-12. a ``{"server_launches": {...}}`` line (each part of the server
+12. vision   the image tier (PR 18): ``bench.py``'s image rows through
+            ``nn.Topology`` at bf16, random weights from ``SEED`` and
+            seeded numpy feeds (``rand(B, H, W, 3)``), ``Momentum``
+            steps of the direct loop (``apply`` -> ``torch.autograd.grad``
+            -> ``update`` -> the new batch-norm state): resnet20_b256 (6
+            steps), smallnet_b64 (6), alexnet_b128 (227x227, 1000
+            classes, dropout and LRN; 3) and googlenet_b128 (224x224,
+            ``fused_reduce``; 3), each with its losses, median step time
+            of steps 2-N (min, max), images/s, MFU from the built graph's
+            conv and fc shapes, peak memory and the card line;
+            resnet20_b256 again through ``SGDTrainer.train_batch`` (its
+            losses against the direct loop's, bit for bit or within
+            ``TOL_VISION_RESUME``; every running stat moved) and one
+            inference pass (``train=False`` under ``torch.no_grad()``);
+            ``python -m paddle_tpu_torch`` on ``tests/torch_resnet_conf.py``
+            (``--job=train`` 2 passes of 3 batches, ``--start_pass=1``
+            from pass 0 against pass 1, ``--job=time`` over 20 batches);
+            resnet at depth 8 (B=4) and AlexNet at 67x67 (B=2, one
+            dropout mask on both sides) at f32 on the card against the
+            CPU (loss, every gradient, the new running stats).  No
+            hand-written kernel lies on this path: every launch count
+            stays 0 through the phase;
+13. a ``{"server_launches": {...}}`` line (each part of the server
    phase: every kernel library's launches, by kernel variant and by
    thread), a ``{"kernels": [...]}`` line (each kernel's launches on its
    path's run, also by kernel variant: ``launches_by_path``; the K9,
@@ -143,7 +165,7 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
 Launch counters are zeroed just before each path (serve and its fused
 re-run, each part of the server phase, each arm of the spec phase, each
 training configuration, each textclf run, dslgen, each part of the
-trainer phase) is driven
+trainer phase, the vision phase) is driven
 and read just after; a kernel of the path
 that was not launched fails the run.  ``chip_probe.py`` measures what this
 run leaves out to stay short (the products' chunk sizes end to end,
@@ -223,6 +245,33 @@ TRAINER_ROWS = ("lstm_forward", "lstm_forward_residuals_b64h256",
 #: losses (rel), where they are not bit-equal: bf16 products of the same
 #: values, so only a different reduction order could move them
 TOL_TRAINER_RESUME = 1e-4
+
+#: the vision phase: bench.py's image rows resnet20_b256 (bench.py:428-459),
+#: smallnet_b64 (:462-507), alexnet_b128 (:551-560) and googlenet_b128
+#: (:563-583, fused_reduce at B >= 128), each (row, model, its arguments,
+#: B, image side, classes, Momentum's learning rate, steps)
+VISION_ROWS = (
+    ("resnet20_b256", "resnet_cifar", {"depth": 20}, 256, 32, 10, 0.1, 6),
+    ("smallnet_b64", "smallnet", {}, 64, 32, 10, 0.1, 6),
+    ("alexnet_b128", "alexnet", {"num_classes": 1000}, 128, 227, 1000,
+     0.01, 3),
+    ("googlenet_b128", "googlenet", {"num_classes": 1000,
+                                     "fused_reduce": True}, 128, 224, 1000,
+     0.01, 3),
+)
+#: the vision phase's command line: its config, batches a pass in the
+#: train run, batches of ``--job=time``
+VISION_CONF = os.path.join(ROOT, "tests", "torch_resnet_conf.py")
+VISION_PASS_BATCHES, VISION_TIME_BATCHES = 3, 20
+#: SGDTrainer against the direct loop, and the resumed pass 1 against the
+#: uninterrupted one (rel): bit for bit where every kernel is
+#: deterministic; otherwise only a different reduction order can move them
+TOL_VISION_RESUME = 1e-4
+#: card vs CPU on the image nets, f32 both sides: the loss and each new
+#: running stat (rel), each gradient's max |diff| against its largest entry
+#: (f32 sums of up to k*k*Cin terms in another order, cuDNN's algorithms
+#: against the CPU's, through batch norms over few samples)
+TOL_VISION_LOSS, TOL_VISION_GRAD = 1e-5, 1e-3
 
 #: kernel-vs-plain tolerances (max abs difference) and why
 TOL = {
@@ -3363,36 +3412,37 @@ def recorded_losses():
 
 
 @contextlib.contextmanager
-def cli_run(n_samples: int):
-    """The command line's config at ``n_samples`` a pass; the port's flags
-    (which the command line sets) and the environment restored after."""
+def cli_run(n_samples: int, var: str = "TORCH_TEXTCLF_N"):
+    """The command line's config at ``n_samples`` a pass (its environment
+    variable ``var``); the port's flags (which the command line sets) and
+    the environment restored after."""
     from paddle_tpu_torch.utils.flags import FLAGS
 
-    keep, old = FLAGS.as_dict(), os.environ.get("TORCH_TEXTCLF_N")
-    os.environ["TORCH_TEXTCLF_N"] = str(n_samples)
+    keep, old = FLAGS.as_dict(), os.environ.get(var)
+    os.environ[var] = str(n_samples)
     try:
         yield
     finally:
         for k, v in keep.items():
             setattr(FLAGS, k, v)
         if old is None:
-            os.environ.pop("TORCH_TEXTCLF_N")
+            os.environ.pop(var)
         else:
-            os.environ["TORCH_TEXTCLF_N"] = old
+            os.environ[var] = old
 
 
-def cli(argv):
-    """``main(argv)`` of ``python -m paddle_tpu_torch`` on the trainer
-    config -> what it printed; fails unless it returns 0."""
+def cli(argv, conf: str = TRAINER_CONF, phase: str = "trainer"):
+    """``main(argv)`` of ``python -m paddle_tpu_torch`` on ``conf`` -> what
+    it printed; fails unless it returns 0."""
     import io
 
     from paddle_tpu_torch.__main__ import main
 
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = main([f"--config={TRAINER_CONF}", "--log_period=0", *argv])
+        rc = main([f"--config={conf}", "--log_period=0", *argv])
     if rc != 0:
-        fail("trainer", f"{argv}: exit code {rc}")
+        fail(phase, f"{argv}: exit code {rc}")
     return out.getvalue()
 
 
@@ -3529,6 +3579,335 @@ def trainer_path(K, dev, card, direct_losses, direct_sec):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the image tier
+# ---------------------------------------------------------------------------
+
+
+def vision_net(model: str, kwargs: dict):
+    """One of the port's image models -> (cost, logits)."""
+    import paddle_tpu_torch.models as models
+    import paddle_tpu_torch.nn as nn
+
+    nn.reset_naming()
+    return getattr(models, model)(**kwargs)
+
+
+def vision_flops(topo, B: int) -> float:
+    """Analytic FLOPs of one training step from the built graph's shapes:
+    2*B*Ho*Wo*k*k*(Cin/g)*Cout per conv and 2*B*in*out per fc weight, the
+    forward three times over (forward, and the two products of the
+    backward); pooling, batch norm and the elementwise ops not counted."""
+    fwd = 0.0
+    for layer in topo.layers:
+        if layer.layer_type == "conv":
+            kh, kw, cin_g, cout = layer.param_specs[0].shape
+            ho, wo = layer.meta["hw"]
+            fwd += 2.0 * B * ho * wo * kh * kw * cin_g * cout
+        elif layer.layer_type == "fc":
+            for spec in layer.param_specs:
+                if len(spec.shape) == 2:
+                    fwd += 2.0 * B * spec.shape[0] * spec.shape[1]
+    return 3.0 * fwd
+
+
+def vision_feed(B: int, side: int, classes: int, seed: int, dev):
+    """``bench.py``'s image feed from a numpy ``RandomState(seed)``:
+    pixels ``rand(B, side, side, 3)``, labels in [0, classes); on ``dev``
+    once, before any step."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    pixel = rng.rand(B, side, side, 3).astype(np.float32)
+    label = rng.randint(0, classes, (B, 1))
+    return {"pixel": torch.from_numpy(pixel).to(dev),
+            "label": torch.from_numpy(label).to(dev)}
+
+
+def vision_train(K, dev, card, row):
+    """``row`` of ``VISION_ROWS``: ``Momentum`` steps of the direct loop
+    (``apply`` -> ``torch.autograd.grad`` -> ``update`` -> the new
+    batch-norm state), bf16 compute.  -> (losses, median step seconds,
+    topology, cost, logits, the initial state, the final state)."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.param import Momentum
+
+    tag, model, kwargs, B, side, classes, lr, steps = row
+    cost, logits = vision_net(model, kwargs)
+    topo = nn.Topology([cost, logits], device=dev)
+    params, state0 = topo.init(SEED)
+    params = {k: v.requires_grad_() for k, v in params.items()}
+    state = dict(state0)
+    opt = Momentum(learning_rate=lr)
+    ost = opt.init_state(params)
+    feed = vision_feed(B, side, classes, SEED, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, secs = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        outs, state = topo.apply(params, state, feed, train=True)
+        loss = outs[cost.name].value
+        grads = torch.autograd.grad(loss, list(params.values()))
+        opt.update(params, dict(zip(params, grads)), ost)
+        losses.append(loss.item())                    # synchronises
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(np.isfinite(losses)):
+        fail("vision", f"{tag}: loss not finite: {losses}")
+    if int(ost["step"]) != steps:
+        fail("vision", f"{tag}: optimizer step counter {int(ost['step'])} "
+             f"after {steps} updates")
+    rest = sorted(secs[1:])
+    sec = rest[len(rest) // 2]
+    flops = vision_flops(topo, B)
+    print(f"vision: {tag} ({model}, B={B}, {side}x{side}x3, {classes} "
+          f"classes, bf16, Momentum({lr})) losses "
+          f"{[round(x, 6) for x in losses]}", flush=True)
+    print(f"vision: {tag} {steps} steps: first {secs[0]:.3f} s, median of "
+          f"steps 2-{steps} {sec * 1e3:.2f} ms/step (min "
+          f"{rest[0] * 1e3:.2f}, max {rest[-1] * 1e3:.2f}), "
+          f"{B / sec:.1f} images/s, MFU "
+          f"{flops / sec / PEAK_OPS_PER_S['bfloat16']:.4%} of 989 TFLOP/s "
+          f"({flops:.4e} FLOP/step: 3 x (2 B Ho Wo k^2 Cin/g Cout per "
+          f"conv + 2 B in out per fc)), peak memory {peak / 2 ** 30:.2f} "
+          f"GiB [{card}]", flush=True)
+    return losses, sec, topo, cost, logits, state0, state, params, feed
+
+
+def vision_trainer_check(dev, cost, direct_losses, state0, row):
+    """``SGDTrainer(cost, Momentum(lr), seed=SEED).train_batch`` on the
+    direct loop's feed, as many steps: its losses against the direct
+    loop's (bit for bit, or within ``TOL_VISION_RESUME``), and its
+    batch-norm running stats moved from their initial values."""
+    import torch
+
+    from paddle_tpu_torch.param import Momentum
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    tag, _, _, B, side, classes, lr, steps = row
+    tr = SGDTrainer(cost, Momentum(learning_rate=lr), seed=SEED, device=dev)
+    feed = vision_feed(B, side, classes, SEED, dev)
+    losses = [tr.train_batch(feed).item() for _ in range(steps)]
+    same = losses == direct_losses
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, direct_losses))
+    moved = [k for k, v in tr.state.items()
+             if not torch.equal(v, state0[k])]
+    print(f"vision: {tag} SGDTrainer(Momentum({lr}), seed={SEED})"
+          f".train_batch x {steps}: losses {losses}; the direct loop's "
+          f"{direct_losses}: "
+          f"{'bit for bit' if same else f'max rel diff {rel:.3e} (tol {TOL_VISION_RESUME})'}"
+          f"; running stats moved: {len(moved)} of {len(tr.state)}; "
+          f"cudnn.deterministic {torch.backends.cudnn.deterministic}",
+          flush=True)
+    if rel > TOL_VISION_RESUME:
+        fail("vision", f"{tag}: SGDTrainer's losses differ from the direct "
+             f"loop's")
+    if not tr.state or len(moved) != len(tr.state):
+        fail("vision", f"{tag}: batch-norm running stats did not all move")
+    if int(tr.opt_state["step"]) != steps or tr.bad_steps_total:
+        fail("vision", f"{tag}: step counter {int(tr.opt_state['step'])}, "
+             f"bad steps {tr.bad_steps_total}")
+
+
+def vision_infer(dev, card, topo, params, state, logits, row):
+    """One forward pass of the trained net (``apply(train=False)`` under
+    ``torch.no_grad()``, the running stats normalising)."""
+    import torch
+
+    tag, _, _, B, side, classes, _, _ = row
+    feed = vision_feed(B, side, classes, SEED + 1, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        outs, new_state = topo.apply(params, state, feed, train=False)
+        out = outs[logits.name].value
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    print(f"vision: {tag} inference apply(train=False): {sec * 1e3:.2f} ms "
+          f"(first call), {B / sec:.1f} images/s, logits "
+          f"{tuple(out.shape)} [{card}]", flush=True)
+    if tuple(out.shape) != (B, classes) or not torch.isfinite(out).all():
+        fail("vision", f"{tag}: inference logits malformed")
+    if any(new_state[k] is not v for k, v in state.items()):
+        fail("vision", f"{tag}: inference moved the running stats")
+
+
+def vision_cli(card, direct_sec):
+    """``python -m paddle_tpu_torch`` on ``tests/torch_resnet_conf.py``
+    (resnet20_b256, synthetic cifar10, Momentum(0.1), bf16):
+    ``--job=train`` for 2 passes of ``VISION_PASS_BATCHES`` batches,
+    resumed from pass 0 with ``--start_pass=1`` (pass 1's losses against
+    the uninterrupted run's), ``--job=time`` over ``VISION_TIME_BATCHES``
+    batches beside the direct loop's median step."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from paddle_tpu_torch.resilience import validate_checkpoint
+    from paddle_tpu_torch.resilience.checkpoint_io import pass_dir
+
+    B, var = int(os.environ.get("TORCH_RESNET_BATCH", 256)), "TORCH_RESNET_N"
+    with tempfile.TemporaryDirectory() as tmp:
+        full, part = os.path.join(tmp, "full"), os.path.join(tmp, "part")
+        n = B * VISION_PASS_BATCHES
+        with cli_run(n, var), recorded_losses() as run:
+            t0 = time.perf_counter()
+            cli(["--job=train", f"--save_dir={full}", "--num_passes=2"],
+                VISION_CONF, "vision")
+            sec = time.perf_counter() - t0
+        per = VISION_PASS_BATCHES
+        print(f"vision: --job=train on {os.path.basename(VISION_CONF)}, 2 "
+              f"passes of {per} batches (B={B}, a test pass after each): "
+              f"{sec:.2f} s, losses {run}", flush=True)
+        if len(run) != 2 * per or not all(np.isfinite(run)):
+            fail("vision", f"--job=train losses {run}: want {2 * per} "
+                 f"finite")
+        for p in (0, 1):
+            why = validate_checkpoint(pass_dir(full, p))
+            if why is not None:
+                fail("vision", f"pass {p} checkpoint: {why}")
+        shutil.copytree(pass_dir(full, 0), pass_dir(part, 0))
+        with cli_run(n, var), recorded_losses() as resumed:
+            cli(["--job=train", f"--save_dir={part}", "--num_passes=2",
+                 "--start_pass=1"], VISION_CONF, "vision")
+        want = run[per:]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, want))
+        same = resumed == want
+        print(f"vision: --start_pass=1 from the pass-0 checkpoint: pass-1 "
+              f"losses {resumed} vs the uninterrupted run's {want}: "
+              f"{'bit for bit' if same else f'max rel diff {rel:.3e} (tol {TOL_VISION_RESUME})'}",
+              flush=True)
+        if len(resumed) != per or rel > TOL_VISION_RESUME:
+            fail("vision", "the resumed pass 1 differs from the "
+                 "uninterrupted run's")
+    with cli_run(B * VISION_TIME_BATCHES, var):
+        out = cli(["--job=time", f"--time_batches={VISION_TIME_BATCHES}"],
+                  VISION_CONF, "vision")
+    ms = float(out.split(" ms/batch")[0].split()[-1])
+    print(f"vision: --job=time: {ms:.2f} ms/batch over "
+          f"{VISION_TIME_BATCHES} batches (resnet20_b256, bf16, synthetic "
+          f"cifar10, guarded Momentum step); the direct loop's median "
+          f"{direct_sec * 1e3:.2f} ms/step [{card}]", flush=True)
+
+
+@contextlib.contextmanager
+def shared_dropout():
+    """The port's ``dropout`` on one numpy mask keyed by the activation's
+    shape, on whichever device the activation is: so the card and the CPU
+    drop the same units (their generators draw different numbers)."""
+    import zlib
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch.ops as O
+
+    def dropout(gen, x, rate, *, train):
+        if not train or rate <= 0.0:
+            return x
+        rs = np.random.RandomState(zlib.crc32(repr(tuple(x.shape)).encode()))
+        keep = torch.from_numpy(rs.rand(*x.shape) >= rate).to(x.device)
+        return torch.where(keep, x / (1.0 - rate),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+    real = O.dropout
+    O.dropout = dropout
+    try:
+        yield
+    finally:
+        O.dropout = real
+
+
+def vision_cpu_check(dev):
+    """resnet_cifar at depth 8 (B=4) and AlexNet at 67x67 (B=2, dropout
+    masks shared), f32: the loss, every gradient and the new running stats
+    on the card against the CPU, from the same parameters."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+
+    cases = (("resnet_cifar", {"depth": 8}, 4, 32, 10),
+             ("alexnet", {"num_classes": 10, "height": 67, "width": 67}, 2,
+              67, 10))
+    for model, kwargs, B, side, classes in cases:
+        cost, _ = vision_net(model, kwargs)
+        card, cpu = (nn.Topology(cost, device=d) for d in (dev, "cpu"))
+        params, state = cpu.init(SEED + 1)
+        feed = vision_feed(B, side, classes, SEED + 1, "cpu")
+        out = {}
+        with compute_dtype_scope("float32"), shared_dropout():
+            for name, topo, dv in (("card", card, dev), ("cpu", cpu, "cpu")):
+                p = {k: v.to(dv).requires_grad_() for k, v in params.items()}
+                s = {k: v.to(dv) for k, v in state.items()}
+                f = {k: v.to(dv) for k, v in feed.items()}
+                outs, ns = topo.apply(p, s, f, train=True, rng=SEED)
+                loss = outs[cost.name].value
+                grads = torch.autograd.grad(loss, list(p.values()))
+                out[name] = (loss.item(), [g.cpu() for g in grads],
+                             {k: v.cpu() for k, v in ns.items()})
+        d_loss = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+        worst, worst_name = 0.0, ""
+        for name, a, c in zip(params, out["card"][1], out["cpu"][1]):
+            rel = (a - c).abs().max().item() / max(c.abs().max().item(),
+                                                   1e-30)
+            if rel > worst:
+                worst, worst_name = rel, name
+        d_state = max([(out["card"][2][k] - v).abs().max().item()
+                       / max(v.abs().max().item(), 1e-30)
+                       for k, v in out["cpu"][2].items()] or [0.0])
+        print(f"vision: card vs CPU, {model} {kwargs} B={B}, f32: loss "
+              f"{out['card'][0]:.7f} vs {out['cpu'][0]:.7f} (rel diff "
+              f"{d_loss:.3e}, tol {TOL_VISION_LOSS}); {len(params)} "
+              f"gradients, worst max |diff| / max |g| {worst:.3e} "
+              f"({worst_name}, tol {TOL_VISION_GRAD}); {len(state)} "
+              f"running stats, worst {d_state:.3e} (tol "
+              f"{TOL_VISION_LOSS})", flush=True)
+        if not (np.isfinite(out["card"][0]) and d_loss <= TOL_VISION_LOSS
+                and worst <= TOL_VISION_GRAD
+                and d_state <= TOL_VISION_LOSS):
+            fail("vision", f"{model}: card and CPU disagree beyond "
+                 f"tolerance")
+
+
+def vision_path(K, dev, card):
+    """The image tier on the card: ``VISION_ROWS`` through the direct
+    loop, resnet20_b256 again through ``SGDTrainer`` and in one inference
+    pass, the command line on ``tests/torch_resnet_conf.py``, and the card
+    against the CPU.  No hand-written kernel lies on this path: every
+    launch count must stay 0.  -> the launches."""
+    import torch
+
+    K.reset_launch_counts()
+    direct_sec = None
+    for row in VISION_ROWS:
+        (losses, sec, topo, cost, logits, state0, state, params,
+         _) = vision_train(K, dev, card, row)
+        if row[0] == "resnet20_b256":
+            direct_sec = sec
+            vision_trainer_check(dev, cost, losses, state0, row)
+            vision_infer(dev, card, topo, params, state, logits, row)
+        del topo, params, state
+        torch.cuda.empty_cache()
+    vision_cli(card, direct_sec)
+    vision_cpu_check(dev)
+    launches = K.launch_counts()
+    print(f"vision: hand-written kernel launches during the phase: "
+          f"{dict(launches)} (none: the image tier runs PyTorch's own ops)",
+          flush=True)
+    if any(launches.values()):
+        fail("vision", "a hand-written kernel launched on the image path")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3604,6 +3983,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "trainer"
         trainer_launches = trainer_path(K, dev, card, *textclf_run[256])
+        torch.cuda.empty_cache()
+        phase = "vision"
+        vision_path(K, dev, card)
     except SystemExit:
         raise
     except Exception:  # noqa: BLE001 — report the phase and fail

@@ -5,6 +5,8 @@ counterpart on an H100, ported slice by slice (ROADMAP.md).  Its entry points:
 
     models.Seq2SeqAttention       encoder + attention-GRU decoder, beam
                                   search, the teacher-forced ``loss``
+    models.resnet_cifar, ...      the image models (LeNet-5, SmallNet,
+                                  ResNet, VGG, AlexNet, GoogLeNet)
     nn.Topology                   the layer DSL's graph
     trainer.SGDTrainer            the training loop: events, the
                                   bad-step guard, checkpoints, resume

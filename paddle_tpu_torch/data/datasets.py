@@ -3,13 +3,13 @@
 The port has the reference's deterministic synthetic streams only, sample
 for sample the same as the JAX package's for the same split and size
 (``tests/test_torch_data.py``): ``imdb`` and ``sentiment`` (both through
-``_imdb_synth``), ``mnist`` and ``uci_housing``.  Each stream's
+``_imdb_synth``), ``mnist``, ``cifar10`` and ``uci_housing``.  Each stream's
 ``RandomState`` is seeded by the crc32 of its name and split, so it does
 not depend on the process.
 
 Not ported here: loading real files under a data home (``data_home``,
-``data/formats.py``) and the other datasets (cifar10, wmt14, movielens,
-imikolov, conll05) wait for the rest of ROADMAP.md Queue 1 item 4.  So
+``data/formats.py``) and the other datasets (wmt14, movielens, imikolov,
+conll05) wait for the rest of ROADMAP.md Queue 1 item 4.  So
 these loaders always give the synthetic stream, where the reference's
 would read real files when they are present; ``_capped``, which caps
 those real-file readers, comes with them.
@@ -22,7 +22,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
-__all__ = ["mnist", "imdb", "sentiment", "uci_housing"]
+__all__ = ["mnist", "cifar10", "imdb", "sentiment", "uci_housing"]
 
 
 def _synth_rng(name: str, split: str) -> np.random.RandomState:
@@ -44,6 +44,23 @@ def mnist(split: str = "train", *, n: Optional[int] = None) -> Callable:
             cx, cy = 4 + 2 * (label % 5), 6 + 3 * (label // 5)
             img[cx: cx + 6, cy: cy + 6] += 0.8
             yield np.clip(img, 0, 1), label
+
+    return synth_reader
+
+
+def cifar10(split: str = "train", *, n: Optional[int] = None) -> Callable:
+    """Yields (image [32,32,3] float in [0,1), label int): noise with a
+    label-dependent offset on one colour channel, so the task is
+    learnable."""
+
+    def synth_reader():
+        n_ = n if n is not None else 2048
+        rng = _synth_rng("cifar10", split)
+        for _ in range(n_):
+            label = rng.randint(0, 10)
+            img = rng.rand(32, 32, 3).astype(np.float32) * 0.2
+            img[:, :, label % 3] += 0.3 + 0.05 * label
+            yield img, label
 
     return synth_reader
 

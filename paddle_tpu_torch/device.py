@@ -19,7 +19,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     """``None`` -> ``cuda``.  Raises if a CUDA device is asked for and none
     is present.  On CUDA, float32 matmuls and convolutions are pinned to
     full float32 (no TF32), so that a float32 compute policy means float32
-    on the card as it does in the reference."""
+    on the card as it does in the reference.
+
+    ``torch.backends.cudnn.deterministic`` is left as PyTorch sets it
+    (off): the image models' convolutions and pools train bit for bit the
+    same from one initialisation without it on an H100, and resume so
+    from a checkpoint (``chip_probe.py vision``, ``chip_smoke.py``'s
+    vision phase), which the trainer's bit-for-bit resume relies on."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

@@ -189,6 +189,12 @@ class LayerOutput:
     def __repr__(self) -> str:
         return f"<{self.layer_type} {self.name} size={self.size}>"
 
+    def __add__(self, other: "LayerOutput") -> "LayerOutput":
+        """``a + b`` is ``addto([a, b])``."""
+        from paddle_tpu_torch.nn.layers import addto
+
+        return addto(input=[self, other])
+
 
 class ApplyContext:
     """Per-apply runtime context: the train flag and a random generator

@@ -1,14 +1,17 @@
 """User-facing layer functions — counterpart of ``paddle_tpu/nn/layers.py``
 for the layers the text-classification benchmark net (``data``, ``fc``,
-``embedding``, ``lstmemory``, ``pooling``, ``classification_cost``) and the
+``embedding``, ``lstmemory``, ``pooling``, ``classification_cost``), the
 seqToseq generation net (``concat``, ``grumemory``, ``first_seq``,
-``last_seq``) are built from.
+``last_seq``) and the image models (``img_conv``, ``img_pool``,
+``batch_norm``, ``img_cmrnorm``, ``maxout``, ``bilinear_interp``,
+``addto``, ``dropout``) are built from.
 
 Each function returns a symbolic ``LayerOutput`` whose ``forward`` closure
 computes the op with the port's ``ops``.  Names, arguments, parameter names
 (``_{name}.w{i}``, ``_{name}.wbias``, ``_{name}.wx``,
-``_{name}.check_{i,f,o}``), shapes and ``ParamAttr`` defaults follow the
-reference, so parameters carry across from the JAX package by name.
+``_{name}.check_{i,f,o}``, ``_{name}.moving_mean``/``moving_var``),
+shapes and ``ParamAttr`` defaults follow the reference, so parameters
+carry across from the JAX package by name.
 Sequence activations are padded batches with a mask; ``embedding`` and a
 sequence ``fc`` multiply their output by it.  A packed sequence input
 (``--data_pack``) is refused.
@@ -26,8 +29,10 @@ from paddle_tpu_torch.nn.graph import (PACK_KEYS, Act, LayerOutput, ParamAttr,
                                        ParamSpec, _not_ported, next_name)
 from paddle_tpu_torch.utils.error import ConfigError
 
-__all__ = ["data", "fc", "embedding", "concat", "lstmemory", "grumemory",
-           "pooling", "last_seq", "first_seq", "classification_cost"]
+__all__ = ["data", "fc", "embedding", "addto", "concat", "dropout",
+           "img_conv", "img_pool", "batch_norm", "img_cmrnorm", "maxout",
+           "bilinear_interp", "lstmemory", "grumemory", "pooling",
+           "last_seq", "first_seq", "classification_cost"]
 
 AttrLike = Union[ParamAttr, bool, None]
 
@@ -59,6 +64,13 @@ def _refuse_packed(a: Act, name: str, kind: str) -> None:
 
 def _seq_like(parent: Act, value) -> Act:
     return Act(value=value, lengths=parent.lengths, mask=parent.mask)
+
+
+def _inherit_meta(node: LayerOutput, src: LayerOutput) -> LayerOutput:
+    """Carry the spatial dims (``hw``) through a pass-through layer."""
+    if "hw" in src.meta:
+        node.meta["hw"] = src.meta["hw"]
+    return node
 
 
 # ---------------------------------------------------------------------------
@@ -165,10 +177,37 @@ def embedding(input: LayerOutput, size: int, *,
     return LayerOutput(name, "embedding", size, [input], forward, [spec])
 
 
+def addto(input: Sequence[LayerOutput], *, act: str = "linear",
+          name: Optional[str] = None, bias_attr: AttrLike = False
+          ) -> LayerOutput:
+    """Elementwise sum of the inputs (+ an optional bias), then ``act``;
+    keeps the first input's spatial dims and sequence lengths."""
+    inputs = list(input)
+    name = name or next_name("addto")
+    size = inputs[0].size
+    ba = _bias_attr(bias_attr, f"_{name}.wbias")
+    specs = [ParamSpec(name=ba.name, shape=(size,), attr=ba)] if ba else []
+    act_fn = O.get_activation(act)
+
+    def forward(ctx, params, *acts: Act) -> Act:
+        out = acts[0].value
+        for a in acts[1:]:
+            out = out + a.value
+        if ba:
+            out = out + params[ba.name].to(out.dtype)
+        out = act_fn(out)
+        ref = acts[0]
+        return _seq_like(ref, out) if ref.is_seq else Act(value=out)
+
+    return _inherit_meta(LayerOutput(name, "addto", size, inputs, forward,
+                                     specs), inputs[0])
+
+
 def concat(input: Sequence[LayerOutput], *,
            name: Optional[str] = None) -> LayerOutput:
     """Feature concat over the last axis; a sequence first input keeps its
-    lengths and mask."""
+    lengths and mask, and feature maps of one size (inception branches)
+    keep their spatial dims."""
     inputs = list(input)
     name = name or next_name("concat")
     size = sum(i.size for i in inputs)
@@ -178,7 +217,242 @@ def concat(input: Sequence[LayerOutput], *,
         ref = acts[0]
         return _seq_like(ref, out) if ref.is_seq else Act(value=out)
 
-    return LayerOutput(name, "concat", size, inputs, forward, [])
+    node = LayerOutput(name, "concat", size, inputs, forward, [])
+    hws = {i.meta.get("hw") for i in inputs}
+    if len(hws) == 1 and None not in hws:
+        node.meta["hw"] = hws.pop()
+    return node
+
+
+def dropout(input: LayerOutput, rate: float, *,
+            name: Optional[str] = None) -> LayerOutput:
+    """Inverted dropout while training (``ops.dropout``; its mask is drawn
+    on the activation's device), the identity otherwise."""
+    name = name or next_name("dropout")
+
+    def forward(ctx, params, a: Act) -> Act:
+        out = O.dropout(ctx.next_rng(), a.value, rate, train=ctx.train)
+        return _seq_like(a, out) if a.is_seq else Act(value=out)
+
+    return _inherit_meta(LayerOutput(name, "dropout", input.size, [input],
+                                     forward, []), input)
+
+
+# ---------------------------------------------------------------------------
+# images
+# ---------------------------------------------------------------------------
+
+
+def _spatial(ipt: LayerOutput):
+    if "hw" not in ipt.meta:
+        raise ConfigError(f"layer {ipt.name!r} has no spatial meta; use "
+                          f"data(height=, width=)")
+    return ipt.meta["hw"]
+
+
+def img_conv(input: LayerOutput, *, filter_size: int, num_filters: int,
+             stride: int = 1, padding: Union[str, int] = "SAME",
+             groups: int = 1, act: str = "relu", name: Optional[str] = None,
+             param_attr: AttrLike = None, bias_attr: AttrLike = True
+             ) -> LayerOutput:
+    """2-D convolution over an NHWC feature map, HWIO weight ``w0``
+    [filter_size, filter_size, C/groups, num_filters] and bias ``wbias``.
+    ``padding`` is 'SAME', 'VALID' or an int (symmetric pixels).  The bias
+    is added in the conv's compute dtype, as the reference adds it."""
+    name = name or next_name("conv")
+    h, w = _spatial(input)
+    cin = input.size
+    pa = _pa(param_attr, f"_{name}.w0")
+    wspec = ParamSpec(name=pa.name, shape=(filter_size, filter_size,
+                                           cin // groups, num_filters),
+                      attr=pa)
+    specs = [wspec]
+    ba = _bias_attr(bias_attr, f"_{name}.wbias")
+    if ba:
+        specs.append(ParamSpec(name=ba.name, shape=(num_filters,), attr=ba))
+    act_fn = O.get_activation(act)
+    if isinstance(padding, int):
+        oh = (h + 2 * padding - filter_size) // stride + 1
+        ow = (w + 2 * padding - filter_size) // stride + 1
+        pad_arg = [(padding, padding), (padding, padding)]
+    elif padding == "SAME":
+        oh, ow = -(-h // stride), -(-w // stride)
+        pad_arg = padding
+    else:
+        oh = (h - filter_size) // stride + 1
+        ow = (w - filter_size) // stride + 1
+        pad_arg = padding
+    if oh <= 0 or ow <= 0:
+        raise ConfigError(
+            f"conv {name!r}: output spatial dims ({oh}, {ow}) are not "
+            f"positive — filter {filter_size}/stride {stride}/padding "
+            f"{padding!r} does not fit the {h}x{w} input")
+
+    def forward(ctx, params, a: Act) -> Act:
+        y = O.conv2d(a.value, params[wspec.name], stride=(stride, stride),
+                     padding=pad_arg, groups=groups)
+        if ba:
+            y = y + params[ba.name].to(y.dtype)
+        return Act(value=act_fn(y))
+
+    out = LayerOutput(name, "conv", num_filters, [input], forward, specs)
+    out.meta["hw"] = (oh, ow)
+    return out
+
+
+#: activations that commute with max pooling (monotone non-decreasing), so
+#: ``act`` after the pool equals the conventional ``act`` before it
+_MAX_COMMUTING = ("linear", "relu", "sigmoid", "tanh", "brelu", "softrelu",
+                  "stanh", "exponential", "log", "sqrt")
+
+
+def img_pool(input: LayerOutput, *, pool_size: int,
+             stride: Optional[int] = None, pool_type: str = "max",
+             padding: Union[str, int] = "VALID", ceil_mode: bool = True,
+             act: str = "linear", name: Optional[str] = None
+             ) -> LayerOutput:
+    """Spatial max or average pooling.  ``padding`` is 'SAME'/'VALID' (XLA's
+    meanings) or an int (symmetric pixels).
+
+    With an int padding, ``ceil_mode`` (the reference's default) sizes the
+    output by ceiling division and pads the extra rows/columns at the
+    bottom/right, dropping a last window that would start wholly in that
+    padding (the legacy clip; it would pool no real pixel).  That is the
+    reference's rule, not PyTorch's ``ceil_mode``, so the pads are resolved
+    here and the op pools over them.
+
+    ``act`` runs after a max pool (``relu(max_pool(x)) == max_pool(
+    relu(x))`` on a map stride^2 times smaller); it is refused for average
+    pooling and for an activation that is not monotone non-decreasing."""
+    name = name or next_name("pool")
+    stride = stride or pool_size
+    h, w = _spatial(input)
+    if isinstance(padding, int):
+        if ceil_mode:
+            oh = -(-(h + 2 * padding - pool_size) // stride) + 1
+            ow = -(-(w + 2 * padding - pool_size) // stride) + 1
+            # the legacy clip
+            if (oh - 1) * stride >= h + padding:
+                oh -= 1
+            if (ow - 1) * stride >= w + padding:
+                ow -= 1
+        else:
+            oh = (h + 2 * padding - pool_size) // stride + 1
+            ow = (w + 2 * padding - pool_size) // stride + 1
+        extra_h = max(0, (oh - 1) * stride + pool_size - (h + 2 * padding))
+        extra_w = max(0, (ow - 1) * stride + pool_size - (w + 2 * padding))
+        pad_arg = ((0, 0), (padding, padding + extra_h),
+                   (padding, padding + extra_w), (0, 0))
+    elif padding == "SAME":
+        oh, ow = -(-h // stride), -(-w // stride)
+        pad_arg = padding
+    else:
+        oh = (h - pool_size) // stride + 1
+        ow = (w - pool_size) // stride + 1
+        pad_arg = padding
+    if oh <= 0 or ow <= 0:
+        raise ConfigError(
+            f"pool {name!r}: output spatial dims ({oh}, {ow}) are not "
+            f"positive — window {pool_size}/stride {stride}/padding "
+            f"{padding!r} does not fit the {h}x{w} input")
+    if act not in (None, "", "linear"):
+        if pool_type != "max":
+            raise ConfigError(
+                f"pool {name!r}: act={act!r} is only supported with "
+                f"pool_type='max' (relu(max_pool(x)) == max_pool(relu(x)); "
+                f"no such identity holds for {pool_type!r} pooling)")
+        # callables pass through: the caller asserts monotonicity
+        if isinstance(act, str) and act not in _MAX_COMMUTING:
+            raise ConfigError(
+                f"pool {name!r}: act={act!r} is not monotone-nondecreasing, "
+                f"so act-after-max-pool differs from the conventional "
+                f"act-before-pool; supported: {_MAX_COMMUTING[1:]}")
+    op = O.max_pool2d if pool_type == "max" else O.avg_pool2d
+    act_fn = O.get_activation(act)
+
+    def forward(ctx, params, a: Act) -> Act:
+        y = op(a.value, (pool_size, pool_size), (stride, stride), pad_arg)
+        return Act(value=act_fn(y))
+
+    out = LayerOutput(name, "pool", input.size, [input], forward, [])
+    out.meta["hw"] = (oh, ow)
+    return out
+
+
+def batch_norm(input: LayerOutput, *, act: str = "relu",
+               momentum: float = 0.9, epsilon: float = 1e-5,
+               name: Optional[str] = None) -> LayerOutput:
+    """Batch normalisation over the channel (last) axis: scale ``w0``
+    (ones), shift ``wbias`` (zeros), and the running stats
+    ``moving_mean``/``moving_var``, state specs written through
+    ``ctx.updated_state`` only when training (``ops.batch_norm``)."""
+    name = name or next_name("batch_norm")
+    C = input.size
+
+    def spec(suffix: str, init: str, is_state: bool = False) -> ParamSpec:
+        return ParamSpec(name=f"_{name}.{suffix}", shape=(C,),
+                         attr=ParamAttr(name=f"_{name}.{suffix}", init=init),
+                         is_state=is_state)
+
+    sspec, bspec = spec("w0", "ones"), spec("wbias", "zeros")
+    mspec = spec("moving_mean", "zeros", True)
+    vspec = spec("moving_var", "ones", True)
+    act_fn = O.get_activation(act)
+
+    def forward(ctx, params, a: Act) -> Act:
+        y, nm, nv = O.batch_norm(
+            a.value, params[sspec.name], params[bspec.name],
+            params[mspec.name], params[vspec.name], train=ctx.train,
+            momentum=momentum, eps=epsilon)
+        if ctx.train:
+            # state, not parameters: no gradient flows into the next step
+            ctx.updated_state[mspec.name] = nm.detach()
+            ctx.updated_state[vspec.name] = nv.detach()
+        y = act_fn(y)
+        return _seq_like(a, y) if a.is_seq else Act(value=y)
+
+    return _inherit_meta(LayerOutput(name, "batch_norm", C, [input], forward,
+                                     [sspec, bspec, mspec, vspec]), input)
+
+
+def img_cmrnorm(input: LayerOutput, *, size: int = 5, scale: float = 1e-4,
+                power: float = 0.75, name: Optional[str] = None
+                ) -> LayerOutput:
+    """Cross-map response normalisation (``ops.cmr_norm``)."""
+    name = name or next_name("cmrnorm")
+
+    def forward(ctx, params, a: Act) -> Act:
+        return Act(value=O.cmr_norm(a.value, size=size, scale=scale,
+                                    power=power))
+
+    return _inherit_meta(LayerOutput(name, "cmrnorm", input.size, [input],
+                                     forward, []), input)
+
+
+def maxout(input: LayerOutput, *, groups: int,
+           name: Optional[str] = None) -> LayerOutput:
+    """Max over each run of ``groups`` adjacent channels."""
+    name = name or next_name("maxout")
+
+    def forward(ctx, params, a: Act) -> Act:
+        return Act(value=O.maxout(a.value, groups))
+
+    return _inherit_meta(LayerOutput(name, "maxout", input.size // groups,
+                                     [input], forward, []), input)
+
+
+def bilinear_interp(input: LayerOutput, *, out_h: int, out_w: int,
+                    name: Optional[str] = None) -> LayerOutput:
+    """Bilinear resize of a feature map to ``out_h`` x ``out_w``."""
+    name = name or next_name("bilinear")
+
+    def forward(ctx, params, a: Act) -> Act:
+        return Act(value=O.bilinear_interp(a.value, out_h, out_w))
+
+    out = LayerOutput(name, "bilinear_interp", input.size, [input], forward,
+                      [])
+    out.meta["hw"] = (out_h, out_w)
+    return out
 
 
 # ---------------------------------------------------------------------------

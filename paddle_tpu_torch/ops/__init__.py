@@ -3,14 +3,26 @@ names (``paddle_tpu/ops``).  Plain PyTorch functions on tensors; the hand-
 written kernels live in ``ops/kernels`` and are reached through
 ``gru_layer``, ``bigru_layer`` and ``lstm_layer`` (forward and backward),
 ``LinearReadout``, ``LogitsReadout``, ``attention_gru_decoder`` and
-``sequence_softmax_ce_readout``."""
+``sequence_softmax_ce_readout``.  The image tier (``conv.py``: conv,
+pooling, batch norm, LRN, resize, maxout) and ``misc.py`` run PyTorch's own
+ops, as the reference runs XLA's outside any Pallas kernel."""
 
 from paddle_tpu_torch.ops.numerics import (acc_dtype, bwd_einsum, bwd_mm,
                                            compute_dtype,
                                            compute_dtype_scope, dot_dtype,
                                            mxu_cast, residual_dtype)
 from paddle_tpu_torch.ops.matmul import linear, matmul
-from paddle_tpu_torch.ops.activations import ACTIVATIONS, get_activation
+from paddle_tpu_torch.ops.activations import (ACTIVATIONS, get_activation,
+                                              softmax)
+from paddle_tpu_torch.ops.conv import (avg_pool2d, batch_norm,
+                                       bilinear_interp, cmr_norm, conv2d,
+                                       conv2d_transpose, global_avg_pool,
+                                       max_pool2d, maxout)
+from paddle_tpu_torch.ops.misc import (batch_transpose, col_sum, cos_sim,
+                                       dropout, interpolation, max_id,
+                                       outer_prod, power_op, row_max,
+                                       row_sum, scaling, slope_intercept,
+                                       sum_cost, tensor_bilinear, top_k)
 from paddle_tpu_torch.ops.embedding import embedding_lookup
 from paddle_tpu_torch.ops.sequence import (mask_from_lengths, seq_first,
                                            seq_last, seq_pool_avg,
@@ -39,7 +51,13 @@ from paddle_tpu_torch.ops.speculative import (AdversarialProposer,
 __all__ = [
     "acc_dtype", "compute_dtype", "compute_dtype_scope", "dot_dtype",
     "mxu_cast", "bwd_mm", "bwd_einsum", "residual_dtype", "linear", "matmul",
-    "ACTIVATIONS", "get_activation",
+    "ACTIVATIONS", "get_activation", "softmax",
+    "conv2d", "conv2d_transpose", "max_pool2d", "avg_pool2d", "batch_norm",
+    "cmr_norm", "bilinear_interp", "maxout", "global_avg_pool",
+    "row_sum", "row_max", "col_sum", "top_k", "max_id",
+    "batch_transpose", "cos_sim", "interpolation", "outer_prod",
+    "tensor_bilinear", "sum_cost", "scaling", "slope_intercept", "power_op",
+    "dropout",
     "embedding_lookup", "mask_from_lengths", "seq_first", "seq_last",
     "seq_pool_sum", "seq_pool_avg",
     "seq_pool_sqrt", "seq_pool_max", "additive_attention_scores",

@@ -1,17 +1,18 @@
 """Prebuilt network helpers — counterpart of ``paddle_tpu/v2/networks.py``
-for the recurrent ones the seqToseq generation net uses:
-``simple_attention``, ``gru_unit``, ``gru_group``, ``simple_gru`` and
-``bidirectional_gru``.
+for the image ones (``simple_img_conv_pool``, ``img_conv_bn_pool``,
+``img_conv_group``, ``small_vgg``, ``vgg_16_network``) and the recurrent
+ones the seqToseq generation net uses (``simple_attention``, ``gru_unit``,
+``gru_group``, ``simple_gru``, ``bidirectional_gru``).
 
 Each composes the port's layer DSL as the reference composes its own, with
 the same parameter names and shapes, so a JAX parameter dict carries
-across.  Not ported yet: the image, LSTM and sequence-conv helpers, and
-the recording of helper calls for config serialization.
+across.  Not ported yet: the LSTM and sequence-conv helpers, and the
+recording of helper calls for config serialization.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -20,8 +21,104 @@ import paddle_tpu_torch.ops as O
 from paddle_tpu_torch.nn.graph import (Act, LayerOutput, ParamAttr,
                                        ParamSpec, next_name)
 
-__all__ = ["simple_gru", "gru_unit", "gru_group", "bidirectional_gru",
-           "simple_attention"]
+__all__ = ["simple_img_conv_pool", "img_conv_bn_pool", "img_conv_group",
+           "small_vgg", "vgg_16_network", "simple_gru", "gru_unit",
+           "gru_group", "bidirectional_gru", "simple_attention"]
+
+
+def simple_img_conv_pool(input, filter_size, num_filters, pool_size, *,
+                         conv_stride=1, conv_padding=0, pool_stride=1,
+                         pool_padding=0, act="relu", pool_type="max",
+                         name=None):
+    """conv + pool, the mnist/LeNet block: a VALID conv (``conv_padding``
+    0) and stride-1 pooling by default, as the reference's."""
+    conv = _nn.img_conv(input, filter_size=filter_size,
+                        num_filters=num_filters, stride=conv_stride,
+                        padding=conv_padding, act=act,
+                        name=name and f"{name}_conv")
+    return _nn.img_pool(conv, pool_size=pool_size, stride=pool_stride,
+                        padding=pool_padding, pool_type=pool_type,
+                        name=name and f"{name}_pool")
+
+
+def img_conv_bn_pool(input, filter_size, num_filters, pool_size, *,
+                     conv_stride=1, conv_padding=0, pool_stride=1,
+                     pool_padding=0, act="relu", pool_type="max", name=None):
+    """conv -> batch_norm -> pool: the conv is linear, the activation sits
+    on the batch norm."""
+    conv = _nn.img_conv(input, filter_size=filter_size,
+                        num_filters=num_filters, stride=conv_stride,
+                        padding=conv_padding, act="linear",
+                        name=name and f"{name}_conv")
+    bn = _nn.batch_norm(conv, act=act, name=name and f"{name}_bn")
+    return _nn.img_pool(bn, pool_size=pool_size, stride=pool_stride,
+                        padding=pool_padding, pool_type=pool_type,
+                        name=name and f"{name}_pool")
+
+
+def img_conv_group(input, conv_num_filter: Sequence[int], *,
+                   conv_filter_size=3, conv_act="relu", conv_padding=1,
+                   pool_size=2, pool_stride=1, pool_type="max",
+                   conv_batchnorm=False, conv_batchnorm_drop_rate=0,
+                   name=None):
+    """N stacked convs then one pool, the VGG block (3x3 convs padded by 1
+    and stride-1 pooling by default).  ``conv_batchnorm_drop_rate``, a
+    scalar or one rate per conv, adds dropout after each batch norm."""
+    h = input
+    drops = conv_batchnorm_drop_rate
+    if not hasattr(drops, "__len__"):
+        drops = [drops] * len(conv_num_filter)
+    for i, nf in enumerate(conv_num_filter):
+        h = _nn.img_conv(h, filter_size=conv_filter_size, num_filters=nf,
+                         padding=conv_padding,
+                         act="linear" if conv_batchnorm else conv_act,
+                         name=name and f"{name}_conv{i}")
+        if conv_batchnorm:
+            h = _nn.batch_norm(h, act=conv_act,
+                               name=name and f"{name}_bn{i}")
+            if drops[i]:
+                h = _nn.dropout(h, drops[i])
+    return _nn.img_pool(h, pool_size=pool_size, stride=pool_stride,
+                        pool_type=pool_type, name=name and f"{name}_pool")
+
+
+def small_vgg(input_image, num_classes=10, *, name=None):
+    """The CIFAR VGG of the reference's image demos: four batch-normed
+    conv groups (64x2, 128x2, 256x3, 512x3) with their dropout schedule,
+    then pool, dropout, fc512, dropout, batch norm, a softmax fc."""
+
+    def block(ipt, nf, times, dropouts):
+        return img_conv_group(ipt, [nf] * times, conv_filter_size=3,
+                              conv_padding=1, conv_act="relu",
+                              conv_batchnorm=True,
+                              conv_batchnorm_drop_rate=dropouts,
+                              pool_size=2, pool_stride=2)
+
+    h = block(input_image, 64, 2, [0.3, 0])
+    h = block(h, 128, 2, [0.4, 0])
+    h = block(h, 256, 3, [0.4, 0.4, 0])
+    h = block(h, 512, 3, [0.4, 0.4, 0])
+    h = _nn.img_pool(h, pool_size=2, stride=2)
+    h = _nn.dropout(h, 0.5)
+    h = _nn.fc(h, 512, act="linear")
+    h = _nn.dropout(h, 0.5)
+    h = _nn.batch_norm(h, act="relu")
+    return _nn.fc(h, num_classes, act="softmax", name=name)
+
+
+def vgg_16_network(input_image, num_classes=1000, *, name=None):
+    """VGG-16: conv groups 64x2/128x2/256x3/512x3/512x3, each with a 2x2
+    stride-2 pool, then fc4096 x 2 (dropout 0.5) and a softmax fc."""
+    h = input_image
+    for nf, times in [(64, 2), (128, 2), (256, 3), (512, 3), (512, 3)]:
+        h = img_conv_group(h, [nf] * times, conv_filter_size=3,
+                           conv_padding=1, conv_act="relu",
+                           pool_size=2, pool_stride=2)
+    h = _nn.fc(h, 4096, act="relu")
+    h = _nn.dropout(h, 0.5)
+    h = _nn.fc(h, 4096, act="relu")
+    h = _nn.dropout(h, 0.5)
+    return _nn.fc(h, num_classes, act="softmax", name=name)
 
 
 def simple_gru(input, size, *, act="tanh", gate_act="sigmoid", name=None):

@@ -3,9 +3,12 @@
 tests/test_cli.py), on ``tests/torch_textclf_conf.py`` shrunk through its
 ``TORCH_TEXTCLF_*`` variables and run with ``--device=cpu``.  The test
 job's cost is held against the JAX trainer's ``test`` from the same
-checkpoint (rtol 1e-5, the reference's f32 RNN tolerance)."""
+checkpoint (rtol 1e-5, the reference's f32 RNN tolerance).  The image
+config ``tests/torch_resnet_conf.py`` (resnet at depth 8 through
+``TORCH_RESNET_*``) trains, tests, resumes and times the same way."""
 
 import os
+import shutil
 import subprocess
 import sys
 
@@ -19,6 +22,8 @@ from paddle_tpu_torch.utils.flags import FLAGS
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONF = os.path.join(ROOT, "tests", "torch_textclf_conf.py")
+RESNET_CONF = os.path.join(ROOT, "tests", "torch_resnet_conf.py")
+RESNET_SMALL = {"DEPTH": 8, "BATCH": 8, "N": 16, "TEST_N": 8}
 SMALL = {"VOCAB": 48, "EMB": 8, "HID": 12, "BATCH": 6, "T": 10, "N": 18,
          "TEST_N": 12}
 
@@ -185,3 +190,54 @@ def test_module_entry_point_runs_without_jax():
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "NO-JAX-OK" in out.stdout and "usage:" in out.stdout
+
+
+@pytest.fixture
+def resnet_conf(monkeypatch):
+    for k, v in RESNET_SMALL.items():
+        monkeypatch.setenv(f"TORCH_RESNET_{k}", str(v))
+    return lambda *extra: [f"--config={RESNET_CONF}", "--device=cpu",
+                           "--compute_dtype=float32", *extra]
+
+
+def test_cli_resnet_train_test_and_resume(resnet_conf, tmp_path, capsys):
+    """The image config: two passes (batch-norm state in each checkpoint),
+    ``--job=test`` from the last one against the JAX trainer's test of the
+    same checkpoint, and ``--start_pass=1`` from pass 0 to the
+    uninterrupted run's pass-1 checkpoint bit for bit."""
+    full, part = tmp_path / "full", tmp_path / "part"
+    assert main(resnet_conf("--job=train", "--num_passes=2",
+                            f"--save_dir={full}")) == 0
+    state = np.load(full / "pass-00001" / "state.npz")
+    assert any("moving_var" in k for k in state.files)
+    capsys.readouterr()
+    assert main(resnet_conf("--job=test", f"--save_dir={full}")) == 0
+    got = eval(capsys.readouterr().out.strip().splitlines()[-1])
+    import paddle_tpu.data as jdata
+    import paddle_tpu.nn as jnn
+    from paddle_tpu.models import resnet_cifar
+    from paddle_tpu.trainer import SGDTrainer
+
+    jnn.reset_naming()
+    jtr = SGDTrainer(resnet_cifar(depth=8)[0], seed=0)
+    jtr.load(str(full), 1)
+    want = jtr.test(jdata.batch(jdata.datasets.cifar10("test", n=8), 8),
+                    feeder=jdata.DataFeeder({"pixel": "dense",
+                                             "label": "int"}))
+    # one forward from the same weights and running stats: float32 sums
+    # in another order through 8 conv + batch-norm layers
+    np.testing.assert_allclose(got["cost"], want["cost"], rtol=1e-5)
+    shutil.copytree(full / "pass-00000", part / "pass-00000")
+    assert main(resnet_conf("--job=train", "--num_passes=2",
+                            "--start_pass=1", f"--save_dir={part}")) == 0
+    for fname in ("params.npz", "state.npz", "opt_state.npz"):
+        a = np.load(full / "pass-00001" / fname)
+        b = np.load(part / "pass-00001" / fname)
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_cli_resnet_time(resnet_conf, capsys):
+    assert main(resnet_conf("--job=time", "--time_batches=2")) == 0
+    assert "ms/batch over 2 batches" in capsys.readouterr().out

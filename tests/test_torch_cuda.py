@@ -2097,3 +2097,190 @@ def test_trainer_test_and_infer_launch_k9_only(dev):
     assert after["lstm_forward"] - before["lstm_forward"] == 6
     assert after["lstm_backward"] == before["lstm_backward"]
     assert np.isfinite(res["cost"]) and out["logits"].shape == (6, 2)
+
+
+# ---------------------------------------------------------------------------
+# the image tier (ops/conv.py, ops/misc.py, the image layers, the trainer)
+# ---------------------------------------------------------------------------
+
+#: card vs CPU at f32 for one image op (max |diff| against the largest
+#: entry): f32 sums of up to kh*kw*Cin terms in another order (cuDNN's
+#: algorithms against the CPU's); pools, maxout and the element-wise ops
+#: are exact or one rounding apart
+TOL_IMAGE_OP = 1e-5
+
+
+def _image_op_on_both(dev, fn, *arrays):
+    """``fn`` on the card and on the CPU at f32: forward and the gradient
+    of a seeded cotangent with respect to every input.  The ops are called
+    directly, so ``resolve_device`` (which every entry point calls) pins
+    real f32 on the card first: PyTorch's default lets cuDNN run f32
+    convolutions in TF32."""
+    from paddle_tpu_torch.device import resolve_device
+
+    resolve_device(dev)
+    out = []
+    with compute_dtype_scope("float32"):
+        for where in (dev, torch.device("cpu")):
+            args = [torch.tensor(a, device=where, requires_grad=True)
+                    for a in arrays]
+            y = fn(*args)
+            ct = np.random.RandomState(7).randn(*y.shape).astype(np.float32)
+            grads = torch.autograd.grad(y, args,
+                                        torch.tensor(ct, device=where))
+            out.append([y.detach().cpu()] + [g.cpu() for g in grads])
+    for got, want in zip(*out):
+        scale = max(want.abs().max().item(), 1e-30)
+        assert (got - want).abs().max().item() <= TOL_IMAGE_OP * scale
+
+
+def _image(seed, *shape, scale=1.0):
+    return (scale * np.random.RandomState(seed).randn(*shape)).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("k,s,pad,g", [(3, 1, "SAME", 1), (3, 2, "SAME", 1),
+                                       (11, 4, [(1, 1), (1, 1)], 1),
+                                       (5, 1, "VALID", 2),
+                                       (1, 2, "SAME", 1)])
+def test_conv2d_on_the_card_matches_the_cpu(dev, k, s, pad, g):
+    from paddle_tpu_torch.ops import conv2d
+
+    _image_op_on_both(
+        dev, lambda x, w: conv2d(x, w, stride=(s, s), padding=pad,
+                                 groups=g),
+        _image(1, 2, 19, 18, 8), _image(2, k, k, 8 // g, 12, scale=0.2))
+
+
+@pytest.mark.parametrize("k,s", [(3, 2), (4, 2), (3, 1), (2, 3)])
+def test_conv2d_transpose_on_the_card_matches_the_cpu(dev, k, s):
+    from paddle_tpu_torch.ops import conv2d_transpose
+
+    _image_op_on_both(
+        dev, lambda x, w: conv2d_transpose(x, w, stride=(s, s)),
+        _image(3, 2, 7, 6, 5), _image(4, k, k, 5, 6, scale=0.3))
+
+
+@pytest.mark.parametrize("op", ["max_pool2d", "avg_pool2d"])
+@pytest.mark.parametrize("pad,k,s", [("SAME", 3, 2), ("VALID", 2, 2),
+                                     (((0, 0), (1, 2), (1, 2), (0, 0)), 3,
+                                      2)])
+def test_pools_on_the_card_match_the_cpu(dev, op, pad, k, s):
+    import paddle_tpu_torch.ops as O
+
+    _image_op_on_both(dev, lambda x: getattr(O, op)(x, (k, k), (s, s), pad),
+                      _image(5, 2, 13, 12, 4))
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_batch_norm_on_the_card_matches_the_cpu(dev, train):
+    from paddle_tpu_torch.ops import batch_norm
+
+    rm, rv = _image(6, 6), np.abs(_image(7, 6)) + 0.5
+
+    def fn(x, scale, bias):
+        y, nm, nv = batch_norm(x, scale, bias,
+                               torch.tensor(rm, device=x.device),
+                               torch.tensor(rv, device=x.device),
+                               train=train)
+        return y * 1.0 + 0.0 * (nm.sum() + nv.sum())
+
+    _image_op_on_both(dev, fn, _image(8, 4, 5, 5, 6, scale=2.0) + 1.0,
+                      np.abs(_image(9, 6)) + 0.5, _image(10, 6))
+
+
+@pytest.mark.parametrize("name", ["cmr_norm", "bilinear_up",
+                                  "bilinear_down", "maxout", "softmax",
+                                  "softrelu", "stanh", "brelu"])
+def test_image_ops_on_the_card_match_the_cpu(dev, name):
+    import paddle_tpu_torch.ops as O
+
+    fns = {"cmr_norm": lambda x: O.cmr_norm(x * 30.0, size=5),
+           "bilinear_up": lambda x: O.bilinear_interp(x, 15, 11),
+           "bilinear_down": lambda x: O.bilinear_interp(x, 3, 4),
+           "maxout": lambda x: O.maxout(x, 2),
+           "softmax": O.get_activation("softmax"),
+           "softrelu": O.get_activation("softrelu"),
+           "stanh": O.get_activation("stanh"),
+           "brelu": lambda x: O.get_activation("brelu")(x * 20.0)}
+    _image_op_on_both(dev, fns[name], _image(11, 2, 7, 6, 8))
+
+
+def test_dropout_draws_on_the_cards_generator(dev):
+    """The mask is drawn on the card by a CUDA generator seeded from the
+    apply's CPU stream: the same seed gives the same mask, which is the
+    one that generator draws, and nothing is drawn on the CPU."""
+    from paddle_tpu_torch.ops import dropout
+
+    x = torch.ones(256, 300, device=dev)
+    y = dropout(torch.Generator().manual_seed(3), x, 0.25, train=True)
+    again = dropout(torch.Generator().manual_seed(3), x, 0.25, train=True)
+    assert y.device.type == "cuda" and torch.equal(y, again)
+    seed = int(torch.randint(0, 2 ** 62, (1,),
+                             generator=torch.Generator().manual_seed(3)))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    keep = torch.rand(x.shape, generator=g, device=dev) < 0.75
+    assert torch.equal(y != 0, keep)
+    assert torch.allclose(y[keep], torch.full_like(y[keep], 1 / 0.75))
+    assert abs(keep.float().mean().item() - 0.75) < 0.01
+    cpu = dropout(torch.Generator().manual_seed(3), x.cpu(), 0.25,
+                  train=True)
+    assert not torch.equal(cpu != 0, keep.cpu())
+
+
+def _resnet_trainer(dev, seed=0):
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.models import resnet_cifar
+    from paddle_tpu_torch.param import Momentum
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    nn.reset_naming()
+    cost, _ = resnet_cifar(depth=8)
+    return SGDTrainer(cost, Momentum(learning_rate=0.1), seed=seed,
+                      device=dev)
+
+
+def _resnet_feeds(n, B=16):
+    rng = np.random.RandomState(1)
+    return [{"pixel": rng.rand(B, 32, 32, 3).astype(np.float32),
+             "label": rng.randint(0, 10, (B, 1))} for _ in range(n)]
+
+
+def test_resnet_training_is_deterministic_and_resumes_bit_for_bit(
+        dev, tmp_path):
+    """Two runs of four ``Momentum`` steps from one seed give the same
+    losses bit for bit, and a run resumed from the checkpoint of step 2
+    (batch-norm state included) gives steps 3-4 bit for bit: the image
+    path's cuDNN kernels are deterministic under ``resolve_device``'s
+    settings."""
+    feeds = _resnet_feeds(4)
+    runs = []
+    for _ in range(2):
+        tr = _resnet_trainer(dev)
+        runs.append([tr.train_batch(f).item() for f in feeds])
+    assert runs[0] == runs[1], runs
+    tr = _resnet_trainer(dev)
+    for f in feeds[:2]:
+        tr.train_batch(f)
+    tr.save(str(tmp_path), 1)
+    resumed = _resnet_trainer(dev, seed=9)
+    resumed.load(str(tmp_path), 1)
+    assert [resumed.train_batch(f).item() for f in feeds[2:]] == runs[0][2:]
+    assert any("moving_mean" in k for k in resumed.state)
+
+
+def test_resnet_step_on_the_card_matches_the_cpu(dev):
+    """One f32 ``train_batch`` of resnet at depth 8 on the card and on the
+    CPU from the same weights: the loss (rel 1e-5) and the updated
+    parameters and running stats (1e-4 of each array's largest entry: the
+    update is ``-0.1 * grad`` from gradients equal to ~1e-5)."""
+    feeds = _resnet_feeds(1, B=4)
+    with compute_dtype_scope("float32"):
+        card, cpu = _resnet_trainer(dev), _resnet_trainer("cpu")
+        got = card.train_batch(feeds[0]).item()
+        want = cpu.train_batch(feeds[0]).item()
+    assert abs(got - want) <= 1e-5 * abs(want)
+    for mine, theirs in ((card.params, cpu.params), (card.state, cpu.state)):
+        for k, v in theirs.items():
+            diff = (mine[k].detach().cpu() - v.detach()).abs().max().item()
+            assert diff <= 1e-4 * max(v.abs().max().item(), 1e-6), k

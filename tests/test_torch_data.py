@@ -66,6 +66,7 @@ def test_reader_decorators_match_reference(build):
     ("imdb", {"vocab_size": 30000, "n": 5}),
     ("sentiment", {"vocab_size": 100, "n": 30}),
     ("mnist", {"n": 12}),
+    ("cifar10", {"n": 9}),
     ("uci_housing", {"n": 25}),
 ])
 @pytest.mark.parametrize("split", ["train", "test"])

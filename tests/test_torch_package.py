@@ -46,7 +46,9 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
                 "param/hooks.py", "resilience/checkpoint_io.py",
                 "resilience/guard.py", "data/feeder.py", "data/reader.py",
                 "data/datasets.py", "evaluators/evaluators.py",
-                "utils/registry.py"):
+                "utils/registry.py", "ops/conv.py", "ops/misc.py",
+                "nn/layers_extra.py", "nn/layers_extra2.py",
+                "models/vision.py", "models/image_bench.py"):
         assert mod in rel, mod
     bad = []
     for path in files:
