@@ -2,7 +2,7 @@
 """Opt-in measurements of the PyTorch/H100 port beside ``chip_smoke.py``.
 
     python3 chip_probe.py [chunks] [profile] [textclf] [dslgen] [k8plans]
-                          [k8variants] [variants] [vision] [build]
+                          [k8variants] [variants] [vision] [text] [build]
                           (all if none named)
 
 Needs one CUDA card and the checkout beside it.  It checks nothing that
@@ -55,6 +55,12 @@ vision   the image tier (``chip_smoke.py``'s vision rows, bf16,
          the same losses bit for bit (and for each other row, two runs of
          3 steps); then one profiled step of each row
          (device busy share, the kernels with the most device time);
+text     the text tier (``chip_smoke.py``'s text parts, bf16,
+         ``SGDTrainer(cost, Adam).train_batch`` on the part's first batch):
+         one profiled step of seqtoseq_group, sentiment
+         (``stacked_lstm_net``), bidi_lstm and srl (``db_lstm``), each
+         after three unprofiled ones (device busy share, the kernels with
+         the most device time);
 build    cold builds of the kernel libraries into a scratch directory:
          each source alone, one ``nvcc`` at a time, then all at once as
          ``build_all`` starts them (the smoke run's build time).
@@ -700,6 +706,23 @@ def probe_build(dev):
           flush=True)
 
 
+def probe_text(dev):
+    import torch
+
+    from paddle_tpu_torch.param import Adam
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    for part in ("seqtoseq_group", "sentiment", "bidi_lstm", "srl"):
+        cost, _ = smoke.text_cost(part)
+        feed = smoke.text_feeds(part)[0][0]
+        tr = SGDTrainer(cost, Adam(learning_rate=smoke.TEXT_LR),
+                        seed=smoke.SEED, device=dev)
+        _profile_step(f"one text step, {part} (SGDTrainer.train_batch, "
+                      f"bf16)", lambda: tr.train_batch(feed), top_n=10)
+        del tr
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -713,7 +736,7 @@ def main() -> int:
               "textclf": probe_textclf, "dslgen": probe_dslgen,
               "k8plans": probe_k8plans, "k8variants": probe_k8variants,
               "variants": probe_variants, "vision": probe_vision,
-              "build": probe_build}
+              "text": probe_text, "build": probe_build}
     wanted = sys.argv[1:] or list(probes)
     unknown = set(wanted) - set(probes)
     if unknown:

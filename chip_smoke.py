@@ -154,18 +154,42 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             CPU (loss, every gradient, the new running stats).  No
             hand-written kernel lies on this path: every launch count
             stays 0 through the phase;
-13. a ``{"server_launches": {...}}`` line (each part of the server
+13. text     the text tier (PR 19), bf16, random weights from ``SEED``,
+            seeded feeds, ``SGDTrainer(cost, Adam(2e-3)).train_batch`` x 4
+            in each part, with its losses, median step of steps 2-4,
+            samples/s, real tokens/s, peak memory, launches and the card
+            line: (a) seqtoseq_group, the demo/seqToseq composition trained
+            through ``recurrent_group`` (``tests/torch_seqtoseq_net.py::
+            seqtoseq_trainer``) at the dslgen widths (30k vocabularies,
+            512-d), B=64, S=T=32: K3r and K4 twice a step, all
+            persistent, no K5/K6; one ``SGDTrainer.test`` batch (K3
+            twice); the loss and every gradient at B=2, f32, card vs CPU;
+            (b) sentiment, ``stacked_lstm_net`` (emb 128, hid 512, 3 relu
+            LSTMs, vocab 5000) and ``convolution_net`` at their defaults on
+            synthetic sentiment through ``DataFeeder(max_len=128)``, B=32:
+            no kernel launches (relu LSTMs take the plain scan); (c)
+            bidi_lstm, ``networks.bidirectional_lstm`` -> max pool -> fc at
+            lstm_b64h256's shape (vocab 30000, emb 128, hid 256, B=64,
+            T=100): K9r and K10 twice a step, all persistent, and one
+            inference pass (K9 twice); (d) srl, ``db_lstm_net``
+            (``tests/torch_text_nets.py``) at the SRL demo's defaults
+            (vocab 800, 19 labels, hidden 128, depth 8) on synthetic
+            ``conll05_features``, B=16, with ``crf_cost`` (no kernel), one
+            ``crf_decoding`` pass and its tags on the card against the
+            CPU's (f32, identical);
+14. a ``{"server_launches": {...}}`` line (each part of the server
    phase: every kernel library's launches, by kernel variant and by
    thread), a ``{"kernels": [...]}`` line (each kernel's launches on its
    path's run, also by kernel variant: ``launches_by_path``; the K9,
    K9r and K10 rows at b64h256 also by trainer part:
-   ``trainer_launches``), then the card line again, and last
+   ``trainer_launches``; the K3, K3r, K4, K9, K9r and K10 rows also by
+   text part: ``text_launches``), then the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed just before each path (serve and its fused
 re-run, each part of the server phase, each arm of the spec phase, each
 training configuration, each textclf run, dslgen, each part of the
-trainer phase, the vision phase) is driven
+trainer phase, the vision phase, each part of the text phase) is driven
 and read just after; a kernel of the path
 that was not launched fails the run.  ``chip_probe.py`` measures what this
 run leaves out to stay short (the products' chunk sizes end to end,
@@ -272,6 +296,26 @@ TOL_VISION_RESUME = 1e-4
 #: (f32 sums of up to k*k*Cin terms in another order, cuDNN's algorithms
 #: against the CPU's, through batch norms over few samples)
 TOL_VISION_LOSS, TOL_VISION_GRAD = 1e-5, 1e-3
+
+#: the text phase (PR 19): each part's batches and steps; (a) the
+#: demo/seqToseq group trained at the dslgen widths, B=64, S=T=32; (b)
+#: stacked_lstm_net and convolution_net at their defaults (vocab 5000) on
+#: synthetic sentiment, DataFeeder(max_len=128), B=32; (c)
+#: bidirectional_lstm at lstm_b64h256's shape (vocab 30000, emb 128, hid
+#: 256, B=64, T=100); (d) db_lstm at the SRL demo's defaults
+#: (demo/semantic_role_labeling/train.py:39-41, :93-99: vocab 800, 19
+#: labels, hidden 128, depth 8) on synthetic conll05_features,
+#: DataFeeder(max_len=48), B=16
+TEXT_STEPS, TEXT_LR = 4, 2e-3
+TEXT_B, TEXT_S = 64, 32
+SENTIMENT_VOCAB, SENTIMENT_B, SENTIMENT_MAX_LEN = 5000, 32, 128
+BIDI_VOCAB, BIDI_EMB, BIDI_HID, BIDI_B, BIDI_T = 30000, 128, 256, 64, 100
+SRL_VOCAB, SRL_LABELS, SRL_HIDDEN, SRL_DEPTH = 800, 19, 128, 8
+SRL_B, SRL_MAX_LEN = 16, 48
+#: card vs CPU on the seqToseq group at f32: the loss (rel) and each
+#: gradient's max |diff| against its largest entry (f32 sums of 30000-
+#: and 512-term products in another order over 32 group steps)
+TOL_TEXT_LOSS, TOL_TEXT_GRAD = 1e-5, 1e-3
 
 #: kernel-vs-plain tolerances (max abs difference) and why
 TOL = {
@@ -3908,6 +3952,320 @@ def vision_path(K, dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the text tier
+# ---------------------------------------------------------------------------
+
+
+def _launched(launches) -> dict:
+    """The kernels that launched, each with its launches by path."""
+    return {n: launches.by_path[n] for n, c in launches.items() if c}
+
+
+def text_nets():
+    """The package-agnostic builders of ``tests/``: (seqtoseq_trainer,
+    seqtoseq_feed, db_lstm_net, SRL_SLOTS)."""
+    if os.path.join(ROOT, "tests") not in sys.path:
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_seqtoseq_net import seqtoseq_feed, seqtoseq_trainer
+    from torch_text_nets import SRL_SLOTS, db_lstm_net
+
+    return seqtoseq_trainer, seqtoseq_feed, db_lstm_net, SRL_SLOTS
+
+
+def text_feeds(part: str):
+    """TEXT_STEPS seeded batches of ``part``'s feed (numpy, as a user's
+    reader gives them) and the real tokens of each."""
+    import numpy as np
+
+    import paddle_tpu_torch.data as data
+
+    _, seqtoseq_feed, _, slots = text_nets()
+    if part == "seqtoseq_group":
+        feeds = [seqtoseq_feed(np.random.RandomState(SEED + i), TEXT_B,
+                               DSLGEN_VOCAB, TEXT_S, TEXT_S)
+                 for i in range(TEXT_STEPS)]
+        return feeds, [int(f["trg_in"][1].sum()) for f in feeds]
+    if part == "bidi_lstm":
+        feeds = [textclf_feed(BIDI_B, BIDI_T, SEED + i)
+                 for i in range(TEXT_STEPS)]
+        return feeds, [int(f["words"][1].sum()) for f in feeds]
+    if part in ("sentiment", "convolution"):
+        feeder = data.DataFeeder({"words": "ids_seq", "label": "int"},
+                                 max_len=SENTIMENT_MAX_LEN)
+        reader = data.datasets.sentiment(
+            "train", vocab_size=SENTIMENT_VOCAB,
+            n=SENTIMENT_B * TEXT_STEPS)
+        key = "words"
+    else:
+        feeder = data.DataFeeder({k: "ids_seq" for k in slots},
+                                 max_len=SRL_MAX_LEN)
+        reader = data.datasets.conll05_features(
+            "train", vocab_size=SRL_VOCAB, n_labels=SRL_LABELS,
+            n=SRL_B * TEXT_STEPS)
+        key = "word_data"
+    feeds = [feeder(b) for b in data.batch(
+        reader, SRL_B if part == "srl" else SENTIMENT_B)()]
+    return feeds, [int(np.asarray(f[key][1]).sum()) for f in feeds]
+
+
+def text_cost(part: str):
+    """``part``'s net with the port's DSL at its widths -> (cost, the
+    layer an inference pass reads)."""
+    import paddle_tpu_torch.models as models
+    import paddle_tpu_torch.nn as nn
+    import paddle_tpu_torch.v2.networks as networks
+
+    seqtoseq_trainer, _, db_lstm_net, _ = text_nets()
+    nn.reset_naming()
+    if part == "seqtoseq_group":
+        W = DSLGEN_WIDTH
+        cost = seqtoseq_trainer(nn, networks, V=DSLGEN_VOCAB, E=W, H=W,
+                                D=W, A=W)
+        return cost, cost
+    if part == "sentiment":
+        cost, logits = models.stacked_lstm_net(SENTIMENT_VOCAB)
+        return cost, logits
+    if part == "convolution":
+        cost, logits = models.convolution_net(SENTIMENT_VOCAB)
+        return cost, logits
+    if part == "bidi_lstm":
+        words = nn.data("words", size=BIDI_VOCAB, is_seq=True,
+                        dtype="int32")
+        emb = nn.embedding(words, BIDI_EMB, name="emb")
+        bi = networks.bidirectional_lstm(emb, BIDI_HID, name="bi")
+        logits = nn.fc(nn.pooling(bi, pooling_type="max", name="pool"), 2,
+                       act="linear", name="logits")
+        label = nn.data("label", size=1, dtype="int32")
+        return nn.classification_cost(logits, label, name="cost"), logits
+    return db_lstm_net(nn, SRL_VOCAB, SRL_LABELS, hidden_dim=SRL_HIDDEN,
+                       depth=SRL_DEPTH)
+
+
+def text_train(K, dev, card, part: str, want: dict):
+    """TEXT_STEPS ``SGDTrainer(cost, Adam(TEXT_LR), seed=SEED)
+    .train_batch`` steps of ``part`` at bf16 on seeded batches: losses,
+    the median step of steps 2-N, samples/s, real tokens/s, peak memory.
+    ``want`` maps each kernel that must launch to its launches a step (all
+    ``persistent``); every other count must stay 0.  -> (trainer, the
+    inference layer, losses, median step seconds, launches)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.param import Adam
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    cost, out = text_cost(part)
+    feeds, tokens = text_feeds(part)
+    tr = SGDTrainer(cost, Adam(learning_rate=TEXT_LR), seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    losses, secs = [], []
+    for feed in feeds:
+        t0 = time.perf_counter()
+        losses.append(tr.train_batch(feed).item())     # synchronises
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps = len(feeds)
+    rest = sorted(secs[1:])
+    sec = rest[len(rest) // 2]
+    B, T = np.asarray(next(iter(feeds[0].values()))[0]).shape[:2]
+    print(f"text: {part} losses {[round(x, 6) for x in losses]}",
+          flush=True)
+    print(f"text: {part} SGDTrainer(Adam({TEXT_LR})) x {steps}, B={B}, "
+          f"bf16: first step {secs[0]:.3f} s, median of steps 2-{steps} "
+          f"{sec * 1e3:.2f} ms/step (min {rest[0] * 1e3:.2f}, max "
+          f"{rest[-1] * 1e3:.2f}), {B / sec:.1f} samples/s, "
+          f"{B * T / sec:.1f} words/s (B x T={T}), "
+          f"{np.mean(tokens[1:]) / sec:.1f} real tokens/s, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB, launches "
+          f"{_launched(launches)} [{card}]", flush=True)
+    if not all(np.isfinite(losses)):
+        fail("text", f"{part}: loss not finite: {losses}")
+    if int(tr.opt_state["step"]) != steps or tr.bad_steps_total:
+        fail("text", f"{part}: step counter {int(tr.opt_state['step'])}, "
+             f"bad steps {tr.bad_steps_total}")
+    _text_launch_check(part, launches,
+                       {k: n * steps for k, n in want.items()})
+    return tr, out, losses, sec, launches
+
+
+def _text_launch_check(part: str, launches, want: dict) -> None:
+    """Fail unless each kernel of ``want`` launched exactly its count, all
+    ``persistent``, and no other kernel launched."""
+    got = {k: n for k, n in launches.items() if n}
+    if got != want:
+        fail("text", f"{part}: launches {got}, want {want}")
+    _all_persistent("text", part, launches, want)
+
+
+def text_infer(K, card, tr, out, feed, part: str, want: dict):
+    """One inference pass of the trained net (``Topology([out]).apply(
+    train=False)`` under ``torch.no_grad()``, the trainer's parameters),
+    bf16: its time and launches (``want``, as ``text_train``'s).  -> (the
+    output's value, launches)."""
+    import torch
+
+    import paddle_tpu_torch.nn as nn
+
+    topo = nn.Topology(out, device=tr.device)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        value = topo.apply(tr.params, tr.state, feed,
+                           train=False)[0][out.name].value
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = K.launch_counts()
+    B = value.shape[0]
+    print(f"text: {part} inference apply(train=False), B={B}, bf16: "
+          f"{sec * 1e3:.2f} ms (first call), {B / sec:.1f} samples/s, "
+          f"{out.name} {tuple(value.shape)} {value.dtype}, launches "
+          f"{_launched(launches)} [{card}]", flush=True)
+    _text_launch_check(f"{part} inference", launches, want)
+    return value, launches
+
+
+def text_cpu_check(dev, part: str, B: int):
+    """``part``'s net at full width with B rows of its first batch, f32:
+    the loss and every gradient on the card against the CPU from the same
+    parameters (every all-zero one set to seeded normals)."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+
+    cost, _ = text_cost(part)
+    feed = {k: tuple(a[:B] for a in v) if isinstance(v, tuple) else v[:B]
+            for k, v in text_feeds(part)[0][0].items()}
+    card, cpu = (nn.Topology(cost, device=d) for d in (dev, "cpu"))
+    params, _ = cpu.init(SEED + 1)
+    rng = np.random.RandomState(SEED + 1)
+    params = {k: v if v.abs().max() > 0 else torch.from_numpy(
+        (0.3 * rng.randn(*v.shape)).astype(np.float32))
+        for k, v in params.items()}
+    out = {}
+    with compute_dtype_scope("float32"):
+        for name, topo, dv in (("card", card, dev), ("cpu", cpu, "cpu")):
+            p = {k: v.to(dv).requires_grad_() for k, v in params.items()}
+            loss = topo.apply(p, {}, feed, train=True)[0][cost.name].value
+            grads = torch.autograd.grad(loss, list(p.values()))
+            out[name] = (loss.item(), [g.cpu() for g in grads])
+    d_loss = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    worst, worst_name = 0.0, ""
+    for name, a, c in zip(params, out["card"][1], out["cpu"][1]):
+        rel = (a - c).abs().max().item() / max(c.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    print(f"text: {part} card vs CPU, B={B}, f32: loss "
+          f"{out['card'][0]:.7f} vs {out['cpu'][0]:.7f} (rel diff "
+          f"{d_loss:.3e}, tol {TOL_TEXT_LOSS}); {len(params)} gradients, "
+          f"worst max |diff| / max |g| {worst:.3e} ({worst_name}, tol "
+          f"{TOL_TEXT_GRAD})", flush=True)
+    if not (np.isfinite(out["cpu"][0]) and d_loss <= TOL_TEXT_LOSS
+            and worst <= TOL_TEXT_GRAD):
+        fail("text", f"{part}: card and CPU disagree beyond tolerance")
+
+
+def text_decode_check(tr, decoded, feed):
+    """The trained SRL net's Viterbi tags on the card against the CPU's,
+    same weights, f32 on both sides: identical."""
+    import torch
+
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+
+    tags = {}
+    with compute_dtype_scope("float32"), torch.no_grad():
+        for dv in (tr.device, "cpu"):
+            p = {k: v.detach().to(dv) for k, v in tr.params.items()}
+            tags[str(dv)] = nn.Topology(decoded, device=dv).apply(
+                p, {}, feed, train=False)[0][decoded.name].value.cpu()
+    got, want = tags[str(tr.device)], tags["cpu"]
+    same = torch.equal(got, want)
+    print(f"text: srl crf_decoding card vs CPU, f32, trained weights: tags "
+          f"{tuple(got.shape)} {'identical' if same else 'DIFFER'} "
+          f"({int((got != want).sum())} of {got.numel()} differ; "
+          f"{len(torch.unique(want))} distinct tags)", flush=True)
+    if not same:
+        fail("text", "srl: crf_decoding tags differ between card and CPU")
+
+
+def text_path(K, dev, card):
+    """The text tier (PR 19), each part's launch counters zeroed before it
+    and read after it: (a) the seqToseq group trained through
+    ``recurrent_group`` at the WMT14 widths (K3r, K4 twice a step), one
+    ``SGDTrainer.test`` pass (K3 twice), and its loss and gradients at
+    B=2, f32, card vs CPU; (b) ``stacked_lstm_net`` and
+    ``convolution_net`` at their defaults on synthetic sentiment (no
+    kernel: relu LSTMs); (c) ``networks.bidirectional_lstm`` at
+    lstm_b64h256's shape (K9r, K10 twice a step) and one inference pass
+    (K9 twice); (d) ``db_lstm_net`` at the SRL demo's defaults on
+    synthetic conll05_features with ``crf_cost`` (no kernel) and one
+    ``crf_decoding`` pass, its tags on the card against the CPU's.  ->
+    {part: launches}."""
+    import torch
+
+    parts = {}
+    tr, out, _, _, parts["seqtoseq_group"] = text_train(
+        K, dev, card, "seqtoseq_group",
+        {"gru_forward": 2, "gru_backward": 2})
+    feeds, _ = text_feeds("seqtoseq_group")
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = tr.test(lambda: iter(feeds[:1]))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    parts["seqtoseq_group_test"] = K.launch_counts()
+    print(f"text: seqtoseq_group SGDTrainer.test, one batch: "
+          f"{sec * 1e3:.2f} ms, cost {res['cost']:.6f}, launches "
+          f"{_launched(parts['seqtoseq_group_test'])} [{card}]",
+          flush=True)
+    _text_launch_check("seqtoseq_group test", parts["seqtoseq_group_test"],
+                       {"gru_forward": 2})
+    del tr, out
+    torch.cuda.empty_cache()
+    text_cpu_check(dev, "seqtoseq_group", 2)
+    torch.cuda.empty_cache()
+    for part in ("sentiment", "convolution"):
+        tr, *_, parts[part] = text_train(K, dev, card, part, {})
+        del tr
+    tr, out, *_, parts["bidi_lstm"] = text_train(
+        K, dev, card, "bidi_lstm", {"lstm_forward": 2, "lstm_backward": 2})
+    _, parts["bidi_lstm_infer"] = text_infer(
+        K, card, tr, out, text_feeds("bidi_lstm")[0][0], "bidi_lstm",
+        {"lstm_forward": 2})
+    del tr, out
+    torch.cuda.empty_cache()
+    tr, decoded, *_, parts["srl"] = text_train(K, dev, card, "srl", {})
+    feed = text_feeds("srl")[0][0]
+    tags, parts["srl_decode"] = text_infer(K, card, tr, decoded, feed,
+                                           "srl crf_decoding", {})
+    if tags.dtype != torch.int32 or int(tags.max()) >= SRL_LABELS:
+        fail("text", f"srl: malformed tags {tags.dtype}, max "
+             f"{int(tags.max())}")
+    text_decode_check(tr, decoded, feed)
+    del tr
+    torch.cuda.empty_cache()
+    return parts
+
+
+#: the kernels line's rows that the text phase's parts launch, by part
+TEXT_ROWS = {
+    "gru_forward": ("seqtoseq_group_test",),
+    "gru_forward_residuals": ("seqtoseq_group",),
+    "gru_backward": ("seqtoseq_group",),
+    "lstm_forward": ("bidi_lstm_infer",),
+    "lstm_forward_residuals_b64h256": ("bidi_lstm",),
+    "lstm_backward_b64h256": ("bidi_lstm",),
+}
+
+
 def main() -> int:
     try:
         import torch
@@ -3986,6 +4344,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "vision"
         vision_path(K, dev, card)
+        torch.cuda.empty_cache()
+        phase = "text"
+        text_launches = text_path(K, dev, card)
     except SystemExit:
         raise
     except Exception:  # noqa: BLE001 — report the phase and fail
@@ -4037,6 +4398,13 @@ def main() -> int:
             row["trainer_launches_by_path"] = {
                 part: counts.by_path[key] for part, counts in
                 trainer_launches.items()}
+        if name in TEXT_ROWS:
+            # the text phase's parts that launch this row's kernel
+            row["text_launches"] = {
+                part: text_launches[part][key] for part in TEXT_ROWS[name]}
+            row["text_launches_by_path"] = {
+                part: text_launches[part].by_path[key]
+                for part in TEXT_ROWS[name]}
         if name == "topk_lse_readout":
             # the spec phase's full arm: one launch a table step, its wide
             # steps at N = 320

@@ -8,8 +8,8 @@ for sample the same as the JAX package's for the same split and size
 not depend on the process.
 
 Not ported here: loading real files under a data home (``data_home``,
-``data/formats.py``) and the other datasets (wmt14, movielens, imikolov,
-conll05) wait for the rest of ROADMAP.md Queue 1 item 4.  So
+``data/formats.py``) and the other datasets (wmt14, movielens, imikolov)
+wait for the rest of ROADMAP.md Queue 1 item 4.  So
 these loaders always give the synthetic stream, where the reference's
 would read real files when they are present; ``_capped``, which caps
 those real-file readers, comes with them.
@@ -22,7 +22,8 @@ from typing import Callable, Optional
 
 import numpy as np
 
-__all__ = ["mnist", "cifar10", "imdb", "sentiment", "uci_housing"]
+__all__ = ["mnist", "cifar10", "imdb", "sentiment", "uci_housing",
+           "conll05", "conll05_features"]
 
 
 def _synth_rng(name: str, split: str) -> np.random.RandomState:
@@ -110,5 +111,55 @@ def uci_housing(split: str = "train", *, n: Optional[int] = None
             x = rng.randn(13).astype(np.float32)
             y = float(x @ w + rng.randn() * 0.1 + 22.0)
             yield x, y
+
+    return synth_reader
+
+
+def conll05(split: str = "train", *, vocab_size: int = 5000,
+            n_labels: int = 67, n: Optional[int] = None) -> Callable:
+    """Yields (word_ids, predicate_id, label_ids): semantic-role-labeling
+    sequence-tagging shapes, labels of the reference's BIO scheme size (67
+    classes) correlated with the distance from the predicate."""
+
+    def synth_reader():
+        n_ = n if n is not None else 1024
+        rng = _synth_rng("conll05", split)
+        for _ in range(n_):
+            L = rng.randint(5, 40)
+            words = rng.randint(2, vocab_size, L).tolist()
+            pred_pos = rng.randint(0, L)
+            labels = [min(n_labels - 1, abs(i - pred_pos) % n_labels)
+                      for i in range(L)]
+            yield words, words[pred_pos], labels
+
+    return synth_reader
+
+
+def conll05_features(split: str = "train", *, vocab_size: int = 5000,
+                     n_labels: int = 67, n: Optional[int] = None
+                     ) -> Callable:
+    """Yields the reference's 9-slot SRL rows: words, the predicate
+    window's five words (ctx_n2, ctx_n1, ctx_0, ctx_p1, ctx_p2) each
+    repeated per token, the predicate repeated, the mark (1 at the
+    predicate) and the labels."""
+
+    def synth_reader():
+        n_ = n if n is not None else 1024
+        rng = _synth_rng("conll05_features", split)
+        for _ in range(n_):
+            L = rng.randint(5, 40)
+            words = rng.randint(2, vocab_size, L).tolist()
+            p = rng.randint(0, L)
+
+            def at(i):
+                return words[min(max(i, 0), L - 1)]
+
+            ctx = {d: [at(p + d)] * L for d in (-2, -1, 0, 1, 2)}
+            verb = [words[p]] * L
+            mark = [1 if i == p else 0 for i in range(L)]
+            labels = [min(n_labels - 1, abs(i - p) % n_labels)
+                      for i in range(L)]
+            yield (words, ctx[-2], ctx[-1], ctx[0], ctx[1], ctx[2], verb,
+                   mark, labels)
 
     return synth_reader

@@ -1,10 +1,9 @@
-"""User-facing layer functions — counterpart of ``paddle_tpu/nn/layers.py``
-for the layers the text-classification benchmark net (``data``, ``fc``,
-``embedding``, ``lstmemory``, ``pooling``, ``classification_cost``), the
-seqToseq generation net (``concat``, ``grumemory``, ``first_seq``,
-``last_seq``) and the image models (``img_conv``, ``img_pool``,
-``batch_norm``, ``img_cmrnorm``, ``maxout``, ``bilinear_interp``,
-``addto``, ``dropout``) are built from.
+"""User-facing layer functions — counterpart of ``paddle_tpu/nn/layers.py``,
+every layer of it: the dense, embedding and image layers, the recurrent
+layers (``lstmemory``, ``grumemory``, the Elman ``recurrent``,
+``bidirectional_rnn``), the sequence layers (pooling, first/last step,
+``expand``, ``seq_reverse``, ``seq_concat``, ``context_projection``), the
+elementwise math layers, ``error_clip`` and the cost layers.
 
 Each function returns a symbolic ``LayerOutput`` whose ``forward`` closure
 computes the op with the port's ``ops``.  Names, arguments, parameter names
@@ -30,9 +29,16 @@ from paddle_tpu_torch.nn.graph import (PACK_KEYS, Act, LayerOutput, ParamAttr,
 from paddle_tpu_torch.utils.error import ConfigError
 
 __all__ = ["data", "fc", "embedding", "addto", "concat", "dropout",
-           "img_conv", "img_pool", "batch_norm", "img_cmrnorm", "maxout",
-           "bilinear_interp", "lstmemory", "grumemory", "pooling",
-           "last_seq", "first_seq", "classification_cost"]
+           "error_clip", "img_conv", "img_pool", "batch_norm", "img_cmrnorm",
+           "maxout", "bilinear_interp", "lstmemory", "grumemory",
+           "bidirectional_rnn", "recurrent", "pooling", "last_seq",
+           "first_seq", "expand", "seq_reverse", "seq_concat",
+           "context_projection", "maxid", "cos_sim", "interpolation",
+           "outer_prod", "tensor", "scaling", "slope_intercept", "power",
+           "sum_to_one_norm", "classification_cost", "cross_entropy_cost",
+           "cross_entropy_with_selfnorm", "soft_cross_entropy_cost",
+           "multi_binary_label_cross_entropy", "mse_cost", "huber_cost",
+           "smooth_l1_cost", "rank_cost", "sum_cost"]
 
 AttrLike = Union[ParamAttr, bool, None]
 
@@ -235,6 +241,35 @@ def dropout(input: LayerOutput, rate: float, *,
         return _seq_like(a, out) if a.is_seq else Act(value=out)
 
     return _inherit_meta(LayerOutput(name, "dropout", input.size, [input],
+                                     forward, []), input)
+
+
+class _ClipGrad(torch.autograd.Function):
+    """The identity forward; the backward clips the error signal."""
+
+    @staticmethod
+    def forward(ctx, x, t):
+        ctx.t = t
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.clamp(g, -ctx.t, ctx.t), None
+
+
+def error_clip(input: LayerOutput, threshold: float, *,
+               name: Optional[str] = None) -> LayerOutput:
+    """Clip the backward error signal flowing through this point to
+    [-threshold, threshold] (the reference's ``error_clipping_threshold``);
+    the identity in the forward pass."""
+    name = name or next_name("error_clip")
+    t = float(threshold)
+
+    def forward(ctx, params, a: Act) -> Act:
+        out = _ClipGrad.apply(a.value, t)
+        return _seq_like(a, out) if a.is_seq else Act(value=out)
+
+    return _inherit_meta(LayerOutput(name, "error_clip", input.size, [input],
                                      forward, []), input)
 
 
@@ -566,6 +601,52 @@ def grumemory(input: LayerOutput, size: Optional[int] = None, *,
     return LayerOutput(name, "grumemory", H, [input], forward, specs)
 
 
+def recurrent(input: LayerOutput, *, act: str = "tanh", reverse: bool = False,
+              name: Optional[str] = None, param_attr: AttrLike = None,
+              bias_attr: AttrLike = True) -> LayerOutput:
+    """The simple (Elman) recurrent layer: h_t = act(x_t + b + h_{t-1} @
+    W), W ``w0`` [H, H] with H the input's size, over ``ops.scan_rnn``
+    (its row products through ``ops/matmul.py``)."""
+    name = name or next_name("recurrent")
+    H = input.size
+    pa = _pa(param_attr, f"_{name}.w0")
+    wh = ParamSpec(name=pa.name, shape=(H, H), attr=pa)
+    specs = [wh]
+    ba = _bias_attr(bias_attr, f"_{name}.wbias")
+    if ba:
+        specs.append(ParamSpec(name=ba.name, shape=(H,), attr=ba))
+    act_fn = O.get_activation(act)
+
+    def forward(ctx, params, a: Act) -> Act:
+        _refuse_packed(a, name, "recurrent")
+        x = a.value
+        if ba:
+            x = x + params[ba.name].to(x.dtype)
+
+        def step(h, x_t):
+            h2 = act_fn(x_t + O.linear(h, params[wh.name]))
+            return h2, h2
+
+        h0 = torch.zeros(x.shape[0], H, dtype=x.dtype, device=x.device)
+        h_f, h_seq = O.scan_rnn(step, h0, x, a.mask, reverse=reverse)
+        return Act(value=h_seq, lengths=a.lengths, mask=a.mask,
+                   state={"final_h": h_f})
+
+    return LayerOutput(name, "recurrent", H, [input], forward, specs)
+
+
+def bidirectional_rnn(input: LayerOutput, size: int, *, cell: str = "lstm",
+                      name: Optional[str] = None) -> LayerOutput:
+    """A forward and a reverse ``lstmemory`` (``cell="lstm"``) or
+    ``grumemory`` (otherwise), ``{name}_fw`` and ``{name}_bw``,
+    concatenated: output size 2 * size."""
+    name = name or next_name("bidir")
+    maker = lstmemory if cell == "lstm" else grumemory
+    fwd = maker(input, size, name=f"{name}_fw")
+    bwd = maker(input, size, reverse=True, name=f"{name}_bw")
+    return concat([fwd, bwd], name=name)
+
+
 # ---------------------------------------------------------------------------
 # sequence pooling and structure
 # ---------------------------------------------------------------------------
@@ -611,9 +692,194 @@ def first_seq(input: LayerOutput, *, name: Optional[str] = None
     return LayerOutput(name, "first_seq", input.size, [input], forward, [])
 
 
+def expand(input: LayerOutput, expand_as: LayerOutput, *,
+           name: Optional[str] = None) -> LayerOutput:
+    """Broadcast a per-sequence vector [B, D] over the timesteps of
+    ``expand_as`` (its lengths and mask; padding zeroed)."""
+    name = name or next_name("expand")
+
+    def forward(ctx, params, vec: Act, seq: Act) -> Act:
+        return Act(value=O.seq_expand(vec.value, seq.mask),
+                   lengths=seq.lengths, mask=seq.mask)
+
+    return LayerOutput(name, "expand", input.size, [input, expand_as],
+                       forward, [])
+
+
+def seq_reverse(input: LayerOutput, *, name: Optional[str] = None
+                ) -> LayerOutput:
+    """Each sequence reversed within its real length."""
+    name = name or next_name("seq_reverse")
+
+    def forward(ctx, params, a: Act) -> Act:
+        _refuse_packed(a, name, "seq_reverse")
+        return Act(value=O.seq_reverse(a.value, a.lengths),
+                   lengths=a.lengths, mask=a.mask)
+
+    return LayerOutput(name, "seq_reverse", input.size, [input], forward, [])
+
+
+def seq_concat(a: LayerOutput, b: LayerOutput, *,
+               name: Optional[str] = None) -> LayerOutput:
+    """Two sequences concatenated along time, row by row."""
+    name = name or next_name("seq_concat")
+
+    def forward(ctx, params, x: Act, y: Act) -> Act:
+        _refuse_packed(x, name, "seq_concat")
+        _refuse_packed(y, name, "seq_concat")
+        v, lengths = O.seq_concat(x.value, x.lengths, y.value, y.lengths)
+        return Act(value=v, lengths=lengths,
+                   mask=O.mask_from_lengths(lengths, v.shape[1]))
+
+    return LayerOutput(name, "seq_concat", a.size, [a, b], forward, [])
+
+
+def context_projection(input: LayerOutput, *, context_len: int,
+                       context_start: Optional[int] = None,
+                       name: Optional[str] = None) -> LayerOutput:
+    """Sliding-window context features with zero padding: [B, T, D] ->
+    [B, T, D * context_len], the window starting at ``context_start``
+    (default ``-(context_len // 2)``)."""
+    name = name or next_name("context_proj")
+    start = -(context_len // 2) if context_start is None else context_start
+
+    def forward(ctx, params, a: Act) -> Act:
+        out = O.context_projection(a.value, a.mask, context_len, start)
+        return Act(value=out, lengths=a.lengths, mask=a.mask)
+
+    return LayerOutput(name, "context_projection", input.size * context_len,
+                       [input], forward, [])
+
+
+# ---------------------------------------------------------------------------
+# elementwise math
+# ---------------------------------------------------------------------------
+
+
+def maxid(input: LayerOutput, *, name: Optional[str] = None) -> LayerOutput:
+    """The argmax of each row (int32), per timestep on a sequence."""
+    name = name or next_name("maxid")
+
+    def forward(ctx, params, a: Act) -> Act:
+        out = O.max_id(a.value)
+        return _seq_like(a, out) if a.is_seq else Act(value=out)
+
+    return LayerOutput(name, "maxid", 1, [input], forward, [])
+
+
+def cos_sim(a: LayerOutput, b: LayerOutput, *, scale: float = 1.0,
+            name: Optional[str] = None) -> LayerOutput:
+    """Row cosine similarity times ``scale``: [B, 1]."""
+    name = name or next_name("cos_sim")
+
+    def forward(ctx, params, x: Act, y: Act) -> Act:
+        return Act(value=O.cos_sim(x.value, y.value, scale)[:, None])
+
+    return LayerOutput(name, "cos_sim", 1, [a, b], forward, [])
+
+
+def interpolation(weight: LayerOutput, a: LayerOutput, b: LayerOutput, *,
+                  name: Optional[str] = None) -> LayerOutput:
+    """``w * a + (1 - w) * b`` with a per-row weight [B, 1]."""
+    name = name or next_name("interpolation")
+
+    def forward(ctx, params, w: Act, x: Act, y: Act) -> Act:
+        return Act(value=O.interpolation(w.value, x.value, y.value))
+
+    return LayerOutput(name, "interpolation", a.size, [weight, a, b],
+                       forward, [])
+
+
+def outer_prod(a: LayerOutput, b: LayerOutput, *,
+               name: Optional[str] = None) -> LayerOutput:
+    """The row-wise outer product, flattened: [B, Da * Db]."""
+    name = name or next_name("outer_prod")
+
+    def forward(ctx, params, x: Act, y: Act) -> Act:
+        return Act(value=O.outer_prod(x.value, y.value))
+
+    return LayerOutput(name, "outer_prod", a.size * b.size, [a, b], forward,
+                       [])
+
+
+def tensor(a: LayerOutput, b: LayerOutput, size: int, *,
+           act: str = "linear", name: Optional[str] = None,
+           param_attr: AttrLike = None) -> LayerOutput:
+    """The bilinear tensor layer: out[n, k] = a[n] @ W[k] @ b[n], W ``w0``
+    [size, Da, Db]."""
+    name = name or next_name("tensor")
+    pa = _pa(param_attr, f"_{name}.w0")
+    spec = ParamSpec(name=pa.name, shape=(size, a.size, b.size), attr=pa)
+    act_fn = O.get_activation(act)
+
+    def forward(ctx, params, x: Act, y: Act) -> Act:
+        return Act(value=act_fn(O.tensor_bilinear(x.value, y.value,
+                                                  params[spec.name])))
+
+    return LayerOutput(name, "tensor", size, [a, b], forward, [spec])
+
+
+def scaling(weight: LayerOutput, input: LayerOutput, *,
+            name: Optional[str] = None) -> LayerOutput:
+    """Each row of ``input`` times its own scalar [B, 1]."""
+    name = name or next_name("scaling")
+
+    def forward(ctx, params, w: Act, a: Act) -> Act:
+        return Act(value=O.scaling(w.value, a.value))
+
+    return LayerOutput(name, "scaling", input.size, [weight, input], forward,
+                       [])
+
+
+def slope_intercept(input: LayerOutput, *, slope: float = 1.0,
+                    intercept: float = 0.0,
+                    name: Optional[str] = None) -> LayerOutput:
+    """``slope * x + intercept``."""
+    name = name or next_name("slope_intercept")
+
+    def forward(ctx, params, a: Act) -> Act:
+        out = O.slope_intercept(a.value, slope, intercept)
+        return _seq_like(a, out) if a.is_seq else Act(value=out)
+
+    return LayerOutput(name, "slope_intercept", input.size, [input], forward,
+                       [])
+
+
+def power(weight: LayerOutput, input: LayerOutput, *,
+          name: Optional[str] = None) -> LayerOutput:
+    """``x ** p`` with a per-row exponent p [B, 1]."""
+    name = name or next_name("power")
+
+    def forward(ctx, params, w: Act, a: Act) -> Act:
+        return Act(value=O.power_op(w.value, a.value))
+
+    return LayerOutput(name, "power", input.size, [weight, input], forward,
+                       [])
+
+
+def sum_to_one_norm(input: LayerOutput, *,
+                    name: Optional[str] = None) -> LayerOutput:
+    """Each row divided by its sum (at least 1e-12)."""
+    name = name or next_name("sum_to_one")
+
+    def forward(ctx, params, a: Act) -> Act:
+        s = torch.clamp(a.value.sum(-1, keepdim=True), min=1e-12)
+        return Act(value=a.value / s)
+
+    return LayerOutput(name, "sum_to_one_norm", input.size, [input], forward,
+                       [])
+
+
 # ---------------------------------------------------------------------------
 # costs
 # ---------------------------------------------------------------------------
+
+
+def _cost_layer(name: str, ltype: str, inputs, fn) -> LayerOutput:
+    def forward(ctx, params, *acts: Act) -> Act:
+        return Act(value=fn(*acts))
+
+    return LayerOutput(name, ltype, 1, list(inputs), forward, [])
 
 
 def classification_cost(input: LayerOutput, label: LayerOutput, *,
@@ -622,12 +888,95 @@ def classification_cost(input: LayerOutput, label: LayerOutput, *,
     the batch, or over the real tokens of a sequence input."""
     name = name or next_name("cls_cost")
 
-    def forward(ctx, params, logits: Act, lab: Act) -> Act:
+    def fn(logits: Act, lab: Act):
         if logits.is_seq:
-            return Act(value=O.sequence_cross_entropy(
-                logits.value, lab.value, logits.mask))
+            return O.sequence_cross_entropy(logits.value, lab.value,
+                                            logits.mask)
         labels = lab.value.reshape(lab.value.shape[0])
-        return Act(value=O.cross_entropy(logits.value, labels).mean())
+        return O.cross_entropy(logits.value, labels).mean()
 
-    return LayerOutput(name, "classification_cost", 1, [input, label],
-                       forward, [])
+    return _cost_layer(name, "classification_cost", [input, label], fn)
+
+
+cross_entropy_cost = classification_cost
+
+
+def cross_entropy_with_selfnorm(input: LayerOutput, label: LayerOutput, *,
+                                softmax_selfnorm_alpha: float = 0.1,
+                                name: Optional[str] = None) -> LayerOutput:
+    """CE + alpha * log(Z)^2 (self-normalisation), the batch mean; log(Z)
+    is the full row logsumexp in float32."""
+    name = name or next_name("selfnorm_cost")
+
+    def fn(logits: Act, lab: Act):
+        lz = torch.logsumexp(logits.value.float(), dim=-1)
+        ce = O.cross_entropy(logits.value,
+                             lab.value.reshape(lab.value.shape[0]))
+        return (ce + softmax_selfnorm_alpha * torch.square(lz)).mean()
+
+    return _cost_layer(name, "cross_entropy_with_selfnorm", [input, label],
+                       fn)
+
+
+def soft_cross_entropy_cost(input: LayerOutput, label: LayerOutput, *,
+                            name: Optional[str] = None) -> LayerOutput:
+    """CE against target probabilities, the batch mean."""
+    name = name or next_name("soft_ce_cost")
+    return _cost_layer(
+        name, "soft_cross_entropy", [input, label],
+        lambda p, t: O.soft_cross_entropy(p.value, t.value).mean())
+
+
+def multi_binary_label_cross_entropy(input: LayerOutput, label: LayerOutput,
+                                     *, name: Optional[str] = None
+                                     ) -> LayerOutput:
+    """Independent BCE per class, summed over classes; the batch mean."""
+    name = name or next_name("mbce_cost")
+    return _cost_layer(
+        name, "multi_binary_label_cross_entropy", [input, label],
+        lambda p, t: O.multi_binary_label_cross_entropy(p.value,
+                                                        t.value).mean())
+
+
+def mse_cost(input: LayerOutput, label: LayerOutput, *,
+             name: Optional[str] = None) -> LayerOutput:
+    """0.5 * squared error summed over features; the batch mean."""
+    name = name or next_name("mse_cost")
+    return _cost_layer(name, "mse_cost", [input, label],
+                       lambda p, t: O.mse(p.value, t.value).mean())
+
+
+regression_cost = mse_cost
+
+
+def huber_cost(input: LayerOutput, label: LayerOutput, *, delta: float = 1.0,
+               name: Optional[str] = None) -> LayerOutput:
+    """Huber loss summed over features; the batch mean."""
+    name = name or next_name("huber_cost")
+    return _cost_layer(name, "huber_cost", [input, label],
+                       lambda p, t: O.huber(p.value, t.value, delta).mean())
+
+
+def smooth_l1_cost(input: LayerOutput, label: LayerOutput, *,
+                   name: Optional[str] = None) -> LayerOutput:
+    """Smooth L1 (Huber at delta 1); the batch mean."""
+    name = name or next_name("smooth_l1_cost")
+    return _cost_layer(name, "smooth_l1_cost", [input, label],
+                       lambda p, t: O.smooth_l1(p.value, t.value).mean())
+
+
+def rank_cost(left: LayerOutput, right: LayerOutput, label: LayerOutput, *,
+              name: Optional[str] = None) -> LayerOutput:
+    """Pairwise rank cost of two scores against a label in [0, 1]; the
+    batch mean."""
+    name = name or next_name("rank_cost")
+    return _cost_layer(
+        name, "rank_cost", [left, right, label],
+        lambda l, r, t: O.rank_cost(l.value, r.value, t.value).mean())
+
+
+def sum_cost(input: LayerOutput, *, name: Optional[str] = None
+             ) -> LayerOutput:
+    """The sum of every entry of the input."""
+    name = name or next_name("sum_cost")
+    return _cost_layer(name, "sum_cost", [input], lambda a: a.value.sum())

@@ -4,8 +4,9 @@ written kernels live in ``ops/kernels`` and are reached through
 ``gru_layer``, ``bigru_layer`` and ``lstm_layer`` (forward and backward),
 ``LinearReadout``, ``LogitsReadout``, ``attention_gru_decoder`` and
 ``sequence_softmax_ce_readout``.  The image tier (``conv.py``: conv,
-pooling, batch norm, LRN, resize, maxout) and ``misc.py`` run PyTorch's own
-ops, as the reference runs XLA's outside any Pallas kernel."""
+pooling, batch norm, LRN, resize, maxout), ``misc.py``, the sequence ops,
+the CRF (``crf.py``) and the cost family run PyTorch's own ops, as the
+reference runs XLA's outside any Pallas kernel."""
 
 from paddle_tpu_torch.ops.numerics import (acc_dtype, bwd_einsum, bwd_mm,
                                            compute_dtype,
@@ -13,7 +14,7 @@ from paddle_tpu_torch.ops.numerics import (acc_dtype, bwd_einsum, bwd_mm,
                                            mxu_cast, residual_dtype)
 from paddle_tpu_torch.ops.matmul import linear, matmul
 from paddle_tpu_torch.ops.activations import (ACTIVATIONS, get_activation,
-                                              softmax)
+                                              sequence_softmax, softmax)
 from paddle_tpu_torch.ops.conv import (avg_pool2d, batch_norm,
                                        bilinear_interp, cmr_norm, conv2d,
                                        conv2d_transpose, global_avg_pool,
@@ -23,21 +24,29 @@ from paddle_tpu_torch.ops.misc import (batch_transpose, col_sum, cos_sim,
                                        outer_prod, power_op, row_max,
                                        row_sum, scaling, slope_intercept,
                                        sum_cost, tensor_bilinear, top_k)
-from paddle_tpu_torch.ops.embedding import embedding_lookup
-from paddle_tpu_torch.ops.sequence import (mask_from_lengths, seq_first,
-                                           seq_last, seq_pool_avg,
-                                           seq_pool_max, seq_pool_sqrt,
-                                           seq_pool_sum)
-from paddle_tpu_torch.ops.attention import additive_attention_scores, attend
+from paddle_tpu_torch.ops.embedding import embedding_lookup, one_hot
+from paddle_tpu_torch.ops.sequence import (context_projection,
+                                           context_projection_trainable,
+                                           mask_from_lengths, seq_concat,
+                                           seq_expand, seq_first, seq_last,
+                                           seq_pool_avg, seq_pool_max,
+                                           seq_pool_sqrt, seq_pool_sum,
+                                           seq_reverse, seq_slice_window)
+from paddle_tpu_torch.ops.attention import (additive_attention_scores, attend,
+                                            dot_product_attention)
+from paddle_tpu_torch.ops.crf import crf_decode, crf_log_likelihood, crf_nll
 from paddle_tpu_torch.ops.rnn import (bigru_layer, gru_layer, gru_step,
                                       lstm_layer, lstm_step, scan_rnn)
 from paddle_tpu_torch.ops.rnn_fused import (bigru_sequence_fused,
                                             gru_sequence_fused,
                                             lstm_sequence_fused)
 from paddle_tpu_torch.ops.attention_decoder import attention_gru_decoder
-from paddle_tpu_torch.ops.losses import (cross_entropy, masked_token_mean,
-                                         sequence_cross_entropy,
-                                         sequence_softmax_ce_readout)
+from paddle_tpu_torch.ops.losses import (binary_cross_entropy, cross_entropy,
+                                         huber, masked_token_mean, mse,
+                                         multi_binary_label_cross_entropy,
+                                         rank_cost, sequence_cross_entropy,
+                                         sequence_softmax_ce_readout,
+                                         smooth_l1, soft_cross_entropy)
 from paddle_tpu_torch.ops.decode import (NEG, LinearReadout, LogitsReadout,
                                          beam_decode, beam_gather, decode_step,
                                          extract_slot, finalize_slots,
@@ -51,20 +60,24 @@ from paddle_tpu_torch.ops.speculative import (AdversarialProposer,
 __all__ = [
     "acc_dtype", "compute_dtype", "compute_dtype_scope", "dot_dtype",
     "mxu_cast", "bwd_mm", "bwd_einsum", "residual_dtype", "linear", "matmul",
-    "ACTIVATIONS", "get_activation", "softmax",
+    "ACTIVATIONS", "get_activation", "softmax", "sequence_softmax",
     "conv2d", "conv2d_transpose", "max_pool2d", "avg_pool2d", "batch_norm",
     "cmr_norm", "bilinear_interp", "maxout", "global_avg_pool",
     "row_sum", "row_max", "col_sum", "top_k", "max_id",
     "batch_transpose", "cos_sim", "interpolation", "outer_prod",
     "tensor_bilinear", "sum_cost", "scaling", "slope_intercept", "power_op",
     "dropout",
-    "embedding_lookup", "mask_from_lengths", "seq_first", "seq_last",
-    "seq_pool_sum", "seq_pool_avg",
-    "seq_pool_sqrt", "seq_pool_max", "additive_attention_scores",
-    "attend", "bigru_layer", "gru_layer", "gru_step", "lstm_layer",
+    "embedding_lookup", "one_hot", "mask_from_lengths", "seq_first",
+    "seq_last", "seq_pool_sum", "seq_pool_avg", "seq_pool_sqrt",
+    "seq_pool_max", "seq_expand", "seq_reverse", "seq_concat",
+    "context_projection", "context_projection_trainable",
+    "seq_slice_window", "additive_attention_scores", "attend",
+    "dot_product_attention", "crf_log_likelihood", "crf_nll", "crf_decode", "bigru_layer", "gru_layer", "gru_step", "lstm_layer",
     "lstm_step", "scan_rnn", "gru_sequence_fused", "bigru_sequence_fused",
     "lstm_sequence_fused",
-    "attention_gru_decoder", "cross_entropy", "masked_token_mean",
+    "attention_gru_decoder", "cross_entropy", "soft_cross_entropy",
+    "binary_cross_entropy", "multi_binary_label_cross_entropy", "mse",
+    "huber", "smooth_l1", "rank_cost", "masked_token_mean",
     "sequence_cross_entropy", "sequence_softmax_ce_readout", "NEG",
     "LinearReadout", "LogitsReadout", "beam_decode", "beam_gather",
     "decode_step", "finalize_slots", "greedy_decode", "init_slot_carry",

@@ -6,8 +6,8 @@ The transcendental ones (``sigmoid``, ``tanh``, ``stanh``, ``softrelu``,
 ``exponential``, ``log``, ``sqrt``) run through ``numerics.pointwise``, so
 an element's bits on the CPU do not depend on the tensor's size (the slot
 table's batch invariance).  ``softmax`` takes its statistics in float32
-and returns the caller's dtype, as the reference does.  ``sequence_softmax``
-is not ported here.
+and returns the caller's dtype, as the reference does; so does
+``sequence_softmax``, the softmax along the time axis of a padded batch.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import torch
 from paddle_tpu_torch.ops.numerics import pointwise
 
 __all__ = ["ACTIVATIONS", "get_activation", "sigmoid", "tanh", "relu",
-           "softmax"]
+           "softmax", "sequence_softmax"]
 
 
 def linear(x: torch.Tensor) -> torch.Tensor:
@@ -85,12 +85,26 @@ def softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
     return torch.softmax(x.float(), dim=axis).to(x.dtype)
 
 
+def sequence_softmax(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                     axis: int = -2) -> torch.Tensor:
+    """Softmax along the time axis of a padded [B, T, 1] / [B, T] batch
+    (the reference's per-sequence softmax); padded positions get
+    probability 0.  Without a mask, a softmax over ``axis``."""
+    if mask is None:
+        return softmax(x, axis=axis)
+    m = mask[..., None] if x.dim() == mask.dim() + 1 else mask
+    z = torch.where(m > 0, x, torch.full((), torch.finfo(x.dtype).min,
+                                         dtype=x.dtype, device=x.device))
+    p = softmax(z, axis=axis)
+    return p * m.to(p.dtype)
+
+
 ACTIVATIONS: Dict[str, Callable[..., torch.Tensor]] = {
     "linear": linear, "sigmoid": sigmoid, "tanh": tanh, "relu": relu,
     "brelu": brelu, "stanh": stanh, "softrelu": softrelu,
     "exponential": exponential, "log": log_act, "abs": abs_act,
     "square": square, "sqrt": sqrt_act, "reciprocal": reciprocal,
-    "softmax": softmax}
+    "softmax": softmax, "sequence_softmax": sequence_softmax}
 
 
 def get_activation(name: Optional[Union[str, Callable]]):

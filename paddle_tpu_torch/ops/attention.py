@@ -1,5 +1,7 @@
-"""Bahdanau attention primitives — counterpart of
-``paddle_tpu/ops/attention.py`` (``additive_attention_scores``, ``attend``).
+"""Attention primitives — counterpart of ``paddle_tpu/ops/attention.py``:
+Bahdanau's (``additive_attention_scores``, ``attend``) and the batched
+multi-head ``dot_product_attention`` (exported as the reference exports
+it; no layer of either package calls it).
 
 Same math as the reference: scores in float32, a masked softmax filled with
 ``finfo.min`` and renormalised over the real positions, and compute-dtype
@@ -10,7 +12,7 @@ so a row's scores and context do not depend on the batch size.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -18,7 +20,7 @@ from paddle_tpu_torch.ops.matmul import batch_bmm, linear, rows_mm
 from paddle_tpu_torch.ops.numerics import acc_dtype, dot_dtype, mxu_cast
 
 __all__ = ["additive_attention_scores", "attend", "score_product",
-           "context_product"]
+           "context_product", "dot_product_attention"]
 
 
 def score_product(pre: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -59,3 +61,22 @@ def attend(scores: torch.Tensor, values: torch.Tensor,
     w = torch.softmax(z, dim=-1) * mask.to(scores.dtype)
     w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
     return context_product(w, values), w
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None, *,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Batched multi-head attention: q [B, H, Tq, Dh], k/v [B, H, Tk, Dh];
+    ``mask`` broadcastable to [B, H, Tq, Tk] (1 = attend).  Compute-dtype
+    operands, float32 logits and softmax, returned in q's dtype."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    acc = acc_dtype()
+    qc, kc, vc = mxu_cast(q, k, v)
+    logits = torch.matmul(qc.to(acc), kc.to(acc).transpose(-1, -2)) * scale
+    if mask is not None:
+        logits = torch.where(mask > 0, logits, torch.full(
+            (), torch.finfo(logits.dtype).min, device=logits.device))
+    w = torch.softmax(logits, dim=-1)
+    out = torch.matmul(w.to(vc.dtype).to(dot_dtype()), vc.to(dot_dtype()))
+    return out.to(q.dtype)

@@ -1,5 +1,5 @@
-"""Embedding lookup with its backward — counterpart of
-``paddle_tpu/ops/embedding.py::embedding_lookup``.
+"""Embedding lookup with its backward, and ``one_hot`` — counterpart of
+``paddle_tpu/ops/embedding.py``.
 
 The reference's backward is an id-sorted scatter-add: the flattened ids are
 sorted and the cotangent rows of equal ids summed into their table row.
@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["embedding_lookup"]
+__all__ = ["embedding_lookup", "one_hot"]
 
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor, *,
@@ -27,3 +27,9 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor, *,
     if pad_to_zero_id is not None:
         out = out * (ids != pad_to_zero_id)[..., None].to(out.dtype)
     return out
+
+
+def one_hot(ids: torch.Tensor, depth: int,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """ids int [...] -> [..., depth] rows of the identity."""
+    return torch.eye(depth, dtype=dtype, device=ids.device)[ids.to(torch.long)]

@@ -1,9 +1,13 @@
-"""Losses — counterpart of ``paddle_tpu/ops/losses.py`` (``cross_entropy``,
-``sequence_cross_entropy``, ``masked_token_mean``,
-``sequence_softmax_ce_readout``).
+"""Losses — counterpart of ``paddle_tpu/ops/losses.py``: the cost family
+(``cross_entropy``, ``soft_cross_entropy``, ``binary_cross_entropy``,
+``multi_binary_label_cross_entropy``, ``mse``, ``huber``, ``smooth_l1``,
+``rank_cost``), ``sequence_cross_entropy``, ``masked_token_mean`` and
+``sequence_softmax_ce_readout``.
 
-``cross_entropy`` takes a float32 log-softmax of the logits and gathers the
-label's entry, as the reference does (never log of probabilities).
+Every loss runs in float32 on float32 copies of its inputs, as the
+reference's ``_f32`` does.  ``cross_entropy`` takes a float32 log-softmax
+of the logits and gathers the label's entry (never log of probabilities);
+the binary ones are the stable log-sigmoid form.
 
 ``sequence_softmax_ce_readout`` is the fused vocab readout + token
 cross-entropy with the reference's TILED semantics (``:231-284``): the
@@ -35,8 +39,14 @@ from paddle_tpu_torch.ops.kernels.logsumexp import logsumexp_rows
 from paddle_tpu_torch.ops.matmul import matmul
 from paddle_tpu_torch.ops.numerics import bwd_einsum, compute_dtype, mxu_cast
 
-__all__ = ["cross_entropy", "sequence_cross_entropy", "masked_token_mean",
+__all__ = ["cross_entropy", "soft_cross_entropy", "binary_cross_entropy",
+           "multi_binary_label_cross_entropy", "mse", "huber", "smooth_l1",
+           "rank_cost", "sequence_cross_entropy", "masked_token_mean",
            "sequence_softmax_ce_readout"]
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x.float() if x.is_floating_point() else x
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -45,6 +55,59 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logp = torch.log_softmax(logits.float(), dim=-1)
     lab = labels.to(torch.long).unsqueeze(-1)
     return -torch.gather(logp, -1, lab).squeeze(-1)
+
+
+def soft_cross_entropy(logits: torch.Tensor,
+                       target_probs: torch.Tensor) -> torch.Tensor:
+    """CE against a target distribution: -sum(p * log_softmax(logits))."""
+    logp = torch.log_softmax(_f32(logits), dim=-1)
+    return -(_f32(target_probs) * logp).sum(-1)
+
+
+def binary_cross_entropy(logits: torch.Tensor,
+                         labels: torch.Tensor) -> torch.Tensor:
+    """Elementwise BCE with logits, the stable log-sigmoid form."""
+    logits, labels = _f32(logits), _f32(labels)
+    z = torch.nn.functional.logsigmoid(logits)
+    zneg = torch.nn.functional.logsigmoid(-logits)
+    return -(labels * z + (1.0 - labels) * zneg)
+
+
+def multi_binary_label_cross_entropy(logits: torch.Tensor,
+                                     label_matrix: torch.Tensor
+                                     ) -> torch.Tensor:
+    """Independent BCE per class, summed over the classes."""
+    return binary_cross_entropy(logits, label_matrix).sum(-1)
+
+
+def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """0.5 * sum of squares over the last axis."""
+    return 0.5 * torch.square(_f32(pred) - _f32(target)).sum(-1)
+
+
+def huber(pred: torch.Tensor, target: torch.Tensor,
+          delta: float = 1.0) -> torch.Tensor:
+    """Huber loss summed over the last axis: quadratic within ``delta``,
+    linear beyond."""
+    d = _f32(pred) - _f32(target)
+    a = torch.abs(d)
+    quad = 0.5 * torch.square(d)
+    lin = delta * (a - 0.5 * delta)
+    return torch.where(a <= delta, quad, lin).sum(-1)
+
+
+def smooth_l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return huber(pred, target, delta=1.0)
+
+
+def rank_cost(score_left: torch.Tensor, score_right: torch.Tensor,
+              label: torch.Tensor, weight=None) -> torch.Tensor:
+    """Pairwise rank cost: BCE of sigmoid(left - right) against the label
+    in [0, 1], optionally weighted."""
+    cost = binary_cross_entropy(score_left - score_right, label)
+    if weight is not None:
+        cost = cost * weight
+    return cost
 
 
 def masked_token_mean(per_token: torch.Tensor,

@@ -1,13 +1,15 @@
-"""Prebuilt network helpers — counterpart of ``paddle_tpu/v2/networks.py``
-for the image ones (``simple_img_conv_pool``, ``img_conv_bn_pool``,
-``img_conv_group``, ``small_vgg``, ``vgg_16_network``) and the recurrent
-ones the seqToseq generation net uses (``simple_attention``, ``gru_unit``,
-``gru_group``, ``simple_gru``, ``bidirectional_gru``).
+"""Prebuilt network helpers — counterpart of ``paddle_tpu/v2/networks.py``,
+every helper of it: the image ones (``simple_img_conv_pool``,
+``img_conv_bn_pool``, ``img_conv_group``, ``small_vgg``,
+``vgg_16_network``), the recurrent ones (``simple_lstm``, ``simple_gru``,
+``simple_gru2``, ``lstmemory_unit``, ``lstmemory_group``, ``gru_unit``,
+``gru_group``, ``bidirectional_lstm``, ``bidirectional_gru``),
+``sequence_conv_pool`` and ``simple_attention``.
 
 Each composes the port's layer DSL as the reference composes its own, with
-the same parameter names and shapes, so a JAX parameter dict carries
-across.  Not ported yet: the LSTM and sequence-conv helpers, and the
-recording of helper calls for config serialization.
+the same layer and parameter names and shapes, so a JAX parameter dict
+carries across.  Not ported: the recording of helper calls for config
+serialization.
 """
 
 from __future__ import annotations
@@ -22,8 +24,10 @@ from paddle_tpu_torch.nn.graph import (Act, LayerOutput, ParamAttr,
                                        ParamSpec, next_name)
 
 __all__ = ["simple_img_conv_pool", "img_conv_bn_pool", "img_conv_group",
-           "small_vgg", "vgg_16_network", "simple_gru", "gru_unit",
-           "gru_group", "bidirectional_gru", "simple_attention"]
+           "small_vgg", "vgg_16_network", "simple_lstm", "simple_gru",
+           "simple_gru2", "lstmemory_unit", "lstmemory_group", "gru_unit",
+           "gru_group", "bidirectional_lstm", "bidirectional_gru",
+           "sequence_conv_pool", "simple_attention"]
 
 
 def simple_img_conv_pool(input, filter_size, num_filters, pool_size, *,
@@ -121,10 +125,83 @@ def vgg_16_network(input_image, num_classes=1000, *, name=None):
     return _nn.fc(h, num_classes, act="softmax", name=name)
 
 
+def simple_lstm(input, size, *, act="tanh", gate_act="sigmoid", name=None):
+    """D->4H mixing + recurrent LSTM: ``lstmemory`` owns the input
+    projection, so it is ``lstmemory`` alone (``wx`` [D, 4H], ``w0``
+    [H, 4H])."""
+    return _nn.lstmemory(input, size, act=act, gate_act=gate_act, name=name)
+
+
 def simple_gru(input, size, *, act="tanh", gate_act="sigmoid", name=None):
     """D->3H mixing + recurrent GRU: ``grumemory`` owns the input
     projection, so it is ``grumemory`` alone."""
     return _nn.grumemory(input, size, act=act, gate_act=gate_act, name=name)
+
+
+def simple_gru2(input, size, *, act="tanh", gate_act="sigmoid",
+                mixed_param_attr=None, gru_param_attr=None, reverse=False,
+                name=None):
+    """A mixed D->3H transform ``{name}_transform`` (with bias) and a
+    ``grumemory`` over the pre-projection: the transform owns [D, 3H], the
+    cell only the recurrent [H, 3H]."""
+    name = name or next_name("simple_gru2")
+    m = _nn.mixed(size * 3,
+                  input=[_nn.full_matrix_projection(
+                      input, param_attr=mixed_param_attr)],
+                  bias_attr=True, name=f"{name}_transform")
+    return _nn.grumemory(m, size, projected_input=True, act=act,
+                         gate_act=gate_act, reverse=reverse,
+                         param_attr=gru_param_attr, name=name)
+
+
+def lstmemory_unit(input, out_mem, state_mem, *, size=None, act="tanh",
+                   gate_act="sigmoid", state_act="tanh", param_attr=None,
+                   mixed_bias_attr=False, lstm_bias_attr=True, name=None):
+    """One LSTM step inside a ``recurrent_group`` step: a mixed layer
+    ``{name}_input_recurrent`` sums identity(``input``, the [B, 4*size]
+    pre-projected frame) and full_matrix(``out_mem``), then ``lstm_step``
+    ``name`` applies the gates to ``state_mem``.  Returns h_t; c_t is
+    ``get_output(h, 'state')``."""
+    name = name or next_name("lstm_unit")
+    if size is None:
+        size = input.size // 4
+    m = _nn.mixed(size * 4,
+                  input=[_nn.identity_projection(input),
+                         _nn.full_matrix_projection(out_mem,
+                                                    param_attr=param_attr)],
+                  bias_attr=mixed_bias_attr,
+                  name=f"{name}_input_recurrent")
+    return _nn.lstm_step(m, state_mem, size, act=act, gate_act=gate_act,
+                         state_act=state_act, bias_attr=lstm_bias_attr,
+                         name=name)
+
+
+def lstmemory_group(input, size=None, *, reverse=False, act="tanh",
+                    gate_act="sigmoid", state_act="tanh", param_attr=None,
+                    mixed_bias_attr=False, lstm_bias_attr=True, name=None):
+    """A recurrent-group LSTM over the [B, T, 4*size] pre-projection: the
+    math of ``lstmemory(use_peepholes=False)``, with each step's h and c
+    ordinary layers (memories ``{name}_out`` and ``{name}_state``; c_t
+    reaches its memory through ``get_output(h, 'state')``).  The group
+    node carries the helper's name."""
+    name = name or next_name("lstm_group")
+    if size is None:
+        size = input.size // 4
+
+    def _step(ipt, om, sm):
+        h = lstmemory_unit(ipt, om, sm, size=size, act=act,
+                           gate_act=gate_act, state_act=state_act,
+                           param_attr=param_attr,
+                           mixed_bias_attr=mixed_bias_attr,
+                           lstm_bias_attr=lstm_bias_attr, name=name)
+        c = _nn.get_output(h, "state", size=size)
+        return [h, h, c]
+
+    return _nn.recurrent_group(
+        step=_step, input=[input],
+        memories=[_nn.Memory(f"{name}_out", size),
+                  _nn.Memory(f"{name}_state", size)],
+        reverse=reverse, name=name)
 
 
 def gru_unit(input, out_mem, *, size=None, act="tanh", gate_act="sigmoid",
@@ -163,6 +240,17 @@ def gru_group(input, size=None, *, reverse=False, act="tanh",
         reverse=reverse, name=name)
 
 
+def bidirectional_lstm(input, size, *, return_unmerged=False, name=None):
+    """Forward + reverse ``lstmemory`` (``{name}_fw``, ``{name}_bw``),
+    concatenated (or both returned)."""
+    fwd = _nn.lstmemory(input, size, name=name and f"{name}_fw")
+    bwd = _nn.lstmemory(input, size, reverse=True,
+                        name=name and f"{name}_bw")
+    if return_unmerged:
+        return fwd, bwd
+    return _nn.concat([fwd, bwd], name=name)
+
+
 def bidirectional_gru(input, size, *, return_unmerged=False, name=None):
     """Forward + reverse ``grumemory``, concatenated (or both returned)."""
     fwd = _nn.grumemory(input, size, name=name and f"{name}_fw")
@@ -171,6 +259,19 @@ def bidirectional_gru(input, size, *, return_unmerged=False, name=None):
     if return_unmerged:
         return fwd, bwd
     return _nn.concat([fwd, bwd], name=name)
+
+
+def sequence_conv_pool(input, context_len, hidden_size, *,
+                       context_start=None, pool_type="max", act="tanh",
+                       name=None):
+    """The text-CNN block: ``context_projection`` window, ``fc``, sequence
+    pooling (``{name}_ctx``, ``{name}_fc``, ``{name}_pool``)."""
+    ctx = _nn.context_projection(input, context_len=context_len,
+                                 context_start=context_start,
+                                 name=name and f"{name}_ctx")
+    h = _nn.fc(ctx, hidden_size, act=act, name=name and f"{name}_fc")
+    return _nn.pooling(h, pooling_type=pool_type,
+                       name=name and f"{name}_pool")
 
 
 def simple_attention(encoded_sequence, encoded_proj, decoder_state, *,

@@ -2284,3 +2284,212 @@ def test_resnet_step_on_the_card_matches_the_cpu(dev):
         for k, v in theirs.items():
             diff = (mine[k].detach().cpu() - v.detach()).abs().max().item()
             assert diff <= 1e-4 * max(v.abs().max().item(), 1e-6), k
+
+
+# ---------------------------------------------------------------------------
+# the text tier (sequence ops, the CRF, the text nets, recurrent groups)
+# ---------------------------------------------------------------------------
+
+#: card vs CPU at f32 for a text net: the loss (rel) and each gradient's
+#: max |diff| against its largest entry (f32 sums in another order; the
+#: GRU and LSTM kernels' steps kernels against their plain versions)
+TOL_TEXT_LOSS, TOL_TEXT_GRAD = 1e-5, 1e-4
+
+
+def _text_nets():
+    """name -> (builder () -> cost layer, feed) at small widths."""
+    import paddle_tpu_torch.models as models
+    import paddle_tpu_torch.nn as nn
+    import paddle_tpu_torch.v2.networks as networks
+    from torch_seqtoseq_net import seqtoseq_feed, seqtoseq_trainer
+    from torch_text_nets import db_lstm_net, srl_net
+
+    rng = np.random.RandomState(0)
+    V, B, T = 50, 5, 9
+    lens = np.array([9, 1, 4, 7, 3], np.int32)
+    words = (rng.randint(0, V, (B, T)).astype(np.int32), lens)
+    labels = (rng.randint(0, 7, (B, T)).astype(np.int32), lens)
+    srl = {k: words for k in ("word_data", "ctx_n2_data", "ctx_n1_data",
+                              "ctx_0_data", "ctx_p1_data", "ctx_p2_data",
+                              "verb_data")}
+    srl.update(mark_data=((words[0] % 2).astype(np.int32), lens),
+               target=labels)
+    cls = {"words": words, "label": rng.randint(0, 2, (B, 1))}
+
+    def bidi():
+        w = nn.data("words", size=V, is_seq=True, dtype="int32")
+        h = networks.bidirectional_lstm(nn.embedding(w, 8, name="emb"), 6,
+                                        name="bi")
+        logits = nn.fc(nn.pooling(h), 2, act="linear", name="logits")
+        return nn.classification_cost(logits, nn.data("label", size=1,
+                                                      dtype="int32"))
+
+    def group(kind):
+        def build():
+            w = nn.data("words", size=V, is_seq=True, dtype="int32")
+            mult = 4 if kind == "lstm" else 3
+            proj = nn.fc(nn.embedding(w, 8, name="emb"), mult * 6,
+                         act="linear", name="proj")
+            g = (networks.lstmemory_group(proj, 6, reverse=True, name="g")
+                 if kind == "lstm" else networks.gru_group(proj, 6,
+                                                           name="g"))
+            logits = nn.fc(nn.last_seq(g), 2, act="linear", name="logits")
+            return nn.classification_cost(
+                logits, nn.data("label", size=1, dtype="int32"))
+        return build
+
+    return {
+        "seqtoseq": (lambda: seqtoseq_trainer(nn, networks, V=V, E=8, H=6,
+                                              D=5, A=4),
+                     seqtoseq_feed(rng, B, V, 8)),
+        "stacked_lstm_net": (lambda: models.stacked_lstm_net(
+            V, emb_dim=8, hid_dim=12)[0], cls),
+        "convolution_net": (lambda: models.convolution_net(
+            V, emb_dim=8, hid_dim=12)[0], cls),
+        "db_lstm": (lambda: db_lstm_net(nn, V, 7, word_dim=6, mark_dim=3,
+                                        hidden_dim=16, depth=3)[0], srl),
+        "srl_gru": (lambda: srl_net(nn, V, 7, 6, 5)[0],
+                    {"words": words, "predicate": rng.randint(0, V, (B, 1)),
+                     "labels": labels}),
+        "bidirectional_lstm": (bidi, cls),
+        "lstmemory_group": (group("lstm"), cls),
+        "gru_group": (group("gru"), cls),
+    }
+
+
+@pytest.mark.parametrize("name", ["seqtoseq", "stacked_lstm_net",
+                                  "convolution_net", "db_lstm", "srl_gru",
+                                  "bidirectional_lstm", "lstmemory_group",
+                                  "gru_group"])
+def test_text_net_on_the_card_matches_the_cpu(dev, name):
+    """One f32 training apply of a text net on the card and on the CPU from
+    the same parameters (every all-zero one set to seeded normals, so the
+    CRF's paths do not tie): the loss and every gradient."""
+    import paddle_tpu_torch.nn as nn
+
+    build, feed = _text_nets()[name]
+    nn.reset_naming()
+    cost = build()
+    out = {}
+    with compute_dtype_scope("float32"):
+        for where in (dev, "cpu"):
+            topo = nn.Topology(cost, device=where)
+            params, _ = topo.init(3)
+            rs = np.random.RandomState(5)
+            params = {k: (torch.from_numpy(
+                (0.3 * rs.randn(*v.shape)).astype(np.float32)).to(where)
+                if not v.abs().max() > 0 else v).requires_grad_()
+                for k, v in params.items()}
+            outs, _ = topo.apply(params, {}, feed, train=True)
+            loss = outs[cost.name].value
+            grads = torch.autograd.grad(loss, list(params.values()))
+            out[where if where == "cpu" else "card"] = (
+                loss.item(), {k: g.cpu() for k, g in zip(params, grads)})
+    got, want = out["card"], out["cpu"]
+    assert np.isfinite(want[0])
+    assert abs(got[0] - want[0]) <= TOL_TEXT_LOSS * abs(want[0])
+    for k, g in want[1].items():
+        scale = max(g.abs().max().item(), 1e-30)
+        assert (got[1][k] - g).abs().max().item() <= TOL_TEXT_GRAD * scale, k
+
+
+def test_text_ops_on_the_card_match_the_cpu(dev):
+    """The sequence ops and the CRF's log-likelihood, forward and
+    gradient, on the card against the CPU at f32."""
+    import paddle_tpu_torch.ops as O
+
+    B, T, D = 4, 7, 3
+    lens = torch.tensor([7, 1, 4, 5])
+    m = O.mask_from_lengths(lens, T)
+    tags = torch.from_numpy(np.random.RandomState(1).randint(0, D, (B, T)))
+    cases = {
+        "seq_reverse": lambda x: O.seq_reverse(x, lens.to(x.device)),
+        "seq_concat": lambda x: O.seq_concat(x, lens.to(x.device), x[:, :3],
+                                             (lens.clamp(max=3)).to(
+                                                 x.device))[0],
+        "context_projection": lambda x: O.context_projection(
+            x, m.to(x.device), 3, -2),
+        "context_projection_trainable": lambda x: (
+            O.context_projection_trainable(x, lens.to(x.device),
+                                           m.to(x.device), 4, -1,
+                                           x[0, :3] * 0.5)),
+        "crf_log_likelihood": lambda x: O.crf_log_likelihood(
+            x, tags.to(x.device), m.to(x.device), x[0, 0], x[1, 0],
+            x[2, :3]),
+    }
+    for name, fn in cases.items():
+        _image_op_on_both(dev, fn, _image(3, B, T, D))
+
+
+def test_crf_decode_on_the_card_matches_the_cpu(dev):
+    """Viterbi tags and scores on the card equal the CPU's (f32)."""
+    import paddle_tpu_torch.ops as O
+
+    rs = np.random.RandomState(2)
+    B, T, C = 6, 11, 5
+    emis = torch.from_numpy(rs.randn(B, T, C).astype(np.float32))
+    start, end = (torch.from_numpy(rs.randn(C).astype(np.float32))
+                  for _ in range(2))
+    trans = torch.from_numpy(rs.randn(C, C).astype(np.float32))
+    m = O.mask_from_lengths(torch.tensor([11, 1, 5, 9, 2, 11]), T)
+    args = (emis, m, start, end, trans)
+    tags, score = O.crf_decode(*args)
+    ctags, cscore = O.crf_decode(*(a.to(dev) for a in args))
+    assert torch.equal(ctags.cpu(), tags)
+    torch.testing.assert_close(cscore.cpu(), score, rtol=1e-6, atol=1e-5)
+
+
+def test_text_paths_launch_their_kernels(dev):
+    """Under bf16, at widths the persistent kernels take (H = 32):
+    ``bidirectional_lstm`` trains through K9r and K10 once a direction;
+    the seqToseq group through K3r and K4 once a direction and never
+    K5/K6; ``stacked_lstm_net``'s relu LSTMs and the CRF of ``db_lstm``
+    launch no kernel."""
+    import paddle_tpu_torch.models as models
+    import paddle_tpu_torch.nn as nn
+    import paddle_tpu_torch.v2.networks as networks
+    from torch_seqtoseq_net import seqtoseq_feed, seqtoseq_trainer
+
+    nets = _text_nets()
+    V = 50
+    feed = nets["bidirectional_lstm"][1]
+
+    def bidi():
+        w = nn.data("words", size=V, is_seq=True, dtype="int32")
+        h = networks.bidirectional_lstm(nn.embedding(w, 16, name="emb"), 32,
+                                        name="bi")
+        logits = nn.fc(nn.pooling(h), 2, act="linear", name="logits")
+        return nn.classification_cost(logits, nn.data("label", size=1,
+                                                      dtype="int32"))
+
+    cases = {
+        "bidirectional_lstm": (bidi, feed, {"lstm_forward": 2,
+                                            "lstm_backward": 2}),
+        "seqtoseq": (lambda: seqtoseq_trainer(nn, networks, V=V, E=16, H=32,
+                                              D=32, A=16),
+                     seqtoseq_feed(np.random.RandomState(0), 5, V, 8),
+                     {"gru_forward": 2, "gru_backward": 2}),
+        "stacked_lstm_net": (lambda: models.stacked_lstm_net(
+            V, emb_dim=16, hid_dim=32)[0], feed, {}),
+        "db_lstm": (*nets["db_lstm"], {}),
+    }
+    for name, (build, feed, counts) in cases.items():
+        nn.reset_naming()
+        cost = build()
+        topo = nn.Topology(cost, device=dev)
+        params, _ = topo.init(0)
+        params = {k: v.requires_grad_() for k, v in params.items()}
+        before = launch_counts()
+        with compute_dtype_scope("bfloat16"):
+            loss = topo.apply(params, {}, feed, train=True)[0][
+                cost.name].value
+            torch.autograd.grad(loss, list(params.values()))
+        after = launch_counts()
+        moved = {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+        assert moved == counts, (name, moved)
+        for k in counts:
+            paths = {p: n - before.by_path[k].get(p, 0)
+                     for p, n in after.by_path[k].items()
+                     if n != before.by_path[k].get(p, 0)}
+            assert paths == {"persistent": counts[k]}, (name, k, paths)

@@ -25,17 +25,13 @@ reference 1.2e-2, the port 7.7e-4) and 5e-3 with it (the reference
 """
 
 import os
-import zlib
-
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import paddle_tpu.models as jmodels
 import paddle_tpu.nn as jnn
-import paddle_tpu.ops as JO
 import paddle_tpu.v2.networks as jnet
 from paddle_tpu.param import optimizers as jopt
 from paddle_tpu.trainer import SGDTrainer as JaxTrainer
@@ -44,13 +40,14 @@ from paddle_tpu.utils.flags import FLAGS as JFLAGS
 import paddle_tpu_torch.data as tdata
 import paddle_tpu_torch.models as tmodels
 import paddle_tpu_torch.nn as tnn
-import paddle_tpu_torch.ops as TO
 import paddle_tpu_torch.v2.networks as tnet
 from paddle_tpu_torch.models.image_bench import _inception
 from paddle_tpu_torch.ops import compute_dtype_scope
 from paddle_tpu_torch.param import optimizers as topt
 from paddle_tpu_torch.trainer import SGDTrainer
 from paddle_tpu_torch.utils.flags import FLAGS
+
+from torch_compare import share_dropout
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL_LOSS = 1e-5
@@ -67,32 +64,11 @@ def _f32(monkeypatch):
         yield
 
 
-def shape_mask(shape, rate):
-    """The dropout mask both packages share in these tests: a numpy draw
-    seeded by the activation's shape."""
-    rs = np.random.RandomState(zlib.crc32(repr(tuple(shape)).encode()))
-    return rs.rand(*shape) >= rate
-
-
 @pytest.fixture
 def shared_dropout(monkeypatch):
-    """Both packages' ``dropout`` (the name their layers call) on
-    ``shape_mask``: inverted dropout, ``x / keep`` where kept."""
-
-    def jax_dropout(rng, x, rate, *, train):
-        if not train or rate <= 0.0:
-            return x
-        m = jnp.asarray(shape_mask(x.shape, rate))
-        return jnp.where(m, x / (1.0 - rate), 0.0).astype(x.dtype)
-
-    def torch_dropout(gen, x, rate, *, train):
-        if not train or rate <= 0.0:
-            return x
-        m = torch.from_numpy(shape_mask(tuple(x.shape), rate)).to(x.device)
-        return torch.where(m, x / (1.0 - rate), torch.zeros((), dtype=x.dtype))
-
-    monkeypatch.setattr(JO, "dropout", jax_dropout)
-    monkeypatch.setattr(TO, "dropout", torch_dropout)
+    """Both packages' ``dropout`` on one numpy mask per shape
+    (``tests/torch_compare.py``)."""
+    share_dropout(monkeypatch)
 
 
 #: name -> (builder over a models module, feed shape)

@@ -48,7 +48,8 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
                 "data/datasets.py", "evaluators/evaluators.py",
                 "utils/registry.py", "ops/conv.py", "ops/misc.py",
                 "nn/layers_extra.py", "nn/layers_extra2.py",
-                "models/vision.py", "models/image_bench.py"):
+                "models/vision.py", "models/image_bench.py",
+                "ops/crf.py", "ops/sequence.py"):
         assert mod in rel, mod
     bad = []
     for path in files:
@@ -63,6 +64,28 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
                 continue
             bad += [(os.path.relpath(path, ROOT), n) for n in names
                     if _forbidden(n)]
+    assert not bad, bad
+
+
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("script", [
+    "chip_smoke.py", "chip_probe.py", "tests/torch_seqtoseq_net.py",
+    "tests/torch_text_nets.py", "tests/torch_golden_nets.py",
+    "tests/torch_layer_cases.py"])
+def test_card_scripts_and_shared_builders_import_no_jax(script):
+    """The card's scripts, and the builders they (and the card tests)
+    share with the CPU tests, import neither jax nor the JAX package: the
+    machine with the card has no JAX."""
+    bad = [n for n in _imports(os.path.join(ROOT, script)) if _forbidden(n)]
     assert not bad, bad
 
 

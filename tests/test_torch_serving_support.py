@@ -472,7 +472,7 @@ def test_worker_supervisor_detects_a_hang_on_the_injected_clock():
     now = [0.0]
     entered, release = threading.Event(), threading.Event()
     stale_current, crashes = [], []
-    relaunched = threading.Event()
+    relaunched, stale_noted = threading.Event(), threading.Event()
 
     def serve_once(gen):
         if gen == 1:
@@ -480,6 +480,7 @@ def test_worker_supervisor_detects_a_hang_on_the_injected_clock():
             entered.set()
             release.wait(30)
             stale_current.append(sup.current(gen))
+            stale_noted.set()
             sup.note_idle(gen)
         else:
             threading.Event().wait(0.001)
@@ -501,6 +502,8 @@ def test_worker_supervisor_detects_a_hang_on_the_injected_clock():
     finally:
         release.set()
         sup.stop()
+    # stop() joins the live worker only, not the retired generation
+    assert stale_noted.wait(10)
     assert len(crashes) == 1 and isinstance(crashes[0], TimeoutError)
     assert "hung" in str(crashes[0])
     assert sup.restarts == 1

@@ -32,48 +32,13 @@ import paddle_tpu_torch.ops.misc as TM
 from paddle_tpu_torch.ops import compute_dtype_scope
 from paddle_tpu_torch.utils.error import ConfigError
 
-RTOL, ATOL = 1e-5, 1e-6
+from torch_compare import close, fwd_grad, randn
 
 
 @pytest.fixture(autouse=True)
 def _f32():
     with compute_dtype_scope("float32"):
         yield
-
-
-def close(got, want, rtol=RTOL, atol=ATOL, what=""):
-    want = np.asarray(want, np.float64)
-    got = (got.detach().double().numpy() if torch.is_tensor(got)
-           else np.asarray(got, np.float64))
-    assert got.shape == want.shape, (what, got.shape, want.shape)
-    np.testing.assert_allclose(
-        got, want, rtol=rtol, atol=atol * max(1.0, np.abs(want).max()),
-        err_msg=what)
-
-
-def fwd_grad(jf, tf, *arrays, argnums=None, seed=0, **tol):
-    """``jf``/``tf`` on the same arrays: outputs, and the vjp of a seeded
-    cotangent with respect to each array in ``argnums`` (all by
-    default)."""
-    argnums = tuple(range(len(arrays))) if argnums is None else argnums
-    jargs = [jnp.asarray(a) for a in arrays]
-    want, vjp = jax.vjp(lambda *a: jf(*a), *jargs)
-    ct = np.asarray(np.random.RandomState(seed + 1).randn(*want.shape),
-                    np.float32)
-    jgrads = vjp(jnp.asarray(ct))
-    targs = [torch.tensor(a, requires_grad=i in argnums)
-             for i, a in enumerate(arrays)]
-    got = tf(*targs)
-    close(got, want, what="forward", **tol)
-    tgrads = torch.autograd.grad(got, [targs[i] for i in argnums],
-                                 torch.tensor(ct))
-    for i, g in zip(argnums, tgrads):
-        close(g, jgrads[i], what=f"gradient {i}", **tol)
-
-
-def randn(*shape, seed=0, scale=1.0):
-    return (scale * np.random.RandomState(seed).randn(*shape)).astype(
-        np.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -517,7 +482,7 @@ def test_image_layer_config_errors_match_reference(case):
 
 
 @pytest.mark.parametrize("module,names", [
-    ("layers_extra", ("crf_cost", "ctc_cost", "nce_cost", "pad",
+    ("layers_extra", ("warp_ctc", "ctc_cost", "nce_cost", "pad",
                       "block_expand", "eos_trim")),
     ("layers_extra2", ("prelu", "spp", "selective_fc", "mdlstmemory",
                        "print_value"))])
