@@ -2,8 +2,8 @@
 """Opt-in measurements of the PyTorch/H100 port beside ``chip_smoke.py``.
 
     python3 chip_probe.py [chunks] [profile] [textclf] [dslgen] [k8plans]
-                          [k8variants] [variants] [vision] [text] [build]
-                          (all if none named)
+                          [k8variants] [variants] [vision] [text] [sparse]
+                          [build]   (all if none named)
 
 Needs one CUDA card and the checkout beside it.  It checks nothing that
 ``chip_smoke.py`` does not; it measures what the smoke run leaves out to
@@ -61,6 +61,13 @@ text     the text tier (``chip_smoke.py``'s text parts, bf16,
          (``stacked_lstm_net``), bidi_lstm and srl (``db_lstm``), each
          after three unprofiled ones (device busy share, the kernels with
          the most device time);
+sparse   the sparse and sampled-cost tier (``chip_smoke.py``'s sparse
+         parts at their widths, bf16, ``SGDTrainer(...).train_batch`` on
+         the part's first batch): one profiled step of the recommender
+         (``movielens_feature_net``, ``movielens_net(sparse_grad=True)``),
+         the sparse LR, word2vec with hsigmoid and with NCE, and the CTC
+         net, each after three unprofiled ones (device busy share, the
+         kernels with the most device time);
 build    cold builds of the kernel libraries into a scratch directory:
          each source alone, one ``nvcc`` at a time, then all at once as
          ``build_all`` starts them (the smoke run's build time).
@@ -723,6 +730,26 @@ def probe_text(dev):
         torch.cuda.empty_cache()
 
 
+def probe_sparse(dev):
+    import torch
+
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    for part, B in (("movielens_features", smoke.REC_B),
+                    ("movielens_sparse_grad", smoke.REC_B),
+                    ("sparse_lr", smoke.LR_B),
+                    ("word2vec_hsigmoid", smoke.W2V_B),
+                    ("word2vec_nce", smoke.W2V_B), ("ctc", smoke.CTC_B)):
+        cost, opt = smoke.sparse_cost(part)
+        feed = smoke.sparse_feeds(part, B, 1)[0][0]
+        tr = SGDTrainer(cost, opt, seed=smoke.SEED, device=dev)
+        _profile_step(f"one sparse step, {part} (SGDTrainer.train_batch, "
+                      f"B={B}, bf16)", lambda: tr.train_batch(feed),
+                      top_n=10)
+        del tr
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -736,7 +763,8 @@ def main() -> int:
               "textclf": probe_textclf, "dslgen": probe_dslgen,
               "k8plans": probe_k8plans, "k8variants": probe_k8variants,
               "variants": probe_variants, "vision": probe_vision,
-              "text": probe_text, "build": probe_build}
+              "text": probe_text, "sparse": probe_sparse,
+              "build": probe_build}
     wanted = sys.argv[1:] or list(probes)
     unknown = set(wanted) - set(probes)
     if unknown:

@@ -177,19 +177,41 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             ``conll05_features``, B=16, with ``crf_cost`` (no kernel), one
             ``crf_decoding`` pass and its tags on the card against the
             CPU's (f32, identical);
-14. a ``{"server_launches": {...}}`` line (each part of the server
+14. sparse   the sparse and sampled-cost tier, bf16, random
+            weights from ``SEED``, ``SGDTrainer(...).train_batch`` x 4 in
+            each part, with its losses, median step of steps 2-4,
+            samples/s, peak memory, launches and the card line: (a)
+            recommender, ``movielens_feature_net`` at its defaults on
+            ``movielens_features`` (categories ``sparse_ids``, the title
+            ``ids_seq``) and ``movielens_net(sparse_grad=True)``, B=128,
+            Adam(1e-3), every untouched ``user_emb``/``movie_emb`` row and
+            its Adam slots equal to their values before each step, bit for
+            bit; (b) sparse_lr, the quick_start LR over a sparse bag of
+            words at VOCAB 1000 on synthetic imdb, B=32, the same check on
+            ``lr_w``; (c) word2vec, the demo's n-gram net (emb 32, hid 64,
+            5-gram, vocabulary 2000), B=128, AdaGrad(0.1), with
+            ``hsigmoid_cost`` (2047 nodes) and with ``nce_cost`` (10 noise
+            classes): no kernel in (a)-(c); (d) ctc, the golden ctc net at
+            lstm_b64h256's shape (B=64, T=100, 128-d frames, 29 outputs,
+            input lengths 60-100, labels 10-40): K9r and K10 once a step,
+            all persistent, and one ``SGDTrainer.test`` batch (K9 once);
+            then (a), (c) and (d) at B=4, f32, loss and every gradient on
+            the card against the CPU;
+15. a ``{"server_launches": {...}}`` line (each part of the server
    phase: every kernel library's launches, by kernel variant and by
    thread), a ``{"kernels": [...]}`` line (each kernel's launches on its
    path's run, also by kernel variant: ``launches_by_path``; the K9,
    K9r and K10 rows at b64h256 also by trainer part:
    ``trainer_launches``; the K3, K3r, K4, K9, K9r and K10 rows also by
-   text part: ``text_launches``), then the card line again, and last
+   text part: ``text_launches``; the K9, K9r and K10 rows at b64h256 also
+   by sparse part: ``sparse_launches``), then the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed just before each path (serve and its fused
 re-run, each part of the server phase, each arm of the spec phase, each
 training configuration, each textclf run, dslgen, each part of the
-trainer phase, the vision phase, each part of the text phase) is driven
+trainer phase, the vision phase, each part of the text and sparse
+phases) is driven
 and read just after; a kernel of the path
 that was not launched fails the run.  ``chip_probe.py`` measures what this
 run leaves out to stay short (the products' chunk sizes end to end,
@@ -202,6 +224,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -316,6 +339,31 @@ SRL_B, SRL_MAX_LEN = 16, 48
 #: gradient's max |diff| against its largest entry (f32 sums of 30000-
 #: and 512-term products in another order over 32 group steps)
 TOL_TEXT_LOSS, TOL_TEXT_GRAD = 1e-5, 1e-3
+
+#: the sparse phase, each part SPARSE_STEPS steps: (a)
+#: movielens_feature_net at its defaults (emb 32, fusion 200, ML_SCHEMA's
+#: 6040 users, 3952 movies, 5175 title words) and movielens_net(
+#: sparse_grad=True) (emb 64, hid 64), B=128, Adam(1e-3) as
+#: demo/recommendation/train.py trains them; (b) the quick_start sparse LR
+#: at VOCAB 1000 (demo/quick_start/train.py:19, :126: Adam(2e-3)), B=32;
+#: (c) the word2vec n-gram net at the demo's widths (emb 32, hid 64,
+#: 5-gram; demo/word2vec/train.py:39-44) over imikolov's default
+#: vocabulary of 2000 (hsigmoid: 2047 nodes; NCE: 10 noise classes a
+#: row), B=128, AdaGrad(0.1); (d) the golden ctc net at lstm_b64h256's
+#: shape: B=64, T=100, 128-d frames, an LSTM of 256, 29 outputs (28
+#: labels and the last-index blank), input lengths 60-100, label lengths
+#: 10-40
+SPARSE_STEPS, SPARSE_CHECK_B = 4, 4
+REC_B, REC_LR = 128, 1e-3
+LR_VOCAB, LR_B, LR_LR = 1000, 32, 2e-3
+W2V_VOCAB, W2V_EMB, W2V_HID, W2V_NGRAM, W2V_B, W2V_LR = (2000, 32, 64, 5,
+                                                         128, 0.1)
+CTC_B, CTC_T, CTC_IN, CTC_HID, CTC_CLASSES = 64, 100, 128, 256, 29
+CTC_IN_LEN, CTC_LAB_LEN = (60, 100), (10, 40)
+#: card vs CPU on the sparse parts at f32: the loss (rel) and each
+#: gradient's max |diff| against its largest entry (f32 sums in another
+#: order: the LSTM over 100 steps, cuBLAS against the CPU's GEMM)
+TOL_SPARSE_LOSS, TOL_SPARSE_GRAD = 1e-5, 1e-3
 
 #: kernel-vs-plain tolerances (max abs difference) and why
 TOL = {
@@ -4088,18 +4136,18 @@ def text_train(K, dev, card, part: str, want: dict):
     if int(tr.opt_state["step"]) != steps or tr.bad_steps_total:
         fail("text", f"{part}: step counter {int(tr.opt_state['step'])}, "
              f"bad steps {tr.bad_steps_total}")
-    _text_launch_check(part, launches,
-                       {k: n * steps for k, n in want.items()})
+    _launch_check("text", part, launches,
+                  {k: n * steps for k, n in want.items()})
     return tr, out, losses, sec, launches
 
 
-def _text_launch_check(part: str, launches, want: dict) -> None:
+def _launch_check(phase: str, part: str, launches, want: dict) -> None:
     """Fail unless each kernel of ``want`` launched exactly its count, all
     ``persistent``, and no other kernel launched."""
     got = {k: n for k, n in launches.items() if n}
     if got != want:
-        fail("text", f"{part}: launches {got}, want {want}")
-    _all_persistent("text", part, launches, want)
+        fail(phase, f"{part}: launches {got}, want {want}")
+    _all_persistent(phase, part, launches, want)
 
 
 def text_infer(K, card, tr, out, feed, part: str, want: dict):
@@ -4126,7 +4174,7 @@ def text_infer(K, card, tr, out, feed, part: str, want: dict):
           f"{sec * 1e3:.2f} ms (first call), {B / sec:.1f} samples/s, "
           f"{out.name} {tuple(value.shape)} {value.dtype}, launches "
           f"{_launched(launches)} [{card}]", flush=True)
-    _text_launch_check(f"{part} inference", launches, want)
+    _launch_check("text", f"{part} inference", launches, want)
     return value, launches
 
 
@@ -4226,8 +4274,8 @@ def text_path(K, dev, card):
           f"{sec * 1e3:.2f} ms, cost {res['cost']:.6f}, launches "
           f"{_launched(parts['seqtoseq_group_test'])} [{card}]",
           flush=True)
-    _text_launch_check("seqtoseq_group test", parts["seqtoseq_group_test"],
-                       {"gru_forward": 2})
+    _launch_check("text", "seqtoseq_group test",
+                  parts["seqtoseq_group_test"], {"gru_forward": 2})
     del tr, out
     torch.cuda.empty_cache()
     text_cpu_check(dev, "seqtoseq_group", 2)
@@ -4263,6 +4311,293 @@ TEXT_ROWS = {
     "lstm_forward": ("bidi_lstm_infer",),
     "lstm_forward_residuals_b64h256": ("bidi_lstm",),
     "lstm_backward_b64h256": ("bidi_lstm",),
+}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the sparse and sampled-cost tier
+# ---------------------------------------------------------------------------
+
+
+def sparse_nets():
+    """``tests/torch_sparse_nets.py``, the demos' nets for either DSL."""
+    if os.path.join(ROOT, "tests") not in sys.path:
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_sparse_nets
+
+    return torch_sparse_nets
+
+
+def sparse_feeds(part: str, B: int, steps: int = SPARSE_STEPS):
+    """``steps`` batches of ``part``'s feed (numpy, through ``DataFeeder``
+    as the demos feed them, or seeded for ctc) and, for the ``sparse_grad``
+    parts, each batch's table rows: {table: ids the batch looks up}."""
+    import numpy as np
+
+    import paddle_tpu_torch.data as data
+
+    N = sparse_nets()
+    if part == "ctc":
+        rs = np.random.RandomState(SEED)
+        feeds = []
+        for _ in range(steps):
+            in_len = rs.randint(CTC_IN_LEN[0], CTC_IN_LEN[1] + 1, B)
+            lab_len = rs.randint(CTC_LAB_LEN[0], CTC_LAB_LEN[1] + 1, B)
+            feeds.append({
+                "feats": (rs.randn(B, CTC_T, CTC_IN).astype(np.float32),
+                          in_len.astype(np.int32)),
+                "labels": (rs.randint(0, CTC_CLASSES - 1,
+                                      (B, CTC_LAB_LEN[1])).astype(np.int32),
+                           lab_len.astype(np.int32))})
+        return feeds, [{} for _ in feeds]
+    n = B * steps
+    if part == "movielens_features":
+        feeder = data.DataFeeder(N.MOVIELENS_FEATURE_TYPES)
+        reader = data.datasets.movielens_features("train", n=n)
+    elif part == "movielens_sparse_grad":
+        feeder = data.DataFeeder({"user_id": "int", "movie_id": "int",
+                                  "score": "dense"})
+        reader = data.map_readers(lambda r: (r[0], r[1], [r[2]]),
+                                  data.datasets.movielens("train", n=n))
+    elif part == "sparse_lr":
+        feeder = data.DataFeeder({"words": "sparse_ids", "label": "int"})
+        reader = data.datasets.imdb("train", vocab_size=LR_VOCAB, n=n)
+    else:
+        feeder = data.DataFeeder(N.ngram_feeder_types(W2V_NGRAM))
+        reader = data.datasets.imikolov("train", vocab_size=W2V_VOCAB,
+                                        ngram=W2V_NGRAM, n=n)
+    feeds = [feeder(b) for b in data.batch(reader, B)()]
+    rows = []
+    for f in feeds:
+        if part == "movielens_sparse_grad":
+            rows.append({"_user_emb.w0": np.unique(f["user_id"]),
+                         "_movie_emb.w0": np.unique(f["movie_id"])})
+        elif part == "sparse_lr":
+            ids, nnz = f["words"]
+            rows.append({"lr_w": np.unique(np.concatenate(
+                [r[:k] for r, k in zip(ids, nnz)]))})
+        else:
+            rows.append({})
+    return feeds, rows
+
+
+def sparse_cost(part: str):
+    """``part``'s net with the port's DSL at its widths -> (cost, its
+    optimizer)."""
+    import paddle_tpu_torch.models as models
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.param import AdaGrad, Adam
+
+    N = sparse_nets()
+    nn.reset_naming()
+    if part == "movielens_features":
+        return models.movielens_feature_net()[0], Adam(learning_rate=REC_LR)
+    if part == "movielens_sparse_grad":
+        return (models.movielens_net(sparse_grad=True)[0],
+                Adam(learning_rate=REC_LR))
+    if part == "sparse_lr":
+        return N.sparse_lr_net(nn, LR_VOCAB)[0], Adam(learning_rate=LR_LR)
+    if part == "ctc":
+        return (N.ctc_net(nn, CTC_IN, CTC_HID, CTC_CLASSES)[0],
+                Adam(learning_rate=TEXT_LR))
+    return (N.ngram_net(nn, W2V_VOCAB, W2V_EMB, W2V_HID, W2V_NGRAM,
+                        part.split("_")[1]), AdaGrad(learning_rate=W2V_LR))
+
+
+def _untouched_rows_check(tr, part: str, table: str, rows, before):
+    """The rows of ``table`` the batch did not look up equal their values
+    and slots before the step, bit for bit -> the untouched count."""
+    import torch
+
+    from paddle_tpu_torch.param.optimizers import slot_leaves
+
+    untouched = torch.ones(tr.params[table].shape[0], dtype=torch.bool,
+                           device=tr.device)
+    untouched[torch.as_tensor(rows, device=tr.device).long()] = False
+    now = [tr.params[table].detach()] + slot_leaves(
+        tr.opt_state["slots"][table])
+    for new, old in zip(now, before):
+        if not torch.equal(new[untouched], old[untouched]):
+            fail("sparse", f"{part}: an untouched row of {table} or of its "
+                 f"slots changed")
+    if torch.equal(now[0][~untouched], before[0][~untouched]):
+        fail("sparse", f"{part}: no looked-up row of {table} moved")
+    return int(untouched.sum())
+
+
+def sparse_train(K, dev, card, part: str, B: int, want: dict):
+    """SPARSE_STEPS ``SGDTrainer.train_batch`` steps of ``part`` at bf16:
+    losses, the median step of steps 2-N, samples/s, peak memory; for a
+    ``sparse_grad`` part each step's untouched-row check (outside the
+    timed step).  ``want`` maps each kernel that must launch to its
+    launches a step (all ``persistent``); every other count must stay 0.
+    -> (trainer, launches)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.param.optimizers import slot_leaves
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    cost, opt = sparse_cost(part)
+    feeds, rows = sparse_feeds(part, B)
+    tr = SGDTrainer(cost, opt, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, secs, untouched = [], [], {}
+    K.reset_launch_counts()
+    for feed, touched in zip(feeds, rows):
+        before = {t: [v.detach().clone() for v in [tr.params[t]]
+                      + slot_leaves(tr.opt_state["slots"][t])]
+                  for t in touched}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(tr.train_batch(feed).item())     # synchronises
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        for t, ids in touched.items():
+            untouched.setdefault(t, []).append(
+                _untouched_rows_check(tr, part, t, ids, before[t]))
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps = len(feeds)
+    rest = sorted(secs[1:])
+    sec = rest[len(rest) // 2]
+    print(f"sparse: {part} losses {[round(x, 6) for x in losses]}",
+          flush=True)
+    print(f"sparse: {part} SGDTrainer({type(tr.optimizer).__name__}("
+          f"{tr.optimizer.learning_rate})) x {steps}, B={B}, bf16: first "
+          f"step {secs[0]:.3f} s, median of steps 2-{steps} "
+          f"{sec * 1e3:.2f} ms/step (min {rest[0] * 1e3:.2f}, max "
+          f"{rest[-1] * 1e3:.2f}), {B / sec:.1f} samples/s, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB, launches {_launched(launches)} "
+          f"[{card}]", flush=True)
+    for t, counts in untouched.items():
+        print(f"sparse: {part} {t}: its untouched rows held bit for bit "
+              f"(value and {type(tr.optimizer).__name__} slots) after "
+              f"every step: {counts} of {tr.params[t].shape[0]} rows",
+              flush=True)
+    if not all(np.isfinite(losses)):
+        fail("sparse", f"{part}: loss not finite: {losses}")
+    if int(tr.opt_state["step"]) != steps or tr.bad_steps_total:
+        fail("sparse", f"{part}: step counter "
+             f"{int(tr.opt_state['step'])}, bad steps {tr.bad_steps_total}")
+    _launch_check("sparse", part, launches,
+                  {k: n * steps for k, n in want.items()})
+    return tr, launches
+
+
+@contextlib.contextmanager
+def cpu_noise_draws():
+    """The port's ``uniform_classes`` drawn by the CPU generator and moved
+    to the device: so NCE draws the same noise classes on the card as on
+    the CPU (their generators draw different numbers)."""
+    import paddle_tpu_torch.ops as O
+
+    real = O.uniform_classes
+    O.uniform_classes = lambda gen, shape, C, device: real(
+        gen, shape, C, "cpu").to(device)
+    try:
+        yield
+    finally:
+        O.uniform_classes = real
+
+
+def sparse_cpu_check(dev, part: str, B: int):
+    """``part``'s net at full width with B rows of its first batch, f32:
+    the loss and every gradient on the card against the CPU from the same
+    parameters (every all-zero one set to seeded normals), NCE's noise
+    drawn on the CPU for both."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+
+    cost, _ = sparse_cost(part)
+    feed = {k: tuple(a[:B] for a in v) if isinstance(v, tuple) else v[:B]
+            for k, v in sparse_feeds(part, B, 1)[0][0].items()}
+    card, cpu = (nn.Topology(cost, device=d) for d in (dev, "cpu"))
+    params, _ = cpu.init(SEED + 1)
+    rng = np.random.RandomState(SEED + 1)
+    params = {k: v if v.abs().max() > 0 else torch.from_numpy(
+        (0.3 * rng.randn(*v.shape)).astype(np.float32))
+        for k, v in params.items()}
+    out = {}
+    with compute_dtype_scope("float32"), cpu_noise_draws():
+        for name, topo, dv in (("card", card, dev), ("cpu", cpu, "cpu")):
+            p = {k: v.to(dv).requires_grad_() for k, v in params.items()}
+            loss = topo.apply(p, {}, feed, train=True,
+                              rng=SEED)[0][cost.name].value
+            grads = torch.autograd.grad(loss, list(p.values()))
+            out[name] = (loss.item(), [g.cpu() for g in grads])
+    d_loss = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    worst, worst_name = 0.0, ""
+    for name, a, c in zip(params, out["card"][1], out["cpu"][1]):
+        rel = (a - c).abs().max().item() / max(c.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    print(f"sparse: {part} card vs CPU, B={B}, f32: loss "
+          f"{out['card'][0]:.7f} vs {out['cpu'][0]:.7f} (rel diff "
+          f"{d_loss:.3e}, tol {TOL_SPARSE_LOSS}); {len(params)} gradients, "
+          f"worst max |diff| / max |g| {worst:.3e} ({worst_name}, tol "
+          f"{TOL_SPARSE_GRAD})", flush=True)
+    if not (np.isfinite(out["cpu"][0]) and d_loss <= TOL_SPARSE_LOSS
+            and worst <= TOL_SPARSE_GRAD):
+        fail("sparse", f"{part}: card and CPU disagree beyond tolerance")
+
+
+def sparse_path(K, dev, card):
+    """The sparse and sampled-cost tier, each part's launch
+    counters zeroed before it and read after it: (a) recommender,
+    ``movielens_feature_net`` at its defaults on ``movielens_features``
+    (sparse-binary categories), then ``movielens_net(sparse_grad=True)``
+    with its untouched rows held; (b) sparse_lr, the quick_start demo's LR
+    over a sparse bag of words, its ``lr_w`` rows held likewise; (c)
+    word2vec, the n-gram net with ``hsigmoid_cost`` and with
+    ``nce_cost``: no kernel in (a)-(c); (d) ctc, the golden ctc net at
+    lstm_b64h256's shape (K9r and K10 once a step, persistent) and one
+    ``SGDTrainer.test`` batch (K9 once).  Then (a), (c) and (d) at
+    B=SPARSE_CHECK_B, f32, card vs CPU.  -> {part: launches}."""
+    import torch
+
+    parts = {}
+    for part, B in (("movielens_features", REC_B),
+                    ("movielens_sparse_grad", REC_B),
+                    ("sparse_lr", LR_B), ("word2vec_hsigmoid", W2V_B),
+                    ("word2vec_nce", W2V_B)):
+        tr, parts[part] = sparse_train(K, dev, card, part, B, {})
+        del tr
+        torch.cuda.empty_cache()
+    tr, parts["ctc"] = sparse_train(K, dev, card, "ctc", CTC_B,
+                                    {"lstm_forward": 1, "lstm_backward": 1})
+    feeds, _ = sparse_feeds("ctc", CTC_B, 1)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = tr.test(lambda: iter(feeds))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    parts["ctc_test"] = K.launch_counts()
+    print(f"sparse: ctc SGDTrainer.test, one batch: {sec * 1e3:.2f} ms, "
+          f"cost {res['cost']:.6f}, launches "
+          f"{_launched(parts['ctc_test'])} [{card}]", flush=True)
+    if not math.isfinite(res["cost"]):
+        fail("sparse", f"ctc: test cost {res['cost']}")
+    _launch_check("sparse", "ctc test", parts["ctc_test"],
+                  {"lstm_forward": 1})
+    del tr
+    torch.cuda.empty_cache()
+    for part in ("movielens_features", "movielens_sparse_grad",
+                 "word2vec_hsigmoid", "word2vec_nce", "ctc"):
+        sparse_cpu_check(dev, part, SPARSE_CHECK_B)
+    torch.cuda.empty_cache()
+    return parts
+
+
+#: the kernels line's rows that the sparse phase's ctc part launches
+SPARSE_ROWS = {
+    "lstm_forward": ("ctc_test",),
+    "lstm_forward_residuals_b64h256": ("ctc",),
+    "lstm_backward_b64h256": ("ctc",),
 }
 
 
@@ -4347,6 +4682,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "text"
         text_launches = text_path(K, dev, card)
+        torch.cuda.empty_cache()
+        phase = "sparse"
+        sparse_launches = sparse_path(K, dev, card)
     except SystemExit:
         raise
     except Exception:  # noqa: BLE001 — report the phase and fail
@@ -4405,6 +4743,14 @@ def main() -> int:
             row["text_launches_by_path"] = {
                 part: text_launches[part].by_path[key]
                 for part in TEXT_ROWS[name]}
+        if name in SPARSE_ROWS:
+            # the sparse phase's ctc part launches this row's kernel
+            row["sparse_launches"] = {
+                part: sparse_launches[part][key]
+                for part in SPARSE_ROWS[name]}
+            row["sparse_launches_by_path"] = {
+                part: sparse_launches[part].by_path[key]
+                for part in SPARSE_ROWS[name]}
         if name == "topk_lse_readout":
             # the spec phase's full arm: one launch a table step, its wide
             # steps at N = 320

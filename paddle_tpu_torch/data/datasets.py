@@ -2,14 +2,16 @@
 
 The port has the reference's deterministic synthetic streams only, sample
 for sample the same as the JAX package's for the same split and size
-(``tests/test_torch_data.py``): ``imdb`` and ``sentiment`` (both through
-``_imdb_synth``), ``mnist``, ``cifar10`` and ``uci_housing``.  Each stream's
-``RandomState`` is seeded by the crc32 of its name and split, so it does
-not depend on the process.
+(``tests/test_torch_data.py``, ``tests/test_torch_recommender.py``):
+``imdb`` and ``sentiment`` (both through ``_imdb_synth``), ``mnist``,
+``cifar10``, ``uci_housing``, ``conll05``/``conll05_features``,
+``movielens``/``movielens_features`` (with ``ML_SCHEMA``, ml-1m's
+cardinalities) and ``imikolov``.  Each stream's ``RandomState`` is seeded
+by the crc32 of its name and split, so it does not depend on the process.
 
 Not ported here: loading real files under a data home (``data_home``,
-``data/formats.py``) and the other datasets (wmt14, movielens, imikolov)
-wait for the rest of ROADMAP.md Queue 1 item 4.  So
+``data/formats.py``) and the other dataset (wmt14) wait for the rest of
+ROADMAP.md Queue 1 item 4.  So
 these loaders always give the synthetic stream, where the reference's
 would read real files when they are present; ``_capped``, which caps
 those real-file readers, comes with them.
@@ -23,7 +25,8 @@ from typing import Callable, Optional
 import numpy as np
 
 __all__ = ["mnist", "cifar10", "imdb", "sentiment", "uci_housing",
-           "conll05", "conll05_features"]
+           "conll05", "conll05_features", "movielens", "ML_SCHEMA",
+           "movielens_features", "imikolov"]
 
 
 def _synth_rng(name: str, split: str) -> np.random.RandomState:
@@ -161,5 +164,89 @@ def conll05_features(split: str = "train", *, vocab_size: int = 5000,
                       for i in range(L)]
             yield (words, ctx[-2], ctx[-1], ctx[0], ctx[1], ctx[2], verb,
                    mark, labels)
+
+    return synth_reader
+
+
+def movielens(split: str = "train", *, n_users: int = 6040,
+              n_movies: int = 3952, n: Optional[int] = None) -> Callable:
+    """Yields (user_id, movie_id, rating float in [1, 5]) with 0-based ids:
+    a rating from user and movie biases and latent vectors, plus noise."""
+
+    def synth_reader():
+        n_ = n if n is not None else 4096
+        rng = _synth_rng("movielens", split)
+        u_bias = rng.randn(n_users) * 0.5
+        m_bias = rng.randn(n_movies) * 0.5
+        u_vec = rng.randn(n_users, 8)
+        m_vec = rng.randn(n_movies, 8)
+        for _ in range(n_):
+            u = rng.randint(0, n_users)
+            m = rng.randint(0, n_movies)
+            r = 3.0 + u_bias[u] + m_bias[m] + 0.3 * float(u_vec[u] @ m_vec[m])
+            yield u, m, float(np.clip(r + rng.randn() * 0.2, 1.0, 5.0))
+
+    return synth_reader
+
+
+#: ml-1m's cardinalities (the reference's movielens.py: 6040 users, 3952
+#: movie-id slots, 7 age buckets, 21 jobs, 18 categories, ~5175 title words)
+ML_SCHEMA = dict(n_users=6040, n_movies=3952, n_genders=2, n_ages=7,
+                 n_jobs=21, n_categories=18, title_dict=5175)
+
+
+def movielens_features(split: str = "train", *, n: Optional[int] = None
+                       ) -> Callable:
+    """Yields the reference MovieLens demo's 8-slot rows: (user_id,
+    gender_id, age_id, job_id, movie_id, category_ids list, title_ids list,
+    [score]), at ``ML_SCHEMA``'s cardinalities; the rating follows latent
+    user/movie vectors and a genre affinity, so every feature informs."""
+    S = ML_SCHEMA
+
+    def synth_reader():
+        n_ = n if n is not None else 4096
+        rng = _synth_rng("movielens_features", split)
+        nu, nm = S["n_users"], S["n_movies"]
+        u_vec = rng.randn(nu, 8)
+        m_vec = rng.randn(nm, 8)
+        u_meta = np.stack([rng.randint(0, S["n_genders"], nu),
+                           rng.randint(0, S["n_ages"], nu),
+                           rng.randint(0, S["n_jobs"], nu)], 1)
+        genre_aff = rng.randn(S["n_genders"], S["n_categories"]) * 0.3
+        for _ in range(n_):
+            u = rng.randint(0, nu)
+            m = rng.randint(0, nm)
+            cats = sorted(rng.choice(S["n_categories"],
+                                     size=rng.randint(1, 4), replace=False))
+            title = rng.randint(3, S["title_dict"],
+                                rng.randint(2, 9)).tolist()
+            g = u_meta[u, 0]
+            r = (3.0 + 0.4 * float(u_vec[u] @ m_vec[m])
+                 + float(np.mean(genre_aff[g, cats])))
+            score = float(np.clip(r + rng.randn() * 0.2, 1.0, 5.0))
+            yield (int(u), int(g), int(u_meta[u, 1]), int(u_meta[u, 2]),
+                   int(m), [int(c) for c in cats], title, [score])
+
+    return synth_reader
+
+
+def imikolov(split: str = "train", *, vocab_size: int = 2000, ngram: int = 5,
+             n: Optional[int] = None) -> Callable:
+    """Yields n-gram tuples (w0, ..., w{n-2}, next_word), the word2vec /
+    n-gram LM feed: a bigram chain in which each word prefers four
+    successors, so the embeddings have co-occurrence to learn."""
+
+    def synth_reader():
+        n_ = n if n is not None else 4096
+        rng = _synth_rng("imikolov", split)
+        succ = rng.randint(0, vocab_size, (vocab_size, 4))
+        w = rng.randint(0, vocab_size)
+        for _ in range(n_):
+            ctx = []
+            for _ in range(ngram):
+                w = (int(succ[w, rng.randint(0, 4)]) if rng.rand() < 0.8
+                     else rng.randint(0, vocab_size))
+                ctx.append(w)
+            yield tuple(ctx[:-1]) + (ctx[-1],)
 
     return synth_reader

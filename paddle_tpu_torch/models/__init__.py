@@ -1,6 +1,9 @@
 """Models of the port (the reference's ``paddle_tpu/models``)."""
 
 from paddle_tpu_torch.models.image_bench import alexnet, googlenet
+from paddle_tpu_torch.models.recommender import (ML_SCHEMA,
+                                                 movielens_feature_net,
+                                                 movielens_net)
 from paddle_tpu_torch.models.seq2seq import Seq2SeqAttention
 from paddle_tpu_torch.models.text import (convolution_net,
                                           lstm_benchmark_net,
@@ -13,4 +16,5 @@ from paddle_tpu_torch.param.convert import params_from_jax
 __all__ = ["Seq2SeqAttention", "stacked_lstm_net", "stacked_lstm_pp_net",
            "convolution_net", "lstm_benchmark_net", "params_from_jax",
            "lenet5", "smallnet", "resnet_cifar", "vgg_cifar", "alexnet",
-           "googlenet"]
+           "googlenet", "movielens_net", "movielens_feature_net",
+           "ML_SCHEMA"]

@@ -3,10 +3,11 @@
 ``layers.py`` (dense, embedding, image, recurrent, sequence, elementwise
 and cost layers), ``mixed`` with every projection and operator, the step
 cells ``lstm_step`` and ``gru_step``, recurrent groups, ``beam_search``
-generation, the CRF (``crf_cost``, ``crf_decoding``), ``get_output``,
-``slice_channels`` and ``img_conv_transpose``.  The other layers of the
-reference's ``layers_extra.py`` and ``layers_extra2.py`` are here under
-their names and raise ``ConfigError`` when called.
+generation, and every layer of the reference's ``layers_extra.py`` (the
+CRF, CTC, NCE, the hierarchical sigmoid and the utility layers) and
+``layers_extra2.py`` (``selective_fc``, ``mdlstmemory`` and the rest).
+Sparse data layers (``data(sparse=...)``) feed ``fc`` and
+``selective_fc``.
 
     nn.reset_naming()
     words = nn.data("words", size=30000, is_seq=True, dtype="int32")
@@ -26,8 +27,6 @@ from paddle_tpu_torch.nn import layers_extra as _extra
 from paddle_tpu_torch.nn import layers_extra2 as _extra2
 from paddle_tpu_torch.nn import projections as _projections
 from paddle_tpu_torch.nn.layers import *  # noqa: F401,F403
-# the CRF, slice_channels, img_conv_transpose, get_output and the
-# not-ported names
 from paddle_tpu_torch.nn.layers_extra import *  # noqa: F401,F403
 from paddle_tpu_torch.nn.layers_extra2 import *  # noqa: F401,F403
 from paddle_tpu_torch.nn.projections import *  # noqa: F401,F403

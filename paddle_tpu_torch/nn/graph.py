@@ -12,8 +12,11 @@ records (value + sequence lengths/mask).  Parameter names, shapes and the
 auto-generated layer names are the reference's, so a JAX parameter dict
 carries across unchanged (``params_from_jax``).
 
-Not ported here, and refused with a ``ConfigError`` that says so: sparse
-and nested data layers, packed sequence feeds, ``device_pin`` and
+Sparse data layers feed padded COO rows (``_coerce_feed``); only the
+sparse-aware layers (``Topology.SPARSE_AWARE``) may consume them.
+
+Not ported here, and refused with a ``ConfigError`` that says so: nested
+data layers, packed sequence feeds, ``device_pin`` and
 ``apply(device_specs=)``, ``apply(param_overrides=)``.
 """
 
@@ -81,9 +84,9 @@ class Act:
 class ParamAttr:
     """Per-parameter attributes (the reference's ParameterConfig): shared
     name, init scheme, learning-rate scale, decay, static flag.
-    ``SGDTrainer`` reads ``learning_rate``, ``l2_decay``, ``is_static`` and
-    ``pruning_ratio``; ``sparse_grad`` (row-sparse table updates) raises
-    ``ConfigError`` there until ROADMAP.md Queue 1 item 8."""
+    ``SGDTrainer`` reads ``learning_rate``, ``l2_decay``, ``is_static``,
+    ``pruning_ratio`` and ``sparse_grad`` (the table's untouched rows and
+    slots are held at each update: ``Optimizer.update(sparse_rows=)``)."""
 
     name: Optional[str] = None
     initial_std: Optional[float] = None
@@ -223,6 +226,10 @@ class Topology:
     ``init`` puts the parameters and ``apply`` the feed; without a card,
     leaving it unset raises."""
 
+    #: layer types with a sparse-input compute path; any other layer fed by
+    #: a sparse data layer is a config error (it would misread the ids)
+    SPARSE_AWARE = frozenset({"fc", "selective_fc"})
+
     def __init__(self, outputs: Union[Sequence[LayerOutput], LayerOutput], *,
                  device: Optional[Union[str, torch.device]] = None):
         self.device: Optional[torch.device] = resolve_device(device)
@@ -235,6 +242,14 @@ class Topology:
         self.outputs: List[LayerOutput] = list(outputs)
         self.layers: List[LayerOutput] = self._toposort(self.outputs)
         self.data_layers = [l for l in self.layers if l.is_data]
+        for layer in self.layers:
+            for p in layer.parents:
+                if (p.meta.get("sparse")
+                        and layer.layer_type not in self.SPARSE_AWARE):
+                    raise ConfigError(
+                        f"layer {layer.name!r} ({layer.layer_type}) cannot "
+                        f"consume sparse input {p.name!r}; sparse-aware "
+                        f"layers: {sorted(self.SPARSE_AWARE)}")
         self.param_specs: Dict[str, ParamSpec] = {}
         for layer in self.layers:
             for spec in layer.param_specs:
@@ -358,11 +373,50 @@ def _as_tensor(v, device: torch.device) -> torch.Tensor:
                            device=device)
 
 
+def _sparse_feed(layer: LayerOutput, v, device: torch.device) -> Act:
+    """A sparse data layer's feed as padded COO rows.  Non-sequence:
+    ``(ids [B, N], nnz [B])`` (binary) or ``(ids, weights [B, N], nnz)``
+    (float) -> ``Act(ids, mask=[B, N] validity, state={"weights"})``.
+    Sequence (one bag a step): ``(ids [B, T, N], nnz [B, T], lengths)`` or
+    ``(ids, weights, nnz, lengths)`` -> a sequence ``Act`` with
+    ``state={"weights", "nnz_mask"}`` (its ``mask`` is the [B, T]
+    sequence mask).  Binary weights are the validity mask."""
+    if (layer.data_spec or {}).get("is_seq"):
+        if not isinstance(v, tuple) or len(v) not in (3, 4):
+            raise ConfigError(
+                f"sparse sequence data layer {layer.name!r} expects "
+                f"(ids, nnz, lengths) or (ids, weights, nnz, lengths), got "
+                f"{type(v).__name__} of len "
+                f"{len(v) if isinstance(v, tuple) else '?'}")
+        ids = _as_tensor(v[0], device)
+        nnz = _as_tensor(v[-2], device)
+        lengths = _as_tensor(v[-1], device)
+        valid = (torch.arange(ids.shape[-1], device=device)[None, None, :]
+                 < nnz[:, :, None]).to(torch.float32)
+        weights = _as_tensor(v[1], device) if len(v) == 4 else valid
+        return Act(value=ids, lengths=lengths,
+                   mask=mask_from_lengths(lengths, ids.shape[1]),
+                   state={"weights": weights, "nnz_mask": valid})
+    if not isinstance(v, tuple) or len(v) not in (2, 3):
+        raise ConfigError(
+            f"sparse data layer {layer.name!r} expects (ids, nnz) or "
+            f"(ids, weights, nnz), got {type(v).__name__}")
+    ids = _as_tensor(v[0], device)
+    nnz = _as_tensor(v[-1], device)
+    valid = (torch.arange(ids.shape[1], device=device)[None, :]
+             < nnz[:, None]).to(torch.float32)
+    weights = _as_tensor(v[1], device) if len(v) == 3 else valid
+    return Act(value=ids, mask=valid, state={"weights": weights})
+
+
 def _coerce_feed(layer: LayerOutput, feed: Dict[str, Any],
                  device: Optional[torch.device]) -> Act:
     if layer.name not in feed:
         raise ConfigError(f"missing feed for data layer {layer.name!r}")
     v = feed[layer.name]
+    if (layer.data_spec or {}).get("sparse") and device is not None \
+            and not isinstance(v, Act):
+        return _sparse_feed(layer, v, device)
     if isinstance(v, Act):
         act = v
     elif device is None:
@@ -373,7 +427,7 @@ def _coerce_feed(layer: LayerOutput, feed: Dict[str, Any],
                               f"{layer.name!r} (--data_pack)")
         if len(v) != 2:
             raise _not_ported(f"a {len(v)}-tuple feed for {layer.name!r} "
-                              f"(nested or sparse sequences)")
+                              f"(nested sequences)")
         value, lengths = v
         act = Act(value=_as_tensor(value, device),
                   lengths=_as_tensor(lengths, device))

@@ -73,9 +73,11 @@ def _seq_like(parent: Act, value) -> Act:
 
 
 def _inherit_meta(node: LayerOutput, src: LayerOutput) -> LayerOutput:
-    """Carry the spatial dims (``hw``) through a pass-through layer."""
-    if "hw" in src.meta:
-        node.meta["hw"] = src.meta["hw"]
+    """Carry the spatial dims (``hw``) and the sparse kind through a
+    pass-through layer."""
+    for key in ("hw", "sparse"):
+        if key in src.meta:
+            node.meta[key] = src.meta[key]
     return node
 
 
@@ -90,18 +92,27 @@ def data(name: str, *, size: int = 0, is_seq: bool = False,
          nested: bool = False) -> LayerOutput:
     """Input layer.  For sequences feed (value [B, T, size] | ids [B, T],
     lengths [B]); for images pass height/width (feed NHWC [B, H, W, size]).
-    Sparse (``sparse=``) and nested (``nested=True``) inputs are not
-    ported and raise ``ConfigError``."""
-    if sparse is not None:
-        raise _not_ported(f"the sparse data layer {name!r}")
+    For sparse features (``sparse='binary'|'float'``, the reference's
+    sparse_binary_vector / sparse_float_vector) feed padded COO rows:
+    (ids [B, N], nnz [B]) or (ids [B, N], weights [B, N], nnz [B]), a
+    sequence of bags (ids [B, T, N], [weights,] nnz [B, T], lengths [B]);
+    ``size`` is the full sparse dimension, and only sparse-aware layers
+    (``fc``, ``selective_fc``) may consume it.  Nested inputs
+    (``nested=True``) are not ported and raise ``ConfigError``."""
+    if sparse not in (None, "binary", "float"):
+        raise ConfigError(f"sparse must be 'binary' or 'float', got "
+                          f"{sparse!r}")
     if nested:
         raise _not_ported(f"the nested-sequence data layer {name!r}")
     meta = {}
     if height is not None:
         meta["hw"] = (height, width)
+    if sparse:
+        meta["sparse"] = sparse
     return LayerOutput(name=name, layer_type="data", size=size, parents=[],
                        forward=None, is_data=True,
-                       data_spec={"dtype": dtype, "is_seq": is_seq},
+                       data_spec={"dtype": dtype, "is_seq": is_seq,
+                                  **({"sparse": sparse} if sparse else {})},
                        meta=meta)
 
 
@@ -122,9 +133,13 @@ def fc(input: Union[LayerOutput, Sequence[LayerOutput]], size: int, *,
        param_attr: AttrLike = None, bias_attr: AttrLike = True
        ) -> LayerOutput:
     """Fully-connected layer.  Several inputs get separate weight matrices,
-    summed; a sequence input applies per timestep (output masked)."""
+    summed; a sequence input applies per timestep (output masked).  A
+    sparse input is multiplied by row gather (``sparse_gather_matmul``); a
+    sparse sequence takes its slots' validity from ``state['nnz_mask']``
+    (its ``mask`` is the sequence mask)."""
     inputs = [input] if isinstance(input, LayerOutput) else list(input)
     name = name or next_name("fc")
+    sparse_kinds = [ipt.meta.get("sparse") for ipt in inputs]
     specs = []
     for i, ipt in enumerate(inputs):
         pa = _pa(param_attr if len(inputs) == 1 else None, f"_{name}.w{i}")
@@ -137,11 +152,16 @@ def fc(input: Union[LayerOutput, Sequence[LayerOutput]], size: int, *,
 
     def forward(ctx, params, *acts: Act) -> Act:
         out = None
-        for spec, a in zip(specs[:len(inputs)], acts):
-            v = a.value
-            if not a.is_seq and v.dim() > 2:
-                v = v.reshape(v.shape[0], -1)
-            y = O.linear(v, params[spec.name])
+        for spec, a, sparse in zip(specs[:len(inputs)], acts, sparse_kinds):
+            if sparse:
+                y = O.sparse_gather_matmul(
+                    a.value, a.state["weights"],
+                    a.state.get("nnz_mask", a.mask), params[spec.name])
+            else:
+                v = a.value
+                if not a.is_seq and v.dim() > 2:
+                    v = v.reshape(v.shape[0], -1)
+                y = O.linear(v, params[spec.name])
             out = y if out is None else out + y
         if ba:
             out = out + params[ba.name].to(out.dtype)
@@ -159,14 +179,15 @@ def embedding(input: LayerOutput, size: int, *,
               param_attr: AttrLike = None, padding_idx: Optional[int] = None,
               sparse_grad: bool = False) -> LayerOutput:
     """Embedding lookup.  ``input`` is an integer data layer; its ``size``
-    is the vocabulary size unless ``vocab_size`` is given.  The row-sparse
-    table update (``sparse_grad=True``) is not ported and raises."""
+    is the vocabulary size unless ``vocab_size`` is given.
+    ``sparse_grad=True`` (the ``ParamAttr(sparse_grad=True)`` sugar) marks
+    the table row-sparse: ``SGDTrainer`` then holds the rows a batch did
+    not touch, value and optimizer slots, at each update."""
     name = name or next_name("embedding")
-    if sparse_grad:
-        raise _not_ported(f"the row-sparse table of embedding {name!r} "
-                          f"(sparse_grad=True)", 8)
     V = vocab_size or input.size
     pa = _pa(param_attr, f"_{name}.w0", initial_std=0.01, init="normal")
+    if sparse_grad and not pa.sparse_grad:
+        pa = replace(pa, sparse_grad=True)
     spec = ParamSpec(name=pa.name, shape=(V, size), attr=pa)
 
     def forward(ctx, params, a: Act) -> Act:

@@ -4,9 +4,10 @@ written kernels live in ``ops/kernels`` and are reached through
 ``gru_layer``, ``bigru_layer`` and ``lstm_layer`` (forward and backward),
 ``LinearReadout``, ``LogitsReadout``, ``attention_gru_decoder`` and
 ``sequence_softmax_ce_readout``.  The image tier (``conv.py``: conv,
-pooling, batch norm, LRN, resize, maxout), ``misc.py``, the sequence ops,
-the CRF (``crf.py``) and the cost family run PyTorch's own ops, as the
-reference runs XLA's outside any Pallas kernel."""
+pooling, batch norm, LRN, resize, maxout), ``misc.py`` (with the sampling
+layers' draws), the sequence ops, the CRF (``crf.py``), the sparse products
+(``sparse.py``), CTC (``ctc.py``) and the cost family run PyTorch's own
+ops, as the reference runs XLA's outside any Pallas kernel."""
 
 from paddle_tpu_torch.ops.numerics import (acc_dtype, bwd_einsum, bwd_mm,
                                            compute_dtype,
@@ -19,12 +20,19 @@ from paddle_tpu_torch.ops.conv import (avg_pool2d, batch_norm,
                                        bilinear_interp, cmr_norm, conv2d,
                                        conv2d_transpose, global_avg_pool,
                                        max_pool2d, maxout)
-from paddle_tpu_torch.ops.misc import (batch_transpose, col_sum, cos_sim,
-                                       dropout, interpolation, max_id,
-                                       outer_prod, power_op, row_max,
-                                       row_sum, scaling, slope_intercept,
-                                       sum_cost, tensor_bilinear, top_k)
+from paddle_tpu_torch.ops.misc import (batch_transpose, categorical,
+                                       col_sum, cos_sim, dropout,
+                                       interpolation, max_id, outer_prod,
+                                       power_op, row_max, row_sum, scaling,
+                                       slope_intercept, sum_cost,
+                                       tensor_bilinear, top_k,
+                                       uniform_classes)
 from paddle_tpu_torch.ops.embedding import embedding_lookup, one_hot
+from paddle_tpu_torch.ops.sparse import (CscMatrix, CsrMatrix, csr_matmul,
+                                         matmul_dense_csc,
+                                         selective_columns_matmul,
+                                         sparse_gather_matmul,
+                                         sparse_to_dense)
 from paddle_tpu_torch.ops.sequence import (context_projection,
                                            context_projection_trainable,
                                            mask_from_lengths, seq_concat,
@@ -35,6 +43,7 @@ from paddle_tpu_torch.ops.sequence import (context_projection,
 from paddle_tpu_torch.ops.attention import (additive_attention_scores, attend,
                                             dot_product_attention)
 from paddle_tpu_torch.ops.crf import crf_decode, crf_log_likelihood, crf_nll
+from paddle_tpu_torch.ops.ctc import ctc_loss
 from paddle_tpu_torch.ops.rnn import (bigru_layer, gru_layer, gru_step,
                                       lstm_layer, lstm_step, scan_rnn)
 from paddle_tpu_torch.ops.rnn_fused import (bigru_sequence_fused,
@@ -66,13 +75,16 @@ __all__ = [
     "row_sum", "row_max", "col_sum", "top_k", "max_id",
     "batch_transpose", "cos_sim", "interpolation", "outer_prod",
     "tensor_bilinear", "sum_cost", "scaling", "slope_intercept", "power_op",
-    "dropout",
-    "embedding_lookup", "one_hot", "mask_from_lengths", "seq_first",
+    "dropout", "uniform_classes", "categorical",
+    "embedding_lookup", "one_hot", "sparse_gather_matmul", "sparse_to_dense",
+    "selective_columns_matmul", "CsrMatrix", "CscMatrix", "csr_matmul",
+    "matmul_dense_csc", "mask_from_lengths", "seq_first",
     "seq_last", "seq_pool_sum", "seq_pool_avg", "seq_pool_sqrt",
     "seq_pool_max", "seq_expand", "seq_reverse", "seq_concat",
     "context_projection", "context_projection_trainable",
     "seq_slice_window", "additive_attention_scores", "attend",
-    "dot_product_attention", "crf_log_likelihood", "crf_nll", "crf_decode", "bigru_layer", "gru_layer", "gru_step", "lstm_layer",
+    "dot_product_attention", "crf_log_likelihood", "crf_nll", "crf_decode", "ctc_loss",
+    "bigru_layer", "gru_layer", "gru_step", "lstm_layer",
     "lstm_step", "scan_rnn", "gru_sequence_fused", "bigru_sequence_fused",
     "lstm_sequence_fused",
     "attention_gru_decoder", "cross_entropy", "soft_cross_entropy",

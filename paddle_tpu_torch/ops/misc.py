@@ -2,7 +2,10 @@
 ``paddle_tpu/ops/misc.py``: row/column reductions, top-k, batched
 transpose, cosine similarity, interpolation, outer and bilinear tensor
 products, scaling, power and dropout, each a short PyTorch expression as
-the reference's is a short ``jnp`` one.
+the reference's is a short ``jnp`` one; and the random draws the sampling
+layers make (``uniform_classes``: NCE's noise classes, ``categorical``:
+``sampling_id``'s ids), each from an explicit ``torch.Generator`` as
+``dropout``'s mask is.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from paddle_tpu_torch.ops.numerics import dot_dtype, mxu_cast
 __all__ = ["row_sum", "row_max", "row_min", "col_sum", "top_k", "max_id",
            "batch_transpose", "cos_sim", "interpolation", "outer_prod",
            "tensor_bilinear", "sum_cost", "scaling", "slope_intercept",
-           "power_op", "dropout"]
+           "power_op", "dropout", "uniform_classes", "categorical"]
 
 
 def row_sum(x: torch.Tensor) -> torch.Tensor:
@@ -113,8 +116,37 @@ def dropout(gen: torch.Generator, x: torch.Tensor, rate: float, *,
     if not train or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
-    on_device = torch.Generator(device=x.device).manual_seed(seed)
-    mask = torch.rand(x.shape, generator=on_device, device=x.device) < keep
+    mask = torch.rand(x.shape, generator=_device_generator(gen, x.device),
+                      device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                     device=x.device))
+
+
+def _device_generator(gen: torch.Generator,
+                      device: torch.device) -> torch.Generator:
+    """A generator on ``device`` seeded from ``gen``: a CPU generator
+    cannot draw a CUDA tensor."""
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def uniform_classes(gen: torch.Generator, shape, num_classes: int,
+                    device) -> torch.Tensor:
+    """int64 class ids of ``shape``, uniform over [0, num_classes), drawn
+    on ``device`` (the reference's ``jax.random.randint``; other
+    numbers)."""
+    device = torch.device(device)
+    return torch.randint(0, num_classes, tuple(shape), device=device,
+                         generator=_device_generator(gen, device))
+
+
+def categorical(gen: torch.Generator, logits: torch.Tensor) -> torch.Tensor:
+    """One id a row of ``logits`` [..., C], drawn from ``softmax(logits)``
+    (the reference's ``jax.random.categorical``, which takes logits; other
+    numbers): the Gumbel-max draw ``argmax(logits + g)`` with ``g =
+    -log(-log(u))``, u uniform in (0, 1), on ``logits``' device.  int64."""
+    u = torch.rand(logits.shape, device=logits.device,
+                   generator=_device_generator(gen, logits.device))
+    tiny = torch.finfo(torch.float32).tiny
+    g = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+    return torch.argmax(logits.float() + g, dim=-1)

@@ -31,9 +31,15 @@ Two halves:
 per-leaf loop: the reference's fused apply gives the per-leaf values
 elementwise.  A fused kernel is a redesign for a later PR.
 
-Not ported here: ``sparse_rows`` and ``row_apply`` (the row-sparse updates
-of ``sparse_grad`` tables) raise ``ConfigError`` naming ROADMAP.md Queue 1
-item 8.
+``sparse_rows`` marks row-sparse parameters (``sparse_grad`` tables): a
+row whose gradient is all zero keeps its value and every slot of the
+parameter's shape, while the step counter still advances for all.  ``True``
+takes the masked path over the whole table; an int ``K`` gathers up to K
+touched rows, updates them (``row_apply``) and scatters them back, and a
+batch that touches more than K rows takes the masked path instead.
+
+Not ported here: the pserver's ``sparse_apply_rows`` and ``dedup_rows``
+and ``row_apply(oob_drop=True)`` (ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -151,6 +157,14 @@ def slot_leaves(slots) -> List[torch.Tensor]:
     return list(slots)
 
 
+def _map_slots(fn, slots, *rest):
+    """``fn`` over a parameter's slots (and the same leaves of ``rest``),
+    keeping their structure: ``()``, one tensor or a tuple."""
+    if torch.is_tensor(slots):
+        return fn(slots, *rest)
+    return tuple(fn(*leaves) for leaves in zip(slots, *rest))
+
+
 @torch.no_grad()
 def commit(params: Params, opt_state: Dict[str, Any], new_params: Params,
            new_opt: Dict[str, Any],
@@ -224,11 +238,13 @@ class Optimizer:
         """One step, functional (the reference's ``update``): global-norm
         clipping when set and ``clip`` (False: the caller clipped), L2/L1
         decay, then the rule for every parameter that is not static.
-        ``fused`` is accepted and runs the per-leaf loop."""
-        if sparse_rows and any(v is not None and v is not False
-                               for v in sparse_rows.values()):
-            raise not_ported("row-sparse updates (sparse_rows=, "
-                             "sparse_grad tables)", 8)
+        ``fused`` is accepted and runs the per-leaf loop.
+
+        ``sparse_rows`` maps a parameter of two or more dims to ``True``
+        (the masked row update) or an int ``K`` (the gather-update-scatter
+        of up to K touched rows, the masked update when more are touched;
+        deciding which reads the touched count back to the host).  A row is
+        touched where any entry of its gradient is non-zero."""
         step = opt_state["step"] + 1
         lr = self.lr_at(step)
         if self.gradient_clipping_threshold > 0 and clip:
@@ -242,12 +258,43 @@ class Optimizer:
                 continue
             decay = (decays.get(k, 0.0) if decays else 0.0) + self.l2_rate
             scale = lr_scales.get(k, 1.0) if lr_scales else 1.0
+            g = grads[k]
+            kind = sparse_rows.get(k) if sparse_rows else None
+            if kind and p.dim() >= 2:
+                touched = (g != 0).flatten(1).any(dim=1)
+                if (kind is not True and 0 < kind < p.shape[0]
+                        and int(touched.sum()) <= kind):
+                    # top-k of the touched flags: distinct rows, the
+                    # touched ones first; the rest stay as they are
+                    live, rows = torch.topk(touched.to(torch.float32), kind)
+                    new_params[k], new_slots[k] = self.row_apply(
+                        p, rows, g[rows], old_slots, live > 0, lr * scale,
+                        step, decay=decay)
+                else:
+                    new_params[k], new_slots[k] = self._masked_update(
+                        p, g, old_slots, touched, lr * scale, step, decay)
+                continue
             p2, s2 = self.update_leaf(
-                p, _regularize(p, grads[k], decay, self.l1_rate), old_slots,
+                p, _regularize(p, g, decay, self.l1_rate), old_slots,
                 lr * scale, step)
             new_params[k] = p2.to(p.dtype)
             new_slots[k] = s2
         return new_params, {"step": step, "slots": new_slots}
+
+    def _masked_update(self, p, g, old_slots, touched, lr_eff, step, decay):
+        """The whole parameter updated, then every untouched row of it and
+        of each slot of its shape put back: ``sparse_rows=True``, and the
+        ``K`` path's overflow."""
+        p2, s2 = self.update_leaf(p, _regularize(p, g, decay, self.l1_rate),
+                                  old_slots, lr_eff, step)
+
+        def sel(new, old):
+            if new.shape != p.shape:
+                return new
+            row = touched.reshape((-1,) + (1,) * (p.dim() - 1))
+            return torch.where(row, new, old)
+
+        return sel(p2, p).to(p.dtype), _map_slots(sel, s2, old_slots)
 
     @torch.no_grad()
     def update(self, params: Params, grads: Mapping[str, torch.Tensor],
@@ -263,9 +310,32 @@ class Optimizer:
         commit(params, opt_state, new_p, new_o, where)
         return params, opt_state
 
-    def row_apply(self, *args, **kw):
-        raise not_ported("row_apply (the gather-update-scatter row update)",
-                         8)
+    def row_apply(self, p, rows, g_rows, old_slots, live, lr_eff, step, *,
+                  decay: float = 0.0, oob_drop: bool = False):
+        """The gather-update-scatter row update: ``rows`` (distinct among
+        the ``live`` entries) of ``p`` and of each slot of its shape are
+        gathered, updated with the gathered gradients ``g_rows`` and
+        scattered back; an entry with ``live`` False keeps its value and
+        slots.  -> (new parameter, new slots), functional."""
+        if oob_drop:
+            raise not_ported("row_apply(oob_drop=True) (the pserver's "
+                             "sparse apply)", 8)
+        live_col = live.reshape((-1,) + (1,) * (p.dim() - 1))
+        p_r = p[rows]
+        g_r = _regularize(p_r, g_rows, decay, self.l1_rate)
+        s_r = _map_slots(lambda s: s[rows] if s.shape == p.shape else s,
+                         old_slots)
+        p2_r, s2_r = self.update_leaf(p_r, g_r, s_r, lr_eff, step)
+        p2_r = torch.where(live_col, p2_r, p_r)
+
+        def put(old, new):
+            if old.shape != p.shape:
+                return new
+            return old.index_copy(0, rows,
+                                  torch.where(live_col, new, old[rows]))
+
+        return (p.index_copy(0, rows, p2_r.to(p.dtype)),
+                _map_slots(put, old_slots, s2_r))
 
 
 @OPTIMIZERS.register("sgd")

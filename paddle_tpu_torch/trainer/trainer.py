@@ -15,9 +15,15 @@ after the whole step is queued.  On the card the LSTM layers of
 ``lstm_benchmark_net`` run K9r forward and K10 backward, and ``test`` /
 ``infer`` run K9.
 
+A ``sparse_grad`` table (``ParamAttr(sparse_grad=True)``) takes the
+optimizer's masked row update (``sparse_rows``): rows the batch did not
+touch keep their value and slots, as the reference's single-device trainer
+does.
+
 Not ported here, and refused with a ``ConfigError`` naming the ROADMAP.md
-Queue 1 item that ports it: ``mesh``, ``data_axis``, ``sharding_rules``,
-``pipeline``, ``device_specs`` and ``sparse_grad`` tables (item 8); ``amp``
+Queue 1 item that ports it: ``mesh`` (with it the pserver tier's sharded
+tables), ``data_axis``, ``sharding_rules``, ``pipeline`` and
+``device_specs`` (item 8); ``amp``
 and ``remat`` (the rest of item 4; so is the batch prefetcher); the gang,
 the SDC firewall and ``audit`` (item 9); ``publish`` (item 7).
 """
@@ -112,14 +118,14 @@ class SGDTrainer:
         self.lr_scales: Dict[str, float] = {}
         self.decays: Dict[str, float] = {}
         self.statics: Dict[str, bool] = {}
+        self.sparse_rows: Dict[str, bool] = {}
         self.pruning_ratios: Dict[str, float] = {}
         for name, spec in self.topology.param_specs.items():
             if spec.is_state:
                 continue
             attr = spec.attr
             if attr.sparse_grad:
-                raise not_ported(f"the sparse_grad table {name!r} "
-                                  f"(row-sparse updates)", 8)
+                self.sparse_rows[name] = True
             if attr.learning_rate != 1.0:
                 self.lr_scales[name] = attr.learning_rate
             if attr.l2_decay:
@@ -256,7 +262,7 @@ class SGDTrainer:
             new_p, new_o = self.optimizer.new_values(
                 params, grads, self.opt_state, lr_scales=self.lr_scales,
                 decays=self.decays, statics=self.statics,
-                fused=self.fused_apply)
+                sparse_rows=self.sparse_rows, fused=self.fused_apply)
             commit(params, self.opt_state, apply_masks(new_p, self.masks),
                    new_o, where)
 

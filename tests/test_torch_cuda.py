@@ -2493,3 +2493,252 @@ def test_text_paths_launch_their_kernels(dev):
                      for p, n in after.by_path[k].items()
                      if n != before.by_path[k].get(p, 0)}
             assert paths == {"persistent": counts[k]}, (name, k, paths)
+
+
+# ---------------------------------------------------------------------------
+# the sparse and sampled-cost tier (chip_smoke.py's sparse phase)
+# ---------------------------------------------------------------------------
+
+#: card vs CPU on the sparse nets at f32: the loss (rel) and each
+#: gradient's max |diff| against its largest entry (f32 sums in another
+#: order; the CTC net's LSTM through the kernels' steps paths)
+TOL_SPARSE_LOSS, TOL_SPARSE_GRAD = 1e-5, 1e-4
+
+
+def _sparse_nets():
+    """name -> (builder () -> cost layer, feed) at small widths: the
+    sparse phase's nets (``tests/torch_sparse_nets.py``,
+    ``models/recommender.py``)."""
+    import paddle_tpu_torch.models as models
+    import paddle_tpu_torch.nn as nn
+    import torch_sparse_nets as N
+
+    rs = np.random.RandomState(0)
+    B = 6
+    cats = (rs.randint(0, 18, (B, 8)).astype(np.int32),
+            np.array([1, 3, 2, 8, 1, 2], np.int32))
+    title = (rs.randint(0, 5175, (B, 8)).astype(np.int32),
+             np.array([8, 2, 5, 3, 8, 4], np.int32))
+    ids = lambda n: rs.randint(0, n, (B, 1)).astype(np.int32)  # noqa: E731
+    score = (1 + 4 * rs.rand(B, 1)).astype(np.float32)
+    feature_feed = {"user_id": ids(6040), "gender_id": ids(2),
+                    "age_id": ids(7), "job_id": ids(21),
+                    "movie_id": ids(3952), "category_id": cats,
+                    "movie_title": title, "score": score}
+    ngram = {**{f"w{i}": ids(64) for i in range(4)}, "next_word": ids(64)}
+    T = 12
+    ctc_feed = {"feats": (rs.randn(B, T, 5).astype(np.float32),
+                          np.array([12, 7, 9, 12, 5, 10], np.int32)),
+                "labels": (rs.randint(0, 6, (B, 4)).astype(np.int32),
+                           np.array([4, 2, 3, 1, 0, 4], np.int32))}
+    return {
+        "movielens_feature_net": (lambda: models.movielens_feature_net(
+            emb_dim=8, fusion_dim=12)[0], feature_feed),
+        "movielens_net_sparse_grad": (lambda: models.movielens_net(
+            emb_dim=8, hid_dim=6, sparse_grad=True)[0],
+            {"user_id": ids(6040), "movie_id": ids(3952), "score": score}),
+        "sparse_lr": (lambda: N.sparse_lr_net(nn, 100)[0],
+                      {"words": (rs.randint(0, 100, (B, 16)).astype(
+                          np.int32), np.array([16, 3, 0, 9, 1, 12],
+                                              np.int32)),
+                       "label": ids(2)}),
+        "word2vec_hsigmoid": (lambda: N.ngram_net(nn, 64, 8, 12, 5,
+                                                  "hsigmoid"), ngram),
+        "word2vec_nce": (lambda: N.ngram_net(nn, 64, 8, 12, 5, "nce"),
+                         ngram),
+        "ctc": (lambda: N.ctc_net(nn, 5, 8, 7)[0], ctc_feed),
+    }
+
+
+@pytest.mark.parametrize("name", ["movielens_feature_net",
+                                  "movielens_net_sparse_grad", "sparse_lr",
+                                  "word2vec_hsigmoid", "word2vec_nce",
+                                  "ctc"])
+def test_sparse_net_on_the_card_matches_the_cpu(dev, name, monkeypatch):
+    """One f32 training apply of each sparse-phase net on the card and on
+    the CPU from the same parameters (every all-zero one set to seeded
+    normals): the loss and every gradient.  NCE's noise classes are drawn
+    on the CPU for both (the card's generator draws other numbers)."""
+    import paddle_tpu_torch.nn as nn
+    import paddle_tpu_torch.ops as O
+
+    real = O.uniform_classes
+    monkeypatch.setattr(O, "uniform_classes", lambda g, shape, C, d: real(
+        g, shape, C, "cpu").to(d))
+    build, feed = _sparse_nets()[name]
+    nn.reset_naming()
+    cost = build()
+    out = {}
+    with compute_dtype_scope("float32"):
+        for where in (dev, "cpu"):
+            topo = nn.Topology(cost, device=where)
+            params, _ = topo.init(3)
+            rs = np.random.RandomState(5)
+            params = {k: (torch.from_numpy(
+                (0.3 * rs.randn(*v.shape)).astype(np.float32)).to(where)
+                if not v.abs().max() > 0 else v).requires_grad_()
+                for k, v in params.items()}
+            outs, _ = topo.apply(params, {}, feed, train=True, rng=1)
+            loss = outs[cost.name].value
+            grads = torch.autograd.grad(loss, list(params.values()))
+            out[where if where == "cpu" else "card"] = (
+                loss.item(), {k: g.cpu() for k, g in zip(params, grads)})
+    got, want = out["card"], out["cpu"]
+    assert np.isfinite(want[0])
+    assert abs(got[0] - want[0]) <= TOL_SPARSE_LOSS * abs(want[0])
+    for k, g in want[1].items():
+        scale = max(g.abs().max().item(), 1e-30)
+        diff = (got[1][k] - g).abs().max().item()
+        assert diff <= TOL_SPARSE_GRAD * scale, (k, diff, scale)
+
+
+def test_sparse_ops_and_ctc_on_the_card_match_the_cpu(dev):
+    """The sparse products (duplicate ids, an all-padding row) and
+    ``ctc_loss`` (blank 0 and last, an infeasible and an empty label),
+    forward and gradient, on the card against the CPU at f32."""
+    import paddle_tpu_torch.ops as O
+
+    rs = np.random.RandomState(3)
+    ids = torch.from_numpy(rs.randint(0, 30, (5, 6)))
+    ids[0, 1] = ids[0, 0]
+    mask = (torch.arange(6)[None] < torch.tensor([6, 0, 3, 1, 4])[:, None]
+            ).float()
+    sel = torch.from_numpy(rs.randint(0, 40, (5, 7)))
+    csr = O.CsrMatrix.from_dense(np.where(rs.rand(5, 30) < 0.3,
+                                          rs.randn(5, 30), 0.0))
+    labels = torch.tensor([[1, 2, 3], [2, 2, 1], [0, 0, 0], [3, 1, 2]])
+    lab_len = torch.tensor([3, 3, 0, 2])
+    in_len = torch.tensor([9, 3, 6, 9])
+    cases = {
+        "sparse_gather_matmul": (lambda w, c: O.sparse_gather_matmul(
+            ids.to(w.device), c, mask.to(w.device), w),
+            (_image(1, 30, 8), _image(2, 5, 6))),
+        "sparse_to_dense": (lambda c: O.sparse_to_dense(
+            ids.to(c.device), c, mask.to(c.device), 30),
+            (_image(2, 5, 6),)),
+        "selective_columns_matmul": (lambda x, w, b: (
+            O.selective_columns_matmul(x, sel.to(x.device), w, b)),
+            (_image(3, 5, 8), _image(4, 8, 40), _image(5, 40))),
+        "csr_matmul": (lambda w: O.csr_matmul(csr, w), (_image(6, 30, 4),)),
+        "matmul_dense_csc": (lambda x: O.matmul_dense_csc(x, csr.T),
+                             (_image(7, 3, 30),)),
+    }
+    for blank in (0, 4):
+        cases[f"ctc_loss_blank{blank}"] = (lambda lp, blank=blank: (
+            O.ctc_loss(torch.log_softmax(lp, -1), labels.to(lp.device),
+                       in_len.to(lp.device), lab_len.to(lp.device),
+                       blank=blank)), (_image(8, 4, 9, 5),))
+    for name, (fn, arrays) in cases.items():
+        _image_op_on_both(dev, fn, *arrays)
+
+
+def test_selective_fc_ids_mode_matches_mask_mode_at_30000_columns(dev):
+    """``selective_fc``'s candidate-id path on the card equals its dense
+    mask path on the selected columns at a 30000-column front (bf16), and
+    the mask path is exactly 0 off the selection."""
+    import paddle_tpu_torch.nn as nn
+
+    rs = np.random.RandomState(4)
+    B, D, V, C = 16, 256, 30000, 64
+    x = rs.randn(B, D).astype(np.float32)
+    ids = np.stack([rs.choice(V, C, replace=False) for _ in range(B)]
+                   ).astype(np.int32)
+    mask = np.zeros((B, V), np.float32)
+    np.put_along_axis(mask, ids, 1.0, axis=1)
+    out = {}
+    params = None
+    for mode in ("mask", "ids"):
+        nn.reset_naming()
+        sel = (nn.data("sel", size=C, dtype="int32") if mode == "ids"
+               else nn.data("sel", size=V))
+        layer = nn.selective_fc(nn.data("x", size=D), sel, V, act="tanh",
+                                name="sfc", select_mode=mode)
+        topo = nn.Topology(layer, device=dev)
+        if params is None:
+            params, _ = topo.init(0)
+            params["_sfc.wbias"] = torch.randn(V, device=dev)
+        with compute_dtype_scope("bfloat16"):
+            out[mode] = topo.apply(params, {}, {
+                "x": x, "sel": ids if mode == "ids" else mask})[0][
+                "sfc"].value
+    picked = torch.gather(out["mask"], 1, torch.from_numpy(ids).long().to(
+        dev))
+    torch.testing.assert_close(out["ids"], picked, rtol=1e-2, atol=1e-2)
+    assert (out["mask"][torch.from_numpy(mask).to(dev) == 0] == 0).all()
+
+
+def test_row_sparse_update_keeps_untouched_rows_on_the_card(dev):
+    """``movielens_net(sparse_grad=True)`` through ``SGDTrainer`` on the
+    card, 3 Adam steps: the rows no batch looked up keep their value and
+    zero Adam slots bit for bit, and every parameter equals the same
+    trainer's on the CPU (f32)."""
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.param import Adam
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    build, _ = _sparse_nets()["movielens_net_sparse_grad"]
+    rs = np.random.RandomState(6)
+    feeds = [{"user_id": rs.randint(0, 6040, (16, 1)).astype(np.int32),
+              "movie_id": rs.randint(0, 3952, (16, 1)).astype(np.int32),
+              "score": (1 + 4 * rs.rand(16, 1)).astype(np.float32)}
+             for _ in range(3)]
+    trainers = {}
+    with compute_dtype_scope("float32"):
+        for where in (dev, "cpu"):
+            nn.reset_naming()
+            tr = SGDTrainer(build(), Adam(learning_rate=1e-2), seed=0,
+                            device=where)
+            before = {k: v.detach().clone() for k, v in tr.params.items()}
+            for f in feeds:
+                tr.train_batch(f)
+            trainers[str(where)] = (tr, before)
+    tr, before = trainers[str(dev)]
+    cpu, _ = trainers["cpu"]
+    assert tr.sparse_rows == {"_user_emb.w0": True, "_movie_emb.w0": True}
+    for key, table in (("user_id", "_user_emb.w0"),
+                       ("movie_id", "_movie_emb.w0")):
+        seen = torch.zeros(tr.params[table].shape[0], dtype=torch.bool)
+        for f in feeds:
+            seen[torch.from_numpy(f[key]).long().reshape(-1)] = True
+        untouched = (~seen).to(dev)
+        assert torch.equal(tr.params[table].detach()[untouched],
+                           before[table][untouched])
+        for slot in tr.opt_state["slots"][table]:
+            assert not slot[untouched].any()
+    for k, v in tr.params.items():
+        torch.testing.assert_close(v.detach().cpu(), cpu.params[k].detach(),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_sparse_paths_launch_their_kernels(dev):
+    """Under bf16, at a width the persistent LSTM kernels take (H = 32):
+    the CTC net trains through K9r and K10 once each; the recommender, the
+    sparse LR and the word2vec nets launch no kernel."""
+    import paddle_tpu_torch.nn as nn
+    import torch_sparse_nets as N
+
+    nets = _sparse_nets()
+    cases = {"ctc": (lambda: N.ctc_net(nn, 5, 32, 7)[0], nets["ctc"][1],
+                     {"lstm_forward": 1, "lstm_backward": 1})}
+    for name in ("movielens_feature_net", "sparse_lr", "word2vec_nce"):
+        cases[name] = (*nets[name], {})
+    for name, (build, feed, counts) in cases.items():
+        nn.reset_naming()
+        cost = build()
+        topo = nn.Topology(cost, device=dev)
+        params, _ = topo.init(0)
+        params = {k: v.requires_grad_() for k, v in params.items()}
+        before = launch_counts()
+        with compute_dtype_scope("bfloat16"):
+            loss = topo.apply(params, {}, feed, train=True)[0][
+                cost.name].value
+            torch.autograd.grad(loss, list(params.values()))
+        after = launch_counts()
+        moved = {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+        assert moved == counts, (name, moved)
+        for k in counts:
+            paths = {p: n - before.by_path[k].get(p, 0)
+                     for p, n in after.by_path[k].items()
+                     if n != before.by_path[k].get(p, 0)}
+            assert paths == {"persistent": counts[k]}, (name, k, paths)

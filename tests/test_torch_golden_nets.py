@@ -4,18 +4,18 @@ against the JAX package, on the CPU.
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_golden_nets.py -q
 
 The builders are ``tests/torch_golden_nets.py``, one copy for either
-package's DSL.  For each of the 19 nets the port builds: the same layer
-names and parameter specs, then the loss of one training apply and its
-gradient with respect to every parameter and every float input against
+package's DSL.  For each of the 23 nets: the same layer names and
+parameter specs, then the loss of one training apply and its gradient with
+respect to every parameter and every float input against
 ``jax.value_and_grad`` over the JAX net (``tests/torch_compare.py``), from
 the same parameters (``params_from_jax``) and the reference's feed
 (``_cls_feed`` with ``RandomState(0)``).  Parameters the reference
-initialises to zero (biases, the CRF's transitions, peepholes) are set to
-seeded normals first, or the CRF's every path would tie.  Dropout draws
-other numbers in each package, so both packages' ``dropout`` run on one
-numpy mask keyed by the activation's shape.  The other four nets (CTC,
-NCE, hierarchical sigmoid, selective fc) raise ``ConfigError`` naming
-ROADMAP.md Queue 1 item 3.
+initialises to zero (biases, the CRF's transitions, peepholes, NCE's and
+the hierarchical sigmoid's tables' biases) are set to seeded normals
+first, or the CRF's every path would tie.  Dropout and NCE's noise classes
+draw other numbers in each package, so both packages' ``dropout`` run on
+one numpy mask keyed by the activation's shape, and both packages' draws
+on one numpy draw keyed by the shape (``share_draws``).
 
 Tolerance: the loss at rtol 1e-5; each gradient by its largest difference
 against its largest entry, 1e-5: float32 sums in another order (the CPU's
@@ -34,17 +34,13 @@ import paddle_tpu.v2.networks as jnet
 import paddle_tpu_torch.nn as tnn
 import paddle_tpu_torch.v2.networks as tnet
 from paddle_tpu_torch.ops import compute_dtype_scope
-from paddle_tpu_torch.utils.error import ConfigError
 
 import torch_golden_nets as G
 from torch_compare import (assert_grads_close, loss_and_grads,
-                           nonzero_params, share_dropout)
+                           nonzero_params, share_draws, share_dropout)
 
 RTOL_LOSS, TOL_GRAD, ATOL_GRAD = 1e-5, 1e-5, 1e-6
-#: the nets whose layers wait for ROADMAP.md Queue 1 item 3
-NOT_PORTED = {"ctc": "ctc_cost", "nce": "nce_cost",
-              "hsigmoid": "hsigmoid_cost", "selective_fc": "selective_fc"}
-PORTED = sorted(set(G.GOLDEN_NETS) - set(NOT_PORTED))
+PORTED = sorted(G.GOLDEN_NETS)
 
 
 @pytest.fixture(autouse=True)
@@ -56,10 +52,11 @@ def _f32():
 @pytest.fixture
 def shared_dropout(monkeypatch):
     share_dropout(monkeypatch)
+    share_draws(monkeypatch)
 
 
 def test_the_split_covers_the_reference_list():
-    assert len(G.GOLDEN_NETS) == 23 and len(PORTED) == 19
+    assert len(G.GOLDEN_NETS) == 23 and len(PORTED) == 23
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -80,14 +77,3 @@ def test_golden_net_loss_and_gradients_match_reference(name,
                                     feed)
     np.testing.assert_allclose(tv, jv, rtol=RTOL_LOSS)
     assert_grads_close(tg, jg, TOL_GRAD, ATOL_GRAD)
-
-
-@pytest.mark.parametrize("name", sorted(NOT_PORTED))
-def test_unported_golden_nets_name_their_roadmap_item(name):
-    tnn.reset_naming()
-    with pytest.raises(ConfigError) as info:
-        G.GOLDEN_NETS[name](tnn, tnet, "cpu")
-    assert str(info.value) == (
-        f"the {NOT_PORTED[name]} layer (paddle_tpu/nn/layers_extra"
-        f"{'2' if name == 'selective_fc' else ''}.py) is not ported to "
-        f"paddle_tpu_torch yet (ROADMAP.md, Queue 1 item 3)")

@@ -11,8 +11,11 @@ parameters (every all-zero one set to seeded normals, ``params_from_jax``)
 one apply (``train=False``, as the reference sweep runs) gives the output,
 and a fixed random weighting of it the loss, whose gradient with respect
 to every parameter and every float input is held against
-``jax.value_and_grad`` (``tests/torch_compare.py``).  Argmax and Viterbi
-outputs (``FORWARD_ONLY``) are held equal, element for element.
+``jax.value_and_grad`` (``tests/torch_compare.py``).  Argmax, sampled
+ids, EOS flags, Viterbi tags and the prior boxes (``FORWARD_ONLY``) are
+held equal, element for element.  NCE's noise classes and
+``sampling_id``'s draws come from one numpy draw in both packages
+(``share_draws``).
 
 Tolerance: the output and the loss at rtol 1e-5 / atol 1e-6, each
 gradient by its largest difference against its largest entry, 1e-5 (or
@@ -31,7 +34,8 @@ import paddle_tpu.nn as jnn
 import paddle_tpu_torch.nn as tnn
 from paddle_tpu_torch.ops import compute_dtype_scope
 
-from torch_compare import assert_grads_close, loss_and_grads, nonzero_params
+from torch_compare import (assert_grads_close, loss_and_grads,
+                           nonzero_params, share_draws)
 from torch_layer_cases import CASES, FORWARD_ONLY
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -77,7 +81,8 @@ def test_every_ported_layer_has_a_case():
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_layer_matches_reference(name):
+def test_layer_matches_reference(name, monkeypatch):
+    share_draws(monkeypatch)
     jnn.reset_naming()
     jout, feed = CASES[name](jnn, np.random.RandomState(0))
     tnn.reset_naming()

@@ -259,13 +259,19 @@ def test_new_values_is_functional_and_commit_writes_in_place():
 
 
 def test_sparse_rows_and_row_apply_raise_item_8():
+    """``sparse_rows`` and ``row_apply`` are ported (their parity:
+    ``tests/test_torch_sparse.py``): an untouched row keeps its bits.  The
+    pserver's out-of-range drop (``oob_drop=True``) raises naming item
+    8."""
     opt = P.SGD()
     p = {"t": torch.zeros(4, 2)}
+    g = torch.ones(4, 2)
+    g[2] = 0.0
+    opt.update(p, {"t": g}, opt.init_state(p), sparse_rows={"t": True})
+    assert p["t"][2].tolist() == [0.0, 0.0] and p["t"][0, 0] < 0
     with pytest.raises(ConfigError, match="Queue 1 item 8"):
-        opt.update(p, {"t": torch.ones(4, 2)}, opt.init_state(p),
-                   sparse_rows={"t": True})
-    with pytest.raises(ConfigError, match="Queue 1 item 8"):
-        opt.row_apply(p["t"], None, None, (), None, 0.1, None)
+        opt.row_apply(p["t"], None, None, (), None, 0.1, None,
+                      oob_drop=True)
 
 
 @pytest.mark.parametrize("ratio", [0.0, 0.3, 0.5])

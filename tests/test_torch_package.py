@@ -49,7 +49,8 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
                 "utils/registry.py", "ops/conv.py", "ops/misc.py",
                 "nn/layers_extra.py", "nn/layers_extra2.py",
                 "models/vision.py", "models/image_bench.py",
-                "ops/crf.py", "ops/sequence.py"):
+                "ops/crf.py", "ops/sequence.py", "ops/sparse.py",
+                "ops/ctc.py", "models/recommender.py"):
         assert mod in rel, mod
     bad = []
     for path in files:
@@ -80,7 +81,7 @@ def _imports(path):
 @pytest.mark.parametrize("script", [
     "chip_smoke.py", "chip_probe.py", "tests/torch_seqtoseq_net.py",
     "tests/torch_text_nets.py", "tests/torch_golden_nets.py",
-    "tests/torch_layer_cases.py"])
+    "tests/torch_layer_cases.py", "tests/torch_sparse_nets.py"])
 def test_card_scripts_and_shared_builders_import_no_jax(script):
     """The card's scripts, and the builders they (and the card tests)
     share with the CPU tests, import neither jax nor the JAX package: the

@@ -412,8 +412,13 @@ def test_unported_settings_raise_with_their_item():
     lab = tnn.data("label", size=1, dtype="int32")
     out = tnn.fc(x, 2, act="linear",
                  param_attr=tnn.ParamAttr(sparse_grad=True))
+    cost = tnn.classification_cost(out, lab)
+    # a sparse_grad table trains on one device (the masked row update);
+    # the pserver tier's sharded tables come with a mesh (item 8)
+    assert SGDTrainer(cost, device="cpu").sparse_rows == {
+        f"_{out.name}.w0": True}
     with pytest.raises(ConfigError, match="item 8"):
-        SGDTrainer(tnn.classification_cost(out, lab), device="cpu")
+        SGDTrainer(cost, device="cpu", mesh=object())
 
 
 def test_trainer_defaults_to_cuda_and_refuses_without_a_card():

@@ -481,32 +481,31 @@ def test_image_layer_config_errors_match_reference(case):
     assert msgs[0] == msgs[1]
 
 
-@pytest.mark.parametrize("module,names", [
-    ("layers_extra", ("warp_ctc", "ctc_cost", "nce_cost", "pad",
-                      "block_expand", "eos_trim")),
-    ("layers_extra2", ("prelu", "spp", "selective_fc", "mdlstmemory",
-                       "print_value"))])
-def test_unported_extra_layers_name_their_roadmap_item(module, names):
-    """The other layers of the two reference modules are reached under
-    their names, here and through ``paddle_tpu_torch.nn``, and raise
-    ``ConfigError`` naming ROADMAP.md Queue 1 item 3."""
+@pytest.mark.parametrize("module", ["layers_extra", "layers_extra2",
+                                    "nested_data"])
+def test_unported_extra_layers_name_their_roadmap_item(module):
+    """Every layer of the two reference modules is ported: each module's
+    ``NOT_PORTED`` is empty and its ``__all__`` is the reference's, every
+    name reached here and through ``paddle_tpu_torch.nn``.  The nested
+    data layer still raises ``ConfigError`` naming ROADMAP.md Queue 1 item
+    3."""
     import importlib
 
-    import paddle_tpu.nn as jnn_all
-
+    if module == "nested_data":
+        tnn.reset_naming()
+        with pytest.raises(ConfigError) as info:
+            tnn.data("w", size=10, is_seq=True, dtype="int32", nested=True)
+        assert str(info.value) == (
+            "the nested-sequence data layer 'w' is not ported to "
+            "paddle_tpu_torch yet (ROADMAP.md, Queue 1 item 3)")
+        return
     mod = importlib.import_module(f"paddle_tpu_torch.nn.{module}")
     ref = importlib.import_module(f"paddle_tpu.nn.{module}")
-    assert set(mod.__all__) == set(ref.__all__)
-    for name in mod.NOT_PORTED:
-        assert hasattr(jnn_all, name)
-        for fn in (getattr(mod, name), getattr(tnn, name)):
-            with pytest.raises(ConfigError) as info:
-                fn(None)
-            assert str(info.value) == (
-                f"the {name} layer (paddle_tpu/nn/{module}.py) is not "
-                f"ported to paddle_tpu_torch yet (ROADMAP.md, Queue 1 "
-                f"item 3)")
-    assert set(names) <= set(mod.NOT_PORTED)
+    assert mod.NOT_PORTED == ()
+    assert mod.__all__ == ref.__all__
+    for name in mod.__all__:
+        assert getattr(tnn, name) is getattr(mod, name)
+        assert callable(getattr(mod, name))
 
 
 def test_dropout_layer_train_and_eval():

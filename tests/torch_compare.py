@@ -1,8 +1,8 @@
 """Helpers of the port's CPU tests that hold the port against the JAX
 package: an op on the same arrays (``close``, ``fwd_grad``), a net's one
 training or inference apply from the same parameters and feed, its loss
-and every gradient (parameters and float inputs), and the shared dropout
-mask.
+and every gradient (parameters and float inputs), the shared dropout
+mask and the shared draws of the sampling layers (``share_draws``).
 
 ``close`` holds a result at rtol 1e-5 and an absolute 1e-6 of the larger
 of 1 and the reference's largest entry, the tolerance
@@ -87,6 +87,52 @@ def share_dropout(monkeypatch):
 
     monkeypatch.setattr(JO, "dropout", jax_dropout)
     monkeypatch.setattr(TO, "dropout", torch_dropout)
+
+
+def shape_ints(shape, high):
+    """The integer draws both packages share: uniform over [0, high), a
+    numpy draw seeded by the shape and the range."""
+    rs = np.random.RandomState(zlib.crc32(repr(("ints", tuple(shape),
+                                                int(high))).encode()))
+    return rs.randint(0, high, tuple(shape)).astype(np.int32)
+
+
+def shape_gumbel(shape):
+    """The Gumbel noise both packages' categorical draws share (seeded by
+    the shape): ``argmax(logits + g)`` samples ``softmax(logits)``."""
+    rs = np.random.RandomState(zlib.crc32(repr(("gumbel",
+                                                tuple(shape))).encode()))
+    u = np.clip(rs.rand(*shape), np.finfo(np.float32).tiny, 1.0)
+    return (-np.log(-np.log(u))).astype(np.float32)
+
+
+def share_draws(monkeypatch):
+    """Both packages' random draws of the sampling layers on the same
+    numbers: ``jax.random.randint`` / ``jax.random.categorical`` (which the
+    JAX package's NCE and ``sampling_id`` call) and the port's
+    ``uniform_classes`` / ``categorical`` on ``shape_ints`` and
+    ``shape_gumbel``."""
+
+    def jax_randint(key, shape, minval, maxval, dtype=jnp.int32):
+        return jnp.asarray(minval + shape_ints(shape, maxval - minval),
+                           dtype)
+
+    def jax_categorical(key, logits, axis=-1, shape=None):
+        return jnp.argmax(logits + jnp.asarray(shape_gumbel(logits.shape)),
+                          axis=axis)
+
+    def torch_uniform_classes(gen, shape, num_classes, device):
+        return torch.from_numpy(shape_ints(shape, num_classes)).to(
+            torch.long).to(device)
+
+    def torch_categorical(gen, logits):
+        g = torch.from_numpy(shape_gumbel(tuple(logits.shape)))
+        return torch.argmax(logits.float() + g.to(logits.device), dim=-1)
+
+    monkeypatch.setattr(jax.random, "randint", jax_randint)
+    monkeypatch.setattr(jax.random, "categorical", jax_categorical)
+    monkeypatch.setattr(TO, "uniform_classes", torch_uniform_classes)
+    monkeypatch.setattr(TO, "categorical", torch_categorical)
 
 
 def nonzero_params(jp, seed=5, scale=0.3):

@@ -406,7 +406,198 @@ def case_gru_step(nn, rng):
     return nn.gru_step(x, h, 2), fx
 
 
+def case_cos_vm(nn, rng):
+    v, fv = _dense(nn, rng, "v", 4)
+    m, fm = _dense(nn, rng, "m", 12)
+    return nn.cos_vm(_pre_fc(nn, v, 4, "pv"), m), {**fv, **fm}
+
+
+def case_linear_comb(nn, rng):
+    w, fw = _dense(nn, rng, "w", 3)
+    m, fm = _dense(nn, rng, "m", 12)
+    return nn.linear_comb(_pre_fc(nn, w, 3, "pw"), m, 4), {**fw, **fm}
+
+
+def case_convex_comb(nn, rng):
+    w, fw = _dense(nn, rng, "w", 3)
+    m, fm = _dense(nn, rng, "m", 12)
+    return nn.convex_comb(_pre_fc(nn, w, 3, "pw"), m, 4), {**fw, **fm}
+
+
+def case_conv_shift(nn, rng):
+    a, fa = _dense(nn, rng, "a", 8)
+    b, fb = _dense(nn, rng, "b", 3)
+    return nn.conv_shift(_pre_fc(nn, a, 8, "pa"), b), {**fa, **fb}
+
+
+def case_multiplex(nn, rng):
+    idx = nn.data("idx", size=1, dtype="int32")
+    a, fa = _dense(nn, rng, "a", 4)
+    b, fb = _dense(nn, rng, "b", 4)
+    feed = {**fa, **fb, "idx": rng.randint(0, 2, (B, 1)).astype(np.int32)}
+    return nn.multiplex(idx, [_pre_fc(nn, a, 4, "pa"),
+                              _pre_fc(nn, b, 4, "pb")]), feed
+
+
+def case_prelu(nn, rng):
+    x, feed = _dense(nn, rng)
+    return nn.prelu(_pre_fc(nn, x)), feed
+
+
+def case_data_norm(nn, rng):
+    x, feed = _dense(nn, rng)
+    return nn.data_norm(x), feed
+
+
+def case_resize(nn, rng):
+    x, feed = _dense(nn, rng)
+    return nn.resize(_pre_fc(nn, x), 3), feed
+
+
+def case_trans(nn, rng):
+    # the reference sweep's case of this name, as it is (it reaches
+    # seq_concat); the transposes themselves are case_trans_image and
+    # case_trans_square below
+    a, fa = _seq(nn, rng, "a")
+    b, fb = _seq(nn, rng, "b")
+    return nn.pooling(nn.seq_concat(_pre_fc(nn, a, D, "pa"), b),
+                      pooling_type="sum"), {**fa, **fb}
+
+
+def case_seq_reshape(nn, rng):
+    xs = nn.data("xs", size=4, is_seq=True)
+    vals = rng.randn(B, 4, 4).astype(np.float32)
+    lengths = np.full((B,), 4, np.int32)  # full rows: reshape is exact
+    return nn.pooling(nn.seq_reshape(_pre_fc(nn, xs, 4, "pre"), 8),
+                      pooling_type="sum"), {"xs": (vals, lengths)}
+
+
+def case_sub_seq(nn, rng):
+    xs, feed = _seq(nn, rng)
+    off = nn.data("off", size=1, dtype="int32")
+    sz = nn.data("sz", size=1, dtype="int32")
+    feed["off"] = np.zeros((B, 1), np.int32)
+    feed["sz"] = np.full((B, 1), 2, np.int32)
+    return nn.pooling(nn.sub_seq(_pre_fc(nn, xs), off, sz),
+                      pooling_type="sum"), feed
+
+
+def case_featmap_expand(nn, rng):
+    xs, feed = _seq(nn, rng)
+    return nn.featmap_expand(_pre_fc(nn, xs), num_filters=2), feed
+
+
+def case_pad(nn, rng):
+    img, feed = _img(nn, rng)
+    return nn.pad(_pre_conv(nn, img), pad_h=(1, 1), pad_w=(0, 1)), feed
+
+
+def case_rotate(nn, rng):
+    img, feed = _img(nn, rng)
+    return nn.rotate(_pre_conv(nn, img)), feed
+
+
+def case_block_expand(nn, rng):
+    img, feed = _img(nn, rng)
+    return nn.pooling(nn.block_expand(_pre_conv(nn, img), block_x=2,
+                                      block_y=2, stride_x=2, stride_y=2),
+                      pooling_type="sum"), feed
+
+
+def case_spp(nn, rng):
+    img, feed = _img(nn, rng)
+    return nn.spp(_pre_conv(nn, img), pyramid_height=2), feed
+
+
+def case_priorbox(nn, rng):
+    img, feed = _img(nn, rng)
+    feat = nn.img_pool(_pre_conv(nn, img), pool_size=2)
+    return nn.priorbox(feat, img, min_size=[4], max_size=[8]), feed
+
+
+def case_mdlstmemory(nn, rng):
+    img, feed = _img(nn, rng)
+    return nn.mdlstmemory(img, 3), feed
+
+
+def case_lambda_cost(nn, rng):
+    s = nn.data("s", size=1, is_seq=True)
+    l = nn.data("l", size=1, is_seq=True)
+    lens = np.full((B,), 4, np.int32)
+    feed = {"s": (rng.randn(B, 4, 1).astype(np.float32), lens),
+            "l": (np.abs(rng.randn(B, 4, 1)).astype(np.float32), lens)}
+    return nn.lambda_cost(nn.fc(s, 1, name="fs", bias_attr=False), l,
+                          NDCG_num=3), feed
+
+
+def case_ctc_cost(nn, rng):
+    xs, feed = _seq(nn, rng, t=8)
+    lab = nn.data("lab", size=4, is_seq=True, dtype="int32")
+    feed["lab"] = (rng.randint(1, 4, (B, 3)).astype(np.int32),
+                   np.full((B,), 2, np.int32))
+    feed["xs"] = (feed["xs"][0], np.full((B,), 8, np.int32))
+    return nn.ctc_cost(nn.fc(xs, 5, act="linear", name="emit"), lab), feed
+
+
+def case_warp_ctc(nn, rng):
+    # warp-ctc conventions: blank=0, labels in [1, C)
+    xs, feed = _seq(nn, rng, t=8)
+    lab = nn.data("wlab", size=4, is_seq=True, dtype="int32")
+    feed["wlab"] = (rng.randint(1, 4, (B, 3)).astype(np.int32),
+                    np.full((B,), 2, np.int32))
+    feed["xs"] = (feed["xs"][0], np.full((B,), 8, np.int32))
+    return nn.warp_ctc(nn.fc(xs, 5, act="linear", name="wemit"), lab), feed
+
+
+def case_nce_cost(nn, rng):
+    x, feed = _dense(nn, rng)
+    lab, fl = _label_int(nn, rng, n=V)
+    fl["lab"] = fl["lab"][:, None]
+    return nn.nce_cost(x, lab, num_classes=V, num_neg_samples=4), \
+        {**feed, **fl}
+
+
+def case_hsigmoid_cost(nn, rng):
+    x, feed = _dense(nn, rng)
+    lab, fl = _label_int(nn, rng, n=8)
+    fl["lab"] = fl["lab"][:, None]
+    return nn.hsigmoid_cost(x, lab, num_classes=8), {**feed, **fl}
+
+
+def case_selective_fc(nn, rng):
+    x, fx = _dense(nn, rng)
+    sel = nn.data("sel", size=4)
+    fx["sel"] = (rng.rand(B, 4) > 0.3).astype(np.float32)
+    return nn.selective_fc(x, sel, 4, act="linear"), fx
+
+
+def case_cross_channel_norm(nn, rng):
+    img, feed = _img(nn, rng)
+    return nn.cross_channel_norm(_pre_conv(nn, img)), feed
+
+
+def case_print_value(nn, rng):
+    # identity dataflow; the upstream fc's gradients pass through it
+    x, feed = _dense(nn, rng)
+    return nn.print_value(_pre_fc(nn, x)), feed
+
+
 # ---- forward-only layers (no useful gradient) ------------------------------
+
+def case_sampling_id(nn, rng):
+    x, feed = _dense(nn, rng)
+    return nn.sampling_id(nn.fc(x, 4, act="softmax")), feed
+
+
+def case_eos_id(nn, rng):
+    ids, feed = _ids(nn, rng)
+    return nn.eos_id(ids, eos_id=1), feed
+
+
+def case_eos_trim(nn, rng):
+    ids, feed = _ids(nn, rng)
+    return nn.eos_trim(ids, eos_id=1), feed
+
 
 def case_maxid(nn, rng):
     x, feed = _dense(nn, rng)
@@ -520,8 +711,104 @@ def case_crf_decoding_shared(nn, rng):
     return nn.crf_decoding(emit, share_with="crf"), feed
 
 
-#: cases whose output has no useful gradient (argmax, Viterbi tags)
-FORWARD_ONLY = {"maxid", "crf_decoding", "crf_decoding_shared"}
+def case_trans_image(nn, rng):
+    img, feed = _img(nn, rng)
+    c = nn.img_conv(img, filter_size=3, num_filters=2, padding="SAME",
+                    act="tanh", name="prec")
+    return nn.pad(nn.trans(c), pad_w=(1, 0)), feed
+
+
+def case_trans_square(nn, rng):
+    x, feed = _dense(nn, rng)
+    return nn.trans(_pre_fc(nn, x, 9)), feed
+
+
+def case_prelu_channel_shared(nn, rng):
+    xs, feed = _seq(nn, rng)
+    return nn.pooling(nn.prelu(_pre_fc(nn, xs), channel_shared=True),
+                      pooling_type="sum"), feed
+
+
+def case_data_norm_min_max(nn, rng):
+    x, feed = _dense(nn, rng)
+    return nn.data_norm(_pre_fc(nn, x), strategy="min-max"), feed
+
+
+def case_data_norm_decimal_scaling(nn, rng):
+    x, feed = _dense(nn, rng)
+    return nn.data_norm(_pre_fc(nn, x), strategy="decimal-scaling"), feed
+
+
+def case_spp_avg(nn, rng):
+    img, feed = _img(nn, rng)
+    return nn.spp(_pre_conv(nn, img), pyramid_height=3,
+                  pool_type="avg"), feed
+
+
+def case_sub_seq_clipped(nn, rng):
+    # offsets past the row's end: positions clip to T - 1
+    xs, feed = _seq(nn, rng)
+    off = nn.data("off", size=1, dtype="int32")
+    sz = nn.data("sz", size=1, dtype="int32")
+    feed["off"] = np.array([[0], [2], [4]], np.int32)
+    feed["sz"] = np.array([[5], [3], [2]], np.int32)
+    return nn.pooling(nn.sub_seq(_pre_fc(nn, xs), off, sz),
+                      pooling_type="sum"), feed
+
+
+def case_seq_reshape_ragged(nn, rng):
+    # lengths scaled by D / reshape through float32 and truncated
+    xs = nn.data("xs", size=6, is_seq=True)
+    feed = {"xs": (rng.randn(B, 4, 6).astype(np.float32),
+                   np.array([4, 3, 1], np.int32))}
+    return nn.pooling(nn.seq_reshape(_pre_fc(nn, xs, 6, "pre"), 4),
+                      pooling_type="sum"), feed
+
+
+def case_ctc_cost_norm_by_times(nn, rng):
+    xs, feed = _seq(nn, rng, t=8)
+    lab = nn.data("lab", size=4, is_seq=True, dtype="int32")
+    feed["lab"] = (rng.randint(0, 4, (B, 3)).astype(np.int32),
+                   np.array([3, 1, 0], np.int32))
+    feed["xs"] = (feed["xs"][0], np.array([8, 5, 3], np.int32))
+    return nn.ctc_cost(nn.fc(xs, 5, act="linear", name="emit"), lab,
+                       norm_by_times=True), feed
+
+
+def case_hsigmoid_cost_ragged_tree(nn, rng):
+    # 30 classes: depth 5, 31 internal nodes, some leaves unused
+    x, feed = _dense(nn, rng)
+    lab, fl = _label_int(nn, rng, n=30)
+    fl["lab"] = fl["lab"][:, None]
+    return nn.hsigmoid_cost(_pre_fc(nn, x), lab, num_classes=30), \
+        {**feed, **fl}
+
+
+def case_selective_fc_ids(nn, rng):
+    x, fx = _dense(nn, rng)
+    sel = nn.data("sel", size=3, dtype="int32")
+    fx["sel"] = rng.randint(0, 7, (B, 3)).astype(np.int32)
+    return nn.selective_fc(x, sel, 7, act="tanh", select_mode="ids"), fx
+
+
+def case_selective_fc_two_inputs(nn, rng):
+    a, fa = _dense(nn, rng, "a", 5)
+    b, fb = _dense(nn, rng, "b", 3)
+    sel = nn.data("sel", size=4)
+    feed = {**fa, **fb, "sel": (rng.rand(B, 4) > 0.5).astype(np.float32)}
+    return nn.selective_fc([a, b], sel, 4, act="sigmoid"), feed
+
+
+def case_mdlstmemory_relu(nn, rng):
+    img, feed = _img(nn, rng)
+    return nn.mdlstmemory(_pre_conv(nn, img), 2, act="relu",
+                          bias_attr=False), feed
+
+
+#: cases whose output has no useful gradient (argmax, sampled ids, EOS
+#: flags, Viterbi tags, the prior boxes' constant)
+FORWARD_ONLY = {"maxid", "sampling_id", "eos_id", "eos_trim", "priorbox",
+                "crf_decoding", "crf_decoding_shared"}
 
 
 def collect_cases():
