@@ -3,7 +3,7 @@
 
     python3 chip_probe.py [chunks] [profile] [textclf] [dslgen] [k8plans]
                           [k8variants] [variants] [vision] [text] [sparse]
-                          [build]   (all if none named)
+                          [seqdata] [build]   (all if none named)
 
 Needs one CUDA card and the checkout beside it.  It checks nothing that
 ``chip_smoke.py`` does not; it measures what the smoke run leaves out to
@@ -68,6 +68,11 @@ sparse   the sparse and sampled-cost tier (``chip_smoke.py``'s sparse
          the sparse LR, word2vec with hsigmoid and with NCE, and the CTC
          net, each after three unprofiled ones (device busy share, the
          kernels with the most device time);
+seqdata  the seqdata phase (``chip_smoke.py`` phase 15, bf16,
+         ``SGDTrainer(Adam(1e-3)).train_batch``): one profiled step of the
+         packing A/B's bucketed and packed arms and of the nested net,
+         each after three unprofiled ones (device busy share, the kernels
+         with the most device time);
 build    cold builds of the kernel libraries into a scratch directory:
          each source alone, one ``nvcc`` at a time, then all at once as
          ``build_all`` starts them (the smoke run's build time).
@@ -750,6 +755,51 @@ def probe_sparse(dev):
         torch.cuda.empty_cache()
 
 
+def probe_seqdata(dev):
+    """One profiled step of each of ``chip_smoke.py``'s seqdata training
+    parts: the packing A/B's bucketed and packed arms and the nested
+    net."""
+    import torch
+
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.data import DataFeeder
+    from paddle_tpu_torch.datapipe import PackedDataFeeder, pack_samples
+    from paddle_tpu_torch.models import lstm_benchmark_net
+    from paddle_tpu_torch.param import Adam
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    types = {"words": "ids_seq", "label": "int"}
+    samples = smoke.pack_samples_ab()
+    rows = pack_samples(samples, max_len=smoke.PACK_MAX_LEN,
+                        max_segments=smoke.PACK_SEGMENTS)[:smoke.PACK_B]
+    feeds = {"bucketed": DataFeeder(types, max_len=smoke.PACK_MAX_LEN)(
+                 samples[:smoke.PACK_B]),
+             "packed": PackedDataFeeder(
+                 types, max_segments=smoke.PACK_SEGMENTS)(rows)}
+    for arm, feed in feeds.items():
+        nn.reset_naming()
+        cost, _ = lstm_benchmark_net(smoke.PACK_VOCAB,
+                                     emb_dim=smoke.PACK_EMB,
+                                     hid_dim=smoke.PACK_HID, num_layers=2)
+        tr = SGDTrainer(cost, Adam(learning_rate=1e-3), seed=smoke.SEED,
+                        device=dev)
+        _profile_step(f"one seqdata step, {arm} arm (lstm_b"
+                      f"{smoke.PACK_B}h{smoke.PACK_HID}, rows of "
+                      f"{feed['words'][0].shape[1]} tokens, bf16)",
+                      lambda: tr.train_batch(feed), top_n=10)
+        del tr
+        torch.cuda.empty_cache()
+    feed = smoke.seqdata_nested_feeds(smoke.NEST_B, 1)[0]
+    nn.reset_naming()
+    cost, _ = smoke.nested_nets().hier_lstm_net(
+        nn, smoke.NEST_VOCAB, smoke.NEST_EMB, smoke.NEST_HID)
+    tr = SGDTrainer(cost, Adam(learning_rate=1e-3), seed=smoke.SEED,
+                    device=dev)
+    _profile_step(f"one seqdata step, nested (B={smoke.NEST_B}, To="
+                  f"{smoke.NEST_TO}, Ti={smoke.NEST_TI}, bf16)",
+                  lambda: tr.train_batch(feed), top_n=10)
+
+
 def main() -> int:
     import torch
 
@@ -764,7 +814,7 @@ def main() -> int:
               "k8plans": probe_k8plans, "k8variants": probe_k8variants,
               "variants": probe_variants, "vision": probe_vision,
               "text": probe_text, "sparse": probe_sparse,
-              "build": probe_build}
+              "seqdata": probe_seqdata, "build": probe_build}
     wanted = sys.argv[1:] or list(probes)
     unknown = set(wanted) - set(probes)
     if unknown:

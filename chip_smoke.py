@@ -197,21 +197,52 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             all persistent, and one ``SGDTrainer.test`` batch (K9 once);
             then (a), (c) and (d) at B=4, f32, loss and every gradient on
             the card against the CPU;
-15. a ``{"server_launches": {...}}`` line (each part of the server
+15. seqdata  nested and packed sequences and the sharded data pipeline,
+            bf16 unless f32 is named, random weights from ``SEED``: (a)
+            packing, ``bench.py:1479-1555``'s A/B at its shape:
+            ``lstm_benchmark_net`` at lstm_b64h256's widths trained by
+            ``SGDTrainer(Adam(1e-3)).train_batch`` x 4 on 64 rows of
+            4096 pad-heavy samples (lengths clip(exp(24) + 4, 4, 128)),
+            bucketed (``DataFeeder(max_len=128)``; K9r and K10 twice a
+            step, all persistent) and packed (``pack_samples`` into rows
+            of 128 tokens and 16 segments, ``PackedDataFeeder``; the reset
+            LSTMs take the plain scan, no K9/K10), each with its losses,
+            median step, samples/s, pad waste, busy share (one profiled
+            step), peak memory and launches, then the packed/bucketed
+            ratio; at f32 and the reference test's shape (8 samples, rows
+            of 16 tokens, 4 segments) the packed loss and every gradient
+            against the unpacked run (K9/K10's f32 path) on the card and
+            against the CPU; (b) nested, a two-level LSTM classifier
+            (``tests/torch_nested_nets.py::hier_lstm_net``, vocab 30000,
+            emb 128, hid 256) over B=64 documents of 8 sentences of at
+            most 16 tokens from the synthetic imdb stream, 4 steps (K9r
+            and K10 once an outer step, persistent), one test batch (K9
+            once an outer step), the nested group equal to the flat RNN
+            at H=256, D=128 (f32) and the net at B=4 card vs CPU (f32);
+            (c) datapipe: ``python -m paddle_tpu_torch data pack`` of the
+            textclf config into 8 shards and ``data verify``, then
+            ``SGDTrainer.train(ShardSource(...), num_passes=2)`` at
+            lstm_b64h256 uninterrupted, preempted at pass 1 batch 2 and
+            resumed with ``resume="auto"``: losses and parameters bit for
+            bit, no batch replayed, exactly the remaining batches' records
+            read; (d) ``--job=train --data_pack`` through the command
+            line (finite losses, packing logged, no K10);
+16. a ``{"server_launches": {...}}`` line (each part of the server
    phase: every kernel library's launches, by kernel variant and by
    thread), a ``{"kernels": [...]}`` line (each kernel's launches on its
    path's run, also by kernel variant: ``launches_by_path``; the K9,
    K9r and K10 rows at b64h256 also by trainer part:
    ``trainer_launches``; the K3, K3r, K4, K9, K9r and K10 rows also by
    text part: ``text_launches``; the K9, K9r and K10 rows at b64h256 also
-   by sparse part: ``sparse_launches``), then the card line again, and last
+   by sparse part: ``sparse_launches``, and by seqdata part:
+   ``seqdata_launches``), then the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed just before each path (serve and its fused
 re-run, each part of the server phase, each arm of the spec phase, each
 training configuration, each textclf run, dslgen, each part of the
-trainer phase, the vision phase, each part of the text and sparse
-phases) is driven
+trainer phase, the vision phase, each part of the text, sparse and
+seqdata phases) is driven
 and read just after; a kernel of the path
 that was not launched fails the run.  ``chip_probe.py`` measures what this
 run leaves out to stay short (the products' chunk sizes end to end,
@@ -4601,6 +4632,558 @@ SPARSE_ROWS = {
 }
 
 
+# ---------------------------------------------------------------------------
+# phase 15: nested and packed sequences and the sharded data pipeline
+# ---------------------------------------------------------------------------
+
+#: (a) bench.py:1479-1555's packing A/B: lstm_benchmark_net at
+#: lstm_b64h256's widths (vocab 30000, emb 128, 2 LSTMs of 256), 4096
+#: samples of clip(int(exponential(24) + 4), 4, 128) tokens from
+#: RandomState(0), B=64 rows, packed rows of at most 128 tokens and 16
+#: segments, 4 Adam(1e-3) steps an arm on its one feed
+PACK_VOCAB, PACK_B, PACK_EMB, PACK_HID = 30000, 64, 128, 256
+PACK_MAX_LEN, PACK_SEGMENTS, PACK_SAMPLES, SEQDATA_STEPS = 128, 16, 4096, 4
+#: the f32 packed checks at tests/test_datapipe.py:489-530's shape: 8
+#: samples of 2-8 tokens (vocab 40), rows of 16 tokens and 4 segments,
+#: lstm_benchmark_net(emb 8, hid 16, 2 layers)
+PACK_CHECK_VOCAB = 40
+#: packed (the plain scan) against unpacked (K9/K10's f32 path) on the
+#: card, and the packed card run against the CPU's: the loss (rel) and
+#: each gradient's max |diff| against its largest entry; the same f32
+#: math summed in another order (K9/K10's per-step products and the
+#: scan's cuBLAS calls) over at most 16 steps
+TOL_PACK_LOSS, TOL_PACK_GRAD = 1e-5, 1e-4
+#: (b) the nested net: hier_lstm_net at vocab 30000, emb 128, hid 256,
+#: B=64 documents of at most 8 sentences of at most 16 tokens cut from the
+#: synthetic imdb stream (To = 8, Ti = 16)
+NEST_VOCAB, NEST_EMB, NEST_HID, NEST_B, NEST_TO, NEST_TI = (30000, 128, 256,
+                                                            64, 8, 16)
+#: test_nested_equals_flat_rnn at H=256, D=128, B=64, To=8, Ti=16 (f32):
+#: each outer output against the flat RNN's state at the end of its
+#: sub-sequence (max abs; |h| < 1; the same products, in other calls,
+#: over up to 128 dependent tanh steps)
+TOL_NESTED_FLAT = 1e-5
+#: (c) the shard set: the config's synthetic imdb samples, 8 shards, 4
+#: batches of 64 a pass
+SHARD_PASS_BATCHES, SHARD_COUNT = 4, 8
+
+
+def _busy(step):
+    """One ``step()`` under ``torch.profiler`` (CUDA activity) -> (device
+    kernel ms, host ms, kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+    return (sum(e.self_device_time_total for e in kernels) / 1e3,
+            host * 1e3, sum(e.count for e in kernels))
+
+
+def pack_samples_ab():
+    """bench.py's pad-heavy samples."""
+    import numpy as np
+
+    rs = np.random.RandomState(0)
+    lengths = np.clip((rs.exponential(24, PACK_SAMPLES) + 4).astype(int), 4,
+                      PACK_MAX_LEN)
+    return [(rs.randint(3, PACK_VOCAB, L).tolist(), int(rs.randint(0, 2)))
+            for L in lengths]
+
+
+def seqdata_arm(K, dev, card, arm: str, cost, feed, n_samples: int,
+                waste: float, want: dict):
+    """SEQDATA_STEPS ``SGDTrainer(cost, Adam(1e-3), seed=SEED).train_batch``
+    steps on ``feed`` at bf16, then one profiled step: losses, median of
+    steps 2-N, samples/s, pad waste, busy share, peak memory and launches
+    (``want``: each kernel's launches a step, all persistent; no other).
+    -> (launches, median step seconds)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.param import Adam
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    tr = SGDTrainer(cost, Adam(learning_rate=1e-3), seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    losses, secs = [], []
+    for _ in range(SEQDATA_STEPS):
+        t0 = time.perf_counter()
+        losses.append(tr.train_batch(feed).item())     # synchronises
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    dev_ms, host_ms, n_kernels = _busy(lambda: tr.train_batch(feed).item())
+    rest = sorted(secs[1:])
+    sec = rest[len(rest) // 2]
+    print(f"seqdata: {arm} losses {[round(x, 6) for x in losses]}",
+          flush=True)
+    print(f"seqdata: {arm} SGDTrainer(Adam(1e-3)) x {SEQDATA_STEPS}, "
+          f"{PACK_B} rows of {feed['words'][0].shape[1]} tokens, bf16: "
+          f"first step {secs[0]:.3f} s, median of steps 2-{SEQDATA_STEPS} "
+          f"{sec * 1e3:.2f} ms/step (min {rest[0] * 1e3:.2f}, max "
+          f"{rest[-1] * 1e3:.2f}), {n_samples} samples a batch, "
+          f"{n_samples / sec:.1f} samples/s, pad waste {waste:.4f}, busy "
+          f"share {dev_ms / host_ms:.1%} (device kernel time "
+          f"{dev_ms:.2f} ms of a {host_ms:.2f} ms profiled step, "
+          f"{n_kernels} kernels), peak memory {peak / 2 ** 30:.2f} GiB, "
+          f"launches {_launched(launches)} [{card}]", flush=True)
+    if not all(np.isfinite(losses)):
+        fail("seqdata", f"{arm}: loss not finite: {losses}")
+    _launch_check("seqdata", arm, launches,
+                  {k: n * SEQDATA_STEPS for k, n in want.items()})
+    return launches, sec, tr
+
+
+def _grads_against(dev, cost, params, feeds, what: str, tol_loss: float,
+                   tol_grad: float):
+    """The loss and every gradient of ``cost`` at f32 for each (label,
+    device, feed) of ``feeds`` from the same parameters; each held against
+    the first."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+
+    out = []
+    with compute_dtype_scope("float32"):
+        for label, dv, feed in feeds:
+            topo = nn.Topology(cost, device=dv)
+            p = {k: v.to(dv).requires_grad_() for k, v in params.items()}
+            loss = topo.apply(p, {}, feed, train=True)[0][cost.name].value
+            grads = torch.autograd.grad(loss, list(p.values()))
+            out.append((label, loss.item(), [g.cpu() for g in grads]))
+    (l0, loss0, g0), ok = out[0], True
+    for label, loss, g in out[1:]:
+        d_loss = abs(loss - loss0) / abs(loss0)
+        worst, worst_name = 0.0, ""
+        for name, a, c in zip(params, g, g0):
+            rel = (a - c).abs().max().item() / max(c.abs().max().item(),
+                                                   1e-30)
+            if rel > worst:
+                worst, worst_name = rel, name
+        print(f"seqdata: {what}: {label} vs {l0}, f32: loss {loss:.7f} vs "
+              f"{loss0:.7f} (rel diff {d_loss:.3e}, tol {tol_loss}); "
+              f"{len(params)} gradients, worst max |diff| / max |g| "
+              f"{worst:.3e} ({worst_name}, tol {tol_grad})", flush=True)
+        ok &= (np.isfinite(loss0) and d_loss <= tol_loss
+               and worst <= tol_grad)
+    if not ok:
+        fail("seqdata", f"{what}: disagreement beyond tolerance")
+
+
+def seqdata_packing(K, dev, card):
+    """(a) bench.py's packing A/B at its shape, then the f32 packed checks
+    on the card.  -> {part: launches}."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.data import DataFeeder
+    from paddle_tpu_torch.datapipe import PackedDataFeeder, pack_samples
+    from paddle_tpu_torch.models import lstm_benchmark_net
+
+    types = {"words": "ids_seq", "label": "int"}
+    samples = pack_samples_ab()
+    parts, secs, rates = {}, {}, {}
+    feeder = DataFeeder(types, max_len=PACK_MAX_LEN)
+    rows = pack_samples(samples, max_len=PACK_MAX_LEN,
+                        max_segments=PACK_SEGMENTS)[:PACK_B]
+    pfeeder = PackedDataFeeder(types, max_segments=PACK_SEGMENTS)
+    arms = {"bucketed": (feeder(samples[:PACK_B]), PACK_B, feeder,
+                         {"lstm_forward": 2, "lstm_backward": 2}),
+            "packed": (pfeeder(rows), sum(len(r[0]) for r in rows), pfeeder,
+                       {})}
+    for arm, (feed, n, fd, want) in arms.items():
+        nn.reset_naming()
+        cost, _ = lstm_benchmark_net(PACK_VOCAB, emb_dim=PACK_EMB,
+                                     hid_dim=PACK_HID, num_layers=2)
+        parts[arm], secs[arm], tr = seqdata_arm(
+            K, dev, card, arm, cost, feed, n, fd.pad_waste, want)
+        rates[arm] = n / secs[arm]
+        del tr
+        torch.cuda.empty_cache()
+    print(f"seqdata: packing A/B (lstm_b{PACK_B}h{PACK_HID}, lengths ~ "
+          f"exp(24) + 4 <= {PACK_MAX_LEN}, {PACK_SEGMENTS} segments a row): "
+          f"packed {rates['packed']:.1f} samples/s "
+          f"({arms['packed'][1]} samples a batch, pad waste "
+          f"{pfeeder.pad_waste:.4f}) vs bucketed {rates['bucketed']:.1f} "
+          f"(pad waste {feeder.pad_waste:.4f}): packed/bucketed "
+          f"{rates['packed'] / rates['bucketed']:.3f}x [{card}]",
+          flush=True)
+
+    # f32 at the reference test's shape: packed (the scan) against the
+    # unpacked oracle (K9/K10's f32 path) on the card, and against the CPU
+    rs = np.random.RandomState(1)
+    small = [(rs.randint(1, PACK_CHECK_VOCAB, rs.randint(2, 9)).tolist(),
+              int(rs.randint(0, 2))) for _ in range(8)]
+    nn.reset_naming()
+    cost, _ = lstm_benchmark_net(PACK_CHECK_VOCAB, emb_dim=8, hid_dim=16,
+                                 num_layers=2)
+    params, _ = nn.Topology(cost, device="cpu").init(SEED + 1)
+    rng = np.random.RandomState(SEED + 1)
+    params = {k: v if v.abs().max() > 0 else torch.from_numpy(
+        (0.3 * rng.randn(*v.shape)).astype(np.float32))
+        for k, v in params.items()}
+    feed_u = DataFeeder(types)(small)
+    feed_p = PackedDataFeeder(types, max_segments=4)(
+        pack_samples(small, max_len=16, max_segments=4))
+    K.reset_launch_counts()
+    _grads_against(dev, cost, params,
+                   [("unpacked on the card", dev, feed_u),
+                    ("packed on the card", dev, feed_p)],
+                   "packed vs unpacked lstm_benchmark_net", TOL_PACK_LOSS,
+                   TOL_PACK_GRAD)
+    got = K.launch_counts()
+    if got["lstm_forward"] != 2 or got["lstm_backward"] != 2:
+        fail("seqdata", f"f32 packed check launches {dict(got)}: want K9r "
+             f"and K10 twice (the unpacked side) and none packed")
+    _grads_against(dev, cost, params,
+                   [("packed on the CPU", "cpu", feed_p),
+                    ("packed on the card", dev, feed_p)],
+                   "packed lstm_benchmark_net card vs CPU", TOL_PACK_LOSS,
+                   TOL_PACK_GRAD)
+    return parts
+
+
+def nested_nets():
+    """``tests/torch_nested_nets.py``, the package-agnostic nested builders
+    the CPU and card tests share."""
+    if os.path.join(ROOT, "tests") not in sys.path:
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_nested_nets
+
+    return torch_nested_nets
+
+
+def seqdata_nested_feeds(B: int, steps: int):
+    """``steps`` batches of B documents cut from the synthetic imdb stream,
+    fed as nested ids."""
+    import paddle_tpu_torch.data as data
+
+    nested_samples = nested_nets().nested_samples
+    feeder = data.DataFeeder({"words": "ids_nested", "label": "int"})
+    flat = list(data.datasets.imdb("train", vocab_size=NEST_VOCAB,
+                                   n=B * steps)())
+    docs = nested_samples(flat, NEST_TO, NEST_TI)
+    return [feeder(docs[i:i + B]) for i in range(0, len(docs), B)]
+
+
+def seqdata_nested(K, dev, card):
+    """(b) the two-level LSTM classifier: 4 steps (K9r and K10 once an
+    outer step), one test batch (K9 once an outer step); the nested-equals-
+    flat check at full width and the net at B=4 card vs CPU, f32.  ->
+    {part: launches}."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+    from paddle_tpu_torch.param import Adam
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    flat_rnn_inputs = nested_nets().flat_rnn_inputs
+    hier_lstm_net = nested_nets().hier_lstm_net
+    feeds = seqdata_nested_feeds(NEST_B, SEQDATA_STEPS)
+    To, Ti = feeds[0]["words"][0].shape[1:]
+    if (To, Ti) != (NEST_TO, NEST_TI):
+        fail("seqdata", f"nested feed is To={To}, Ti={Ti}")
+    nn.reset_naming()
+    cost, _ = hier_lstm_net(nn, NEST_VOCAB, NEST_EMB, NEST_HID)
+    parts = {}
+    tr = SGDTrainer(cost, Adam(learning_rate=1e-3), seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    losses, secs = [], []
+    for feed in feeds:
+        t0 = time.perf_counter()
+        losses.append(tr.train_batch(feed).item())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    parts["nested"] = launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    dev_ms, host_ms, n_kernels = _busy(
+        lambda: tr.train_batch(feeds[0]).item())
+    rest = sorted(secs[1:])
+    sec = rest[len(rest) // 2]
+    tokens = np.mean([int(f["words"][2].sum()) for f in feeds[1:]])
+    print(f"seqdata: nested losses {[round(x, 6) for x in losses]}",
+          flush=True)
+    print(f"seqdata: nested hier_lstm_net (vocab {NEST_VOCAB}, emb "
+          f"{NEST_EMB}, hid {NEST_HID}) SGDTrainer(Adam(1e-3)) x "
+          f"{SEQDATA_STEPS}, B={NEST_B} documents, To={To} x Ti={Ti}, bf16: "
+          f"first step {secs[0]:.3f} s, median of steps 2-{SEQDATA_STEPS} "
+          f"{sec * 1e3:.2f} ms/step (min {rest[0] * 1e3:.2f}, max "
+          f"{rest[-1] * 1e3:.2f}), {NEST_B / sec:.1f} samples/s, "
+          f"{tokens / sec:.1f} real tokens/s, busy share "
+          f"{dev_ms / host_ms:.1%} (device kernel time {dev_ms:.2f} ms of a "
+          f"{host_ms:.2f} ms profiled step, {n_kernels} kernels), peak "
+          f"memory {peak / 2 ** 30:.2f} GiB, launches "
+          f"{_launched(launches)} [{card}]", flush=True)
+    if not all(np.isfinite(losses)):
+        fail("seqdata", f"nested: loss not finite: {losses}")
+    _launch_check("seqdata", "nested", launches,
+                  {"lstm_forward": To * SEQDATA_STEPS,
+                   "lstm_backward": To * SEQDATA_STEPS})
+    K.reset_launch_counts()
+    res = tr.test(lambda: iter(feeds[:1]))
+    parts["nested_test"] = got = K.launch_counts()
+    print(f"seqdata: nested SGDTrainer.test, one batch: cost "
+          f"{res['cost']:.6f}, launches {_launched(got)}", flush=True)
+    if not math.isfinite(res["cost"]):
+        fail("seqdata", f"nested test cost {res['cost']}")
+    _launch_check("seqdata", "nested test", got, {"lstm_forward": To})
+    del tr
+    torch.cuda.empty_cache()
+
+    # test_nested_equals_flat_rnn at full width, f32
+    H, D = NEST_HID, NEST_EMB
+    vals, outer, sub, flat, flat_len = flat_rnn_inputs(
+        np.random.RandomState(SEED), NEST_B, NEST_TO, NEST_TI, D,
+        empty_frame=False)
+
+    def nested_net():
+        x = nn.data("x", size=D, is_seq=True, nested=True)
+
+        def outer_step(frame, outer_mem):
+            def inner_step(tok, inner_mem):
+                s = nn.fc([tok, inner_mem], H, act="tanh", name="cell",
+                          bias_attr=False)
+                return [s, s]
+
+            states = nn.recurrent_group(
+                inner_step, [frame], [nn.Memory("im", H, boot=outer_mem)],
+                name="inner")
+            last = nn.last_seq(states, name="last")
+            return [last, last]
+
+        return nn.recurrent_group(outer_step, [x], [nn.Memory("om", H)],
+                                  name="outer")
+
+    def flat_net():
+        x = nn.data("x", size=D, is_seq=True)
+
+        def step(tok, mem):
+            s = nn.fc([tok, mem], H, act="tanh", name="cell",
+                      bias_attr=False)
+            return [s, s]
+
+        return nn.recurrent_group(step, [x], [nn.Memory("m", H)],
+                                  name="flat")
+
+    with compute_dtype_scope("float32"), torch.no_grad():
+        nn.reset_naming()
+        n_out = nested_net()
+        topo = nn.Topology(n_out, device=dev)
+        params, _ = topo.init(SEED)
+        got = topo.apply(params, {}, {"x": (vals, outer, sub)})[0][
+            n_out.name].value.cpu().numpy()
+        nn.reset_naming()
+        f_out = flat_net()
+        want = nn.Topology(f_out, device=dev).apply(
+            params, {}, {"x": (flat, flat_len)})[0][f_out.name].value
+        want = want.cpu().numpy()
+    worst = 0.0
+    for b in range(NEST_B):
+        for j, t in enumerate(np.cumsum(sub[b, :outer[b]])):
+            worst = max(worst, float(np.abs(got[b, j] - want[b, t - 1])
+                                     .max()))
+    print(f"seqdata: nested == flat RNN (H={H}, D={D}, B={NEST_B}, To="
+          f"{NEST_TO}, Ti={NEST_TI}, f32, on the card): each outer output "
+          f"against the flat state at its sub-sequence's end, max |diff| "
+          f"{worst:.3e} (tol {TOL_NESTED_FLAT})", flush=True)
+    if worst > TOL_NESTED_FLAT:
+        fail("seqdata", "nested group differs from the flat RNN")
+
+    # the hierarchical net at B=4, f32, card vs CPU
+    nn.reset_naming()
+    cost, _ = hier_lstm_net(nn, NEST_VOCAB, NEST_EMB, NEST_HID)
+    params, _ = nn.Topology(cost, device="cpu").init(SEED + 2)
+    rng = np.random.RandomState(SEED + 2)
+    params = {k: v if v.abs().max() > 0 else torch.from_numpy(
+        (0.3 * rng.randn(*v.shape)).astype(np.float32))
+        for k, v in params.items()}
+    feed = {k: tuple(a[:4] for a in v) if isinstance(v, tuple) else v[:4]
+            for k, v in feeds[0].items()}
+    _grads_against(dev, cost, params, [("the CPU", "cpu", feed),
+                                       ("the card", dev, feed)],
+                   "hier_lstm_net at B=4", TOL_PACK_LOSS, TOL_PACK_GRAD)
+    return parts
+
+
+def seqdata_datapipe(K, dev, card):
+    """(c) ``data pack`` of the textclf config into 8 shards and ``data
+    verify``; then ``SGDTrainer.train(ShardSource(...), num_passes=2)``
+    at lstm_b64h256 uninterrupted, preempted at pass 1 batch 2, and
+    resumed with ``resume="auto"``: bit for bit, zero replay, exactly the
+    remaining batches' records read.  -> {part: launches}."""
+    import io
+    import tempfile
+
+    import torch
+
+    import paddle_tpu_torch.data as data
+    from paddle_tpu_torch.__main__ import main
+    from paddle_tpu_torch.datapipe import ShardSource
+    from paddle_tpu_torch.obs import get_registry
+    from paddle_tpu_torch.param import Adam
+    from paddle_tpu_torch.resilience import PreemptionHandler, chaos
+    from paddle_tpu_torch.trainer import SGDTrainer, events as ev
+    from paddle_tpu_torch.utils.flags import FLAGS
+
+    parts = {}
+    n = TEXTCLF_B * SHARD_PASS_BATCHES
+    feeder = data.DataFeeder({"words": "ids_seq", "label": "int"},
+                             buckets=(TEXTCLF_T,), max_len=TEXTCLF_T)
+    reads = get_registry().counter("data_shard_records_total",
+                                   "records decoded from shard files")
+    with tempfile.TemporaryDirectory() as tmp, cli_run(n):
+        root = os.path.join(tmp, "imdb")
+        for argv in (["pack", root, "--config", TRAINER_CONF, "--shards",
+                      str(SHARD_COUNT)], ["verify", root]):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = main(["data", *argv])
+            print(f"seqdata: python -m paddle_tpu_torch data "
+                  f"{' '.join(argv[:1])}: exit {rc}: "
+                  f"{out.getvalue().strip()}", flush=True)
+            if rc != 0:
+                fail("seqdata", f"data {argv[0]} exited {rc}")
+
+        def run(tag, save_dir, **kw):
+            losses = {}
+
+            def rec(e):
+                if isinstance(e, ev.EndIteration):
+                    losses[(e.pass_id, e.batch_id)] = float(e.cost)
+
+            handler = kw.pop("handler", None)
+            FLAGS.save_dir, FLAGS.log_period = save_dir, 0
+            _, cost = textclf_net(256, dev)
+            tr = SGDTrainer(cost, Adam(learning_rate=1e-3), seed=SEED,
+                            device=dev)
+            K.reset_launch_counts()
+            before = reads.value
+            t0 = time.perf_counter()
+            tr.train(ShardSource(root, batch_size=TEXTCLF_B, seed=3),
+                     num_passes=2, feeder=feeder,
+                     event_handler=handler(rec) if handler else rec, **kw)
+            torch.cuda.synchronize()
+            parts[tag] = K.launch_counts()
+            print(f"seqdata: ShardSource {tag}: {time.perf_counter() - t0:.2f}"
+                  f" s, {len(losses)} steps, {int(reads.value - before)} records "
+                  f"read, replayed batches {tr.resume_replayed_batches}, "
+                  f"launches {_launched(parts[tag])}", flush=True)
+            return tr, losses, reads.value - before
+
+        keep = FLAGS.as_dict()
+        try:
+            ref, ref_losses, _ = run("uninterrupted", "")
+            ck = os.path.join(tmp, "ck")
+            h = PreemptionHandler()
+            tr1, part1, _ = run(
+                "preempted", ck, preemption=h, resume="auto",
+                handler=lambda rec: chaos.preempt_at(h, batch=2, pass_id=1,
+                                                     inner=rec))
+            tr2, part2, n_read = run("resumed", ck, resume="auto")
+        finally:
+            for k, v in keep.items():
+                setattr(FLAGS, k, v)
+    got = {**part1, **part2}
+    same_losses = got == ref_losses
+    same_params = all(torch.equal(tr2.params[k], ref.params[k])
+                      for k in ref.params)
+    remaining = SHARD_PASS_BATCHES - 3
+    print(f"seqdata: cursor resume (preempted at pass 1 batch 2, next "
+          f"batch 3): losses {'bit for bit' if same_losses else 'DIFFER'}"
+          f", parameters {'bit for bit' if same_params else 'DIFFER'}, "
+          f"replayed batches {tr2.resume_replayed_batches}, records read "
+          f"on resume {int(n_read)} (want {remaining * TEXTCLF_B}) [{card}]",
+          flush=True)
+    if not (tr1.preempted and same_losses and same_params
+            and tr2.resume_replayed_batches == 0
+            and n_read == remaining * TEXTCLF_B):
+        fail("seqdata", "the cursor resume is not bit for bit with zero "
+             "replay")
+    for tag in ("uninterrupted", "preempted", "resumed"):
+        _all_persistent("seqdata", tag, parts[tag], TEXTCLF_KERNELS)
+    return parts
+
+
+def seqdata_cli(K, dev, card):
+    """(d) ``python -m paddle_tpu_torch --job=train --data_pack`` on the
+    textclf config, one pass of 3 source batches: finite losses, the log
+    saying packing is on, no K9/K10 on the training steps."""
+    import logging
+
+    import numpy as np
+
+    from paddle_tpu_torch.utils.log import logger
+
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda r: lines.append(r.getMessage())
+    logger.addHandler(handler)
+    K.reset_launch_counts()
+    try:
+        with cli_run(TEXTCLF_B * 3), recorded_losses() as losses:
+            t0 = time.perf_counter()
+            cli(["--job=train", "--data_pack", "--num_passes=1"],
+                phase="seqdata")
+            sec = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(handler)
+    got = K.launch_counts()
+    on = [m for m in lines if "sequence packing enabled" in m]
+    print(f"seqdata: --job=train --data_pack, one pass: {sec:.2f} s, "
+          f"losses {losses}, log {on[:1]}, launches {_launched(got)} "
+          f"[{card}]", flush=True)
+    if not losses or not all(np.isfinite(losses)) or not on:
+        fail("seqdata", "--data_pack: losses not finite or packing not "
+             "logged")
+    if got["lstm_backward"]:
+        fail("seqdata", f"--data_pack launched K10: {dict(got)}")
+    return {"data_pack": got}
+
+
+def seqdata_path(K, dev, card):
+    """Nested and packed sequences and the sharded data pipeline, each
+    part's launch counters zeroed before it and read after it: (a) the
+    packing A/B, (b) the nested net, (c) the datapipe cursor resume, (d)
+    ``--data_pack`` through the command line.  -> {part: launches}."""
+    import torch
+
+    parts = seqdata_packing(K, dev, card)
+    torch.cuda.empty_cache()
+    parts.update(seqdata_nested(K, dev, card))
+    torch.cuda.empty_cache()
+    parts.update(seqdata_datapipe(K, dev, card))
+    torch.cuda.empty_cache()
+    parts.update(seqdata_cli(K, dev, card))
+    return parts
+
+
+#: the kernels line's rows that the seqdata phase's parts launch
+SEQDATA_ROWS = {
+    "lstm_forward": ("nested_test",),
+    "lstm_forward_residuals_b64h256": ("bucketed", "packed", "nested",
+                                       "resumed"),
+    "lstm_backward_b64h256": ("bucketed", "packed", "nested", "resumed"),
+}
+
+
 def main() -> int:
     try:
         import torch
@@ -4685,6 +5268,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "sparse"
         sparse_launches = sparse_path(K, dev, card)
+        torch.cuda.empty_cache()
+        phase = "seqdata"
+        seqdata_launches = seqdata_path(K, dev, card)
     except SystemExit:
         raise
     except Exception:  # noqa: BLE001 — report the phase and fail
@@ -4751,6 +5337,15 @@ def main() -> int:
             row["sparse_launches_by_path"] = {
                 part: sparse_launches[part].by_path[key]
                 for part in SPARSE_ROWS[name]}
+        if name in SEQDATA_ROWS:
+            # the seqdata phase's parts that reach this row's kernel (the
+            # packed arm's count is 0: a reset LSTM takes the scan)
+            row["seqdata_launches"] = {
+                part: seqdata_launches[part][key]
+                for part in SEQDATA_ROWS[name]}
+            row["seqdata_launches_by_path"] = {
+                part: seqdata_launches[part].by_path[key]
+                for part in SEQDATA_ROWS[name]}
         if name == "topk_lse_readout":
             # the spec phase's full arm: one launch a table step, its wide
             # steps at N = 320

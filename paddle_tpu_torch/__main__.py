@@ -18,12 +18,16 @@ returns a dict built with the port's modules:
 
 The trainer runs on ``--device`` (``cuda`` by default: without a card the
 command raises; ``--device=cpu`` runs the kernels' plain versions).
+``--data_pack`` packs the config's reader and ``DataFeeder`` into packed
+rows (``datapipe.auto_pack``).
+
+``python -m paddle_tpu_torch data {pack|verify} ...`` is the shard-set
+tooling (``datapipe/cli.py``).
 
 Not ported here, and refused with a ``ConfigError`` naming the ROADMAP.md
 Queue 1 item that ports them: the ``lint`` (item 9), ``serve`` (item 7),
-``obs`` (item 9), ``data`` (item 6) and ``fsck`` (item 9) subcommands, and
-the reference's flags of parts not ported yet
-(``utils/flags.py::NOT_PORTED_FLAGS``).
+``obs`` (item 9) and ``fsck`` (item 9) subcommands, and the reference's
+flags of parts not ported yet (``utils/flags.py::NOT_PORTED_FLAGS``).
 """
 
 from __future__ import annotations
@@ -34,8 +38,7 @@ import time
 from typing import List, Optional
 
 #: the reference's subcommands and the ROADMAP.md Queue 1 item porting each
-NOT_PORTED_COMMANDS = {"lint": 9, "serve": 7, "obs": 9, "data": 6,
-                       "fsck": 9}
+NOT_PORTED_COMMANDS = {"lint": 9, "serve": 7, "obs": 9, "fsck": 9}
 
 
 def _load_config(path: str):
@@ -87,11 +90,38 @@ def job_train(conf) -> int:
             logger.info("pass %d done: %s", e.pass_id, e.evaluator)
 
     reader = conf["reader"]
+    feeder = conf.get("feeder")
+    test_reader = conf.get("test_reader")
+    if FLAGS.data_pack:
+        # the batch reader and DataFeeder re-plumbed into packed rows; the
+        # test reader packs the same way, since train() feeds its batches
+        # through the same (now packed) feeder
+        from paddle_tpu_torch.data.feeder import DataFeeder
+        from paddle_tpu_torch.datapipe import auto_pack
+        from paddle_tpu_torch.utils.error import ConfigError
+
+        if not isinstance(feeder, DataFeeder):
+            raise ConfigError(
+                "--data_pack needs the config's feeder to be a DataFeeder "
+                "(the packer re-plumbs its slots)")
+        if test_reader is not None:
+            test_reader, _ = auto_pack(test_reader, feeder)
+        reader, feeder = auto_pack(reader, feeder)
+        logger.info("--data_pack: sequence packing enabled (note: packed "
+                    "readers resume via fast-forward)")
     if FLAGS.reader_retries > 0:
-        reader = resilient_reader(reader, max_retries=FLAGS.reader_retries)
+        from paddle_tpu_torch.datapipe import is_checkpointable_source
+
+        if is_checkpointable_source(reader):
+            # a datapipe source has its own skip policy (skip_corrupt);
+            # wrapping it would hide its cursor from the trainer
+            logger.warning("--reader_retries ignored for a checkpointable "
+                           "datapipe source (use skip_corrupt=True)")
+        else:
+            reader = resilient_reader(reader,
+                                      max_retries=FLAGS.reader_retries)
     trainer.train(reader, num_passes=FLAGS.num_passes,
-                  feeder=conf.get("feeder"),
-                  test_reader=conf.get("test_reader"),
+                  feeder=feeder, test_reader=test_reader,
                   event_handler=handler,
                   resume="auto" if FLAGS.resume == "auto" else None)
     if trainer.preempted:
@@ -182,6 +212,7 @@ JOBS = {
 
 _USAGE = """\
 usage: python -m paddle_tpu_torch --job={train|test|checkgrad|time} --config=CONF.py [--device=cuda|cpu] [--flag=value ...]
+       python -m paddle_tpu_torch data {pack|verify} ...   (shard-set tooling; data --help)
 
 The paddle_trainer command line of the PyTorch port.  CONF.py defines
 get_config() (see the module docstring of paddle_tpu_torch/__main__.py).
@@ -196,6 +227,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                                               flags_help, parse_flags)
 
     argv = list(sys.argv[1:]) if argv is None else list(argv)
+    if argv and argv[0] == "data":
+        # shard-set tooling: its own argparse surface
+        from paddle_tpu_torch.datapipe.cli import run as data_run
+
+        return data_run(argv[1:])
     if argv and argv[0] in NOT_PORTED_COMMANDS:
         raise not_ported(f"the {argv[0]!r} subcommand",
                          NOT_PORTED_COMMANDS[argv[0]])

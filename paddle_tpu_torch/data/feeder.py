@@ -101,10 +101,11 @@ class PreparedFeed:
 
 class DataFeeder:
     """feeding: {data_layer_name: slot_index}; types: {name: kind} with kind
-    in 'dense' | 'int' | 'ids_seq' | 'dense_seq' (and the sparse and nested
-    kinds, whose feeds the port's ``Topology`` refuses until ROADMAP.md
-    Queue 1 item 3).  Returns numpy arrays: the trainer moves each batch to
-    its device once."""
+    in 'dense' | 'int' | 'ids_seq' | 'dense_seq', the sparse kinds and the
+    nested 'ids_nested' | 'dense_nested' (-> (value, outer_lengths,
+    sub_lengths)); ``datapipe.PackedDataFeeder`` is its packed half.
+    Returns numpy arrays: the trainer moves each batch to its device
+    once."""
 
     def __init__(
         self,

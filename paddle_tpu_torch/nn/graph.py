@@ -13,11 +13,13 @@ auto-generated layer names are the reference's, so a JAX parameter dict
 carries across unchanged (``params_from_jax``).
 
 Sparse data layers feed padded COO rows (``_coerce_feed``); only the
-sparse-aware layers (``Topology.SPARSE_AWARE``) may consume them.
+sparse-aware layers (``Topology.SPARSE_AWARE``) may consume them.  A nested
+data layer takes ``(value, outer_lengths, sub_lengths)``; a packed sequence
+slot (``--data_pack``) the 5-tuple ``(ids, lengths, seg_ids, positions,
+seg_lengths)``, whose pack state rides ``Act.state``.
 
-Not ported here, and refused with a ``ConfigError`` that says so: nested
-data layers, packed sequence feeds, ``device_pin`` and
-``apply(device_specs=)``, ``apply(param_overrides=)``.
+Not ported here, and refused with a ``ConfigError`` that says so:
+``device_pin`` and ``apply(device_specs=)``, ``apply(param_overrides=)``.
 """
 
 from __future__ import annotations
@@ -30,16 +32,12 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.device import resolve_device
-from paddle_tpu_torch.ops.sequence import mask_from_lengths
+from paddle_tpu_torch.ops.sequence import PACK_KEYS, mask_from_lengths
 from paddle_tpu_torch.utils.error import ConfigError, layer_scope, not_ported
 
 __all__ = ["Act", "ParamAttr", "ParamSpec", "LayerOutput", "ApplyContext",
            "Topology", "StepTopology", "next_name", "reset_naming",
            "naming_scope", "device_pin", "PACK_KEYS"]
-
-#: the sequence-packing keys an ``Act.state`` carries in the reference
-PACK_KEYS = ("seg_ids", "positions", "seg_lengths")
-
 
 def _not_ported(what: str, item: int = 3) -> ConfigError:
     """``item``: the ROADMAP.md Queue 1 item that ports it (3, groups,
@@ -63,16 +61,27 @@ class Act:
 
     value: [B, D] (non-seq), [B, T, D] (sequence) or int ids [B, T].
     lengths/mask present iff the activation is a sequence.  ``state``
-    carries auxiliary outputs (e.g. an RNN's final cell state)."""
+    carries auxiliary outputs (e.g. an RNN's final cell state) and a packed
+    row's ``PACK_KEYS``.
+
+    Nested sequences (the reference's sub-sequence start positions):
+    value is [B, To, Ti(, D)], ``lengths``/``mask`` index the outer level
+    (sub-sequences) and ``sub_lengths`` [B, To] holds each sub-sequence's
+    tokens."""
 
     value: Any
     lengths: Optional[torch.Tensor] = None
     mask: Optional[torch.Tensor] = None
+    sub_lengths: Optional[torch.Tensor] = None
     state: Dict[str, Any] = field(default_factory=dict)
 
     @property
     def is_seq(self) -> bool:
         return self.lengths is not None
+
+    @property
+    def is_nested(self) -> bool:
+        return self.sub_lengths is not None
 
 
 # ---------------------------------------------------------------------------
@@ -422,21 +431,38 @@ def _coerce_feed(layer: LayerOutput, feed: Dict[str, Any],
     elif device is None:
         raise ConfigError(f"a step net's feed {layer.name!r} must be an Act")
     elif isinstance(v, tuple):
-        if len(v) == 5:
-            raise _not_ported(f"the packed sequence feed of "
-                              f"{layer.name!r} (--data_pack)")
-        if len(v) != 2:
-            raise _not_ported(f"a {len(v)}-tuple feed for {layer.name!r} "
-                              f"(nested sequences)")
-        value, lengths = v
-        act = Act(value=_as_tensor(value, device),
-                  lengths=_as_tensor(lengths, device))
+        nested = (layer.data_spec or {}).get("nested")
+        if len(v) == 3 and nested:
+            value, lengths, sub_lengths = v
+            act = Act(value=_as_tensor(value, device),
+                      lengths=_as_tensor(lengths, device),
+                      sub_lengths=_as_tensor(sub_lengths, device))
+        elif len(v) == 5:
+            # a packed row: several whole sequences share it, and the
+            # pack-aware layers read seg_ids/positions/seg_lengths from
+            # the Act's state
+            value, lengths, seg_ids, positions, seg_lengths = v
+            act = Act(value=_as_tensor(value, device),
+                      lengths=_as_tensor(lengths, device),
+                      state={"seg_ids": _as_tensor(seg_ids, device),
+                             "positions": _as_tensor(positions, device),
+                             "seg_lengths": _as_tensor(seg_lengths, device)})
+        elif len(v) == 2:
+            value, lengths = v
+            act = Act(value=_as_tensor(value, device),
+                      lengths=_as_tensor(lengths, device))
+        else:
+            hint = ("" if nested or len(v) != 3 else
+                    " (a nested feed needs data(nested=True))")
+            raise ConfigError(
+                f"data layer {layer.name!r} takes (value, lengths), a "
+                f"nested (value, outer_lengths, sub_lengths) or a packed "
+                f"(ids, lengths, seg_ids, positions, seg_lengths) tuple, "
+                f"got a {len(v)}-tuple{hint}")
     else:
         act = Act(value=_as_tensor(v, device))
-    if any(k in act.state for k in PACK_KEYS):
-        raise _not_ported(f"the packed sequence feed of {layer.name!r}")
     if act.is_seq and act.mask is None:
         act = Act(value=act.value, lengths=act.lengths,
                   mask=mask_from_lengths(act.lengths, act.value.shape[1]),
-                  state=act.state)
+                  sub_lengths=act.sub_lengths, state=act.state)
     return act

@@ -13,7 +13,13 @@ shapes and ``ParamAttr`` defaults follow the reference, so parameters
 carry across from the JAX package by name.
 Sequence activations are padded batches with a mask; ``embedding`` and a
 sequence ``fc`` multiply their output by it.  A packed sequence input
-(``--data_pack``) is refused.
+(``--data_pack``) carries its segments in ``Act.state`` through every
+per-position layer: the recurrent layers reset their carry at segment
+entries, ``pooling``/``last_seq``/``first_seq`` reduce each segment (a
+sequence over the segment axis), ``expand`` broadcasts back over the
+segments and ``context_projection`` fences its window at their edges.  The
+layers with no per-segment meaning (``seq_reverse``, ``seq_concat``) refuse
+it.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import torch
 
 import paddle_tpu_torch.ops as O
 from paddle_tpu_torch.nn.graph import (PACK_KEYS, Act, LayerOutput, ParamAttr,
-                                       ParamSpec, _not_ported, next_name)
+                                       ParamSpec, next_name)
 from paddle_tpu_torch.utils.error import ConfigError
 
 __all__ = ["data", "fc", "embedding", "addto", "concat", "dropout",
@@ -58,18 +64,38 @@ def _bias_attr(bias: AttrLike, default_name: str) -> Optional[ParamAttr]:
     return pa if bias.init else replace(pa, init="zeros")
 
 
+def _pack_state(a: Act) -> dict:
+    """The packing keys riding an Act (seg_ids, positions, seg_lengths);
+    empty for an unpacked one."""
+    return {k: a.state[k] for k in PACK_KEYS if k in a.state}
+
+
 def _refuse_packed(a: Act, name: str, kind: str) -> None:
-    """A cross-time layer over a packed row would mix neighbouring samples'
-    tokens: refuse it (the packed variants are not ported)."""
-    if any(k in a.state for k in PACK_KEYS):
+    """A layer that consumes the time axis whole and has no per-segment
+    variant would mix packed neighbours' tokens: a wrong loss, not an
+    error.  It calls this, so a packed run of such a topology fails at its
+    first batch naming the layer."""
+    if _pack_state(a):
         raise ConfigError(
             f"{kind} {name!r} does not support packed sequences "
-            f"(--data_pack) in paddle_tpu_torch: feed this topology "
-            f"unpacked")
+            f"(--data_pack): it computes across the time axis and would "
+            f"mix packed neighbors' tokens — feed this topology "
+            f"unpacked, or use a pack-aware layer")
 
 
 def _seq_like(parent: Act, value) -> Act:
-    return Act(value=value, lengths=parent.lengths, mask=parent.mask)
+    # the pack state rides every per-position layer unchanged, so a
+    # segment-aware layer downstream (pooling, an RNN's reset) still sees it
+    return Act(value=value, lengths=parent.lengths, mask=parent.mask,
+               sub_lengths=parent.sub_lengths, state=_pack_state(parent))
+
+
+def _segment_seq(value, seg_lengths) -> Act:
+    """A per-segment result [B, S, ...] as a sequence over the segment
+    axis, masked by the segments' validity."""
+    valid = O.segment_valid(seg_lengths)
+    return Act(value=value, mask=valid,
+               lengths=valid.sum(1).to(torch.int32))
 
 
 def _inherit_meta(node: LayerOutput, src: LayerOutput) -> LayerOutput:
@@ -97,13 +123,16 @@ def data(name: str, *, size: int = 0, is_seq: bool = False,
     (ids [B, N], nnz [B]) or (ids [B, N], weights [B, N], nnz [B]), a
     sequence of bags (ids [B, T, N], [weights,] nnz [B, T], lengths [B]);
     ``size`` is the full sparse dimension, and only sparse-aware layers
-    (``fc``, ``selective_fc``) may consume it.  Nested inputs
-    (``nested=True``) are not ported and raise ``ConfigError``."""
+    (``fc``, ``selective_fc``) may consume it.  Nested sequences
+    (``nested=True``, the reference's sub-sequence start positions) feed
+    (value [B, To, Ti(, size)] | ids [B, To, Ti], outer_lengths [B],
+    sub_lengths [B, To]); a recurrent group over them iterates over the
+    sub-sequences."""
     if sparse not in (None, "binary", "float"):
         raise ConfigError(f"sparse must be 'binary' or 'float', got "
                           f"{sparse!r}")
-    if nested:
-        raise _not_ported(f"the nested-sequence data layer {name!r}")
+    if nested and not is_seq:
+        raise ConfigError("nested=True requires is_seq=True")
     meta = {}
     if height is not None:
         meta["hw"] = (height, width)
@@ -112,7 +141,8 @@ def data(name: str, *, size: int = 0, is_seq: bool = False,
     return LayerOutput(name=name, layer_type="data", size=size, parents=[],
                        forward=None, is_data=True,
                        data_spec={"dtype": dtype, "is_seq": is_seq,
-                                  **({"sparse": sparse} if sparse else {})},
+                                  **({"sparse": sparse} if sparse else {}),
+                                  **({"nested": True} if nested else {})},
                        meta=meta)
 
 
@@ -516,6 +546,13 @@ def bilinear_interp(input: LayerOutput, *, out_h: int, out_w: int,
 # ---------------------------------------------------------------------------
 
 
+def _reset(packst: dict, a: Act, reverse: bool):
+    """A packed input's carry resets for a scan in this direction (None
+    when unpacked)."""
+    return (O.segment_starts(packst["seg_ids"], a.mask, reverse=reverse)
+            if packst else None)
+
+
 def lstmemory(input: LayerOutput, size: Optional[int] = None, *,
               reverse: bool = False, act: str = "tanh",
               gate_act: str = "sigmoid", state_act: str = "tanh",
@@ -558,7 +595,6 @@ def lstmemory(input: LayerOutput, size: Optional[int] = None, *,
             specs.append(ps)
 
     def forward(ctx, params, a: Act) -> Act:
-        _refuse_packed(a, name, "lstmemory")
         b = (params[ba.name] if ba else
              torch.zeros(4 * H, dtype=a.value.dtype, device=a.value.device))
         pk = {}
@@ -566,12 +602,13 @@ def lstmemory(input: LayerOutput, size: Optional[int] = None, *,
             pk = dict(peep_i=params[peeps[0].name],
                       peep_f=params[peeps[1].name],
                       peep_o=params[peeps[2].name])
+        packst = _pack_state(a)
         h_seq, (h_f, c_f) = O.lstm_layer(
             a.value, a.mask, params[wx.name] if wx else None,
             params[wh.name], b, reverse=reverse, act=act, gate_act=gate_act,
-            state_act=state_act, **pk)
+            state_act=state_act, reset=_reset(packst, a, reverse), **pk)
         return Act(value=h_seq, lengths=a.lengths, mask=a.mask,
-                   state={"final_h": h_f, "final_c": c_f})
+                   state={"final_h": h_f, "final_c": c_f, **packst})
 
     return LayerOutput(name, "lstmemory", H, [input], forward, specs)
 
@@ -610,14 +647,15 @@ def grumemory(input: LayerOutput, size: Optional[int] = None, *,
         specs.append(ParamSpec(name=ba.name, shape=(3 * H,), attr=ba))
 
     def forward(ctx, params, a: Act) -> Act:
-        _refuse_packed(a, name, "grumemory")
         b = (params[ba.name] if ba else
              torch.zeros(3 * H, dtype=a.value.dtype, device=a.value.device))
+        packst = _pack_state(a)
         h_seq, h_f = O.gru_layer(
             a.value, a.mask, params[wx.name] if wx else None,
-            params[wh.name], b, reverse=reverse, act=act, gate_act=gate_act)
+            params[wh.name], b, reverse=reverse, act=act, gate_act=gate_act,
+            reset=_reset(packst, a, reverse))
         return Act(value=h_seq, lengths=a.lengths, mask=a.mask,
-                   state={"final_h": h_f})
+                   state={"final_h": h_f, **packst})
 
     return LayerOutput(name, "grumemory", H, [input], forward, specs)
 
@@ -639,7 +677,6 @@ def recurrent(input: LayerOutput, *, act: str = "tanh", reverse: bool = False,
     act_fn = O.get_activation(act)
 
     def forward(ctx, params, a: Act) -> Act:
-        _refuse_packed(a, name, "recurrent")
         x = a.value
         if ba:
             x = x + params[ba.name].to(x.dtype)
@@ -649,9 +686,11 @@ def recurrent(input: LayerOutput, *, act: str = "tanh", reverse: bool = False,
             return h2, h2
 
         h0 = torch.zeros(x.shape[0], H, dtype=x.dtype, device=x.device)
-        h_f, h_seq = O.scan_rnn(step, h0, x, a.mask, reverse=reverse)
+        packst = _pack_state(a)
+        h_f, h_seq = O.scan_rnn(step, h0, x, a.mask, reverse=reverse,
+                                reset_bt=_reset(packst, a, reverse))
         return Act(value=h_seq, lengths=a.lengths, mask=a.mask,
-                   state={"final_h": h_f})
+                   state={"final_h": h_f, **packst})
 
     return LayerOutput(name, "recurrent", H, [input], forward, specs)
 
@@ -676,14 +715,21 @@ def bidirectional_rnn(input: LayerOutput, size: int, *, cell: str = "lstm",
 def pooling(input: LayerOutput, *, pooling_type: str = "max",
             name: Optional[str] = None) -> LayerOutput:
     """Sequence pooling [B, T, D] -> [B, D] (max/avg/sum/sqrt over the real
-    positions)."""
+    positions).  A packed input pools each segment on its own: the output
+    is a sequence over the segment axis ([B, S, D], masked by segment
+    validity), so the per-sample layers after it (``fc``, a cost's mean
+    over real positions) treat each packed sample as a row of its own."""
     name = name or next_name("seq_pool")
     fns = {"max": O.seq_pool_max, "avg": O.seq_pool_avg,
            "sum": O.seq_pool_sum, "sqrt": O.seq_pool_sqrt}
     fn = fns[pooling_type]
 
     def forward(ctx, params, a: Act) -> Act:
-        _refuse_packed(a, name, "pooling")
+        segl = a.state.get("seg_lengths")
+        if segl is not None:
+            return _segment_seq(O.segment_pool(
+                a.value, a.mask, a.state["seg_ids"], segl, pooling_type),
+                segl)
         return Act(value=fn(a.value, a.mask))
 
     return LayerOutput(name, "seq_pool", input.size, [input], forward, [])
@@ -691,11 +737,15 @@ def pooling(input: LayerOutput, *, pooling_type: str = "max",
 
 def last_seq(input: LayerOutput, *, name: Optional[str] = None
              ) -> LayerOutput:
-    """The last real timestep of each sequence: [B, T, D] -> [B, D]."""
+    """The last real timestep of each sequence: [B, T, D] -> [B, D]; of
+    each segment of a packed row: a sequence [B, S, D] over the
+    segments."""
     name = name or next_name("last_seq")
 
     def forward(ctx, params, a: Act) -> Act:
-        _refuse_packed(a, name, "last_seq")
+        segl = a.state.get("seg_lengths")
+        if segl is not None:
+            return _segment_seq(O.segment_last(a.value, segl), segl)
         return Act(value=O.seq_last(a.value, a.lengths))
 
     return LayerOutput(name, "last_seq", input.size, [input], forward, [])
@@ -703,11 +753,14 @@ def last_seq(input: LayerOutput, *, name: Optional[str] = None
 
 def first_seq(input: LayerOutput, *, name: Optional[str] = None
               ) -> LayerOutput:
-    """The first timestep of each sequence: [B, T, D] -> [B, D]."""
+    """The first timestep of each sequence: [B, T, D] -> [B, D]; of each
+    segment of a packed row: a sequence [B, S, D] over the segments."""
     name = name or next_name("first_seq")
 
     def forward(ctx, params, a: Act) -> Act:
-        _refuse_packed(a, name, "first_seq")
+        segl = a.state.get("seg_lengths")
+        if segl is not None:
+            return _segment_seq(O.segment_first(a.value, segl), segl)
         return Act(value=O.seq_first(a.value))
 
     return LayerOutput(name, "first_seq", input.size, [input], forward, [])
@@ -716,12 +769,19 @@ def first_seq(input: LayerOutput, *, name: Optional[str] = None
 def expand(input: LayerOutput, expand_as: LayerOutput, *,
            name: Optional[str] = None) -> LayerOutput:
     """Broadcast a per-sequence vector [B, D] over the timesteps of
-    ``expand_as`` (its lengths and mask; padding zeroed)."""
+    ``expand_as`` (its lengths and mask; padding zeroed).  Over a packed
+    ``expand_as``, a per-segment vector [B, S, D] broadcasts over its own
+    segment's tokens."""
     name = name or next_name("expand")
 
     def forward(ctx, params, vec: Act, seq: Act) -> Act:
-        return Act(value=O.seq_expand(vec.value, seq.mask),
-                   lengths=seq.lengths, mask=seq.mask)
+        packst = _pack_state(seq)
+        if packst and vec.value.dim() == 3:
+            value = O.segment_expand(vec.value, packst["seg_ids"], seq.mask)
+        else:
+            value = O.seq_expand(vec.value, seq.mask)
+        return Act(value=value, lengths=seq.lengths, mask=seq.mask,
+                   state=packst)
 
     return LayerOutput(name, "expand", input.size, [input, expand_as],
                        forward, [])
@@ -760,13 +820,16 @@ def context_projection(input: LayerOutput, *, context_len: int,
                        name: Optional[str] = None) -> LayerOutput:
     """Sliding-window context features with zero padding: [B, T, D] ->
     [B, T, D * context_len], the window starting at ``context_start``
-    (default ``-(context_len // 2)``)."""
+    (default ``-(context_len // 2)``).  Over a packed row the window stops
+    at segment edges."""
     name = name or next_name("context_proj")
     start = -(context_len // 2) if context_start is None else context_start
 
     def forward(ctx, params, a: Act) -> Act:
-        out = O.context_projection(a.value, a.mask, context_len, start)
-        return Act(value=out, lengths=a.lengths, mask=a.mask)
+        packst = _pack_state(a)
+        out = O.context_projection(a.value, a.mask, context_len, start,
+                                   seg_ids=packst.get("seg_ids"))
+        return Act(value=out, lengths=a.lengths, mask=a.mask, state=packst)
 
     return LayerOutput(name, "context_projection", input.size * context_len,
                        [input], forward, [])

@@ -408,7 +408,7 @@ def slice_channels(input: LayerOutput, start: int, end: int,
 
     def forward(ctx, params, a: Act) -> Act:
         return Act(value=a.value[..., start:end], lengths=a.lengths,
-                   mask=a.mask)
+                   mask=a.mask, sub_lengths=a.sub_lengths)
 
     return _inherit_meta(LayerOutput(name, "slice_channels", end - start,
                                      [input], forward, []), input)

@@ -10,8 +10,13 @@ there), and its parameters are hoisted into the group layer.
 
 - ``recurrent_group`` walks the frames in a Python loop (``ops.scan_rnn``):
   where a row's sequence has ended its memories hold and its output is
-  zero, as the reference's masked scan.  Only flat sequences reach it: the
-  nested-sequence data layer is not ported and raises.
+  zero, as the reference's masked scan.  Over a nested sequence it walks
+  the sub-sequences: each frame is itself a padded sequence [B, Ti, ...]
+  with its own lengths and mask, an inner group in the step walks its
+  tokens (its memories may boot from the outer step's layers), and a step
+  whose output is a sequence gives a nested output [B, To, Ti, ...] with
+  ``sub_lengths``.  A packed input is refused (the group has no
+  per-segment carry reset).
 - ``beam_search`` is the generation mode: the step takes the previous
   token ids, ends in a vocab-size logits layer, and is driven by
   ``SequenceGenerator``.
@@ -144,18 +149,43 @@ def recurrent_group(step: Callable[..., Sequence[LayerOutput]],
         mem0 = _mems0(memories, boot_ix, acts, ref.value.shape[0],
                       ref.value.device)
 
-        def step_fn(mems, frames):
+        def run_step(mems, frame_acts):
             feed = {sl.name: sa for sl, sa in zip(static_layers, static_acts)}
             feed.update({ml.name: Act(value=mv)
                          for ml, mv in zip(mem_layers, mems)})
-            feed.update({fl.name: Act(value=f_t)
-                         for fl, f_t in zip(frame_layers, frames)})
+            feed.update({fl.name: fa
+                         for fl, fa in zip(frame_layers, frame_acts)})
             outs, _ = sub_topo.apply(params, {}, feed, train=ctx.train)
             return (tuple(outs[u.name].value for u in mem_updates),
-                    outs[out_layer.name].value)
+                    outs[out_layer.name])
 
-        _, out_seq = O.scan_rnn(step_fn, tuple(mem0),
-                                tuple(a.value for a in seq_acts), ref.mask,
+        values = tuple(a.value for a in seq_acts)
+        if ref.is_nested:
+            # the outer iteration is over sub-sequences: frame t of every
+            # input is a padded sequence [B, Ti, ...] of sub_lengths[:, t]
+            Ti = ref.value.shape[2]
+
+            def step_fn(mems, inp):
+                frames, sl_t = inp
+                imask = O.mask_from_lengths(sl_t, Ti)
+                new_mems, out = run_step(mems, [
+                    Act(value=f_t, lengths=sl_t, mask=imask)
+                    for f_t in frames])
+                # a sequence output carries its lengths out of the scan
+                return new_mems, ((out.value, out.lengths) if out.is_seq
+                                  else (out.value,))
+
+            _, outs = O.scan_rnn(step_fn, tuple(mem0),
+                                 (values, ref.sub_lengths), ref.mask,
+                                 reverse=reverse)
+            return Act(value=outs[0], lengths=ref.lengths, mask=ref.mask,
+                       sub_lengths=outs[1] if len(outs) > 1 else None)
+
+        def step_fn(mems, frames):
+            new_mems, out = run_step(mems, [Act(value=f_t) for f_t in frames])
+            return new_mems, out.value
+
+        _, out_seq = O.scan_rnn(step_fn, tuple(mem0), values, ref.mask,
                                 reverse=reverse)
         return Act(value=out_seq, lengths=ref.lengths, mask=ref.mask)
 

@@ -39,7 +39,11 @@ from paddle_tpu_torch.ops.sequence import (context_projection,
                                            seq_expand, seq_first, seq_last,
                                            seq_pool_avg, seq_pool_max,
                                            seq_pool_sqrt, seq_pool_sum,
-                                           seq_reverse, seq_slice_window)
+                                           seq_reverse, seq_slice_window,
+                                           PACK_KEYS, segment_expand,
+                                           segment_first, segment_last,
+                                           segment_pool, segment_starts,
+                                           segment_valid)
 from paddle_tpu_torch.ops.attention import (additive_attention_scores, attend,
                                             dot_product_attention)
 from paddle_tpu_torch.ops.crf import crf_decode, crf_log_likelihood, crf_nll
@@ -82,7 +86,9 @@ __all__ = [
     "seq_last", "seq_pool_sum", "seq_pool_avg", "seq_pool_sqrt",
     "seq_pool_max", "seq_expand", "seq_reverse", "seq_concat",
     "context_projection", "context_projection_trainable",
-    "seq_slice_window", "additive_attention_scores", "attend",
+    "seq_slice_window", "PACK_KEYS", "segment_valid", "segment_starts",
+    "segment_pool", "segment_last", "segment_first", "segment_expand",
+    "additive_attention_scores", "attend",
     "dot_product_attention", "crf_log_likelihood", "crf_nll", "crf_decode", "ctc_loss",
     "bigru_layer", "gru_layer", "gru_step", "lstm_layer",
     "lstm_step", "scan_rnn", "gru_sequence_fused", "bigru_sequence_fused",

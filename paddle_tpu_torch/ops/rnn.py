@@ -138,11 +138,15 @@ def _tree_map(fn: Callable, *trees):
 
 
 def scan_rnn(step_fn: Callable, carry_init, xs_btd: torch.Tensor,
-             mask_bt: torch.Tensor, *, reverse: bool = False):
+             mask_bt: torch.Tensor, *, reverse: bool = False,
+             reset_bt: Optional[torch.Tensor] = None):
     """Run ``step_fn(carry, x_t) -> (carry, out_t)`` over time with length
     masking: where mask == 0 the carry is held and the output is zero.
     The carry, the inputs and the output are tensors or tuples of tensors
     (an LSTM's ``(h, c)``; a recurrent group's several frame inputs).
+    ``reset_bt`` [B, T] (a packed row's ``segment_starts``) puts
+    ``carry_init`` back in place of the incoming carry where it is 1, so
+    no state flows from one packed segment into the next.
     xs [B, T, ...] -> (final carry, outs [B, T, ...])."""
     T = mask_bt.shape[1]
     carry = carry_init
@@ -150,9 +154,14 @@ def scan_rnn(step_fn: Callable, carry_init, xs_btd: torch.Tensor,
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
         m_t = mask_bt[:, t]
 
-        def bmask(a):  # [B] mask broadcast against [B, ...] of any rank
-            return m_t.reshape(m_t.shape + (1,) * (a.dim() - 1))
+        def bmask(a, m=m_t):  # [B] mask broadcast against [B, ...]
+            return m.reshape(m.shape + (1,) * (a.dim() - 1))
 
+        if reset_bt is not None:
+            r_t = reset_bt[:, t]
+            carry = _tree_map(
+                lambda init, c: torch.where(bmask(c, r_t).to(c.dtype) > 0,
+                                            init, c), carry_init, carry)
         new, out = step_fn(carry, _tree_map(lambda x: x[:, t], xs_btd))
         carry = _tree_map(lambda n, o: torch.where(bmask(n) > 0, n, o), new,
                           carry)
@@ -163,14 +172,18 @@ def scan_rnn(step_fn: Callable, carry_init, xs_btd: torch.Tensor,
 def gru_layer(x: torch.Tensor, mask: torch.Tensor, w_x: Optional[torch.Tensor],
               w_h: torch.Tensor, b: torch.Tensor, *,
               h0: Optional[torch.Tensor] = None, reverse: bool = False,
-              act="tanh", gate_act="sigmoid"
+              act="tanh", gate_act="sigmoid",
+              reset: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """GRU over a padded batch.  x [B, T, D] -> (h_seq [B, T, H], h_final).
-    ``w_x=None``: x is already the [B, T, 3H] projection."""
+    ``w_x=None``: x is already the [B, T, 3H] projection.  ``reset`` [B, T]
+    (a packed row) zeroes the carry at segment entries; it runs
+    ``scan_rnn``, as the reference's reset does: only the unreset default
+    cell takes ``gru_sequence_fused``."""
     B, T, _ = x.shape
     H = w_h.shape[0]
     xp = (x + b.to(x.dtype)) if w_x is None else linear(x, w_x, b)
-    if (act, gate_act) == ("tanh", "sigmoid"):
+    if reset is None and (act, gate_act) == ("tanh", "sigmoid"):
         from paddle_tpu_torch.ops.rnn_fused import gru_sequence_fused
 
         # reverse rides a flip: padding moves to the front, where the zero
@@ -188,7 +201,8 @@ def gru_layer(x: torch.Tensor, mask: torch.Tensor, w_x: Optional[torch.Tensor],
         h2 = gru_step(xp_t, h, w_h, act=act, gate_act=gate_act)
         return h2, h2
 
-    h_fin, h_seq = scan_rnn(step, h, xp, mask, reverse=reverse)
+    h_fin, h_seq = scan_rnn(step, h, xp, mask, reverse=reverse,
+                            reset_bt=reset)
     return h_seq, h_fin
 
 
@@ -223,17 +237,23 @@ def lstm_layer(x: torch.Tensor, mask: torch.Tensor,
                b: torch.Tensor, *, h0: Optional[torch.Tensor] = None,
                c0: Optional[torch.Tensor] = None, reverse: bool = False,
                peep_i=None, peep_f=None, peep_o=None, act="tanh",
-               gate_act="sigmoid", state_act="tanh"
+               gate_act="sigmoid", state_act="tanh",
+               reset: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """LSTM over a padded batch.  x [B, T, D] -> (h_seq [B, T, H],
     (h_final, c_final)).  ``w_x=None``: x is already the [B, T, 4H]
     projection.  The default cell (peepholes included; absent ones are
     zeros, which degenerate exactly) runs ``lstm_sequence_fused``, with
-    ``reverse`` as a flip; any other activation runs ``scan_rnn``."""
+    ``reverse`` as a flip; any other activation runs ``scan_rnn``.
+    ``reset`` [B, T] (a packed row's ``segment_starts``) zeroes the (h, c)
+    carry at segment entries and runs ``scan_rnn`` whatever the cell: the
+    reference routes a reset the same way (its fused time loop has no
+    reset), so a packed LSTM launches no K9/K10."""
     B, T, _ = x.shape
     H = w_h.shape[0]
     xp = (x + b.to(x.dtype)) if w_x is None else linear(x, w_x, b)
-    if (act, gate_act, state_act) == ("tanh", "sigmoid", "tanh"):
+    if reset is None and \
+            (act, gate_act, state_act) == ("tanh", "sigmoid", "tanh"):
         from paddle_tpu_torch.ops.rnn_fused import lstm_sequence_fused
 
         has_peeps = any(p is not None for p in (peep_i, peep_f, peep_o))
@@ -259,5 +279,6 @@ def lstm_layer(x: torch.Tensor, mask: torch.Tensor,
                            state_act=state_act)
         return (h2, c2), h2
 
-    (h_fin, c_fin), h_seq = scan_rnn(step, (h, c), xp, mask, reverse=reverse)
+    (h_fin, c_fin), h_seq = scan_rnn(step, (h, c), xp, mask, reverse=reverse,
+                                     reset_bt=reset)
     return h_seq, (h_fin, c_fin)

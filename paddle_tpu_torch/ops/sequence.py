@@ -1,8 +1,8 @@
 """Sequence ops over padded batches — counterpart of
 ``paddle_tpu/ops/sequence.py``: masks, pooling, first/last steps, expand,
 reverse, concat along time, the context window (zero or trainable padding)
-and the per-row window slice.  The packed-sequence (segment) ops are not
-ported: packed feeds are refused.
+and the per-row window slice, and the packed-sequence (segment) ops that
+the pack-aware layers run on a packed row (``--data_pack``).
 
 ``seq_pool_max`` fills the masked positions with the dtype's most negative
 finite value and reduces with ``torch.amax``, whose gradient splits ties
@@ -11,12 +11,16 @@ route it to one index)."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 __all__ = ["mask_from_lengths", "seq_pool_sum", "seq_pool_avg",
            "seq_pool_sqrt", "seq_pool_max", "seq_first", "seq_last",
            "seq_expand", "seq_reverse", "seq_concat", "context_projection",
-           "context_projection_trainable", "seq_slice_window"]
+           "context_projection_trainable", "seq_slice_window", "PACK_KEYS",
+           "segment_valid", "segment_starts", "segment_pool",
+           "segment_last", "segment_first", "segment_expand"]
 
 
 def mask_from_lengths(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -111,27 +115,39 @@ def seq_concat(a: torch.Tensor, a_len: torch.Tensor, b: torch.Tensor,
     return _masked(out, mask_from_lengths(out_len, T)), out_len
 
 
-def _shift_time(v: torch.Tensor, off: int) -> torch.Tensor:
-    """out[:, t] = v[:, t + off], zero where t + off is outside [0, T)."""
+def _shift_time(v: torch.Tensor, off: int, fill=0) -> torch.Tensor:
+    """out[:, t] = v[:, t + off], ``fill`` where t + off is outside [0,
+    T)."""
     T = v.shape[1]
     if off == 0:
         return v
     if abs(off) >= T:
-        return torch.zeros_like(v)
-    z = torch.zeros_like(v[:, :abs(off)])
+        return torch.full_like(v, fill)
+    z = torch.full_like(v[:, :abs(off)], fill)
     if off < 0:
         return torch.cat([z, v[:, :T + off]], 1)
     return torch.cat([v[:, off:], z], 1)
 
 
 def context_projection(value: torch.Tensor, mask: torch.Tensor,
-                       context_len: int, context_start: int) -> torch.Tensor:
+                       context_len: int, context_start: int,
+                       seg_ids: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """Sliding window over time with zero padding: output[t] =
     concat(value[t + start], ..., value[t + start + len - 1]).  The input
     is masked first, so a window crossing a row's end reads zeros, not the
-    next row.  [B, T, D] -> [B, T, D * context_len], masked."""
+    next row.  ``seg_ids`` (a packed row) fences the window at segment
+    boundaries: a neighbour of another segment reads as zero, as row
+    padding would.  [B, T, D] -> [B, T, D * context_len], masked."""
     v = _masked(value, mask)
-    cols = [_shift_time(v, context_start + k) for k in range(context_len)]
+    cols = []
+    for k in range(context_len):
+        off = context_start + k
+        shifted = _shift_time(v, off)
+        if seg_ids is not None and off != 0:
+            same = _shift_time(seg_ids, off, fill=-2) == seg_ids
+            shifted = shifted * same[..., None].to(shifted.dtype)
+        cols.append(shifted)
     return _masked(torch.cat(cols, -1), mask)
 
 
@@ -171,3 +187,105 @@ def seq_slice_window(value: torch.Tensor, starts: torch.Tensor,
     pos = starts.to(torch.long)[:, None] + torch.arange(
         width, device=value.device)[None, :]
     return _take_time(value, torch.clamp(pos, 0, T - 1))
+
+
+# ---------------------------------------------------------------------------
+# sequence packing (``--data_pack``): a packed row holds several whole
+# sequences back to back.  seg_ids [B, T] gives each token its segment index
+# (-1 on padding), positions [B, T] its offset within the segment,
+# seg_lengths [B, S] the tokens of each segment (0: an unused slot; S is the
+# static max_segments).  The pack-aware layers run these in place of the
+# padded-batch reductions above.
+# ---------------------------------------------------------------------------
+
+#: the ``Act.state`` keys that mark (and carry) a packed sequence
+PACK_KEYS = ("seg_ids", "positions", "seg_lengths")
+
+
+def segment_valid(seg_lengths: torch.Tensor) -> torch.Tensor:
+    """[B, S] tokens per segment -> [B, S] float validity mask."""
+    return (seg_lengths > 0).to(torch.float32)
+
+
+def segment_starts(seg_ids: torch.Tensor, mask: torch.Tensor, *,
+                   reverse: bool = False) -> torch.Tensor:
+    """[B, T] mask of the positions where a scan enters a segment, where
+    the recurrent carry resets: a segment's first token going forward, its
+    last going in reverse (a reverse scan meets segments tail first)."""
+    pad = torch.full_like(seg_ids[:, :1], -1)
+    if reverse:
+        neighbor = torch.cat([seg_ids[:, 1:], pad], 1)
+    else:
+        neighbor = torch.cat([pad, seg_ids[:, :-1]], 1)
+    return ((seg_ids != neighbor) & (mask > 0)).to(torch.float32)
+
+
+def _segment_members(seg_ids: torch.Tensor, mask: torch.Tensor,
+                     S: int) -> torch.Tensor:
+    """[B, S, T] bool: token t of the row is a real token of segment s."""
+    s = torch.arange(S, device=seg_ids.device)[None, :, None]
+    return (seg_ids[:, None, :] == s) & (mask[:, None, :] > 0)
+
+
+def segment_pool(value: torch.Tensor, mask: torch.Tensor,
+                 seg_ids: torch.Tensor, seg_lengths: torch.Tensor,
+                 pooling_type: str = "max") -> torch.Tensor:
+    """Pooling of each segment of a packed row: [B, T, D] -> [B, S, D]
+    (max/avg/sum/sqrt); empty segment slots come out zero.  ``max`` splits
+    the gradient of tied maxima evenly (``torch.amax``), as JAX's
+    ``segment_max`` does."""
+    S = seg_lengths.shape[1]
+    member = _segment_members(seg_ids, mask, S)[..., None]     # [B,S,T,1]
+    counts = seg_lengths.to(value.dtype)[..., None]            # [B,S,1]
+    if pooling_type == "max":
+        neg = torch.full((), torch.finfo(value.dtype).min, dtype=value.dtype,
+                         device=value.device)
+        out = torch.amax(torch.where(member, value[:, None], neg), dim=2)
+        return torch.where(counts > 0, out, torch.zeros_like(out))
+    out = (value[:, None] * member.to(value.dtype)).sum(2)
+    if pooling_type == "sum":
+        return out
+    n = torch.clamp(counts, min=1.0)
+    if pooling_type == "avg":
+        return out / n
+    if pooling_type == "sqrt":
+        return out / torch.sqrt(n)
+    raise ValueError(f"unknown segment pooling type {pooling_type!r}")
+
+
+def _segment_start_index(seg_lengths: torch.Tensor) -> torch.Tensor:
+    """[B, S] each segment's first token index (segments lie contiguous,
+    in order)."""
+    return torch.cumsum(seg_lengths, 1) - seg_lengths
+
+
+def _segment_take(value: torch.Tensor, idx: torch.Tensor,
+                  seg_lengths: torch.Tensor) -> torch.Tensor:
+    out = _take_time(value, torch.clamp(idx.to(torch.long), 0,
+                                        value.shape[1] - 1))
+    return out * segment_valid(seg_lengths)[..., None].to(out.dtype)
+
+
+def segment_last(value: torch.Tensor, seg_lengths: torch.Tensor
+                 ) -> torch.Tensor:
+    """The last real token of every segment: [B, T, D] -> [B, S, D],
+    empty slots zero."""
+    start = _segment_start_index(seg_lengths)
+    return _segment_take(value, start + torch.clamp(seg_lengths, min=1) - 1,
+                         seg_lengths)
+
+
+def segment_first(value: torch.Tensor, seg_lengths: torch.Tensor
+                  ) -> torch.Tensor:
+    """The first token of every segment: [B, T, D] -> [B, S, D], empty
+    slots zero."""
+    return _segment_take(value, _segment_start_index(seg_lengths),
+                         seg_lengths)
+
+
+def segment_expand(vec: torch.Tensor, seg_ids: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """A per-segment [B, S, D] vector broadcast back over each segment's
+    tokens: -> [B, T, D], padding zeroed."""
+    idx = torch.clamp(seg_ids.to(torch.long), 0, vec.shape[1] - 1)
+    return _masked(_take_time(vec, idx), mask)

@@ -12,8 +12,9 @@ reference's ``paddle_tpu/resilience``).  Ported so far:
   batch boundary);
 - **chaos** — the serving faults (``nan_feed``, ``kill_worker``,
   ``latency_injection``, ``crash_calls``, ``straggler_request``,
-  ``slow_client``) and the decode faults (``bad_draft``,
-  ``corrupt_prefix_cache``).
+  ``slow_client``), the decode faults (``bad_draft``,
+  ``corrupt_prefix_cache``), the training faults and the data-pipeline
+  faults (``corrupt_shard``, ``truncate_shard``, ``slow_shard``).
 
 The loss-scaled guard waits for ``--amp`` (ROADMAP.md Queue 1 item 4); the
 gang supervisor, the integrity fingerprint and the rest of the chaos

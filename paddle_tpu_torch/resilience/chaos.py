@@ -28,7 +28,11 @@ and the training faults the trainer must survive:
 - ``flaky_reader`` makes a reader raise at a chosen sample
   (``resilient_reader`` must absorb it, or the trainer attribute it);
 - ``preempt_at`` requests a preemption at a chosen batch (the trainer must
-  checkpoint there and resume to the same losses).
+  checkpoint there and resume to the same losses);
+- ``corrupt_shard``, ``truncate_shard`` and ``slow_shard`` damage or pace
+  an indexed record shard set (``paddle_tpu_torch.datapipe``: a damaged
+  record must raise a typed ``ShardCorruptError`` naming the file and
+  record, a cut shard must fail to open, a slow one must not hang).
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ __all__ = ["nan_feed", "kill_worker", "latency_injection", "crash_calls",
            "straggler_request", "slow_client", "bad_draft",
            "corrupt_prefix_cache", "corrupt_file", "truncate_file",
            "corrupt_checkpoint", "inject_nan_batches", "flaky_reader",
-           "preempt_at"]
+           "preempt_at", "corrupt_shard", "truncate_shard", "slow_shard"]
 
 
 def nan_feed(batch: Any) -> Any:
@@ -289,3 +293,55 @@ def preempt_at(handler, *, batch: int, pass_id: int = 0,
             inner(e)
 
     return event_handler
+
+
+# ---------------------------------------------------------------------------
+# data-pipeline faults (indexed record shards, ``paddle_tpu_torch.datapipe``)
+# ---------------------------------------------------------------------------
+
+
+def _shard_files(root: str):
+    names = sorted(n for n in os.listdir(root) if n.endswith(".ptshard"))
+    if not names:
+        raise ValueError(f"no .ptshard files under {root!r}")
+    return [os.path.join(root, n) for n in names]
+
+
+def corrupt_shard(root: str, *, shard: int = 0,
+                  record: Optional[int] = None) -> str:
+    """Bit-flip one record's payload in place (``record=None`` flips the
+    middle of the file, which still lands inside some record).  The next
+    CRC-checked read of that record must raise a typed
+    ``ShardCorruptError`` naming the file and record.  Returns the damaged
+    path."""
+    path = _shard_files(root)[shard]
+    if record is None:
+        corrupt_file(path)
+        return path
+    from paddle_tpu_torch.datapipe.shards import ShardReader
+
+    r = ShardReader(path)
+    try:
+        off = int(r._offsets[record])
+    finally:
+        r.close()
+    # past the 8-byte record header, so the length stays sane and the
+    # failure is a payload CRC mismatch at exactly this record
+    corrupt_file(path, offset=off + 8, nbytes=8)
+    return path
+
+
+def truncate_shard(root: str, *, shard: int = 0, frac: float = 0.5) -> str:
+    """Cut a shard file (torn write, full disk): its footer and index are
+    gone, so opening it must fail with a typed ``ShardCorruptError``,
+    never a short read."""
+    path = _shard_files(root)[shard]
+    truncate_file(path, frac=frac)
+    return path
+
+
+def slow_shard(source, *, delay_s: float = 0.05) -> None:
+    """Pace every record read of a ``ShardSource``/``ShardDataset`` by
+    ``delay_s`` (a cold network file system, a throttled object store)."""
+    ds = getattr(source, "dataset", source)
+    ds._read_delay = float(delay_s)

@@ -46,6 +46,7 @@ from paddle_tpu_torch.serving.slots import (Seq2SeqSlotBackend, SlotBackend,
                                             SlotScheduler)
 from paddle_tpu_torch.serving.prefix_cache import PrefixCache, feed_key
 from paddle_tpu_torch.serving.paging import PagedSlot, SlotPager
+from paddle_tpu_torch.serving import feeds
 from paddle_tpu_torch.ops.speculative import (AdversarialProposer,
                                               CallableDraftProposer,
                                               DraftProposer, NGramProposer)
@@ -59,5 +60,5 @@ __all__ = [
     "InferenceServer", "WorkerSupervisor", "SlotBackend",
     "Seq2SeqSlotBackend", "SlotScheduler", "PrefixCache", "feed_key",
     "PagedSlot", "SlotPager", "DraftProposer", "NGramProposer",
-    "CallableDraftProposer", "AdversarialProposer",
+    "CallableDraftProposer", "AdversarialProposer", "feeds",
 ]

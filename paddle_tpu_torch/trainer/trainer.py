@@ -20,6 +20,13 @@ optimizer's masked row update (``sparse_rows``): rows the batch did not
 touch keep their value and slots, as the reference's single-device trainer
 does.
 
+A reader with the cursor protocol (``datapipe.ShardSource``) is bound per
+``train()``: every checkpoint manifest records its cursor
+(``meta["data_cursor"]``), computed from the count of batches stepped, and
+``resume="auto"`` restores the cursor instead of re-reading the pass up to
+the checkpoint (``resume_replayed_batches`` stays 0).  A plain reader keeps
+that re-read-and-discard fast-forward.
+
 Not ported here, and refused with a ``ConfigError`` naming the ROADMAP.md
 Queue 1 item that ports it: ``mesh`` (with it the pserver tier's sharded
 tables), ``data_axis``, ``sharding_rules``, ``pipeline`` and
@@ -158,6 +165,11 @@ class SGDTrainer:
         self.preempted = False
         #: batches re-read and discarded to resume mid-pass
         self.resume_replayed_batches = 0
+        # the checkpointable data source of the running train() (its
+        # cursor rides each manifest) and a loaded manifest's cursor
+        # waiting for it
+        self._data_source = None
+        self._pending_cursor = None
         from paddle_tpu_torch.obs import get_registry
 
         reg = get_registry()
@@ -313,7 +325,8 @@ class SGDTrainer:
           optimizer state, the random stream and the pass id from the
           newest valid checkpoint under ``FLAGS.save_dir`` and continue
           from there, mid-pass at the batch a preemption checkpoint
-          recorded (the reader is re-read and fast-forwarded);
+          recorded: a checkpointable source restores its cursor, a plain
+          reader is re-read and fast-forwarded;
         - SIGTERM/SIGINT (or a ``preemption`` handler's ``request()``)
           writes an atomic checkpoint at the next batch boundary and
           returns (``self.preempted`` is set);
@@ -328,9 +341,20 @@ class SGDTrainer:
         resume = resume or FLAGS.resume or None
         if resume is not None and resume != "auto":
             raise ValueError(f"resume must be None or 'auto', got {resume!r}")
+        from paddle_tpu_torch.datapipe import is_checkpointable_source
+
+        src = reader if is_checkpointable_source(reader) else None
+        self._data_source = src
+        self._pending_cursor = None
         start_pass, start_batch = FLAGS.start_pass, 0
         if resume == "auto":
             start_pass, start_batch = self._auto_resume()
+        cursor_restored = False
+        if src is not None and self._pending_cursor is not None:
+            # point the source at the saved cursor: nothing is re-read
+            src.restore(self._pending_cursor)
+            cursor_restored = True
+            self._pending_cursor = None
         if (preemption is None and FLAGS.save_dir
                 and FLAGS.checkpoint_on_preemption):
             preemption = PreemptionHandler()
@@ -354,14 +378,23 @@ class SGDTrainer:
                         f"{type(e).__name__}: {e}")
 
                 try:
+                    if src is not None:
+                        src.seek(pass_id)
                     it = iter(reader())
                 except Exception as e:
                     raise _reader_failed(e) from e
                 skip = start_batch if pass_id == start_pass else 0
-                if skip:
+                batch_id = 0
+                if skip and cursor_restored:
+                    # the restored cursor already points at this batch:
+                    # the numbering continues, nothing is re-read
+                    batch_id, skip = skip, 0
+                    logger.info("resuming pass %d at batch %d from the "
+                                "data cursor (no replay)", pass_id,
+                                batch_id)
+                elif skip:
                     logger.info("resuming pass %d at batch %d "
                                 "(fast-forward)", pass_id, skip)
-                batch_id = 0
                 while True:
                     if preemption is not None and preemption.poll():
                         self._preempt_exit(pass_id, batch_id + skip)
@@ -392,6 +425,12 @@ class SGDTrainer:
                     except TooManyBadSteps:
                         handler(ev.EndPass(pass_id))
                         raise
+                    if src is not None:
+                        # corrupt records the source skipped and counted
+                        self._last_extras = {
+                            **self._last_extras,
+                            "dropped_records":
+                                int(getattr(src, "dropped_records", 0))}
                     drops = getattr(feeder, "dropped_features", None)
                     if drops is not None:
                         self._last_extras = {**self._last_extras,
@@ -563,6 +602,20 @@ class SGDTrainer:
         meta = dict(meta or {})
         meta.setdefault(RNG_META_KEY,
                         bytes(self._gen.get_state().tolist()).hex())
+        src = self._data_source
+        if src is not None and "data_cursor" not in meta:
+            # the source's cursor from the count of batches stepped (never
+            # from what was read ahead): a mid-pass checkpoint records
+            # (pass, next_batch), an end-of-pass one the next pass's start
+            try:
+                if meta.get("preempted"):
+                    cur = src.cursor_for(pass_id,
+                                         int(meta.get("next_batch", 0)))
+                else:
+                    cur = src.cursor_for(pass_id + 1, 0)
+                meta["data_cursor"] = cur
+            except Exception as e:  # noqa: BLE001 — never fail a save
+                logger.warning("data cursor not recorded: %s", e)
         extra = ({"avg_params": self.avg_params}
                  if self.avg_params is not None else None)
         d = save_checkpoint(save_dir, pass_id, params=self.params,
@@ -597,5 +650,8 @@ class SGDTrainer:
             logger.info("checkpoint pass %d carries a JAX rng_key; the "
                         "port keeps its own random stream (rng_key is not "
                         "used)", pass_id)
+        # the data source's cursor, for train() to restore in place of a
+        # fast-forward
+        self._pending_cursor = meta.get("data_cursor")
         self.rebuild_masks()
         return manifest

@@ -223,12 +223,25 @@ define_flag("reader_retries", 0, "CLI: wrap the config's reader in "
             "resilience.resilient_reader with this retry budget (0 = off)")
 
 
+# --- the sharded data pipeline (datapipe/) -----------------------------------
+
+define_flag("data_pack", False, "sequence packing: several short sequences "
+            "share one padded row (segment ids and positions carried "
+            "through the masks, the RNN carries and the sequence losses); "
+            "the packed loss equals the unpacked one on the same samples")
+define_flag("data_shards", 8, "shard count of `python -m paddle_tpu_torch "
+            "data pack` (indexed record shards, a CRC per record, a footer "
+            "index; the set is published atomically)",
+            validator=lambda v: v >= 1)
+define_flag("shuffle_seed", 0, "seed of the datapipe's global shuffle: each "
+            "pass's record order is a permutation drawn from (seed, pass), "
+            "so the iterator's cursor is O(1) and restorable")
+
 #: the reference's flags of parts the port does not have yet, and the
 #: ROADMAP.md Queue 1 item that ports each; the command line refuses them
 NOT_PORTED_FLAGS: Dict[str, int] = {
     **dict.fromkeys(("amp", "loss_scale", "loss_scale_growth",
                      "loss_scale_max", "remat", "prefetch_depth"), 4),
-    **dict.fromkeys(("data_pack", "data_shards", "shuffle_seed"), 6),
     **dict.fromkeys(("publish_dir", "publish_every", "reload_probation",
                      "compile_cache_dir", "deploy_quantize", "deploy_lint"),
                     7),

@@ -121,12 +121,14 @@ def test_cli_help_lists_the_ported_flags_only(capsys):
     for flag in ("--device", "--save_dir", "--resume", "--keep_last_n",
                  "--guard_nonfinite", "--max_bad_steps", "--num_passes",
                  "--time_batches", "--checkgrad_eps", "--test_pass",
-                 "--fused_apply", "--show_parameter_stats_period"):
-        assert flag in out, flag
+                 "--fused_apply", "--show_parameter_stats_period",
+                 "--data_pack", "--data_shards", "--shuffle_seed"):
+        assert f"{flag}=" in out, flag
     for flag in ("--amp", "--sdc_check_every", "--publish_dir",
-                 "--pserver_axis", "--data_pack", "--prefetch_depth"):
+                 "--pserver_axis", "--prefetch_depth"):
         assert f"{flag}=" not in out, flag
-    for sub in ("lint", "serve", "obs", "data", "fsck"):
+    assert "-m paddle_tpu_torch data {pack|verify}" in out
+    for sub in ("lint", "serve", "obs", "fsck"):
         assert f"-m paddle_tpu_torch {sub}" not in out
     assert main(["-h", "--job=train"]) == 0
 
@@ -142,7 +144,7 @@ def test_cli_rejects_bad_args():
 
 @pytest.mark.parametrize("flag,item", [
     ("--amp", 4), ("--remat", 4), ("--prefetch_depth=2", 4),
-    ("--data_pack", 6), ("--publish_dir=x", 7), ("--publish_every=1", 7),
+    ("--publish_dir=x", 7), ("--publish_every=1", 7),
     ("--pserver_axis=model", 8), ("--mesh_shape=4", 8),
     ("--sdc_check_every=1", 9), ("--scrub_every_s=1", 9),
     ("--obs_timeline=false", 9), ("--profile_dir=p", 9),
@@ -153,7 +155,7 @@ def test_cli_unported_flags_name_their_item(flag, item):
 
 
 @pytest.mark.parametrize("sub,item", [("lint", 9), ("serve", 7), ("obs", 9),
-                                      ("data", 6), ("fsck", 9)])
+                                      ("fsck", 9)])
 def test_cli_unported_subcommands_name_their_item(sub, item):
     with pytest.raises(ConfigError, match=f"Queue 1 item {item}"):
         main([sub, "--help"])
@@ -241,3 +243,98 @@ def test_cli_resnet_train_test_and_resume(resnet_conf, tmp_path, capsys):
 def test_cli_resnet_time(resnet_conf, capsys):
     assert main(resnet_conf("--job=time", "--time_batches=2")) == 0
     assert "ms/batch over 2 batches" in capsys.readouterr().out
+
+
+class _Lines(list):
+    """A logging handler that keeps the port logger's messages."""
+
+    def __enter__(self):
+        import logging
+
+        from paddle_tpu_torch.utils.log import logger
+
+        self.handler = logging.Handler()
+        self.handler.emit = lambda r: self.append(r.getMessage())
+        logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.utils.log import logger
+
+        logger.removeHandler(self.handler)
+
+
+def test_cli_data_pack_trains_packed_rows(monkeypatch):
+    """``--data_pack`` packs the config's reader and DataFeeder: the steps
+    take packed 5-tuple feeds, their losses are finite, and the log says
+    packing is on."""
+    import paddle_tpu_torch.trainer.trainer as tmod
+
+    feeds, losses = [], []
+    real = tmod.SGDTrainer.train_batch
+
+    def spy(self, feed):
+        feeds.append(feed)
+        loss = real(self, feed)
+        losses.append(float(loss))
+        return loss
+
+    monkeypatch.setattr(tmod.SGDTrainer, "train_batch", spy)
+    with _Lines() as lines:
+        assert main(_args("--job=train", "--data_pack")) == 0
+    assert any("sequence packing enabled" in m for m in lines)
+    assert feeds and all(len(f["words"]) == 5 for f in feeds)
+    assert all(f["label"].ndim == 2 for f in feeds)
+    assert np.all(np.isfinite(losses))
+
+
+def test_cli_data_pack_needs_a_data_feeder(tmp_path):
+    conf = tmp_path / "conf.py"
+    conf.write_text(
+        "import sys\n"
+        f"sys.path.insert(0, {os.path.join(ROOT, 'tests')!r})\n"
+        "import torch_textclf_conf as base\n"
+        "def get_config():\n"
+        "    c = base.get_config()\n"
+        "    c['feeder'] = lambda batch: batch\n"
+        "    return c\n")
+    with pytest.raises(ConfigError, match="DataFeeder"):
+        main([f"--config={conf}", "--device=cpu", "--job=train",
+              "--data_pack"])
+
+
+def test_cli_reader_retries_leave_a_checkpointable_source_unwrapped(
+        tmp_path, monkeypatch):
+    """``--reader_retries`` wraps a plain reader but hands a datapipe
+    source to the trainer as it is (its cursor stays visible)."""
+    import paddle_tpu_torch.trainer.trainer as tmod
+    from paddle_tpu_torch.datapipe import ShardSource, write_shard_set
+
+    out = str(tmp_path / "set")
+    import paddle_tpu_torch.data as data
+
+    write_shard_set(out, data.datasets.imdb("train", vocab_size=48, n=12),
+                    num_shards=2)
+    conf = tmp_path / "conf.py"
+    conf.write_text(
+        "import sys\n"
+        f"sys.path.insert(0, {os.path.join(ROOT, 'tests')!r})\n"
+        "import torch_textclf_conf as base\n"
+        "from paddle_tpu_torch.datapipe import ShardSource\n"
+        "def get_config():\n"
+        "    c = base.get_config()\n"
+        f"    c['reader'] = ShardSource({out!r}, batch_size=6, seed=1)\n"
+        "    return c\n")
+    seen = []
+    real = tmod.SGDTrainer.train
+
+    def spy(self, reader, **kw):
+        seen.append(reader)
+        return real(self, reader, **kw)
+
+    monkeypatch.setattr(tmod.SGDTrainer, "train", spy)
+    with _Lines() as lines:
+        assert main([f"--config={conf}", "--device=cpu", "--job=train",
+                     "--reader_retries=2"]) == 0
+    assert isinstance(seen[0], ShardSource)
+    assert any("--reader_retries ignored" in m for m in lines)

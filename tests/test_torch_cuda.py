@@ -2742,3 +2742,188 @@ def test_sparse_paths_launch_their_kernels(dev):
                      for p, n in after.by_path[k].items()
                      if n != before.by_path[k].get(p, 0)}
             assert paths == {"persistent": counts[k]}, (name, k, paths)
+
+
+# ---------------------------------------------------------------------------
+# nested and packed sequences (the seqdata phase's paths at small widths)
+# ---------------------------------------------------------------------------
+
+#: card vs the card's unpacked run or the CPU at f32: the loss (rel) and
+#: each gradient's max |diff| against its largest entry (the same f32 math
+#: summed in another order over at most 16 steps)
+TOL_SEQDATA_LOSS, TOL_SEQDATA_GRAD = 1e-5, 1e-4
+
+
+def _moved(before, after):
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _packing_case(vocab=40):
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.data import DataFeeder
+    from paddle_tpu_torch.datapipe import PackedDataFeeder, pack_samples
+    from paddle_tpu_torch.models import lstm_benchmark_net
+
+    rs = np.random.RandomState(1)
+    samples = [(rs.randint(1, vocab, rs.randint(2, 9)).tolist(),
+                int(rs.randint(0, 2))) for _ in range(8)]
+    types = {"words": "ids_seq", "label": "int"}
+    nn.reset_naming()
+    cost, _ = lstm_benchmark_net(vocab, emb_dim=8, hid_dim=32, num_layers=2)
+    return (cost, DataFeeder(types)(samples),
+            PackedDataFeeder(types, max_segments=4)(
+                pack_samples(samples, max_len=16, max_segments=4)))
+
+
+def _loss_grads(cost, params, feed, where):
+    import paddle_tpu_torch.nn as nn
+
+    topo = nn.Topology(cost, device=where)
+    p = {k: v.to(where).requires_grad_() for k, v in params.items()}
+    loss = topo.apply(p, {}, feed, train=True)[0][cost.name].value
+    grads = torch.autograd.grad(loss, list(p.values()))
+    return loss.item(), {k: g.cpu() for k, g in zip(p, grads)}
+
+
+def _assert_loss_grads_close(got, want):
+    assert np.isfinite(want[0])
+    assert abs(got[0] - want[0]) <= TOL_SEQDATA_LOSS * abs(want[0])
+    for k, g in want[1].items():
+        scale = max(g.abs().max().item(), 1e-30)
+        diff = (got[1][k] - g).abs().max().item()
+        assert diff <= TOL_SEQDATA_GRAD * scale, (k, diff, scale)
+
+
+def _nonzero(params, seed=5):
+    rs = np.random.RandomState(seed)
+    return {k: torch.from_numpy((0.3 * rs.randn(*v.shape)).astype(
+        np.float32)) if not v.abs().max() > 0 else v.cpu()
+        for k, v in params.items()}
+
+
+def test_packed_f32_step_matches_unpacked_and_the_cpu(dev):
+    """``lstm_benchmark_net`` at f32 on a packed feed (8 samples in rows of
+    16 tokens and 4 segments): its loss and every gradient on the card
+    against the unpacked feed on the card (K9r/K10's f32 path) and against
+    the packed feed on the CPU."""
+    import paddle_tpu_torch.nn as nn
+
+    cost, feed_u, feed_p = _packing_case()
+    params = _nonzero(nn.Topology(cost, device="cpu").init(2)[0])
+    with compute_dtype_scope("float32"):
+        before = launch_counts()
+        card_p = _loss_grads(cost, params, feed_p, dev)
+        assert _moved(before, launch_counts()) == {}
+        card_u = _loss_grads(cost, params, feed_u, dev)
+        cpu_p = _loss_grads(cost, params, feed_p, "cpu")
+    _assert_loss_grads_close(card_p, card_u)
+    _assert_loss_grads_close(card_p, cpu_p)
+
+
+def test_packed_bf16_step_launches_no_lstm_kernel(dev):
+    """Under bf16 the packed step's reset LSTMs take the scan (no K9/K10,
+    as the reference routes a reset); the same net unpacked launches K9r and
+    K10 twice, persistent."""
+    import paddle_tpu_torch.nn as nn
+
+    cost, feed_u, feed_p = _packing_case()
+    topo = nn.Topology(cost, device=dev)
+    params, _ = topo.init(0)
+    params = {k: v.requires_grad_() for k, v in params.items()}
+    for feed, want in ((feed_p, {}),
+                       (feed_u, {"lstm_forward": 2, "lstm_backward": 2})):
+        before = launch_counts()
+        with compute_dtype_scope("bfloat16"):
+            loss = topo.apply(params, {}, feed, train=True)[0][
+                cost.name].value
+            torch.autograd.grad(loss, list(params.values()))
+        after = launch_counts()
+        assert torch.isfinite(loss)
+        assert _moved(before, after) == want
+        for k, n in want.items():
+            assert after.by_path[k]["persistent"] - before.by_path[k].get(
+                "persistent", 0) == n
+
+
+def test_nested_net_launches_per_outer_step_and_matches_the_cpu(dev):
+    """The two-level LSTM classifier (``tests/torch_nested_nets.py``) at
+    small widths: under bf16 a training apply launches K9r and K10 once an
+    outer step (To = 4), all persistent, and an inference apply K9 once an
+    outer step; at f32 its loss and every gradient on the card equal the
+    CPU's, an empty sentence included."""
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.data import DataFeeder
+    import torch_nested_nets as NN
+
+    rs = np.random.RandomState(3)
+    flat = [(rs.randint(1, 50, rs.randint(3, 30)).tolist(),
+             int(rs.randint(0, 2))) for _ in range(5)]
+    docs = NN.nested_samples(flat, 4, 8)
+    docs[0] = ([[4, 5, 6], []] + docs[0][0][:2], docs[0][1])
+    feed = DataFeeder({"words": "ids_nested", "label": "int"},
+                      buckets=(4, 8))(docs)
+    To = feed["words"][0].shape[1]
+    assert To == 4
+    nn.reset_naming()
+    cost, prob = NN.hier_lstm_net(nn, 50, 8, 32)
+    topo = nn.Topology(cost, device=dev)
+    params, _ = topo.init(0)
+    params = {k: v.requires_grad_() for k, v in params.items()}
+    with compute_dtype_scope("bfloat16"):
+        before = launch_counts()
+        loss = topo.apply(params, {}, feed, train=True)[0][cost.name].value
+        torch.autograd.grad(loss, list(params.values()))
+        after = launch_counts()
+        assert _moved(before, after) == {"lstm_forward": To,
+                                         "lstm_backward": To}
+        for k in ("lstm_forward", "lstm_backward"):
+            assert after.by_path[k]["persistent"] - before.by_path[k].get(
+                "persistent", 0) == To
+        before = launch_counts()
+        with torch.no_grad():
+            topo.apply(params, {}, feed, train=False)
+        assert _moved(before, launch_counts()) == {"lstm_forward": To}
+    params = _nonzero(params)
+    with compute_dtype_scope("float32"):
+        _assert_loss_grads_close(_loss_grads(cost, params, feed, dev),
+                                 _loss_grads(cost, params, feed, "cpu"))
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_fully_masked_frame_through_the_lstm_kernels(dev, cd):
+    """A nested frame whose rows are all empty (and one with some empty
+    rows): K9 holds the boot carries and emits zeros there, K10 passes the
+    final cotangents through to d_h0/d_c0 and gives zero d_z, each equal to
+    its plain version."""
+    ins, rng = _lstm_inputs(6, 5, 32, 7)
+    for empty_rows in (slice(None), slice(0, 3)):
+        mask = ins[1].clone()
+        mask[empty_rows] = 0
+        args = [t.to(dev) for t in (ins[0], mask, *ins[2:])]
+        T, B, H = 5, 6, 32
+        d_out = torch.from_numpy(rng.randn(T, B, H).astype(
+            np.float32)).to(dev)
+        d_hfin = torch.from_numpy(rng.randn(B, H).astype(np.float32)).to(dev)
+        d_cfin = torch.from_numpy(rng.randn(B, H).astype(np.float32)).to(dev)
+        with compute_dtype_scope(cd):
+            got = lstm_forward(*args, residuals=True)
+            want = lstm_forward_plain(*args, residuals=True)
+            m_tb = args[1].t().contiguous()
+            w_t = args[2].t().contiguous()
+            bargs = [d_out, m_tb, got[3], got[5], w_t, *args[3:6], d_hfin,
+                     d_cfin]
+            g_bwd = lstm_backward(*bargs)
+            p_bwd = lstm_backward_plain(*bargs)
+        torch.cuda.synchronize()
+        e = empty_rows
+        assert torch.equal(got[0][e], torch.zeros_like(got[0][e]))
+        assert torch.equal(got[1][e], args[6][e].float())
+        assert torch.equal(got[2][e], args[7][e].float())
+        assert torch.equal(g_bwd[0][:, e], torch.zeros_like(g_bwd[0][:, e]))
+        assert torch.equal(g_bwd[2][e], d_hfin[e])
+        assert torch.equal(g_bwd[3][e], d_cfin[e])
+        for a, b in zip(got[:3], want[:3]):
+            _rel_close(a, b, 5e-3 if cd == "bfloat16" else 1e-5)
+        for a, b in zip(g_bwd, p_bwd):
+            if a is not None:
+                _rel_close(a, b, 1e-5)

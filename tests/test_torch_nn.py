@@ -187,24 +187,20 @@ def test_graph_errors_match_the_reference():
     assert tuple(outs["a"].value.shape) == (2, 3)
 
 
-@pytest.mark.parametrize("kind", ["sparse", "nested", "packed", "triple",
-                                  "device_pin", "device_specs",
+@pytest.mark.parametrize("kind", ["triple", "device_pin", "device_specs",
                                   "param_overrides", "sparse_grad"])
 def test_unported_feeds_and_options_raise_config_error(kind):
     """Each raises ``ConfigError`` naming the ROADMAP.md Queue 1 item that
     ports it: 8 (parallel and pserver) for the pserver's table proxies (a
     ``sparse_grad`` table handed in through ``param_overrides``), 3
-    (groups, feeds and config) for the rest.  Sparse data layers and
-    ``sparse_grad`` tables themselves are ported: a nested sparse sequence
-    raises as any nested one does."""
+    (groups, feeds and config) for the rest.  Sparse data layers,
+    ``sparse_grad`` tables, nested and packed feeds themselves are ported
+    (``tests/test_torch_nested_seq.py``, ``tests/test_torch_packing.py``):
+    a 3-tuple fed to a data layer that is not nested is a typed
+    ``ConfigError`` that says so."""
     item = 8 if kind in ("param_overrides", "sparse_grad") else 3
     unported = rf"not ported.*Queue 1 item {item}\b"
     tnn.reset_naming()
-    if kind in ("sparse", "nested"):
-        with pytest.raises(ConfigError, match=unported):
-            tnn.data("w", size=10, is_seq=True, nested=True,
-                     **({"sparse": "binary"} if kind == "sparse" else {}))
-        return
     words = tnn.data("w", size=10, is_seq=True, dtype="int32")
     emb = tnn.embedding(words, 4, sparse_grad=kind == "sparse_grad")
     if kind == "sparse_grad":
@@ -219,27 +215,15 @@ def test_unported_feeds_and_options_raise_config_error(kind):
     ids, lens = np.zeros((2, 3), np.int32), np.array([3, 2], np.int32)
     feed = {"w": (ids, lens)}
     kw = {}
-    if kind == "packed":
-        feed = {"w": (ids, lens, ids, ids, lens[:, None])}
-    elif kind == "triple":
+    if kind == "triple":
         feed = {"w": (ids, lens, lens[:, None])}
+        unported = r"got a 3-tuple \(a nested feed needs data\(nested=True\)\)"
     elif kind == "device_specs":
         kw = {"device_specs": {"tp": None}}
     else:
         kw = {"param_overrides": {}}
     with pytest.raises(ConfigError, match=unported):
         topo.apply(p, st, feed, **kw)
-
-
-def test_packed_act_is_refused_by_the_lstm():
-    tnn.reset_naming()
-    x = tnn.data("x", size=4, is_seq=True)
-    topo = tnn.Topology(tnn.lstmemory(x, 4), device="cpu")
-    p, st = topo.init(0)
-    act = tnn.Act(value=torch.zeros(2, 3, 4), lengths=torch.tensor([3, 2]),
-                  mask=torch.ones(2, 3), state={"seg_ids": torch.zeros(2, 3)})
-    with pytest.raises(ConfigError, match="not ported"):
-        topo.apply(p, st, {"x": act})
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

@@ -50,7 +50,11 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
                 "nn/layers_extra.py", "nn/layers_extra2.py",
                 "models/vision.py", "models/image_bench.py",
                 "ops/crf.py", "ops/sequence.py", "ops/sparse.py",
-                "ops/ctc.py", "models/recommender.py"):
+                "ops/ctc.py", "models/recommender.py",
+                "datapipe/__init__.py", "datapipe/sampler.py",
+                "datapipe/shards.py", "datapipe/iterator.py",
+                "datapipe/packing.py", "datapipe/cli.py", "nn/feeds.py",
+                "serving/feeds.py"):
         assert mod in rel, mod
     bad = []
     for path in files:
@@ -81,7 +85,8 @@ def _imports(path):
 @pytest.mark.parametrize("script", [
     "chip_smoke.py", "chip_probe.py", "tests/torch_seqtoseq_net.py",
     "tests/torch_text_nets.py", "tests/torch_golden_nets.py",
-    "tests/torch_layer_cases.py", "tests/torch_sparse_nets.py"])
+    "tests/torch_layer_cases.py", "tests/torch_sparse_nets.py",
+    "tests/torch_nested_nets.py"])
 def test_card_scripts_and_shared_builders_import_no_jax(script):
     """The card's scripts, and the builders they (and the card tests)
     share with the CPU tests, import neither jax nor the JAX package: the
@@ -149,6 +154,33 @@ def test_every_module_imports_without_jax_and_builds_nothing():
     assert "'lstm_backward', 'lstm_forward'" in out.stdout, out.stdout
     assert "'topk_lse_logits'" in out.stdout, out.stdout
     assert "LOADED []" in out.stdout, out.stdout
+    assert "JAX_LOADED False" in out.stdout, out.stdout
+    assert "JAX_PACKAGE_LOADED False" in out.stdout, out.stdout
+
+
+def test_data_subcommand_runs_without_loading_jax(tmp_path):
+    """``python -m paddle_tpu_torch data pack`` then ``data verify`` in a
+    fresh process: both exit 0 and neither loads jax or the JAX
+    package."""
+    (tmp_path / "toy_readers.py").write_text(
+        "from paddle_tpu_torch.data import datasets\n"
+        "train = datasets.uci_housing('train')\n")
+    code = textwrap.dedent(f"""
+        import sys
+        from paddle_tpu_torch.__main__ import main
+        out = {str(tmp_path / "set")!r}
+        assert main(["data", "pack", out, "--reader", "toy_readers:train",
+                     "--shards", "3", "--limit", "20"]) == 0
+        assert main(["data", "verify", out]) == 0
+        print("JAX_LOADED", any(k == "jax" or k.startswith("jax.")
+                                for k in sys.modules))
+        print("JAX_PACKAGE_LOADED", "paddle_tpu" in sys.modules)
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + str(tmp_path))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "verified 20 record(s) across 3 shard(s)" in out.stdout
     assert "JAX_LOADED False" in out.stdout, out.stdout
     assert "JAX_PACKAGE_LOADED False" in out.stdout, out.stdout
 

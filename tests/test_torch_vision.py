@@ -481,24 +481,14 @@ def test_image_layer_config_errors_match_reference(case):
     assert msgs[0] == msgs[1]
 
 
-@pytest.mark.parametrize("module", ["layers_extra", "layers_extra2",
-                                    "nested_data"])
+@pytest.mark.parametrize("module", ["layers_extra", "layers_extra2"])
 def test_unported_extra_layers_name_their_roadmap_item(module):
     """Every layer of the two reference modules is ported: each module's
     ``NOT_PORTED`` is empty and its ``__all__`` is the reference's, every
-    name reached here and through ``paddle_tpu_torch.nn``.  The nested
-    data layer still raises ``ConfigError`` naming ROADMAP.md Queue 1 item
-    3."""
+    name reached here and through ``paddle_tpu_torch.nn``.  (The nested
+    data layer is ported too: ``tests/test_torch_nested_seq.py``.)"""
     import importlib
 
-    if module == "nested_data":
-        tnn.reset_naming()
-        with pytest.raises(ConfigError) as info:
-            tnn.data("w", size=10, is_seq=True, dtype="int32", nested=True)
-        assert str(info.value) == (
-            "the nested-sequence data layer 'w' is not ported to "
-            "paddle_tpu_torch yet (ROADMAP.md, Queue 1 item 3)")
-        return
     mod = importlib.import_module(f"paddle_tpu_torch.nn.{module}")
     ref = importlib.import_module(f"paddle_tpu.nn.{module}")
     assert mod.NOT_PORTED == ()
