@@ -227,7 +227,25 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             bit, no batch replayed, exactly the remaining batches' records
             read; (d) ``--job=train --data_pack`` through the command
             line (finite losses, packing logged, no K10);
-16. a ``{"server_launches": {...}}`` line (each part of the server
+16. mixed    mixed precision, rematerialisation and the batch prefetcher:
+            (a) ``bench.py:755-780``'s flagship step (B=384, S=T=32, 6
+            Adam steps) without and with ``--amp`` in one process (ms a
+            step each, K1-K6 launches by path), the --amp losses against
+            the CPU's run of the same steps within ``TOL_MIXED_LOSS``; (b)
+            ``lstm_benchmark_net`` at lstm_b64h256 through
+            ``SGDTrainer(amp=True)`` beside the same steps without, then a
+            batch whose gradient overflows (an inf injected into one
+            gradient, the loss finite): skipped with parameters and slots
+            held bit for bit, the scale halved, ``bad_steps_streak`` 0;
+            then a clean batch trains; then ``--job=train --amp``; (c)
+            bench row lstm_b512h256r: B=512 with ``remat=True`` beside
+            ``remat=False`` (losses, ``torch.cuda.max_memory_allocated``,
+            ms a step; K9r and K10 on their steps kernels, K9r twice a step
+            under remat); the kernels phase holds K9r and K10 at that shape
+            against their plain versions (its rows ``*_b512h256``); (d)
+            ``--job=train --prefetch_depth=2`` against ``=0`` in turns
+            (losses bit for bit, ms a step);
+17. a ``{"server_launches": {...}}`` line (each part of the server
    phase: every kernel library's launches, by kernel variant and by
    thread), a ``{"kernels": [...]}`` line (each kernel's launches on its
    path's run, also by kernel variant: ``launches_by_path``; the K9,
@@ -235,14 +253,15 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
    ``trainer_launches``; the K3, K3r, K4, K9, K9r and K10 rows also by
    text part: ``text_launches``; the K9, K9r and K10 rows at b64h256 also
    by sparse part: ``sparse_launches``, and by seqdata part:
-   ``seqdata_launches``), then the card line again, and last
+   ``seqdata_launches``; the rows phase 16 reaches also by its part:
+   ``mixed_launches``), then the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed just before each path (serve and its fused
 re-run, each part of the server phase, each arm of the spec phase, each
 training configuration, each textclf run, dslgen, each part of the
-trainer phase, the vision phase, each part of the text, sparse and
-seqdata phases) is driven
+trainer phase, the vision phase, each part of the text, sparse,
+seqdata and mixed phases) is driven
 and read just after; a kernel of the path
 that was not launched fails the run.  ``chip_probe.py`` measures what this
 run leaves out to stay short (the products' chunk sizes end to end,
@@ -5184,6 +5203,510 @@ SEQDATA_ROWS = {
 }
 
 
+# ---------------------------------------------------------------------------
+# phase 16: mixed precision, rematerialisation and the batch prefetcher
+# ---------------------------------------------------------------------------
+
+#: (b) the LSTM arm of the reference bench's amp A/B (bench.py:733-830):
+#: lstm_benchmark_net at lstm_b64h256 through SGDTrainer(amp=True); (c)
+#: bench row lstm_b512h256r (bench.py:2033-2034, :202-233): B=512 with
+#: remat, beside the same step without; (d) --prefetch_depth=2 against 0
+#: through the command line at lstm_b64h256, MIXED_PREFETCH_BATCHES a pass
+REMAT_B, MIXED_PREFETCH_BATCHES = 512, 20
+#: (a) the flagship's 6 --amp losses on the card against the CPU's, same
+#: initial parameters and batch (rel): the bf16 activations' float32 sums
+#: run in another order there, so some round the other way by one bf16
+#: ulp (2^-8 relative), and the loss is an f32 mean over 12288 tokens of
+#: statistics of those activations; later steps also carry Adam updates
+#: whose near-zero gradients may differ in sign
+TOL_MIXED_LOSS = 2e-3
+#: (c) remat against the plain step (rel), where not bit for bit: only a
+#: step that is not run-to-run deterministic could move them, and then by
+#: f32 sums taken in another order
+TOL_REMAT_LOSS = 1e-5
+MIXED_ROWS = ("lstm_forward_residuals_b512h256", "lstm_backward_b512h256")
+
+
+@contextlib.contextmanager
+def amp_policy(on: bool):
+    """``FLAGS.amp`` set for a block and restored after."""
+    from paddle_tpu_torch.utils.flags import FLAGS
+
+    old = FLAGS.amp
+    FLAGS.amp = on
+    try:
+        yield
+    finally:
+        FLAGS.amp = old
+
+
+def mixed_flagship(K, dev, card):
+    """(a) ``bench.py:755-780``'s ``seq2seq_step``: 6 Adam steps of the
+    full-width flagship at B=384, S=T=32, without and with --amp (no loss
+    scaling, as the reference's A/B), from the same parameters and batch
+    in one process; the --amp steps again on the CPU (the plain versions)
+    from the same start.  -> the --amp run's launches."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models import Seq2SeqAttention
+    from paddle_tpu_torch.param import Adam
+
+    def run(model, start, batch, amp: bool, where):
+        params = {k: v.to(where).clone().requires_grad_()
+                  for k, v in start.items()}
+        opt = Adam(learning_rate=1e-3)
+        state = opt.init_state(params)
+        losses, secs = [], []
+        with amp_policy(amp):
+            for _ in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                loss = model.loss(params, batch)
+                grads = torch.autograd.grad(loss, list(params.values()))
+                opt.update(params, dict(zip(params, grads)), state)
+                losses.append(loss.item())
+                if where != "cpu":
+                    torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+        return losses, secs
+
+    model = Seq2SeqAttention(device=dev)
+    start = {k: v.detach() for k, v in model.init(seed=SEED).items()}
+    batch = train_batch(np.random.RandomState(SEED), model, TRAIN_B,
+                        TRAIN_S, TRAIN_T, mixed=False)
+    res = {}
+    for amp in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        K.reset_launch_counts()
+        losses, secs = run(model, start, batch, amp, dev)
+        launches = K.launch_counts()
+        rest = sorted(secs[1:])
+        res[amp] = (losses, rest[len(rest) // 2], launches,
+                    torch.cuda.max_memory_allocated(dev))
+    t0 = time.perf_counter()
+    cpu_losses, _ = run(Seq2SeqAttention(device="cpu"),
+                        {k: v.cpu() for k, v in start.items()}, batch, True,
+                        "cpu")
+    cpu_sec = time.perf_counter() - t0
+    losses, sec, launches, peak = res[True]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)]
+    flops = analytic_flops(model, TRAIN_B, TRAIN_S, TRAIN_T)
+    print(f"mixed: (a) flagship --amp losses {losses}; the CPU's "
+          f"{cpu_losses} ({cpu_sec:.1f} s on the host's CPU), rel diffs "
+          f"{[f'{r:.2e}' for r in rel]} (tol {TOL_MIXED_LOSS}) [{card}]",
+          flush=True)
+    print(f"mixed: (a) flagship B={TRAIN_B} S={TRAIN_S} T={TRAIN_T} Adam, "
+          f"median of steps 2-{TRAIN_STEPS}: --amp {sec * 1e3:.2f} ms/step "
+          f"({TRAIN_B * TRAIN_T / sec:.1f} words/s, MFU "
+          f"{flops / sec / PEAK_OPS_PER_S['bfloat16']:.4%}, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB) vs without {res[False][1] * 1e3:.2f} "
+          f"ms/step (peak {res[False][3] / 2 ** 30:.2f} GiB): "
+          f"{res[False][1] / sec:.3f}x; --amp launches by path "
+          f"{_launched(launches)} [{card}]", flush=True)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail("mixed", f"(a) --amp losses {losses}: want finite, falling")
+    if not max(rel) <= TOL_MIXED_LOSS:
+        fail("mixed", f"(a) --amp losses beyond {TOL_MIXED_LOSS} of the "
+             f"CPU's")
+    for name in TRAIN_KERNELS:
+        if launches[name] <= 0:
+            fail("mixed", f"(a) {name} was not launched in the --amp "
+                 f"steps")
+    _all_persistent("mixed", "(a) --amp", launches,
+                    PERSISTENT_TRAIN_KERNELS)
+    for name in ("ce_readout_fwd", "ce_readout_bwd"):
+        if launches.by_path[name] != {"wgmma": TRAIN_STEPS}:
+            fail("mixed", f"(a) {name} by path {launches.by_path[name]}, "
+                 f"want wgmma")
+    return launches
+
+
+def _state_snapshot(tr):
+    """Every parameter, slot and the step counter of a trainer, cloned."""
+    from paddle_tpu_torch.param.optimizers import slot_leaves
+
+    return [v.detach().clone() for k in sorted(tr.params)
+            for v in (tr.params[k], *slot_leaves(tr.opt_state["slots"][k]))
+            ] + [tr.opt_state["step"].clone()]
+
+
+def mixed_lstm(K, dev, card):
+    """(b) ``lstm_benchmark_net`` at lstm_b64h256 through
+    ``SGDTrainer(amp=True)`` (the default loss-scale state): 6 steps
+    beside the same steps without --amp; then one batch whose gradient
+    overflows (an inf injected into one gradient, the loss finite): the
+    step is skipped with parameters, slots and the step counter held bit
+    for bit, the scale halves and ``bad_steps_streak`` stays 0; then a
+    clean batch trains.  Then ``--job=train --amp`` through the command
+    line.  -> {part: launches}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.param import Adam
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    feeds = [textclf_feed(TEXTCLF_B, TEXTCLF_T, SEED + i)
+             for i in range(TRAIN_STEPS + 2)]
+    parts, res = {}, {}
+    for amp in (False, True):
+        with amp_policy(amp):
+            _, cost = textclf_net(256, dev)
+            tr = SGDTrainer(cost, Adam(learning_rate=1e-3), seed=SEED,
+                            device=dev)
+            K.reset_launch_counts()
+            losses, secs = [], []
+            for f in feeds[:TRAIN_STEPS]:
+                t0 = time.perf_counter()
+                losses.append(tr.train_batch(f).item())
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            launches = K.launch_counts()
+            rest = sorted(secs[1:])
+            res[amp] = (losses, rest[len(rest) // 2])
+            if amp:
+                parts["amp_train_batch"] = launches
+                amp_tr = tr
+            else:
+                del tr
+    losses, sec = res[True]
+    tr = amp_tr
+    scale0 = float(tr.opt_state["amp"]["scale"])
+    print(f"mixed: (b) lstm_b{TEXTCLF_B}h256 SGDTrainer(amp=True) losses "
+          f"{losses}, loss scale {scale0:g} after {TRAIN_STEPS} steps "
+          f"(good steps {int(tr.opt_state['amp']['good_steps'])}); median "
+          f"of steps 2-{TRAIN_STEPS}: --amp {sec * 1e3:.2f} ms/step vs "
+          f"without {res[False][1] * 1e3:.2f} ms/step (losses "
+          f"{res[False][0]}); launches {_launched(parts['amp_train_batch'])}"
+          f" [{card}]", flush=True)
+    if not all(np.isfinite(losses)) or tr.amp_overflows_total:
+        fail("mixed", f"(b) --amp losses {losses}, overflows "
+             f"{tr.amp_overflows_total}")
+    _launch_check("mixed", "(b) --amp", parts["amp_train_batch"],
+                  {k: 2 * TRAIN_STEPS for k in TEXTCLF_KERNELS})
+    # the planted overflow
+    before = _state_snapshot(tr)
+    with amp_policy(True):
+        hook = tr.params["_logits.wbias"].register_hook(
+            lambda g: g + float("inf"))
+        loss = tr.train_batch(feeds[TRAIN_STEPS]).item()
+        hook.remove()
+        held = all(torch.equal(a, b) for a, b in
+                   zip(before, _state_snapshot(tr)))
+        scale1 = float(tr.opt_state["amp"]["scale"])
+        ok = (np.isfinite(loss) and held and scale1 == scale0 / 2
+              and int(tr._last_extras["amp_overflow"]) == 1
+              and int(tr._last_extras["bad_step"]) == 0
+              and tr.bad_steps_streak == 0 and tr.amp_overflows_total == 1)
+        print(f"mixed: (b) planted overflow (inf in d _logits.wbias): loss "
+              f"{loss} (finite), step skipped with {len(before)} parameter/"
+              f"slot/step tensors held bit for bit: {held}, scale "
+              f"{scale0:g} -> {scale1:g}, amp_overflow "
+              f"{int(tr._last_extras['amp_overflow'])}, bad_step "
+              f"{int(tr._last_extras['bad_step'])}, bad_steps_streak "
+              f"{tr.bad_steps_streak}", flush=True)
+        if not ok:
+            fail("mixed", "(b) the planted overflow was not skipped as the "
+                 "reference skips it")
+        loss = tr.train_batch(feeds[TRAIN_STEPS + 1]).item()
+        moved = not all(torch.equal(a, b) for a, b in
+                        zip(before, _state_snapshot(tr)))
+        print(f"mixed: (b) the next clean batch: loss {loss}, amp_overflow "
+              f"{int(tr._last_extras['amp_overflow'])}, parameters moved: "
+              f"{moved}", flush=True)
+        if not (moved and int(tr._last_extras["amp_overflow"]) == 0):
+            fail("mixed", "(b) the clean batch after the overflow did not "
+                 "train")
+    del tr, amp_tr
+    torch.cuda.empty_cache()
+    # the command line
+    per = TRAINER_PASS_BATCHES
+    with tempfile.TemporaryDirectory() as tmp:
+        K.reset_launch_counts()
+        with cli_run(TEXTCLF_B * per), recorded_losses() as run:
+            t0 = time.perf_counter()
+            cli(["--job=train", "--amp", f"--save_dir={tmp}",
+                 "--num_passes=1"], phase="mixed")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        parts["amp_cli"] = got = K.launch_counts()
+        opt = np.load(os.path.join(tmp, "pass-00000", "opt_state.npz"))
+        scale = float(opt["['amp']['scale']"])
+        good = int(opt["['amp']['good_steps']"])
+    print(f"mixed: (b) --job=train --amp, 1 pass of {per} batches (B="
+          f"{TEXTCLF_B}, T={TEXTCLF_T}, a test pass after it): {secs:.2f} s,"
+          f" losses {run}, checkpointed loss scale {scale:g} and good steps "
+          f"{good}, launches {_launched(got)} [{card}]", flush=True)
+    if not (len(run) == per and all(np.isfinite(run)) and good == per
+            and scale == 65536.0):
+        fail("mixed", "(b) --job=train --amp: losses or scale state wrong")
+    _all_persistent("mixed", "(b) --job=train --amp", got, TEXTCLF_KERNELS)
+    if got["lstm_backward"] != 2 * per:
+        fail("mixed", f"(b) --job=train --amp launches {got}")
+    return parts
+
+
+def mixed_remat(K, dev, card):
+    """(c) bench row lstm_b512h256r: ``lstm_benchmark_net`` at B=512,
+    H=256, T=100 (bf16) through ``SGDTrainer(remat=True)``, beside the
+    same 6 steps with ``remat=False``: losses, peak memory, ms a step, K9r
+    and K10 launches by path (B=512 is past the persistent plans, so both
+    take their steps kernels; under remat K9r runs twice a step).
+    -> {part: launches}."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.param import Adam
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    feed = textclf_feed(REMAT_B, TEXTCLF_T, SEED)
+    res, parts = {}, {}
+    for remat in (False, True):
+        _, cost = textclf_net(256, dev)
+        tr = SGDTrainer(cost, Adam(learning_rate=1e-3), seed=SEED,
+                        device=dev, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        K.reset_launch_counts()
+        losses, secs = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(tr.train_batch(feed).item())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        launches = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        rest = sorted(secs[1:])
+        res[remat] = (losses, rest[len(rest) // 2], peak)
+        parts["remat" if remat else "plain"] = launches
+        want = {"lstm_forward": (4 if remat else 2) * TRAIN_STEPS,
+                "lstm_backward": 2 * TRAIN_STEPS}
+        print(f"mixed: (c) lstm_b{REMAT_B}h256{'r' if remat else ''} "
+              f"(T={TEXTCLF_T}, bf16, Adam) remat={remat}: losses {losses}, "
+              f"median of steps 2-{TRAIN_STEPS} {res[remat][1] * 1e3:.2f} "
+              f"ms/step ({REMAT_B / res[remat][1]:.1f} samples/s), peak "
+              f"memory {peak / 2 ** 30:.3f} GiB "
+              f"(torch.cuda.max_memory_allocated), launches "
+              f"{_launched(launches)} [{card}]", flush=True)
+        got = {k: n for k, n in launches.items() if n}
+        if got != want or any(launches.by_path[k] != {"steps": n}
+                              for k, n in want.items()):
+            fail("mixed", f"(c) remat={remat}: launches {got} by path "
+                 f"{_launched(launches)}, want {want} on the steps kernels")
+        if not all(np.isfinite(losses)):
+            fail("mixed", f"(c) remat={remat}: losses {losses}")
+        del tr
+    same = res[True][0] == res[False][0]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(res[True][0],
+                                                 res[False][0]))
+    verdict = ("bit for bit" if same else
+               f"max rel diff {rel:.3e} (tol {TOL_REMAT_LOSS})")
+    print(f"mixed: (c) remat vs plain: losses {verdict}; peak memory {res[True][2] / res[False][2]:.3f}x, step time "
+          f"{res[True][1] / res[False][1]:.3f}x [{card}]", flush=True)
+    if not rel <= TOL_REMAT_LOSS:
+        fail("mixed", "(c) remat's losses differ from the plain step's")
+    return parts
+
+
+def mixed_prefetch(K, dev, card):
+    """(d) ``--job=train`` at lstm_b64h256 with ``--prefetch_depth=2``
+    against ``--prefetch_depth=0``, in turns (0, 2, 2, 0), one pass of
+    MIXED_PREFETCH_BATCHES batches each: the losses bit for bit, and ms a
+    step as the loop's cadence (the median interval between consecutive
+    steps' losses, so the feeding it waits for counts).  -> {part:
+    launches}."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    step = SGDTrainer.train_batch
+    runs = {0: [], 2: []}
+    parts = {}
+    for depth in (0, 2, 2, 0):
+        stamps, losses = [], []
+
+        def timed(self, feed):
+            loss = step(self, feed)
+            losses.append(loss.item())
+            stamps.append(time.perf_counter())
+            return loss
+
+        SGDTrainer.train_batch = timed
+        try:
+            K.reset_launch_counts()
+            with cli_run(TEXTCLF_B * MIXED_PREFETCH_BATCHES):
+                cli(["--job=train", "--num_passes=1",
+                     f"--prefetch_depth={depth}"], phase="mixed")
+            launches = K.launch_counts()
+        finally:
+            SGDTrainer.train_batch = step
+        gaps = sorted(np.diff(stamps))
+        runs[depth].append((losses, gaps[len(gaps) // 2]))
+        parts.setdefault(f"prefetch_{depth}", launches)
+        _all_persistent("mixed", f"(d) depth {depth}", launches,
+                        TEXTCLF_KERNELS)
+        if launches["lstm_backward"] != 2 * MIXED_PREFETCH_BATCHES:
+            fail("mixed", f"(d) depth {depth}: launches {launches}")
+    same = all(r[0] == runs[0][0][0] for d in runs for r in runs[d])
+    ms = {d: [round(float(r[1]) * 1e3, 3) for r in runs[d]] for d in runs}
+    print(f"mixed: (d) --prefetch_depth=2 vs 0, --job=train at "
+          f"lstm_b{TEXTCLF_B}h256, {MIXED_PREFETCH_BATCHES} batches a run: "
+          f"losses {'bit for bit' if same else 'DIFFERENT'} "
+          f"({runs[2][0][0][:3]}...); ms a step (median interval between "
+          f"steps) depth 0 {ms[0]}, depth 2 {ms[2]} [{card}]", flush=True)
+    if not same:
+        fail("mixed", "(d) --prefetch_depth=2's losses differ from 0's")
+    torch.cuda.synchronize()
+    return parts
+
+
+def mixed_path(K, dev, card):
+    """Phase 16: arms (a)-(d).  -> {part: launches}."""
+    import torch
+
+    parts = {"amp_flagship": mixed_flagship(K, dev, card)}
+    torch.cuda.empty_cache()
+    parts.update(mixed_lstm(K, dev, card))
+    torch.cuda.empty_cache()
+    parts.update(mixed_remat(K, dev, card))
+    torch.cuda.empty_cache()
+    parts.update(mixed_prefetch(K, dev, card))
+    return parts
+
+
+#: the kernels line's rows that phase 16's parts launch
+MIXED_PART_ROWS = {
+    "gru_forward_residuals": ("amp_flagship",),
+    "gru_backward": ("amp_flagship",),
+    "ce_readout_fwd": ("amp_flagship",),
+    "ce_readout_bwd": ("amp_flagship",),
+    "attn_dec_fwd": ("amp_flagship",),
+    "attn_dec_bwd": ("amp_flagship",),
+    "lstm_forward_residuals_b64h256": ("amp_train_batch", "amp_cli",
+                                       "prefetch_0", "prefetch_2"),
+    "lstm_backward_b64h256": ("amp_train_batch", "amp_cli", "prefetch_0",
+                              "prefetch_2"),
+    "lstm_forward_residuals_b512h256": ("plain", "remat"),
+    "lstm_backward_b512h256": ("plain", "remat"),
+}
+
+
+def check_lstm_b512(K, flush, dev):
+    """K9r and K10 at bench row lstm_b512h256r's shape (B=512, T=100,
+    H=256, bf16 policy, bf16 residuals): past the persistent plans (B <=
+    256), so both take their steps kernels; each against its plain
+    version, timed beside cuDNN's LSTM training forward (and forward +
+    backward) at the same shape."""
+    import torch
+
+    from paddle_tpu_torch.ops.kernels.lstm import LSTM_BACKWARD, LSTM_FORWARD
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+
+    B, T, H = REMAT_B, TEXTCLF_T, 256
+    g = torch.Generator().manual_seed(SEED + 16)
+    lens = torch.randint(T // 2, T + 1, (B,), generator=g)
+    lens[0] = T
+    xp = (0.5 * torch.randn(B, T, 4 * H, generator=g)).to(dev)
+    mask = (torch.arange(T)[None] < lens[:, None]).float().to(dev)
+    w_h = ((2.0 / (5 * H)) ** 0.5 * torch.randn(H, 4 * H, generator=g)
+           ).to(dev)
+    peeps = [(0.1 * torch.randn(H, generator=g)).to(dev) for _ in range(3)]
+    n_real = float(mask.sum())
+    lib_x = torch.randn(B, T, H, device=dev, dtype=torch.bfloat16)
+    lstm, packed = _cudnn_lstm(lib_x, lens, w_h.bfloat16())
+    rows = []
+    with compute_dtype_scope("bfloat16"):
+        before = _paths(LSTM_FORWARD)
+        got = K.lstm_forward(xp, mask, w_h, *peeps, residuals=True)
+        took = _paths_since(LSTM_FORWARD, before)
+        want = K.lstm_forward_plain(xp, mask, w_h, *peeps, residuals=True)
+        torch.cuda.synchronize()
+        tol = TOL["lstm_forward_residuals_b64h256"]
+        err = max(_max_err(a, b) for a, b in zip(got[:3], want[:3]))
+        res_ok = all(_within_bf16_ulp(a, b, tol)
+                     for a, b in zip(got[3:], want[3:]))
+        if took != {"steps": 1} or not (err <= tol and res_ok):
+            fail("kernels", f"lstm_forward residuals B={B}: took {took}, "
+                 f"h/c err {err} (tol {tol}), residuals within tol + one "
+                 f"bf16 ulp: {res_ok}")
+        ms = time_ms(lambda: K.lstm_forward(xp, mask, w_h, *peeps,
+                                            residuals=True), flush)
+        plain_ms = time_ms(lambda: K.lstm_forward_plain(
+            xp, mask, w_h, *peeps, residuals=True), flush, reps=3)
+        lib_w = [p.requires_grad_() for p in lstm.parameters()]
+        lib_ms = time_ms(lambda: lstm(packed), flush)
+        nbytes = (T * B * 4 * H * 4 + T * B * 4 + H * 4 * H * 2 + 3 * H * 4
+                  + T * B * H * 4 + 2 * B * H * 4 + T * B * 4 * H * 2
+                  + 2 * T * B * H * 2)
+        bms, by = bound_ms(nbytes, 2.0 * n_real * H * 4 * H, "bfloat16")
+        print(f"kernels: lstm_forward residuals=True B={B} T={T} H={H} "
+              f"bf16, bf16 residuals, path=steps: h/c max_abs_err="
+              f"{err:.3e} (tol {tol}), z/h_prev/c_prev within tol + one "
+              f"bf16 ulp; ms={ms:.4f} (share of bound {bms / ms:.3f}) "
+              f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (cuDNN LSTM "
+              f"training forward) bound_ms={bms:.5f} ({by})", flush=True)
+        row = _kernel_row(f"lstm_forward_residuals_b{B}h{H}",
+                          "lstm_forward.cu", "126", err, ms, plain_ms, bms,
+                          by, lib_ms)
+        row.update(path="steps", share_of_bound=bms / ms,
+                   library_covers="cuDNN LSTM training forward, bf16, packed "
+                   "by length: input projection + loop + its reserve, no "
+                   "peepholes")
+        rows.append(row)
+
+        d_out = torch.randn(T, B, H, generator=g).to(dev)
+        d_fin = [torch.randn(B, H, generator=g).to(dev) for _ in range(2)]
+        bargs = [d_out, mask.t().contiguous(), got[3], got[5],
+                 w_h.t().contiguous(), *peeps, *d_fin]
+        before = _paths(LSTM_BACKWARD)
+        gk = K.lstm_backward(*bargs)
+        took = _paths_since(LSTM_BACKWARD, before)
+        gp = K.lstm_backward_plain(*bargs)
+        torch.cuda.synchronize()
+        tol = TOL["lstm_backward_b64h256"]
+        err = max(_max_err(a, c) for a, c in zip(gk, gp))
+        worst = max(_max_err(a, c) / c.abs().max().item()
+                    for a, c in zip(gk, gp))
+        if took != {"steps": 1} or not worst <= tol:
+            fail("kernels", f"lstm_backward B={B}: took {took}, max err / "
+                 f"max |g| {worst} (tol {tol})")
+        ms = time_ms(lambda: K.lstm_backward(*bargs), flush)
+        plain_ms = time_ms(lambda: K.lstm_backward_plain(*bargs), flush,
+                           reps=3)
+        ct = torch.randn(int(packed.data.shape[0]), H, device=dev,
+                         dtype=torch.bfloat16)
+        lib_in = lib_x.clone().requires_grad_()
+
+        def library_fwd_bwd():
+            out, _ = lstm(torch.nn.utils.rnn.pack_padded_sequence(
+                lib_in, lens, batch_first=True, enforce_sorted=False))
+            return torch.autograd.grad(out.data, [lib_in, *lib_w], ct)
+
+        lib_ms = time_ms(library_fwd_bwd, flush)
+    nbytes = (T * B * H * 4 + T * B * 4 + T * B * 4 * H * 2 + T * B * H * 2
+              + 4 * H * H * 4 + 3 * H * 4 + 2 * B * H * 4
+              + T * B * 4 * H * 4 + T * B * H * 4 + 2 * B * H * 4)
+    bms, by = bound_ms(nbytes, 2.0 * n_real * 4 * H * H, "float32")
+    print(f"kernels: lstm_backward B={B} T={T} H={H} bf16 residuals "
+          f"path=steps max_abs_err={err:.3e} (max err / max |g| "
+          f"{worst:.3e}; tol {tol}); ms={ms:.4f} (share of bound "
+          f"{bms / ms:.3f}) plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+          f"(cuDNN LSTM forward + backward) bound_ms={bms:.5f} ({by}, f32 "
+          f"products)", flush=True)
+    row = _kernel_row(f"lstm_backward_b{B}h{H}", "lstm_backward.cu", "479",
+                      err, ms, plain_ms, bms, by, lib_ms)
+    row.update(path="steps", share_of_bound=bms / ms,
+               library_covers="cuDNN LSTM forward + backward, bf16, packed "
+               "by length")
+    rows.append(row)
+    del lstm, packed, lib_w, got, want, gk, gp
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -5222,6 +5745,7 @@ def main() -> int:
         rows.append(check_lse(K, flush, dev))
         rows += check_attn_dec(K, flush, dev)
         rows += check_lstm(K, flush, dev)
+        rows += check_lstm_b512(K, flush, dev)
         rows.append(check_topk_logits(K, flush, dev))
         phase = "products"
         check_products(flush, dev)
@@ -5271,6 +5795,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "seqdata"
         seqdata_launches = seqdata_path(K, dev, card)
+        torch.cuda.empty_cache()
+        phase = "mixed"
+        mixed_launches = mixed_path(K, dev, card)
     except SystemExit:
         raise
     except Exception:  # noqa: BLE001 — report the phase and fail
@@ -5303,6 +5830,11 @@ def main() -> int:
             src, key = infer_launches[256], "lstm_forward"
         elif name == f"lstm_forward_b{TEXTCLF_B}h1280":
             src, key = infer_launches[1280], "lstm_forward"
+        elif name in MIXED_ROWS:
+            # bench row lstm_b512h256r: phase 16's remat run
+            src, key = mixed_launches["remat"], (
+                "lstm_forward" if name.startswith("lstm_forward")
+                else "lstm_backward")
         elif name.startswith("lstm_"):
             kernel, width = name.rsplit("_", 1)
             hidden = int(width.split("h")[1])
@@ -5346,6 +5878,18 @@ def main() -> int:
             row["seqdata_launches_by_path"] = {
                 part: seqdata_launches[part].by_path[key]
                 for part in SEQDATA_ROWS[name]}
+        if name in MIXED_PART_ROWS:
+            # phase 16's parts that launch this row's kernel (K9r twice a
+            # step under remat: the backward's recompute)
+            lib = ("lstm_forward" if name.startswith("lstm_forward")
+                   else "lstm_backward" if name.startswith("lstm_backward")
+                   else name.replace("_residuals", ""))
+            row["mixed_launches"] = {
+                part: mixed_launches[part][lib]
+                for part in MIXED_PART_ROWS[name]}
+            row["mixed_launches_by_path"] = {
+                part: mixed_launches[part].by_path[lib]
+                for part in MIXED_PART_ROWS[name]}
         if name == "topk_lse_readout":
             # the spec phase's full arm: one launch a table step, its wide
             # steps at N = 320

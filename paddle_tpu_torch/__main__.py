@@ -19,7 +19,9 @@ returns a dict built with the port's modules:
 The trainer runs on ``--device`` (``cuda`` by default: without a card the
 command raises; ``--device=cpu`` runs the kernels' plain versions).
 ``--data_pack`` packs the config's reader and ``DataFeeder`` into packed
-rows (``datapipe.auto_pack``).
+rows (``datapipe.auto_pack``).  ``--amp`` (with ``--loss_scale``,
+``--loss_scale_growth``, ``--loss_scale_max``), ``--remat`` and
+``--prefetch_depth`` reach the trainer through ``FLAGS``.
 
 ``python -m paddle_tpu_torch data {pack|verify} ...`` is the shard-set
 tooling (``datapipe/cli.py``).

@@ -8,22 +8,31 @@ into the feed dict ``Topology.apply`` expects.  Sequences are padded to a
 feeder stays on the host (numpy); ``SGDTrainer`` moves each prepared batch
 to its device once.
 
-Not ported here: ``BatchPrefetcher`` (``--prefetch_depth``) waits for the
-rest of ROADMAP.md Queue 1 item 4, and so does the native C++ pad core
-(``data/native.py``): the Python loop below gives the same arrays.
+``BatchPrefetcher`` (``--prefetch_depth``) runs the feeder and the
+host-to-device copy of the next batches in a background thread while the
+device steps the current one.  On the card the copy runs on a side CUDA
+stream from pinned host memory; the consumer's stream waits on the
+batch's event, and ``record_stream`` tells the caching allocator that the
+consumer's stream uses the batch.
+
+Not ported here: the native C++ pad core (``data/native.py``) waits for
+ROADMAP.md Queue 1 item 4: the Python loop below gives the same arrays.
 """
 
 from __future__ import annotations
 
+import contextlib
+import queue
 import threading
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 
 from paddle_tpu_torch.utils.log import logger
 
 __all__ = ["DataFeeder", "bucket_length", "feeder_kind_for_layer",
-           "PreparedFeed", "PrepareError", "note_padding"]
+           "PreparedFeed", "PrepareError", "BatchPrefetcher", "note_padding"]
 
 _DEFAULT_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024)
 
@@ -84,19 +93,165 @@ def feeder_kind_for_layer(layer) -> str:
 
 
 class PrepareError(Exception):
-    """A batch failed in the feeder's prepare stage, not in the reader
-    (the reference raises it from its prefetcher; the trainer unwraps it
-    so a feeder bug keeps its own type)."""
+    """A batch failed in the prefetcher's ``prepare`` (DataFeeder) or
+    ``transfer`` (host-to-device) stage, not in the reader.  Raised at the
+    consumer's ``next()`` with the original exception as ``__cause__``;
+    the trainer unwraps it so a feeder bug keeps its own type instead of
+    being attributed to the reading tier as a ``ReaderError``."""
 
 
 class PreparedFeed:
-    """Marker wrapper for a batch already pushed through the feeder: the
-    trainer consumes ``.feed`` directly."""
+    """Marker wrapper for a batch the ``BatchPrefetcher`` has already
+    pushed through the feeder (and the host-to-device copy, when it has a
+    ``transfer``): the trainer consumes ``.feed`` directly."""
 
     __slots__ = ("feed",)
 
     def __init__(self, feed: Any) -> None:
         self.feed = feed
+
+
+def _tensors(tree: Any) -> Iterator[Any]:
+    """The tensors of a feed: a dict of tensors or tuples of them."""
+    import torch
+
+    if torch.is_tensor(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+class BatchPrefetcher:
+    """Double-buffered async feeding (``--prefetch_depth``).
+
+    Wraps a raw batch iterator: a background thread pulls batches
+    N+1..N+depth, runs ``prepare`` (the DataFeeder) and ``transfer`` (the
+    host-to-device copy) on them, and parks the results in a bounded
+    queue while the device steps batch N.  Loop-equivalent to serial
+    feeding:
+
+    - order is preserved (one producer, a FIFO queue);
+    - a reader exception is re-raised at the consumer's ``next()`` as it
+      was raised; a ``prepare``/``transfer`` failure as ``PrepareError``
+      with the original as its cause;
+    - the queue bounds read-ahead: at most ``depth`` prepared batches (and
+      the one in flight) exist, so a preemption at a batch boundary
+      abandons a bounded amount of work, and the resume point (the
+      batches the step consumed) stays batch-exact;
+    - ``close()`` stops the producer and joins it.
+
+    With a CUDA ``device`` the producer runs ``transfer`` on a side stream
+    of that device (the current device is per thread, so it is set in the
+    producer) under ``torch.no_grad()``, and records an event after the
+    copies; ``next()`` makes the consumer's current stream wait on that
+    event and calls ``record_stream`` on every tensor of the feed, so the
+    caching allocator does not hand the memory to another tensor before
+    the consumer's stream is done with it."""
+
+    _DONE = object()
+
+    def __init__(self, it: Iterator, *, prepare: Optional[Callable] = None,
+                 transfer: Optional[Callable] = None, depth: int = 2,
+                 device: Any = None) -> None:
+        import torch
+
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(1, int(depth)))
+        self._stop = threading.Event()
+        self._prepare = prepare
+        self._transfer = transfer
+        dev = None if device is None else torch.device(device)
+        self._cuda = dev if dev is not None and dev.type == "cuda" else None
+        self._thread = threading.Thread(
+            target=self._run, args=(it,), name="batch-prefetch", daemon=True)
+        self._thread.start()
+
+    def _put(self, item: Any) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _copy(self, feed: Any, stream) -> Tuple[Any, Any]:
+        """``transfer(feed)`` on ``stream`` (None off the card) ->
+        (feed, the event its copies end at or None)."""
+        import torch
+
+        if stream is None:
+            return self._transfer(feed), None
+        with torch.cuda.stream(stream):
+            out = self._transfer(feed)
+            ready = torch.cuda.Event()
+            ready.record(stream)
+        return out, ready
+
+    def _run(self, it: Iterator) -> None:
+        import torch
+
+        try:
+            with torch.no_grad(), (torch.cuda.device(self._cuda)
+                                   if self._cuda is not None
+                                   else contextlib.nullcontext()):
+                stream = (torch.cuda.Stream(self._cuda)
+                          if self._cuda is not None
+                          and self._transfer is not None else None)
+                for raw in it:
+                    if self._stop.is_set():
+                        return
+                    try:
+                        feed = self._prepare(raw) if self._prepare else raw
+                        ready = None
+                        if self._transfer is not None:
+                            feed, ready = self._copy(feed, stream)
+                    except BaseException as e:
+                        # prepare/h2d failures keep their own identity: the
+                        # reader did not raise (see PrepareError)
+                        raise PrepareError(
+                            f"batch prepare/transfer failed: "
+                            f"{type(e).__name__}: {e}") from e
+                    if not self._put((PreparedFeed(feed), ready)):
+                        return
+                self._put(self._DONE)
+        except BaseException as e:  # noqa: BLE001 — delivered to consumer
+            self._put(e)
+
+    def __iter__(self) -> "BatchPrefetcher":
+        return self
+
+    def __next__(self) -> PreparedFeed:
+        item = self._q.get()
+        if item is self._DONE:
+            raise StopIteration
+        if isinstance(item, BaseException):
+            raise item
+        prepared, ready = item
+        if ready is not None:
+            import torch
+
+            consumer = torch.cuda.current_stream(self._cuda)
+            consumer.wait_event(ready)
+            for t in _tensors(prepared.feed):
+                if t.device.type == "cuda":
+                    t.record_stream(consumer)
+        return prepared
+
+    def close(self) -> None:
+        """Stop the producer and join it; pending prepared batches are
+        dropped (the consumer's batch count, not the read-ahead, is the
+        resume point)."""
+        self._stop.set()
+        while True:  # unblock a producer stuck in put()
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                break
+        self._thread.join(timeout=5.0)
 
 
 class DataFeeder:

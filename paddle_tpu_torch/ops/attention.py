@@ -36,10 +36,13 @@ def score_product(pre: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def context_product(w: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     """einsum('bs,bsd->bd') with compute-dtype operands, float32
-    accumulation.  w [B, S], values [B, S, D] -> [B, D]."""
+    accumulation, the result in ``dot_dtype()``.  w [B, S], values
+    [B, S, D] -> [B, D]."""
     wc, vc = mxu_cast(w, values)
-    acc = dot_dtype()
-    return batch_bmm(wc.to(acc)[:, None, :], vc.to(acc))[:, 0]
+    ctx = batch_bmm(wc.float()[:, None, :], vc.float())[:, 0]
+    # the context is an activation (the softmax before it stays float32):
+    # it leaves at dot_dtype, bfloat16 under --amp
+    return ctx.to(dot_dtype())
 
 
 def additive_attention_scores(enc_proj: torch.Tensor, dec_state: torch.Tensor,
@@ -78,5 +81,5 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = torch.where(mask > 0, logits, torch.full(
             (), torch.finfo(logits.dtype).min, device=logits.device))
     w = torch.softmax(logits, dim=-1)
-    out = torch.matmul(w.to(vc.dtype).to(dot_dtype()), vc.to(dot_dtype()))
+    out = torch.matmul(w.to(vc.dtype).float(), vc.float()).to(dot_dtype())
     return out.to(q.dtype)

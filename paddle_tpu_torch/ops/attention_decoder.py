@@ -28,6 +28,12 @@ step are recomputed as batched products before the reverse loop; the loop
 forms them from each step's ``d_score``); every weight gradient is one
 batched contraction after it.  The port has no flag for the scan
 path on the card.
+
+Under ``--amp`` the reference's Pallas branch is the model: the hoisted
+``y_emb`` product and the recomputed queries leave in ``dot_dtype()``
+(bfloat16) and are widened to float32 at the kernels' boundary (K5 and K6
+keep float32 carries and products), and the contractions after the loop
+take bfloat16 operands (``bwd_mm``/``bwd_einsum``).
 """
 
 from __future__ import annotations
@@ -48,11 +54,13 @@ def _decoder_fwd(y_emb, s0, enc, enc_proj, src_mask, trg_mask, att_w, att_v,
     probs, ctxs, s_prev), the last three time-major."""
     E = y_emb.shape[-1]
     f32 = torch.float32
-    xp_y = linear(y_emb, wx[:E], b)         # hoisted: [B, T, 3D] f32
+    # hoisted: [B, T, 3D] in dot_dtype (bfloat16 under --amp), widened at
+    # the kernel's boundary as the reference widens it
+    xp_y = linear(y_emb, wx[:E], b)
     enc_c, encp_c, attw_c, attv_c, wxc_c, wh_c = mxu_cast(
         enc, enc_proj, att_w, att_v, wx[E:], wh)
     states, probs, ctxs, s_prev = attn_dec_fwd(
-        xp_y.transpose(0, 1), trg_mask.t().to(f32), s0.to(f32),
+        xp_y.transpose(0, 1).to(f32), trg_mask.t().to(f32), s0.to(f32),
         enc_c, encp_c, src_mask.to(f32), attw_c, attv_c, wxc_c, wh_c)
     return states.transpose(0, 1), probs, ctxs, s_prev
 
@@ -93,15 +101,16 @@ def _decoder_bwd(saved, d_states):
 
     r_all, u_all, cand_all, q_all = recompute_gates(
         xp_y_tb, ctxs, s_prev, wx[E:], wh, att_w)
-    # the reverse loop (K6), with the reference's Pallas-branch casts
+    # the reverse loop (K6), with the reference's Pallas-branch casts (q
+    # leaves its product in dot_dtype, bfloat16 under --amp)
     enc_c, encp_c = mxu_cast(enc, enc_proj)
     d_xp_tb, sum_dpre_tb, d_enc_p, d_v, d_s = attn_dec_bwd(
-        d_out_tb, m_tb.to(f32), s_prev, r_all, u_all, cand_all,
-        q_all, enc_c, encp_c, src_mask.to(f32), att_w.float(), att_v, wh_f,
-        wx_f[E:])
+        d_out_tb, m_tb.to(f32), s_prev.to(f32), r_all, u_all, cand_all,
+        q_all.to(f32), enc_c, encp_c, src_mask.to(f32), att_w.float(),
+        att_v, wh_f, wx_f[E:])
     d_b = d_xp_tb.sum(dim=(0, 1))
 
-    # batched contractions after the loop
+    # batched contractions after the loop (bfloat16 operands under --amp)
     d_ctx_tb = bwd_mm(d_xp_tb, wx_c_t)                      # [T, B, 2H]
     sp_f = s_prev.float()
     d_wh = torch.cat(
@@ -110,7 +119,7 @@ def _decoder_bwd(saved, d_states):
         dim=1)
     d_attw = bwd_einsum("tbd,tba->da", sp_f, sum_dpre_tb)
     d_enc = bwd_einsum("tbs,tbh->bsh", probs, d_ctx_tb).to(enc.dtype)
-    d_wx = torch.cat([bwd_einsum("tbi,tbo->io", y_tb, d_xp_tb),
+    d_wx = torch.cat([bwd_einsum("tbi,tbo->io", y_tb.float(), d_xp_tb),
                       bwd_einsum("tbi,tbo->io", ctxs, d_xp_tb)], dim=0)
     d_y_emb = bwd_mm(d_xp_tb, wx_f[:E].t()).to(y_emb.dtype).transpose(0, 1)
     return (d_y_emb, d_s.to(s0.dtype), d_enc, d_enc_p.to(enc_proj.dtype),

@@ -41,7 +41,7 @@ from paddle_tpu_torch.ops.kernels.build import ARG_INT, ARG_PTR, register
 from paddle_tpu_torch.ops.kernels.build import device_sms as _device_sms
 from paddle_tpu_torch.ops.matmul import linear
 from paddle_tpu_torch.ops.numerics import (bwd_einsum, bwd_mm, compute_dtype,
-                                           mxu_cast)
+                                           float32_products, mxu_cast)
 from paddle_tpu_torch.ops.rnn import gru_cell_bwd, gru_step
 
 __all__ = ["attn_dec_fwd", "attn_dec_fwd_plain", "attn_dec_bwd",
@@ -246,6 +246,7 @@ def _device_of(t: torch.Tensor, where: str, S: int) -> torch.device:
     return t.device
 
 
+@float32_products()
 def attn_dec_fwd_plain(xp_y_tb, m_tb, s0, enc, enc_proj, src_mask, att_w,
                        att_v, wx_c, wh):
     """The kernel's function as a step loop of PyTorch ops.  Same arguments
@@ -355,6 +356,7 @@ def denc_dv_after_loop(q, enc_proj, att_v, d_score):
     return d_enc_p, dv_pos.sum(1).sum(0)
 
 
+@float32_products()
 def attn_dec_bwd_plain(d_out_tb, m_tb, s_prev, r, u, cand, q, enc, enc_proj,
                        src_mask, att_w, att_v, wh, wx_c, *,
                        deferred: bool = False):

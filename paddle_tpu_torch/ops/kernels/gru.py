@@ -37,7 +37,8 @@ import torch
 
 from paddle_tpu_torch.ops.kernels.build import ARG_INT, ARG_PTR, register
 from paddle_tpu_torch.ops.kernels.build import device_sms as _device_sms
-from paddle_tpu_torch.ops.numerics import compute_dtype, residual_dtype
+from paddle_tpu_torch.ops.numerics import (compute_dtype, float32_products,
+                                           residual_dtype)
 from paddle_tpu_torch.ops.rnn import gru_cell, gru_cell_bwd
 
 __all__ = ["gru_forward", "gru_forward_plain", "gru_backward",
@@ -99,6 +100,7 @@ def _check(xp, mask, w_h, h0) -> Tuple[int, int, int]:
     return B, T, H
 
 
+@float32_products()
 def gru_forward_plain(xp: torch.Tensor, mask: torch.Tensor, w_h: torch.Tensor,
                       h0: Optional[torch.Tensor] = None, *,
                       residuals: bool = False):
@@ -394,6 +396,7 @@ def _check_bwd(d_out_tb, m_tb, z_tb, hp_tb, w_t, d_hfin) -> Tuple[int, int,
     return T, B, H
 
 
+@float32_products()
 def gru_backward_plain(d_out_tb: torch.Tensor, m_tb: torch.Tensor,
                        z_tb: torch.Tensor, hp_tb: torch.Tensor,
                        w_t: torch.Tensor, d_hfin: torch.Tensor

@@ -39,7 +39,8 @@ import torch
 
 from paddle_tpu_torch.ops.kernels.build import ARG_INT, ARG_PTR, register
 from paddle_tpu_torch.ops.kernels.build import device_sms as _device_sms
-from paddle_tpu_torch.ops.numerics import compute_dtype, residual_dtype
+from paddle_tpu_torch.ops.numerics import (compute_dtype, float32_products,
+                                           residual_dtype)
 from paddle_tpu_torch.ops.rnn import lstm_cell, lstm_cell_bwd
 
 __all__ = ["lstm_forward", "lstm_forward_plain", "lstm_backward",
@@ -105,6 +106,7 @@ def _check(xp, mask, w_h, pi, pf, po, h0, c0) -> Tuple[int, int, int]:
     return B, T, H
 
 
+@float32_products()
 def lstm_forward_plain(xp: torch.Tensor, mask: torch.Tensor,
                        w_h: torch.Tensor, pi: torch.Tensor, pf: torch.Tensor,
                        po: torch.Tensor, h0: Optional[torch.Tensor] = None,
@@ -390,6 +392,7 @@ def _check_bwd(d_out_tb, m_tb, z_tb, cp_tb, w_t, pi, pf, po, d_hfin,
     return T, B, H
 
 
+@float32_products()
 def lstm_backward_plain(d_out_tb: torch.Tensor, m_tb: torch.Tensor,
                         z_tb: torch.Tensor, cp_tb: torch.Tensor,
                         w_t: torch.Tensor, pi: torch.Tensor,

@@ -29,6 +29,9 @@ matrix-vector product, cheap per row, so it takes 6144 rows a call: the
 table's 192 x 32 rows in one call, the training batch's 12288 in two,
 instead of 12 calls a decoder step.  The batched attention context
 product takes 64 matrices a call: 192 and 384 are whole multiples.
+Under ``--amp`` the rows keep this property: ``matmul`` rounds each
+row's float32 product to bfloat16 after the fixed-shape call, so a row's
+bfloat16 bits do not depend on the row count either.
 ``chip_probe.py chunks`` times the serve and training paths under each
 setting; 384 and 1024 rows could not be told apart end to end there, 192
 rows slowed training, and the 6144-row score chunk sped both paths up
@@ -105,24 +108,26 @@ def batch_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Compute-dtype operands, float32 accumulation.  a [..., K] against a
-    matrix b [K, N] (leading dims of a are rows), or batch dims
-    broadcast on the CPU."""
+    """Compute-dtype operands, float32 accumulation, the result in
+    ``dot_dtype()`` (float32; under ``--amp`` the float32 product rounded
+    once to bfloat16).  a [..., K] against a matrix b [K, N] (leading dims
+    of a are rows), or batch dims broadcast on the CPU."""
     a, b = mxu_cast(a, b)
-    acc = dot_dtype()
-    a, b = a.to(acc), b.to(acc)
+    a, b = a.float(), b.float()
     if a.device.type != "cuda" and b.dim() != 2:
-        return torch.matmul(a, b)
+        return torch.matmul(a, b).to(dot_dtype())
     if b.dim() != 2:
         raise ValueError(f"matmul on the card takes a [K, N] matrix, got "
                          f"{tuple(b.shape)}")
     out = rows_mm(a.reshape(-1, a.shape[-1]), b)
-    return out.reshape(*a.shape[:-1], b.shape[-1])
+    return out.reshape(*a.shape[:-1], b.shape[-1]).to(dot_dtype())
 
 
 def linear(x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x @ w (+ b) over the last axis; any leading batch/time dims."""
+    """x @ w (+ b) over the last axis; any leading batch/time dims.  The
+    bias is added in the output's dtype (bfloat16 under ``--amp``), as the
+    reference adds it."""
     y = matmul(x, w)
     if b is not None:
         y = y + b.to(y.dtype)

@@ -78,9 +78,9 @@ def tensor_bilinear(a: torch.Tensor, b: torch.Tensor, w: torch.Tensor
                     ) -> torch.Tensor:
     """out[n, k] = a[n] @ w[k] @ b[n] for w [K, Da, Db]: compute-dtype
     operands, float32 products and sums (every product of two bfloat16
-    values is exact in float32)."""
-    ac, bc, wc = (t.to(dot_dtype()) for t in mxu_cast(a, b, w))
-    return torch.einsum("bi,kij,bj->bk", ac, wc, bc)
+    values is exact in float32), the result in ``dot_dtype()``."""
+    ac, bc, wc = (t.float() for t in mxu_cast(a, b, w))
+    return torch.einsum("bi,kij,bj->bk", ac, wc, bc).to(dot_dtype())
 
 
 def sum_cost(x: torch.Tensor) -> torch.Tensor:

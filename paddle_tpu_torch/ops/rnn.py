@@ -13,6 +13,14 @@ cuDNN: the reference GRU applies ``r`` to ``h`` BEFORE the candidate product
 (``gru_step``), torch's after it; the reference LSTM's gate layout is
 ``[i, f, o, g]`` (torch's ``[i, f, g, o]``) with the legacy peepholes: i and
 f see ``c_prev``, o sees ``c_new``.
+
+Under ``--amp`` the input projection leaves in bfloat16.  The kernel
+paths widen it at their boundary and keep float32 carries (the reference's
+Pallas semantics); ``scan_rnn`` keeps its carry in ``xp``'s dtype and
+multiplies into bfloat16 (the reference's scan semantics), with the
+peepholes cast to that dtype at the boundary.  ``gru_cell_bwd`` and
+``lstm_cell_bwd`` serve the kernels' plain versions, which run inside
+``numerics.float32_products()``: their ``bwd_mm`` products stay float32.
 """
 
 from __future__ import annotations

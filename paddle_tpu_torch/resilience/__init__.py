@@ -6,7 +6,8 @@ reference's ``paddle_tpu/resilience``).  Ported so far:
   reference's format (either package reads the other's), retention, a
   validating ``latest_pass``;
 - **guard** — the bad-step guard: finite checks on the device, every
-  write of the update selected with ``torch.where``;
+  write of the update selected with ``torch.where``, and ``--amp``'s
+  loss-scaled guard (``init_loss_scale``, ``scaled_guarded_update``);
 - **reader** — ``resilient_reader`` retry/backoff/skip-bad;
 - **signals** — ``PreemptionHandler`` (SIGTERM/SIGINT -> checkpoint at a
   batch boundary);
@@ -16,8 +17,7 @@ reference's ``paddle_tpu/resilience``).  Ported so far:
   ``corrupt_prefix_cache``), the training faults and the data-pipeline
   faults (``corrupt_shard``, ``truncate_shard``, ``slow_shard``).
 
-The loss-scaled guard waits for ``--amp`` (ROADMAP.md Queue 1 item 4); the
-gang supervisor, the integrity fingerprint and the rest of the chaos
+The gang supervisor, the integrity fingerprint and the rest of the chaos
 harness wait for ROADMAP.md Queue 1 item 9."""
 
 from paddle_tpu_torch.resilience import chaos
@@ -35,7 +35,10 @@ from paddle_tpu_torch.resilience.checkpoint_io import (MANIFEST_VERSION,
                                                        validate_checkpoint)
 from paddle_tpu_torch.resilience.errors import (CheckpointError, ReaderError,
                                                 TooManyBadSteps)
-from paddle_tpu_torch.resilience.guard import global_grad_norm, guarded_update
+from paddle_tpu_torch.resilience.guard import (global_grad_norm,
+                                               guarded_update,
+                                               init_loss_scale,
+                                               scaled_guarded_update)
 from paddle_tpu_torch.resilience.reader import resilient_reader
 from paddle_tpu_torch.resilience.signals import PreemptionHandler
 
@@ -44,5 +47,5 @@ __all__ = ["chaos", "CheckpointError", "ReaderError", "TooManyBadSteps",
            "save_checkpoint", "load_checkpoint", "read_manifest",
            "validate_checkpoint", "quarantine_checkpoint", "latest_pass",
            "latest_valid_pass", "prune_checkpoints", "pass_dir",
-           "global_grad_norm", "guarded_update", "resilient_reader",
-           "PreemptionHandler"]
+           "global_grad_norm", "guarded_update", "init_loss_scale",
+           "scaled_guarded_update", "resilient_reader", "PreemptionHandler"]

@@ -27,23 +27,46 @@ A reader with the cursor protocol (``datapipe.ShardSource``) is bound per
 the checkpoint (``resume_replayed_batches`` stays 0).  A plain reader keeps
 that re-read-and-discard fast-forward.
 
+``amp`` (``--amp``): the forward and backward run under the bfloat16
+activation policy (``ops/numerics.py``) while the parameters, the masters,
+stay float32.  The step differentiates ``scale * loss``, and the loss-scale
+state lives in ``opt_state["amp"]`` (checkpointed with the slots, in the
+reference's format); ``scaled_guarded_update`` unscales, skips an
+overflowing step and rescales, all on the device, and the trainer reads
+the step's flags once (``amp_overflows_total``, the overflow log line).
+The guard is always on under ``--amp``.
+
+``remat`` (``--remat``): the loss is computed inside
+``torch.utils.checkpoint(use_reentrant=False)``, so the backward recomputes
+the forward instead of holding its activations.  Every random draw of the
+forward comes from generators derived from the step's seed inside the
+recomputed function, so the recompute replays them; the layer state comes
+from the first forward.  The recompute launches the forward kernels a
+second time (K9r twice a step for an LSTM layer).
+
+``--prefetch_depth`` > 0 wraps each pass's reader in a ``BatchPrefetcher``
+after any resume fast-forward; it is closed at pass end, at a preemption
+(the checkpoint counts the batches the step consumed, not the read-ahead)
+and on any exception.
+
 Not ported here, and refused with a ``ConfigError`` naming the ROADMAP.md
 Queue 1 item that ports it: ``mesh`` (with it the pserver tier's sharded
 tables), ``data_axis``, ``sharding_rules``, ``pipeline`` and
-``device_specs`` (item 8); ``amp``
-and ``remat`` (the rest of item 4; so is the batch prefetcher); the gang,
-the SDC firewall and ``audit`` (item 9); ``publish`` (item 7).
+``device_specs`` (item 8); the gang, the SDC firewall and ``audit`` (item
+9); ``publish`` (item 7).
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from paddle_tpu_torch.data.feeder import PreparedFeed, PrepareError
+from paddle_tpu_torch.data.feeder import (BatchPrefetcher, PreparedFeed,
+                                          PrepareError)
 from paddle_tpu_torch.nn.graph import LayerOutput, Topology
 from paddle_tpu_torch.param.hooks import apply_masks, build_masks
 from paddle_tpu_torch.param.optimizers import (SGD, Optimizer,
@@ -54,7 +77,9 @@ from paddle_tpu_torch.resilience.checkpoint_io import (latest_pass,
                                                        read_manifest,
                                                        save_checkpoint)
 from paddle_tpu_torch.resilience.errors import ReaderError, TooManyBadSteps
-from paddle_tpu_torch.resilience.guard import guarded_update
+from paddle_tpu_torch.resilience.guard import (guarded_update,
+                                               init_loss_scale,
+                                               scaled_guarded_update)
 from paddle_tpu_torch.resilience.signals import PreemptionHandler
 from paddle_tpu_torch.trainer import events as ev
 from paddle_tpu_torch.utils.error import not_ported
@@ -101,11 +126,17 @@ class SGDTrainer:
                             ("device_specs", device_specs is not None)):
             if given:
                 raise not_ported(f"SGDTrainer({what}=)", 8)
-        if amp:
-            raise not_ported("SGDTrainer(amp=True) (--amp, mixed "
-                              "precision with loss scaling)", 4)
-        if remat:
-            raise not_ported("SGDTrainer(remat=True) (--remat)", 4)
+        if amp is not None and bool(amp) != bool(FLAGS.amp):
+            # the bfloat16 dtype policy (ops/numerics) reads FLAGS.amp at
+            # call time; a constructor override that disagrees would run
+            # loss scaling without bfloat16 or bfloat16 without the
+            # overflow machinery, so it is refused
+            raise ValueError(
+                f"SGDTrainer(amp={amp!r}) disagrees with FLAGS.amp="
+                f"{FLAGS.amp!r}: the compute dtype policy is flag-driven, "
+                f"set FLAGS.amp (or --amp) to toggle mixed precision")
+        self.amp = bool(FLAGS.amp if amp is None else amp)
+        self.remat = bool(FLAGS.remat if remat is None else remat)
         # several costs train jointly (MultiNetwork analog): the total
         # loss is their weighted sum, parameters shared by name
         costs = [cost] if isinstance(cost, LayerOutput) else list(cost)
@@ -152,6 +183,10 @@ class SGDTrainer:
         self._adopt_params(apply_masks(params, self.masks))
         self.fused_apply = bool(FLAGS.fused_apply)
         self.opt_state = self.optimizer.init_state(self.params)
+        self.amp_overflows_total = 0
+        if self.amp:
+            self.opt_state["amp"] = init_loss_scale(FLAGS.loss_scale,
+                                                    device=self.device)
         self.avg_params = (averager.init_state(self.params)
                            if averager is not None else None)
         self.guard_nonfinite = (FLAGS.guard_nonfinite
@@ -170,6 +205,8 @@ class SGDTrainer:
         # waiting for it
         self._data_source = None
         self._pending_cursor = None
+        #: the running pass's BatchPrefetcher (``--prefetch_depth``)
+        self._prefetcher: Optional[BatchPrefetcher] = None
         from paddle_tpu_torch.obs import get_registry
 
         reg = get_registry()
@@ -191,19 +228,25 @@ class SGDTrainer:
         self.params = {k: v.detach().requires_grad_()
                        for k, v in params.items()}
 
-    def _device_feed(self, feed: Dict[str, Any]) -> Dict[str, Any]:
+    def _device_feed(self, feed: Dict[str, Any], *,
+                     pinned: bool = False) -> Dict[str, Any]:
         """The prepared (numpy) feed on the trainer's device, moved once;
-        values are converted as ``Topology.apply`` would convert them."""
+        values are converted as ``Topology.apply`` would convert them.
+        ``pinned`` (the prefetcher's copy on the card): each host array is
+        pinned and copied asynchronously on the current stream (the
+        prefetcher's side stream)."""
         dev = self.device
 
         def put(v):
             if isinstance(v, tuple):
                 return tuple(put(x) for x in v)
-            if torch.is_tensor(v):
-                return v.to(dev)
             if isinstance(v, (np.ndarray, list, int, float, np.generic)):
-                return torch.as_tensor(np.asarray(v), device=dev)
-            return v
+                v = torch.from_numpy(np.ascontiguousarray(np.asarray(v)))
+            elif not torch.is_tensor(v):
+                return v
+            if pinned and v.device.type == "cpu":
+                return v.pin_memory().to(dev, non_blocking=True)
+            return v.to(dev)
 
         return {k: put(v) for k, v in feed.items()}
 
@@ -255,44 +298,97 @@ class SGDTrainer:
         flag lands in ``_last_extras['bad_step']`` and the host counters
         ``bad_steps_total``/``bad_steps_streak`` advance.  After
         ``max_bad_steps`` consecutive skips the step raises
-        ``TooManyBadSteps``."""
+        ``TooManyBadSteps``.  Under ``--amp`` an overflow of the scaled
+        gradients also skips the step and halves the loss scale
+        (``_last_extras['amp_overflow']``, ``amp_overflows_total``); only a
+        non-finite loss counts as a bad step."""
         feed = self._device_feed(feed)
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=self._gen))
         params = self.params
-        with torch.enable_grad():
+        amp_state = self.opt_state["amp"] if self.amp else None
+
+        def forward():
             outs, new_state = self.topology.apply(params, self.state, feed,
                                                   train=True, rng=seed)
-            loss = self._total_cost(outs)
-            grads = torch.autograd.grad(loss, list(params.values()),
+            extras = {k: outs[k].value for k in self.extra_names}
+            return self._total_cost(outs), new_state, extras
+
+        with torch.enable_grad():
+            if self.remat:
+                from torch.utils.checkpoint import (checkpoint,
+                                                    set_checkpoint_early_stop)
+
+                # the forward's draws come from generators seeded inside
+                # it, so the recompute replays them without the default
+                # generators' state.  The recompute runs to its end: its
+                # early stop is an exception, which the layers' error
+                # scopes would wrap
+                with set_checkpoint_early_stop(False):
+                    loss, new_state, extras = checkpoint(
+                        forward, use_reentrant=False,
+                        preserve_rng_state=False)
+            else:
+                loss, new_state, extras = forward()
+            # dynamic loss scaling: the differentiated value is scale * loss
+            # so bfloat16 gradients use the representable range; the
+            # reported loss stays unscaled
+            target = loss * amp_state["scale"] if self.amp else loss
+            grads = torch.autograd.grad(target, list(params.values()),
                                         allow_unused=True)
         grads = {k: (torch.zeros_like(p) if g is None else g)
                  for (k, p), g in zip(params.items(), grads)}
-        extras = {k: outs[k].value.detach() for k in self.extra_names}
+        extras = {k: v.detach() for k, v in extras.items()}
+        opt_core = {k: v for k, v in self.opt_state.items() if k != "amp"}
 
         @torch.no_grad()
-        def do_update(where: Optional[torch.Tensor]) -> None:
+        def do_update(g: Dict[str, torch.Tensor],
+                      where: Optional[torch.Tensor]) -> None:
             new_p, new_o = self.optimizer.new_values(
-                params, grads, self.opt_state, lr_scales=self.lr_scales,
+                params, g, opt_core, lr_scales=self.lr_scales,
                 decays=self.decays, statics=self.statics,
                 sparse_rows=self.sparse_rows, fused=self.fused_apply)
-            commit(params, self.opt_state, apply_masks(new_p, self.masks),
-                   new_o, where)
+            commit(params, opt_core, apply_masks(new_p, self.masks), new_o,
+                   where)
 
-        if self.guard_nonfinite:
+        if self.amp:
+            # loss scaling needs the skip machinery, so the guard is always
+            # on under --amp; the scale advances on a skip too
+            new_state, new_amp, gextras = scaled_guarded_update(
+                do_update, loss=loss, scaled_grads=grads,
+                amp_state=amp_state, new_state=new_state,
+                old_state=self.state,
+                growth_interval=int(FLAGS.loss_scale_growth),
+                max_scale=float(FLAGS.loss_scale_max))
+            with torch.no_grad():
+                for k, v in new_amp.items():
+                    amp_state[k].copy_(v)
+            extras.update(gextras)
+        elif self.guard_nonfinite:
             new_state, gextras = guarded_update(
-                do_update, loss=loss, grads=grads, new_state=new_state,
-                old_state=self.state)
+                lambda where: do_update(grads, where), loss=loss,
+                grads=grads, new_state=new_state, old_state=self.state)
             extras.update(gextras)
         else:
-            do_update(None)
+            do_update(grads, None)
         self.state = new_state
         if self.averager is not None:
             self.avg_params = self.averager.update(self.avg_params, params)
         self._obs_counters["batches"].inc()
         self._last_extras = extras
-        if self.guard_nonfinite:
+        if self.amp or self.guard_nonfinite:
             # the one host read of the step, after all of it is queued
-            if bool(extras["bad_step"]):
+            flags = [extras["bad_step"].float()]
+            if self.amp:
+                flags += [extras["amp_overflow"].float(),
+                          extras["loss_scale"].float()]
+            flags = torch.stack(flags).tolist()
+            if self.amp and flags[1]:
+                self.amp_overflows_total += 1
+                logger.warning(
+                    "amp: non-finite scaled gradients — step skipped, "
+                    "loss scale halved to %g (overflow %d)", flags[2],
+                    self.amp_overflows_total)
+            if flags[0]:
                 self.bad_steps_total += 1
                 self._bad_streak += 1
                 self._obs_counters["bad_steps"].inc()
@@ -383,6 +479,7 @@ class SGDTrainer:
                     it = iter(reader())
                 except Exception as e:
                     raise _reader_failed(e) from e
+                self._prefetcher = None
                 skip = start_batch if pass_id == start_pass else 0
                 batch_id = 0
                 if skip and cursor_restored:
@@ -395,8 +492,28 @@ class SGDTrainer:
                 elif skip:
                     logger.info("resuming pass %d at batch %d "
                                 "(fast-forward)", pass_id, skip)
+
+                def _wrap_prefetch():
+                    # --prefetch_depth: prepare + host-to-device copy of the
+                    # next batches overlap the step of this one.  Built
+                    # after the resume fast-forward (the skipped batches
+                    # are consumed raw) and closed at every loop exit
+                    nonlocal it
+                    if FLAGS.prefetch_depth > 0:
+                        copy = (functools.partial(self._device_feed,
+                                                  pinned=True)
+                                if self.device.type == "cuda" else None)
+                        it = self._prefetcher = BatchPrefetcher(
+                            it, prepare=feeder, transfer=copy,
+                            depth=FLAGS.prefetch_depth, device=self.device)
+
+                if not skip:
+                    _wrap_prefetch()
                 while True:
                     if preemption is not None and preemption.poll():
+                        # the read-ahead is abandoned here: the checkpoint
+                        # records the batches the step consumed
+                        self._close_prefetcher()
                         self._preempt_exit(pass_id, batch_id + skip)
                         return
                     try:
@@ -414,6 +531,8 @@ class SGDTrainer:
                         skip -= 1
                         batch_id += 1
                         self.resume_replayed_batches += 1
+                        if not skip:
+                            _wrap_prefetch()
                         continue
                     handler(ev.BeginIteration(pass_id, batch_id))
                     feed = (data_batch.feed
@@ -458,6 +577,7 @@ class SGDTrainer:
                         logger.info("Pass %d, Batch %d, Test cost %.5f",
                                     pass_id, batch_id + 1, mid["cost"])
                     batch_id += 1
+                self._close_prefetcher()
                 result = {}
                 if test_reader is not None:
                     result = self.test(test_reader, feeder=feeder)
@@ -466,8 +586,16 @@ class SGDTrainer:
                         (pass_id + 1) % FLAGS.saving_period == 0):
                     self.save(FLAGS.save_dir, pass_id)
         finally:
+            self._close_prefetcher()  # exception paths: join the producer
             if preemption is not None:
                 preemption.uninstall()
+
+    def _close_prefetcher(self) -> None:
+        """Stop and join the running pass's prefetcher (no-op when
+        ``--prefetch_depth`` is off or it is already closed)."""
+        pf, self._prefetcher = self._prefetcher, None
+        if pf is not None:
+            pf.close()
 
     def _preempt_exit(self, pass_id: int, batch_id: int) -> None:
         """Preemption landed: persist an atomic mid-pass checkpoint (its

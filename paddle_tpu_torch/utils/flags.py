@@ -177,6 +177,29 @@ define_flag("beam_size", 3, "default beam width of the slot backend")
 define_flag("fused_bigru", False, "a bidirectional GRU layer runs both "
             "directions in one time loop (K11) instead of two")
 
+# --- mixed precision and rematerialisation ----------------------------------
+
+define_flag("amp", False, "mixed-precision training: activations and "
+            "matmul/conv outputs run in bf16 end-to-end (f32 master "
+            "weights, f32 optimizer state); BN statistics, softmax/"
+            "logsumexp reductions, and the loss stay f32 (the allowlist); "
+            "dynamic loss scaling rides the bad-step guard: an overflow "
+            "skips the step and halves the scale instead of aborting")
+define_flag("loss_scale", 65536.0, "initial dynamic loss scale under "
+            "--amp (grads are computed on scale*loss and unscaled before "
+            "the update; 1 = start unscaled)",
+            validator=lambda v: v >= 1.0)
+define_flag("loss_scale_growth", 2000, "double the loss scale after N "
+            "consecutive finite steps (0 = never grow: static scale)",
+            validator=lambda v: v >= 0)
+define_flag("loss_scale_max", 16777216.0, "dynamic loss scale ceiling "
+            "(growth never doubles past this; halving floors at 1.0)",
+            validator=lambda v: v >= 1.0)
+define_flag("remat", False, "rematerialize the forward inside the "
+            "backward (torch.utils.checkpoint around the loss): trades "
+            "~1/3 more FLOPs for O(layer) activation memory, buying the "
+            "larger batches the MFU-starved recurrent models need")
+
 # --- the command line (paddle_trainer analog) -------------------------------
 
 define_flag("job", "train", "CLI mode: train | test | checkgrad | time")
@@ -200,6 +223,13 @@ define_flag("save_dir", "", "checkpoint root; pass dirs saved under it "
             "('' = no saving)")
 define_flag("start_pass", 0, "resume training from this pass")
 define_flag("saving_period", 1, "save checkpoint every N passes")
+define_flag("prefetch_depth", 0, "double-buffered async host->device "
+            "feeding: a background thread runs the DataFeeder AND the "
+            "h2d transfer for batch N+1..N+depth while the device steps "
+            "batch N, so `data_wait`/`prepare`/`h2d` collapse out of the "
+            "step critical path (0 = off; 2 = classic double buffering; "
+            "drains cleanly at checkpoint/preemption boundaries)",
+            validator=lambda v: v >= 0)
 define_flag("fused_apply", True, "the reference's fused multi-tensor "
             "optimizer apply; the port's per-leaf loop gives the same "
             "values either way")
@@ -240,8 +270,6 @@ define_flag("shuffle_seed", 0, "seed of the datapipe's global shuffle: each "
 #: the reference's flags of parts the port does not have yet, and the
 #: ROADMAP.md Queue 1 item that ports each; the command line refuses them
 NOT_PORTED_FLAGS: Dict[str, int] = {
-    **dict.fromkeys(("amp", "loss_scale", "loss_scale_growth",
-                     "loss_scale_max", "remat", "prefetch_depth"), 4),
     **dict.fromkeys(("publish_dir", "publish_every", "reload_probation",
                      "compile_cache_dir", "deploy_quantize", "deploy_lint"),
                     7),

@@ -122,10 +122,12 @@ def test_cli_help_lists_the_ported_flags_only(capsys):
                  "--guard_nonfinite", "--max_bad_steps", "--num_passes",
                  "--time_batches", "--checkgrad_eps", "--test_pass",
                  "--fused_apply", "--show_parameter_stats_period",
-                 "--data_pack", "--data_shards", "--shuffle_seed"):
+                 "--data_pack", "--data_shards", "--shuffle_seed",
+                 "--amp", "--loss_scale", "--loss_scale_growth",
+                 "--loss_scale_max", "--remat", "--prefetch_depth"):
         assert f"{flag}=" in out, flag
-    for flag in ("--amp", "--sdc_check_every", "--publish_dir",
-                 "--pserver_axis", "--prefetch_depth"):
+    for flag in ("--sdc_check_every", "--publish_dir", "--pserver_axis",
+                 "--mesh_shape", "--compile_cache_dir"):
         assert f"{flag}=" not in out, flag
     assert "-m paddle_tpu_torch data {pack|verify}" in out
     for sub in ("lint", "serve", "obs", "fsck"):
@@ -143,7 +145,7 @@ def test_cli_rejects_bad_args():
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("--amp", 4), ("--remat", 4), ("--prefetch_depth=2", 4),
+    ("--compile_cache_dir=c", 7), ("--mesh_axes=data", 8), ("--check_nan", 9),
     ("--publish_dir=x", 7), ("--publish_every=1", 7),
     ("--pserver_axis=model", 8), ("--mesh_shape=4", 8),
     ("--sdc_check_every=1", 9), ("--scrub_every_s=1", 9),

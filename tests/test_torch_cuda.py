@@ -2927,3 +2927,295 @@ def test_fully_masked_frame_through_the_lstm_kernels(dev, cd):
         for a, b in zip(g_bwd, p_bwd):
             if a is not None:
                 _rel_close(a, b, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# mixed precision (--amp), remat and the batch prefetcher
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def amp(monkeypatch):
+    from paddle_tpu_torch.utils.flags import FLAGS
+
+    monkeypatch.setattr(FLAGS, "amp", True)
+    yield
+
+
+def _within_ulp_of(got, want, tol):
+    """Each entry within ``tol`` plus one bf16 ulp of its plain value (a
+    stored bf16 residual may round either way)."""
+    g, w = got.float(), want.float()
+    assert torch.all((g - w).abs() <= tol + w.abs() * 2.0 ** -8)
+
+
+def test_amp_lstm_kernels_take_bf16_inputs(dev, amp):
+    """Under --amp K9r gets the bf16 input projection and bf16 peepholes
+    (as ``lstm_layer`` hands them over) and K10 the bf16 residuals: each
+    equals its plain version on the same tensors (h/c within 5e-3, the
+    kernels' bf16 tolerance; residuals within it plus one bf16 ulp; K10
+    within 1e-5 of each output's largest entry), one launch each."""
+    ins, rng = _lstm_inputs(7, 9, 32, 21)
+    bf = torch.bfloat16
+    xp = ins[0].to(dev).to(bf)
+    peeps = [p.to(dev).to(bf) for p in ins[3:6]]
+    args = [xp, ins[1].to(dev), ins[2].to(dev), *peeps]
+    counts = launch_counts()
+    got = lstm_forward(*args, residuals=True)
+    want = lstm_forward_plain(*args, residuals=True)
+    assert launch_counts()["lstm_forward"] == counts["lstm_forward"] + 1
+    for a, b in zip(got[:3], want[:3]):
+        _rel_close(a, b, 5e-3)
+    for a, b in zip(got[3:], want[3:]):
+        assert a.dtype == b.dtype == bf
+        _within_ulp_of(a, b, 5e-3)
+    T, B, H = 9, 7, 32
+    d_out = torch.from_numpy(rng.randn(T, B, H).astype(np.float32)).to(dev)
+    d_fin = [torch.from_numpy(rng.randn(B, H).astype(np.float32)).to(dev)
+             for _ in range(2)]
+    bargs = [d_out, args[1].t().contiguous(), got[3], got[5],
+             args[2].t().contiguous(), *peeps, *d_fin]
+    g_bwd = lstm_backward(*bargs)
+    assert launch_counts()["lstm_backward"] == counts["lstm_backward"] + 1
+    for a, b in zip(g_bwd, lstm_backward_plain(*bargs)):
+        _rel_close(a, b, 1e-5)
+
+
+def test_amp_gru_kernels_take_bf16_inputs(dev, amp):
+    """K3r with a bf16 input projection and K4 from its bf16 residuals
+    under --amp, against their plain versions (as the LSTM's)."""
+    rng = np.random.RandomState(22)
+    B, T, H = 6, 8, 64
+    xp = torch.from_numpy((0.4 * rng.randn(B, T, 3 * H)).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    lens = rng.randint(1, T + 1, (B,))
+    lens[0] = T
+    mask = torch.from_numpy((np.arange(T)[None] < lens[:, None]).astype(
+        np.float32)).to(dev)
+    w_h = torch.from_numpy((rng.randn(H, 3 * H) / np.sqrt(H)).astype(
+        np.float32)).to(dev)
+    got = gru_forward(xp, mask, w_h, residuals=True)
+    want = gru_forward_plain(xp, mask, w_h, residuals=True)
+    for a, b in zip(got[:2], want[:2]):
+        _rel_close(a, b, 5e-3)
+    for a, b in zip(got[2:], want[2:]):
+        _within_ulp_of(a, b, 5e-3)
+    d_out = torch.from_numpy(rng.randn(T, B, H).astype(np.float32)).to(dev)
+    d_fin = torch.from_numpy(rng.randn(B, H).astype(np.float32)).to(dev)
+    bargs = [d_out, mask.t().contiguous(), got[2], got[3],
+             w_h.t().contiguous(), d_fin]
+    for a, b in zip(gru_backward(*bargs), gru_backward_plain(*bargs)):
+        _rel_close(a, b, 1e-5)
+
+
+def test_amp_attention_decoder_and_readout_on_the_card_match_the_cpu(
+        dev, amp):
+    """The attention decoder (K5/K6) and the CE readout (K1/K2) under
+    --amp, forward and every gradient, on the card against the CPU (plain
+    versions) from the same inputs: bf16 activations whose float32 sums
+    run in another order there, so a few bf16 roundings go the other way:
+    8 bf16 ulps of each array's largest entry (2^-5)."""
+    from paddle_tpu_torch.ops.attention_decoder import attention_gru_decoder
+    from paddle_tpu_torch.ops.losses import sequence_softmax_ce_readout
+
+    rng = np.random.RandomState(23)
+    B, S, T, E, H2, D, A, V = 8, 6, 7, 32, 64, 64, 32, 512
+    f = np.float32
+    src = (np.arange(S)[None] < rng.randint(1, S + 1, (B, 1))).astype(f)
+    trg = (np.arange(T)[None] < rng.randint(1, T + 1, (B, 1))).astype(f)
+    src[0], trg[0] = 1, 1
+    vals = [rng.randn(B, T, E), rng.randn(B, D), rng.randn(B, S, H2),
+            rng.randn(B, S, A), 0.3 * rng.randn(D, A), 0.3 * rng.randn(A),
+            0.2 * rng.randn(E + H2, 3 * D), 0.1 * rng.randn(3 * D),
+            0.2 * rng.randn(D, 3 * D), 0.2 * rng.randn(D, V),
+            0.1 * rng.randn(V)]
+    labels = torch.from_numpy(rng.randint(0, V, (B, T)))
+    out = {}
+    before = launch_counts()
+    for where in (dev, torch.device("cpu")):
+        ts = [torch.from_numpy(v.astype(f)).to(where).requires_grad_()
+              for v in vals]
+        sm, tm = (torch.from_numpy(m).to(where) for m in (src, trg))
+        states = attention_gru_decoder(*ts[:4], sm, tm, *ts[4:9])
+        loss = sequence_softmax_ce_readout(states.to(torch.bfloat16),
+                                           ts[9], ts[10], labels.to(where),
+                                           tm)
+        grads = torch.autograd.grad(loss, ts)
+        out[where.type] = [loss.detach().cpu()] + [g.cpu() for g in grads]
+    after = launch_counts()
+    for name in ("attn_dec_fwd", "attn_dec_bwd", "ce_readout_fwd",
+                 "ce_readout_bwd"):
+        assert after[name] == before[name] + 1, name
+    for i, (a, b) in enumerate(zip(out["cuda"], out["cpu"])):
+        _rel_close(a, b, 8 * 2.0 ** -8)
+
+
+def test_amp_kernel_plain_versions_ignore_amp_on_the_card(dev, monkeypatch):
+    """The plain versions of K4, K6 and K10 multiply float32 under --amp
+    (``float32_products``), as the kernels do: on the card each equals
+    the same call without --amp (bf16 policy both) bit for bit."""
+    from paddle_tpu_torch.utils.flags import FLAGS
+
+    rng = np.random.RandomState(24)
+    T, B, H, S, A, H2 = 5, 4, 32, 6, 16, 24
+
+    def t(*shape, dt=torch.float32):
+        return torch.from_numpy(rng.randn(*shape).astype(
+            np.float32)).to(dev).to(dt)
+
+    bf = torch.bfloat16
+    m_tb = (torch.arange(T, device=dev)[:, None]
+            < torch.tensor([5, 3, 1, 4], device=dev)[None]).float()
+    smask = (torch.arange(S, device=dev)[None]
+             < torch.tensor([6, 2, 5, 1], device=dev)[:, None]).float()
+    g4 = [t(T, B, H), m_tb, t(T, B, 3 * H, dt=bf), t(T, B, H, dt=bf),
+          t(3 * H, H), t(B, H)]
+    g10 = [t(T, B, H), m_tb, t(T, B, 4 * H, dt=bf), t(T, B, H, dt=bf),
+           t(4 * H, H), t(H), t(H), t(H), t(B, H), t(B, H)]
+    gates = [torch.sigmoid(t(T, B, H)) for _ in range(3)]
+    g6 = [t(T, B, H), m_tb, t(T, B, H), *gates, t(T, B, A),
+          t(B, S, H2, dt=bf), t(B, S, A, dt=bf), smask, t(H, A),
+          t(A, dt=bf), t(H, 3 * H), t(H2, 3 * H)]
+    runs = []
+    monkeypatch.setattr(FLAGS, "compute_dtype", "bfloat16")
+    for amp_on in (False, True):
+        monkeypatch.setattr(FLAGS, "amp", amp_on)
+        runs.append([*gru_backward_plain(*g4), *lstm_backward_plain(*g10),
+                     *attn_dec_bwd_plain(*g6)])
+    for a, b in zip(*runs):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_amp_products_rows_do_not_depend_on_the_batch(dev, amp):
+    """Under ``dot_dtype() == bfloat16`` the fixed-shape cuBLAS chunks
+    still make a row's bits independent of the row count: rows of 37-
+    and 1-row calls equal the same rows of a 384-row call bit for bit."""
+    from paddle_tpu_torch.ops import linear
+    from paddle_tpu_torch.ops.numerics import dot_dtype
+
+    assert dot_dtype() == torch.bfloat16
+    rng = np.random.RandomState(25)
+    x = torch.from_numpy(rng.randn(384, 512).astype(np.float32)).to(dev)
+    w = torch.from_numpy((0.05 * rng.randn(512, 1536)).astype(
+        np.float32)).to(dev)
+    b = torch.from_numpy((0.1 * rng.randn(1536)).astype(np.float32)).to(dev)
+    full = linear(x, w, b)
+    assert full.dtype == torch.bfloat16
+    for rows in (slice(0, 37), slice(100, 101), slice(383, 384)):
+        assert torch.equal(linear(x[rows], w, b), full[rows])
+
+
+def _card_lstm_trainer(dev, **kw):
+    import paddle_tpu_torch.nn as tnn
+    from paddle_tpu_torch.models import lstm_benchmark_net
+    from paddle_tpu_torch.param import Adam
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    tnn.reset_naming()
+    cost, _ = lstm_benchmark_net(60, emb_dim=16, hid_dim=32)
+    return SGDTrainer(cost, Adam(learning_rate=1e-2), seed=3, device=dev,
+                      **kw)
+
+
+def _card_lstm_feeds(n, B=8, T=12):
+    rng = np.random.RandomState(26)
+    return [{"words": (rng.randint(3, 60, (B, T)).astype(np.int32),
+                       rng.randint(1, T + 1, B).astype(np.int32)),
+             "label": rng.randint(0, 2, (B, 1)).astype(np.int32)}
+            for _ in range(n)]
+
+
+def test_remat_on_the_card_is_bit_for_bit_and_reruns_k9r(dev):
+    """``SGDTrainer(remat=True)`` on the card: three steps equal the plain
+    steps bit for bit (the same kernels on the same values), and K9r runs
+    twice a step (the recompute), K10 once."""
+    feeds = _card_lstm_feeds(3)
+    runs = {}
+    for remat in (False, True):
+        tr = _card_lstm_trainer(dev, remat=remat)
+        before = launch_counts()
+        losses = [tr.train_batch(f).item() for f in feeds]
+        after = launch_counts()
+        runs[remat] = (losses, {k: v.detach().clone()
+                                for k, v in tr.params.items()},
+                       after["lstm_forward"] - before["lstm_forward"],
+                       after["lstm_backward"] - before["lstm_backward"])
+    assert runs[False][0] == runs[True][0]
+    for k in runs[False][1]:
+        assert torch.equal(runs[False][1][k], runs[True][1][k]), k
+    assert (runs[False][2], runs[False][3]) == (2 * 3, 2 * 3)
+    assert (runs[True][2], runs[True][3]) == (4 * 3, 2 * 3)
+
+
+def test_amp_overflow_on_the_card_skips_and_halves_the_scale(dev, amp):
+    """An inf planted in one gradient (the loss stays finite): the step is
+    skipped with parameters and slots held bit for bit, the scale halves,
+    the abort streak does not move; the next clean step trains."""
+    from paddle_tpu_torch.param.optimizers import slot_leaves
+
+    tr = _card_lstm_trainer(dev)
+    feeds = _card_lstm_feeds(3)
+    tr.train_batch(feeds[0])
+
+    def snapshot():
+        return [v.detach().clone() for k in sorted(tr.params)
+                for v in (tr.params[k], *slot_leaves(
+                    tr.opt_state["slots"][k]))]
+
+    before, scale = snapshot(), float(tr.opt_state["amp"]["scale"])
+    hook = tr.params["_logits.wbias"].register_hook(
+        lambda g: g + float("inf"))
+    loss = tr.train_batch(feeds[1]).item()
+    hook.remove()
+    assert np.isfinite(loss)
+    assert int(tr._last_extras["amp_overflow"]) == 1
+    assert int(tr._last_extras["bad_step"]) == 0
+    assert tr.bad_steps_streak == 0 and tr.amp_overflows_total == 1
+    assert float(tr.opt_state["amp"]["scale"]) == scale / 2
+    assert all(torch.equal(a, b) for a, b in zip(before, snapshot()))
+    tr.train_batch(feeds[2])
+    assert int(tr._last_extras["amp_overflow"]) == 0
+    assert not all(torch.equal(a, b) for a, b in zip(before, snapshot()))
+
+
+def test_prefetch_side_stream_on_the_card_bit_equal(dev, monkeypatch):
+    """``--prefetch_depth=2`` on the card: the feeds are pinned and copied
+    on the prefetcher's side stream (``SGDTrainer._device_feed(pinned=
+    True)`` runs in the producer thread, off the default stream), and two
+    passes' losses and parameters equal ``--prefetch_depth=0``'s bit for
+    bit."""
+    import threading
+
+    from paddle_tpu_torch.trainer import SGDTrainer
+    from paddle_tpu_torch.trainer import events as ev
+    from paddle_tpu_torch.utils.flags import FLAGS
+
+    monkeypatch.setattr(FLAGS, "log_period", 0)
+    monkeypatch.setattr(FLAGS, "save_dir", "")
+    feeds = _card_lstm_feeds(4)
+    copies = []
+    real = SGDTrainer._device_feed
+
+    def spy(self, feed, pinned=False):
+        if pinned:
+            stream = torch.cuda.current_stream(dev)
+            copies.append((threading.current_thread().name,
+                           stream != torch.cuda.default_stream(dev)))
+        return real(self, feed, pinned=pinned)
+
+    monkeypatch.setattr(SGDTrainer, "_device_feed", spy)
+    runs = {}
+    for depth in (0, 2):
+        monkeypatch.setattr(FLAGS, "prefetch_depth", depth)
+        tr = _card_lstm_trainer(dev)
+        got = []
+        tr.train(lambda: iter(feeds), num_passes=2,
+                 event_handler=lambda e: got.append(e.cost)
+                 if isinstance(e, ev.EndIteration) else None)
+        runs[depth] = (got, {k: v.detach().clone()
+                             for k, v in tr.params.items()})
+        assert tr._prefetcher is None
+    assert runs[0][0] == runs[2][0]
+    for k in runs[0][1]:
+        assert torch.equal(runs[0][1][k], runs[2][1][k]), k
+    assert copies == [("batch-prefetch", True)] * 8

@@ -398,10 +398,13 @@ def test_unported_settings_raise_with_their_item():
     cost = build(tnn, False)
     for kw, item in (({"mesh": object()}, 8), ({"data_axis": "dp"}, 8),
                      ({"sharding_rules": object()}, 8),
-                     ({"pipeline": {}}, 8), ({"device_specs": {}}, 8),
-                     ({"amp": True}, 4), ({"remat": True}, 4)):
+                     ({"pipeline": {}}, 8), ({"device_specs": {}}, 8)):
         with pytest.raises(ConfigError, match=f"Queue 1 item {item}"):
             SGDTrainer(cost, device="cpu", **kw)
+    # amp and remat are ported: amp must agree with FLAGS.amp
+    with pytest.raises(ValueError, match="disagrees with FLAGS.amp"):
+        SGDTrainer(cost, device="cpu", amp=True)
+    assert SGDTrainer(cost, device="cpu", remat=True).remat
     tr = SGDTrainer(cost, device="cpu", amp=False, remat=False)
     with pytest.raises(ConfigError, match="item 9"):
         tr.audit({})
