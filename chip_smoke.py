@@ -245,7 +245,34 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             against their plain versions (its rows ``*_b512h256``); (d)
             ``--job=train --prefetch_depth=2`` against ``=0`` in turns
             (losses bit for bit, ms a step);
-17. a ``{"server_launches": {...}}`` line (each part of the server
+17. deploy   deploy bundles: ``lstm_benchmark_net`` at lstm_b64h256 (bf16)
+            trained 3 ``SGDTrainer`` steps (K9r, K10), its inference graph
+            ``Topology(logits)`` merged to an f32, a bf16 and an int8
+            bundle (merge seconds, ``params.npz`` bytes, each gate's
+            ``max_abs_err``; ``model.pb`` identical across the three); a
+            truncated member named by ``BundleCorruptError``; ``python -m
+            paddle_tpu_torch serve --serve_bundle=<f32> --serve_smoke=64``
+            and ``serve --serve_continuous --serve_smoke=16`` in fresh
+            processes (exit 0, seconds to the ready line, healthz; their
+            launches after the ready line: K9 twice a batch, persistent,
+            and nothing else; K3 and K7 and nothing else); each
+            bundle loaded with no model code (every parameter on the card)
+            and served by a bucket-mode ``InferenceServer`` (max_batch 8,
+            warmup primes per bucket): a zero-row request replied empty
+            with no launch, then 64 requests of 1-4 rows, lengths 20-100,
+            submitted at once (requests/s, p50/p99 submit-to-answer ms), K9
+            twice a batch, all persistent, only from the worker thread,
+            nothing else; each reply equal to solo ``infer`` bit for bit;
+            the f32 bundle's requests a second time under
+            ``torch.profiler`` (busy share, K9's device ms a launch and a
+            batch at the served shapes); each quantized bundle's loaded
+            parameters within half a quantization step of the trained
+            ones, and its served logits within the gate's tolerance of the
+            f32 bundle's (printed beside their ``max_abs_err``); the f32
+            bundle equal to the trained ``Topology.apply``; each bundle's
+            served logits against the same bundle on the CPU within
+            ``TOL_DEPLOY_CPU``;
+18. a ``{"server_launches": {...}}`` line (each part of the server
    phase: every kernel library's launches, by kernel variant and by
    thread), a ``{"kernels": [...]}`` line (each kernel's launches on its
    path's run, also by kernel variant: ``launches_by_path``; the K9,
@@ -254,14 +281,15 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
    text part: ``text_launches``; the K9, K9r and K10 rows at b64h256 also
    by sparse part: ``sparse_launches``, and by seqdata part:
    ``seqdata_launches``; the rows phase 16 reaches also by its part:
-   ``mixed_launches``), then the card line again, and last
+   ``mixed_launches``, and phase 17's: ``deploy_launches``), then the
+   card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed just before each path (serve and its fused
 re-run, each part of the server phase, each arm of the spec phase, each
 training configuration, each textclf run, dslgen, each part of the
 trainer phase, the vision phase, each part of the text, sparse,
-seqdata and mixed phases) is driven
+seqdata, mixed and deploy phases) is driven
 and read just after; a kernel of the path
 that was not launched fails the run.  ``chip_probe.py`` measures what this
 run leaves out to stay short (the products' chunk sizes end to end,
@@ -5707,6 +5735,427 @@ def check_lstm_b512(K, flush, dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 17: deploy bundles served through InferenceServer and `serve`
+# ---------------------------------------------------------------------------
+
+#: the deploy phase: training steps before the merge (B=64, T=100), the
+#: served traffic (DEPLOY_REQUESTS requests of 1-4 rows, lengths
+#: DEPLOY_LEN), the server's row bound, the CLI smokes' request counts and
+#: the card-vs-CPU tolerance (max |diff| / max |CPU|, bf16 policy)
+DEPLOY_TRAIN_STEPS, DEPLOY_REQUESTS, DEPLOY_MAX_BATCH = 3, 64, 8
+DEPLOY_LEN, DEPLOY_ROWS = (20, 100), (1, 4)
+DEPLOY_SMOKE, DEPLOY_CONTINUOUS_SMOKE = 64, 16
+DEPLOY_QUANT_TOL, TOL_DEPLOY_CPU = 0.05, 2e-3
+DEPLOY_MODES = ("f32", "bf16", "int8")
+#: the kernels line's rows that phase 17's parts launch
+DEPLOY_PART_ROWS = {
+    "lstm_forward": tuple(f"serve_{m}" for m in DEPLOY_MODES),
+    f"lstm_forward_residuals_b{TEXTCLF_B}h256": ("train",),
+    f"lstm_backward_b{TEXTCLF_B}h256": ("train",),
+}
+
+
+def deploy_requests(seed: int):
+    """DEPLOY_REQUESTS feeds of 1-4 rows, lengths drawn from DEPLOY_LEN,
+    each padded to its own longest row only."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    reqs = []
+    for _ in range(DEPLOY_REQUESTS):
+        rows = rng.randint(DEPLOY_ROWS[0], DEPLOY_ROWS[1] + 1)
+        lens = rng.randint(DEPLOY_LEN[0], DEPLOY_LEN[1] + 1,
+                           rows).astype(np.int32)
+        ids = rng.randint(3, TEXTCLF_VOCAB, (rows, int(lens.max())))
+        reqs.append({"words": (ids.astype(np.int32), lens)})
+    return reqs
+
+
+def deploy_serve(K, model, reqs, mode: str, profiled: bool = False):
+    """The requests through a bucket-mode ``InferenceServer`` over
+    ``model``, all submitted at once after a warmup that primes every batch
+    bucket at each length bucket the traffic reaches; then one zero-row
+    request.  With ``profiled``, the same requests a second time through
+    the same server under ``torch.profiler`` (CUDA activity, every thread's
+    kernels): its batches, wall ms, device kernel ms and K9's device ms and
+    kernels go into the stats as ``profile``; its launches are not the
+    path's.  -> (replies, launches, stats)."""
+    import threading
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.serving import InferenceServer
+
+    warm = [{"words": (np.full((1, t), 3, np.int32),
+                       np.asarray([t], np.int32))}
+            for t in (DEPLOY_LEN[0], 64, DEPLOY_LEN[1])]
+    srv = InferenceServer(model, max_batch=DEPLOY_MAX_BATCH,
+                          batch_delay_ms=2.0, max_queue=2 * DEPLOY_REQUESTS,
+                          default_deadline_ms=0.0)
+    try:
+        srv.start(warmup_feed=warm)
+        primes = srv.metrics.count("warmup_compiles")
+        torch.cuda.synchronize()
+        # the zero-row request first, alone: replied inline from the primed
+        # shapes, no launch
+        K.reset_launch_counts()
+        empty = srv.submit({"words": (np.zeros((0, DEPLOY_LEN[1]), np.int32),
+                                      np.zeros((0,), np.int32))}).result(30)
+        zero_launches = {n: c for n, c in K.launch_counts().items() if c}
+        if empty["logits"].shape != (0, 2) or zero_launches:
+            fail("deploy", f"{mode}: zero-row reply {empty['logits'].shape},"
+                 f" launches {zero_launches}")
+        done = [None] * len(reqs)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        futs = [srv.submit(f) for f in reqs]
+
+        def wait(i):
+            futs[i].result(120)
+            done[i] = time.perf_counter()
+
+        waiters = [threading.Thread(target=wait, args=(i,))
+                   for i in range(len(futs))]
+        for w in waiters:
+            w.start()
+        for w in waiters:
+            w.join(180)
+        wall = time.perf_counter() - t0
+        launches = K.launch_counts()
+        replies = [f.result(0) for f in futs]
+        hz = srv.healthz()
+        prof_stats = None
+        if profiled:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                for f in [srv.submit(f) for f in reqs]:
+                    f.result(120)
+                torch.cuda.synchronize()
+                prof_wall = time.perf_counter() - t1
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and not e.is_user_annotation]
+            k9 = [e for e in kernels if "lstm_fwd_persistent_kernel" in e.key]
+            prof_stats = {
+                "batches": (srv.healthz()["counters"]["batches"]
+                            - hz["counters"]["batches"]),
+                "wall_ms": prof_wall * 1e3,
+                "device_ms": sum(e.self_device_time_total
+                                 for e in kernels) / 1e3,
+                "kernels": sum(e.count for e in kernels),
+                "k9_ms": sum(e.self_device_time_total for e in k9) / 1e3,
+                "k9_kernels": sum(e.count for e in k9)}
+    finally:
+        srv.close()
+    lat = sorted((d - t0) * 1e3 for d in done)
+    stats = {"primes": primes, "batches": hz["counters"]["batches"],
+             "completed": hz["counters"]["completed"],
+             "rps": len(reqs) / wall, "wall_s": wall,
+             "p50_ms": lat[len(lat) // 2],
+             "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+             "profile": prof_stats}
+    return replies, launches, stats
+
+
+def deploy_dequant_ratio(model, trained, mode: str) -> float:
+    """The loaded bundle's parameters (dequantized on load) against the
+    trained float32 ones they were merged from: the largest
+    ``|loaded - trained| / half a quantization step``, the step computed
+    here from the trained values (int8 for arrays of ndim >= 2 and size >=
+    256 in the int8 mode: the channel's max |w| / 127 over the last axis;
+    bfloat16 otherwise: half an ulp is at most 2**-8 |w|).  At most 1 when
+    every parameter is what its stored code means."""
+    import numpy as np
+
+    worst = 0.0
+    for name, p in model.params.items():
+        w = trained[name].detach().cpu().numpy().astype(np.float64)
+        got = p.detach().cpu().numpy().astype(np.float64)
+        if mode == "int8" and w.ndim >= 2 and w.size >= 256:
+            scale = np.abs(w).max(axis=tuple(range(w.ndim - 1)),
+                               keepdims=True) / 127.0
+            half = 0.5 * scale + 2.0 ** -22 * np.abs(w)
+        else:
+            half = 2.0 ** -8 * np.abs(w)
+        err = np.abs(got - w)
+        worst = max(worst, float((err / np.maximum(half, 1e-30)).max()))
+    return worst
+
+
+def deploy_check_launches(launches, batches: int, mode: str) -> None:
+    """K9 twice a served batch (one a layer), all persistent, only from
+    the worker thread; nothing else."""
+    want = {"lstm_forward": 2 * batches}
+    got = {n: c for n, c in launches.items() if c}
+    threads = launches.by_thread.get("lstm_forward", {})
+    if (got != want or launches.by_path["lstm_forward"]
+            != {"persistent": 2 * batches}
+            or not all(t.startswith("serving-worker-") for t in threads)):
+        fail("deploy", f"{mode}: launches {got} by path "
+             f"{launches.by_path.get('lstm_forward')} by thread {threads}, "
+             f"want {want} persistent from the worker")
+
+
+def deploy_cli(args, dev, what: str):
+    """``python -m paddle_tpu_torch serve ...`` in a fresh process: its
+    exit code, its JSON lines and the wall seconds to its ready line."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch", "serve",
+         f"--device={dev.type}", *args], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    first, ready_s = "", None
+    try:
+        while ready_s is None:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            first += line
+            if line.startswith('{"ready"'):
+                ready_s = time.perf_counter() - t0
+        rest, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines = [json.loads(l) for l in (first + rest).splitlines()
+             if l.startswith("{")]
+    if (proc.returncode != 0 or ready_s is None or len(lines) < 2
+            or not lines[0].get("ready")):
+        fail("deploy", f"{what}: exit {proc.returncode}, stdout "
+             f"{(first + rest)[-1500:]!r}, stderr {err[-3000:]!r}")
+    return lines, ready_s
+
+
+def deploy_path(K, dev, card):
+    """Phase 17: train ``lstm_benchmark_net`` at lstm_b64h256 through
+    ``SGDTrainer`` (DEPLOY_TRAIN_STEPS steps), merge its inference graph
+    (``Topology(logits)``) to an f32, a bf16 and an int8 bundle, load each
+    with no model code and serve it in bucket mode; the ``serve`` command
+    line on the f32 bundle and its continuous smoke, each in a fresh
+    process.  -> {part: launches}."""
+    import shutil
+    import tempfile
+    import zipfile
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.config import (BundleCorruptError,
+                                         load_inference_model, merge_model)
+    from paddle_tpu_torch.models import lstm_benchmark_net
+    from paddle_tpu_torch.param import Adam
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    parts = {}
+    nn.reset_naming()
+    cost, logits = lstm_benchmark_net(TEXTCLF_VOCAB, emb_dim=TEXTCLF_EMB,
+                                      hid_dim=256,
+                                      num_layers=TEXTCLF_LAYERS)
+    tr = SGDTrainer(cost, Adam(learning_rate=1e-3), seed=SEED, device=dev)
+    K.reset_launch_counts()
+    losses = [tr.train_batch(textclf_feed(TEXTCLF_B, TEXTCLF_T, SEED + i))
+              .item() for i in range(DEPLOY_TRAIN_STEPS)]
+    parts["train"] = K.launch_counts()
+    _launch_check("deploy", "train", parts["train"],
+                  {k: 2 * DEPLOY_TRAIN_STEPS for k in TEXTCLF_KERNELS})
+    n_params = sum(p.numel() for p in tr.params.values())
+    topo = nn.Topology(logits, device=dev)
+    root = tempfile.mkdtemp(prefix="deploy-")
+    paths, merge_s, npz_bytes, pb_bytes, quant = {}, {}, {}, {}, {}
+    for mode in DEPLOY_MODES:
+        t0 = time.perf_counter()
+        paths[mode] = merge_model(
+            os.path.join(root, f"{mode}.ptz"), topo, tr.params, tr.state,
+            name="textclf", quantize=None if mode == "f32" else mode,
+            quantize_tol=DEPLOY_QUANT_TOL)
+        merge_s[mode] = time.perf_counter() - t0
+        with zipfile.ZipFile(paths[mode]) as z:
+            info = {i.filename: i for i in z.infolist()}
+            pb_bytes[mode] = z.read("model.pb")
+            quant[mode] = json.loads(z.read("manifest.json")).get(
+                "quantize") or {}
+        npz_bytes[mode] = info["params.npz"].file_size
+    print(f"deploy: lstm_b{TEXTCLF_B}h256 trained {DEPLOY_TRAIN_STEPS} "
+          f"SGDTrainer steps (losses {losses}; {n_params} parameters); "
+          f"merge s {{{', '.join(f'{m}: {s:.3f}' for m, s in merge_s.items())}}}"
+          f"; params.npz bytes (deflated npz) {npz_bytes}; max_abs_err vs "
+          f"quantize_tol {DEPLOY_QUANT_TOL}: "
+          f"{ {m: q.get('max_abs_err') for m, q in quant.items() if q} } "
+          f"[{card}]", flush=True)
+    if len(set(pb_bytes.values())) != 1:
+        fail("deploy", "model.pb differs between the f32, bf16 and int8 "
+             "bundles")
+    for mode in DEPLOY_MODES[1:]:
+        q = quant[mode]
+        if q.get("mode") != mode or not 0 < q["max_abs_err"] <= q["tol"]:
+            fail("deploy", f"{mode}: manifest quantize block {q}")
+
+    # a member truncated in a copy of the f32 bundle is named
+    bad = os.path.join(root, "truncated.ptz")
+    with zipfile.ZipFile(paths["f32"]) as src, \
+            zipfile.ZipFile(bad, "w", zipfile.ZIP_DEFLATED) as dst:
+        for i in src.infolist():
+            data = src.read(i.filename)
+            dst.writestr(i.filename, data[: len(data) // 2]
+                         if i.filename == "params.npz" else data)
+    try:
+        load_inference_model(bad, device=dev)
+        fail("deploy", "a truncated params.npz loaded")
+    except BundleCorruptError as e:
+        if e.member != "params.npz":
+            fail("deploy", f"truncated bundle names member {e.member!r}")
+
+    # the serve command line on the f32 bundle, then its continuous smoke
+    lines, ready_s = deploy_cli(
+        [f"--serve_bundle={paths['f32']}", f"--serve_smoke={DEPLOY_SMOKE}",
+         f"--serve_max_batch={DEPLOY_MAX_BATCH}",
+         "--serve_deadline_ms=60000"], dev, "serve --serve_smoke")
+    hz = lines[-1]
+    print(f"deploy: serve --serve_smoke={DEPLOY_SMOKE} exit 0, "
+          f"{ready_s:.2f} s to its ready line; healthz "
+          f"{json.dumps(hz['counters'])}; launches after its ready line "
+          f"{json.dumps(hz['launches'])} [{card}]", flush=True)
+    if hz["counters"]["completed"] != DEPLOY_SMOKE or hz["counters"]["shed"]:
+        fail("deploy", f"serve --serve_smoke: counters {hz['counters']}")
+    k9 = 2 * hz["counters"]["batches"]
+    if (not k9 or hz["launches"]["by_kernel"] != {"lstm_forward": k9}
+            or hz["launches"]["by_path"]
+            != {"lstm_forward": {"persistent": k9}}):
+        fail("deploy", f"serve --serve_smoke: launches {hz['launches']}, "
+             f"want K9 {k9} persistent (2 a batch) and nothing else")
+    clines, cready_s = deploy_cli(
+        ["--serve_continuous", f"--serve_smoke={DEPLOY_CONTINUOUS_SMOKE}",
+         "--serve_deadline_ms=60000"], dev, "serve --serve_continuous")
+    chz = clines[-1]
+    print(f"deploy: serve --serve_continuous --serve_smoke="
+          f"{DEPLOY_CONTINUOUS_SMOKE} exit 0, {cready_s:.2f} s to its ready "
+          f"line; completed {chz['counters']['completed']}, slots "
+          f"{chz.get('slots')}; launches after its ready line "
+          f"{json.dumps(chz['launches'])} [{card}]", flush=True)
+    if chz["counters"]["completed"] != DEPLOY_CONTINUOUS_SMOKE:
+        fail("deploy", f"continuous smoke counters {chz['counters']}")
+    if set(chz["launches"]["by_kernel"]) != {"gru_forward",
+                                             "topk_lse_readout"}:
+        fail("deploy", f"continuous smoke launches {chz['launches']}, want "
+             f"K3 (prefill) and K7 (decode) and nothing else")
+
+    # each bundle loaded with no model code and served in bucket mode
+    reqs = deploy_requests(SEED)
+    served, models = {}, {}
+    for mode in DEPLOY_MODES:
+        t0 = time.perf_counter()
+        # the default device is the card's (a CPU rehearsal names the CPU)
+        model = models[mode] = load_inference_model(
+            paths[mode], device=None if dev.type == "cuda" else dev)
+        load_s = time.perf_counter() - t0
+        if model.device.type != "cuda" or any(
+                p.device.type != "cuda" for p in model.params.values()):
+            fail("deploy", f"{mode}: parameters not on the card")
+        replies, launches, st = deploy_serve(K, model, reqs, mode,
+                                             profiled=mode == "f32")
+        parts[f"serve_{mode}"] = launches
+        deploy_check_launches(launches, st["batches"], mode)
+        if st["completed"] != len(reqs) + 1:  # the zero-row one too
+            fail("deploy", f"{mode}: {st['completed']} completed")
+        solo = [model.infer(f)["logits"] for f in reqs]
+        diff = [i for i, (a, b) in enumerate(zip(replies, solo))
+                if not np.array_equal(a["logits"], b)]
+        served[mode] = [r["logits"] for r in replies]
+        print(f"deploy: {mode} bundle loaded in {load_s:.3f} s, warmup "
+              f"primes {st['primes']}; {len(reqs)} requests "
+              f"({sum(r['words'][1].size for r in reqs)} rows) at once in "
+              f"{st['batches']} batches: {st['rps']:.1f} requests/s, "
+              f"submit-to-answer p50 {st['p50_ms']:.2f} ms p99 "
+              f"{st['p99_ms']:.2f} ms; K9 launches by path "
+              f"{launches.by_path['lstm_forward']} by thread "
+              f"{launches.by_thread['lstm_forward']}; replies unequal to "
+              f"solo infer: {diff} [{card}]", flush=True)
+        if diff:
+            fail("deploy", f"{mode}: served rows {diff} differ from solo "
+                 f"infer bit for bit")
+        pr = st["profile"]
+        if pr is not None:
+            # K9's device time at the served shapes beside the host's
+            print(f"deploy: {mode} the same {len(reqs)} requests again under "
+                  f"torch.profiler: {pr['batches']} batches in "
+                  f"{pr['wall_ms']:.3f} ms wall, device kernels "
+                  f"{pr['device_ms']:.3f} ms ({pr['kernels']} kernels; busy "
+                  f"share {pr['device_ms'] / pr['wall_ms']:.4f}); K9 "
+                  f"{pr['k9_kernels']} kernels, {pr['k9_ms']:.3f} ms "
+                  f"({pr['k9_ms'] / max(pr['k9_kernels'], 1):.4f} ms a "
+                  f"launch, {pr['k9_ms'] / max(pr['batches'], 1):.4f} ms a "
+                  f"batch); wall a batch "
+                  f"{pr['wall_ms'] / max(pr['batches'], 1):.3f} ms "
+                  f"[{card}]", flush=True)
+            if not pr["batches"] or pr["k9_kernels"] != 2 * pr["batches"]:
+                fail("deploy", f"{mode}: the profiled pass shows "
+                     f"{pr['k9_kernels']} K9 kernels for {pr['batches']} "
+                     f"batches, want 2 a batch")
+    trained = dict(tr.params)
+    for mode in DEPLOY_MODES[1:]:
+        # the stored codes mean the trained weights: every loaded parameter
+        # within half a quantization step of the value it was merged from
+        ratio = deploy_dequant_ratio(models[mode], trained, mode)
+        # the gate's contract is its tolerance: the manifest's max_abs_err
+        # is the largest error over its 6-row synthetic sweep, which a
+        # largest error over the served rows may pass (printed as a ratio)
+        err = max(float(np.abs(a - b).max())
+                  for a, b in zip(served[mode], served["f32"]))
+        q = quant[mode]
+        print(f"deploy: {mode} loaded parameters vs the trained f32 ones: "
+              f"largest |diff| / half a quantization step {ratio:.6f} "
+              f"(limit 1); served logits vs the f32 bundle's on the same "
+              f"rows: max abs {err:.3e}; the manifest's max_abs_err "
+              f"{q['max_abs_err']:.3e} (ratio "
+              f"{err / q['max_abs_err']:.2f}), quantize_tol {q['tol']} "
+              f"[{card}]", flush=True)
+        if not ratio <= 1.0:
+            fail("deploy", f"{mode}: a loaded parameter is {ratio:.4f} half "
+                 f"quantization steps from the trained value")
+        if not err <= q["tol"]:
+            fail("deploy", f"{mode}: served logits {err:.3e} from the f32 "
+                 f"bundle's, past the gate's tolerance {q['tol']}")
+
+    # the bundle against the training process, and the card against the CPU
+    f32 = models["f32"]
+    with torch.no_grad():
+        for f in reqs[:4]:
+            want, _ = tr.topology.apply(tr.params, tr.state, f, train=False,
+                                        outputs=[logits.name])
+            w = want[logits.name].value.float().cpu().numpy()
+            if not np.array_equal(f32.infer(f)["logits"], w):
+                fail("deploy", "the f32 bundle's infer differs from the "
+                     "trained Topology.apply")
+    # each bundle loaded on the CPU (plain versions, the same dequantized
+    # parameters) against its served replies on the card
+    worst = {}
+    for mode in DEPLOY_MODES:
+        cpu = load_inference_model(paths[mode], device="cpu")
+        worst[mode] = 0.0
+        for f, a in zip(reqs[:2], served[mode]):
+            c = cpu.infer(f)["logits"]
+            worst[mode] = max(worst[mode],
+                              float(np.abs(a - c).max() / np.abs(c).max()))
+    print(f"deploy: f32 bundle infer equals the trained Topology.apply on "
+          f"4 requests; served on the card vs the same bundle on the CPU, "
+          f"2 requests: max |diff| / max |CPU| "
+          f"{ {m: f'{w:.3e}' for m, w in worst.items()} } "
+          f"(tol {TOL_DEPLOY_CPU}) [{card}]", flush=True)
+    if not all(w <= TOL_DEPLOY_CPU for w in worst.values()):
+        fail("deploy", f"card and CPU disagree beyond tolerance: {worst}")
+    del tr, models, f32, cpu, topo, trained
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    return parts
+
+
 def main() -> int:
     try:
         import torch
@@ -5798,6 +6247,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "mixed"
         mixed_launches = mixed_path(K, dev, card)
+        torch.cuda.empty_cache()
+        phase = "deploy"
+        deploy_launches = deploy_path(K, dev, card)
     except SystemExit:
         raise
     except Exception:  # noqa: BLE001 — report the phase and fail
@@ -5890,6 +6342,17 @@ def main() -> int:
             row["mixed_launches_by_path"] = {
                 part: mixed_launches[part].by_path[lib]
                 for part in MIXED_PART_ROWS[name]}
+        if name in DEPLOY_PART_ROWS:
+            # phase 17's parts: the training steps that make the bundle's
+            # weights, and each bundle served in bucket mode
+            lib = ("lstm_forward" if name.startswith("lstm_forward")
+                   else "lstm_backward")
+            row["deploy_launches"] = {
+                part: deploy_launches[part][lib]
+                for part in DEPLOY_PART_ROWS[name]}
+            row["deploy_launches_by_path"] = {
+                part: deploy_launches[part].by_path[lib]
+                for part in DEPLOY_PART_ROWS[name]}
         if name == "topk_lse_readout":
             # the spec phase's full arm: one launch a table step, its wide
             # steps at N = 320

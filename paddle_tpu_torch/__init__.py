@@ -13,16 +13,20 @@ counterpart on an H100, ported slice by slice (ROADMAP.md).  Its entry points:
     param                         the optimizers and schedules
     serving.InferenceServer       the served entry point over
     serving.SlotScheduler         continuous batching over the slot table
+    config                        model config serialization and deploy
+                                  bundles (merge_model, load_inference_model)
 
 and the command line ``python -m paddle_tpu_torch --job=train|test|
-checkgrad|time --config=CONF.py [--device=cpu]``.
+checkgrad|time --config=CONF.py [--device=cpu]`` with its ``data`` and
+``serve`` subcommands.
 
 Every Pallas kernel on that path is a hand-written CUDA kernel under
 ``csrc/`` (built at first use, see ``ops/kernels/build.py``).  Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``; on the CPU each
 kernel wrapper runs its plain PyTorch version, which is how the tests run.
 
-The package imports torch and numpy only — never jax, never ``paddle_tpu``.
+The package imports torch and numpy only — never jax, never ``paddle_tpu``,
+never ``google.protobuf`` or ``ml_dtypes``.
 """
 
 from paddle_tpu_torch.device import resolve_device

@@ -24,12 +24,15 @@ rows (``datapipe.auto_pack``).  ``--amp`` (with ``--loss_scale``,
 ``--prefetch_depth`` reach the trainer through ``FLAGS``.
 
 ``python -m paddle_tpu_torch data {pack|verify} ...`` is the shard-set
-tooling (``datapipe/cli.py``).
+tooling (``datapipe/cli.py``).  ``python -m paddle_tpu_torch serve
+--serve_bundle=model.ptz`` serves a deploy bundle (``serving/cli.py``;
+``--serve_smoke=N`` is its self-test, ``--serve_continuous
+--serve_smoke=N`` the continuous-batching one).
 
 Not ported here, and refused with a ``ConfigError`` naming the ROADMAP.md
-Queue 1 item that ports them: the ``lint`` (item 9), ``serve`` (item 7),
-``obs`` (item 9) and ``fsck`` (item 9) subcommands, and the reference's
-flags of parts not ported yet (``utils/flags.py::NOT_PORTED_FLAGS``).
+Queue 1 item that ports them: the ``lint`` (item 9), ``obs`` (item 9) and
+``fsck`` (item 9) subcommands, and the reference's flags of parts not
+ported yet (``utils/flags.py::NOT_PORTED_FLAGS``).
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ import time
 from typing import List, Optional
 
 #: the reference's subcommands and the ROADMAP.md Queue 1 item porting each
-NOT_PORTED_COMMANDS = {"lint": 9, "serve": 7, "obs": 9, "fsck": 9}
+NOT_PORTED_COMMANDS = {"lint": 9, "obs": 9, "fsck": 9}
 
 
 def _load_config(path: str):
@@ -215,18 +218,21 @@ JOBS = {
 _USAGE = """\
 usage: python -m paddle_tpu_torch --job={train|test|checkgrad|time} --config=CONF.py [--device=cuda|cpu] [--flag=value ...]
        python -m paddle_tpu_torch data {pack|verify} ...   (shard-set tooling; data --help)
+       python -m paddle_tpu_torch serve --serve_bundle=MODEL.ptz [--serve_smoke=N] [--serve_* ...]
+       python -m paddle_tpu_torch serve --serve_continuous --serve_smoke=N
 
 The paddle_trainer command line of the PyTorch port.  CONF.py defines
 get_config() (see the module docstring of paddle_tpu_torch/__main__.py).
-The trainer runs on --device (cuda by default).  Flags (also settable via
+The trainer and the server run on --device (cuda by default).  A bundle is
+written by paddle_tpu_torch.config.merge_model.  Flags (also settable via
 PADDLE_TPU_TORCH_<NAME> environment variables):
 """
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     from paddle_tpu_torch.utils.error import ConfigError, not_ported
-    from paddle_tpu_torch.utils.flags import (FLAGS, NOT_PORTED_FLAGS,
-                                              flags_help, parse_flags)
+    from paddle_tpu_torch.utils.flags import (FLAGS, flags_help, parse_flags,
+                                              refuse_unparsed)
 
     argv = list(sys.argv[1:]) if argv is None else list(argv)
     if argv and argv[0] == "data":
@@ -241,14 +247,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(_USAGE)
         print(flags_help())
         return 0
-    rest = parse_flags(argv)
-    for arg in rest:
-        name = arg[2:].split("=", 1)[0].replace("-", "_") \
-            if arg.startswith("--") else None
-        if name in NOT_PORTED_FLAGS:
-            raise not_ported(f"--{name}", NOT_PORTED_FLAGS[name])
-    if rest:
-        raise ConfigError(f"unrecognized arguments: {rest}")
+    if argv and argv[0] == "serve":
+        from paddle_tpu_torch.serving.cli import run as serve_run
+
+        return serve_run(argv[1:])
+    refuse_unparsed(parse_flags(argv))
     if FLAGS.job not in JOBS:
         raise ConfigError(
             f"--job must be one of {sorted(JOBS)}, got {FLAGS.job!r}")

@@ -34,10 +34,11 @@ import torch
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.ops.sequence import PACK_KEYS, mask_from_lengths
 from paddle_tpu_torch.utils.error import ConfigError, layer_scope, not_ported
+from paddle_tpu_torch.utils.registry import Registry
 
 __all__ = ["Act", "ParamAttr", "ParamSpec", "LayerOutput", "ApplyContext",
            "Topology", "StepTopology", "next_name", "reset_naming",
-           "naming_scope", "device_pin", "PACK_KEYS"]
+           "naming_scope", "device_pin", "PACK_KEYS", "LAYER_TYPES"]
 
 def _not_ported(what: str, item: int = 3) -> ConfigError:
     """``item``: the ROADMAP.md Queue 1 item that ports it (3, groups,
@@ -48,6 +49,11 @@ def _not_ported(what: str, item: int = 3) -> ConfigError:
 def device_pin(node: "LayerOutput", tag: str) -> "LayerOutput":
     """The reference's model-parallel layer pin; not ported."""
     raise _not_ported("device_pin (model-parallel layer placement)")
+
+
+#: the layer-type registry of the reference's ``nn/graph.py`` (its
+#: ``REGISTER_LAYER`` analogue), empty there as here
+LAYER_TYPES: Registry = Registry("layer_type")
 
 
 # ---------------------------------------------------------------------------

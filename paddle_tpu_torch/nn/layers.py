@@ -1064,3 +1064,10 @@ def sum_cost(input: LayerOutput, *, name: Optional[str] = None
     """The sum of every entry of the input."""
     name = name or next_name("sum_cost")
     return _cost_layer(name, "sum_cost", [input], lambda a: a.value.sum())
+
+
+# record constructor calls on the returned nodes so Topologies serialize to
+# ModelConfig protos (config/config_parser.py)
+from paddle_tpu_torch.config.capture import wrap_module as _wrap_module  # noqa: E402
+
+_wrap_module(globals(), __all__)

@@ -412,3 +412,10 @@ def slice_channels(input: LayerOutput, start: int, end: int,
 
     return _inherit_meta(LayerOutput(name, "slice_channels", end - start,
                                      [input], forward, []), input)
+
+
+# record constructor calls on the returned nodes so Topologies serialize to
+# ModelConfig protos (config/config_parser.py)
+from paddle_tpu_torch.config.capture import wrap_module as _wrap_module  # noqa: E402
+
+_wrap_module(globals(), __all__)

@@ -547,3 +547,10 @@ def print_value(input: LayerOutput, *, message: Optional[str] = None,
 
     return _inherit_meta(LayerOutput(name, "print", input.size, [input],
                                      forward, []), input)
+
+
+# record constructor calls on the returned nodes so Topologies serialize to
+# ModelConfig protos (config/config_parser.py)
+from paddle_tpu_torch.config.capture import wrap_module as _wrap_module  # noqa: E402
+
+_wrap_module(globals(), __all__)

@@ -16,8 +16,10 @@ the reference's build styles work::
         m += dotmul_operator(a=x, b=y, scale=0.5)
 
 Image-shaped terms (``conv_projection``, ``conv_operator``) carry their
-output's spatial dims, which the sealed layer takes.  Not ported: the
-recording of each call for config serialization.
+output's spatial dims, which the sealed layer takes.  Each factory records
+its call on the projection it returns (``Projection.config``), and a sealed
+mixed layer records its own, so mixed layers serialize through the config
+tier (``config/config_parser.py``).
 """
 
 from __future__ import annotations
@@ -53,10 +55,32 @@ class Projection:
     origins: List[LayerOutput]
     finalize: Callable[[str, int, int], tuple]
     hw: Optional[tuple] = None
+    #: the recorded factory call {fn, kwargs}, for config serialization
+    config: Optional[dict] = None
 
 
 class Operator(Projection):
     """A term that takes several inputs and owns no weight."""
+
+
+def _recorded(fn):
+    """Record the factory call on the returned Projection, so a mixed layer
+    serializes its inputs as replayable factory calls."""
+    import functools
+    import inspect
+
+    from paddle_tpu_torch.config.capture import bound_arguments
+
+    sig = inspect.signature(fn)
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        proj = fn(*args, **kwargs)
+        proj.config = {"fn": fn.__name__,
+                       "kwargs": bound_arguments(sig, args, kwargs)}
+        return proj
+
+    return wrapper
 
 
 def _flat(a: Act) -> torch.Tensor:
@@ -66,6 +90,7 @@ def _flat(a: Act) -> torch.Tensor:
     return v
 
 
+@_recorded
 def full_matrix_projection(input: LayerOutput, size: int = 0,
                            param_attr: AttrLike = None) -> Projection:
     """out += x @ W, W: [in_size, size]."""
@@ -87,6 +112,7 @@ def full_matrix_projection(input: LayerOutput, size: int = 0,
     return Projection("full_matrix", [input], finalize)
 
 
+@_recorded
 def trans_full_matrix_projection(input: LayerOutput, size: int = 0,
                                  param_attr: AttrLike = None) -> Projection:
     """out += x @ W^T, W: [size, in_size]."""
@@ -107,6 +133,7 @@ def trans_full_matrix_projection(input: LayerOutput, size: int = 0,
     return Projection("trans_full_matrix", [input], finalize)
 
 
+@_recorded
 def table_projection(input: LayerOutput, size: int = 0,
                      param_attr: AttrLike = None) -> Projection:
     """out += table[ids]: an embedding as a projection.  ``input`` is an
@@ -132,6 +159,7 @@ def table_projection(input: LayerOutput, size: int = 0,
     return Projection("table", [input], finalize)
 
 
+@_recorded
 def identity_projection(input: LayerOutput, offset: Optional[int] = None,
                         size: int = 0) -> Projection:
     """out += x, or x[..., offset:offset + size] when ``offset`` is
@@ -154,6 +182,7 @@ def identity_projection(input: LayerOutput, offset: Optional[int] = None,
     return Projection("identity", [input], finalize, hw=hw)
 
 
+@_recorded
 def dotmul_projection(input: LayerOutput,
                       param_attr: AttrLike = None) -> Projection:
     """out += x * w, an elementwise weight w [size] (ones at init)."""
@@ -170,6 +199,7 @@ def dotmul_projection(input: LayerOutput,
     return Projection("dotmul", [input], finalize)
 
 
+@_recorded
 def scaling_projection(input: LayerOutput,
                        param_attr: AttrLike = None) -> Projection:
     """out += w * x with one scalar weight [1] (one at init)."""
@@ -186,6 +216,7 @@ def scaling_projection(input: LayerOutput,
     return Projection("scaling", [input], finalize)
 
 
+@_recorded
 def context_projection_input(input: LayerOutput, context_len: int,
                              context_start: Optional[int] = None,
                              padding_attr: AttrLike = False) -> Projection:
@@ -265,6 +296,7 @@ def _conv(x: torch.Tensor, wgt: torch.Tensor, filter_size: int, stride: int,
                     padding=[(padding, padding)] * 2, groups=groups)
 
 
+@_recorded
 def conv_projection(input: LayerOutput, filter_size: int, num_filters: int,
                     num_channels: Optional[int] = None, stride: int = 1,
                     padding: int = 0, groups: int = 1,
@@ -299,6 +331,7 @@ def conv_projection(input: LayerOutput, filter_size: int, num_filters: int,
                       hw=(oh, ow))
 
 
+@_recorded
 def dotmul_operator(a: LayerOutput = None, b: LayerOutput = None,
                     scale: float = 1.0, **kwargs) -> Operator:
     """out += scale * (a * b); ``x=``/``y=`` name the inputs too."""
@@ -317,6 +350,7 @@ def dotmul_operator(a: LayerOutput = None, b: LayerOutput = None,
     return Operator("dotmul_op", [a, b], finalize)
 
 
+@_recorded
 def conv_operator(img: LayerOutput, filter: LayerOutput, filter_size: int,
                   num_filters: int, num_channels: Optional[int] = None,
                   stride: int = 1, padding: int = 0,
@@ -456,6 +490,18 @@ class MixedLayer(LayerOutput):
         self.forward = forward
         if hw is not None:
             self.meta["hw"] = hw
+        # record the sealed constructor call for config serialization (both
+        # the eager and the context-manager build styles end here)
+        from paddle_tpu_torch.config.capture import _call_counter
+
+        self.meta["config"] = {
+            "fn": "mixed",
+            "kwargs": {"input": list(self._inputs), "size": self.size,
+                       "act": self._act, "bias_attr": self._bias_attr,
+                       "name": self.name},
+            "call_id": next(_call_counter),
+            "out": -1,
+        }
 
 
 def mixed(size: int = 0,

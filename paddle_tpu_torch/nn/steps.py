@@ -93,3 +93,10 @@ def gru_step(input: LayerOutput, output_mem: LayerOutput,
 
     return LayerOutput(name, "gru_step", H, [input, output_mem], forward,
                        specs)
+
+
+# record constructor calls on the returned nodes so Topologies serialize to
+# ModelConfig protos (config/config_parser.py)
+from paddle_tpu_torch.config.capture import wrap_module as _wrap_module  # noqa: E402
+
+_wrap_module(globals(), __all__)

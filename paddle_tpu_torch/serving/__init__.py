@@ -1,6 +1,11 @@
 """``paddle_tpu_torch.serving`` — the overload-safe inference runtime of the
 port (the reference's ``paddle_tpu/serving``; docs/serving.md):
 
+- **deploy bundles** — bucket mode serves an ``InferenceModel`` loaded
+  from a ``.ptz`` bundle (``config/deploy.py``) with no model code: warmup
+  primes every batch bucket, a zero-row request replies empty inline;
+  ``python -m paddle_tpu_torch serve`` (``serving/cli.py``) runs it from
+  the command line;
 - **batching** — a bounded, deadline-aware micro-batching queue that
   coalesces requests into power-of-two row buckets (``BatchQueue``);
 - **admission control** — queue-overflow and infeasible-deadline requests
@@ -22,8 +27,8 @@ port (the reference's ``paddle_tpu/serving``; docs/serving.md):
 - **observability** — ``ServerMetrics`` over the shared metrics registry
   (``paddle_tpu_torch.obs``), behind ``InferenceServer.healthz()``.
 
-The compile cache, preflight, request tracing, the fleet, router, tenancy,
-reload and cli are not ported yet (ROADMAP.md Queue 1 items 2, 7 and 9).
+The compile cache, preflight, request tracing, the fleet, router, tenancy
+and reload are not ported yet (ROADMAP.md Queue 1 items 7 and 9).
 """
 
 from paddle_tpu_torch.serving.errors import (CircuitOpenError,
@@ -43,7 +48,8 @@ from paddle_tpu_torch.serving.metrics import ServerMetrics
 from paddle_tpu_torch.serving.server import InferenceServer
 from paddle_tpu_torch.serving.worker import WorkerSupervisor
 from paddle_tpu_torch.serving.slots import (Seq2SeqSlotBackend, SlotBackend,
-                                            SlotScheduler)
+                                            SlotScheduler,
+                                            example_slot_backend)
 from paddle_tpu_torch.serving.prefix_cache import PrefixCache, feed_key
 from paddle_tpu_torch.serving.paging import PagedSlot, SlotPager
 from paddle_tpu_torch.serving import feeds
@@ -58,7 +64,8 @@ __all__ = [
     "canonicalize_feed", "merge_feeds", "split_outputs", "batch_bucket",
     "warmup_bucket_feeds", "CircuitBreaker", "ServerMetrics",
     "InferenceServer", "WorkerSupervisor", "SlotBackend",
-    "Seq2SeqSlotBackend", "SlotScheduler", "PrefixCache", "feed_key",
+    "Seq2SeqSlotBackend", "SlotScheduler", "example_slot_backend",
+    "PrefixCache", "feed_key",
     "PagedSlot", "SlotPager", "DraftProposer", "NGramProposer",
     "CallableDraftProposer", "AdversarialProposer", "feeds",
 ]

@@ -22,9 +22,10 @@ Guarantees, as in the reference:
 
 Two execution modes share that contract:
 
-- ``mode="bucket"`` (default): one-shot calls of a plain callable
-  ``fn(feed[, tier_opts]) -> {name: array}``, coalesced into power-of-two
-  row buckets;
+- ``mode="bucket"`` (default): one-shot calls of an ``InferenceModel``
+  (``config/deploy.py``, a deploy bundle loaded with no model code) or of a
+  plain callable ``fn(feed[, tier_opts]) -> {name: array}``, coalesced into
+  power-of-two row buckets;
 - ``mode="generation"``: continuous slot-based batching over a
   :class:`~paddle_tpu_torch.serving.slots.SlotBackend` — the persistent
   decode table advanced one step at a time, finished requests' slots
@@ -42,9 +43,9 @@ parked slots before new requests, and pages one cold resident out when the
 table is full and requests queue.
 
 Not ported yet; each raises :class:`~paddle_tpu_torch.utils.error
-.ConfigError` naming its ROADMAP.md item: ``start(compile_cache=)`` and an
-``InferenceModel`` in bucket mode, Queue 1 item 7; ``start(preflight=True)``
-and request tracing (``submit(trace_attrs=)``), item 9.
+.ConfigError` naming its ROADMAP.md item: ``start(compile_cache=)``, Queue 1
+item 7; ``start(preflight=True)`` and request tracing
+(``submit(trace_attrs=)``), item 9.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ from __future__ import annotations
 import contextlib
 import inspect
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -103,10 +104,14 @@ class InferenceServer:
     """Serve a forward with batching, shedding, deadlines, and a supervised
     worker.
 
-    ``model`` (bucket mode) is a callable ``fn(feed) -> {name: array}``; a
-    callable taking a second argument receives the active degradation-tier
-    options dict (``fn(feed, tier_opts)``).  Outputs may be numpy arrays or
-    tensors (copied to the host in the worker).
+    ``model`` (bucket mode) is an ``InferenceModel`` or a callable
+    ``fn(feed) -> {name: array}``; a callable taking a second argument
+    receives the active degradation-tier options dict (``fn(feed,
+    tier_opts)``).  Outputs may be numpy arrays or tensors (copied to the
+    host in the worker).  An ``InferenceModel`` serves ``outputs`` (its
+    config's outputs by default; a tier's ``{"outputs": [...]}`` overrides
+    them), warms up through ``prime`` at every batch bucket, and answers a
+    zero-row request inline with correctly shaped empty arrays.
 
     With ``mode="generation"``, ``model`` is a :class:`~paddle_tpu_torch
     .serving.slots.SlotBackend` and the worker runs the continuous slot loop
@@ -128,6 +133,7 @@ class InferenceServer:
         *,
         mode: str = "bucket",
         slots: int = 8,
+        outputs: Optional[Sequence[str]] = None,
         max_batch: int = 8,
         batch_delay_ms: float = 2.0,
         max_queue: int = 64,
@@ -163,6 +169,7 @@ class InferenceServer:
         self.default_deadline_ms = float(default_deadline_ms)
         self.nonfinite = nonfinite
         self._clock = clock
+        self._outputs = list(outputs) if outputs else None
         self.metrics = ServerMetrics()
         self.queue = BatchQueue(max_queue)
         self.breaker = CircuitBreaker(
@@ -239,14 +246,21 @@ class InferenceServer:
 
     def _make_runner(self, model):
         """Normalize the backend to ``runner(feed, tier_opts)``."""
-        if getattr(model, "infer", None) is not None and hasattr(
-                model, "topology"):
-            raise not_ported("bucket mode over an InferenceModel "
-                              "(config/deploy.py)", 7)
+        infer = getattr(model, "infer", None)
+        if infer is not None and hasattr(model, "topology"):
+            outputs = self._outputs
+
+            def run(feed, tier_opts):
+                outs = outputs
+                if tier_opts.get("outputs"):
+                    outs = list(tier_opts["outputs"])
+                return infer(feed, outputs=outs)
+
+            return run
         if not callable(model):
             raise TypeError(
-                "model must be a callable fn(feed[, tier_opts]) -> "
-                "{name: array}")
+                "model must be an InferenceModel or a callable "
+                "fn(feed[, tier_opts]) -> {name: array}")
         try:
             takes_tier = len(inspect.signature(model).parameters) >= 2
         except (TypeError, ValueError):
@@ -299,8 +313,16 @@ class InferenceServer:
                        for r in range(1, self.max_batch + 1)})
 
     def _warmup(self, feeds: List[Dict[str, Any]]) -> None:
-        """Run the callable once at every batch bucket of every feed, under
-        the worker's per-thread settings."""
+        """Warm every batch bucket of every feed, under the worker's
+        per-thread settings: an ``InferenceModel`` through ``prime`` (its
+        example feed when none is given; a duplicate signature costs
+        nothing), a callable by one call."""
+        model = self.model
+        prime = getattr(model, "prime", None)
+        if not feeds and hasattr(model, "topology"):
+            from paddle_tpu_torch.serving.feeds import example_feed
+
+            feeds = [example_feed(model.topology)]
         if not feeds:
             return
         t0 = self._clock()
@@ -308,7 +330,10 @@ class InferenceServer:
         with self._worker_context():
             for feed in feeds:
                 for padded in warmup_bucket_feeds(feed, self._buckets()):
-                    self._runner(padded, {})
+                    if prime is None:
+                        self._runner(padded, {})
+                    elif prime(padded, outputs=self._outputs) == "warm":
+                        continue
                     n += 1
         self.metrics.inc("warmup_compiles", n)
         logger.info("serving warmup: %d bucket shape(s) over %d feed(s) "
@@ -499,12 +524,32 @@ class InferenceServer:
                 f"request carries {rows} rows but the server batches at "
                 f"most {self.max_batch} — split the request")
         if rows == 0:
-            # a zero-row request never reaches the device; the backends the
-            # port serves have no shape inference to reply empty from
-            self.metrics.inc("invalid_request")
-            raise InvalidRequestError(
-                "zero-row request on a backend without shape inference — "
-                "nothing to execute")
+            # a zero-row request never reaches the batch: an InferenceModel
+            # replies empty inline (its shape-inferred empty path); raw
+            # callables reject typed
+            if not hasattr(self.model, "topology"):
+                self.metrics.inc("invalid_request")
+                raise InvalidRequestError(
+                    "zero-row request on a backend without shape "
+                    "inference — nothing to execute")
+            fut = ServingFuture()
+            try:
+                fut._complete(result=self._runner(canon, {}))
+            except ValueError as e:
+                # a request bug (missing slot, bad structure) rejects like
+                # the populated admission path; it is not a model failure
+                self.metrics.inc("invalid_request")
+                raise InvalidRequestError(
+                    f"malformed empty request: {e}") from e
+            except Exception as e:  # noqa: BLE001 — typed, not breaker-fed
+                fut._complete(error=InferenceFailed(
+                    f"empty-request shape inference failed: "
+                    f"{type(e).__name__}: {e}"))
+                self.metrics.inc("inference_failed")
+                return fut
+            self.metrics.inc("accepted")
+            self.metrics.inc("completed")
+            return fut
         if deadline_ms is None:
             deadline_ms = self.default_deadline_ms
         now = self._clock()
@@ -975,6 +1020,24 @@ class InferenceServer:
                 "recycled": sched.recycled,
                 "steps": sched.steps_run,
             }
+            if sched.pager is not None:
+                p = sched.pager.stats()
+                out["slots"].update(paged_out=p["paged_out"],
+                                    paged_in=p["paged_in"],
+                                    parked=p["parked"])
+            if sched.spec_k > 0:
+                # speculation efficiency: accepted drafts / offered drafts,
+                # the knob to tune --spec_k against
+                out["spec"] = {
+                    "k": sched.spec_k,
+                    "draft_tokens_total": sched.spec_drafted,
+                    "accepted_tokens_total": sched.spec_accepted,
+                    "accept_rate": round(
+                        sched.spec_accepted / sched.spec_drafted
+                        if sched.spec_drafted else 0.0, 4),
+                }
+            if sched.prefix_cache is not None:
+                out["prefix_cache"] = sched.prefix_cache.stats()
         return out
 
     def _mirror_decode_counters(self, sched) -> None:

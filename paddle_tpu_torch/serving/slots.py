@@ -23,7 +23,9 @@ any output bit:
   context moves to a host pool so a queued request can take its slot, and
   comes back bit for bit (``serving/paging.py``).
 
-The compile-cache ``prime`` waits for ROADMAP.md Queue 1 item 7.
+``example_slot_backend`` is the compact backend of the ``serve
+--serve_continuous`` smoke.  The compile-cache ``prime`` waits for
+ROADMAP.md Queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -51,7 +53,8 @@ from paddle_tpu_torch.serving.prefix_cache import (PrefixCache, feed_key,
                                                    tensor_bytes)
 from paddle_tpu_torch.utils.log import logger
 
-__all__ = ["SlotBackend", "Seq2SeqSlotBackend", "SlotScheduler"]
+__all__ = ["SlotBackend", "Seq2SeqSlotBackend", "SlotScheduler",
+           "example_slot_backend"]
 
 
 class SlotBackend:
@@ -816,3 +819,21 @@ class SlotScheduler:
                          "scores": np.stack([r[1] for r in pend.results])},
                         pend.steps))
         return out
+
+
+def example_slot_backend(*, slots: int = 4, beam_size: int = 4,
+                         src_len: int = 8, max_len: int = 8,
+                         vocab: int = 1024, dim: int = 128,
+                         device=None) -> Seq2SeqSlotBackend:
+    """A compact flagship-shaped backend (structure, not speed) for the CLI
+    continuous smoke: a ``Seq2SeqAttention`` of width ``dim`` over
+    ``vocab`` tokens, random weights from seed 0, on ``device`` (``cuda``
+    unless the caller asks otherwise).  ``slots`` is accepted for the
+    reference's signature; the table's size is the server's."""
+    from paddle_tpu_torch.models import Seq2SeqAttention
+
+    m = Seq2SeqAttention(src_vocab=vocab, trg_vocab=vocab, emb_dim=dim,
+                         enc_dim=dim, dec_dim=dim, att_dim=dim,
+                         device=device)
+    return Seq2SeqSlotBackend(m, m.init(0), src_len=src_len,
+                              beam_size=beam_size, max_len=max_len)

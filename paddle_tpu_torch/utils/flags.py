@@ -36,7 +36,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
 __all__ = ["FLAGS", "Flags", "define_flag", "parse_flags", "flags_help",
-           "NOT_PORTED_FLAGS"]
+           "refuse_unparsed", "NOT_PORTED_FLAGS"]
 
 _ENV_PREFIX = "PADDLE_TPU_TORCH_"
 
@@ -156,6 +156,20 @@ def parse_flags(argv: Optional[List[str]] = None) -> List[str]:
     return rest
 
 
+def refuse_unparsed(rest: List[str], what: str = "") -> None:
+    """The arguments ``parse_flags`` left: a flag of a part not ported yet
+    raises naming its ROADMAP.md item; anything else is unrecognized."""
+    from paddle_tpu_torch.utils.error import ConfigError, not_ported
+
+    for arg in rest:
+        name = (arg[2:].split("=", 1)[0].replace("-", "_")
+                if arg.startswith("--") else None)
+        if name in NOT_PORTED_FLAGS:
+            raise not_ported(f"--{name}", NOT_PORTED_FLAGS[name])
+    if rest:
+        raise ConfigError(f"{what}unrecognized arguments: {rest}")
+
+
 def flags_help() -> str:
     """One line per registered flag — the ``--help`` surface of the
     command line."""
@@ -204,8 +218,9 @@ define_flag("remat", False, "rematerialize the forward inside the "
 
 define_flag("job", "train", "CLI mode: train | test | checkgrad | time")
 define_flag("config", "", "python config file defining get_config()")
-define_flag("device", "cuda", "device the CLI's trainer runs on: cuda "
-            "(raises without a card) or cpu (the kernels' plain versions)")
+define_flag("device", "cuda", "device the CLI's trainer and server run on: "
+            "cuda (raises without a card) or cpu (the kernels' plain "
+            "versions)")
 define_flag("num_passes", 1, "training passes for the CLI train job")
 define_flag("test_pass", -1, "checkpoint pass to test (-1 = latest)")
 define_flag("time_batches", 10, "batches to time in --job=time")
@@ -267,12 +282,81 @@ define_flag("shuffle_seed", 0, "seed of the datapipe's global shuffle: each "
             "pass's record order is a permutation drawn from (seed, pass), "
             "so the iterator's cursor is O(1) and restorable")
 
+# --- the serving runtime: `python -m paddle_tpu_torch serve` ----------------
+
+define_flag("serve_bundle", "", "model bundle (.ptz) to serve with "
+            "`python -m paddle_tpu_torch serve`")
+define_flag("serve_max_batch", 8, "serving: max rows coalesced into one "
+            "batch (batch buckets are powers of two up to this)")
+define_flag("serve_batch_delay_ms", 2.0, "serving: micro-batching window — "
+            "how long the worker waits to coalesce more same-shape requests")
+define_flag("serve_queue_depth", 64, "serving: bounded queue depth; a full "
+            "queue sheds new requests immediately (typed ShedError)")
+define_flag("serve_deadline_ms", 1000.0, "serving: default per-request "
+            "deadline; infeasible deadlines are rejected at admission "
+            "(0 = no deadline)")
+define_flag("serve_breaker_threshold", 5, "serving: consecutive batch "
+            "failures that trip the circuit breaker OPEN")
+define_flag("serve_breaker_cooldown_s", 5.0, "serving: seconds the breaker "
+            "stays OPEN before letting a half-open probe through")
+define_flag("serve_max_restarts", 3, "serving: worker restart budget before "
+            "the server reports failed and drains with typed errors")
+define_flag("serve_backoff_s", 0.5, "serving: base worker-restart backoff "
+            "(exponential, doubled per restart)")
+define_flag("serve_hang_timeout_s", 0.0, "serving: a batch in flight longer "
+            "than this marks the worker hung and replaces it (0 = off)")
+define_flag("serve_smoke", 0, "serving CLI: push N synthetic requests "
+            "through the server, print healthz, and exit (CI self-test; "
+            "0 = serve until SIGTERM)")
+define_flag("serve_nonfinite", "error", "serving: 'error' fails requests "
+            "whose outputs contain NaN/Inf (counts toward the breaker); "
+            "'allow' passes them through",
+            validator=lambda v: v in ("error", "allow"))
+define_flag("serve_continuous", False, "serving: continuous slot-based "
+            "batching for generation backends — finished requests' decode "
+            "slots are recycled to queued requests between steps; bucket "
+            "mode stays the default for one-shot forwards")
+define_flag("serve_slots", 8, "serving: decode slot capacity of the "
+            "continuous-batching table (each slot holds one request's "
+            "beams; also the admission row bound in generation mode)",
+            validator=lambda v: v >= 1)
+define_flag("spec_decode", False, "serving: speculative decoding over the "
+            "slot table — a host draft proposer offers --spec_k candidate "
+            "tokens per slot and one wide-verify step accepts the longest "
+            "prefix the model itself would emit; greedy (beam_size=1) "
+            "backends only, outputs stay bit-identical to one-token "
+            "stepping")
+define_flag("spec_k", 4, "serving: draft tokens per slot per speculative "
+            "step (the wide verify scores k+1 positions; tune against "
+            "healthz spec_accept_rate)", validator=lambda v: v >= 1)
+define_flag("prefix_cache_mb", 0.0, "serving: host MiB budget for the "
+            "prefix/session cache — requests repeating a source (or chat "
+            "session) reuse the cached encoder state as slot prefill, "
+            "keyed by content hash with LRU eviction (0 = off)",
+            validator=lambda v: v >= 0.0)
+define_flag("slot_page_pool", 0.0, "serving: host MiB budget for paged "
+            "slot state — with the table full and work queued, cold slot "
+            "carries are host-evicted and later restored bit-for-bit "
+            "(0 = off)", validator=lambda v: v >= 0.0)
+
+# --- deploy bundles -----------------------------------------------------------
+
+define_flag("deploy_quantize", "", "bundle export weight quantization: "
+            "'' keeps f32; 'bf16' halves the weight payload; 'int8' "
+            "stores matmul-sized tensors as symmetric per-channel int8 "
+            "(~4x smaller) with scales alongside — every quantized "
+            "export is gated by a max-abs-error check against the f32 "
+            "forward (merge_model quantize_tol)",
+            validator=lambda v: v in ("", "bf16", "int8"))
+
 #: the reference's flags of parts the port does not have yet, and the
 #: ROADMAP.md Queue 1 item that ports each; the command line refuses them
 NOT_PORTED_FLAGS: Dict[str, int] = {
     **dict.fromkeys(("publish_dir", "publish_every", "reload_probation",
-                     "compile_cache_dir", "deploy_quantize", "deploy_lint"),
-                    7),
+                     "compile_cache_dir", "serve_watch", "serve_fleet",
+                     "serve_canary_pct", "serve_probation_requests",
+                     "serve_shadow", "tenant_spec", "tenant_capacity_rate",
+                     "tenant_credit"), 7),
     **dict.fromkeys(("pserver_axis", "pserver_pad_vocab", "mesh_shape",
                      "mesh_axes", "num_virtual_devices", "dcn_axis",
                      "dcn_compress", "dcn_timeout_s", "dcn_retries"), 8),
@@ -283,5 +367,6 @@ NOT_PORTED_FLAGS: Dict[str, int] = {
                      "gang_max_restarts", "gang_heartbeat_s",
                      "gang_watchdog_s", "gang_elastic", "gang_min_ranks",
                      "gang_grow_back", "gang_resize_timeout_s",
-                     "gang_backoff_jitter"), 9),
+                     "gang_backoff_jitter", "deploy_lint",
+                     "serve_preflight"), 9),
 }

@@ -304,3 +304,10 @@ def simple_attention(encoded_sequence, encoded_proj, decoder_state, *,
     return LayerOutput(name, "simple_attention", encoded_sequence.size,
                        [encoded_sequence, encoded_proj, decoder_state],
                        forward, [w_spec, v_spec])
+
+
+# record constructor calls on the returned nodes so Topologies serialize to
+# ModelConfig protos (config/config_parser.py)
+from paddle_tpu_torch.config.capture import wrap_module as _wrap_module  # noqa: E402
+
+_wrap_module(globals(), __all__)

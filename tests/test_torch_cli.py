@@ -130,7 +130,8 @@ def test_cli_help_lists_the_ported_flags_only(capsys):
                  "--mesh_shape", "--compile_cache_dir"):
         assert f"{flag}=" not in out, flag
     assert "-m paddle_tpu_torch data {pack|verify}" in out
-    for sub in ("lint", "serve", "obs", "fsck"):
+    assert "-m paddle_tpu_torch serve --serve_bundle=" in out
+    for sub in ("lint", "obs", "fsck"):
         assert f"-m paddle_tpu_torch {sub}" not in out
     assert main(["-h", "--job=train"]) == 0
 
@@ -150,14 +151,14 @@ def test_cli_rejects_bad_args():
     ("--pserver_axis=model", 8), ("--mesh_shape=4", 8),
     ("--sdc_check_every=1", 9), ("--scrub_every_s=1", 9),
     ("--obs_timeline=false", 9), ("--profile_dir=p", 9),
-    ("--enable_timers", 9)])
+    ("--enable_timers", 9), ("--deploy_lint=false", 9),
+    ("--serve_preflight", 9)])
 def test_cli_unported_flags_name_their_item(flag, item):
     with pytest.raises(ConfigError, match=f"Queue 1 item {item}"):
         main(_args("--job=train", flag))
 
 
-@pytest.mark.parametrize("sub,item", [("lint", 9), ("serve", 7), ("obs", 9),
-                                      ("fsck", 9)])
+@pytest.mark.parametrize("sub,item", [("lint", 9), ("obs", 9), ("fsck", 9)])
 def test_cli_unported_subcommands_name_their_item(sub, item):
     with pytest.raises(ConfigError, match=f"Queue 1 item {item}"):
         main([sub, "--help"])

@@ -3219,3 +3219,125 @@ def test_prefetch_side_stream_on_the_card_bit_equal(dev, monkeypatch):
     for k in runs[0][1]:
         assert torch.equal(runs[0][1][k], runs[2][1][k]), k
     assert copies == [("batch-prefetch", True)] * 8
+
+
+# ---------------------------------------------------------------------------
+# deploy bundles (config/deploy.py) served in bucket mode
+# ---------------------------------------------------------------------------
+
+
+def _card_bundles(dev, tmp_path, modes=(None, "bf16", "int8")):
+    """The small textclf net trained two steps on the card, its inference
+    graph merged in each mode -> ({mode: path}, the trained parameters)."""
+    import paddle_tpu_torch.nn as tnn
+    from paddle_tpu_torch.config import merge_model
+
+    tr = _card_lstm_trainer(dev)
+    for f in _card_lstm_feeds(2):
+        tr.train_batch(f)
+    logits = next(l for l in tr.topology.layers if l.name == "logits")
+    topo = tnn.Topology(logits, device=dev)
+    return {m: merge_model(str(tmp_path / f"{m}.ptz"), topo, tr.params,
+                           tr.state, quantize=m) for m in modes}, tr.params
+
+
+def test_load_inference_model_puts_every_parameter_on_the_card(dev,
+                                                               tmp_path):
+    from paddle_tpu_torch.config import load_inference_model
+
+    m = load_inference_model(_card_bundles(dev, tmp_path, (None,))[0][None])
+    assert m.device.type == "cuda"
+    assert m.params and all(p.device.type == "cuda"
+                            for p in m.params.values())
+
+
+@pytest.mark.parametrize("bucket", [1, 2, 4, 8])
+def test_bundle_served_in_bucket_mode_equals_solo_infer(dev, tmp_path,
+                                                        bucket):
+    """Requests whose rows fill the batch bucket ``bucket`` (one request of
+    ``bucket`` rows, or several whose rows sum to it), with lengths 2-12
+    padded up to the batch's length bucket: each reply equals ``infer`` of
+    the request alone, unpadded, bit for bit; K9 runs from the worker."""
+    from paddle_tpu_torch.config import load_inference_model
+    from paddle_tpu_torch.serving import InferenceServer
+
+    m = load_inference_model(_card_bundles(dev, tmp_path, (None,))[0][None])
+    rng = np.random.RandomState(bucket)
+    sizes = {1: [1], 2: [1, 1], 4: [3, 1], 8: [2, 4, 1, 1]}[bucket]
+    reqs = []
+    for rows in sizes:
+        lens = rng.randint(2, 13, rows).astype(np.int32)
+        lens[0] = 12  # every request in the length bucket 16: one batch
+        reqs.append({"words": (rng.randint(3, 60, (rows, int(lens.max())))
+                               .astype(np.int32), lens)})
+    srv = InferenceServer(m, max_batch=8, batch_delay_ms=50.0)
+    srv.start(warmup_feed={"words": (np.full((1, 12), 3, np.int32),
+                                     np.asarray([12], np.int32))})
+    try:
+        before = launch_counts()
+        futs = [srv.submit(f) for f in reqs]
+        got = [f.result(60)["logits"] for f in futs]
+        after = launch_counts()
+        assert srv.healthz()["counters"]["batches"] == 1
+    finally:
+        srv.close()
+    threads = {t for t, n in after.by_thread["lstm_forward"].items()
+               if n != before.by_thread["lstm_forward"].get(t, 0)}
+    assert after["lstm_forward"] - before["lstm_forward"] == 2
+    assert all(t.startswith("serving-worker-") for t in threads), threads
+    for f, g in zip(reqs, got):
+        np.testing.assert_array_equal(g, m.infer(f)["logits"])
+
+
+#: a bundle's logits on the card against the same bundle on the CPU (max
+#: |diff| / max |CPU|), chip_smoke.py's deploy phase's tolerance
+TOL_DEPLOY_CPU = 2e-3
+
+
+def _half_steps(model, trained, mode):
+    """The largest |loaded - trained| of a quantized bundle's parameters
+    over half a quantization step, computed from the trained values (int8:
+    the channel's max |w| / 127 over the last axis, for ndim >= 2 and size
+    >= 256; bfloat16: at most 2**-8 |w|)."""
+    worst = 0.0
+    for name, p in model.params.items():
+        w = trained[name].detach().cpu().numpy().astype(np.float64)
+        got = p.detach().cpu().numpy().astype(np.float64)
+        if mode == "int8" and w.ndim >= 2 and w.size >= 256:
+            half = (0.5 * np.abs(w).max(axis=tuple(range(w.ndim - 1)),
+                                        keepdims=True) / 127.0
+                    + 2.0 ** -22 * np.abs(w))
+        else:
+            half = 2.0 ** -8 * np.abs(w)
+        worst = max(worst, float((np.abs(got - w)
+                                  / np.maximum(half, 1e-30)).max()))
+    return worst
+
+
+def test_quantized_bundles_within_their_gate_on_the_card(dev, tmp_path):
+    """bf16 and int8 bundles pass their export gate on the card; each
+    loaded parameter is within half a quantization step of the trained
+    value it was merged from; each bundle's logits on the card agree with
+    the same bundle on the CPU; and they stay within the gate's tolerance
+    of the f32 bundle's."""
+    import json
+    import zipfile
+
+    from paddle_tpu_torch.config import load_inference_model
+
+    paths, trained = _card_bundles(dev, tmp_path)
+    feed = _card_lstm_feeds(1)[0]
+    feed = {"words": feed["words"]}
+    ref = load_inference_model(paths[None]).infer(feed)["logits"]
+    for mode in ("bf16", "int8"):
+        q = json.loads(zipfile.ZipFile(paths[mode]).read(
+            "manifest.json"))["quantize"]
+        assert q["mode"] == mode and 0 <= q["max_abs_err"] <= q["tol"]
+        model = load_inference_model(paths[mode])
+        assert _half_steps(model, trained, mode) <= 1.0, mode
+        got = model.infer(feed)["logits"]
+        cpu = load_inference_model(paths[mode], device="cpu").infer(
+            feed)["logits"]
+        assert (np.abs(got - cpu).max() / np.abs(cpu).max()
+                <= TOL_DEPLOY_CPU), mode
+        assert np.abs(got - ref).max() <= q["tol"], mode

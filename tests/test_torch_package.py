@@ -1,6 +1,7 @@
 """The port package stands alone: paddle_tpu_torch imports neither jax nor
-the JAX package ``paddle_tpu``, runs in a process that never loads jax, and
-its entry points refuse to drop quietly to the CPU."""
+the JAX package ``paddle_tpu``, nor ``google.protobuf`` or ``ml_dtypes``
+(the machine with the card has neither), runs in a process that never loads
+them, and its entry points refuse to drop quietly to the CPU."""
 
 import ast
 import os
@@ -54,7 +55,10 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
                 "datapipe/__init__.py", "datapipe/sampler.py",
                 "datapipe/shards.py", "datapipe/iterator.py",
                 "datapipe/packing.py", "datapipe/cli.py", "nn/feeds.py",
-                "serving/feeds.py"):
+                "serving/feeds.py", "proto/__init__.py",
+                "proto/model_config_pb2.py", "config/__init__.py",
+                "config/capture.py", "config/config_parser.py",
+                "config/deploy.py", "serving/cli.py", "serving/slots.py"):
         assert mod in rel, mod
     bad = []
     for path in files:
@@ -93,6 +97,79 @@ def test_card_scripts_and_shared_builders_import_no_jax(script):
     machine with the card has no JAX."""
     bad = [n for n in _imports(os.path.join(ROOT, script)) if _forbidden(n)]
     assert not bad, bad
+
+
+def _card_lacks(name: str) -> bool:
+    """A package the machine with the card does not have."""
+    return (name.split(".")[0] == "ml_dtypes"
+            or name == "google" or name.startswith("google.protobuf"))
+
+
+def test_no_module_of_the_port_imports_protobuf_or_ml_dtypes():
+    bad = [(os.path.relpath(p, ROOT), n) for p in _py_files()
+           for n in _imports(p) if _card_lacks(n)]
+    assert not bad, bad
+    assert _card_lacks("google.protobuf.text_format")
+    assert _card_lacks("ml_dtypes") and not _card_lacks("numpy")
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "chip_probe.py"])
+def test_card_scripts_import_no_protobuf_or_ml_dtypes(script):
+    bad = [n for n in _imports(os.path.join(ROOT, script)) if _card_lacks(n)]
+    assert not bad, bad
+
+
+def test_serve_subcommand_runs_without_jax_protobuf_or_ml_dtypes(tmp_path):
+    """``python -m paddle_tpu_torch serve --serve_smoke=4 --device=cpu`` on
+    a bundle the port merges in the same fresh process, with any import of
+    jax, the JAX package, ``google.protobuf`` or ``ml_dtypes`` made to
+    fail: both exit cleanly and none of them is ever loaded."""
+    bundle = str(tmp_path / "m.ptz")
+    code = textwrap.dedent(f"""
+        import importlib.abc, runpy, sys
+
+        BLOCKED = ("jax", "jaxlib", "paddle_tpu", "ml_dtypes",
+                   "google.protobuf")
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if any(name == b or name.startswith(b + ".")
+                       for b in BLOCKED):
+                    raise ImportError(f"{{name}} is blocked")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import paddle_tpu_torch.nn as nn
+        from paddle_tpu_torch.config import merge_model
+        from paddle_tpu_torch.models.text import lstm_benchmark_net
+        nn.reset_naming()
+        _, logits = lstm_benchmark_net(30, emb_dim=4, hid_dim=6)
+        topo = nn.Topology(logits, device="cpu")
+        params, state = topo.init(0)
+        merge_model({bundle!r}, topo, params, state, quantize="int8")
+        sys.argv = ["paddle_tpu_torch", "serve", "--serve_bundle={bundle}",
+                    "--serve_smoke=4", "--device=cpu",
+                    "--serve_deadline_ms=60000"]
+        try:
+            runpy.run_module("paddle_tpu_torch", run_name="__main__")
+        except SystemExit as e:
+            assert e.code == 0, e.code
+        print("LOADED", sorted(m for m in sys.modules
+                               if any(m == b or m.startswith(b + ".")
+                                      for b in BLOCKED)))
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "LOADED []", out.stdout
+    import json
+
+    first, last = json.loads(lines[0]), json.loads(lines[-2])
+    assert first["ready"] is True
+    assert last["counters"]["completed"] == 4
+    assert last["counters"]["shed"] == 0
 
 
 def test_ast_scan_tells_the_port_apart_from_the_jax_package():

@@ -1054,17 +1054,6 @@ def test_unported_start_options_raise_config_error(rng, kw, item):
         assert not srv.ready
 
 
-def test_inference_model_in_bucket_mode_raises_config_error():
-    class FakeInferenceModel:
-        topology = object()
-
-        def infer(self, feed, outputs=None):
-            return {}
-
-    with pytest.raises(ConfigError, match="Queue 1 item 7\\b"):
-        InferenceServer(FakeInferenceModel())
-
-
 def test_request_tracing_raises_config_error():
     srv = _server(_echo_model())
     srv.start(warmup=False)

@@ -192,8 +192,11 @@ def test_sparse_feeds_coerce_as_the_reference(case):
     is_seq, kind, v = _feed_cases()[case]
     jl = jnn.data("s", size=20, is_seq=is_seq, sparse=kind)
     tl = tnn.data("s", size=20, is_seq=is_seq, sparse=kind)
-    assert tl.meta == {"sparse": kind} == {
+    # both packages record the constructor call (config serialization)
+    assert {k: v for k, v in tl.meta.items() if k != "config"} \
+        == {"sparse": kind} == {
         k: v for k, v in jl.meta.items() if k != "config"}
+    assert tl.meta["config"]["kwargs"] == jl.meta["config"]["kwargs"]
     assert tl.data_spec == jl.data_spec
     j = j_coerce_feed(jl, {"s": v})
     t = t_coerce_feed(tl, {"s": v}, CPU)
