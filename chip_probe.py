@@ -3,7 +3,8 @@
 
     python3 chip_probe.py [chunks] [profile] [textclf] [dslgen] [k8plans]
                           [k8variants] [variants] [vision] [text] [sparse]
-                          [seqdata] [build]   (all if none named)
+                          [seqdata] [frontdoor] [build]
+                          (all if none named)
 
 Needs one CUDA card and the checkout beside it.  It checks nothing that
 ``chip_smoke.py`` does not; it measures what the smoke run leaves out to
@@ -73,6 +74,11 @@ seqdata  the seqdata phase (``chip_smoke.py`` phase 15, bf16,
          packing A/B's bucketed and packed arms and of the nested net,
          each after three unprofiled ones (device busy share, the kernels
          with the most device time);
+frontdoor ``chip_smoke.py``'s phase 18 (the seqToseq demo copy and the
+         v2 seqToseq script at the WMT14 widths) alone, then one profiled
+         training step of each and one profiled ``paddle.infer`` of the v2
+         generator (device busy share, the kernels with the most device
+         time);
 build    cold builds of the kernel libraries into a scratch directory:
          each source alone, one ``nvcc`` at a time, then all at once as
          ``build_all`` starts them (the smoke run's build time).
@@ -800,6 +806,89 @@ def probe_seqdata(dev):
                   lambda: tr.train_batch(feed), top_n=10)
 
 
+def probe_frontdoor(dev):
+    """``chip_smoke.py``'s phase 18 alone, then one profiled training step
+    of the seqToseq demo copy (its card shape: B=64, the first batch's
+    S/T, V=30000, 512-d, bf16, Adam), one of the v2 seqToseq script
+    (``SGDTrainer.train_batch``, which ``paddle.trainer.SGD`` drives, on
+    its first wmt14 batch of 64) and one ``paddle.infer`` of its generator
+    (8 sources, beam 3, max_length 32), each after three unprofiled ones."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch.nn as nn
+    import paddle_tpu_torch.v2 as paddle
+    from paddle_tpu_torch.data import DataFeeder
+    from paddle_tpu_torch.demo.seqToseq import train as demo
+    from paddle_tpu_torch.models import Seq2SeqAttention
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.param import Adam
+    from paddle_tpu_torch.trainer import SGDTrainer
+    from paddle_tpu_torch.utils.flags import FLAGS
+
+    smoke.frontdoor_path(K, dev, smoke.card_line())
+    d = smoke.FRONTDOOR_DEMO
+    m = Seq2SeqAttention(src_vocab=d["dict"], trg_vocab=d["dict"],
+                         emb_dim=d["emb"], enc_dim=d["hid"],
+                         dec_dim=d["hid"], att_dim=d["hid"], device=dev)
+    params = {k: v.requires_grad_() for k, v in m.init(seed=0).items()}
+    opt = Adam(learning_rate=1e-3)
+    state = opt.init_state(params)
+    batch = demo.make_batches(d["dict"], d["batch"], d["batch"])[0]
+
+    def demo_step():
+        loss = m.loss(params, batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        opt.update(params, dict(zip(params, grads)), state)
+        return loss
+
+    _profile_step(f"one demo seqToseq training step (B={d['batch']}, S="
+                  f"{batch['src_ids'].shape[1]}, T="
+                  f"{batch['trg_in'].shape[1]}, bf16)", demo_step, top_n=10)
+    del m, params, state
+    torch.cuda.empty_cache()
+
+    if os.path.join(smoke.ROOT, "tests") not in sys.path:
+        sys.path.insert(0, os.path.join(smoke.ROOT, "tests"))
+    from torch_v2_seqtoseq import (FEEDING, v2_seqtoseq_generator,
+                                   v2_seqtoseq_reader, v2_seqtoseq_trainer,
+                                   v2_test_sources)
+
+    keep = FLAGS.device
+    V, B = smoke.FRONTDOOR_V2["V"], smoke.FRONTDOOR_V2_B
+    try:
+        paddle.init([f"--device={dev.type}"])
+        nn.reset_naming()
+        cost = v2_seqtoseq_trainer(paddle, **smoke.FRONTDOOR_V2)
+        tr = SGDTrainer(cost, Adam(learning_rate=smoke.FRONTDOOR_V2_LR),
+                        seed=smoke.SEED, device=dev)
+        rows = next(iter(v2_seqtoseq_reader(paddle, V, B, B)()))
+        feed = DataFeeder({k: "ids_seq" for k in FEEDING}, FEEDING)(rows)
+        _profile_step(f"one v2 seqToseq training step (B={B}, "
+                      f"recurrent_group decoder, bf16)",
+                      lambda: tr.train_batch(feed), top_n=10)
+        del tr
+        torch.cuda.empty_cache()
+        nn.reset_naming()
+        gen = v2_seqtoseq_generator(paddle, beam=smoke.FRONTDOOR_V2_BEAM,
+                                    max_len=smoke.FRONTDOOR_V2_MAX_LEN,
+                                    **smoke.FRONTDOOR_V2)
+        gparams = paddle.parameters.create(gen, seed=smoke.SEED)
+        src = v2_test_sources(paddle, V, smoke.FRONTDOOR_V2_SOURCES)
+
+        def infer():
+            prob = paddle.infer(output_layer=gen, parameters=gparams,
+                                input=src, field="prob")
+            return torch.from_numpy(np.asarray(prob[0, 0]))
+
+        _profile_step(f"one paddle.infer of the v2 generator "
+                      f"({len(src)} sources, beam {smoke.FRONTDOOR_V2_BEAM}, "
+                      f"max_length {smoke.FRONTDOOR_V2_MAX_LEN}, bf16)",
+                      infer, top_n=10, keep="topk")
+    finally:
+        FLAGS.device = keep
+
+
 def main() -> int:
     import torch
 
@@ -814,7 +903,8 @@ def main() -> int:
               "k8plans": probe_k8plans, "k8variants": probe_k8variants,
               "variants": probe_variants, "vision": probe_vision,
               "text": probe_text, "sparse": probe_sparse,
-              "seqdata": probe_seqdata, "build": probe_build}
+              "seqdata": probe_seqdata, "frontdoor": probe_frontdoor,
+              "build": probe_build}
     wanted = sys.argv[1:] or list(probes)
     unknown = set(wanted) - set(probes)
     if unknown:

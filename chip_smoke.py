@@ -272,7 +272,31 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             bundle equal to the trained ``Topology.apply``; each bundle's
             served logits against the same bundle on the CPU within
             ``TOL_DEPLOY_CPU``;
-18. a ``{"server_launches": {...}}`` line (each part of the server
+18. frontdoor the user's entry points at the WMT14 widths (V=30000,
+            E=H=D=A=512, bf16 policy): (a) the seqToseq demo copy through
+            its ``main(argv)`` (``python -m paddle_tpu_torch.demo.seqToseq.
+            train --batch-size 64 --dict-size 30000 --emb-dim 512 --hid-dim
+            512 --n 256 --generate --beam-size 3``): 4 Adam steps (K3r and
+            K4 twice, K5, K6, K1 and K2 once a step: persistent, wgmma)
+            and beam 3 over 4 sources (K3 twice, K7 once a decode step,
+            wgmma), nothing else launched; ms a step, target words/s;
+            its first 2 steps and their generation on the card against the
+            CPU at f32 (costs within ``TOL_TRAIN_LOSS``; ids identical or a
+            near tie rescored within ``TOL_SEARCH``); the demo at ``--n
+            128`` in a fresh process (exit 0, its cost lines); (b) the v2
+            seqToseq script (``tests/torch_v2_seqtoseq.py``):
+            ``paddle.init(["--device=cuda"])``, ``parameters.create``,
+            ``trainer.SGD`` with Adam over 3 wmt14 batches of 64 (K3r and
+            K4 twice a step, nothing else), ``save_parameter_to_tar``, the
+            tar read back by ``from_tar`` in a fresh process on the CPU
+            (every array bit for bit), the generator (beam 3, max_length
+            32) from the tar through ``paddle.infer(field=['prob', 'id'])``
+            on 8 sources (K3 twice, K8 once a decode step), a zero-row
+            ``infer`` (empty shapes, no launch); the first step's cost and
+            the generation on the card against the CPU at f32; (c) a
+            ``{"frontdoor_launches": {...}}`` line by part, kernel and
+            path, and the phase's seconds;
+19. a ``{"server_launches": {...}}`` line (each part of the server
    phase: every kernel library's launches, by kernel variant and by
    thread), a ``{"kernels": [...]}`` line (each kernel's launches on its
    path's run, also by kernel variant: ``launches_by_path``; the K9,
@@ -281,15 +305,15 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
    text part: ``text_launches``; the K9, K9r and K10 rows at b64h256 also
    by sparse part: ``sparse_launches``, and by seqdata part:
    ``seqdata_launches``; the rows phase 16 reaches also by its part:
-   ``mixed_launches``, and phase 17's: ``deploy_launches``), then the
-   card line again, and last
+   ``mixed_launches``, phase 17's: ``deploy_launches``, and phase 18's:
+   ``frontdoor_launches``), then the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed just before each path (serve and its fused
 re-run, each part of the server phase, each arm of the spec phase, each
 training configuration, each textclf run, dslgen, each part of the
 trainer phase, the vision phase, each part of the text, sparse,
-seqdata, mixed and deploy phases) is driven
+seqdata, mixed, deploy and frontdoor phases) is driven
 and read just after; a kernel of the path
 that was not launched fails the run.  ``chip_probe.py`` measures what this
 run leaves out to stay short (the products' chunk sizes end to end,
@@ -6156,6 +6180,502 @@ def deploy_path(K, dev, card):
     return parts
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the user's entry points: the seqToseq demo copy and a paddle.v2
+# script at the WMT14 widths
+# ---------------------------------------------------------------------------
+
+#: the demo copy's card run (``python -m paddle_tpu_torch.demo.seqToseq.
+#: train`` arguments): 4 Adam steps at B=64 over the wmt14 stream, V=30000,
+#: E=H=512, then beam 3 to 20 tokens on the first batch's first 4 sources;
+#: its card-vs-CPU run and its fresh process take the first FRONTDOOR_CHECK_N
+#: rows (2 steps)
+FRONTDOOR_DEMO = {"batch": 64, "dict": 30000, "emb": 512, "hid": 512,
+                  "n": 256, "beam": 3}
+FRONTDOOR_CHECK_N = 128
+#: the demo's beam search length (``demo/seqToseq/train.py``'s max_len)
+FRONTDOOR_DEMO_MAX_LEN = 20
+#: the v2 script: widths, batch, wmt14 rows (3 steps), Adam's rate; its
+#: generator's beam, max_length (the reference demo's 250 cut to 32 to
+#: bound the phase's time) and the test sources it generates for
+FRONTDOOR_V2 = {"V": 30000, "E": 512, "H": 512, "D": 512, "A": 512}
+FRONTDOOR_V2_B, FRONTDOOR_V2_N, FRONTDOOR_V2_LR = 64, 192, 5e-4
+FRONTDOOR_V2_BEAM, FRONTDOOR_V2_MAX_LEN = 3, 32
+FRONTDOOR_V2_SOURCES = 8
+#: the kernels line's rows that phase 18's parts launch, and their library
+FRONTDOOR_ROWS = {
+    "gru_forward": ("gru_forward", ("demo_generate", "v2_infer")),
+    "gru_forward_residuals": ("gru_forward", ("demo_train", "v2_train")),
+    "gru_backward": ("gru_backward", ("demo_train", "v2_train")),
+    "attn_dec_fwd": ("attn_dec_fwd", ("demo_train",)),
+    "attn_dec_bwd": ("attn_dec_bwd", ("demo_train",)),
+    "ce_readout_fwd": ("ce_readout_fwd", ("demo_train",)),
+    "ce_readout_bwd": ("ce_readout_bwd", ("demo_train",)),
+    "topk_lse_readout": ("topk_lse_readout", ("demo_generate",)),
+    "topk_lse_logits": ("topk_lse_logits", ("v2_infer",)),
+}
+
+
+def _launch_delta(after, before):
+    """``after - before`` of two ``launch_counts()``, by library and by
+    kernel variant."""
+    from paddle_tpu_torch.ops.kernels.build import LaunchCounts
+
+    by_path = {}
+    for name, paths in after.by_path.items():
+        old = before.by_path.get(name, {})
+        by_path[name] = {p: n - old.get(p, 0) for p, n in paths.items()
+                         if n - old.get(p, 0)}
+    return LaunchCounts({k: after[k] - before[k] for k in after}, by_path,
+                        {k: {} for k in after})
+
+
+def _only(phase: str, part: str, launches, want: dict) -> None:
+    """Each library of ``want`` launched exactly its count there (a
+    ``(lo, hi)`` pair: within it) and no other library at all."""
+    for name, n in launches.items():
+        w = want.get(name, 0)
+        ok = (w[0] <= n <= w[1]) if isinstance(w, tuple) else n == w
+        if not ok:
+            fail(phase, f"{part}: {name} launched {n} times (want {w}); "
+                 f"launches {dict(launches)}")
+
+
+@contextlib.contextmanager
+def _generation_marks(marks: dict):
+    """``Seq2SeqAttention.beam_search`` wrapped to record the launch counts
+    at its start and end, so the demo's ``main`` splits into its training
+    and its generation."""
+    from paddle_tpu_torch.models.seq2seq import Seq2SeqAttention
+    from paddle_tpu_torch.ops import kernels as K
+
+    orig = Seq2SeqAttention.beam_search
+
+    def marked(self, *args, **kw):
+        marks["before"] = K.launch_counts()
+        t0 = time.perf_counter()
+        out = orig(self, *args, **kw)
+        if self.device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize()
+        marks["sec"] = time.perf_counter() - t0
+        marks["after"] = K.launch_counts()
+        return out
+
+    Seq2SeqAttention.beam_search = marked
+    try:
+        yield
+    finally:
+        Seq2SeqAttention.beam_search = orig
+
+
+def _demo_args(n: int, where: str):
+    d = FRONTDOOR_DEMO
+    return ["--passes", "1", "--batch-size", str(d["batch"]), "--dict-size",
+            str(d["dict"]), "--emb-dim", str(d["emb"]), "--hid-dim",
+            str(d["hid"]), "--n", str(n), "--beam-size", str(d["beam"]),
+            "--generate", "--device", where]
+
+
+def _search_agree(phase: str, what: str, card, cpu, rescore_on) -> None:
+    """Card vs CPU generation (``card``/``cpu``: (ids [B, K, L], scores
+    [B, K])): per source, ids identical and scores within TOL_SEARCH, or
+    (a near tie of nearly flat random-init logits) each side's best
+    hypothesis rescored on the other (``rescore_on(side, b, hyp)``) within
+    TOL_SEARCH of its own score."""
+    import numpy as np
+
+    (c_ids, c_sc), (p_ids, p_sc) = card, cpu
+    for b in range(len(c_ids)):
+        d_best = abs(float(c_sc[b][0]) - float(p_sc[b][0]))
+        if np.array_equal(c_ids[b], p_ids[b]):
+            d = float(np.abs(np.asarray(c_sc[b], np.float64)
+                             - np.asarray(p_sc[b], np.float64)).max())
+            print(f"{phase}: {what}: card vs CPU, source {b}, f32: ids "
+                  f"identical, scores max diff {d:.3e} (tol {TOL_SEARCH})",
+                  flush=True)
+            if d > TOL_SEARCH:
+                fail(phase, f"{what}: source {b}: scores beyond tolerance")
+            continue
+        d1 = abs(rescore_on("cpu", b, c_ids[b][0]) - float(c_sc[b][0]))
+        d2 = abs(rescore_on("card", b, p_ids[b][0]) - float(p_sc[b][0]))
+        print(f"{phase}: {what}: card vs CPU, source {b}, f32: ids differ "
+              f"(near tie); best scores differ by {d_best:.3e}, card's best "
+              f"rescored on the CPU {d1:.3e}, CPU's on the card {d2:.3e} "
+              f"(tol {TOL_SEARCH})", flush=True)
+        if max(d_best, d1, d2) > TOL_SEARCH:
+            fail(phase, f"{what}: source {b}: card and CPU disagree beyond "
+                 f"a near tie")
+
+
+def frontdoor_demo(K, dev, card):
+    """(a) The seqToseq demo copy through its ``main(argv)`` at the card
+    arguments (bf16 policy), its launches split at the generation; its
+    first 2 steps and its generation on the card against the CPU (f32);
+    then ``python -m paddle_tpu_torch.demo.seqToseq.train`` in a fresh
+    process.  Returns the parts' launches."""
+    import io
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.demo.seqToseq import train as demo
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+
+    d = FRONTDOOR_DEMO
+    steps = d["n"] // d["batch"]
+    marks, out = {}, io.StringIO()
+    with _generation_marks(marks), contextlib.redirect_stdout(out), \
+            compute_dtype_scope("bfloat16"):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = demo.main(_demo_args(d["n"], dev.type))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        total = K.launch_counts()
+    printed = out.getvalue()
+    train = marks["before"]
+    gen = _launch_delta(marks["after"], marks["before"])
+    losses, step_s = res["losses"], res["step_s"]
+    if (len(losses) != steps or not np.isfinite(losses).all()
+            or "cost" not in printed or "target words/s" not in printed):
+        fail("frontdoor", f"demo: losses {losses}, printed {printed!r}")
+    toks, scores = res["tokens"], res["scores"]
+    if (toks.shape != (4, d["beam"], FRONTDOOR_DEMO_MAX_LEN)
+            or not np.isfinite(scores).all()
+            or not (scores[:, :-1] >= scores[:, 1:]).all()):
+        fail("frontdoor", f"demo: malformed generation {toks.shape}")
+    _only("frontdoor", "demo training", train, {
+        "gru_forward": 2 * steps, "gru_backward": 2 * steps,
+        "attn_dec_fwd": steps, "attn_dec_bwd": steps,
+        "ce_readout_fwd": steps, "ce_readout_bwd": steps})
+    _only("frontdoor", "demo generation", gen, {
+        "gru_forward": 2, "topk_lse_readout": (1, FRONTDOOR_DEMO_MAX_LEN)})
+    if dict(_launch_delta(total, marks["after"])) != dict.fromkeys(total, 0):
+        fail("frontdoor", "demo: launches after its generation")
+    _all_persistent("frontdoor", "demo training", train,
+                    ("gru_forward", "gru_backward", "attn_dec_fwd"))
+    _all_persistent("frontdoor", "demo generation", gen, ("gru_forward",))
+    for name in ("ce_readout_fwd", "ce_readout_bwd"):
+        if train.by_path[name] != {"wgmma": steps}:
+            fail("frontdoor", f"demo: {name} by path {train.by_path[name]}")
+    if set(gen.by_path["topk_lse_readout"]) != {"wgmma"}:
+        fail("frontdoor", f"demo: K7 by path "
+             f"{gen.by_path['topk_lse_readout']}")
+    words = res["words"]
+    later = sum(int(b["trg_len"].sum()) for b in res["batches"][1:])
+    print(f"frontdoor: demo seqToseq (python -m paddle_tpu_torch.demo."
+          f"seqToseq.train {' '.join(_demo_args(d['n'], dev.type))}), bf16 "
+          f"policy: {steps} steps at B={d['batch']}, costs "
+          f"{[round(x, 4) for x in losses]}, median "
+          f"{statistics.median(step_s) * 1e3:.2f} ms a step (first "
+          f"{step_s[0] * 1e3:.2f} ms), {words / sum(step_s):.0f} target "
+          f"words/s over the {steps} steps ({words} words), "
+          f"{later / sum(step_s[1:]):.0f} over steps 2-{steps}; "
+          f"generation of 4 sources at beam "
+          f"{d['beam']} {marks['sec'] * 1e3:.2f} ms "
+          f"({gen['topk_lse_readout']} decode steps), main() {sec:.2f} s; "
+          f"card {card}", flush=True)
+    del res
+    torch.cuda.empty_cache()
+
+    # the first 2 steps and the generation after them, card vs CPU, f32
+    runs = {}
+    with compute_dtype_scope("float32"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            for side, where in (("card", dev.type), ("cpu", "cpu")):
+                runs[side] = demo.main(_demo_args(FRONTDOOR_CHECK_N, where))
+        c, p = runs["card"], runs["cpu"]
+        d_loss = max(abs(a - b) / abs(b)
+                     for a, b in zip(c["losses"], p["losses"]))
+        print(f"frontdoor: demo, first {len(c['losses'])} steps card vs "
+              f"CPU, f32: costs {c['losses']} vs {p['losses']} (max rel "
+              f"diff {d_loss:.3e}, tol {TOL_TRAIN_LOSS})", flush=True)
+        if len(c["losses"]) != 2 or d_loss > TOL_TRAIN_LOSS:
+            fail("frontdoor", "demo: card and CPU costs disagree")
+        b0 = c["batches"][0]
+
+        def rescore_on(side, b, hyp):
+            r = runs[side]
+            return rescore(r["model"], r["params"], b0["src_ids"][b:b + 1],
+                           b0["src_len"][b:b + 1], hyp)
+
+        _search_agree("frontdoor", "demo --generate",
+                      (c["tokens"], c["scores"]), (p["tokens"], p["scores"]),
+                      rescore_on)
+    del runs, c, p
+    torch.cuda.empty_cache()
+
+    # the demo as a user starts it
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.demo.seqToseq.train",
+         *_demo_args(FRONTDOOR_CHECK_N, dev.type)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=600)
+    lines = [l for l in proc.stdout.splitlines() if " cost " in l]
+    if proc.returncode != 0 or not lines:
+        fail("frontdoor", f"demo in a fresh process: exit "
+             f"{proc.returncode}, stdout {proc.stdout[-1500:]!r}, stderr "
+             f"{proc.stderr[-3000:]!r}")
+    print(f"frontdoor: python -m paddle_tpu_torch.demo.seqToseq.train --n "
+          f"{FRONTDOOR_CHECK_N} in a fresh process: exit 0 in "
+          f"{time.perf_counter() - t0:.2f} s, {lines}", flush=True)
+    return {"demo_train": train, "demo_generate": gen}
+
+
+def frontdoor_v2(K, dev, card):
+    """(b) The v2 seqToseq script (``tests/torch_v2_seqtoseq.py``) through
+    ``paddle.init`` / ``parameters.create`` / ``trainer.SGD`` /
+    ``save_parameter_to_tar`` / ``infer`` at the WMT14 widths (bf16
+    policy); the tar read back in a fresh process on the CPU; the first
+    step's cost and the generation on the card against the CPU (f32); a
+    zero-row ``infer``.  Returns the parts' launches."""
+    import hashlib
+    import io
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch.nn as nn
+    import paddle_tpu_torch.v2 as paddle
+    from paddle_tpu_torch.data import DataFeeder
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+    from paddle_tpu_torch.utils.flags import FLAGS
+
+    if os.path.join(ROOT, "tests") not in sys.path:
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_v2_seqtoseq import (FEEDING, v2_seqtoseq_generator,
+                                   v2_seqtoseq_reader, v2_seqtoseq_trainer,
+                                   v2_test_sources)
+
+    V, B = FRONTDOOR_V2["V"], FRONTDOOR_V2_B
+    steps = FRONTDOOR_V2_N // B
+    beam, max_len = FRONTDOOR_V2_BEAM, FRONTDOOR_V2_MAX_LEN
+    keep = FLAGS.device
+    tmp = tempfile.mkdtemp(prefix="frontdoor_")
+    try:
+        with compute_dtype_scope("bfloat16"):
+            assert paddle.init([f"--device={dev.type}"]) == []
+            nn.reset_naming()
+            cost = v2_seqtoseq_trainer(paddle, **FRONTDOOR_V2)
+            t0 = time.perf_counter()
+            params = paddle.parameters.create(cost, seed=SEED)
+            t_create = time.perf_counter() - t0
+            trainer = paddle.trainer.SGD(
+                cost=cost, parameters=params,
+                update_equation=paddle.optimizer.Adam(
+                    learning_rate=FRONTDOOR_V2_LR))
+            costs, step_s, mark = [], [], {}
+
+            def handler(e):
+                if isinstance(e, paddle.event.BeginIteration):
+                    torch.cuda.synchronize()
+                    mark["t"] = time.perf_counter()
+                elif isinstance(e, paddle.event.EndIteration):
+                    torch.cuda.synchronize()
+                    step_s.append(time.perf_counter() - mark["t"])
+                    costs.append(e.cost)
+
+            K.reset_launch_counts()
+            trainer.train(v2_seqtoseq_reader(paddle, V, FRONTDOOR_V2_N, B),
+                          num_passes=1, event_handler=handler,
+                          feeding=FEEDING)
+            torch.cuda.synchronize()
+            train = K.launch_counts()
+        if len(costs) != steps or not np.isfinite(costs).all():
+            fail("frontdoor", f"v2: costs {costs}")
+        _only("frontdoor", "v2 training", train,
+              {"gru_forward": 2 * steps, "gru_backward": 2 * steps})
+        _all_persistent("frontdoor", "v2 training", train,
+                        ("gru_forward", "gru_backward"))
+        tar = os.path.join(tmp, "v2_seqtoseq.tar")
+        t0 = time.perf_counter()
+        with open(tar, "wb") as f:
+            trainer.save_parameter_to_tar(f)
+        t_tar = time.perf_counter() - t0
+        digests = {k: [str(params[k].dtype), list(params[k].shape),
+                       hashlib.sha256(np.ascontiguousarray(
+                           params[k]).tobytes()).hexdigest()]
+                   for k in params.names()}
+        print(f"frontdoor: v2 seqToseq script (paddle.layer + "
+              f"paddle.networks, recurrent_group decoder), bf16 policy: "
+              f"parameters.create {t_create:.2f} s, {steps} Adam steps at "
+              f"B={B} through trainer.SGD, costs "
+              f"{[round(x, 4) for x in costs]}, median "
+              f"{statistics.median(step_s) * 1e3:.2f} ms a step (first "
+              f"{step_s[0] * 1e3:.2f} ms), save_parameter_to_tar "
+              f"{t_tar:.2f} s ({os.path.getsize(tar)} bytes); card {card}",
+              flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+
+        # the tar in a fresh process, on the CPU
+        code = "\n".join([
+            "import hashlib, json, sys",
+            "import numpy as np",
+            f"sys.path.insert(0, {os.path.join(ROOT, 'tests')!r})",
+            "import paddle_tpu_torch.v2 as paddle",
+            "from torch_v2_seqtoseq import v2_seqtoseq_trainer",
+            "paddle.init(['--device=cpu'])",
+            f"p = paddle.parameters.create(v2_seqtoseq_trainer(paddle, "
+            f"**{FRONTDOOR_V2!r}))",
+            f"p.from_tar(open({tar!r}, 'rb'))",
+            "print(json.dumps({k: [str(p[k].dtype), list(p[k].shape), "
+            "hashlib.sha256(np.ascontiguousarray(p[k]).tobytes())"
+            ".hexdigest()] for k in p.names()}))"])
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                              env=dict(os.environ, PYTHONPATH=ROOT),
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail("frontdoor", f"v2: the tar in a fresh process: exit "
+                 f"{proc.returncode}, stderr {proc.stderr[-3000:]!r}")
+        back = json.loads(proc.stdout.strip().splitlines()[-1])
+        same = back == digests
+        print(f"frontdoor: v2: the tar read back by parameters.from_tar in a "
+              f"fresh process with --device=cpu "
+              f"({time.perf_counter() - t0:.2f} s): {len(back)} arrays, "
+              f"{'bit for bit the card' + chr(39) + 's' if same else 'DIFFER'}",
+              flush=True)
+        if not same:
+            fail("frontdoor", "v2: the tar's arrays differ from the card's")
+
+        # the generator from the tar, through paddle.infer
+        nn.reset_naming()
+        gen = v2_seqtoseq_generator(paddle, beam=beam, max_len=max_len,
+                                    **FRONTDOOR_V2)
+        gparams = paddle.parameters.create(gen)
+        with open(tar, "rb") as f:
+            gparams.from_tar(f)
+        rows = v2_test_sources(paddle, V, FRONTDOOR_V2_SOURCES)
+        with compute_dtype_scope("bfloat16"):
+            paddle.infer(output_layer=gen, parameters=gparams,
+                         input=rows[:2], field="id")           # warm-up
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            prob, ids = paddle.infer(output_layer=gen, parameters=gparams,
+                                     input=rows, field=["prob", "id"])
+            infer_s = time.perf_counter() - t0
+            infer = K.launch_counts()
+            K.reset_launch_counts()
+            empty = paddle.infer(output_layer=gen, parameters=gparams,
+                                 input=[], field=["prob", "id"])
+            empty_launches = K.launch_counts()
+        n = FRONTDOOR_V2_SOURCES
+        if (ids.shape != (n, beam, max_len) or ids.dtype != np.int32
+                or prob.shape != (n, beam) or not np.isfinite(prob).all()
+                or not (prob[:, :-1] >= prob[:, 1:]).all()
+                or ids.min() < 0 or ids.max() >= V):
+            fail("frontdoor", f"v2: malformed infer: ids {ids.shape} "
+                 f"{ids.dtype}, prob {prob.shape}")
+        _only("frontdoor", "v2 infer", infer,
+              {"gru_forward": 2, "topk_lse_logits": (1, max_len)})
+        _all_persistent("frontdoor", "v2 infer", infer, ("gru_forward",))
+        if any(empty_launches.values()) or [a.shape for a in empty] != [
+                (0, beam), (0, beam, max_len)]:
+            fail("frontdoor", f"v2: infer(input=[]): shapes "
+                 f"{[a.shape for a in empty]}, launches "
+                 f"{dict(empty_launches)}")
+        print(f"frontdoor: v2: paddle.infer(field=['prob', 'id']) over the "
+              f"beam_search layer (beam {beam}, max_length {max_len}, cut "
+              f"from the reference demo's 250 to bound the phase's time), "
+              f"{n} sources: {infer_s * 1e3:.2f} ms, "
+              f"{infer['topk_lse_logits']} decode steps; infer(input=[]) -> "
+              f"shapes {[a.shape for a in empty]}, no launch; card {card}",
+              flush=True)
+
+        # card vs CPU, f32: the first step's cost and the generation
+        first = {}
+        with compute_dtype_scope("float32"):
+            for side, where in (("card", dev.type), ("cpu", "cpu")):
+                paddle.init([f"--device={where}"])
+                nn.reset_naming()
+                c = v2_seqtoseq_trainer(paddle, **FRONTDOOR_V2)
+                p = paddle.parameters.create(c, seed=SEED)
+                if side == "cpu":
+                    # the step's cost is its forward: no backward here
+                    topo = nn.Topology(c, device="cpu")
+                    rows1 = next(iter(v2_seqtoseq_reader(paddle, V, B, B)()))
+                    kinds = {l.name: "ids_seq" for l in topo.data_layers}
+                    feed = DataFeeder(kinds, FEEDING)(rows1)
+                    with torch.no_grad():
+                        outs, _ = topo.apply(
+                            {k: torch.from_numpy(v) for k, v in
+                             p.params.items()}, {}, feed, train=True)
+                    first["cpu"] = outs[c.name].value.item()
+                else:
+                    got = []
+                    paddle.trainer.SGD(
+                        cost=c, parameters=p,
+                        update_equation=paddle.optimizer.Adam(
+                            learning_rate=FRONTDOOR_V2_LR)).train(
+                        v2_seqtoseq_reader(paddle, V, B, B),
+                        event_handler=lambda e: got.append(e.cost) if
+                        isinstance(e, paddle.event.EndIteration) else None,
+                        feeding=FEEDING)
+                    first["card"] = got[0]
+                del p
+                torch.cuda.empty_cache()
+            d = abs(first["card"] - first["cpu"]) / abs(first["cpu"])
+            print(f"frontdoor: v2: first step's cost card vs CPU, f32: "
+                  f"{first['card']:.7f} vs {first['cpu']:.7f} (rel diff "
+                  f"{d:.3e}, tol {TOL_TRAIN_LOSS})", flush=True)
+            if d > TOL_TRAIN_LOSS:
+                fail("frontdoor", "v2: card and CPU first costs disagree")
+            gens, outs_of = {}, {}
+            src = DataFeeder({"source_language_word": "ids_seq"})(rows)
+            for side, where in (("card", dev.type), ("cpu", "cpu")):
+                paddle.init([f"--device={where}"])
+                gens[side] = paddle.infer(output_layer=gen,
+                                          parameters=gparams, input=rows,
+                                          field=["id", "prob"])
+                pt = {k: torch.from_numpy(v).to(where)
+                      for k, v in gparams.params.items()}
+                with torch.no_grad():
+                    outs, _ = nn.Topology(gen, device=where).apply(
+                        pt, {}, src, outputs=["enc", "enc_proj", "boot"])
+                outs_of[side] = (outs, pt)
+
+            def rescore_on(side, b, hyp):
+                outs, pt = outs_of[side]
+                with torch.no_grad():
+                    return dsl_rescore(dslgen_step(outs, 1, slice(b, b + 1)),
+                                       pt, outs["boot"].value[b:b + 1], hyp)
+
+            _search_agree("frontdoor", "v2 infer", gens["card"], gens["cpu"],
+                          rescore_on)
+    finally:
+        FLAGS.device = keep
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"v2_train": train, "v2_infer": infer}
+
+
+def frontdoor_path(K, dev, card):
+    """Phase 18: (a) the seqToseq demo copy, (b) the v2 script, (c) their
+    launches by kernel and path, on their own line."""
+    import torch
+
+    t0 = time.perf_counter()
+    launches = frontdoor_demo(K, dev, card)
+    torch.cuda.empty_cache()
+    launches.update(frontdoor_v2(K, dev, card))
+    torch.cuda.empty_cache()
+    print(json.dumps({"frontdoor_launches": {
+        part: {n: {"launches": c, "by_path": counts.by_path[n]}
+               for n, c in counts.items() if c}
+        for part, counts in launches.items()}}), flush=True)
+    print(f"frontdoor: phase seconds {time.perf_counter() - t0:.2f}; card "
+          f"{card}", flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -6250,6 +6770,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "deploy"
         deploy_launches = deploy_path(K, dev, card)
+        torch.cuda.empty_cache()
+        phase = "frontdoor"
+        frontdoor_launches = frontdoor_path(K, dev, card)
     except SystemExit:
         raise
     except Exception:  # noqa: BLE001 — report the phase and fail
@@ -6353,6 +6876,15 @@ def main() -> int:
             row["deploy_launches_by_path"] = {
                 part: deploy_launches[part].by_path[lib]
                 for part in DEPLOY_PART_ROWS[name]}
+        if name in FRONTDOOR_ROWS:
+            # phase 18's parts: the demo copy's training and generation,
+            # the v2 script's training and infer
+            lib, parts = FRONTDOOR_ROWS[name]
+            row["frontdoor_launches"] = {
+                part: frontdoor_launches[part][lib] for part in parts}
+            row["frontdoor_launches_by_path"] = {
+                part: frontdoor_launches[part].by_path[lib]
+                for part in parts}
         if name == "topk_lse_readout":
             # the spec phase's full arm: one launch a table step, its wide
             # steps at N = 320

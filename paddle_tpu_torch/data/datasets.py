@@ -6,12 +6,13 @@ for sample the same as the JAX package's for the same split and size
 ``imdb`` and ``sentiment`` (both through ``_imdb_synth``), ``mnist``,
 ``cifar10``, ``uci_housing``, ``conll05``/``conll05_features``,
 ``movielens``/``movielens_features`` (with ``ML_SCHEMA``, ml-1m's
-cardinalities) and ``imikolov``.  Each stream's ``RandomState`` is seeded
+cardinalities), ``imikolov`` and ``wmt14`` (the seqToseq demo's
+stream).  Each stream's ``RandomState`` is seeded
 by the crc32 of its name and split, so it does not depend on the process.
 
 Not ported here: loading real files under a data home (``data_home``,
-``data/formats.py``) and the other dataset (wmt14) wait for the rest of
-ROADMAP.md Queue 1 item 4.  So
+``data/formats.py``, wmt14's ``wmt14.tgz`` among them) waits for the rest
+of ROADMAP.md Queue 1 item 4.  So
 these loaders always give the synthetic stream, where the reference's
 would read real files when they are present; ``_capped``, which caps
 those real-file readers, comes with them.
@@ -26,7 +27,7 @@ import numpy as np
 
 __all__ = ["mnist", "cifar10", "imdb", "sentiment", "uci_housing",
            "conll05", "conll05_features", "movielens", "ML_SCHEMA",
-           "movielens_features", "imikolov"]
+           "movielens_features", "imikolov", "wmt14"]
 
 
 def _synth_rng(name: str, split: str) -> np.random.RandomState:
@@ -99,6 +100,26 @@ def sentiment(split: str = "train", *, vocab_size: int = 5000,
     """Yields (word_ids, label 0/1): imdb's synthetic stream, as the
     reference's fallback gives."""
     return _imdb_synth(split, vocab_size, n if n is not None else 1024)
+
+
+def wmt14(split: str = "train", *, dict_size: int = 30000,
+          n: Optional[int] = None) -> Callable:
+    """Yields (src_ids, trg_ids, trg_next_ids), the seqToseq feed format
+    (wmt14 with <s>=0, <e>=1, <unk>=2): sources of 4..29 ids in
+    3..dict_size-1, the target the reversed source shifted by 7 (mod
+    dict_size-3), ``trg_ids`` after <s>, ``trg_next_ids`` ending in <e>."""
+
+    def synth_reader():
+        n_ = n if n is not None else 2048
+        rng = _synth_rng("wmt14", split)
+        for _ in range(n_):
+            L = rng.randint(4, 30)
+            src = rng.randint(3, dict_size, L).tolist()
+            trg_core = [3 + ((s + 7) % (dict_size - 3))
+                        for s in reversed(src)]
+            yield src, [0] + trg_core, trg_core + [1]
+
+    return synth_reader
 
 
 def uci_housing(split: str = "train", *, n: Optional[int] = None

@@ -3341,3 +3341,123 @@ def test_quantized_bundles_within_their_gate_on_the_card(dev, tmp_path):
         assert (np.abs(got - cpu).max() / np.abs(cpu).max()
                 <= TOL_DEPLOY_CPU), mode
         assert np.abs(got - ref).max() <= q["tol"], mode
+
+
+# ---------------------------------------------------------------------------
+# the user's entry points: the paddle.v2 facade and the demo copies
+# ---------------------------------------------------------------------------
+
+#: card vs CPU at f32 through the v2 facade and the demo copy: the loss of
+#: each step (rel; f32 sums in another order, carried by Adam) and the
+#: generated scores (abs, about -20 from up to 8 steps)
+TOL_V2_LOSS, TOL_V2_SCORE = 1e-5, 1e-4
+
+
+def _same_or_near_tie(ids, scores, want_ids, want_scores, tol):
+    """Per source: the same ids and scores within ``tol``; where the ids
+    differ (a near tie of nearly flat random-init logits), each beam's
+    score within ``tol`` of the other side's beam of the same rank."""
+    np.testing.assert_allclose(scores, want_scores, atol=tol)
+    for b in range(len(ids)):
+        if not np.array_equal(ids[b], want_ids[b]):
+            gaps = np.abs(np.diff(np.asarray(want_scores[b], np.float64)))
+            assert gaps.min() <= 2 * tol, (b, want_scores[b])
+
+
+def _launched(before, after):
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _v2_run(where, monkeypatch, V=50, steps=3, B=8):
+    """The v2 seqToseq script at small widths on ``where`` (f32): its costs,
+    the launches of the training run and of the generation, the ids and
+    scores generated."""
+    import io
+
+    import paddle_tpu_torch.nn as nn
+    import paddle_tpu_torch.v2 as paddle
+    from paddle_tpu_torch.utils.flags import FLAGS
+    from torch_v2_seqtoseq import (FEEDING, v2_seqtoseq_generator,
+                                   v2_seqtoseq_reader, v2_seqtoseq_trainer,
+                                   v2_test_sources)
+
+    monkeypatch.setattr(FLAGS, "device", FLAGS.device)
+    monkeypatch.setattr(FLAGS, "log_period", 0)
+    paddle.init([f"--device={where}"])
+    dims = dict(V=V, E=12, H=16, D=16, A=8)
+    with compute_dtype_scope("float32"):
+        nn.reset_naming()
+        cost = v2_seqtoseq_trainer(paddle, **dims)
+        params = paddle.parameters.create(cost, seed=4)
+        costs = []
+        trainer = paddle.trainer.SGD(
+            cost=cost, parameters=params,
+            update_equation=paddle.optimizer.Adam(learning_rate=5e-3))
+        before = launch_counts()
+        trainer.train(v2_seqtoseq_reader(paddle, V, steps * B, B),
+                      event_handler=lambda e: costs.append(e.cost) if
+                      isinstance(e, paddle.event.EndIteration) else None,
+                      feeding=FEEDING)
+        train_launches = _launched(before, launch_counts())
+        buf = io.BytesIO()
+        trainer.save_parameter_to_tar(buf)
+        nn.reset_naming()
+        gen = v2_seqtoseq_generator(paddle, beam=3, max_len=8, **dims)
+        gparams = paddle.parameters.create(gen)
+        gparams.from_tar(io.BytesIO(buf.getvalue()))
+        before = launch_counts()
+        prob, ids = paddle.infer(output_layer=gen, parameters=gparams,
+                                 input=v2_test_sources(paddle, V, 4),
+                                 field=["prob", "id"])
+        gen_launches = _launched(before, launch_counts())
+        before = launch_counts()
+        empty = paddle.infer(output_layer=gen, parameters=gparams, input=[],
+                             field=["prob", "id"])
+        empty_launches = _launched(before, launch_counts())
+    return (costs, train_launches, prob, ids, gen_launches, empty,
+            empty_launches)
+
+
+def test_v2_seqtoseq_script_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """The v2 script through paddle.parameters.create / trainer.SGD /
+    infer on the card and on the CPU from the same seed: costs, the
+    kernels of each part (K3r and K4 twice a step; K3 twice and K8 once a
+    decode step), the generated ids and scores, and a zero-row infer that
+    launches nothing."""
+    card = _v2_run("cuda", monkeypatch)
+    cpu = _v2_run("cpu", monkeypatch)
+    costs, train_l, prob, ids, gen_l, empty, empty_l = card
+    assert len(costs) == 3
+    np.testing.assert_allclose(costs, cpu[0], rtol=TOL_V2_LOSS)
+    assert train_l == {"gru_forward": 6, "gru_backward": 6}, train_l
+    assert gen_l["gru_forward"] == 2 and set(gen_l) == {
+        "gru_forward", "topk_lse_logits"}, gen_l
+    assert 1 <= gen_l["topk_lse_logits"] <= 8
+    _same_or_near_tie(ids, prob, cpu[3], cpu[2], TOL_V2_SCORE)
+    assert empty_l == {} and empty[1].shape == (0, 3, 8)
+    assert cpu[1] == {} and cpu[4] == {}
+
+
+def test_seqtoseq_demo_copy_on_the_card_matches_the_cpu(dev):
+    """The demo copy's main at small widths, f32, on the card and on the
+    CPU: the same losses; the card run launches the training kernels
+    (K3r, K4, K5, K6, K1, K2) every step and K3/K7 in --generate."""
+    from paddle_tpu_torch.demo.seqToseq import train as demo
+
+    args = ["--n", "24", "--batch-size", "8", "--dict-size", "60",
+            "--emb-dim", "16", "--hid-dim", "32", "--generate"]
+    with compute_dtype_scope("float32"):
+        before = launch_counts()
+        card = demo.main(args + ["--device", "cuda"])
+        launched = _launched(before, launch_counts())
+        cpu = demo.main(args + ["--device", "cpu"])
+    np.testing.assert_allclose(card["losses"], cpu["losses"],
+                               rtol=TOL_V2_LOSS)
+    for name in ("ce_readout_fwd", "ce_readout_bwd", "attn_dec_fwd",
+                 "attn_dec_bwd"):
+        assert launched[name] == 3, (name, launched)
+    assert launched["gru_backward"] == 6
+    assert launched["gru_forward"] == 6 + 2
+    assert 1 <= launched["topk_lse_readout"] <= 20
+    _same_or_near_tie(card["tokens"], card["scores"], cpu["tokens"],
+                      cpu["scores"], TOL_V2_SCORE)

@@ -58,7 +58,15 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
                 "serving/feeds.py", "proto/__init__.py",
                 "proto/model_config_pb2.py", "config/__init__.py",
                 "config/capture.py", "config/config_parser.py",
-                "config/deploy.py", "serving/cli.py", "serving/slots.py"):
+                "config/deploy.py", "serving/cli.py", "serving/slots.py",
+                "utils/devices.py", "v2/__init__.py", "v2/activation.py",
+                "v2/attr.py", "v2/data_feeder.py", "v2/data_type.py",
+                "v2/dataset.py", "v2/evaluator.py", "v2/event.py",
+                "v2/inference.py", "v2/layer.py", "v2/minibatch.py",
+                "v2/optimizer.py", "v2/parameters.py", "v2/plot.py",
+                "v2/pooling.py", "v2/reader.py", "v2/topology.py",
+                "v2/trainer.py", "demo/seqToseq/train.py",
+                "demo/gan/train.py", "demo/model_zoo/classify.py"):
         assert mod in rel, mod
     bad = []
     for path in files:
@@ -90,7 +98,7 @@ def _imports(path):
     "chip_smoke.py", "chip_probe.py", "tests/torch_seqtoseq_net.py",
     "tests/torch_text_nets.py", "tests/torch_golden_nets.py",
     "tests/torch_layer_cases.py", "tests/torch_sparse_nets.py",
-    "tests/torch_nested_nets.py"])
+    "tests/torch_nested_nets.py", "tests/torch_v2_seqtoseq.py"])
 def test_card_scripts_and_shared_builders_import_no_jax(script):
     """The card's scripts, and the builders they (and the card tests)
     share with the CPU tests, import neither jax nor the JAX package: the
@@ -170,6 +178,58 @@ def test_serve_subcommand_runs_without_jax_protobuf_or_ml_dtypes(tmp_path):
     assert first["ready"] is True
     assert last["counters"]["completed"] == 4
     assert last["counters"]["shed"] == 0
+
+
+def test_v2_script_and_demo_copy_run_without_jax(tmp_path):
+    """The v2 seqToseq script (create, SGD, a tar, infer) and the seqToseq
+    demo copy, in a fresh process where any import of jax or the JAX
+    package fails: both run and neither is ever loaded."""
+    code = textwrap.dedent(f"""
+        import importlib.abc, io, sys
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"):
+                    raise ImportError(f"{{name}} is blocked")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        sys.path.insert(0, {os.path.join(ROOT, "tests")!r})
+        import paddle_tpu_torch.nn as nn
+        import paddle_tpu_torch.v2 as paddle
+        from paddle_tpu_torch.demo.seqToseq import train as demo
+        from torch_v2_seqtoseq import (FEEDING, v2_seqtoseq_generator,
+                                       v2_seqtoseq_reader,
+                                       v2_seqtoseq_trainer, v2_test_sources)
+        paddle.init(["--device=cpu"])
+        cost = v2_seqtoseq_trainer(paddle, V=30)
+        params = paddle.parameters.create(cost)
+        trainer = paddle.trainer.SGD(
+            cost=cost, parameters=params,
+            update_equation=paddle.optimizer.Adam(learning_rate=1e-3))
+        trainer.train(v2_seqtoseq_reader(paddle, 30, 8, 4), feeding=FEEDING)
+        buf = io.BytesIO()
+        trainer.save_parameter_to_tar(buf)
+        nn.reset_naming()
+        gen = v2_seqtoseq_generator(paddle, V=30)
+        gparams = paddle.parameters.create(gen)
+        gparams.from_tar(io.BytesIO(buf.getvalue()))
+        ids = paddle.infer(output_layer=gen, parameters=gparams,
+                           input=v2_test_sources(paddle, 30, 2), field="id")
+        assert ids.shape == (2, 3, 8), ids.shape
+        res = demo.main(["--n", "8", "--batch-size", "4", "--dict-size",
+                         "30", "--emb-dim", "8", "--hid-dim", "8",
+                         "--device", "cpu"])
+        assert len(res["losses"]) == 2
+        print("LOADED", sorted(m for m in sys.modules
+                               if m.split(".")[0] in ("jax", "jaxlib",
+                                                      "paddle_tpu")))
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "LOADED []", out.stdout
 
 
 def test_ast_scan_tells_the_port_apart_from_the_jax_package():
