@@ -3,7 +3,7 @@
 
     python3 chip_probe.py [chunks] [profile] [textclf] [dslgen] [k8plans]
                           [k8variants] [variants] [vision] [text] [sparse]
-                          [seqdata] [frontdoor] [build]
+                          [seqdata] [frontdoor] [dataio] [build]
                           (all if none named)
 
 Needs one CUDA card and the checkout beside it.  It checks nothing that
@@ -79,6 +79,14 @@ frontdoor ``chip_smoke.py``'s phase 18 (the seqToseq demo copy and the
          training step of each and one profiled ``paddle.infer`` of the v2
          generator (device busy share, the kernels with the most device
          time);
+dataio   ``chip_smoke.py``'s phase 19 (the provider-fed textclf training
+         over a real-format aclImdb tarball, the seqToseq demo over a
+         real-format wmt14.tgz) alone, then one profiled
+         ``SGDTrainer.train_batch`` of lstm_b64h256 (bf16) on the
+         provider's first batch (device busy share, the kernels with the
+         most device time), and the feeder's host ms a batch of 64 imdb
+         rows (max_len 100) through the native pad core and through the
+         Python loop, in turns (native, loop, loop, native);
 build    cold builds of the kernel libraries into a scratch directory:
          each source alone, one ``nvcc`` at a time, then all at once as
          ``build_all`` starts them (the smoke run's build time).
@@ -889,6 +897,73 @@ def probe_frontdoor(dev):
         FLAGS.device = keep
 
 
+def probe_dataio(dev):
+    """``chip_smoke.py``'s phase 19 alone, one profiled provider-fed
+    training step, and the feeder's native pad against its Python loop."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import torch
+
+    import paddle_tpu_torch.data as data
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.data import native
+    from paddle_tpu_torch.models import lstm_benchmark_net
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+    from paddle_tpu_torch.param import Adam
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    smoke.dataio_path(K, dev, smoke.card_line())
+    B, T, V = smoke.TEXTCLF_B, smoke.TEXTCLF_T, smoke.TEXTCLF_VOCAB
+    home = tempfile.mkdtemp(prefix="dataio_probe_")
+    try:
+        smoke.dataio_write_imdb(home)
+        with smoke.data_home(home), compute_dtype_scope("bfloat16"):
+            make, _ = smoke.dataio_imdb_provider(V, smoke.SEED)
+            dp = make(["train"])
+            rows = next(iter(data.batch(dp.reader(), B)()))
+            feeder = dp.feeder(max_len=T, buckets=(T,))
+            nn.reset_naming()
+            cost = lstm_benchmark_net(V, emb_dim=smoke.TEXTCLF_EMB,
+                                      hid_dim=256,
+                                      num_layers=smoke.TEXTCLF_LAYERS)[0]
+            tr = SGDTrainer(cost, Adam(learning_rate=1e-3), seed=smoke.SEED,
+                            device=dev)
+            feed = feeder(rows)
+            _profile_step(f"one provider-fed lstm_b{B}h256 training step "
+                          f"(SGDTrainer.train_batch, T={T}, bf16)",
+                          lambda: tr.train_batch(feed), top_n=10)
+            del tr
+            torch.cuda.empty_cache()
+
+        def feeder_ms(reps: int = 50) -> float:
+            f = dp.feeder(max_len=T, buckets=(T,))
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                f(rows)
+                times.append(time.perf_counter() - t0)
+            return statistics.median(times) * 1e3
+
+        load = native._load
+        out = {}
+        for arm in ("native", "loop", "loop", "native"):
+            native._load = load if arm == "native" else (lambda: None)
+            try:
+                out.setdefault(arm, []).append(feeder_ms())
+            finally:
+                native._load = load
+        print(f"dataio: feeder host ms a batch of {B} imdb rows (max_len "
+              f"{T}, median of 50 calls), in turns: native pad "
+              f"{[round(x, 4) for x in out['native']]}, Python loop "
+              f"{[round(x, 4) for x in out['loop']]}; card "
+              f"{smoke.card_line()}", flush=True)
+    finally:
+        shutil.rmtree(home, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -904,7 +979,7 @@ def main() -> int:
               "variants": probe_variants, "vision": probe_vision,
               "text": probe_text, "sparse": probe_sparse,
               "seqdata": probe_seqdata, "frontdoor": probe_frontdoor,
-              "build": probe_build}
+              "dataio": probe_dataio, "build": probe_build}
     wanted = sys.argv[1:] or list(probes)
     unknown = set(wanted) - set(probes)
     if unknown:

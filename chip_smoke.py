@@ -296,7 +296,35 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             the generation on the card against the CPU at f32; (c) a
             ``{"frontdoor_launches": {...}}`` line by part, kernel and
             path, and the phase's seconds;
-19. a ``{"server_launches": {...}}`` line (each part of the server
+19. dataio   the data front door from files in the real on-disk formats,
+            written by the phase into its own data home
+            (``$PADDLE_TPU_DATA_HOME``; every other phase reads an empty
+            one): ``native_available()`` (the C++ pad core, built with
+            ``g++`` in the build phase; the compiler's version printed);
+            (a) an ``aclImdb_v1.tar.gz`` (2048 train and 512 test reviews of
+            50-300 words over 40000 distinct ones, seeded) read by the real
+            branch of ``datasets.imdb(vocab_size=30000)`` through a
+            PyDataProvider2 ``@provider`` (``integer_value_sequence(30000)``,
+            ``integer_value(2)``, should_shuffle, pool 512,
+            ``CACHE_PASS_IN_MEM``, ``random.Random(SEED)``) and its
+            ``feeder(max_len=100)`` (native pad) into ``SGDTrainer(Adam(
+            1e-3))`` on ``lstm_benchmark_net`` at lstm_b64h256 (bf16), 2
+            passes (the second replays the cache) and a test pass: K9r and
+            K10 twice a step, K9 twice a test batch, all persistent,
+            nothing else; ms a step, samples/s, host seconds in the reader
+            and provider and in the feeder against the steps', pad waste;
+            the first 2 steps card vs CPU at f32 on the same shuffled
+            batches (costs within ``TOL_TRAIN_LOSS``); (b) a ``wmt14.tgz``
+            (30000-line src/trg dictionaries, 2048 train and 256 test pairs
+            of 10-60 words, 8 a split with a side past 80 tokens): its rows
+            through ``formats.iter_wmt14`` equal to the written pairs
+            (ids, ``<s>``/``<e>`` framing, ``<unk>``, the long pairs
+            dropped), then the seqToseq demo copy's ``main`` at phase 18's
+            arguments over it (K1-K7 exactly as phase 18, nothing else;
+            its first batch the written pairs); (c) a ``{"dataio_launches":
+            {...}}`` line by part, kernel and path, and the phase's
+            seconds;
+20. a ``{"server_launches": {...}}`` line (each part of the server
    phase: every kernel library's launches, by kernel variant and by
    thread), a ``{"kernels": [...]}`` line (each kernel's launches on its
    path's run, also by kernel variant: ``launches_by_path``; the K9,
@@ -305,15 +333,16 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
    text part: ``text_launches``; the K9, K9r and K10 rows at b64h256 also
    by sparse part: ``sparse_launches``, and by seqdata part:
    ``seqdata_launches``; the rows phase 16 reaches also by its part:
-   ``mixed_launches``, phase 17's: ``deploy_launches``, and phase 18's:
-   ``frontdoor_launches``), then the card line again, and last
+   ``mixed_launches``, phase 17's: ``deploy_launches``, phase 18's:
+   ``frontdoor_launches``, and phase 19's: ``dataio_launches``), then
+   the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed just before each path (serve and its fused
 re-run, each part of the server phase, each arm of the spec phase, each
 training configuration, each textclf run, dslgen, each part of the
 trainer phase, the vision phase, each part of the text, sparse,
-seqdata, mixed, deploy and frontdoor phases) is driven
+seqdata, mixed, deploy, frontdoor and dataio phases) is driven
 and read just after; a kernel of the path
 that was not launched fails the run.  ``chip_probe.py`` measures what this
 run leaves out to stay short (the products' chunk sizes end to end,
@@ -6309,6 +6338,46 @@ def _search_agree(phase: str, what: str, card, cpu, rescore_on) -> None:
                  f"a near tie")
 
 
+def demo_checks(phase: str, what: str, res, printed: str, marks: dict,
+                total, steps: int):
+    """What the seqToseq demo copy's ``main`` at the card arguments must
+    show: ``steps`` finite costs and its printed lines, a well-formed beam
+    3 generation, exactly K3r/K4 twice and K5/K6/K1/K2 once a step
+    (persistent, wgmma), then K3 twice and K7 once a decode step (wgmma),
+    nothing after.  -> (training launches, generation launches)."""
+    import numpy as np
+
+    train = marks["before"]
+    gen = _launch_delta(marks["after"], marks["before"])
+    losses = res["losses"]
+    if (len(losses) != steps or not np.isfinite(losses).all()
+            or "cost" not in printed or "target words/s" not in printed):
+        fail(phase, f"{what}: losses {losses}, printed {printed!r}")
+    toks, scores = res["tokens"], res["scores"]
+    if (toks.shape != (4, FRONTDOOR_DEMO["beam"], FRONTDOOR_DEMO_MAX_LEN)
+            or not np.isfinite(scores).all()
+            or not (scores[:, :-1] >= scores[:, 1:]).all()):
+        fail(phase, f"{what}: malformed generation {toks.shape}")
+    _only(phase, f"{what} training", train, {
+        "gru_forward": 2 * steps, "gru_backward": 2 * steps,
+        "attn_dec_fwd": steps, "attn_dec_bwd": steps,
+        "ce_readout_fwd": steps, "ce_readout_bwd": steps})
+    _only(phase, f"{what} generation", gen, {
+        "gru_forward": 2, "topk_lse_readout": (1, FRONTDOOR_DEMO_MAX_LEN)})
+    if dict(_launch_delta(total, marks["after"])) != dict.fromkeys(total, 0):
+        fail(phase, f"{what}: launches after its generation")
+    _all_persistent(phase, f"{what} training", train,
+                    ("gru_forward", "gru_backward", "attn_dec_fwd"))
+    _all_persistent(phase, f"{what} generation", gen, ("gru_forward",))
+    for name in ("ce_readout_fwd", "ce_readout_bwd"):
+        if train.by_path[name] != {"wgmma": steps}:
+            fail(phase, f"{what}: {name} by path {train.by_path[name]}")
+    if set(gen.by_path["topk_lse_readout"]) != {"wgmma"}:
+        fail(phase, f"{what}: K7 by path "
+             f"{gen.by_path['topk_lse_readout']}")
+    return train, gen
+
+
 def frontdoor_demo(K, dev, card):
     """(a) The seqToseq demo copy through its ``main(argv)`` at the card
     arguments (bf16 policy), its launches split at the generation; its
@@ -6318,7 +6387,6 @@ def frontdoor_demo(K, dev, card):
     import io
     import statistics
 
-    import numpy as np
     import torch
 
     from paddle_tpu_torch.demo.seqToseq import train as demo
@@ -6336,34 +6404,9 @@ def frontdoor_demo(K, dev, card):
         sec = time.perf_counter() - t0
         total = K.launch_counts()
     printed = out.getvalue()
-    train = marks["before"]
-    gen = _launch_delta(marks["after"], marks["before"])
+    train, gen = demo_checks("frontdoor", "demo", res, printed, marks, total,
+                             steps)
     losses, step_s = res["losses"], res["step_s"]
-    if (len(losses) != steps or not np.isfinite(losses).all()
-            or "cost" not in printed or "target words/s" not in printed):
-        fail("frontdoor", f"demo: losses {losses}, printed {printed!r}")
-    toks, scores = res["tokens"], res["scores"]
-    if (toks.shape != (4, d["beam"], FRONTDOOR_DEMO_MAX_LEN)
-            or not np.isfinite(scores).all()
-            or not (scores[:, :-1] >= scores[:, 1:]).all()):
-        fail("frontdoor", f"demo: malformed generation {toks.shape}")
-    _only("frontdoor", "demo training", train, {
-        "gru_forward": 2 * steps, "gru_backward": 2 * steps,
-        "attn_dec_fwd": steps, "attn_dec_bwd": steps,
-        "ce_readout_fwd": steps, "ce_readout_bwd": steps})
-    _only("frontdoor", "demo generation", gen, {
-        "gru_forward": 2, "topk_lse_readout": (1, FRONTDOOR_DEMO_MAX_LEN)})
-    if dict(_launch_delta(total, marks["after"])) != dict.fromkeys(total, 0):
-        fail("frontdoor", "demo: launches after its generation")
-    _all_persistent("frontdoor", "demo training", train,
-                    ("gru_forward", "gru_backward", "attn_dec_fwd"))
-    _all_persistent("frontdoor", "demo generation", gen, ("gru_forward",))
-    for name in ("ce_readout_fwd", "ce_readout_bwd"):
-        if train.by_path[name] != {"wgmma": steps}:
-            fail("frontdoor", f"demo: {name} by path {train.by_path[name]}")
-    if set(gen.by_path["topk_lse_readout"]) != {"wgmma"}:
-        fail("frontdoor", f"demo: K7 by path "
-             f"{gen.by_path['topk_lse_readout']}")
     words = res["words"]
     later = sum(int(b["trg_len"].sum()) for b in res["batches"][1:])
     print(f"frontdoor: demo seqToseq (python -m paddle_tpu_torch.demo."
@@ -6676,6 +6719,507 @@ def frontdoor_path(K, dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the data front door — PyDataProvider2's @provider over a real-
+# format aclImdb tarball into lstm_benchmark_net, and the seqToseq demo copy
+# over a real-format wmt14.tgz, both read from files this phase writes
+# ---------------------------------------------------------------------------
+
+#: part (a): the aclImdb_v1.tar.gz written (reviews a split, words a review,
+#: the distinct words drawn from), the provider's shuffle pool, passes, and
+#: the steps held card vs CPU; bench.py:382-425's lstm_b64h256 shape
+DATAIO_IMDB_N = {"train": 2048, "test": 512}
+DATAIO_IMDB_LEN, DATAIO_IMDB_WORDS = (50, 300), 40000
+DATAIO_POOL, DATAIO_PASSES, DATAIO_CHECK_STEPS = 512, 2, 2
+#: part (b): the wmt14.tgz written (pairs a split, words a side, pairs a
+#: split with a side of 81-90 words, which the parser drops, and words of
+#: each side outside its dictionary, which map to <unk>)
+DATAIO_WMT_N = {"train": 2048, "test": 256}
+DATAIO_WMT_LEN, DATAIO_WMT_LONG, DATAIO_WMT_OOV = (10, 60), 8, 500
+#: the kernels line's rows that phase 19's parts launch, and their library
+DATAIO_ROWS = {
+    "lstm_forward": ("lstm_forward", ("imdb_test",)),
+    f"lstm_forward_residuals_b{TEXTCLF_B}h256": ("lstm_forward",
+                                                 ("imdb_train",)),
+    f"lstm_backward_b{TEXTCLF_B}h256": ("lstm_backward", ("imdb_train",)),
+    "gru_forward": ("gru_forward", ("wmt14_generate",)),
+    "gru_forward_residuals": ("gru_forward", ("wmt14_train",)),
+    "gru_backward": ("gru_backward", ("wmt14_train",)),
+    "attn_dec_fwd": ("attn_dec_fwd", ("wmt14_train",)),
+    "attn_dec_bwd": ("attn_dec_bwd", ("wmt14_train",)),
+    "ce_readout_fwd": ("ce_readout_fwd", ("wmt14_train",)),
+    "ce_readout_bwd": ("ce_readout_bwd", ("wmt14_train",)),
+    "topk_lse_readout": ("topk_lse_readout", ("wmt14_generate",)),
+}
+
+
+@contextlib.contextmanager
+def data_home(path: str):
+    """``$PADDLE_TPU_DATA_HOME`` set to ``path`` inside the block."""
+    old = os.environ.get("PADDLE_TPU_DATA_HOME")
+    os.environ["PADDLE_TPU_DATA_HOME"] = path
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("PADDLE_TPU_DATA_HOME", None)
+        else:
+            os.environ["PADDLE_TPU_DATA_HOME"] = old
+
+
+def _tar_add(tf, name: str, payload: bytes) -> None:
+    import io
+    import tarfile
+
+    info = tarfile.TarInfo(name)
+    info.size = len(payload)
+    tf.addfile(info, io.BytesIO(payload))
+
+
+def dataio_write_imdb(home: str) -> dict:
+    """``home/imdb/aclImdb_v1.tar.gz`` in aclImdb's layout
+    (aclImdb/<split>/<pos|neg>/<id>_<stars>.txt), reviews of
+    DATAIO_IMDB_LEN words from DATAIO_IMDB_WORDS distinct ones, drawn from
+    ``RandomState(SEED)``; each class draws a tenth of its words from its
+    own 500.  -> the distinct words of the train split, by split the
+    reviews written."""
+    import tarfile
+
+    import numpy as np
+
+    rng = np.random.RandomState(SEED)
+    words = np.array([f"w{i:05d}" for i in range(DATAIO_IMDB_WORDS)])
+    seen, written = set(), {}
+    os.makedirs(os.path.join(home, "imdb"))
+    with tarfile.open(os.path.join(home, "imdb", "aclImdb_v1.tar.gz"),
+                      "w:gz") as tf:
+        for split, n in DATAIO_IMDB_N.items():
+            written[split] = n
+            for i in range(n):
+                pos = i % 2
+                L = rng.randint(DATAIO_IMDB_LEN[0], DATAIO_IMDB_LEN[1] + 1)
+                ids = rng.randint(0, DATAIO_IMDB_WORDS, L)
+                own = rng.rand(L) < 0.1
+                ids[own] = rng.randint(0, 500, int(own.sum())) + 500 * pos
+                toks = words[ids]
+                if split == "train":
+                    seen.update(toks.tolist())
+                text = (toks[0].upper() + " " + " ".join(toks[1:]) + ".\n")
+                sense = "pos" if pos else "neg"
+                _tar_add(tf, f"aclImdb/{split}/{sense}/{i}_{7 if pos else 2}"
+                         f".txt", text.encode())
+    return {"distinct": len(seen), "written": written}
+
+
+def dataio_imdb_provider(V: int, seed: int):
+    """The PyDataProvider2 ``@provider`` over ``datasets.imdb`` (its real
+    branch when the data home holds the tarball): dict slots named as
+    ``lstm_benchmark_net``'s data layers, a shuffle pool, the pass cache,
+    ``random.Random(seed)``; each file name is a split.  -> (the provider
+    factory, the list its generator appends each split it reads to)."""
+    import random
+
+    from paddle_tpu_torch.data import datasets
+    from paddle_tpu_torch.data.provider import (CacheType, integer_value,
+                                                integer_value_sequence,
+                                                provider)
+
+    reads = []
+
+    @provider(input_types={"words": integer_value_sequence(V),
+                           "label": integer_value(2)},
+              pool_size=DATAIO_POOL, cache=CacheType.CACHE_PASS_IN_MEM,
+              rng=random.Random(seed))
+    def imdb_rows(settings, split):
+        reads.append(split)
+        for ids, label in datasets.imdb(split, vocab_size=V)():
+            yield {"words": ids, "label": label}
+
+    return imdb_rows, reads
+
+
+class _Timed:
+    """Host seconds spent inside a reader's ``next`` and a feeder's
+    calls."""
+
+    def __init__(self):
+        self.reader_s = self.feeder_s = 0.0
+        self.feeder_last = 0.0
+
+    def reader(self, creator):
+        def read():
+            it = iter(creator())
+            while True:
+                t0 = time.perf_counter()
+                row = next(it, None)
+                self.reader_s += time.perf_counter() - t0
+                if row is None:
+                    return
+                yield row
+        return read
+
+    def feeder(self, feeder):
+        def feed(rows):
+            t0 = time.perf_counter()
+            out = feeder(rows)
+            self.feeder_last = time.perf_counter() - t0
+            self.feeder_s += self.feeder_last
+            return out
+        return feed
+
+
+def dataio_imdb(K, dev, card, home: str):
+    """(a) ``lstm_benchmark_net`` at lstm_b64h256 (bf16) through
+    ``SGDTrainer(Adam(1e-3)).train`` for DATAIO_PASSES passes fed by the
+    provider (its second pass replays the cache) through its ``feeder()``
+    with the native pad (max_len T), then a test pass; its first
+    DATAIO_CHECK_STEPS steps card vs CPU at f32 on the same shuffled
+    order.  -> the parts' launches."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch.data as data
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.models import lstm_benchmark_net
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+    from paddle_tpu_torch.param import Adam
+    from paddle_tpu_torch.trainer import SGDTrainer
+    from paddle_tpu_torch.trainer import events as ev
+
+    V, B, T, H = TEXTCLF_VOCAB, TEXTCLF_B, TEXTCLF_T, 256
+    t0 = time.perf_counter()
+    wrote = dataio_write_imdb(home)
+    write_s = time.perf_counter() - t0
+
+    def net():
+        nn.reset_naming()
+        return lstm_benchmark_net(V, emb_dim=TEXTCLF_EMB, hid_dim=H,
+                                  num_layers=TEXTCLF_LAYERS)[0]
+
+    def feeder_of(dp):
+        return dp.feeder(max_len=T, buckets=(T,))
+
+    with data_home(home), compute_dtype_scope("bfloat16"):
+        make, reads = dataio_imdb_provider(V, SEED)
+        t0 = time.perf_counter()
+        dp = make(["train"])
+        tdp = make(["test"], is_train=False)
+        make_s = time.perf_counter() - t0
+        timed, feeder = _Timed(), feeder_of(dp)
+        tr = SGDTrainer(net(), Adam(learning_rate=1e-3), seed=SEED,
+                        device=dev)
+        losses, step_s, mark = [], [], {}
+
+        def handler(e):
+            if isinstance(e, ev.BeginIteration):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                mark["t"] = time.perf_counter()
+            elif isinstance(e, ev.EndIteration):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - mark["t"]
+                              - timed.feeder_last)
+                losses.append(e.cost)
+
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr.train(timed.reader(data.batch(dp.reader(), B)),
+                 num_passes=DATAIO_PASSES, event_handler=handler,
+                 feeder=timed.feeder(feeder))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train = K.launch_counts()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = tr.test(data.batch(tdp.reader(), B),
+                         feeder=feeder_of(tdp))
+        test_s = time.perf_counter() - t0
+        test = K.launch_counts()
+    steps = sum(DATAIO_IMDB_N["train"] // B for _ in range(DATAIO_PASSES))
+    n_test = DATAIO_IMDB_N["test"] // B
+    if (len(losses) != steps or not np.isfinite(losses).all()
+            or not np.isfinite(result["cost"])):
+        fail("dataio", f"imdb: {len(losses)} costs (want {steps}), test "
+             f"{result}")
+    if reads != ["train", "test"]:
+        fail("dataio", f"imdb: the provider read {reads}: the second pass "
+             f"must replay the cache")
+    if wrote["distinct"] < V:
+        fail("dataio", f"imdb: {wrote['distinct']} distinct train words, "
+             f"fewer than the {V} the dictionary takes")
+    L = TEXTCLF_LAYERS
+    _only("dataio", "imdb training", train, {
+        "lstm_forward": L * steps, "lstm_backward": L * steps})
+    _only("dataio", "imdb test pass", test, {"lstm_forward": L * n_test})
+    _all_persistent("dataio", "imdb training", train,
+                    ("lstm_forward", "lstm_backward"))
+    _all_persistent("dataio", "imdb test pass", test, ("lstm_forward",))
+    med = statistics.median(step_s)
+    print(f"dataio: imdb (a): aclImdb_v1.tar.gz written in {write_s:.2f} s "
+          f"({wrote['written']} reviews of {DATAIO_IMDB_LEN[0]}-"
+          f"{DATAIO_IMDB_LEN[1]} words, {wrote['distinct']} distinct train "
+          f"words), @provider(integer_value_sequence({V}), integer_value(2),"
+          f" should_shuffle, pool_size={DATAIO_POOL}, CACHE_PASS_IN_MEM) "
+          f"-> feeder(max_len={T}, native pad) -> SGDTrainer(Adam(1e-3)) "
+          f"on lstm_benchmark_net({V}, emb {TEXTCLF_EMB}, hid {H}, "
+          f"{L} layers), bf16, B={B}: {DATAIO_PASSES} passes, {steps} "
+          f"steps, costs first {[round(x, 4) for x in losses[:3]]} last "
+          f"{[round(x, 4) for x in losses[-3:]]}, median "
+          f"{med * 1e3:.2f} ms a step (min {min(step_s) * 1e3:.2f}, max "
+          f"{max(step_s) * 1e3:.2f}), {B / med:.1f} samples/s; host s: "
+          f"provider set-up {make_s:.3f}, reader+provider {timed.reader_s:.3f}"
+          f", feeder {timed.feeder_s:.3f}, steps {sum(step_s):.3f} of "
+          f"train() {train_s:.3f}; pad waste {feeder.pad_waste:.4f} "
+          f"({feeder.tokens_real} of {feeder.tokens_padded} tokens real); "
+          f"test pass {n_test} batches {test_s * 1e3:.2f} ms, cost "
+          f"{result['cost']:.4f}; card {card}", flush=True)
+    del tr
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # the first steps card vs CPU at f32, each from a provider seeded the
+    # same (the same shuffled order)
+    got, batches = {}, {}
+    with data_home(home), compute_dtype_scope("float32"):
+        for side, where in (("card", dev.type), ("cpu", "cpu")):
+            make, _ = dataio_imdb_provider(V, SEED)
+            sdp = make(["train"])
+            seen, costs = [], []
+            sfeed = feeder_of(sdp)
+
+            def keep(rows, seen=seen, sfeed=sfeed):
+                feed = sfeed(rows)
+                seen.append(feed["words"][0].copy())
+                return feed
+
+            tr = SGDTrainer(net(), Adam(learning_rate=1e-3), seed=SEED,
+                            device=where)
+            tr.train(data.firstn(data.batch(sdp.reader(), B),
+                                 DATAIO_CHECK_STEPS), feeder=keep,
+                     event_handler=lambda e, costs=costs: costs.append(
+                         e.cost) if isinstance(e, ev.EndIteration) else None)
+            got[side], batches[side] = costs, seen
+            del tr
+    same = all(np.array_equal(a, b)
+               for a, b in zip(batches["card"], batches["cpu"]))
+    d = max(abs(a - b) / abs(b) for a, b in zip(got["card"], got["cpu"]))
+    print(f"dataio: imdb (a): first {DATAIO_CHECK_STEPS} steps card vs CPU,"
+          f" f32, the same shuffled batches ({'identical' if same else 'DIFFER'}"
+          f"): costs {got['card']} vs {got['cpu']} (max rel diff {d:.3e}, tol "
+          f"{TOL_TRAIN_LOSS})", flush=True)
+    if (not same or len(got["card"]) != DATAIO_CHECK_STEPS
+            or d > TOL_TRAIN_LOSS):
+        fail("dataio", "imdb: card and CPU costs disagree")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"imdb_train": train, "imdb_test": test}
+
+
+def dataio_write_wmt14(home: str, V: int) -> dict:
+    """``home/wmt14/wmt14.tgz``: src.dict and trg.dict of ``V`` lines each
+    (<s>, <e>, <unk>, then the words), train/train and test/test of
+    tab-separated pairs of DATAIO_WMT_LEN words drawn from
+    ``RandomState(SEED + 1)`` (DATAIO_WMT_OOV words of each side outside its
+    dictionary), DATAIO_WMT_LONG pairs a split with a side of 81-90 words.
+    -> by split the rows the parser must give: (src ids framed by <s> and
+    <e>, [<s>] + target ids, target ids + [<e>]), long pairs left out."""
+    import tarfile
+
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 1)
+    vocab = {side: [f"{side}{i:05d}" for i in range(V - 3)]
+             for side in ("s", "t")}
+    pool = {side: np.array(vocab[side] + [f"{side}oov{i}" for i in
+                                          range(DATAIO_WMT_OOV)])
+            for side in ("s", "t")}
+    ids = {side: {w: i + 3 for i, w in enumerate(vocab[side])}
+           for side in ("s", "t")}
+    want = {}
+    os.makedirs(os.path.join(home, "wmt14"))
+    with tarfile.open(os.path.join(home, "wmt14", "wmt14.tgz"), "w:gz") as tf:
+        for side, name in (("s", "src"), ("t", "trg")):
+            _tar_add(tf, f"wmt14/{name}.dict", ("\n".join(
+                ["<s>", "<e>", "<unk>"] + vocab[side]) + "\n").encode())
+        for split, n in DATAIO_WMT_N.items():
+            long_at = set(rng.choice(n, DATAIO_WMT_LONG, replace=False))
+            lines, rows = [], []
+            for i in range(n):
+                sides = {}
+                for j, side in enumerate(("s", "t")):
+                    lo, hi = DATAIO_WMT_LEN
+                    if i in long_at and j == i % 2:
+                        lo, hi = 81, 90
+                    sides[side] = pool[side][rng.randint(
+                        0, len(pool[side]), rng.randint(lo, hi + 1))]
+                lines.append(" ".join(sides["s"]) + "\t"
+                             + " ".join(sides["t"]))
+                if i in long_at:
+                    continue
+                src = [0] + [ids["s"].get(w, 2) for w in sides["s"]] + [1]
+                trg = [ids["t"].get(w, 2) for w in sides["t"]]
+                rows.append((src, [0] + trg, trg + [1]))
+            want[split] = rows
+            member = "train/train" if split == "train" else "test/test"
+            _tar_add(tf, f"wmt14/{member}",
+                     ("\n".join(lines) + "\n").encode())
+    return want
+
+
+def dataio_wmt14(K, dev, card, home: str):
+    """(b) the seqToseq demo copy's ``main`` at phase 18's arguments over
+    the wmt14.tgz written here: the rows parsed against what was written,
+    the real branch through ``formats.iter_wmt14``, then K1-K7 exactly as
+    phase 18.  -> the parts' launches."""
+    import io
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.data import datasets, formats
+    from paddle_tpu_torch.demo.seqToseq import train as demo
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+
+    d = FRONTDOOR_DEMO
+    t0 = time.perf_counter()
+    want = dataio_write_wmt14(home, d["dict"])
+    write_s = time.perf_counter() - t0
+    parsed, reads, read_s = {}, [], []
+    orig_iter, orig_make = formats.iter_wmt14, demo.make_batches
+
+    def counted_iter(*a, **kw):
+        reads.append(a[1])
+        return orig_iter(*a, **kw)
+
+    def timed_make(*a, **kw):
+        t = time.perf_counter()
+        out = orig_make(*a, **kw)
+        read_s.append(time.perf_counter() - t)
+        return out
+
+    formats.iter_wmt14, demo.make_batches = counted_iter, timed_make
+    try:
+        with data_home(home):
+            t0 = time.perf_counter()
+            for split in ("train", "test"):
+                parsed[split] = list(datasets.wmt14(
+                    split, dict_size=d["dict"])())
+            parse_s = time.perf_counter() - t0
+            for split in ("train", "test"):
+                if parsed[split] != want[split]:
+                    bad = next((i for i, (a, b) in enumerate(zip(
+                        parsed[split], want[split])) if a != b), None)
+                    fail("dataio", f"wmt14 {split}: {len(parsed[split])} "
+                         f"rows parsed, {len(want[split])} written; first "
+                         f"difference at row {bad}")
+            reads.clear()
+            steps = d["n"] // d["batch"]
+            marks, out = {}, io.StringIO()
+            with _generation_marks(marks), \
+                    contextlib.redirect_stdout(out), \
+                    compute_dtype_scope("bfloat16"):
+                K.reset_launch_counts()
+                t0 = time.perf_counter()
+                res = demo.main(_demo_args(d["n"], dev.type))
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+                total = K.launch_counts()
+    finally:
+        formats.iter_wmt14, demo.make_batches = orig_iter, orig_make
+    if reads != ["train/train"]:
+        fail("dataio", f"wmt14: the demo read {reads} through "
+             f"formats.iter_wmt14, not train/train once")
+    train, gen = demo_checks("dataio", "wmt14 demo", res, out.getvalue(),
+                             marks, total, steps)
+    rows = want["train"][:d["n"]]
+    first = res["batches"][0]
+    for j, (src, trg_in, _) in enumerate(rows[:d["batch"]]):
+        S, T = first["src_ids"].shape[1], first["trg_in"].shape[1]
+        if (first["src_ids"][j, :first["src_len"][j]].tolist() != src[:S]
+                or first["trg_in"][j, :first["trg_len"][j]].tolist()
+                != trg_in[:T]):
+            fail("dataio", f"wmt14: the demo's first batch row {j} is not "
+                 f"the written pair")
+    real = sum(int(b["src_len"].sum() + b["trg_len"].sum())
+               for b in res["batches"])
+    padded = sum(b["src_ids"].size + b["trg_in"].size
+                 for b in res["batches"])
+    step_s, words = res["step_s"], res["words"]
+    n_long = sum(DATAIO_WMT_N.values()) - len(want["train"]) - len(
+        want["test"])
+    print(f"dataio: wmt14 (b): wmt14.tgz written in {write_s:.2f} s (dicts "
+          f"of {d['dict']} lines, {DATAIO_WMT_N} pairs of "
+          f"{DATAIO_WMT_LEN[0]}-{DATAIO_WMT_LEN[1]} words, {n_long} with a "
+          f"side past 80 tokens), parsed through formats.iter_wmt14 in "
+          f"{parse_s:.2f} s: {len(parsed['train'])} + {len(parsed['test'])} "
+          f"rows equal to the written pairs (<s>/<e> framing, <unk> for "
+          f"out-of-dictionary words, the long pairs dropped); the demo "
+          f"(python -m paddle_tpu_torch.demo.seqToseq.train "
+          f"{' '.join(_demo_args(d['n'], dev.type))}), bf16 policy: "
+          f"{steps} steps, costs {[round(x, 4) for x in res['losses']]}, "
+          f"median {statistics.median(step_s) * 1e3:.2f} ms a step (first "
+          f"{step_s[0] * 1e3:.2f}), {words / sum(step_s):.0f} target "
+          f"words/s ({words} words); host s: reader (make_batches: tgz "
+          f"read, parse, pad) {read_s[0]:.3f}, steps {sum(step_s):.3f}, "
+          f"main() {sec:.2f}; pad waste {1 - real / padded:.4f} ({real} of "
+          f"{padded} tokens real, source clipped at 32); generation "
+          f"{marks['sec'] * 1e3:.2f} ms ({gen['topk_lse_readout']} decode "
+          f"steps); card {card}", flush=True)
+    if not np.isfinite(res["scores"]).all():
+        fail("dataio", "wmt14: generation scores not finite")
+    del res
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"wmt14_train": train, "wmt14_generate": gen}
+
+
+def dataio_path(K, dev, card):
+    """Phase 19: ``native_available()``, (a) the provider-fed textclf
+    training over a real-format aclImdb tarball, (b) the seqToseq demo over
+    a real-format wmt14.tgz, (c) their launches on their own line."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.data import native
+
+    t0 = time.perf_counter()
+    ok = native.native_available()
+    print(f"dataio: native_available() {ok} ({native.library_path()}); "
+          f"{_gxx()}", flush=True)
+    if not ok:
+        fail("dataio", f"the native data core did not load: "
+             f"{native.build_error()}")
+    home = tempfile.mkdtemp(prefix="dataio_home_")
+    try:
+        launches = dataio_imdb(K, dev, card, home)
+        launches.update(dataio_wmt14(K, dev, card, home))
+    finally:
+        shutil.rmtree(home, ignore_errors=True)
+    print(json.dumps({"dataio_launches": {
+        part: {n: {"launches": c, "by_path": counts.by_path[n]}
+               for n, c in counts.items() if c}
+        for part, counts in launches.items()}}), flush=True)
+    print(f"dataio: phase seconds {time.perf_counter() - t0:.2f}; card "
+          f"{card}", flush=True)
+    return launches
+
+
+def _gxx() -> str:
+    """The host C++ compiler the native data core is built with."""
+    try:
+        out = subprocess.run(["g++", "--version"], capture_output=True,
+                             text=True, timeout=60)
+        return "g++: " + (out.stdout.splitlines() or ["?"])[0]
+    except OSError as e:
+        return f"g++: not found ({e})"
+
+
 def main() -> int:
     try:
         import torch
@@ -6694,6 +7238,16 @@ def main() -> int:
               file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    # every phase but dataio reads an empty data home: a populated
+    # ~/.cache/paddle_tpu would otherwise swap their synthetic streams for
+    # real files (child processes inherit it)
+    import atexit
+    import shutil
+    import tempfile
+
+    empty_home = tempfile.mkdtemp(prefix="chip_smoke_data_home_")
+    atexit.register(shutil.rmtree, empty_home, True)
+    os.environ["PADDLE_TPU_DATA_HOME"] = empty_home
     phase = "card"
     try:
         card = card_line()
@@ -6703,6 +7257,14 @@ def main() -> int:
         secs = K.build_all()
         print(f"build: {time.perf_counter() - t0:.2f} s "
               f"({', '.join(f'{n} {s:.2f} s' for n, s in secs.items())})",
+              flush=True)
+        from paddle_tpu_torch.data import native
+
+        t0 = time.perf_counter()
+        if not native.native_available():
+            fail("build", f"native data core: {native.build_error()}")
+        print(f"build: native data core {time.perf_counter() - t0:.2f} s "
+              f"({os.path.basename(native.library_path())}; {_gxx()})",
               flush=True)
         phase = "kernels"
         flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -6773,6 +7335,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "frontdoor"
         frontdoor_launches = frontdoor_path(K, dev, card)
+        torch.cuda.empty_cache()
+        phase = "dataio"
+        dataio_launches = dataio_path(K, dev, card)
     except SystemExit:
         raise
     except Exception:  # noqa: BLE001 — report the phase and fail
@@ -6885,6 +7450,14 @@ def main() -> int:
             row["frontdoor_launches_by_path"] = {
                 part: frontdoor_launches[part].by_path[lib]
                 for part in parts}
+        if name in DATAIO_ROWS:
+            # phase 19's parts: the provider-fed textclf training and its
+            # test pass, the demo's training and generation over wmt14.tgz
+            lib, parts = DATAIO_ROWS[name]
+            row["dataio_launches"] = {
+                part: dataio_launches[part][lib] for part in parts}
+            row["dataio_launches_by_path"] = {
+                part: dataio_launches[part].by_path[lib] for part in parts}
         if name == "topk_lse_readout":
             # the spec phase's full arm: one launch a table step, its wide
             # steps at N = 320

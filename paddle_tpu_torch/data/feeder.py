@@ -15,8 +15,9 @@ stream from pinned host memory; the consumer's stream waits on the
 batch's event, and ``record_stream`` tells the caching allocator that the
 consumer's stream uses the batch.
 
-Not ported here: the native C++ pad core (``data/native.py``) waits for
-ROADMAP.md Queue 1 item 4: the Python loop below gives the same arrays.
+An ``ids_seq`` column is padded by the native C++ core
+(``data/native.py``, ``ptd_pad_batch_i32``) when its library loads, else by
+the Python loop beside it; both give the same arrays.
 """
 
 from __future__ import annotations
@@ -467,6 +468,16 @@ class DataFeeder:
         note_padding(int(lengths.sum()), len(col) * T, T,
                      waste=self.pad_waste)
         if kind == "ids_seq":
+            from paddle_tpu_torch.data import native
+
+            if native.native_available():
+                # the C++ pad core: the per-batch Python loop is host time
+                # taken from the input pipeline; only rows past the max_len
+                # cap are cut (the core clips at T, which may exceed it)
+                out, _ = native.pad_batch_i32(
+                    [s if len(s) <= L else s[:L]
+                     for s, L in zip(col, lengths.tolist())], T)
+                return out, lengths
             out = np.zeros((len(col), T), np.int32)
             for i, s in enumerate(col):
                 s = list(s)[: lengths[i]]

@@ -25,7 +25,8 @@ from paddle_tpu_torch.param.optimizers import Adam
 
 
 def make_batches(dict_size, n, batch_size, max_src=32, max_trg=33):
-    """Bucket-pad synthetic wmt14 rows into fixed-shape batches."""
+    """Bucket-pad wmt14 rows (the real files under the data home when
+    present, else the synthetic stream) into fixed-shape batches."""
     reader = data.datasets.wmt14("train", dict_size=dict_size, n=n)
     rows = list(reader())
     batches = []

@@ -176,6 +176,7 @@ class InferenceServer:
             threshold=breaker_threshold, cooldown_s=breaker_cooldown_s,
             probes_to_close=breaker_probes, clock=clock)
         self._scheduler = None
+        self._feeder = None   # attach_feeder(): healthz surfaces its drops
         if mode == "generation":
             from paddle_tpu_torch.serving.slots import SlotScheduler
 
@@ -959,6 +960,13 @@ class InferenceServer:
     # health surface
     # ------------------------------------------------------------------
 
+    def attach_feeder(self, feeder) -> None:
+        """Register the ``DataFeeder`` that converts raw rows for this
+        server, so ``healthz()`` reports its ``dropped_features`` counter:
+        sparse-bag truncation (the max_len/max_nnz caps) is silent data
+        loss otherwise."""
+        self._feeder = feeder
+
     def healthz(self) -> dict:
         # the supervisor owns the relaunch count — mirror it into the
         # registry view FIRST so healthz, /metrics, and worker.restarts
@@ -996,6 +1004,9 @@ class InferenceServer:
             },
             **snap,
         }
+        if self._feeder is not None:
+            out["dropped_features"] = int(
+                getattr(self._feeder, "dropped_features", 0))
         info = self._model_info
         if info is not None:
             tct = info.get("train_commit_time")

@@ -46,7 +46,8 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
                 "__main__.py", "trainer/trainer.py", "trainer/checkgrad.py",
                 "param/hooks.py", "resilience/checkpoint_io.py",
                 "resilience/guard.py", "data/feeder.py", "data/reader.py",
-                "data/datasets.py", "evaluators/evaluators.py",
+                "data/datasets.py", "data/native.py", "data/formats.py",
+                "data/provider.py", "evaluators/evaluators.py",
                 "utils/registry.py", "ops/conv.py", "ops/misc.py",
                 "nn/layers_extra.py", "nn/layers_extra2.py",
                 "models/vision.py", "models/image_bench.py",

@@ -400,6 +400,35 @@ def test_healthz_key_set_matches_the_jax_server_in_bucket_mode():
         assert hz["counters"] == hz_ref["counters"]
 
 
+def test_serving_healthz_surfaces_feeder_drops():
+    """tests/test_pserver.py::test_serving_healthz_surfaces_feeder_drops
+    (no mesh on either side): ``attach_feeder`` puts the feeder's
+    ``dropped_features`` counter into ``healthz()``, under the key the JAX
+    server uses."""
+    from paddle_tpu.data.feeder import DataFeeder as JaxFeeder
+
+    from paddle_tpu_torch.data.feeder import DataFeeder
+
+    def fwd(feed):
+        return {"out": feed["x"]}
+
+    with InferenceServer(fwd, max_batch=2) as srv, \
+            jax_serving.InferenceServer(fwd, max_batch=2) as ref:
+        assert "dropped_features" not in srv.healthz()
+        feeder = DataFeeder({"x": "dense"}, {"x": 0}, max_nnz=2)
+        srv.attach_feeder(feeder)
+        ref.attach_feeder(JaxFeeder({"x": "dense"}, {"x": 0}, max_nnz=2))
+        feeder.dropped_features = 3
+        h = srv.healthz()
+        assert h["dropped_features"] == 3
+        assert _flatten_keys(h) == _flatten_keys(ref.healthz())
+        # a real truncation: one bag past max_nnz drops its tail
+        seq = DataFeeder({"s": "sparse_ids_seq"}, max_nnz=2)
+        srv.attach_feeder(seq)
+        seq([([[1, 2, 3, 4], [5]],)])
+        assert srv.healthz()["dropped_features"] == 2
+
+
 def test_healthz_key_set_matches_the_jax_server_in_generation_mode(rng):
     """Generation mode over the two toy LMs of the server tests: the same
     keys, nested keys included (the ``slots`` block too), and the same
