@@ -3,7 +3,8 @@
 
     python3 chip_probe.py [chunks] [profile] [textclf] [dslgen] [k8plans]
                           [k8variants] [variants] [vision] [text] [sparse]
-                          [seqdata] [frontdoor] [dataio] [build]
+                          [seqdata] [frontdoor] [dataio] [delivery]
+                          [build]
                           (all if none named)
 
 Needs one CUDA card and the checkout beside it.  It checks nothing that
@@ -87,6 +88,10 @@ dataio   ``chip_smoke.py``'s phase 19 (the provider-fed textclf training
          most device time), and the feeder's host ms a batch of 64 imdb
          rows (max_len 100) through the native pad core and through the
          Python loop, in turns (native, loop, loop, native);
+delivery ``chip_smoke.py``'s phase 20 (train, scrub and publish; hot
+         reload under closed-loop load; the warm boot from the publish
+         dir's compile cache in fresh processes; the fleet, its tenants, a
+         killed canary and the router) alone;
 build    cold builds of the kernel libraries into a scratch directory:
          each source alone, one ``nvcc`` at a time, then all at once as
          ``build_all`` starts them (the smoke run's build time).
@@ -964,6 +969,13 @@ def probe_dataio(dev):
         shutil.rmtree(home, ignore_errors=True)
 
 
+def probe_delivery(dev):
+    """``chip_smoke.py``'s phase 20 alone."""
+    from paddle_tpu_torch.ops import kernels as K
+
+    smoke.delivery_path(K, dev, smoke.card_line())
+
+
 def main() -> int:
     import torch
 
@@ -979,7 +991,8 @@ def main() -> int:
               "variants": probe_variants, "vision": probe_vision,
               "text": probe_text, "sparse": probe_sparse,
               "seqdata": probe_seqdata, "frontdoor": probe_frontdoor,
-              "dataio": probe_dataio, "build": probe_build}
+              "dataio": probe_dataio, "delivery": probe_delivery,
+              "build": probe_build}
     wanted = sys.argv[1:] or list(probes)
     unknown = set(wanted) - set(probes)
     if unknown:

@@ -324,7 +324,38 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             its first batch the written pairs); (c) a ``{"dataio_launches":
             {...}}`` line by part, kernel and path, and the phase's
             seconds;
-20. a ``{"server_launches": {...}}`` line (each part of the server
+20. delivery continuous delivery at lstm_b64h256 (bf16), every step
+            journaled (``--obs_journal``): (a) ``SGDTrainer.train`` 2
+            passes with ``--save_dir``, ``--scrub_every_s`` and
+            ``--publish_every=1`` (versions 1 and 2, each primed into the
+            publish dir's compile cache; K9r and K10 twice a step, K9 twice
+            a bucket of each publish's warm step, nothing else), a pass
+            not yet verified refused as ``pass_not_verified``, an int8
+            publish through its gate; (b) a bucket-mode ``InferenceServer``
+            booted from v1 (``load_published``, the publish dir's cache),
+            8 closed-loop client threads over 192 requests (1-4 rows,
+            lengths 20-100) while the ``HotSwapManager`` swaps in v2 and
+            v3 (published during the load): zero dropped, failed or
+            stranded, each reply bit-equal to the solo ``infer`` of the
+            version that answered it, K9 twice a batch from the worker
+            (persistent) and twice a bucket of each warm step, requests/s
+            and p50/p99 with and without reloads, each swap's ms and the
+            publish's seconds; a ``corrupt_publish`` v4 skipped, a
+            NaN-poisoned v5 rolled back within probation; (c) ``serve
+            --serve_watch --serve_smoke`` in fresh processes from a copy of
+            the package with an empty ``_build/``: warm from the publish
+            dir's cache (zero ``nvcc`` runs, each loaded library's smoke
+            call passed), cold, and with the cache's entry corrupted (a
+            logged miss and a rebuild), served rows equal to the in-process
+            v3 rows, ready seconds side by side; (d) a ``ModelFleet`` over
+            the f32 and int8 bundles with two tenants (``tenant_flood`` and
+            ``poison_tenant`` leave the other's replies bit-equal with zero
+            errors), a 10% canary killed by ``kill_canary(mode="nan")``
+            rolled back with zero drops, a ``FleetRouter`` failing over a
+            drained server, ``serve --serve_fleet --serve_smoke=16`` in a
+            fresh process; (e) a ``{"delivery_launches": {...}}`` line and
+            the phase's seconds;
+21. a ``{"server_launches": {...}}`` line (each part of the server
    phase: every kernel library's launches, by kernel variant and by
    thread), a ``{"kernels": [...]}`` line (each kernel's launches on its
    path's run, also by kernel variant: ``launches_by_path``; the K9,
@@ -334,7 +365,8 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
    by sparse part: ``sparse_launches``, and by seqdata part:
    ``seqdata_launches``; the rows phase 16 reaches also by its part:
    ``mixed_launches``, phase 17's: ``deploy_launches``, phase 18's:
-   ``frontdoor_launches``, and phase 19's: ``dataio_launches``), then
+   ``frontdoor_launches``, phase 19's: ``dataio_launches``, and phase
+   20's: ``delivery_launches``), then
    the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -342,7 +374,7 @@ Launch counters are zeroed just before each path (serve and its fused
 re-run, each part of the server phase, each arm of the spec phase, each
 training configuration, each textclf run, dslgen, each part of the
 trainer phase, the vision phase, each part of the text, sparse,
-seqdata, mixed, deploy, frontdoor and dataio phases) is driven
+seqdata, mixed, deploy, frontdoor, dataio and delivery phases) is driven
 and read just after; a kernel of the path
 that was not launched fails the run.  ``chip_probe.py`` measures what this
 run leaves out to stay short (the products' chunk sizes end to end,
@@ -7210,6 +7242,754 @@ def dataio_path(K, dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: continuous delivery — train, scrub and publish, hot reload under
+# load, a warm boot from the publish dir's compile cache, the fleet
+# ---------------------------------------------------------------------------
+
+#: part (a): batches a pass of the trainer's 2 passes (B=64, T=100); the
+#: serving bucket bound; part (b): the pool of distinct requests (1-4 rows,
+#: lengths 20-100), closed-loop client threads (each sends at least
+#: DELIVERY_POOL / DELIVERY_CLIENTS and keeps going until the reloads are
+#: done), the probation window in requests; part (c): the CLI smoke's
+#: request count; part (d): the victim tenant's requests, the canary's
+#: share and the requests it is given; the card-vs-CPU tolerance
+DELIVERY_PASS_BATCHES, DELIVERY_MAX_BATCH = 3, 8
+DELIVERY_POOL, DELIVERY_CLIENTS, DELIVERY_PROBATION = 192, 8, 16
+DELIVERY_SMOKE, DELIVERY_FLEET_SMOKE = 8, 16
+DELIVERY_VICTIM, DELIVERY_CANARY_PCT, DELIVERY_CANARY_N = 24, 10.0, 200
+TOL_DELIVERY_CPU = 2e-3
+#: the kernels line's rows that phase 20's parts launch, and their library
+DELIVERY_ROWS = {
+    "lstm_forward": ("lstm_forward", ("reload", "fleet")),
+    f"lstm_forward_residuals_b{TEXTCLF_B}h256": ("lstm_forward", ("train",)),
+    f"lstm_backward_b{TEXTCLF_B}h256": ("lstm_backward", ("train",)),
+}
+
+
+@contextlib.contextmanager
+def flags_set(**values):
+    """``FLAGS`` fields set inside the block, restored after it."""
+    from paddle_tpu_torch.utils.flags import FLAGS
+
+    old = {k: getattr(FLAGS, k) for k in values}
+    for k, v in values.items():
+        setattr(FLAGS, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(FLAGS, k, v)
+
+
+def _pct(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else float("nan")
+
+
+def delivery_train(K, dev, card, root):
+    """Part (a): ``lstm_benchmark_net`` at lstm_b64h256 (bf16) trained 2
+    passes by ``SGDTrainer.train`` with ``--save_dir``, ``--scrub_every_s``
+    and ``--publish_every=1`` (versions 1 and 2, each primed into the
+    publish dir's compile cache); one more step saved as pass 2 and a
+    NaN-poisoned copy as pass 3 for part (b); a pass the scrubber has not
+    verified refused typed; an int8 and an f32 bundle of the inference
+    graph published into a fleet root for part (d).  -> (trainer, logits
+    layer, paths, launches)."""
+    import json as _json
+    import zipfile
+
+    import torch
+
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.models import lstm_benchmark_net
+    from paddle_tpu_torch.param import Adam
+    from paddle_tpu_torch.publish import (PublishRefused, latest_version,
+                                          model_publish_dir,
+                                          publish_from_checkpoints,
+                                          read_version_manifest,
+                                          version_dir)
+    from paddle_tpu_torch.resilience.integrity import scrub_paths
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    save, pub = os.path.join(root, "ckpt"), os.path.join(root, "pub")
+    fleet_root = os.path.join(root, "fleet")
+    nn.reset_naming()
+    cost, logits = lstm_benchmark_net(TEXTCLF_VOCAB, emb_dim=TEXTCLF_EMB,
+                                      hid_dim=256,
+                                      num_layers=TEXTCLF_LAYERS)
+    tr = SGDTrainer(cost, Adam(learning_rate=1e-3), seed=SEED, device=dev)
+    feeds = [textclf_feed(TEXTCLF_B, TEXTCLF_T, SEED + 100 + i)
+             for i in range(DELIVERY_PASS_BATCHES)]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with flags_set(save_dir=save, publish_dir=pub, publish_every=1,
+                   scrub_every_s=3600.0, saving_period=1):
+        tr.train(lambda: iter(feeds), num_passes=2)
+    train_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    steps = 2 * DELIVERY_PASS_BATCHES
+    # K9r and K10 twice a step; each publish's warm step runs K9 (twice a
+    # batch bucket: 1, 2, 4, 8) on the inference path of the new bundle
+    warm = 2 * 4 * 2
+    _launch_check("delivery", "train", launches,
+                  {"lstm_forward": 2 * steps + warm,
+                   "lstm_backward": 2 * steps})
+    manifests = [read_version_manifest(version_dir(pub, v)) for v in (1, 2)]
+    with open(os.path.join(save, "scrub.json")) as f:
+        tip = _json.load(f)["latest_verified_pass"]
+    print(f"delivery: lstm_b{TEXTCLF_B}h256 SGDTrainer.train 2 passes of "
+          f"{DELIVERY_PASS_BATCHES} steps with --publish_every=1 and the "
+          f"scrubber in {train_s:.2f} s; versions {latest_version(pub)} "
+          f"from passes {[m['pass_id'] for m in manifests]}, scrub tip "
+          f"{tip}; launches {dict((n, c) for n, c in launches.items() if c)}"
+          f" by path {_launched(launches)} [{card}]", flush=True)
+    if (latest_version(pub) != 2 or [m["pass_id"] for m in manifests]
+            != [0, 1] or tip != 1):
+        fail("delivery", f"publish_every: versions {latest_version(pub)}, "
+             f"manifests {manifests}, scrub tip {tip}")
+    # the checkpoints part (b) publishes: one more step (pass 2, v3) and a
+    # NaN-poisoned copy of it (pass 3)
+    tr.train_batch(textclf_feed(TEXTCLF_B, TEXTCLF_T, SEED + 200))
+    tr.save(save, 2)
+    good = tr.params
+    tr.params = {k: torch.full_like(v, float("nan")) for k, v in good.items()}
+    tr.save(save, 3)
+    tr.params = good
+    with open(os.path.join(save, "scrub.json"), "w") as f:
+        _json.dump({"latest_verified_pass": 1, "passes": {}}, f)
+    refused = None
+    try:
+        publish_from_checkpoints(pub, tr.topology, save, pass_id=2,
+                                 device=dev)
+        fail("delivery", "an unverified pass was published")
+    except PublishRefused as e:
+        refused = e.reason
+        if e.reason != "pass_not_verified":
+            fail("delivery", f"unverified pass refused as {e.reason!r}")
+    report = scrub_paths([save], quarantine=True)
+    infer_topo = nn.Topology(logits, device=dev)
+    t0 = time.perf_counter()
+    times = {}
+    q8 = publish_from_checkpoints(model_publish_dir(fleet_root,
+                                                    "textclf_int8"),
+                                  infer_topo, save, pass_id=1,
+                                  quantize="int8", device=dev,
+                                  timings=times)
+    int8_s = time.perf_counter() - t0
+    f32 = publish_from_checkpoints(model_publish_dir(fleet_root, "textclf"),
+                                   infer_topo, save, pass_id=1, device=dev)
+    with zipfile.ZipFile(os.path.join(q8, "model.ptz")) as z:
+        gate = _json.loads(z.read("manifest.json"))["quantize"]
+    print(f"delivery: pass 2 before its scrub refused as {refused!r}; scrub "
+          f"checked {report.checked}, tip {report.latest_verified}; int8 "
+          f"publish of the inference graph in {int8_s:.2f} s (merge "
+          f"{times['merge_s']:.2f}, load {times['load_s']:.2f}, warm "
+          f"{times['warm_s']:.2f}), gate max_abs_err {gate['max_abs_err']} "
+          f"<= tol {gate['tol']} [{card}]", flush=True)
+    if report.latest_verified.get(save) != 3 or not (
+            0 < gate["max_abs_err"] <= gate["tol"]):
+        fail("delivery", f"scrub {report.latest_verified}, int8 gate {gate}")
+    return tr, logits, {"save": save, "pub": pub, "fleet": fleet_root,
+                        "f32": f32, "int8": q8}, launches
+
+
+def _closed_loop(srv, pool, stop=None):
+    """DELIVERY_CLIENTS threads, each sending its share of ``pool`` in turn
+    (client c takes requests c, c + n, ...) closed loop, and going on round
+    its share until ``stop`` is set.  -> (records (client, index, submit,
+    reply time, reply or exception), wall seconds)."""
+    import threading
+
+    records, lock = [], threading.Lock()
+
+    def client(c):
+        mine = list(range(c, len(pool), DELIVERY_CLIENTS))
+        k = 0
+        while k < len(mine) or (stop is not None and not stop.is_set()):
+            i = mine[k % len(mine)]
+            t0 = time.perf_counter()
+            try:
+                out = srv.submit(pool[i]).result(120)
+            except Exception as e:  # noqa: BLE001 — counted as a failure
+                out = e
+            with lock:
+                records.append((c, i, t0, time.perf_counter(), out))
+            k += 1
+
+    threads = [threading.Thread(target=client, args=(c,),
+                                name=f"delivery-client-{c}", daemon=True)
+               for c in range(DELIVERY_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    return threads, records, t0
+
+
+def delivery_reload(K, dev, card, tr, logits, paths):
+    """Part (b): a bucket-mode ``InferenceServer`` booted from v1 through
+    ``load_published`` with the publish dir's compile cache; closed-loop
+    clients over DELIVERY_POOL requests while the ``HotSwapManager`` swaps
+    in v2 and then v3, published from pass 2 during the load; every reply
+    bit-equal to one version's solo ``infer``, versions moving forward per
+    client, nothing dropped, failed or stranded; the same requests again
+    without reloads; then a corrupt v4 skipped and a NaN-poisoned v5
+    rolled back within probation.  -> launches of the loaded window."""
+    import threading
+
+    import numpy as np
+
+    from paddle_tpu_torch.config import load_inference_model
+    from paddle_tpu_torch.publish import (publish_cache_dir,
+                                          publish_from_checkpoints,
+                                          version_dir)
+    from paddle_tpu_torch.resilience import chaos
+    from paddle_tpu_torch.serving import (InferenceFailed, InferenceServer,
+                                          HotSwapManager, load_published)
+
+    pub, save = paths["pub"], paths["save"]
+    pool = deploy_requests(SEED + 300)[:DELIVERY_POOL]
+    while len(pool) < DELIVERY_POOL:
+        pool += deploy_requests(SEED + 301 + len(pool))
+    pool = pool[:DELIVERY_POOL]
+    name = logits.name
+    dev_arg = None if dev.type == "cuda" else dev
+    model, info, v = load_published(pub, max_version=1, device=dev_arg)
+    warm = [{"words": (np.full((1, t), 3, np.int32),
+                       np.asarray([t], np.int32))}
+            for t in (DEPLOY_LEN[0], 64, DEPLOY_LEN[1])]
+    srv = InferenceServer(model, outputs=[name],
+                          max_batch=DELIVERY_MAX_BATCH, batch_delay_ms=2.0,
+                          max_queue=4 * DELIVERY_POOL,
+                          default_deadline_ms=0.0)
+    t0 = time.perf_counter()
+    srv.start(warmup_feed=warm, compile_cache=publish_cache_dir(pub))
+    boot_s = time.perf_counter() - t0
+    mgr = HotSwapManager(srv, pub, probation_requests=DELIVERY_PROBATION)
+    mgr.attach_current(v, info)
+    stop = threading.Event()
+    try:
+        hz0 = srv.healthz()
+        K.reset_launch_counts()
+        threads, records, t_start = _closed_loop(srv, pool, stop)
+        swaps, times = [], {}
+
+        def settle(version):
+            deadline = time.perf_counter() + 120
+            while time.perf_counter() < deadline:
+                act = mgr.poll()
+                if act and act["action"] == "swapped":
+                    swaps.append(act)
+                if mgr.current_version == version and not mgr.in_probation:
+                    return
+                time.sleep(0.002)
+            fail("delivery", f"v{version} not committed (at "
+                 f"v{mgr.current_version}, rejected {mgr.rejected})")
+
+        settle(2)
+        t_publish = time.perf_counter()
+        publish_from_checkpoints(pub, tr.topology, save, pass_id=2,
+                                 device=dev, timings=times)
+        publish_s = time.perf_counter() - t_publish
+        settle(3)
+        stop.set()
+        for t in threads:
+            t.join(300)
+        wall = time.perf_counter() - t_start
+        launches = K.launch_counts()
+        hz1 = srv.healthz()
+        # each version's solo replies on the pool
+        solo = {}
+        for ver in (1, 2, 3):
+            m = load_inference_model(
+                os.path.join(version_dir(pub, ver), "model.ptz"),
+                device=dev_arg)
+            solo[ver] = [m.infer(f, outputs=[name])[name] for f in pool]
+            del m
+        errors = [r for r in records if isinstance(r[4], Exception)]
+        answered, unmatched, backwards = {}, [], 0
+        last = {}
+        for c, i, ts, te, out in sorted(records, key=lambda r: r[2]):
+            if isinstance(out, Exception):
+                continue
+            ks = [ver for ver in (1, 2, 3)
+                  if np.array_equal(out[name], solo[ver][i])]
+            if len(ks) != 1:
+                unmatched.append((c, i, ks))
+                continue
+            answered[ks[0]] = answered.get(ks[0], 0) + 1
+            backwards += ks[0] < last.get(c, 0)
+            last[c] = ks[0]
+        lat = [(te - ts) * 1e3 for _, _, ts, te, _ in records]
+        batches = hz1["counters"]["batches"] - hz0["counters"]["batches"]
+        threads_by = launches.by_thread.get("lstm_forward", {})
+        worker = sum(n for t, n in threads_by.items()
+                     if t.startswith("serving-worker-"))
+        primes = sum(a["prime"]["compiled"] + a["prime"]["hits"]
+                     for a in swaps)
+        others = sum(n for t, n in threads_by.items()
+                     if not t.startswith("serving-worker-"))
+        print(f"delivery: reload under load: {len(records)} requests from "
+              f"{DELIVERY_CLIENTS} closed-loop clients over a pool of "
+              f"{len(pool)} (1-4 rows, lengths {DEPLOY_LEN}) in "
+              f"{wall:.3f} s: {len(records) / wall:.1f} requests/s, p50 "
+              f"{_pct(lat, 0.5):.2f} ms p99 {_pct(lat, 0.99):.2f} ms; boot "
+              f"from v1 {boot_s:.2f} s (cache hits "
+              f"{hz0['cold_start']['compile_cache_hits']}, misses "
+              f"{hz0['cold_start']['compile_cache_misses']}); swaps "
+              f"{[(a['version'], round(a['swap_s'] * 1e3, 2)) for a in swaps]}"
+              f" (version, ms: load + warm + swap); v3 published during the "
+              f"load in {publish_s:.2f} s (merge {times['merge_s']:.2f}, "
+              f"gate reload {times['load_s']:.2f}, warm "
+              f"{times['warm_s']:.2f}); answers by version {answered}; "
+              f"errors {len(errors)}; unmatched {len(unmatched)}; "
+              f"backwards {backwards}; K9 launches by path "
+              f"{launches.by_path.get('lstm_forward')} by thread "
+              f"{threads_by} ({batches} batches) [{card}]", flush=True)
+        if (errors or unmatched or backwards or len(records) < DELIVERY_POOL
+                or sorted(answered) != [1, 2, 3] or len(swaps) != 2
+                or hz1["counters"]["shed"]
+                or hz1["counters"]["compile_cache_misses"]
+                != hz0["counters"]["compile_cache_misses"]):
+            fail("delivery", f"reload under load: errors {errors[:3]}, "
+                 f"unmatched {unmatched[:5]}, answered {answered}, swaps "
+                 f"{swaps}, counters {hz1['counters']}")
+        if dev.type == "cuda" and (
+                launches.by_path.get("lstm_forward")
+                != {"persistent": launches["lstm_forward"]}
+                or launches["lstm_backward"] or worker != 2 * batches
+                or others != 2 * (4 + primes)):
+            fail("delivery", f"reload launches {dict(launches)} by path "
+                 f"{launches.by_path} by thread {threads_by}, want K9 "
+                 f"{2 * batches} from the worker (2 a batch) and "
+                 f"{2 * (4 + primes)} warm-step launches, all persistent")
+        # the same requests again, no reload in flight
+        h0 = srv.healthz()["counters"]["batches"]
+        threads, quiet, t_q = _closed_loop(srv, pool)
+        for t in threads:
+            t.join(300)
+        wall_q = time.perf_counter() - t_q
+        lat_q = [(te - ts) * 1e3 for _, _, ts, te, _ in quiet]
+        bad_q = [r for r in quiet if isinstance(r[4], Exception)
+                 or not np.array_equal(r[4][name], solo[3][r[1]])]
+        print(f"delivery: the same {len(quiet)} requests without reloads "
+              f"(v3): {len(quiet) / wall_q:.1f} requests/s, p50 "
+              f"{_pct(lat_q, 0.5):.2f} ms p99 {_pct(lat_q, 0.99):.2f} ms, "
+              f"{srv.healthz()['counters']['batches'] - h0} batches; "
+              f"replies unequal to v3's solo infer {len(bad_q)} [{card}]",
+              flush=True)
+        if bad_q:
+            fail("delivery", f"{len(bad_q)} replies without reloads differ "
+                 f"from v3's solo infer")
+        # a corrupt v4 is skipped; v3 keeps serving
+        publish_from_checkpoints(pub, tr.topology, save, pass_id=2,
+                                 device=dev)
+        chaos.corrupt_publish(pub)
+        act = mgr.poll()
+        out = srv.submit(pool[0]).result(60)[name]
+        ok4 = (act is None and 4 in mgr.rejected and mgr.current_version == 3
+               and np.array_equal(out, solo[3][0]))
+        # a NaN-poisoned v5 (pass 3) rolls back within probation
+        publish_from_checkpoints(pub, tr.topology, save, pass_id=3,
+                                 device=dev)
+        act5 = mgr.poll()
+        failed, rolled = 0, None
+        for i in range(DELIVERY_PROBATION):
+            err = srv.submit(pool[i]).error(60)
+            failed += isinstance(err, InferenceFailed)
+            rolled = mgr.tick()
+            if rolled is not None:
+                break
+        out = srv.submit(pool[1]).result(60)[name]
+        print(f"delivery: corrupt v4 skipped {ok4} ({mgr.rejected.get(4)!r})"
+              f"; NaN v5 {act5 and act5['action']}, {failed} typed failures "
+              f"before {rolled}; v3 serving again and equal to its solo "
+              f"infer {np.array_equal(out, solo[3][1])} [{card}]",
+              flush=True)
+        if not ok4 or not rolled or rolled["signal"] != \
+                "error_rate_regression" or rolled["rolled_back_to"] != 3 \
+                or not np.array_equal(out, solo[3][1]):
+            fail("delivery", f"corrupt v4 {ok4}, NaN v5 {act5} -> "
+                 f"{rolled}")
+        # the served bundle on the card against the same bundle on the CPU
+        cpu = load_inference_model(
+            os.path.join(version_dir(pub, 3), "model.ptz"), device="cpu")
+        worst = max(float(np.abs(solo[3][i] - cpu.infer(
+            pool[i], outputs=[name])[name]).max() / np.abs(cpu.infer(
+                pool[i], outputs=[name])[name]).max()) for i in range(2))
+        print(f"delivery: v3 served on the card vs the same bundle on the "
+              f"CPU, 2 requests: max |diff| / max |CPU| {worst:.3e} (tol "
+              f"{TOL_DELIVERY_CPU}) [{card}]", flush=True)
+        if not worst <= TOL_DELIVERY_CPU:
+            fail("delivery", f"card and CPU disagree: {worst}")
+        return launches
+    finally:
+        stop.set()      # a failed check must not leave clients looping
+        srv.close()
+
+
+def _package_copy(dest: str) -> str:
+    """A copy of the port's package with no ``_build/`` (what a fresh
+    checkout holds); -> the directory to run it from."""
+    import shutil
+
+    shutil.copytree(os.path.join(ROOT, "paddle_tpu_torch"),
+                    os.path.join(dest, "paddle_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    return dest
+
+
+def _serve_child(args, cwd: str, what: str, min_lines: int = 2):
+    """``python -m paddle_tpu_torch serve ...`` from ``cwd`` in a fresh
+    process -> (JSON lines, seconds to the first line starting
+    ``{"ready"``, stderr)."""
+    env = dict(os.environ, PYTHONPATH=cwd)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "paddle_tpu_torch",
+                             "serve", *args], cwd=cwd, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    first, ready_s = "", None
+    try:
+        while ready_s is None:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            first += line
+            if line.startswith('{"ready"'):
+                ready_s = time.perf_counter() - t0
+        rest, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines = [json.loads(l) for l in (first + rest).splitlines()
+             if l.startswith("{")]
+    if proc.returncode != 0 or ready_s is None or len(lines) < min_lines:
+        fail("delivery", f"{what}: exit {proc.returncode}, stdout "
+             f"{(first + rest)[-1500:]!r}, stderr {err[-3000:]!r}")
+        return lines, ready_s, err
+    return lines, ready_s, err
+
+
+def delivery_warm_boot(K, dev, card, paths, root):
+    """Part (c): v1-v3 and the shared cache copied into a fresh publish
+    dir; ``serve --serve_watch --serve_smoke`` in fresh processes from a
+    copy of the package with an empty ``_build/``: warm (the cache: zero
+    ``nvcc`` runs, each loaded library's smoke call passed), cold (no
+    cache) and with the cache's K9 entry corrupted (a logged miss and a
+    rebuild); the served rows equal v3's in-process rows each time."""
+    import shutil
+
+    import numpy as np
+
+    from paddle_tpu_torch.config import load_inference_model
+    from paddle_tpu_torch.publish import version_dir
+    from paddle_tpu_torch.resilience import chaos
+    from paddle_tpu_torch.serving.feeds import example_feed
+
+    pub3 = os.path.join(root, "pub3")
+    os.makedirs(pub3)
+    for v in (1, 2, 3):
+        shutil.copytree(version_dir(paths["pub"], v), version_dir(pub3, v))
+    shutil.copytree(os.path.join(paths["pub"], "ccache"),
+                    os.path.join(pub3, "ccache"))
+    broken = os.path.join(root, "ccache-broken")
+    shutil.copytree(os.path.join(pub3, "ccache"), broken)
+    m = load_inference_model(os.path.join(version_dir(pub3, 3), "model.ptz"),
+                             device=None if dev.type == "cuda" else dev)
+    want = m.infer(example_feed(m.topology))
+    del m
+    base = [f"--device={dev.type}", "--serve_watch",
+            f"--serve_smoke={DELIVERY_SMOKE}", f"--publish_dir={pub3}",
+            "--serve_deadline_ms=60000",
+            f"--serve_max_batch={DELIVERY_MAX_BATCH}"]
+    runs = {}
+    for what, cache in (("warm", os.path.join(pub3, "ccache")),
+                        ("cold", ""), ("corrupt", broken)):
+        cwd = _package_copy(os.path.join(root, f"copy-{what}"))
+        if what == "corrupt":
+            chaos.corrupt_compile_cache(broken)
+        lines, ready_s, err = _serve_child(
+            base + [f"--compile_cache_dir={cache}"], cwd, what)
+        if not lines:
+            continue
+        last = lines[-1]
+        libs = last.get("compile_cache", {}).get("libraries", {})
+        rows_equal = all(
+            np.array_equal(np.asarray(last["smoke_outputs"][k], v.dtype), v)
+            for k, v in want.items()) if last.get("smoke_outputs") else False
+        runs[what] = {"ready_s": ready_s, "libs": libs,
+                      "rows_equal": rows_equal,
+                      "logged_miss": "CRC mismatch" in err,
+                      "launches": last.get("launches"),
+                      "completed": last["counters"]["completed"],
+                      "version": (last.get("model") or {}).get("version")}
+    for what, r in runs.items():
+        nvcc = sum(v["builds"] for n, v in r["libs"].items()
+                   if n != "dataio")
+        print(f"delivery: serve --serve_watch --serve_smoke="
+              f"{DELIVERY_SMOKE} {what} boot from a package copy with an "
+              f"empty _build: ready in {r['ready_s']:.2f} s; nvcc runs "
+              f"{nvcc}; libraries {json.dumps(r['libs'])}; served v"
+              f"{r['version']}, {r['completed']} completed, rows equal to "
+              f"the in-process v3 rows {r['rows_equal']}; logged cache miss "
+              f"{r['logged_miss']}; launches after the ready line "
+              f"{json.dumps(r['launches'])} [{card}]", flush=True)
+    if set(runs) != {"warm", "cold", "corrupt"}:
+        return
+    warm_libs, cold_libs = runs["warm"]["libs"], runs["cold"]["libs"]
+    bad_smoke = [n for n, v in warm_libs.items()
+                 if v["origin"] == "cache" and not v["smoke"]]
+    problems = []
+    if not all(r["rows_equal"] and r["version"] == 3
+               for r in runs.values()):
+        problems.append("a boot's rows or version differ")
+    if dev.type == "cuda":
+        if (sum(v["builds"] for v in warm_libs.values())
+                or warm_libs.get("lstm_forward", {}).get("origin")
+                != "cache" or bad_smoke):
+            problems.append(f"warm boot libraries {warm_libs}")
+        if cold_libs.get("lstm_forward", {}).get("builds") != 1:
+            problems.append(f"cold boot libraries {cold_libs}")
+        c = runs["corrupt"]
+        if not c["logged_miss"] or c["libs"].get(
+                "lstm_forward", {}).get("builds") != 1:
+            problems.append(f"corrupt entry: logged {c['logged_miss']}, "
+                            f"libraries {c['libs']}")
+        k9 = (runs["warm"]["launches"] or {}).get("by_path", {}).get(
+            "lstm_forward")
+        if not k9 or set(k9) != {"persistent"}:
+            problems.append(f"warm boot launches {runs['warm']['launches']}")
+    if problems:
+        fail("delivery", f"warm boot: {problems}")
+
+
+def delivery_fleet(K, dev, card, paths, logits):
+    """Part (d): a ``ModelFleet`` over the f32 and int8 bundles of the fleet
+    root with two tenants; ``tenant_flood`` and ``poison_tenant`` on one
+    leave the other's replies bit-equal to its solo run with zero errors;
+    a 10% canary (v2 of the f32 model, from pass 2) killed with
+    ``kill_canary(mode="nan")`` rolls back with zero dropped requests and
+    the incumbent never failing; a ``FleetRouter`` over this fleet and a
+    second one fails a tenant over when its home is drained; ``serve
+    --serve_fleet --serve_smoke`` in a fresh process.  -> launches."""
+    import numpy as np
+
+    from paddle_tpu_torch.publish import (model_publish_dir,
+                                          publish_cache_dir,
+                                          publish_from_checkpoints)
+    from paddle_tpu_torch.resilience import chaos
+    from paddle_tpu_torch.serving import (FleetRouter, InferenceFailed,
+                                          ModelFleet, TenantSpec,
+                                          canary_arm, load_published,
+                                          rendezvous_rank)
+    import paddle_tpu_torch.nn as nn
+
+    name = logits.name
+    dev_arg = None if dev.type == "cuda" else dev
+    opts = dict(outputs=[name], max_batch=DELIVERY_MAX_BATCH,
+                batch_delay_ms=1.0, max_queue=256, default_deadline_ms=0.0)
+    tenants = [TenantSpec("gold", weight=3.0, rate=1e6, burst=1e6),
+               TenantSpec("free", weight=1.0, rate=2.0, burst=4.0)]
+    root = paths["fleet"]
+    pool = deploy_requests(SEED + 400)[:DELIVERY_VICTIM]
+    K.reset_launch_counts()
+    fleet = ModelFleet(tenants=tenants, probation_requests=10_000,
+                       min_probation_samples=2)
+    other = ModelFleet(tenants=tenants)
+    try:
+        for m in ("textclf", "textclf_int8"):
+            fleet.load_published_model(root, m, device=dev_arg,
+                                       server_opts=opts)
+        other.load_published_model(root, "textclf_int8", device=dev_arg,
+                                   server_opts=opts)
+
+        def victim():
+            return [fleet.infer(f, model="textclf", tenant="gold",
+                                request_key=f"v{i}", timeout=60)[name]
+                    for i, f in enumerate(pool)]
+
+        solo = victim()
+        restore = chaos.poison_tenant(fleet, "free")
+        try:
+            flood = chaos.tenant_flood(fleet, pool[0], tenant="free",
+                                       model="textclf_int8")
+            chaos_out = victim()
+        finally:
+            restore()
+        same = all(np.array_equal(a, b) for a, b in zip(solo, chaos_out))
+        hz = fleet.healthz()
+        print(f"delivery: fleet over the f32 and int8 bundles, tenants gold "
+              f"and free: flood of free {flood}; gold's {len(pool)} "
+              f"replies bit-equal to its solo run {same}; gold "
+              f"quota_rejected {hz['tenants']['gold']['quota_rejected']}, "
+              f"textclf inference_failed "
+              f"{hz['models']['textclf@v1']['inference_failed']} [{card}]",
+              flush=True)
+        if (not same or flood["quota_rejected"] == 0
+                or hz["tenants"]["gold"]["quota_rejected"]
+                or hz["models"]["textclf@v1"]["inference_failed"]):
+            fail("delivery", f"fleet isolation: same {same}, flood {flood}"
+                 f", healthz {hz['tenants']}")
+        # a 10% canary of v2 (pass 2), killed
+        mdir = model_publish_dir(root, "textclf")
+        publish_from_checkpoints(mdir, nn.Topology(logits, device=dev),
+                                 paths["save"], pass_id=2, device=dev)
+        model2, info2, v2 = load_published(mdir, device=dev_arg)
+        fleet.add_model("textclf", model2, version=v2, role="canary",
+                        percent=DELIVERY_CANARY_PCT, info=info2,
+                        compile_cache=publish_cache_dir(mdir),
+                        server_opts=opts)
+        chaos.kill_canary(fleet, "textclf", mode="nan")
+        futs, arms = [], []
+        for i in range(DELIVERY_CANARY_N):
+            f = pool[i % len(pool)]
+            arms.append(canary_arm("textclf", f"k{i}", DELIVERY_CANARY_PCT))
+            futs.append(fleet.submit(f, model="textclf", tenant="gold",
+                                     request_key=f"k{i}"))
+            if fleet.route("textclf")["candidate"] is None:
+                break
+        # every future resolves: a reply, or on the canary's arm a typed
+        # error (its NaN replies, or ServerClosed for the stragglers of the
+        # retired canary, reaped once its queue drains)
+        drops, inc_fail, can_errors = 0, 0, {}
+        for f, arm in zip(futs, arms):
+            try:
+                err = f.error(60)
+            except TimeoutError:
+                drops += 1
+                continue
+            if err is None:
+                continue
+            if arm:
+                kind = type(err).__name__
+                can_errors[kind] = can_errors.get(kind, 0) + 1
+            else:
+                inc_fail += 1
+        can_fail = can_errors.get(InferenceFailed.__name__, 0)
+        fleet.tick()
+        route = fleet.route("textclf")
+        print(f"delivery: {DELIVERY_CANARY_PCT}% canary v{v2} killed (nan): "
+              f"{len(futs)} requests, {sum(arms)} on the canary's arm, its "
+              f"typed errors {can_errors}; incumbent failures {inc_fail}, "
+              f"dropped {drops}; route after "
+              f"{ {k: route[k] for k in ('incumbent', 'candidate')} } "
+              f"[{card}]", flush=True)
+        if drops or inc_fail or route["candidate"] is not None or \
+                route["incumbent"] != 1 or not can_fail:
+            fail("delivery", f"canary rollback: drops {drops}, incumbent "
+                 f"failures {inc_fail}, route {route}")
+        # the router: a drained home fails over down the rendezvous order
+        router = FleetRouter({"a": fleet, "b": other}, probe_budget=1,
+                             failover=True)
+        home = router.server_for("gold")
+        first = router.submit(pool[0], tenant="gold",
+                              model="textclf_int8").result(60)[name]
+        drained = fleet if home == "a" else other
+        drained.entry("textclf_int8", 1).server.close()
+        if drained is fleet:
+            drained.entry("textclf", 1).server.close()
+        router.probe()
+        moved = router.server_for("gold")
+        again = router.submit(pool[0], tenant="gold",
+                              model="textclf_int8").result(60)[name]
+        print(f"delivery: FleetRouter home of gold {home}, after its drain "
+              f"{moved} (rendezvous order "
+              f"{rendezvous_rank('gold', ['a', 'b'])}); replies equal "
+              f"{np.array_equal(first, again)}; members "
+              f"{ {n: m['state'] for n, m in router.members().items()} } "
+              f"[{card}]", flush=True)
+        if moved == home or not np.array_equal(first, again):
+            fail("delivery", f"router failover: {home} -> {moved}")
+        launches = K.launch_counts()
+    finally:
+        fleet.close()
+        other.close()
+    lines, ready_s, _ = _serve_child(
+        [f"--device={dev.type}", "--serve_fleet",
+         f"--serve_smoke={DELIVERY_FLEET_SMOKE}",
+         "--serve_deadline_ms=60000"], ROOT, "serve --serve_fleet",
+        min_lines=1)
+    if lines:
+        hz = lines[-1]
+        print(f"delivery: serve --serve_fleet --serve_smoke="
+              f"{DELIVERY_FLEET_SMOKE} exit 0 in a fresh process: models "
+              f"{sorted(hz['models'])}, tenants "
+              f"{ {t: (v['admitted'], v['quota_rejected']) for t, v in hz['tenants'].items()} }"
+              f" (admitted, quota_rejected) [{card}]", flush=True)
+    threads = launches.by_thread.get("lstm_forward", {})
+    if dev.type == "cuda" and (
+            not launches["lstm_forward"]
+            or launches.by_path["lstm_forward"]
+            != {"persistent": launches["lstm_forward"]}
+            or not all(t.startswith("serving-worker-") or t == "MainThread"
+                       for t in threads)):
+        fail("delivery", f"fleet launches {launches.by_path} by thread "
+             f"{threads}")
+    return launches
+
+
+def delivery_path(K, dev, card):
+    """Phase 20: (a) train, scrub and publish; (b) hot reload under load;
+    (c) a warm boot from the publish dir's compile cache in fresh
+    processes; (d) the fleet, its tenants, a killed canary and the router;
+    then the phase's launches on their own line.  -> {part: launches}."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch.obs.journal import (close_journal,
+                                              merge_journals)
+    from paddle_tpu_torch.publish import freshness_from_journal
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="delivery-")
+    parts = {}
+    try:
+        with flags_set(obs_journal=os.path.join(root, "journal")):
+            tr, logits, paths, parts["train"] = delivery_train(K, dev, card,
+                                                               root)
+            parts["reload"] = delivery_reload(K, dev, card, tr, logits,
+                                              paths)
+            del tr
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            delivery_warm_boot(K, dev, card, paths, root)
+            parts["fleet"] = delivery_fleet(K, dev, card, paths, logits)
+        close_journal()
+        events, torn = merge_journals([os.path.join(root, "journal")])
+        kinds = {}
+        for r in events:
+            kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+        # the served publish dir's chain (the fleet root's versions and
+        # the fleet's records carry their own numbers)
+        chain = [r for r in events if "model" not in r and (
+            r["kind"] != "publish_commit"
+            or r.get("dir", "").startswith(paths["pub"] + os.sep))]
+        fresh = [(r["version"], r["freshness_s"], r["rolled_back"])
+                 for r in freshness_from_journal(chain)]
+        print(f"delivery: journal records by kind {kinds} (torn {torn}); "
+              f"freshness (version, train commit to serving ready s, "
+              f"rolled back) {fresh}", flush=True)
+        for k in ("publish_commit", "publish_refused", "reload_commit",
+                  "probation_passed", "publish_skipped_corrupt",
+                  "publish_rollback", "fleet_rollout"):
+            if not kinds.get(k):
+                fail("delivery", f"no {k} record in the journal")
+    finally:
+        close_journal()
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"delivery_launches": {
+        part: {n: {"launches": c, "by_path": counts.by_path[n]}
+               for n, c in counts.items() if c}
+        for part, counts in parts.items()}}), flush=True)
+    print(f"delivery: phase seconds {time.perf_counter() - t0:.2f}; card "
+          f"{card}", flush=True)
+    return parts
+
+
 def _gxx() -> str:
     """The host C++ compiler the native data core is built with."""
     try:
@@ -7338,6 +8118,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "dataio"
         dataio_launches = dataio_path(K, dev, card)
+        torch.cuda.empty_cache()
+        phase = "delivery"
+        delivery_launches = delivery_path(K, dev, card)
     except SystemExit:
         raise
     except Exception:  # noqa: BLE001 — report the phase and fail
@@ -7458,6 +8241,14 @@ def main() -> int:
                 part: dataio_launches[part][lib] for part in parts}
             row["dataio_launches_by_path"] = {
                 part: dataio_launches[part].by_path[lib] for part in parts}
+        if name in DELIVERY_ROWS:
+            # phase 20's parts: the trainer's passes (with each publish's
+            # warm step), serving across the hot swaps, the fleet
+            lib, parts = DELIVERY_ROWS[name]
+            row["delivery_launches"] = {
+                part: delivery_launches[part][lib] for part in parts}
+            row["delivery_launches_by_path"] = {
+                part: delivery_launches[part].by_path[lib] for part in parts}
         if name == "topk_lse_readout":
             # the spec phase's full arm: one launch a table step, its wide
             # steps at N = 320

@@ -27,7 +27,9 @@ rows (``datapipe.auto_pack``).  ``--amp`` (with ``--loss_scale``,
 tooling (``datapipe/cli.py``).  ``python -m paddle_tpu_torch serve
 --serve_bundle=model.ptz`` serves a deploy bundle (``serving/cli.py``;
 ``--serve_smoke=N`` is its self-test, ``--serve_continuous
---serve_smoke=N`` the continuous-batching one).
+--serve_smoke=N`` the continuous-batching one; ``--serve_watch`` serves and
+hot-reloads a publish dir, ``--serve_fleet --serve_smoke=N`` is the fleet's
+self-test).
 
 Not ported here, and refused with a ``ConfigError`` naming the ROADMAP.md
 Queue 1 item that ports them: the ``lint`` (item 9), ``obs`` (item 9) and

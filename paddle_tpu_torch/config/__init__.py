@@ -3,9 +3,11 @@
 
 Serialize a built ``Topology`` to a ModelConfig proto (the port's own codec,
 ``paddle_tpu_torch/proto``), golden-test its deterministic text form,
-rebuild an equivalent Topology in a fresh process, and write/load the deploy
+rebuild an equivalent Topology in a fresh process, write/load the deploy
 bundle (config + parameters in one ``.ptz`` file) that
-``InferenceServer`` and ``python -m paddle_tpu_torch serve`` serve.
+``InferenceServer`` and ``python -m paddle_tpu_torch serve`` serve, and keep
+the compile cache of built kernel libraries (``compile_cache``:
+``CompileCacheDir``, ``BundleAotCache``, ``open_cache``, ``warm_bundle``).
 
 Submodules load lazily (PEP 562): ``paddle_tpu_torch.nn`` imports
 ``config.capture`` at the bottom of its layer modules, and an eager package
@@ -14,8 +16,7 @@ Submodules load lazily (PEP 562): ``paddle_tpu_torch.nn`` imports
 Not ported yet; each raises a ``ConfigError`` naming its ROADMAP.md Queue 1
 item: the AOT exports (``export_aot``, ``export_aot_hlo``,
 ``load_exported``, ``build_aot_host``: StableHLO and a PJRT host in the
-reference), item 10; the compile cache (``BundleAotCache``,
-``CompileCacheDir``, ``open_cache``, ``warm_bundle``), item 7.
+reference), item 10.
 """
 
 _EXPORTS = {
@@ -34,14 +35,16 @@ _EXPORTS = {
     "quantize_params": "deploy",
     "configurable": "capture",
     "wrap_module": "capture",
+    "BundleAotCache": "compile_cache",
+    "CompileCacheDir": "compile_cache",
+    "open_cache": "compile_cache",
+    "warm_bundle": "compile_cache",
 }
 
 #: the reference's exports the port does not have yet -> ROADMAP.md item
 _NOT_PORTED = {
     "export_aot": 10, "export_aot_hlo": 10, "load_exported": 10,
     "build_aot_host": 10,
-    "BundleAotCache": 7, "CompileCacheDir": 7, "open_cache": 7,
-    "warm_bundle": 7,
 }
 
 __all__ = sorted({**_EXPORTS, **_NOT_PORTED})

@@ -16,11 +16,17 @@ integer arithmetic on the float32 bits, NaN and infinities included).
 Every quantized export passes a max-abs-error gate against the float32
 forward before it is written; the loader dequantizes to float32.
 
+``InferenceModel.prime(feed, cache=)`` is the warmup unit against a compile
+cache (``config/compile_cache.py``): the kernel libraries the signature's
+forward runs are loaded from the cache or built and stored.
+``load_inference_model(arch_fingerprint=True)`` gives the model the
+architecture identity every weight version of it shares (the config proto
+and the parameters' names, shapes and dtypes), equal to the JAX package's
+for the same bundle.
+
 Not ported yet; each raises a ``ConfigError`` naming its ROADMAP.md Queue 1
 item: ``load_inference_model(int8_in_trace=True)`` (its admission gate is a
-jaxpr audit) and ``merge_model(example_feed=)`` (the deploy lint), item 9;
-``InferenceModel.prime(cache=)`` and
-``load_inference_model(arch_fingerprint=True)`` (the compile cache), item 7.
+jaxpr audit) and ``merge_model(example_feed=)`` (the deploy lint), item 9.
 """
 
 from __future__ import annotations
@@ -346,9 +352,11 @@ class InferenceModel:
     outputs, and answers a zero-row request with correctly shaped empty
     arrays: from the outputs of a primed call of the same per-row shapes,
     or else from a one-row pass.  ``prime`` makes one warm call per feed
-    signature (``"compiled"``, then ``"warm"``); ``compile_events`` counts
-    them.  ``fingerprint`` identifies the architecture: the config proto
-    and the parameters' names, shapes and dtypes."""
+    signature, against a compile cache when given; ``compile_events`` counts
+    the ones the cache did not serve.  ``fingerprint`` is the bundle's
+    payload CRCs or, with ``arch_fingerprint=True`` (or a model built
+    in-process), the architecture: the config proto and the parameters'
+    names, shapes and dtypes."""
 
     def __init__(self, mc: pb.ModelConfig, params, state, manifest: dict, *,
                  fingerprint: Optional[str] = None, device=None):
@@ -397,7 +405,8 @@ class InferenceModel:
         #: the artifact the model was loaded from (set by
         #: load_inference_model; empty for models built in-process)
         self.bundle_path = ""
-        #: warm calls prime() paid (one per new signature)
+        #: warm calls the compile cache did not serve: ``"compiled"`` and
+        #: ``"miss"`` (the reference counts its XLA compiles the same way)
         self.compile_events = 0
         self._primed: set = set()
         #: required input slots per output tuple (the walk is a function of
@@ -469,23 +478,36 @@ class InferenceModel:
     def prime(self, feed: Dict[str, Any],
               outputs: Optional[Sequence[str]] = None, cache=None) -> str:
         """One warm call for this feed's signature, the warmup unit of the
-        serving readiness gate: ``"compiled"`` the first time, ``"warm"``
-        after.  Its outputs also give the zero-row reply for the feed's
-        per-row shapes."""
-        if cache is not None:
-            raise not_ported("InferenceModel.prime(cache=) (the compile "
-                             "cache)", 7)
+        serving readiness gate.  Its outputs also give the zero-row reply
+        for the feed's per-row shapes.  Returns ``"warm"`` (primed before),
+        ``"compiled"`` (no ``cache``, or a call that ran no cacheable kernel
+        library — on the CPU the plain versions run and the cache has
+        nothing to give), or with a compile ``cache``
+        (``config/compile_cache.py``) ``"hit"`` — every kernel library the
+        call ran came from the cache, or the cache already held it — or
+        ``"miss"`` — a library was built and stored.  A library loaded from
+        the cache passed its smoke call first."""
         names = self._names(outputs)
         self._check_feed(feed, names)
         k = (names, feed_signature(feed))
         if k in self._primed:
             return "warm"
-        res = self._run(names, feed)
+        if cache is None:
+            res = self._run(names, feed)
+            result = "compiled"
+        else:
+            from paddle_tpu_torch.config.compile_cache import priming
+
+            with priming(cache) as counts:
+                res = self._run(names, feed)
+            result = ("compiled" if not counts["libraries"] else
+                      "miss" if counts["misses"] else "hit")
         with self._lock:
             self._note_empty(self._row_key(names, feed), res)
             self._primed.add(k)
-            self.compile_events += 1
-        return "compiled"
+            if result != "hit":
+                self.compile_events += 1
+        return result
 
     def infer(self, feed: Dict[str, Any],
               outputs: Optional[Sequence[str]] = None
@@ -550,14 +572,13 @@ def load_inference_model(path: str, *, device=None,
 
     Quantized bundles dequantize on load to float32.  The fingerprint is
     the zip CRCs of ``model.pb`` and ``params.npz`` (two bundles with
-    identical payloads share it).  ``arch_fingerprint=True`` keys the
-    compile cache by the architecture and is refused with it."""
+    identical payloads share it); ``arch_fingerprint=True`` makes it the
+    architecture's instead (the config proto and the parameters' names,
+    shapes and dtypes), which every weight version of one model shares —
+    the hot-swap path keys versions by it (``serving/reload.py``)."""
     if int8_in_trace:
         raise not_ported("load_inference_model(int8_in_trace=True) (its "
                          "admission gate is a trace audit)", 9)
-    if arch_fingerprint:
-        raise not_ported("load_inference_model(arch_fingerprint=True) (the "
-                         "compile cache's key)", 7)
     try:
         zf = zipfile.ZipFile(path, "r")
     except FileNotFoundError:
@@ -586,7 +607,7 @@ def load_inference_model(path: str, *, device=None,
         state = (_load_npz_member(z, path, "state.npz")
                  if "state.npz" in z.namelist() else {})
         crcs = {i.filename: i.CRC for i in z.infolist()}
-    fp = "bundle:" + "-".join(
+    fp = None if arch_fingerprint else "bundle:" + "-".join(
         f"{crcs.get(m, 0):08x}" for m in ("model.pb", "params.npz"))
     qmeta = (manifest.get("quantize") or {}).get("arrays") or {}
     if qmeta:

@@ -12,6 +12,13 @@ says why).  The two branches agree on everything but ``shuffle_indices``:
 the C++ shuffle (``std::mt19937_64``) and the fallback
 (``RandomState.permutation``) give different permutations, so parity holds
 branch by branch.  This is host code: nothing here touches the card.
+
+With a compile cache active (``config/compile_cache.py``), a missing
+library is first looked up there: a hit is loaded after its smoke call (each
+entry point on a small input against its numpy fallback; the shuffle must
+give a permutation) and renamed into ``_build/``, with no ``g++`` run; a
+miss builds and stores it.  ``NATIVE`` is the core as a cache artifact:
+its ``builds`` count ``g++`` runs, its ``cache_loads`` loads from a cache.
 """
 
 from __future__ import annotations
@@ -26,9 +33,11 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from paddle_tpu_torch.config.compile_cache import BuiltLibrary
 from paddle_tpu_torch.utils.log import logger
 
 __all__ = [
+    "NATIVE",
     "native_available",
     "shuffle_indices",
     "bucket_by_length",
@@ -45,7 +54,8 @@ SOURCE = os.path.join(_PKG, "csrc", "dataio.cc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
-_lock = threading.Lock()
+# re-entrant: the smoke call of a cache-loaded library runs the entry points
+_lock = threading.RLock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 _error: Optional[str] = None
@@ -67,54 +77,104 @@ def build_error() -> Optional[str]:
     return _error
 
 
+class _NativeCore(BuiltLibrary):
+    """The native data core as a compile-cache artifact."""
+
+    name = "dataio"
+
+    @staticmethod
+    def path() -> str:
+        return library_path()
+
+    def cache_key(self) -> str:
+        from paddle_tpu_torch.config.compile_cache import cache_key
+
+        return cache_key("native_library", self.name,
+                         os.path.basename(library_path()))
+
+    @staticmethod
+    def platform() -> str:
+        from paddle_tpu_torch.config.compile_cache import platform_fingerprint
+
+        return platform_fingerprint("g++")
+
+    def smoke(self) -> dict:
+        return _smoke()
+
+
+NATIVE = _NativeCore()
+
+
 def _build(so: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
     try:
         subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, SOURCE], check=True,
                        capture_output=True, timeout=120)
+        NATIVE.builds += 1
         os.replace(tmp, so)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
 
 
+def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.ptd_shuffle_indices.argtypes = [ctypes.c_int32, ctypes.c_uint64,
+                                        i32p]
+    lib.ptd_bucket_by_length.argtypes = [i32p, ctypes.c_int32, i32p,
+                                         ctypes.c_int32, i32p]
+    lib.ptd_argsort_by_length.argtypes = [i32p, ctypes.c_int32, i32p]
+    lib.ptd_pad_batch_i32.argtypes = [i32p, i64p, ctypes.c_int32,
+                                      ctypes.c_int32, i32p, i32p]
+    lib.ptd_pack_sequences.argtypes = [i32p, i64p, ctypes.c_int32,
+                                       ctypes.c_int32, ctypes.c_int32,
+                                       i32p, i32p, i32p]
+    lib.ptd_pack_sequences.restype = ctypes.c_int32
+    lib.ptd_count_tokens.argtypes = [i32p, ctypes.c_int64,
+                                     ctypes.c_int32, i64p]
+    lib.ptd_version.restype = ctypes.c_int32
+    return lib
+
+
+def _open(path: str) -> None:
+    global _lib
+    _lib = _configure(ctypes.CDLL(path))
+
+
+def _drop() -> None:
+    global _lib
+    _lib = None
+
+
 def _load() -> Optional[ctypes.CDLL]:
     global _lib, _tried, _error
+    from paddle_tpu_torch.config import compile_cache
+
+    compile_cache.note_library(NATIVE)
     with _lock:
         if _tried:
             return _lib
         _tried = True
         try:
+            if NATIVE.load_from_cache(_open, _drop):
+                return _lib
             so = library_path()
+            builds = NATIVE.builds
             if not os.path.exists(so):
                 _build(so)
-            lib = ctypes.CDLL(so)
+            _open(so)
+            NATIVE.loaded("built" if NATIVE.builds > builds else "disk")
         except Exception as e:  # toolchain absent or compile failure
             err = getattr(e, "stderr", None)
             _error = f"{e}" + (f": {err.decode(errors='replace')}"
                                if isinstance(err, bytes) and err else "")
             logger.warning("native dataio unavailable (%s); using numpy "
                            "fallback", _error)
+            _lib = None
             return None
-
-        i32p = ctypes.POINTER(ctypes.c_int32)
-        i64p = ctypes.POINTER(ctypes.c_int64)
-        lib.ptd_shuffle_indices.argtypes = [ctypes.c_int32, ctypes.c_uint64,
-                                            i32p]
-        lib.ptd_bucket_by_length.argtypes = [i32p, ctypes.c_int32, i32p,
-                                             ctypes.c_int32, i32p]
-        lib.ptd_argsort_by_length.argtypes = [i32p, ctypes.c_int32, i32p]
-        lib.ptd_pad_batch_i32.argtypes = [i32p, i64p, ctypes.c_int32,
-                                          ctypes.c_int32, i32p, i32p]
-        lib.ptd_pack_sequences.argtypes = [i32p, i64p, ctypes.c_int32,
-                                           ctypes.c_int32, ctypes.c_int32,
-                                           i32p, i32p, i32p]
-        lib.ptd_pack_sequences.restype = ctypes.c_int32
-        lib.ptd_count_tokens.argtypes = [i32p, ctypes.c_int64,
-                                         ctypes.c_int32, i64p]
-        lib.ptd_version.restype = ctypes.c_int32
-        _lib = lib
+        NATIVE.store_built()
         return _lib
 
 
@@ -160,6 +220,10 @@ def bucket_by_length(lens: np.ndarray, buckets: Sequence[int]) -> np.ndarray:
         lib.ptd_bucket_by_length(_i32(lens), len(lens), _i32(bk), len(bk),
                                  _i32(out))
         return out
+    return _np_bucket_by_length(lens, bk)
+
+
+def _np_bucket_by_length(lens: np.ndarray, bk: np.ndarray) -> np.ndarray:
     idx = np.searchsorted(bk, lens)
     return np.minimum(idx, len(bk) - 1).astype(np.int32)
 
@@ -187,6 +251,10 @@ def pad_batch_i32(seqs: Sequence[Sequence[int]], max_t: int
         lib.ptd_pad_batch_i32(_i32(flat), _i64(offsets), n, max_t, _i32(out),
                               _i32(lens))
         return out, lens
+    return _np_pad_batch_i32(seqs, out, lens, max_t)
+
+
+def _np_pad_batch_i32(seqs, out: np.ndarray, lens: np.ndarray, max_t: int):
     for i, s in enumerate(seqs):
         L = min(len(s), max_t)
         out[i, :L] = list(s)[:L]
@@ -207,6 +275,10 @@ def pack_sequences(seqs: Sequence[Sequence[int]], n_rows: int, T: int):
                                         n_rows, T, _i32(ids), _i32(seg),
                                         _i32(used))
         return ids, seg, used, int(placed)
+    return _np_pack_sequences(seqs, ids, seg, used, n_rows, T)
+
+
+def _np_pack_sequences(seqs, ids, seg, used, n_rows: int, T: int):
     placed = 0
     for s in seqs:
         L = len(s)
@@ -231,3 +303,43 @@ def count_tokens(seqs: Sequence[Sequence[int]], vocab_cap: int) -> np.ndarray:
         return counts
     np.add.at(counts, flat[(flat >= 0) & (flat < vocab_cap)], 1)
     return counts
+
+
+def _smoke() -> dict:
+    """Each entry point of the loaded library on a small seeded input
+    against its numpy fallback (the shuffle, whose branches differ by
+    design, must give a permutation); raises on a disagreement, else
+    returns 0.0 by entry point."""
+    rng = np.random.RandomState(0)
+    seqs = [list(rng.randint(0, 50, rng.randint(1, 9))) for _ in range(12)]
+    lens = np.asarray([len(q) for q in seqs], np.int32)
+    bk = np.asarray([2, 4, 8], np.int32)
+    checks = {
+        "shuffle_indices": np.array_equal(
+            np.sort(shuffle_indices(37, 5)), np.arange(37)),
+        "bucket_by_length": np.array_equal(
+            bucket_by_length(lens, bk), _np_bucket_by_length(lens, bk)),
+        "argsort_by_length": np.array_equal(
+            argsort_by_length(lens), np.argsort(lens, kind="stable")),
+    }
+    got = pad_batch_i32(seqs, 6)
+    want = _np_pad_batch_i32(seqs, np.zeros((12, 6), np.int32),
+                             np.empty(12, np.int32), 6)
+    checks["pad_batch_i32"] = all(np.array_equal(a, b)
+                                  for a, b in zip(got, want))
+    got = pack_sequences(seqs, 5, 10)
+    want = _np_pack_sequences(seqs, np.zeros((5, 10), np.int32),
+                              np.zeros((5, 10), np.int32),
+                              np.zeros(5, np.int32), 5, 10)
+    checks["pack_sequences"] = (all(np.array_equal(a, b) for a, b in
+                                    zip(got[:3], want[:3]))
+                                and got[3] == want[3])
+    want = np.zeros(40, np.int64)
+    flat = np.concatenate([np.asarray(q, np.int64) for q in seqs])
+    np.add.at(want, flat[flat < 40], 1)
+    checks["count_tokens"] = np.array_equal(count_tokens(seqs, 40), want)
+    bad = sorted(k for k, ok in checks.items() if not ok)
+    if bad:
+        raise RuntimeError(f"native data core smoke call: {bad} disagree "
+                           f"with the numpy fallback")
+    return {k: 0.0 for k in checks}

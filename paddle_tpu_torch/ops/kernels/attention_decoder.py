@@ -468,3 +468,94 @@ def attn_dec_bwd(d_out_tb: torch.Tensor, m_tb: torch.Tensor,
             d_s0.data_ptr(), work.data_ptr(), T, B, S, D, A, H2, stream)
     ATTN_DEC_BWD.count("single")
     return d_xp, sum_dpre, d_enc_p, d_v, d_s0
+
+
+#: the smoke calls' shape (B, S, T, D, A, 2H), one the persistent plan takes
+_SMOKE_SHAPE = (3, 7, 5, 32, 32, 64)
+
+
+def _smoke_inputs(dev):
+    """Seeded small K5 inputs at float32: source and target tails, weights
+    scaled by their fan-in."""
+    B, S, T, D, A, H2 = _SMOKE_SHAPE
+    g = torch.Generator().manual_seed(5)
+
+    def r(scale, *shape):
+        return (scale * torch.randn(*shape, generator=g)).to(dev)
+
+    m = torch.ones(T, B)
+    m[T // 2:, -1] = 0.0
+    src_mask = torch.ones(B, S)
+    src_mask[-1, S // 2:] = 0.0
+    return dict(xp_y=r(0.5, T, B, 3 * D), m=m.to(dev), s0=r(0.5, B, D),
+                enc=r(1.0, B, S, H2), enc_proj=r(1.0, B, S, A),
+                src_mask=src_mask.to(dev), att_w=r(D ** -0.5, D, A),
+                att_v=r(2.0 * A ** -0.5, A), wx_c=r(H2 ** -0.5, H2, 3 * D),
+                wh=r(D ** -0.5, D, 3 * D))
+
+
+def _fwd_args(x, dt):
+    return [x["xp_y"], x["m"], x["s0"]] + [
+        x[k].to(dt) for k in ("enc", "enc_proj")] + [x["src_mask"]] + [
+        x[k].to(dt) for k in ("att_w", "att_v", "wx_c", "wh")]
+
+
+def _smoke_fwd() -> Dict[str, float]:
+    """One small launch of each K5 kernel (the f32 and bf16 step kernels,
+    the persistent kernel) on the current card, uncounted, against
+    ``attn_dec_fwd_plain``: f32 within 2e-5 of each output's largest
+    value, bf16 within 5e-3 (the card tests' tolerances)."""
+    from paddle_tpu_torch.ops.kernels.build import smoke_error, uncounted
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+
+    x = _smoke_inputs(torch.device("cuda", torch.cuda.current_device()))
+    errs = {}
+    with uncounted(ATTN_DEC_FWD):
+        for cd, path, tol in (("float32", "steps", 2e-5),
+                              ("bfloat16", "steps", 5e-3),
+                              ("bfloat16", "persistent", 5e-3)):
+            with compute_dtype_scope(cd):
+                args = _fwd_args(x, getattr(torch, cd))
+                got = _launch_fwd(*args, path)
+                want = attn_dec_fwd_plain(*args)
+            errs[f"{path}_{cd}"] = max(
+                smoke_error(f"attn_dec_fwd {path} {cd}", (a,), (b,), tol)
+                for a, b in zip(got, want))
+    return errs
+
+
+def _smoke_bwd() -> Dict[str, float]:
+    """One small launch of each K6 kernel (f32 and bf16 encoder operands)
+    on the current card, uncounted, from the plain forward's residuals,
+    against ``attn_dec_bwd_plain``: within 2e-5 (f32) or 1e-2 (bf16) of
+    each output's largest value."""
+    from paddle_tpu_torch.ops.attention_decoder import recompute_gates
+    from paddle_tpu_torch.ops.kernels.build import smoke_error, uncounted
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x = _smoke_inputs(dev)
+    T, B, D = x["xp_y"].shape[0], x["xp_y"].shape[1], _SMOKE_SHAPE[3]
+    d_out = torch.randn(T, B, D, generator=torch.Generator().manual_seed(6)
+                        ).to(dev)
+    errs = {}
+    with uncounted(ATTN_DEC_BWD):
+        for cd, tol in (("float32", 2e-5), ("bfloat16", 1e-2)):
+            with compute_dtype_scope(cd):
+                args = _fwd_args(x, getattr(torch, cd))
+                _, _, ctxs, s_prev = attn_dec_fwd_plain(*args)
+                r, u, cand, q = recompute_gates(x["xp_y"], ctxs, s_prev,
+                                                x["wx_c"], x["wh"],
+                                                x["att_w"])
+                bargs = [d_out, x["m"], s_prev, r, u, cand, q, args[3],
+                         args[4], x["src_mask"], x["att_w"], x["att_v"],
+                         x["wh"], x["wx_c"]]
+                got = attn_dec_bwd(*bargs)
+                want = attn_dec_bwd_plain(*bargs)
+            errs[cd] = max(smoke_error(f"attn_dec_bwd {cd}", (a,), (b,), tol)
+                           for a, b in zip(got, want))
+    return errs
+
+
+ATTN_DEC_FWD.smoke = _smoke_fwd
+ATTN_DEC_BWD.smoke = _smoke_bwd

@@ -276,3 +276,69 @@ def _launch_bwd(dout_tb, m_tb, z_tb, hp_tb, w_t, d_hfin, batch_split: int,
             BIGRU_BACKWARD.call("bigru_backward", *args, res_bf16, T, B2, H,
                                 batch_split, stream)
     return d_z, d_c
+
+
+def _smoke_inputs(B: int, T: int, H: int, dev):
+    """Seeded small K11 inputs on ``dev``: 2B stacked rows, a ragged tail
+    on each direction (the backward half's padding in front)."""
+    g = torch.Generator().manual_seed(B * 11 + H)
+    m = torch.ones(B, T)
+    m[-1, T // 2:] = 0.0
+    m2 = torch.cat([m, m.flip(1)]).t().contiguous()
+    xp = 0.5 * torch.randn(T, 2 * B, 3 * H, generator=g)
+    w2 = (2.0 / (4 * H)) ** 0.5 * torch.randn(2 * H, 3 * H, generator=g)
+    d_out = torch.randn(T, 2 * B, H, generator=g)
+    d_hfin = torch.randn(2 * B, H, generator=g)
+    return [t.to(dev) for t in (xp, m2, w2, d_out, d_hfin)]
+
+
+def _smoke_fwd() -> Dict[str, float]:
+    """One small launch of each K11 forward kernel (the f32 and bf16 step
+    kernels, the persistent kernel) on the current card, uncounted, with
+    residuals, against ``bigru_forward_plain``: f32 within 1e-5 of the
+    largest value, bf16 within 5e-3."""
+    from paddle_tpu_torch.ops.kernels.build import smoke_error, uncounted
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    B = 3
+    xp, m2, w2, _, _ = _smoke_inputs(B, 5, 64, dev)
+    errs = {}
+    with uncounted(BIGRU_FORWARD):
+        for cd, path, tol in (("float32", "steps", 1e-5),
+                              ("bfloat16", "steps", 5e-3),
+                              ("bfloat16", "persistent", 5e-3)):
+            with compute_dtype_scope(cd):
+                got = _launch_fwd(xp, m2, w2, True, B, path)
+                want = bigru_forward_plain(xp, m2, w2, residuals=True,
+                                           batch_split=B)
+            errs[f"{path}_{cd}"] = smoke_error(
+                f"bigru_forward {path} {cd}", got[:2], want[:2], tol)
+    return errs
+
+
+def _smoke_bwd() -> Dict[str, float]:
+    """One small launch of each K11 reverse kernel (steps, persistent) on
+    the current card, uncounted, from the plain forward's f32 residuals,
+    against ``bigru_backward_plain`` within 1e-5 of the largest value."""
+    from paddle_tpu_torch.ops.kernels.build import smoke_error, uncounted
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    B, H = 3, 64
+    xp, m2, w2, d_out, d_hfin = _smoke_inputs(B, 5, H, dev)
+    w_t = torch.cat([w2[:H].t(), w2[H:].t()], 1)
+    errs = {}
+    with compute_dtype_scope("float32"), uncounted(BIGRU_BACKWARD):
+        res = bigru_forward_plain(xp, m2, w2, residuals=True, batch_split=B)
+        bargs = [d_out, m2, res[2], res[3], w_t, d_hfin]
+        want = bigru_backward_plain(*bargs, batch_split=B)
+        for path in ("steps", "persistent"):
+            errs[path] = smoke_error(
+                f"bigru_backward {path}", _launch_bwd(*bargs, B, path),
+                want, 1e-5)
+    return errs
+
+
+BIGRU_FORWARD.smoke = _smoke_fwd
+BIGRU_BACKWARD.smoke = _smoke_bwd

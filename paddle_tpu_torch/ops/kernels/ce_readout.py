@@ -252,3 +252,69 @@ def ce_readout_bwd(logits: torch.Tensor, states: torch.Tensor,
         CE_READOUT_BWD.call(fn, *args, N, D, V, stream)
     CE_READOUT_BWD.count(path)
     return d_states, d_w, d_b
+
+
+#: the smoke calls' shapes (N, D, V) and compute dtypes, one a kernel:
+#: CUDA cores (f32), WMMA (bf16 at a depth TMA does not take), TMA + wgmma
+_SMOKE_CASES = (((3, 96, 131), torch.float32, "simt"),
+                ((3, 96, 131), torch.bfloat16, "wmma"),
+                ((130, 64, 64), torch.bfloat16, "wgmma"))
+
+
+def _smoke_inputs(N: int, D: int, V: int, dt: torch.dtype, dev):
+    """Seeded small K1/K2 inputs: an out-of-vocab label, a masked row."""
+    g = torch.Generator().manual_seed(N + D + V)
+    s = torch.randn(N, D, generator=g).to(dev).to(dt)
+    w = (0.1 * torch.randn(D, V, generator=g)).to(dev).to(dt)
+    b = (0.1 * torch.randn(V, generator=g)).to(dev)
+    lab = torch.randint(0, V, (N,), generator=g).to(dev)
+    lab[-1] = V + 3
+    scale = (torch.rand(N, generator=g) / N).to(dev)
+    scale[0] = 0.0
+    return s, w, b, lab, scale
+
+
+def _smoke_fwd() -> Dict[str, float]:
+    """One small launch of each K1 kernel on the current card, uncounted,
+    against ``ce_readout_fwd_plain``: the picked-target logit and lse
+    within 1e-5 of the largest value, the logits within 1e-5 (f32) or
+    1e-2 (bf16 logits) of theirs."""
+    from paddle_tpu_torch.ops.kernels.build import smoke_error, uncounted
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    errs = {}
+    with uncounted(CE_READOUT_FWD):
+        for (N, D, V), dt, path in _SMOKE_CASES:
+            s, w, b, lab, _ = _smoke_inputs(N, D, V, dt, dev)
+            pt, lse, logits = ce_readout_fwd(s, w, b, lab)
+            ppt, plse, plogits = ce_readout_fwd_plain(s, w, b, lab)
+            name = f"ce_readout_fwd {path}"
+            smoke_error(name, (pt, lse), (ppt, plse), 1e-5)
+            errs[path] = smoke_error(name, (logits,), (plogits,),
+                                     1e-2 if dt == torch.bfloat16 else 1e-5)
+    return errs
+
+
+def _smoke_bwd() -> Dict[str, float]:
+    """One small launch of each K2 kernel on the current card, uncounted,
+    from the plain forward's logits and lse, against
+    ``ce_readout_bwd_plain``: within 1e-5 (f32) or 1e-2 (bf16) of the
+    largest gradient."""
+    from paddle_tpu_torch.ops.kernels.build import smoke_error, uncounted
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    errs = {}
+    with uncounted(CE_READOUT_BWD):
+        for (N, D, V), dt, path in _SMOKE_CASES:
+            s, w, b, lab, scale = _smoke_inputs(N, D, V, dt, dev)
+            _, lse, logits = ce_readout_fwd_plain(s, w, b, lab)
+            args = (logits, s, w, lab, lse, scale)
+            errs[path] = smoke_error(
+                f"ce_readout_bwd {path}", ce_readout_bwd(*args),
+                ce_readout_bwd_plain(*args),
+                1e-2 if dt == torch.bfloat16 else 1e-5)
+    return errs
+
+
+CE_READOUT_FWD.smoke = _smoke_fwd
+CE_READOUT_BWD.smoke = _smoke_bwd

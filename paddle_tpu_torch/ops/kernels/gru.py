@@ -476,3 +476,70 @@ def _launch_bwd(d_out_tb, m_tb, z_tb, hp_tb, w_t, d_hfin, path: str):
             GRU_BACKWARD.call("gru_backward", *args, res_bf16, T, B, H,
                               stream)
     return d_z, d_c
+
+
+def _smoke_fwd() -> Dict[str, float]:
+    """One small launch of each K3 kernel (the f32 and bf16 step kernels,
+    the persistent kernel) on the current card, uncounted, against
+    ``gru_forward_plain``: f32 within 1e-5 of the largest value, bf16
+    within 5e-3 (the card tests' tolerances)."""
+    from paddle_tpu_torch.ops.kernels.build import smoke_error, uncounted
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    B, T, H = 5, 6, 64
+    g = torch.Generator().manual_seed(3)
+    mask = torch.ones(B, T)
+    mask[-1, T // 2:] = 0.0
+    xp = (0.5 * torch.randn(B, T, 3 * H, generator=g)).to(dev)
+    w_h = (torch.randn(H, 3 * H, generator=g) * (2.0 / (4 * H)) ** 0.5
+           ).to(dev)
+    h0 = (0.5 * torch.randn(B, H, generator=g)).to(dev)
+    mask = mask.to(dev)
+    errs = {}
+    with uncounted(GRU_FORWARD):
+        for cd, path, tol in (("float32", "steps", 1e-5),
+                              ("bfloat16", "steps", 5e-3),
+                              ("bfloat16", "persistent", 5e-3)):
+            with compute_dtype_scope(cd):
+                got = _launch_fwd(xp, mask, w_h, h0, False, path)
+                want = gru_forward_plain(xp, mask, w_h, h0)
+            errs[f"{path}_{cd}"] = smoke_error(
+                f"gru_forward {path} {cd}", got, want, tol)
+    return errs
+
+
+GRU_FORWARD.smoke = _smoke_fwd
+
+
+def _smoke_bwd() -> Dict[str, float]:
+    """One small launch of each K4 kernel (steps, persistent) on the
+    current card, uncounted, from the plain forward's f32 residuals,
+    against ``gru_backward_plain`` within 1e-5 of the largest value."""
+    from paddle_tpu_torch.ops.kernels.build import smoke_error, uncounted
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    B, T, H = 5, 6, 64
+    g = torch.Generator().manual_seed(5)
+    mask = torch.ones(B, T)
+    mask[-1, T // 2:] = 0.0
+    xp = (0.5 * torch.randn(B, T, 3 * H, generator=g)).to(dev)
+    w_h = (torch.randn(H, 3 * H, generator=g) * (2.0 / (4 * H)) ** 0.5
+           ).to(dev)
+    d_out, d_hfin = (torch.randn(*s, generator=g).to(dev)
+                     for s in ((T, B, H), (B, H)))
+    mask = mask.to(dev)
+    errs = {}
+    with compute_dtype_scope("float32"), uncounted(GRU_BACKWARD):
+        _, _, z, hp = gru_forward_plain(xp, mask, w_h, residuals=True)
+        bargs = [d_out, mask.t().contiguous(), z, hp, w_h.t().contiguous(),
+                 d_hfin]
+        want = gru_backward_plain(*bargs)
+        for path in ("steps", "persistent"):
+            errs[path] = smoke_error(f"gru_backward {path}",
+                                     _launch_bwd(*bargs, path), want, 1e-5)
+    return errs
+
+
+GRU_BACKWARD.smoke = _smoke_bwd

@@ -60,3 +60,26 @@ def logsumexp_rows(x: torch.Tensor) -> torch.Tensor:
                             N, V, stream)
     LOGSUMEXP_ROWS.count("single")
     return lse
+
+
+def _smoke() -> Dict[str, float]:
+    """One small launch of each K12 kernel (f32 and bf16 rows) on the
+    current card, uncounted, against ``logsumexp_rows_plain`` within 1e-6
+    of the largest value (the card tests' rtol)."""
+    from paddle_tpu_torch.ops.kernels.build import smoke_error, uncounted
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x = (3.0 * torch.randn(5, 300, generator=torch.Generator().manual_seed(
+        12))).to(dev)
+    errs = {}
+    with uncounted(LOGSUMEXP_ROWS):
+        for dt in (torch.float32, torch.bfloat16):
+            xt = x.to(dt)
+            name = str(dt)[6:]
+            errs[name] = smoke_error(f"logsumexp_rows {name}",
+                                     (logsumexp_rows(xt),),
+                                     (logsumexp_rows_plain(xt),), 1e-6)
+    return errs
+
+
+LOGSUMEXP_ROWS.smoke = _smoke

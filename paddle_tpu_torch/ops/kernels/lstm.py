@@ -488,3 +488,71 @@ def _launch_bwd(d_out_tb, m_tb, z_tb, cp_tb, w_t, pi, pf, po, d_hfin, d_cfin,
             LSTM_BACKWARD.call("lstm_backward", *args, res_bf16, T, B, H,
                                stream)
     return d_z, cn, d_h, d_c
+
+
+def _smoke_inputs(B: int, T: int, H: int, dev):
+    """Seeded small K9 inputs on ``dev``: a full row and a ragged tail, a
+    boot state, nonzero peepholes."""
+    g = torch.Generator().manual_seed(B * 131 + H)
+
+    def r(scale, *shape):
+        return (scale * torch.randn(*shape, generator=g)).to(dev)
+
+    mask = torch.ones(B, T)
+    mask[-1, T // 2:] = 0.0
+    return [r(0.4, B, T, 4 * H), mask.to(dev), r(H ** -0.5, H, 4 * H),
+            r(0.3, H), r(0.3, H), r(0.3, H), r(0.5, B, H), r(0.5, B, H)]
+
+
+def _smoke_fwd() -> Dict[str, float]:
+    """One small launch of each K9 kernel (the f32 and bf16 step kernels,
+    the persistent kernel) on the current card, uncounted, against
+    ``lstm_forward_plain``: f32 within 1e-5 of the largest value, bf16
+    within 5e-3 (the card tests' tolerances)."""
+    from paddle_tpu_torch.ops.kernels.build import smoke_error, uncounted
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    args = _smoke_inputs(5, 6, 64, dev)
+    errs = {}
+    with uncounted(LSTM_FORWARD):
+        for cd, path, tol in (("float32", "steps", 1e-5),
+                              ("bfloat16", "steps", 5e-3),
+                              ("bfloat16", "persistent", 5e-3)):
+            with compute_dtype_scope(cd):
+                got = _launch_fwd(*args, True, path)
+                want = lstm_forward_plain(*args, residuals=True)
+            errs[f"{path}_{cd}"] = smoke_error(
+                f"lstm_forward {path} {cd}", got[:3], want[:3], tol)
+    return errs
+
+
+def _smoke_bwd() -> Dict[str, float]:
+    """One small launch of each K10 kernel (steps, persistent) on the
+    current card, uncounted, from the plain forward's f32 residuals,
+    against ``lstm_backward_plain`` within 1e-5 of the largest value."""
+    from paddle_tpu_torch.ops.kernels.build import smoke_error, uncounted
+    from paddle_tpu_torch.ops.numerics import compute_dtype_scope
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    B, T, H = 5, 6, 64
+    xp, mask, w_h, pi, pf, po, h0, c0 = _smoke_inputs(B, T, H, dev)
+    g = torch.Generator().manual_seed(7)
+    d_out, d_hfin, d_cfin = (torch.randn(*s, generator=g).to(dev)
+                             for s in ((T, B, H), (B, H), (B, H)))
+    errs = {}
+    with compute_dtype_scope("float32"), uncounted(LSTM_BACKWARD):
+        res = lstm_forward_plain(xp, mask, w_h, pi, pf, po, h0, c0,
+                                 residuals=True)
+        bargs = [d_out, mask.t().contiguous(), res[3], res[5],
+                 w_h.t().contiguous(), pi, pf, po, d_hfin, d_cfin]
+        want = lstm_backward_plain(*bargs)
+        for path in ("steps", "persistent"):
+            got = _launch_bwd(*bargs, True, path)
+            errs[path] = smoke_error(f"lstm_backward {path}", got, want,
+                                     1e-5)
+    return errs
+
+
+LSTM_FORWARD.smoke = _smoke_fwd
+LSTM_BACKWARD.smoke = _smoke_bwd

@@ -155,3 +155,30 @@ def topk_logits_kernel_info(dtype: torch.dtype, k: int
     if err != 0:
         raise RuntimeError(f"topk_lse_logits_info: CUDA error {err}")
     return tuple(v.value for v in vals)
+
+
+def _smoke() -> Dict[str, float]:
+    """One small launch of each K8 kernel (f32 and bf16 logits) on the
+    current card, uncounted, against ``topk_lse_logits_plain``: ids equal,
+    values and lse within 1e-5 of the largest value."""
+    from paddle_tpu_torch.ops.kernels.build import smoke_error, uncounted
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x = torch.randn(4, 1000, generator=torch.Generator().manual_seed(8)
+                    ).to(dev)
+    errs = {}
+    with uncounted(TOPK_LSE_LOGITS):
+        for dt in (torch.float32, torch.bfloat16):
+            lg = x.to(dt)
+            name = str(dt)[6:]
+            vals, idx, lse = topk_lse_logits(lg, 3)
+            pv, pi, pl = topk_lse_logits_plain(lg, 3)
+            if not torch.equal(idx, pi):
+                raise RuntimeError(f"smoke call topk_lse_logits {name}: "
+                                   f"ids differ")
+            errs[name] = smoke_error(f"topk_lse_logits {name}",
+                                     (vals, lse), (pv, pl), 1e-5)
+    return errs
+
+
+TOPK_LSE_LOGITS.smoke = _smoke

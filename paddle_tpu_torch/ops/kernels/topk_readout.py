@@ -189,3 +189,34 @@ def _launch(s: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int,
             b.data_ptr(), *ptrs, vals.data_ptr(), idx.data_ptr(),
             lse.data_ptr(), N, D, V, k, stream)
     return vals, idx, lse
+
+
+def _smoke() -> Dict[str, float]:
+    """One small launch of each K7 kernel (the f32 and bf16 SIMT pass 1,
+    the TMA + wgmma pass 1) on the current card, uncounted, against
+    ``topk_lse_readout_plain``: values and lse within 1e-4 of the largest
+    value, ids equal (the seeded logits hold no near ties at k = 3)."""
+    from paddle_tpu_torch.ops.kernels.build import smoke_error, uncounted
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    N, D, V, k = 6, 64, 264, 3
+    g = torch.Generator().manual_seed(11)
+    s32 = torch.randn(N, D, generator=g).to(dev)
+    w32 = (0.2 * torch.randn(D, V, generator=g)).to(dev)
+    b = (0.1 * torch.randn(V, generator=g)).to(dev)
+    errs = {}
+    with uncounted(TOPK_LSE_READOUT):
+        for path, dt in (("simt", torch.float32), ("simt", torch.bfloat16),
+                         ("wgmma", torch.bfloat16)):
+            s, w = s32.to(dt).contiguous(), w32.to(dt).contiguous()
+            vals, idx, lse = _launch(s, w, b, k, path)
+            pv, pi, pl = topk_lse_readout_plain(s, w, b, k)
+            name = f"topk_lse_readout {path} {str(dt)[6:]}"
+            if not torch.equal(idx, pi):
+                raise RuntimeError(f"smoke call {name}: ids differ")
+            errs[f"{path}_{str(dt)[6:]}"] = smoke_error(
+                name, (vals, lse), (pv, pl), 1e-4)
+    return errs
+
+
+TOPK_LSE_READOUT.smoke = _smoke

@@ -15,10 +15,14 @@ reference's ``paddle_tpu/resilience``).  Ported so far:
   ``latency_injection``, ``crash_calls``, ``straggler_request``,
   ``slow_client``), the decode faults (``bad_draft``,
   ``corrupt_prefix_cache``), the training faults and the data-pipeline
-  faults (``corrupt_shard``, ``truncate_shard``, ``slow_shard``).
+  faults (``corrupt_shard``, ``truncate_shard``, ``slow_shard``) and the
+  delivery faults (``corrupt_publish``, ``corrupt_compile_cache``,
+  ``tenant_flood``, ``poison_tenant``, ``kill_canary``);
+- **integrity** — the at-rest scrub (``scrub_paths``, quarantine,
+  ``latest_verified_pass``, ``ScrubDaemon``).
 
-The gang supervisor, the integrity fingerprint and the rest of the chaos
-harness wait for ROADMAP.md Queue 1 item 9."""
+The gang supervisor, the integrity fingerprint and SDC vote, and the rest
+of the chaos harness wait for ROADMAP.md Queue 1 item 9."""
 
 from paddle_tpu_torch.resilience import chaos
 from paddle_tpu_torch.resilience.checkpoint_io import (MANIFEST_VERSION,

@@ -50,7 +50,9 @@ __all__ = ["nan_feed", "kill_worker", "latency_injection", "crash_calls",
            "straggler_request", "slow_client", "bad_draft",
            "corrupt_prefix_cache", "corrupt_file", "truncate_file",
            "corrupt_checkpoint", "inject_nan_batches", "flaky_reader",
-           "preempt_at", "corrupt_shard", "truncate_shard", "slow_shard"]
+           "preempt_at", "corrupt_shard", "truncate_shard", "slow_shard",
+           "corrupt_publish", "corrupt_compile_cache", "tenant_flood",
+           "poison_tenant", "kill_canary"]
 
 
 def nan_feed(batch: Any) -> Any:
@@ -345,3 +347,170 @@ def slow_shard(source, *, delay_s: float = 0.05) -> None:
     ``delay_s`` (a cold network file system, a throttled object store)."""
     ds = getattr(source, "dataset", source)
     ds._read_delay = float(delay_s)
+
+
+# ---------------------------------------------------------------------------
+# continuous delivery: publish dirs, compile caches, the fleet
+# ---------------------------------------------------------------------------
+
+
+def corrupt_publish(publish_dir: str, *, version: Optional[int] = None,
+                    member: str = "model.ptz", mode: str = "corrupt",
+                    nbytes: int = 64) -> Optional[str]:
+    """Damage one member of a published model version (default: the
+    NEWEST version's bundle) — the torn or bit-rotted publish the
+    hot-reload path must skip: the reload manager journals
+    ``publish_skipped_corrupt`` and the previous version keeps serving.
+    Returns the damaged version dir, or None when nothing is published."""
+    from paddle_tpu_torch.publish import latest_version, version_dir
+
+    v = latest_version(publish_dir) if version is None else int(version)
+    if v <= 0:
+        return None
+    vdir = version_dir(publish_dir, v)
+    path = os.path.join(vdir, member)
+    if mode == "corrupt":
+        corrupt_file(path, nbytes=nbytes)
+    elif mode == "truncate":
+        truncate_file(path)
+    elif mode == "delete":
+        os.remove(path)
+    else:
+        raise ValueError(f"unknown chaos mode {mode!r}")
+    return vdir
+
+
+def corrupt_compile_cache(target: str, *, key: Optional[str] = None,
+                          mode: str = "corrupt") -> Optional[str]:
+    """Damage one compile-cache entry (``config/compile_cache.py``) — the
+    stale-NFS / torn-write / bit-rot model the cache must absorb: a load
+    that meets a damaged entry is a logged miss and a fresh build, never a
+    crash or a wrong library.
+
+    ``target`` is a ``--compile_cache_dir`` directory (damages the
+    ``<key>.aotx`` file, or the first one when ``key`` is None) or a
+    ``.ptz`` bundle (rewrites the archive with the matching ``aot/``
+    member's payload bit-flipped or truncated).  Returns the damaged file
+    or member name, or None when there was nothing to damage."""
+    if os.path.isdir(target):
+        names = sorted(n for n in os.listdir(target) if n.endswith(".aotx"))
+        if key is not None:
+            names = [n for n in names if n.startswith(key)]
+        if not names:
+            return None
+        path = os.path.join(target, names[0])
+        (corrupt_file if mode == "corrupt" else truncate_file)(path)
+        return path
+    # a bundle: zip members cannot be damaged in place — rewrite the
+    # archive with the target member's payload mangled
+    import zipfile
+
+    with zipfile.ZipFile(target) as z:
+        members = [(i.filename, z.read(i.filename)) for i in z.infolist()]
+    victim = None
+    for name, _ in members:
+        if name.startswith("aot/") and (key is None or key in name):
+            victim = name
+            break
+    if victim is None:
+        return None
+    with zipfile.ZipFile(target, "w", zipfile.ZIP_DEFLATED) as z:
+        for name, data in members:
+            if name == victim:
+                mid = len(data) // 2
+                data = (data[:mid] + bytes(b ^ 0xFF for b in data[mid:])
+                        if mode == "corrupt" else data[:mid])
+            z.writestr(name, data)
+    return victim
+
+
+def tenant_flood(fleet, feed: dict, *, tenant: str,
+                 model: Optional[str] = None, factor: float = 2.5,
+                 requests: Optional[int] = None,
+                 timeout_s: float = 30.0) -> dict:
+    """Flood ONE tenant of a :class:`~paddle_tpu_torch.serving.fleet
+    .ModelFleet` with more than ``factor``x its configured capacity (burst
+    + one second of rate), submitted back to back — the noisy-neighbour
+    fault the tenancy tier contains.  The flooding tenant's overflow is
+    rejected with a typed ``QuotaExceeded`` naming it (counted here), and
+    every other tenant's traffic is untouched.  Returns the flood's
+    outcome counts."""
+    from paddle_tpu_torch.serving.errors import QuotaExceeded, ServingError
+
+    spec = fleet.admission.specs[tenant]
+    n = requests if requests is not None else \
+        max(2, int(factor * (spec.burst + spec.rate)))
+    out = {"submitted": n, "completed": 0, "quota_rejected": 0,
+           "fair_share_shed": 0, "other_errors": 0}
+    futs = []
+    for _ in range(n):
+        try:
+            futs.append(fleet.submit(feed, model=model, tenant=tenant))
+        except QuotaExceeded as e:
+            out["fair_share_shed" if e.fair_share
+                else "quota_rejected"] += 1
+        except ServingError:
+            out["other_errors"] += 1
+    for f in futs:
+        try:
+            f.result(timeout_s)
+            out["completed"] += 1
+        except ServingError:
+            out["other_errors"] += 1
+    return out
+
+
+def poison_tenant(fleet, tenant: str):
+    """NaN-poison ONE tenant's traffic: every feed ``tenant`` submits
+    through the fleet is replaced with ``nan_feed`` before admission, all
+    other tenants' feeds pass through untouched.  With
+    ``nonfinite='error'`` the entry serving that tenant fails its requests
+    typed (``InferenceFailed``) and trips ITS OWN breaker.  Returns a
+    restore() callable that removes the poison."""
+    orig = fleet.submit
+
+    def poisoned(feed, **kw):
+        if kw.get("tenant") == tenant:
+            feed = nan_feed(feed)
+        return orig(feed, **kw)
+
+    fleet.submit = poisoned
+
+    def restore():
+        if getattr(orig, "__func__", None) is type(fleet).submit:
+            # drop the instance attribute: the fleet keeps no reference
+            # cycle through its own bound method
+            del fleet.submit
+        else:
+            fleet.submit = orig
+
+    return restore
+
+
+def kill_canary(fleet, model: str, *, mode: str = "nan"):
+    """Corrupt a model's CANARY mid-rollout: the candidate entry's
+    forward goes bad under live traffic — ``mode="nan"`` swaps in a
+    forward that emits NaN (the poisoned-weights model; with
+    ``nonfinite='error'`` every canary request fails typed),
+    ``mode="crash"`` one that raises (trips the canary's breaker).  The
+    fleet must roll back within probation, journaling
+    ``publish_rollback`` naming the entry, while the INCUMBENT arm is never
+    interrupted and no request is dropped.  Returns the displaced model."""
+    route = fleet.route(model)
+    if route["candidate"] is None:
+        raise ValueError(f"model {model!r} has no canary/shadow candidate "
+                         f"to kill")
+    entry = fleet.entry(model, route["candidate"])
+    prev = entry.server.model
+
+    def bad_forward(feed, *rest):
+        if mode == "crash":
+            raise RuntimeError("chaos: canary forward wedged")
+        outs = (prev.infer(feed) if hasattr(prev, "infer")
+                else prev(feed, *rest))
+        return {k: (np.full_like(v, np.nan)
+                    if np.asarray(v).dtype.kind == "f" else v)
+                for k, v in outs.items()}
+
+    entry.server.swap_model(bad_forward)
+    return prev

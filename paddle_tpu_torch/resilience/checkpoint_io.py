@@ -47,7 +47,8 @@ __all__ = ["MANIFEST_VERSION", "QUARANTINE_MARKER", "npz_safe",
            "save_pytree", "load_pytree", "save_checkpoint",
            "load_checkpoint", "read_manifest", "validate_checkpoint",
            "quarantine_checkpoint", "quarantine_reason", "latest_pass",
-           "latest_valid_pass", "prune_checkpoints", "pass_dir"]
+           "latest_valid_pass", "prune_checkpoints", "pass_dir",
+           "failing_member"]
 
 MANIFEST_VERSION = 1
 
@@ -388,6 +389,20 @@ def quarantine_reason(d: str) -> Optional[str]:
     return "quarantined by scrubber" + (f": {why}" if why else "")
 
 
+def failing_member(reason: str) -> str:
+    """Best-effort extraction of the file/member a validation reason names
+    ('params.npz:KEY CRC mismatch' -> 'params.npz'), for journal records;
+    '' when no member is identifiable."""
+    if not reason:
+        return ""
+    toks = reason.split()
+    if toks[0] == "missing" and len(toks) > 1:
+        return toks[1]
+    if "." in toks[0]:
+        return toks[0].split(":", 1)[0]
+    return ""
+
+
 def latest_pass(save_dir: str, *, validate: bool = True) -> int:
     """Highest pass id with a valid checkpoint under save_dir, or -1.
     Corrupt directories are logged and skipped, so resume lands on the
@@ -404,6 +419,13 @@ def latest_pass(save_dir: str, *, validate: bool = True) -> int:
             return pid
         logger.warning("skipping corrupt checkpoint %s: %s",
                        pass_dir(save_dir, pid), reason)
+        # the read path's skip lands in the journal with the failing
+        # member named, so a postmortem sees WHEN a checkpoint went bad
+        # (a no-op without --obs_journal)
+        from paddle_tpu_torch.obs.journal import journal_event
+
+        journal_event("ckpt_quarantined", dir=pass_dir(save_dir, pid),
+                      member=failing_member(reason), reason=reason)
     return -1
 
 

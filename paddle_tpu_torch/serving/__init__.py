@@ -25,10 +25,16 @@ port (the reference's ``paddle_tpu/serving``; docs/serving.md):
   (``PrefixCache``) and host paging of slots (``SlotPager``), none of which
   changes an answer;
 - **observability** — ``ServerMetrics`` over the shared metrics registry
-  (``paddle_tpu_torch.obs``), behind ``InferenceServer.healthz()``.
+  (``paddle_tpu_torch.obs``), behind ``InferenceServer.healthz()``;
+- **continuous delivery** — ``start(compile_cache=)`` loads the warmup's
+  kernel libraries from a compile cache; ``reload.HotSwapManager`` swaps
+  in newly published versions with probation and rollback;
+  ``ModelFleet`` serves a model table with tenancy (``TenantAdmission``),
+  canary, shadow and rollback; ``FleetRouter`` spreads tenants across
+  servers by rendezvous hashing, health-gated.
 
-The compile cache, preflight, request tracing, the fleet, router, tenancy
-and reload are not ported yet (ROADMAP.md Queue 1 items 7 and 9).
+Preflight and request tracing are not ported yet (ROADMAP.md Queue 1
+item 9).
 """
 
 from paddle_tpu_torch.serving.errors import (CircuitOpenError,
@@ -53,6 +59,14 @@ from paddle_tpu_torch.serving.slots import (Seq2SeqSlotBackend, SlotBackend,
 from paddle_tpu_torch.serving.prefix_cache import PrefixCache, feed_key
 from paddle_tpu_torch.serving.paging import PagedSlot, SlotPager
 from paddle_tpu_torch.serving import feeds
+from paddle_tpu_torch.serving.tenancy import (TenantAdmission, TenantSpec,
+                                              TokenBucket)
+from paddle_tpu_torch.serving.fleet import ModelFleet, canary_arm
+from paddle_tpu_torch.serving.router import (FleetRouter,
+                                             RouterDrainingError,
+                                             rendezvous_rank)
+from paddle_tpu_torch.serving.reload import (HotSwapManager, error_baseline,
+                                             load_published)
 from paddle_tpu_torch.ops.speculative import (AdversarialProposer,
                                               CallableDraftProposer,
                                               DraftProposer, NGramProposer)
@@ -68,4 +82,7 @@ __all__ = [
     "PrefixCache", "feed_key",
     "PagedSlot", "SlotPager", "DraftProposer", "NGramProposer",
     "CallableDraftProposer", "AdversarialProposer", "feeds",
+    "TenantSpec", "TokenBucket", "TenantAdmission", "ModelFleet",
+    "canary_arm", "FleetRouter", "RouterDrainingError", "rendezvous_rank",
+    "HotSwapManager", "error_baseline", "load_published",
 ]

@@ -42,10 +42,17 @@ and host paging of slots (``slot_page_pool_mb``).  Each cycle re-admits
 parked slots before new requests, and pages one cold resident out when the
 table is full and requests queue.
 
+``start(compile_cache=)`` turns the warmup gate into a load path: the
+kernel libraries the warmup runs are loaded from the cache (after their
+smoke calls) or built and stored (``config/compile_cache.py``);
+``healthz()['cold_start']`` reports the hits and misses.  ``prime_model``
+is the same warm step for a model about to be swapped in
+(``serving/reload.py``), run in the caller's thread while the worker keeps
+serving.
+
 Not ported yet; each raises :class:`~paddle_tpu_torch.utils.error
-.ConfigError` naming its ROADMAP.md item: ``start(compile_cache=)``, Queue 1
-item 7; ``start(preflight=True)`` and request tracing
-(``submit(trace_attrs=)``), item 9.
+.ConfigError` naming its ROADMAP.md item: ``start(preflight=True)`` and
+request tracing (``submit(trace_attrs=)``), item 9.
 """
 
 from __future__ import annotations
@@ -211,6 +218,7 @@ class InferenceServer:
         #: gate passes
         self.cold_start_s: Optional[float] = None
         self._model_info: Optional[dict] = None   # set_model_info()
+        self._compile_cache = None                # start(compile_cache=)
         self._model_loaded_at: Optional[float] = None
         self._state = self.RUNNING
         self._ready = False
@@ -270,14 +278,16 @@ class InferenceServer:
             return lambda feed, tier_opts: model(feed, tier_opts)
         return lambda feed, tier_opts: model(feed)
 
-    def _worker_context(self):
+    def _worker_context(self, device=None):
         """Per-thread settings of the worker: grad mode off, and the
-        backend's CUDA device current (``torch.cuda.device`` raises when
-        no card is present: the worker never drops to the CPU)."""
+        backend's CUDA device (or ``device``, a model about to be primed)
+        current (``torch.cuda.device`` raises when no card is present: the
+        worker never drops to the CPU)."""
+        dev = self._device if device is None else torch.device(device)
         stack = contextlib.ExitStack()
         stack.enter_context(torch.no_grad())
-        if self._device is not None and self._device.type == "cuda":
-            stack.enter_context(torch.cuda.device(self._device))
+        if dev is not None and dev.type == "cuda":
+            stack.enter_context(torch.cuda.device(dev))
         return stack
 
     # ------------------------------------------------------------------
@@ -289,12 +299,18 @@ class InferenceServer:
               compile_cache=None) -> "InferenceServer":
         """Warm every batch bucket of every given feed's canonical shape,
         then start the supervised worker.  ``warmup_feed`` is one feed dict
-        or a list of them (one per expected sequence-length bucket)."""
+        or a list of them (one per expected sequence-length bucket).
+
+        ``compile_cache`` (``config.compile_cache``: a
+        ``--compile_cache_dir``, a publish dir's ``ccache/`` or a bundle's
+        ``aot/`` members) makes the warmup load the kernel libraries it
+        runs instead of building them; the bucket forwards and, in
+        generation mode, the slot table's libraries alike.  Hits and misses
+        surface in ``healthz()['cold_start']``."""
         if preflight:
             raise not_ported("start(preflight=True) (the analysis tier)", 9)
-        if compile_cache is not None:
-            raise not_ported("start(compile_cache=)", 7)
         t_start = self._clock()
+        self._compile_cache = compile_cache
         feeds = (warmup_feed if isinstance(warmup_feed, (list, tuple))
                  else [warmup_feed] if warmup_feed is not None else [])
         if warmup:
@@ -313,32 +329,59 @@ class InferenceServer:
         return sorted({batch_bucket(r, self.max_batch)
                        for r in range(1, self.max_batch + 1)})
 
-    def _warmup(self, feeds: List[Dict[str, Any]]) -> None:
-        """Warm every batch bucket of every feed, under the worker's
-        per-thread settings: an ``InferenceModel`` through ``prime`` (its
-        example feed when none is given; a duplicate signature costs
-        nothing), a callable by one call."""
-        model = self.model
-        prime = getattr(model, "prime", None)
+    def prime_model(self, model,
+                    feeds: Optional[List[Dict[str, Any]]] = None
+                    ) -> Optional[dict]:
+        """Warm ``model`` — every batch bucket of every feed's canonical
+        shape (its example feed when none is given) — against this server's
+        compile cache, under the worker's per-thread settings.  This is
+        the warmup gate of ``start()`` and the off-hot-path warm step of a
+        hot swap (``serving/reload.py``): the incoming model is primed here,
+        in the caller's thread, while the worker keeps serving the current
+        one.  An ``InferenceModel`` warms through ``prime`` (a duplicate
+        signature costs nothing), a callable by one call.  Returns the
+        counts, or None when there is nothing to prime (a callable without
+        an example feed)."""
         if not feeds and hasattr(model, "topology"):
             from paddle_tpu_torch.serving.feeds import example_feed
 
             feeds = [example_feed(model.topology)]
         if not feeds:
-            return
-        t0 = self._clock()
-        n = 0
-        with self._worker_context():
+            return None
+        prime = getattr(model, "prime", None)
+        runner = self._runner if model is self.model else None
+        compiled = hits = 0
+        with self._worker_context(getattr(model, "device", None)):
             for feed in feeds:
                 for padded in warmup_bucket_feeds(feed, self._buckets()):
                     if prime is None:
-                        self._runner(padded, {})
-                    elif prime(padded, outputs=self._outputs) == "warm":
-                        continue
-                    n += 1
-        self.metrics.inc("warmup_compiles", n)
-        logger.info("serving warmup: %d bucket shape(s) over %d feed(s) "
-                    "in %.2fs", n, len(feeds), self._clock() - t0)
+                        if runner is None:
+                            runner = self._make_runner(model)
+                        runner(padded, {})
+                        r = "compiled"
+                    else:
+                        r = prime(padded, outputs=self._outputs,
+                                  cache=self._compile_cache)
+                    if r == "hit":
+                        hits += 1
+                        self.metrics.inc("compile_cache_hits")
+                    elif r != "warm":
+                        compiled += 1
+                        self.metrics.inc("warmup_compiles")
+                        if r == "miss":
+                            self.metrics.inc("compile_cache_misses")
+        return {"compiled": compiled, "hits": hits, "feeds": len(feeds),
+                "buckets": len(self._buckets())}
+
+    def _warmup(self, feeds: List[Dict[str, Any]]) -> None:
+        t0 = self._clock()
+        counts = self.prime_model(self.model, feeds)
+        if counts is None:
+            return
+        logger.info("serving warmup: %d bucket shape(s) over %d feed(s) — "
+                    "%d compiled, %d cache-loaded in %.2fs",
+                    counts["compiled"] + counts["hits"], counts["feeds"],
+                    counts["compiled"], counts["hits"], self._clock() - t0)
 
     def _warmup_generation(self, feeds: List[Dict[str, Any]]) -> None:
         """Run the continuous path once before ready: prefill + write at
@@ -352,28 +395,17 @@ class InferenceServer:
         buckets = self._buckets()
         t0 = self._clock()
         before = sched.compiled_programs()
-        synth = None
+        counts = None
         with self._worker_context():
-            for feed in feeds:
-                canon, _, sig = canonicalize_feed(feed)
-                one = {name: (tuple(p[:1] for p in v)
-                              if isinstance(v, tuple) else v[:1])
-                       for name, v in canon.items()}
-
-                def synth(n, one=one, sig=sig):
-                    return [Request(feed=one, rows=1, signature=sig,
-                                    future=ServingFuture(), deadline=None,
-                                    t_submit=t0, max_len=1)
-                            for _ in range(n)]
-
-                for bucket in buckets:
-                    sched.admit(synth(min(bucket, sched.slots)))
-                    sched.reset()
-            # one full cycle: step, finalize and release
-            sched.admit(synth(1))
-            sched.step()
-            sched.harvest()
-            sched.reset()
+            if self._compile_cache is not None:
+                # the cycle under the cache: its libraries are loaded from
+                # it (or built and stored)
+                counts = sched.prime(self._compile_cache, feeds,
+                                     buckets=buckets)
+                self.metrics.inc("compile_cache_hits", counts["hits"])
+                self.metrics.inc("compile_cache_misses", counts["misses"])
+            else:
+                sched.warm_cycle(feeds, buckets)
         # the synthetic traffic must not read as served traffic on healthz
         sched.admitted = sched.recycled = sched.steps_run = 0
         sched.spec_drafted = sched.spec_accepted = sched.spec_steps = 0
@@ -384,8 +416,10 @@ class InferenceServer:
             sched.prefix_cache.clear()
             sched.prefix_cache.hits = sched.prefix_cache.misses = 0
             sched.prefix_cache.evictions = 0
-        self.metrics.inc("warmup_compiles",
-                         max(0, sched.compiled_programs() - before))
+        # with a cache only its misses built anything; without one every
+        # library the cycle loaded was built (or found built)
+        self.metrics.inc("warmup_compiles", counts["misses"] if counts
+                         else max(0, sched.compiled_programs() - before))
         logger.info("generation warmup: %d admission bucket(s) over %d "
                     "feed(s) + 1 step cycle in %.2fs",
                     len(buckets), len(feeds), self._clock() - t0)
@@ -990,9 +1024,9 @@ class InferenceServer:
                        "max_restarts": self.supervisor.max_restarts},
             "service_ema_ms": (round(self._service_ema * 1e3, 3)
                                if self._service_ema is not None else None),
-            # no compile cache yet (ROADMAP.md Queue 1 item 7): hits and
-            # misses stay 0; warmup_compiles counts the kernel libraries
-            # the warmup loaded (SlotScheduler.compiled_programs)
+            # compile-cache hits and misses of the warmup and of every
+            # prime_model (a hot swap's warm step); warmup_compiles counts
+            # the warm calls that paid for a build
             "cold_start": {
                 "cold_start_s": (round(self.cold_start_s, 3)
                                  if self.cold_start_s is not None else None),

@@ -24,8 +24,9 @@ any output bit:
   comes back bit for bit (``serving/paging.py``).
 
 ``example_slot_backend`` is the compact backend of the ``serve
---serve_continuous`` smoke.  The compile-cache ``prime`` waits for
-ROADMAP.md Queue 1 item 7.
+--serve_continuous`` smoke.  ``prime`` loads the kernel libraries the table
+runs (K3 at prefill, K7 at the readout) from a compile cache, by one
+synthetic admission cycle (``warm_cycle``) under it.
 """
 
 from __future__ import annotations
@@ -244,6 +245,8 @@ class SlotScheduler:
         self.backend = backend
         self.slots = int(slots)
         self._clock = clock
+        #: compile-cache hits and misses of prime() over the table's life
+        self.cache_hits = self.cache_misses = 0
         self._lock = threading.Lock()
         if spec_k > 0 and backend.beam_size != 1:
             logger.info("speculative decoding disabled: beam_size=%d "
@@ -330,6 +333,64 @@ class SlotScheduler:
         from paddle_tpu_torch.ops.kernels.build import LIBRARIES
 
         return sum(lib._lib is not None for lib in LIBRARIES.values())
+
+    def warm_cycle(self, feeds: List[Dict[str, Any]],
+                   buckets: List[int]) -> None:
+        """Run the table once on synthetic one-row requests: admission
+        (prefill + write) at every row bucket of every feed shape, then
+        one full admit -> step -> harvest cycle; the table is reset after
+        each.  On the card this builds (or loads) the kernel libraries and
+        warms the allocator before any real request arrives.  The caller
+        zeroes the traffic counters afterwards."""
+        from paddle_tpu_torch.serving.batching import (ServingFuture,
+                                                       canonicalize_feed)
+
+        t0 = self._clock()
+        synth = None
+        for feed in feeds:
+            canon, _, sig = canonicalize_feed(feed)
+            one = {name: (tuple(p[:1] for p in v)
+                          if isinstance(v, tuple) else v[:1])
+                   for name, v in canon.items()}
+
+            def synth(n, one=one, sig=sig):
+                return [Request(feed=one, rows=1, signature=sig,
+                                future=ServingFuture(), deadline=None,
+                                t_submit=t0, max_len=1)
+                        for _ in range(n)]
+
+            for bucket in buckets:
+                self.admit(synth(min(bucket, self.slots)))
+                self.reset()
+        # one full cycle: step, finalize and release
+        self.admit(synth(1))
+        self.step()
+        self.harvest()
+        self.reset()
+
+    def prime(self, cache, feeds: List[Dict[str, Any]], *,
+              buckets: Optional[List[int]] = None) -> Dict[str, Any]:
+        """Load-or-build every kernel library the table runs (the
+        reference's prefill, step, write, release and finalize closures:
+        here K3 for prefill and K7 for the readout) from the compile cache
+        ``cache`` (``config/compile_cache.py``), by one ``warm_cycle`` under
+        it.  Returns ``{"hits", "misses", "skipped"}`` (``skipped`` when
+        no cache is given; nothing runs then).  Priming again against
+        another cache stores the resident libraries there."""
+        counts = {"hits": 0, "misses": 0, "skipped": cache is None}
+        if cache is None:
+            return counts
+        from paddle_tpu_torch.config.compile_cache import priming
+
+        if buckets is None:
+            buckets = sorted({batch_bucket(r, self.slots)
+                              for r in range(1, self.slots + 1)})
+        with priming(cache) as got:
+            self.warm_cycle(feeds, buckets)
+        counts["hits"], counts["misses"] = got["hits"], got["misses"]
+        self.cache_hits += got["hits"]
+        self.cache_misses += got["misses"]
+        return counts
 
     def reset(self) -> List[Request]:
         """Fresh table (worker relaunch): drops every resident request's

@@ -53,7 +53,12 @@ Not ported here, and refused with a ``ConfigError`` naming the ROADMAP.md
 Queue 1 item that ports it: ``mesh`` (with it the pserver tier's sharded
 tables), ``data_axis``, ``sharding_rules``, ``pipeline`` and
 ``device_specs`` (item 8); the gang, the SDC firewall and ``audit`` (item
-9); ``publish`` (item 7).
+9).
+
+``publish`` cuts a gated, versioned deploy bundle from the newest verified
+checkpoint (``paddle_tpu_torch.publish``); ``train`` does so every
+``--publish_every`` passes into ``--publish_dir`` and runs the checkpoint
+scrubber under ``--scrub_every_s``.
 """
 
 from __future__ import annotations
@@ -218,6 +223,8 @@ class SGDTrainer:
                                      "guard-skipped non-finite steps"),
             "checkpoints": reg.counter("train_checkpoints_total",
                                        "checkpoint commits published"),
+            "publishes": reg.counter("train_publishes_total",
+                                     "gated deploy bundles published"),
         }
 
     # ------------------------------------------------------------------
@@ -283,8 +290,26 @@ class SGDTrainer:
         raise not_ported("SGDTrainer.audit (the step auditor, `lint`)", 9)
 
     def publish(self, publish_dir: str, save_dir: str, *,
-                pass_id: Optional[int] = None):
-        raise not_ported("SGDTrainer.publish (continuous publication)", 7)
+                pass_id: Optional[int] = None) -> Optional[str]:
+        """Export a gated deploy bundle into the versioned publish dir
+        (``paddle_tpu_torch.publish``) from the newest VERIFIED checkpoint
+        under ``save_dir`` — the train side of the continuous
+        train->publish->reload loop; its warm step runs on the trainer's
+        device.  A gate refusal (no verified pass, quarantined pass,
+        corrupt checkpoint, quantize error budget) is journaled as
+        ``publish_refused`` and returns None; it never fails training."""
+        from paddle_tpu_torch.publish import (PublishRefused,
+                                              publish_from_checkpoints)
+
+        try:
+            vdir = publish_from_checkpoints(
+                publish_dir, self.topology, save_dir, pass_id=pass_id,
+                quantize=FLAGS.deploy_quantize or None, device=self.device)
+        except PublishRefused as e:
+            logger.warning("publish refused (%s): %s", e.reason, e)
+            return None
+        self._obs_counters["publishes"].inc()
+        return vdir
 
     # ------------------------------------------------------------------
 
@@ -431,7 +456,13 @@ class SGDTrainer:
 
         ``log_period``, ``test_period`` (mid-pass evaluation),
         ``saving_period``, ``keep_last_n`` and
-        ``show_parameter_stats_period`` come from ``FLAGS``."""
+        ``show_parameter_stats_period`` come from ``FLAGS``.
+
+        Continuous delivery, from ``FLAGS`` too: ``--scrub_every_s`` runs a
+        background ``ScrubDaemon`` over ``--save_dir`` (it also scrubs each
+        end-of-pass checkpoint at once, so the pass is verified before a
+        publish reads it), and ``--publish_dir`` with ``--publish_every=N``
+        publishes a gated bundle every N passes (``publish``)."""
         handler = event_handler or (lambda e: None)
         log_period = FLAGS.log_period
         resume = resume or FLAGS.resume or None
@@ -457,6 +488,12 @@ class SGDTrainer:
         self.preempted = False
         if preemption is not None:
             preemption.install()
+        scrubber = None
+        if FLAGS.scrub_every_s > 0 and FLAGS.save_dir:
+            from paddle_tpu_torch.resilience.integrity import ScrubDaemon
+
+            scrubber = ScrubDaemon(FLAGS.save_dir,
+                                   every_s=FLAGS.scrub_every_s).start()
         try:
             for pass_id in range(start_pass, num_passes):
                 handler(ev.BeginPass(pass_id))
@@ -585,8 +622,18 @@ class SGDTrainer:
                 if FLAGS.save_dir and FLAGS.saving_period and (
                         (pass_id + 1) % FLAGS.saving_period == 0):
                     self.save(FLAGS.save_dir, pass_id)
+                    if scrubber is not None:
+                        scrubber.scrub_now()
+                if (FLAGS.publish_dir and FLAGS.publish_every
+                        and FLAGS.save_dir
+                        and (pass_id + 1) % FLAGS.publish_every == 0):
+                    # from the newest VERIFIED checkpoint bytes, never from
+                    # live memory; a refusal is journaled, never fatal
+                    self.publish(FLAGS.publish_dir, FLAGS.save_dir)
         finally:
             self._close_prefetcher()  # exception paths: join the producer
+            if scrubber is not None:
+                scrubber.stop()
             if preemption is not None:
                 preemption.uninstall()
 

@@ -349,19 +349,87 @@ define_flag("deploy_quantize", "", "bundle export weight quantization: "
             "forward (merge_model quantize_tol)",
             validator=lambda v: v in ("", "bf16", "int8"))
 
+# --- continuous delivery: publish, reload, fleet, compile cache ------------
+
+define_flag("publish_dir", "", "versioned publish directory for gated "
+            "deploy bundles (v-%05d dirs + shared compile cache); '' "
+            "disables publication")
+define_flag("publish_every", 0, "publish a deploy bundle every N passes "
+            "(from the newest VERIFIED checkpoint under --save_dir; 0 = "
+            "never)", validator=lambda v: v >= 0)
+define_flag("reload_probation", 32, "hot-reload probation window in "
+            "completed requests before a swapped-in version is committed "
+            "and its predecessor released", validator=lambda v: v >= 1)
+define_flag("serve_watch", False, "serving CLI: serve from the newest "
+            "valid version under --publish_dir and hot-reload newer "
+            "publishes as they land (zero-downtime swap + probation "
+            "rollback); with --serve_smoke=N runs the publish->reload "
+            "self-test instead")
+define_flag("serve_fleet", False, "serving CLI: multi-model fleet mode — "
+            "a model table keyed (name, version) with the whole "
+            "breaker/ladder/warmup stack instantiated per entry, tenant "
+            "quotas + weighted fair share in front, canary/shadow rollout "
+            "with per-entry auto-rollback; with --serve_smoke=N runs the "
+            "two-model two-tenant isolation self-test")
+define_flag("serve_canary_pct", 0.0, "fleet: percentage of a model's "
+            "traffic routed to its canary candidate over the "
+            "deterministic hash-of-request split (same request key -> "
+            "same arm across retries)",
+            validator=lambda v: 0.0 <= v <= 100.0)
+define_flag("serve_probation_requests", 32, "fleet: resolved requests a "
+            "canary must serve cleanly before it is promoted to "
+            "incumbent; a breaker trip or error-rate regression inside "
+            "the window auto-rolls it back (journaled publish_rollback "
+            "naming the entry)", validator=lambda v: v >= 1)
+define_flag("serve_shadow", False, "fleet: mirror traffic to the rollout "
+            "candidate while every reply still comes from the incumbent; "
+            "output divergence is counted and journaled "
+            "(shadow_divergence), never served")
+define_flag("tenant_spec", "", "fleet tenancy: comma-separated "
+            "'name:weight:rate:burst' tenant contracts, e.g. "
+            "'gold:3:100:20,free:1:10:5' — weight shares the fleet under "
+            "contention, rate/burst bound the tenant's own token bucket "
+            "(empty = untenanted); a zero weight is refused typed at "
+            "construction")
+define_flag("tenant_capacity_rate", 0.0, "fleet tenancy: aggregate "
+            "requests/s the fleet admits before weighted fair-share "
+            "shedding kicks in (0 = the sum of tenant rates)",
+            validator=lambda v: v >= 0.0)
+define_flag("tenant_credit", 1.0, "fleet tenancy: fair-queuing slack in "
+            "weighted request units a tenant may run ahead of the global "
+            "virtual clock before it is shed "
+            "(QuotaExceeded(fair_share=True))",
+            validator=lambda v: v > 0.0)
+define_flag("compile_cache_dir", "auto", "persistent cache of the built "
+            "kernel libraries shared across serving replicas "
+            "(config/compile_cache.py): a library built on the first boot "
+            "is stored here and LOADED (no nvcc) on every later boot, "
+            "after a smoke call against its plain version; bundles can "
+            "also carry entries as aot/ members (config.warm_bundle).  "
+            "'auto' (the default) lets the serve CLI derive a per-bundle "
+            "cache next to the artifact (<bundle>.ccache); an explicit "
+            "empty value (--compile_cache_dir=) opts out")
+
+# --- resilience and telemetry -------------------------------------------------
+
+define_flag("scrub_every_s", 0.0, "background checkpoint scrubber cadence: "
+            "re-hash the manifested CRCs of the checkpoint chain and the "
+            "deploy bundles under --save_dir every N seconds; a newly "
+            "corrupt pass dir is QUARANTINED out of latest_pass "
+            "eligibility, journaled as a scrub_fail anchor, and scrub.json "
+            "records the newest fully verified pass (0 = off)",
+            validator=lambda v: v >= 0.0)
+define_flag("obs_journal", "", "directory for the rank-tagged structured "
+            "event journal (append-only events-r*.jsonl; '' = off)")
+
 #: the reference's flags of parts the port does not have yet, and the
 #: ROADMAP.md Queue 1 item that ports each; the command line refuses them
 NOT_PORTED_FLAGS: Dict[str, int] = {
-    **dict.fromkeys(("publish_dir", "publish_every", "reload_probation",
-                     "compile_cache_dir", "serve_watch", "serve_fleet",
-                     "serve_canary_pct", "serve_probation_requests",
-                     "serve_shadow", "tenant_spec", "tenant_capacity_rate",
-                     "tenant_credit"), 7),
     **dict.fromkeys(("pserver_axis", "pserver_pad_vocab", "mesh_shape",
                      "mesh_axes", "num_virtual_devices", "dcn_axis",
                      "dcn_compress", "dcn_timeout_s", "dcn_retries"), 8),
-    **dict.fromkeys(("sdc_check_every", "scrub_every_s", "obs_timeline",
-                     "obs_journal", "obs_peak_flops", "metrics_port",
+    **dict.fromkeys(("sdc_check_every", "obs_timeline",
+                     "obs_peak_flops", "metrics_port",
                      "trace_sample", "trace_tail_p99", "profile_dir",
                      "profile_steps", "enable_timers", "check_nan",
                      "gang_max_restarts", "gang_heartbeat_s",

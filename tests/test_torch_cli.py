@@ -124,10 +124,11 @@ def test_cli_help_lists_the_ported_flags_only(capsys):
                  "--fused_apply", "--show_parameter_stats_period",
                  "--data_pack", "--data_shards", "--shuffle_seed",
                  "--amp", "--loss_scale", "--loss_scale_growth",
-                 "--loss_scale_max", "--remat", "--prefetch_depth"):
+                 "--loss_scale_max", "--remat", "--prefetch_depth",
+                 "--publish_dir", "--publish_every", "--compile_cache_dir",
+                 "--scrub_every_s", "--obs_journal"):
         assert f"{flag}=" in out, flag
-    for flag in ("--sdc_check_every", "--publish_dir", "--pserver_axis",
-                 "--mesh_shape", "--compile_cache_dir"):
+    for flag in ("--sdc_check_every", "--pserver_axis", "--mesh_shape"):
         assert f"{flag}=" not in out, flag
     assert "-m paddle_tpu_torch data {pack|verify}" in out
     assert "-m paddle_tpu_torch serve --serve_bundle=" in out
@@ -154,6 +155,24 @@ def test_cli_rejects_bad_args():
     ("--enable_timers", 9), ("--deploy_lint=false", 9),
     ("--serve_preflight", 9)])
 def test_cli_unported_flags_name_their_item(flag, item):
+    """Items 8 and 9 still refuse their flags; the continuous-delivery
+    flags are ported (``--compile_cache_dir``, ``--publish_dir``,
+    ``--publish_every``, ``--scrub_every_s``): each parses into ``FLAGS``
+    and is refused no more."""
+    from paddle_tpu_torch.utils.flags import (FLAGS, NOT_PORTED_FLAGS,
+                                              parse_flags)
+
+    name, _, value = flag[2:].partition("=")
+    if name in ("compile_cache_dir", "publish_dir", "publish_every",
+                "scrub_every_s"):
+        assert name not in NOT_PORTED_FLAGS
+        before = getattr(FLAGS, name)
+        try:
+            assert parse_flags([flag]) == []
+            assert str(getattr(FLAGS, name)) in (value, f"{value}.0")
+        finally:
+            setattr(FLAGS, name, before)
+        return
     with pytest.raises(ConfigError, match=f"Queue 1 item {item}"):
         main(_args("--job=train", flag))
 

@@ -3461,3 +3461,174 @@ def test_seqtoseq_demo_copy_on_the_card_matches_the_cpu(dev):
     assert 1 <= launched["topk_lse_readout"] <= 20
     _same_or_near_tie(card["tokens"], card["scores"], cpu["tokens"],
                       cpu["scores"], TOL_V2_SCORE)
+
+
+# ---------------------------------------------------------------------------
+# continuous delivery: the compile cache and the hot swap on the card
+# ---------------------------------------------------------------------------
+
+
+def test_compile_cache_warm_boot_loads_k9_with_zero_nvcc_runs(
+        dev, tmp_path, monkeypatch):
+    """K9's library built into an empty ``_build`` under a compile cache is
+    stored (a miss); with ``_build`` empty again it loads from the cache
+    with no ``nvcc`` run, after its smoke call (each of its three kernels
+    against the plain version), and the wrapper's outputs are bit-equal
+    to the built library's; a corrupted entry is a logged miss and a
+    rebuild."""
+    from paddle_tpu_torch.config import compile_cache as cc
+    from paddle_tpu_torch.ops.kernels import build
+    from paddle_tpu_torch.ops.kernels.lstm import (LSTM_FORWARD,
+                                                   _smoke_inputs)
+    from paddle_tpu_torch.resilience import chaos
+
+    args = _smoke_inputs(7, 9, 64, dev)
+    cache = cc.CompileCacheDir(str(tmp_path / "cache"))
+    monkeypatch.setattr(LSTM_FORWARD, "_lib", None)
+
+    def boot(name):
+        monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / name))
+        LSTM_FORWARD._lib = None
+        with compute_dtype_scope("bfloat16"), cc.priming(cache) as counts:
+            out = lstm_forward(*args)
+        torch.cuda.synchronize()
+        return counts, out
+
+    builds = LSTM_FORWARD.builds
+    counts, cold = boot("b0")
+    assert counts["libraries"] == {"lstm_forward": "miss"}
+    assert LSTM_FORWARD.builds == builds + 1
+    counts, warm = boot("b1")
+    assert counts["libraries"] == {"lstm_forward": "hit"}
+    assert LSTM_FORWARD.builds == builds + 1          # zero nvcc runs
+    assert LSTM_FORWARD.origin == "cache"
+    assert set(LSTM_FORWARD.smoke_result) == {
+        "steps_float32", "steps_bfloat16", "persistent_bfloat16"}
+    for a, b in zip(cold, warm):
+        assert torch.equal(a, b)
+    assert chaos.corrupt_compile_cache(cache.root) is not None
+    counts, again = boot("b2")
+    assert counts["libraries"] == {"lstm_forward": "miss"}
+    assert LSTM_FORWARD.builds == builds + 2 and LSTM_FORWARD.origin == \
+        "built"
+    for a, b in zip(cold, again):
+        assert torch.equal(a, b)
+
+
+def test_hot_swap_under_load_on_the_card(dev, tmp_path):
+    """A small ``lstm_benchmark_net`` (bf16) trained on the card and
+    published twice: a bucket-mode server booted from v1 serves client
+    threads while the ``HotSwapManager`` swaps v2 in; every reply is
+    bit-equal to one version's solo ``infer``, none fails, the publish
+    dir's cache is hit on the reload, and K9 launches from the worker
+    thread twice a batch, all persistent (the swap's warm step launches
+    from the caller's thread)."""
+    import os
+    import threading
+
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.config import load_inference_model
+    from paddle_tpu_torch.models import lstm_benchmark_net
+    from paddle_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.param import Adam
+    from paddle_tpu_torch.publish import (publish_cache_dir,
+                                          publish_from_checkpoints,
+                                          version_dir)
+    from paddle_tpu_torch.serving import (HotSwapManager, InferenceServer,
+                                          load_published)
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    rng = np.random.RandomState(0)
+
+    def feed(B, T):
+        return {"words": (rng.randint(3, 200, (B, T)).astype(np.int32),
+                          rng.randint(T // 2, T + 1, B).astype(np.int32)),
+                "label": rng.randint(0, 2, (B, 1))}
+
+    with compute_dtype_scope("bfloat16"):
+        nn.reset_naming()
+        cost, logits = lstm_benchmark_net(200, emb_dim=16, hid_dim=64)
+        tr = SGDTrainer(cost, Adam(learning_rate=1e-2), seed=0, device=dev)
+        save, pub = str(tmp_path / "ck"), str(tmp_path / "pub")
+        for p in range(2):
+            tr.train_batch(feed(8, 12))
+            tr.save(save, p)
+            publish_from_checkpoints(pub, tr.topology, save, pass_id=p,
+                                     device=dev)
+        pool = [{"words": feed(rng.randint(1, 4), 12)["words"]}
+                for _ in range(32)]
+        solo = {}
+        for v in (1, 2):
+            m = load_inference_model(os.path.join(version_dir(pub, v),
+                                                  "model.ptz"))
+            solo[v] = [m.infer(f, outputs=[logits.name])[logits.name]
+                       for f in pool]
+        model, info, v = load_published(pub, max_version=1)
+        srv = InferenceServer(model, outputs=[logits.name], max_batch=8,
+                              batch_delay_ms=1.0, max_queue=256,
+                              default_deadline_ms=0.0)
+        srv.start(compile_cache=publish_cache_dir(pub))
+        mgr = HotSwapManager(srv, pub, probation_requests=8)
+        mgr.attach_current(v, info)
+        records, stop = [], threading.Event()
+
+        def client(c):
+            k = 0
+            while k < 8 or not stop.is_set():
+                i = (c + 4 * k) % len(pool)
+                records.append((i, srv.submit(pool[i]).result(60)))
+                k += 1
+
+        try:
+            reset_launch_counts()
+            threads = [threading.Thread(target=client, args=(c,),
+                                        daemon=True) for c in range(4)]
+            for t in threads:
+                t.start()
+            for _ in range(2000):
+                mgr.poll()
+                if mgr.current_version == 2 and not mgr.in_probation:
+                    break
+                threading.Event().wait(0.002)
+            stop.set()
+            for t in threads:
+                t.join(60)
+            counts = launch_counts()
+            hz = srv.healthz()
+        finally:
+            stop.set()
+            srv.close()
+    assert mgr.current_version == 2
+    versions = []
+    for i, out in records:
+        ks = [v for v in (1, 2) if np.array_equal(out[logits.name],
+                                                  solo[v][i])]
+        assert len(ks) == 1
+        versions.append(ks[0])
+    assert {1, 2} <= set(versions)
+    assert hz["counters"]["compile_cache_misses"] == 0
+    assert hz["counters"]["compile_cache_hits"] > 0
+    worker = {t: n for t, n in counts.by_thread["lstm_forward"].items()
+              if t.startswith("serving-worker-")}
+    assert sum(worker.values()) == 2 * hz["counters"]["batches"]
+    assert set(counts.by_path["lstm_forward"]) == {"persistent"}
+    assert counts["lstm_backward"] == 0
+
+
+def test_every_kernel_library_passes_its_smoke_call(dev):
+    """Each of the 13 kernel libraries has a smoke call (what a library
+    loaded from a compile cache runs before it is trusted): one small
+    launch of each of its kernels against the kernels' plain versions.
+    Each passes on the built library, reports an error per kernel, and
+    counts no launch."""
+    from paddle_tpu_torch.ops.kernels import LIBRARIES, build_all
+
+    build_all()
+    before = launch_counts()
+    for name, lib in LIBRARIES.items():
+        assert lib.smoke is not None, name
+        errs = lib.smoke()
+        assert errs and all(e >= 0.0 for e in errs.values()), (name, errs)
+    torch.cuda.synchronize()
+    assert launch_counts() == before
+    assert launch_counts().by_path == before.by_path

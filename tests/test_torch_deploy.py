@@ -415,10 +415,18 @@ def test_prime_fingerprint_and_refusals(tmp_path, trained):
                          {k: v + 1 for k, v in trained.items()}, None)
     assert load_inference_model(other, device="cpu").fingerprint \
         != m.fingerprint
-    with pytest.raises(ConfigError, match="Queue 1 item 7\\b"):
-        m.prime(feed, cache=object())
-    with pytest.raises(ConfigError, match="Queue 1 item 7\\b"):
-        load_inference_model(path, device="cpu", arch_fingerprint=True)
+    # the compile cache is ported: on the CPU a primed signature runs the
+    # plain versions, no kernel library, so the cache has nothing to give
+    from paddle_tpu_torch.config.compile_cache import CompileCacheDir
+
+    assert m.prime(_seq_feed(np.random.RandomState(6), 8),
+                   cache=CompileCacheDir(str(tmp_path / "cc"))) == "compiled"
+    assert m.compile_events == 3
+    # and the architecture fingerprint every weight version shares
+    arch = load_inference_model(path, device="cpu", arch_fingerprint=True)
+    assert not arch.fingerprint.startswith("bundle:")
+    assert arch.fingerprint == load_inference_model(
+        other, device="cpu", arch_fingerprint=True).fingerprint
     with pytest.raises(ConfigError, match="Queue 1 item 9\\b"):
         load_inference_model(path, device="cpu", int8_in_trace=True)
     _, topo = _net(tnn, "cpu")

@@ -67,7 +67,12 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
                 "v2/optimizer.py", "v2/parameters.py", "v2/plot.py",
                 "v2/pooling.py", "v2/reader.py", "v2/topology.py",
                 "v2/trainer.py", "demo/seqToseq/train.py",
-                "demo/gan/train.py", "demo/model_zoo/classify.py"):
+                "demo/gan/train.py", "demo/model_zoo/classify.py",
+                "config/compile_cache.py", "obs/journal.py",
+                "resilience/integrity.py", "publish/__init__.py",
+                "publish/publisher.py", "serving/reload.py",
+                "serving/fleet.py", "serving/tenancy.py",
+                "serving/router.py"):
         assert mod in rel, mod
     bad = []
     for path in files:

@@ -744,13 +744,19 @@ def test_server_swap_keeps_the_decode_settings_and_clears_the_cache(
     np.testing.assert_array_equal(first["scores"], second["scores"])
 
 
-def test_server_item_7_and_9_options_still_raise(backend):
+def test_server_item_7_and_9_options_still_raise(backend, tmp_path):
+    """Preflight and request tracing still raise naming item 9; the
+    compile cache (item 7) is ported: the speculative table's warmup runs
+    under it (on the CPU no kernel library, so nothing is stored) and the
+    server comes up ready."""
+    from paddle_tpu_torch.config.compile_cache import CompileCacheDir
+
     srv = _server(backend, spec_k=2)
     with srv:
-        with pytest.raises(ConfigError, match="Queue 1 item 7\\b"):
-            srv.start(compile_cache=object())
         with pytest.raises(ConfigError, match="Queue 1 item 9\\b"):
             srv.start(preflight=True)
-        srv.start(warmup=False)
+        srv.start(compile_cache=CompileCacheDir(str(tmp_path / "cc")))
+        assert srv.ready and srv._scheduler.spec_k == 2
+        assert srv.healthz()["cold_start"]["compile_cache_misses"] == 0
         with pytest.raises(ConfigError, match="Queue 1 item 9\\b"):
             srv.submit(_feeds(1, 1)[0], trace_attrs={"tenant": "a"})
