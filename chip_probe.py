@@ -4,7 +4,7 @@
     python3 chip_probe.py [chunks] [profile] [textclf] [dslgen] [k8plans]
                           [k8variants] [variants] [vision] [text] [sparse]
                           [seqdata] [frontdoor] [dataio] [delivery]
-                          [build]
+                          [parallel] [build]
                           (all if none named)
 
 Needs one CUDA card and the checkout beside it.  It checks nothing that
@@ -92,6 +92,11 @@ delivery ``chip_smoke.py``'s phase 20 (train, scrub and publish; hot
          reload under closed-loop load; the warm boot from the publish
          dir's compile cache in fresh processes; the fleet, its tenants, a
          killed canary and the router) alone;
+parallel ``chip_smoke.py``'s phase 21 (data parallelism and the pserver
+         tier in launched worlds of ranks on this card: the command line
+         at lstm_b64h256 on 2 gloo ranks, bf16 and f32; the flagship's
+         data-parallel step; a world of 1 under NCCL; movielens with its
+         tables on ``model=2``) alone;
 build    cold builds of the kernel libraries into a scratch directory:
          each source alone, one ``nvcc`` at a time, then all at once as
          ``build_all`` starts them (the smoke run's build time).
@@ -976,6 +981,13 @@ def probe_delivery(dev):
     smoke.delivery_path(K, dev, smoke.card_line())
 
 
+def probe_parallel(dev):
+    """``chip_smoke.py``'s phase 21 alone."""
+    from paddle_tpu_torch.ops import kernels as K
+
+    smoke.parallel_path(K, dev, smoke.card_line())
+
+
 def main() -> int:
     import torch
 
@@ -992,7 +1004,7 @@ def main() -> int:
               "text": probe_text, "sparse": probe_sparse,
               "seqdata": probe_seqdata, "frontdoor": probe_frontdoor,
               "dataio": probe_dataio, "delivery": probe_delivery,
-              "build": probe_build}
+              "parallel": probe_parallel, "build": probe_build}
     wanted = sys.argv[1:] or list(probes)
     unknown = set(wanted) - set(probes)
     if unknown:

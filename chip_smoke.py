@@ -355,7 +355,33 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
             drained server, ``serve --serve_fleet --serve_smoke=16`` in a
             fresh process; (e) a ``{"delivery_launches": {...}}`` line and
             the phase's seconds;
-21. a ``{"server_launches": {...}}`` line (each part of the server
+21. parallel data parallelism and the pserver tier over
+            ``torch.distributed``, in worlds of ranks started by the port's
+            launcher (``parallel.launch_local``), both ranks of a world on
+            this one card (so the times are not a scaling result): (a)
+            ``python -m paddle_tpu_torch --job=train --config=tests/
+            torch_textclf_conf.py --mesh_shape=2`` on 2 gloo ranks at
+            lstm_b64h256 (global batch 64, 32 a rank, 6 steps), bf16 and
+            f32: the ranks' final parameters bit-equal, the f32 world's
+            losses and rank 0's checkpoint against the same command in this
+            process at rtol 1e-5 (losses) and rtol 1e-4 / atol 1e-6
+            (parameters), the bf16 world's largest relative errors
+            printed, K9r and K10 twice a step on each rank (persistent
+            under bf16); (b) the flagship through
+            ``make_parallel_train_step`` at B=384, S=T=32 (192 rows a
+            rank, 3 Adam steps, bf16) against the one-process step on rank
+            0, K1-K6 launches by rank; (c) a world of 1 under NCCL:
+            ``SGDTrainer(mesh=MeshConfig.of(data=1))`` bit-equal to
+            ``SGDTrainer`` without a mesh (lstm_b64h256, 3 steps); (d)
+            ``movielens_net(sparse_grad=True)`` at ML-1M's schema (6040
+            users, 3952 movies, emb 64, hid 64), B=128, Adam, f32, on
+            ``model=2`` over gloo: the gathered tables and slots against
+            the one-process masked path on rank 0 (losses rtol 1e-6,
+            tables and slots rtol 1e-6 / atol 1e-7), dirty rows exactly
+            the touched rows; per rank the step ms, the gradient
+            all-reduce and the lookup/push ms and bytes; any rank that
+            exits non-zero or outlives its world's limit fails the phase;
+22. a ``{"server_launches": {...}}`` line (each part of the server
    phase: every kernel library's launches, by kernel variant and by
    thread), a ``{"kernels": [...]}`` line (each kernel's launches on its
    path's run, also by kernel variant: ``launches_by_path``; the K9,
@@ -366,7 +392,8 @@ exits non-zero and prints no result.  Phases, each printing its own lines:
    ``seqdata_launches``; the rows phase 16 reaches also by its part:
    ``mixed_launches``, phase 17's: ``deploy_launches``, phase 18's:
    ``frontdoor_launches``, phase 19's: ``dataio_launches``, and phase
-   20's: ``delivery_launches``), then
+   20's: ``delivery_launches``, phase 21's, by part and rank:
+   ``parallel_launches``), then
    the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -374,7 +401,8 @@ Launch counters are zeroed just before each path (serve and its fused
 re-run, each part of the server phase, each arm of the spec phase, each
 training configuration, each textclf run, dslgen, each part of the
 trainer phase, the vision phase, each part of the text, sparse,
-seqdata, mixed, deploy, frontdoor, dataio and delivery phases) is driven
+seqdata, mixed, deploy, frontdoor, dataio and delivery phases, and each
+rank of phase 21, whose counters start at 0 in a fresh process) is driven
 and read just after; a kernel of the path
 that was not launched fails the run.  ``chip_probe.py`` measures what this
 run leaves out to stay short (the products' chunk sizes end to end,
@@ -7990,6 +8018,571 @@ def delivery_path(K, dev, card):
     return parts
 
 
+# ---------------------------------------------------------------------------
+# phase 21: data parallelism and the pserver tier over torch.distributed
+# ---------------------------------------------------------------------------
+
+#: (a) 6 steps of 64 rows (32 a rank) and one test batch a pass
+PARALLEL_TEXTCLF_N, PARALLEL_TEXTCLF_TEST_N = 6 * 64, 64
+PARALLEL_TEXTCLF_STEPS = 6
+PARALLEL_FLAGSHIP_STEPS = 3
+#: (d): ML-1M's schema (paddle_tpu/data/datasets.py:240), the model's
+#: widths, the batch and the steps
+PARALLEL_ML = {"n_users": 6040, "n_movies": 3952, "emb": 64, "hid": 64,
+               "B": 128, "steps": 4}
+PARALLEL_NCCL_STEPS = 3
+#: each world's time limit: past it the launcher kills the whole gang
+PARALLEL_WORLD_S = 420.0
+#: (a) f32 and (d): tests/test_parallel.py:62-66 and tests/
+#: test_pserver.py:248-269's tolerances
+TOL_PAR_LOSS, TOL_PAR_RTOL, TOL_PAR_ATOL = 1e-5, 1e-4, 1e-6
+TOL_PS_LOSS, TOL_PS_RTOL, TOL_PS_ATOL = 1e-6, 1e-6, 1e-7
+#: (b) bf16: each Adam step's loss (relative), and the first step's
+#: gradient, each array's largest |diff| over its largest entry (the
+#: parameters after Adam are printed only: Adam's update of a gradient
+#: near zero is its sign, which any change of summation order may flip)
+TOL_PAR_FLAGSHIP_LOSS, TOL_PAR_FLAGSHIP_GRAD = 1e-3, 2 ** -6
+PARALLEL_ROWS = {
+    f"lstm_forward_residuals_b{TEXTCLF_B}h256": (
+        "lstm_forward", ("textclf_bf16_r0", "textclf_bf16_r1",
+                         "textclf_f32_r0", "textclf_f32_r1", "nccl1_r0")),
+    f"lstm_backward_b{TEXTCLF_B}h256": (
+        "lstm_backward", ("textclf_bf16_r0", "textclf_bf16_r1",
+                          "textclf_f32_r0", "textclf_f32_r1", "nccl1_r0")),
+    **{name: (name.replace("_residuals", ""), ("flagship_r0", "flagship_r1"))
+       for name in ("gru_forward_residuals", "gru_backward", "attn_dec_fwd",
+                    "attn_dec_bwd", "ce_readout_fwd", "ce_readout_bwd")},
+}
+
+
+def _rank_lines(d: str, n: int, part: str):
+    """Each rank's JSON lines on its standard output (the launcher's
+    ``rank-<i>.out``)."""
+    out = []
+    for r in range(n):
+        with open(os.path.join(d, "logs", f"rank-{r}.out")) as f:
+            lines = [json.loads(x) for x in f.read().splitlines()
+                     if x.startswith("{")]
+        if not lines:
+            fail("parallel", f"{part}: rank {r} printed no result")
+        out.append(lines)
+    return out
+
+
+def _world(part: str, n: int, script: str, args, d: str,
+           backend, env=None):
+    """Start ``n`` ranks with the port's launcher (a file rendezvous under
+    ``d``), join them under ``PARALLEL_WORLD_S`` -> each rank's JSON
+    lines.  A rank that exits non-zero, or a world past its limit, fails
+    the phase with every rank's stderr tail."""
+    from paddle_tpu_torch.parallel import GangTimeout, launch_local
+
+    os.makedirs(d, exist_ok=True)
+    env = {"PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH",
+                                                           ""),
+           **(env or {})}
+    t0 = time.perf_counter()
+    launcher = launch_local(n, script, args, env=env,
+                            coordinator=f"file://{d}/rendezvous",
+                            backend=backend, log_dir=os.path.join(d, "logs"),
+                            cwd=ROOT)
+    try:
+        codes = launcher.join(PARALLEL_WORLD_S)
+    except GangTimeout as e:
+        fail("parallel", f"{part}: {e}")
+    if any(codes):
+        fail("parallel", f"{part}: rank exit codes {codes}\n"
+             + launcher.stderr_tails())
+    print(f"parallel: {part}: {n} rank(s) over "
+          f"{backend or 'the default backend'} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return _rank_lines(d, n, part)
+
+
+def _counts(launches: dict):
+    """A rank's printed launches as ``LaunchCounts``."""
+    from paddle_tpu_torch.ops.kernels.build import LaunchCounts
+
+    lib = launches.get("by_library", {})
+    return LaunchCounts(dict(lib), {k: dict(v) for k, v in
+                                    launches.get("by_path", {}).items()}, {})
+
+
+def _comm_text(comm: dict, tags) -> str:
+    parts = []
+    for tag in tags:
+        c = comm.get(tag)
+        if c:
+            parts.append(f"{tag} {c['calls']} calls, "
+                         f"{c['ms'] / c['calls']:.3f} ms and "
+                         f"{c['bytes'] / c['calls']:.0f} bytes a call "
+                         f"(host staging {c['staged_ms'] / c['calls']:.3f} ms)")
+    return "; ".join(parts) or "none"
+
+
+def _max_errs(got: dict, want: dict):
+    """-> (largest |diff| - (atol + rtol |want|) margin inputs): per array
+    the largest |diff|, its largest |diff| over its largest |entry|."""
+    import numpy as np
+
+    out = {}
+    for k, w in want.items():
+        g = np.asarray(got[k], np.float64)
+        w = np.asarray(w, np.float64)
+        diff = np.abs(g - w)
+        out[k] = (float(diff.max()), float(diff.max() / max(np.abs(w).max(),
+                                                            1e-30)),
+                  bool(np.all(diff <= TOL_PAR_ATOL + TOL_PAR_RTOL
+                              * np.abs(w))))
+    return out
+
+
+def parallel_textclf(K, dev, card, root):
+    """Part (a): the command line on 2 gloo ranks of one card, bf16 and
+    f32, each against the same command in this process."""
+    import numpy as np
+
+    from paddle_tpu_torch.resilience.checkpoint_io import pass_dir
+
+    env = {"TORCH_TEXTCLF_N": str(PARALLEL_TEXTCLF_N),
+           "TORCH_TEXTCLF_TEST_N": str(PARALLEL_TEXTCLF_TEST_N)}
+    launches = {}
+    for dtype, tag in (("bfloat16", "bf16"), ("float32", "f32")):
+        d = os.path.join(root, f"textclf-{tag}")
+        flags = ["--job=train", f"--config={TRAINER_CONF}", "--num_passes=1",
+                 "--log_period=0", f"--compute_dtype={dtype}"]
+        lines = _world(f"(a) textclf {tag}", 2, "-m",
+                       ["paddle_tpu_torch", *flags, "--mesh_shape=2",
+                        f"--save_dir={d}/ck"], d, "gloo", env)
+        last = [x[-1] for x in lines]
+        with cli_run(PARALLEL_TEXTCLF_N), \
+                cli_run(PARALLEL_TEXTCLF_TEST_N, "TORCH_TEXTCLF_TEST_N"), \
+                recorded_losses() as one_losses:
+            cli(["--job=train", "--num_passes=1", f"--save_dir={d}/one",
+                 f"--compute_dtype={dtype}"], phase="parallel")
+        with np.load(os.path.join(pass_dir(f"{d}/ck", 0), "params.npz")) as z:
+            got = {k: z[k] for k in z.files}
+        with np.load(os.path.join(pass_dir(f"{d}/one", 0),
+                                  "params.npz")) as z:
+            want = {k: z[k] for k in z.files}
+        errs = _max_errs(got, want)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(last[0]["losses"], one_losses))
+        worst = max(errs.items(), key=lambda kv: kv[1][1])
+        for r, x in enumerate(last):
+            launches[f"textclf_{tag}_r{r}"] = _counts(x["launches"])
+            comm = _comm_text(x["comm"], ("grad_allreduce",
+                                          "loss_norm_allreduce"))
+            print(f"parallel: (a) textclf {tag} rank {r}: losses "
+                  f"{[round(v, 5) for v in x['losses']]}; step ms median "
+                  f"{float(np.median(x['step_ms'][1:])):.2f} (steps 2-"
+                  f"{len(x['step_ms'])}); gradient all-reduce: {comm}; "
+                  f"launches {json.dumps(x['launches'])} [{card}]",
+                  flush=True)
+        print(f"parallel: (a) textclf {tag} against one process: losses "
+              f"{[round(v, 5) for v in one_losses]}, largest relative loss "
+              f"error {loss_rel:.3e}; largest parameter error {worst[0]} "
+              f"|diff| {worst[1][0]:.3e} ({worst[1][1]:.3e} of its largest "
+              f"entry); ranks' parameters bit-equal "
+              f"{last[0]['params_sha256'] == last[1]['params_sha256']}",
+              flush=True)
+        problems = []
+        if last[0]["params_sha256"] != last[1]["params_sha256"]:
+            problems.append("the ranks' parameters differ")
+        if last[0]["losses"] != last[1]["losses"]:
+            problems.append("the ranks' losses differ")
+        if len(one_losses) != PARALLEL_TEXTCLF_STEPS or len(
+                last[0]["losses"]) != PARALLEL_TEXTCLF_STEPS:
+            problems.append(f"steps {len(one_losses)} / "
+                            f"{len(last[0]['losses'])}")
+        want_launch = {"lstm_forward": 2 * PARALLEL_TEXTCLF_STEPS,
+                       "lstm_backward": 2 * PARALLEL_TEXTCLF_STEPS}
+        for x in last:
+            if x["launches"]["by_library"] != want_launch:
+                problems.append(f"rank {x['rank']} launches "
+                                f"{x['launches']['by_library']}")
+            if tag == "bf16" and any(
+                    set(x["launches"]["by_path"].get(k, {})) !=
+                    {"persistent"} for k in want_launch):
+                problems.append(f"rank {x['rank']} launches by path "
+                                f"{x['launches']['by_path']}")
+        if tag == "f32":
+            if loss_rel > TOL_PAR_LOSS:
+                problems.append(f"loss relative error {loss_rel:.3e}")
+            bad = [k for k, e in errs.items() if not e[2]]
+            if bad:
+                problems.append(f"parameters past rtol {TOL_PAR_RTOL} / "
+                                f"atol {TOL_PAR_ATOL}: "
+                                f"{ {k: errs[k][:2] for k in bad} }")
+        if problems:
+            fail("parallel", f"(a) textclf {tag}: {problems}")
+    return launches
+
+
+def parallel_flagship_ml(K, dev, card, root):
+    """Parts (b) and (d) in one world of 2 gloo ranks (this script's
+    ``--parallel-rank flagship_ml``)."""
+    d = os.path.join(root, "flagship-ml")
+    lines = _world("(b) flagship and (d) movielens", 2,
+                   os.path.abspath(__file__),
+                   ["--parallel-rank", "flagship_ml", d], d, "gloo")
+    launches = {}
+    for part in ("flagship", "movielens"):
+        rows = [next(x for x in ls if x.get("part") == part) for ls in lines]
+        for x in rows:
+            r = x["rank"]
+            if part == "flagship":
+                launches[f"flagship_r{r}"] = _counts(x["launches"])
+            tags = (("grad_allreduce", "loss_norm_allreduce")
+                    if part == "flagship" else
+                    ("lookup_ids", "lookup_rows", "lookup_gather",
+                     "pserver_segments", "push_ids", "push_rows"))
+            print(f"parallel: ({'b' if part == 'flagship' else 'd'}) {part} "
+                  f"rank {r}: losses {[round(v, 5) for v in x['losses']]}; "
+                  f"step ms {[round(v, 2) for v in x['step_ms']]}; "
+                  f"{_comm_text(x['comm'], tags)}; launches "
+                  f"{json.dumps(x['launches'])} [{card}]", flush=True)
+        ref = rows[0]["check"]
+        print(f"parallel: ({'b' if part == 'flagship' else 'd'}) {part} "
+              f"against one process on rank 0: {json.dumps(ref)}",
+              flush=True)
+        problems = list(ref["problems"])
+        if rows[0]["digest"] != rows[1]["digest"]:
+            problems.append("the ranks' parameters differ")
+        if part == "flagship":
+            steps = PARALLEL_FLAGSHIP_STEPS
+            for x in rows:
+                lib = x["launches"]["by_library"]
+                want = {"gru_forward": 2 * steps, "gru_backward": 2 * steps,
+                        "attn_dec_fwd": steps, "attn_dec_bwd": steps,
+                        "ce_readout_fwd": steps, "ce_readout_bwd": steps}
+                if lib != want:
+                    problems.append(f"rank {x['rank']} launches {lib}")
+                paths = x["launches"]["by_path"]
+                if any(set(paths.get(k, {})) != {"persistent"}
+                       for k in PERSISTENT_TRAIN_KERNELS if k in want) or \
+                        any(paths.get(k) != {"wgmma": steps}
+                            for k in ("ce_readout_fwd", "ce_readout_bwd")):
+                    problems.append(f"rank {x['rank']} paths {paths}")
+        if problems:
+            fail("parallel", f"{part}: {problems}")
+    return launches
+
+
+def parallel_nccl1(K, dev, card, root):
+    """Part (c): a world of one rank under NCCL."""
+    d = os.path.join(root, "nccl1")
+    (lines,) = _world("(c) world of 1", 1, os.path.abspath(__file__),
+                      ["--parallel-rank", "nccl1", d], d, None)
+    x = next(v for v in lines if v.get("part") == "nccl1")
+    print(f"parallel: (c) world of 1 over {x['backend']}: "
+          f"SGDTrainer(mesh=MeshConfig.of(data=1)) losses "
+          f"{[round(v, 5) for v in x['losses']]}, bit-equal to no mesh "
+          f"{x['equal']}; launches {json.dumps(x['launches'])} [{card}]",
+          flush=True)
+    if x["backend"] != "nccl" or not x["equal"]:
+        fail("parallel", f"(c) world of 1: backend {x['backend']}, equal "
+             f"{x['equal']}")
+    return {"nccl1_r0": _counts(x["launches"])}
+
+
+def parallel_path(K, dev, card):
+    """Phase 21: parts (a)-(d) -> launches by part and rank."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        launches = parallel_textclf(K, dev, card, root)
+        launches.update(parallel_flagship_ml(K, dev, card, root))
+        launches.update(parallel_nccl1(K, dev, card, root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"parallel: the ranks of each world share this one card ({card}): "
+          f"their times are not a scaling result; the phase "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return launches
+
+
+# -- the ranks of phase 21 (``chip_smoke.py --parallel-rank PART DIR``) --------
+
+
+def _emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def _rank_flagship(K, dev):
+    """(b): ``make_parallel_train_step`` on this rank's 192 rows; rank 0
+    then runs the one-process step on all 384 rows from the same start."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.__main__ import params_digest
+    from paddle_tpu_torch.models import Seq2SeqAttention
+    from paddle_tpu_torch.param import Adam
+    from paddle_tpu_torch.parallel import (MeshConfig, comm_stats,
+                                           data_parallel_grads,
+                                           make_parallel_train_step,
+                                           reset_comm_stats, shard_batch)
+
+    mesh = MeshConfig.of(data=2).build()
+    model = Seq2SeqAttention(device=dev)
+    init = model.init(seed=SEED)
+    batch = train_batch(np.random.RandomState(SEED), model, TRAIN_B,
+                        TRAIN_S, TRAIN_T, mixed=False)
+    opt = Adam(learning_rate=1e-3)
+    local = shard_batch(mesh, batch)
+    # the first step's global gradient, as the step computes it (each
+    # rank's loss weighted by its target tokens: the model's loss_weight)
+    _, grad_dp = data_parallel_grads(model.loss, init, local, mesh)
+    params = {k: v.clone() for k, v in init.items()}
+    state = opt.init_state(params)
+    step = make_parallel_train_step(model.loss, opt, mesh)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    reset_comm_stats()
+    losses, ms = [], []
+    for _ in range(PARALLEL_FLAGSHIP_STEPS):
+        t0 = time.perf_counter()
+        loss, params, state = step(params, state, local)
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = K.launch_counts()
+    out = {"part": "flagship", "rank": mesh.rank, "losses": losses,
+           "step_ms": ms, "digest": params_digest(params),
+           "comm": comm_stats(),
+           "launches": {"by_library": {k: v for k, v in counts.items() if v},
+                        "by_path": {k: v for k, v in counts.by_path.items()
+                                    if v}}}
+    if mesh.rank == 0:
+        def rel(a, b):
+            return {k: float((a[k].float() - b[k].float()).abs().max()
+                             / b[k].float().abs().max().clamp(min=1e-30))
+                    for k in b}
+
+        ref = {k: v.clone() for k, v in init.items()}
+        rstate = opt.init_state(ref)
+        ref_losses, grad_ref = [], None
+        for _ in range(PARALLEL_FLAGSHIP_STEPS):
+            leaves = {k: v.detach().requires_grad_() for k, v in ref.items()}
+            loss = model.loss(leaves, batch)
+            grads = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()))))
+            if grad_ref is None:
+                grad_ref = {k: g.clone() for k, g in grads.items()}
+            opt.update(ref, grads, rstate)
+            ref_losses.append(loss.item())
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                           ref_losses))
+        g_rel, p_rel = rel(grad_dp, grad_ref), rel(params, ref)
+        g_worst, p_worst = max(g_rel, key=g_rel.get), max(p_rel,
+                                                          key=p_rel.get)
+        problems = []
+        if loss_rel > TOL_PAR_FLAGSHIP_LOSS:
+            problems.append(f"loss relative error {loss_rel:.3e}")
+        if g_rel[g_worst] > TOL_PAR_FLAGSHIP_GRAD:
+            problems.append(f"gradient {g_worst}: |diff| "
+                            f"{g_rel[g_worst]:.3e} of its largest entry")
+        out["check"] = {"one_process_losses": ref_losses,
+                        "loss_rel_err": loss_rel,
+                        "worst_grad": [g_worst, g_rel[g_worst]],
+                        "worst_param_after_adam": [p_worst,
+                                                   p_rel[p_worst]],
+                        "problems": problems}
+    del init, params, state, model, grad_dp
+    torch.cuda.empty_cache()
+    _emit(out)
+
+
+def _ml_feeds():
+    import numpy as np
+
+    from paddle_tpu_torch.data import datasets
+
+    B, steps = PARALLEL_ML["B"], PARALLEL_ML["steps"]
+    rows = list(datasets.movielens("train", n_users=PARALLEL_ML["n_users"],
+                                   n_movies=PARALLEL_ML["n_movies"],
+                                   n=B * steps)())
+    feeds = []
+    for i in range(steps):
+        u, m, r = (np.asarray(c) for c in zip(*rows[i * B:(i + 1) * B]))
+        feeds.append({"user_id": u.astype(np.int32).reshape(B, 1),
+                      "movie_id": m.astype(np.int32).reshape(B, 1),
+                      "score": r.astype(np.float32).reshape(B, 1)})
+    return feeds
+
+
+def _rank_movielens(K, dev):
+    """(d): ``movielens_net(sparse_grad=True)`` on ``model=2``; rank 0 then
+    runs the one-process masked path from the same tables."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.__main__ import params_digest
+    from paddle_tpu_torch.models.recommender import movielens_net
+    from paddle_tpu_torch.ops import compute_dtype_scope
+    from paddle_tpu_torch.param import Adam
+    from paddle_tpu_torch.param.optimizers import slot_leaves
+    from paddle_tpu_torch.parallel import (MeshConfig, comm_stats,
+                                           reset_comm_stats)
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    ml = PARALLEL_ML
+
+    def cost():
+        nn.reset_naming()
+        return movielens_net(ml["n_users"], ml["n_movies"],
+                             emb_dim=ml["emb"], hid_dim=ml["hid"],
+                             sparse_grad=True)[0]
+
+    feeds = _ml_feeds()
+    with compute_dtype_scope("float32"):
+        mesh = MeshConfig.of(model=2).build()
+        tr = SGDTrainer(cost(), Adam(learning_rate=1e-3), seed=SEED,
+                        mesh=mesh)
+        start = tr.pserver.full_state()
+        dense0 = {k: v.detach().clone() for k, v in tr.params.items()}
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        reset_comm_stats()
+        losses, ms = [], []
+        for f in feeds:
+            t0 = time.perf_counter()
+            losses.append(tr.train_batch(f).item())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        comm = comm_stats()
+        counts = K.launch_counts()
+        full = tr.pserver.full_state()
+        out = {"part": "movielens", "rank": mesh.rank, "losses": losses,
+               "step_ms": ms, "digest": params_digest(tr.params),
+               "comm": comm,
+               "launches": {"by_library": {k: v for k, v in counts.items()
+                                           if v},
+                            "by_path": {k: v for k, v in
+                                        counts.by_path.items() if v}}}
+        if mesh.rank == 0:
+            one = SGDTrainer(cost(), Adam(learning_rate=1e-3), seed=SEED,
+                             device=dev)
+            problems = []
+            with torch.no_grad():
+                for k, v in one.params.items():
+                    if k in start["tables"]:
+                        v.copy_(start["tables"][k][:v.shape[0]])
+                    elif not torch.equal(v, dense0[k]):
+                        problems.append(f"{k}: the one-process start "
+                                        f"differs")
+                        v.copy_(dense0[k])
+            ref_losses = [one.train_batch(f).item() for f in feeds]
+            loss_rel = max(abs(a - b) / abs(b) for a, b in
+                           zip(losses, ref_losses))
+            if loss_rel > TOL_PS_LOSS:
+                problems.append(f"loss relative error {loss_rel:.3e}")
+            worst = {}
+            fed = {"_user_emb.w0": set(), "_movie_emb.w0": set()}
+            for f in feeds:
+                fed["_user_emb.w0"] |= set(f["user_id"].ravel().tolist())
+                fed["_movie_emb.w0"] |= set(f["movie_id"].ravel().tolist())
+            for name in start["tables"]:
+                v = one.params[name].shape[0]
+                pairs = [("table", full["tables"][name][:v],
+                          one.params[name])]
+                for i, (a, b) in enumerate(zip(
+                        slot_leaves(full["slots"][name]),
+                        slot_leaves(one.opt_state["slots"][name]))):
+                    pairs.append((f"slot{i}", a[:v], b))
+                for what, a, b in pairs:
+                    diff = (a.double() - b.double()).abs()
+                    ok = bool((diff <= TOL_PS_ATOL + TOL_PS_RTOL
+                               * b.double().abs()).all())
+                    worst[f"{name}.{what}"] = float(diff.max())
+                    if not ok:
+                        problems.append(f"{name}.{what}: |diff| "
+                                        f"{float(diff.max()):.3e}")
+                touched = slot_leaves(one.opt_state["slots"][name])[0].ne(
+                    0).any(dim=1)
+                dirty = full["dirty"][name][:v]
+                if not torch.equal(dirty.cpu(), touched.cpu()):
+                    problems.append(f"{name}: dirty rows "
+                                    f"{int(dirty.sum())} != touched "
+                                    f"{int(touched.sum())}")
+                if not set(torch.nonzero(dirty).reshape(-1).tolist()) <= \
+                        fed[name]:
+                    problems.append(f"{name}: a dirty row was not fed")
+            out["check"] = {"one_process_losses": ref_losses,
+                            "loss_rel_err": loss_rel,
+                            "largest_abs_diff": worst,
+                            "dirty_rows": {k: int(t.sum()) for k, t in
+                                           full["dirty"].items()},
+                            "fed_rows": {k: len(v) for k, v in fed.items()},
+                            "problems": problems}
+    _emit(out)
+
+
+def _rank_nccl1(K, dev):
+    """(c): ``SGDTrainer(mesh=MeshConfig.of(data=1))`` under NCCL and
+    ``SGDTrainer`` without a mesh on the same feeds, in one process."""
+    import torch
+
+    import paddle_tpu_torch.nn as nn
+    from paddle_tpu_torch.__main__ import params_digest
+    from paddle_tpu_torch.models import lstm_benchmark_net
+    from paddle_tpu_torch.param import Adam
+    from paddle_tpu_torch.parallel import MeshConfig
+    from paddle_tpu_torch.parallel import distributed as D
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    def cost():
+        nn.reset_naming()
+        return lstm_benchmark_net(TEXTCLF_VOCAB, emb_dim=TEXTCLF_EMB,
+                                  hid_dim=256,
+                                  num_layers=TEXTCLF_LAYERS)[0]
+
+    feeds = [textclf_feed(TEXTCLF_B, TEXTCLF_T, SEED + i)
+             for i in range(PARALLEL_NCCL_STEPS)]
+    plain = SGDTrainer(cost(), Adam(learning_rate=1e-3), seed=SEED,
+                       device=dev)
+    a = [plain.train_batch(f).item() for f in feeds]
+    mesh = MeshConfig.of(data=1).build()
+    meshed = SGDTrainer(cost(), Adam(learning_rate=1e-3), seed=SEED,
+                        mesh=mesh)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    b = [meshed.train_batch(f).item() for f in feeds]
+    counts = K.launch_counts()
+    equal = a == b and params_digest(plain.params) == params_digest(
+        meshed.params)
+    _emit({"part": "nccl1", "rank": mesh.rank, "backend": D.backend(),
+           "losses": b, "equal": equal,
+           "launches": {"by_library": {k: v for k, v in counts.items()
+                                       if v},
+                        "by_path": {k: v for k, v in counts.by_path.items()
+                                    if v}}})
+
+
+def parallel_rank(part: str, d: str) -> int:
+    """One rank of a phase-21 world (the launcher's environment wires
+    it)."""
+    sys.path.insert(0, ROOT)
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.parallel import distributed as D
+
+    D.initialize_distributed()
+    dev = D.rank_device()
+    if part == "flagship_ml":
+        _rank_flagship(K, dev)
+        _rank_movielens(K, dev)
+    elif part == "nccl1":
+        _rank_nccl1(K, dev)
+    else:
+        raise ValueError(part)
+    D.shutdown_distributed()
+    return 0
+
+
 def _gxx() -> str:
     """The host C++ compiler the native data core is built with."""
     try:
@@ -8001,6 +8594,8 @@ def _gxx() -> str:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        return parallel_rank(sys.argv[2], sys.argv[3])
     try:
         import torch
     except ImportError:
@@ -8121,6 +8716,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "delivery"
         delivery_launches = delivery_path(K, dev, card)
+        torch.cuda.empty_cache()
+        phase = "parallel"
+        parallel_launches = parallel_path(K, dev, card)
     except SystemExit:
         raise
     except Exception:  # noqa: BLE001 — report the phase and fail
@@ -8249,6 +8847,15 @@ def main() -> int:
                 part: delivery_launches[part][lib] for part in parts}
             row["delivery_launches_by_path"] = {
                 part: delivery_launches[part].by_path[lib] for part in parts}
+        if name in PARALLEL_ROWS:
+            # phase 21's ranks: the launched command line (bf16, f32), the
+            # flagship's data-parallel step, the world of 1 under NCCL
+            lib, parts = PARALLEL_ROWS[name]
+            row["parallel_launches"] = {
+                part: parallel_launches[part].get(lib, 0) for part in parts}
+            row["parallel_launches_by_path"] = {
+                part: parallel_launches[part].by_path.get(lib, {})
+                for part in parts}
         if name == "topk_lse_readout":
             # the spec phase's full arm: one launch a table step, its wide
             # steps at N = 320

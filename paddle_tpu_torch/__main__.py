@@ -17,7 +17,15 @@ returns a dict built with the port's modules:
     trainer_kwargs  extra SGDTrainer kwargs (optional)
 
 The trainer runs on ``--device`` (``cuda`` by default: without a card the
-command raises; ``--device=cpu`` runs the kernels' plain versions).
+command raises; ``--device=cpu`` runs the kernels' plain versions).  In a
+world the port's launcher started (``parallel.launch_local(n, "-m",
+["paddle_tpu_torch", "--job=train", ...])``), or with ``--mesh_shape``,
+the trainer takes ``MeshConfig.from_flags()`` bound to this rank
+(``--mesh_shape`` must equal the world size); ``--job=train`` then prints,
+on each rank, a last JSON line with the rank, its losses and synchronised
+step milliseconds, a SHA-256 of its final parameters, its kernel launches
+at the last training step (by library and by kernel variant) and its
+collectives (``parallel.comm_stats``).
 ``--data_pack`` packs the config's reader and ``DataFeeder`` into packed
 rows (``datapipe.auto_pack``).  ``--amp`` (with ``--loss_scale``,
 ``--loss_scale_growth``, ``--loss_scale_max``), ``--remat`` and
@@ -60,14 +68,58 @@ def _load_config(path: str):
     return conf
 
 
+def _mesh():
+    """The mesh of a launched world (the launcher's environment) or of
+    ``--mesh_shape``, bound to this rank; ``None`` for one process."""
+    import os
+
+    from paddle_tpu_torch.parallel import distributed as D
+    from paddle_tpu_torch.parallel.mesh import MeshConfig
+    from paddle_tpu_torch.utils.flags import FLAGS
+
+    if not (FLAGS.mesh_shape or os.environ.get(D.ENV_COORDINATOR)):
+        return None
+    D.initialize_distributed()
+    return MeshConfig.from_flags().build()
+
+
 def _build_trainer(conf):
     from paddle_tpu_torch.param.optimizers import SGD
     from paddle_tpu_torch.trainer import SGDTrainer
     from paddle_tpu_torch.utils.flags import FLAGS
 
+    kwargs = dict(conf.get("trainer_kwargs", {}))
+    mesh = _mesh()
+    if mesh is not None:
+        kwargs.setdefault("mesh", mesh)
     return SGDTrainer(conf["cost"],
                       conf.get("optimizer") or SGD(learning_rate=0.01),
-                      device=FLAGS.device, **conf.get("trainer_kwargs", {}))
+                      device=FLAGS.device if mesh is None else None,
+                      **kwargs)
+
+
+def _train_launches() -> dict:
+    """The kernel launches of this process so far, by library and by
+    kernel variant."""
+    from paddle_tpu_torch.ops.kernels import launch_counts
+
+    counts = launch_counts()
+    return {"by_library": {k: v for k, v in counts.items() if v},
+            "by_path": {k: v for k, v in counts.by_path.items() if v}}
+
+
+def params_digest(params) -> str:
+    """SHA-256 over the parameters' bytes, in sorted-name order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for k in sorted(params):
+        t = params[k].detach().contiguous().cpu()
+        h.update(k.encode())
+        h.update(t.view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
 
 
 def _first_feed(conf):
@@ -92,7 +144,18 @@ def job_train(conf) -> int:
             logger.info("resuming from pass %d", resume)
             trainer.load(FLAGS.save_dir, resume)
 
+    losses, step_ms, launches = [], [], {}
+    t_begin = [0.0]
+
     def handler(e):
+        if isinstance(e, ev.BeginIteration):
+            t_begin[0] = time.perf_counter()
+        if isinstance(e, ev.EndIteration):
+            # the cost's host read waits for the step: a synchronised time
+            step_ms.append((time.perf_counter() - t_begin[0]) * 1e3)
+            losses.append(e.cost)
+            if trainer.mesh is not None:
+                launches.update(_train_launches())
         if isinstance(e, ev.EndPass):
             logger.info("pass %d done: %s", e.pass_id, e.evaluator)
 
@@ -127,12 +190,31 @@ def job_train(conf) -> int:
         else:
             reader = resilient_reader(reader,
                                       max_retries=FLAGS.reader_retries)
+    if trainer.mesh is not None:
+        # the printed launches and collectives are the training run's
+        from paddle_tpu_torch.ops.kernels import reset_launch_counts
+        from paddle_tpu_torch.parallel import reset_comm_stats
+
+        reset_launch_counts()
+        reset_comm_stats()
     trainer.train(reader, num_passes=FLAGS.num_passes,
                   feeder=feeder, test_reader=test_reader,
                   event_handler=handler,
                   resume="auto" if FLAGS.resume == "auto" else None)
     if trainer.preempted:
         logger.warning("training preempted; relaunch with --resume=auto")
+    if trainer.mesh is not None:
+        import json
+
+        from paddle_tpu_torch.parallel import distributed as D
+
+        print(json.dumps({"rank": trainer.mesh.rank,
+                          "world": trainer.mesh.size, "losses": losses,
+                          "step_ms": step_ms,
+                          "params_sha256": params_digest(trainer.params),
+                          "launches": launches,
+                          "comm": D.comm_stats()}), flush=True)
+        D.shutdown_distributed()
     return 0
 
 
@@ -170,7 +252,8 @@ def job_checkgrad(conf) -> int:
     def loss_fn(params):
         outs, _ = trainer.topology.apply(params, trainer.state, feed,
                                          train=False)
-        return trainer._total_cost(outs)
+        return trainer._total_cost([outs[n].value
+                                    for n in trainer.cost_names])
 
     # whole-model FD through kinks (max-pool) is rougher than per-op
     # checks: the reference's tolerances

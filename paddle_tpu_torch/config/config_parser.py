@@ -22,7 +22,7 @@ import torch
 
 from paddle_tpu_torch.nn.graph import LayerOutput, ParamAttr, Topology
 from paddle_tpu_torch.proto import model_config_pb2 as pb
-from paddle_tpu_torch.utils.error import ConfigError, not_ported
+from paddle_tpu_torch.utils.error import ConfigError
 
 __all__ = ["SerializationError", "dump_model_config", "build_topology",
            "protostr", "parse_protostr", "dump_trainer_config",
@@ -444,8 +444,6 @@ def dump_trainer_config(topology: Topology, optimizer, *,
                         batch_size: int = 0, num_passes: int = 0,
                         seed: int = 0, save_dir: str = "", mesh=None,
                         name: str = "model") -> pb.TrainerConfig:
-    if mesh is not None:
-        raise not_ported("dump_trainer_config(mesh=) (the SPMD mesh)", 8)
     tc = pb.TrainerConfig(batch_size=batch_size, num_passes=num_passes,
                           seed=seed, save_dir=save_dir)
     tc.model.CopyFrom(dump_model_config(topology, name))
@@ -463,6 +461,10 @@ def dump_trainer_config(topology: Topology, optimizer, *,
     oc.schedule_json = _canonical_json(optimizer.schedule_args)
     oc.clip = "global_norm" if optimizer.gradient_clipping_threshold > 0 else ""
     oc.clip_threshold = optimizer.gradient_clipping_threshold
+    if mesh is not None:
+        # a parallel.MeshConfig or a bound Mesh: the axis names and sizes
+        tc.mesh_axes.extend(mesh.axis_names)
+        tc.mesh_shape.extend(mesh.shape[n] for n in mesh.axis_names)
     return tc
 
 

@@ -126,13 +126,11 @@ class Seq2SeqAttention:
         [B, S], src_len [B], trg_in [B, T] (starts with <s>), trg_next
         [B, T] (ends with <e>), trg_len [B]; arrays or tensors."""
         dev = self.device
-        src_ids, src_len, trg_in, trg_next, trg_len = (
+        src_ids, src_len, trg_in, trg_next = (
             torch.as_tensor(batch[k], device=dev).long()
-            for k in ("src_ids", "src_len", "trg_in", "trg_next",
-                      "trg_len"))
-        S, T = src_ids.shape[1], trg_in.shape[1]
-        src_mask = O.mask_from_lengths(src_len, S)
-        trg_mask = O.mask_from_lengths(trg_len, T)
+            for k in ("src_ids", "src_len", "trg_in", "trg_next"))
+        src_mask = O.mask_from_lengths(src_len, src_ids.shape[1])
+        trg_mask = self._target_mask(batch)
         enc, enc_proj, s0 = self.encode(params, src_ids, src_mask)
         y_emb = O.embedding_lookup(params["trg_emb"], trg_in)   # [B, T, E]
         states = O.attention_gru_decoder(
@@ -141,6 +139,17 @@ class Seq2SeqAttention:
             params["dec_b"], params["dec_wh"])                  # [B, T, D]
         return O.sequence_softmax_ce_readout(
             states, params["out_w"], params["out_b"], trg_next, trg_mask)
+
+    def _target_mask(self, batch: Mapping) -> torch.Tensor:
+        """[B, T] the real target positions: what ``loss`` averages over."""
+        trg_len = torch.as_tensor(batch["trg_len"], device=self.device)
+        return O.mask_from_lengths(trg_len.long(), batch["trg_in"].shape[1])
+
+    def loss_weight(self, batch: Mapping) -> torch.Tensor:
+        """The count ``loss`` averages over: the batch's real target
+        tokens.  A data-parallel step weights each rank's loss by it
+        (``parallel.api.loss_shares``)."""
+        return self._target_mask(batch).sum()
 
     # ------------------------------------------------------------------
 

@@ -18,8 +18,13 @@ data layer takes ``(value, outer_lengths, sub_lengths)``; a packed sequence
 slot (``--data_pack``) the 5-tuple ``(ids, lengths, seg_ids, positions,
 seg_lengths)``, whose pack state rides ``Act.state``.
 
+``apply(param_overrides=)`` substitutes parameter values by name for one
+call: the pserver tier hands in a ``pserver.TableProxy`` for each routed
+table, whose ``pserver_lookup`` the embedding layer takes.
+
 Not ported here, and refused with a ``ConfigError`` that says so:
-``device_pin`` and ``apply(device_specs=)``, ``apply(param_overrides=)``.
+``device_pin`` and ``apply(device_specs=)`` (model-parallel placement,
+ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ def _not_ported(what: str, item: int = 3) -> ConfigError:
 
 def device_pin(node: "LayerOutput", tag: str) -> "LayerOutput":
     """The reference's model-parallel layer pin; not ported."""
-    raise _not_ported("device_pin (model-parallel layer placement)")
+    raise _not_ported("device_pin (model-parallel layer placement, with "
+                      "the pipeline tier)", 8)
 
 
 #: the layer-type registry of the reference's ``nn/graph.py`` (its
@@ -88,6 +94,15 @@ class Act:
     @property
     def is_nested(self) -> bool:
         return self.sub_lengths is not None
+
+
+#: the ``Act.state`` key where a cost layer reports what its value averages
+#: over: a count known from the shapes (a Python number: the rows), or one
+#: taken from the data (a tensor: a sequence cost's real tokens), or
+#: ``None`` for a sum.  A data-parallel step weights each rank's cost by
+#: it (``parallel.api.loss_shares``), so the step's loss is the global
+#: batch's.
+COST_NORM = "cost_norm"
 
 
 # ---------------------------------------------------------------------------
@@ -338,16 +353,15 @@ class Topology:
               param_overrides: Optional[Dict[str, Any]] = None
               ) -> Tuple[Dict[str, Act], Dict[str, torch.Tensor]]:
         """Run the graph.  ``feed`` maps data-layer name -> Act | array |
-        (value, lengths).  Returns ({layer_name: Act}, new_state)."""
+        (value, lengths).  ``param_overrides`` maps parameter names to
+        values used in this call in place of ``params``' (the pserver
+        tier's table proxies).  Returns ({layer_name: Act}, new_state)."""
         if device_specs is not None:
             raise _not_ported("apply(device_specs=) (model-parallel "
-                              "placement)")
-        if param_overrides is not None:
-            raise _not_ported("apply(param_overrides=) (the pserver tier's "
-                              "table proxies)", 8)
+                              "placement, with the pipeline tier)", 8)
         ctx = ApplyContext(train, rng)
         env: Dict[str, Act] = {}
-        all_params = {**params, **state}
+        all_params = {**params, **state, **(param_overrides or {})}
         needed = (self.layers if outputs is None
                   else self._needed_layers(set(outputs)))
         for layer in needed:

@@ -30,8 +30,9 @@ from typing import Optional, Sequence, Union
 import torch
 
 import paddle_tpu_torch.ops as O
-from paddle_tpu_torch.nn.graph import (PACK_KEYS, Act, LayerOutput, ParamAttr,
-                                       ParamSpec, next_name)
+from paddle_tpu_torch.nn.graph import (COST_NORM, PACK_KEYS, Act,
+                                       LayerOutput, ParamAttr, ParamSpec,
+                                       next_name)
 from paddle_tpu_torch.utils.error import ConfigError
 
 __all__ = ["data", "fc", "embedding", "addto", "concat", "dropout",
@@ -212,7 +213,10 @@ def embedding(input: LayerOutput, size: int, *,
     is the vocabulary size unless ``vocab_size`` is given.
     ``sparse_grad=True`` (the ``ParamAttr(sparse_grad=True)`` sugar) marks
     the table row-sparse: ``SGDTrainer`` then holds the rows a batch did
-    not touch, value and optimizer slots, at each update."""
+    not touch, value and optimizer slots, at each update, and a trainer
+    whose mesh carries the pserver axis routes the table through the
+    pserver tier (its parameter is then a ``pserver.TableProxy``: sharded
+    all-to-all lookup, gradients through the proxy rows)."""
     name = name or next_name("embedding")
     V = vocab_size or input.size
     pa = _pa(param_attr, f"_{name}.w0", initial_std=0.01, init="normal")
@@ -225,8 +229,12 @@ def embedding(input: LayerOutput, size: int, *,
         if not a.is_seq and ids.dim() == 2 and ids.shape[1] == 1:
             # a non-seq int slot feeds as [B, 1]; its embedding is [B, D]
             ids = ids[:, 0]
-        out = O.embedding_lookup(params[spec.name], ids,
-                                 pad_to_zero_id=padding_idx)
+        table = params[spec.name]
+        if hasattr(table, "pserver_lookup"):
+            out = table.pserver_lookup(ids, layer=name,
+                                       pad_to_zero_id=padding_idx)
+        else:
+            out = O.embedding_lookup(table, ids, pad_to_zero_id=padding_idx)
         if a.is_seq:
             return _seq_like(a, out * a.mask[..., None].to(out.dtype))
         return Act(value=out)
@@ -960,10 +968,19 @@ def sum_to_one_norm(input: LayerOutput, *,
 
 
 def _cost_layer(name: str, ltype: str, inputs, fn) -> LayerOutput:
+    """``fn(*acts) -> (cost, norm)``: the cost and what it averages over
+    (``COST_NORM``)."""
+
     def forward(ctx, params, *acts: Act) -> Act:
-        return Act(value=fn(*acts))
+        value, norm = fn(*acts)
+        return Act(value=value, state={COST_NORM: norm})
 
     return LayerOutput(name, ltype, 1, list(inputs), forward, [])
+
+
+def _mean(t: torch.Tensor):
+    """``(t.mean(), t.numel())``: a batch mean and what it averages over."""
+    return t.mean(), t.numel()
 
 
 def classification_cost(input: LayerOutput, label: LayerOutput, *,
@@ -974,10 +991,11 @@ def classification_cost(input: LayerOutput, label: LayerOutput, *,
 
     def fn(logits: Act, lab: Act):
         if logits.is_seq:
-            return O.sequence_cross_entropy(logits.value, lab.value,
-                                            logits.mask)
+            return (O.sequence_cross_entropy(logits.value, lab.value,
+                                             logits.mask),
+                    logits.mask.sum())
         labels = lab.value.reshape(lab.value.shape[0])
-        return O.cross_entropy(logits.value, labels).mean()
+        return _mean(O.cross_entropy(logits.value, labels))
 
     return _cost_layer(name, "classification_cost", [input, label], fn)
 
@@ -996,7 +1014,7 @@ def cross_entropy_with_selfnorm(input: LayerOutput, label: LayerOutput, *,
         lz = torch.logsumexp(logits.value.float(), dim=-1)
         ce = O.cross_entropy(logits.value,
                              lab.value.reshape(lab.value.shape[0]))
-        return (ce + softmax_selfnorm_alpha * torch.square(lz)).mean()
+        return _mean(ce + softmax_selfnorm_alpha * torch.square(lz))
 
     return _cost_layer(name, "cross_entropy_with_selfnorm", [input, label],
                        fn)
@@ -1008,7 +1026,7 @@ def soft_cross_entropy_cost(input: LayerOutput, label: LayerOutput, *,
     name = name or next_name("soft_ce_cost")
     return _cost_layer(
         name, "soft_cross_entropy", [input, label],
-        lambda p, t: O.soft_cross_entropy(p.value, t.value).mean())
+        lambda p, t: _mean(O.soft_cross_entropy(p.value, t.value)))
 
 
 def multi_binary_label_cross_entropy(input: LayerOutput, label: LayerOutput,
@@ -1018,8 +1036,8 @@ def multi_binary_label_cross_entropy(input: LayerOutput, label: LayerOutput,
     name = name or next_name("mbce_cost")
     return _cost_layer(
         name, "multi_binary_label_cross_entropy", [input, label],
-        lambda p, t: O.multi_binary_label_cross_entropy(p.value,
-                                                        t.value).mean())
+        lambda p, t: _mean(O.multi_binary_label_cross_entropy(p.value,
+                                                              t.value)))
 
 
 def mse_cost(input: LayerOutput, label: LayerOutput, *,
@@ -1027,7 +1045,7 @@ def mse_cost(input: LayerOutput, label: LayerOutput, *,
     """0.5 * squared error summed over features; the batch mean."""
     name = name or next_name("mse_cost")
     return _cost_layer(name, "mse_cost", [input, label],
-                       lambda p, t: O.mse(p.value, t.value).mean())
+                       lambda p, t: _mean(O.mse(p.value, t.value)))
 
 
 regression_cost = mse_cost
@@ -1038,7 +1056,7 @@ def huber_cost(input: LayerOutput, label: LayerOutput, *, delta: float = 1.0,
     """Huber loss summed over features; the batch mean."""
     name = name or next_name("huber_cost")
     return _cost_layer(name, "huber_cost", [input, label],
-                       lambda p, t: O.huber(p.value, t.value, delta).mean())
+                       lambda p, t: _mean(O.huber(p.value, t.value, delta)))
 
 
 def smooth_l1_cost(input: LayerOutput, label: LayerOutput, *,
@@ -1046,7 +1064,7 @@ def smooth_l1_cost(input: LayerOutput, label: LayerOutput, *,
     """Smooth L1 (Huber at delta 1); the batch mean."""
     name = name or next_name("smooth_l1_cost")
     return _cost_layer(name, "smooth_l1_cost", [input, label],
-                       lambda p, t: O.smooth_l1(p.value, t.value).mean())
+                       lambda p, t: _mean(O.smooth_l1(p.value, t.value)))
 
 
 def rank_cost(left: LayerOutput, right: LayerOutput, label: LayerOutput, *,
@@ -1056,14 +1074,15 @@ def rank_cost(left: LayerOutput, right: LayerOutput, label: LayerOutput, *,
     name = name or next_name("rank_cost")
     return _cost_layer(
         name, "rank_cost", [left, right, label],
-        lambda l, r, t: O.rank_cost(l.value, r.value, t.value).mean())
+        lambda l, r, t: _mean(O.rank_cost(l.value, r.value, t.value)))
 
 
 def sum_cost(input: LayerOutput, *, name: Optional[str] = None
              ) -> LayerOutput:
     """The sum of every entry of the input."""
     name = name or next_name("sum_cost")
-    return _cost_layer(name, "sum_cost", [input], lambda a: a.value.sum())
+    return _cost_layer(name, "sum_cost", [input],
+                       lambda a: (a.value.sum(), None))
 
 
 # record constructor calls on the returned nodes so Topologies serialize to

@@ -22,8 +22,8 @@ import torch
 import torch.nn.functional as F
 
 import paddle_tpu_torch.ops as O
-from paddle_tpu_torch.nn.graph import (Act, LayerOutput, ParamAttr,
-                                       ParamSpec, next_name)
+from paddle_tpu_torch.nn.graph import (COST_NORM, Act, LayerOutput,
+                                       ParamAttr, ParamSpec, next_name)
 from paddle_tpu_torch.nn.layers import _inherit_meta, _refuse_packed
 from paddle_tpu_torch.ops.crf import crf_decode, crf_nll
 from paddle_tpu_torch.ops.ctc import ctc_loss
@@ -64,7 +64,8 @@ def crf_cost(input: LayerOutput, label: LayerOutput, *,
         _refuse_packed(emis, name, "crf_cost")
         return Act(value=crf_nll(emis.value, lab.value, emis.mask,
                                  params[s_start.name], params[s_end.name],
-                                 params[s_trans.name]))
+                                 params[s_trans.name]),
+                   state={COST_NORM: emis.value.shape[0]})
 
     return LayerOutput(name, "crf_cost", 1, [input, label], forward,
                        [s_start, s_end, s_trans])
@@ -132,7 +133,7 @@ def _ctc_layer(input, label, blank, norm_by_times, name, kind):
         lp = torch.log_softmax(logits.value.float(), dim=-1)
         losses = ctc_loss(lp, lab.value, logits.lengths, lab.lengths,
                           blank=blank, norm_by_times=norm_by_times)
-        return Act(value=losses.mean())
+        return Act(value=losses.mean(), state={COST_NORM: losses.numel()})
 
     return LayerOutput(name, kind, 1, [input, label], forward, [])
 
@@ -188,7 +189,8 @@ def nce_cost(input: LayerOutput, label: LayerOutput, *, num_classes: int,
         neg = _row_logits(x, w, b, noise.to(torch.long)) - shift
         pos_loss = O.binary_cross_entropy(pos, torch.ones_like(pos))
         neg_loss = O.binary_cross_entropy(neg, torch.zeros_like(neg))
-        return Act(value=(pos_loss + neg_loss.sum(-1)).mean())
+        return Act(value=(pos_loss + neg_loss.sum(-1)).mean(),
+                   state={COST_NORM: B})
 
     return LayerOutput(name, "nce_cost", 1, [input, label], forward,
                        [wspec, bspec])
@@ -219,7 +221,7 @@ def hsigmoid_cost(input: LayerOutput, label: LayerOutput, *,
             logit = _row_logits(x, w, b, ((child >> 1) - 1)[:, None])[:, 0]
             losses = losses + O.binary_cross_entropy(
                 logit, (child & 1).to(torch.float32))
-        return Act(value=losses.mean())
+        return Act(value=losses.mean(), state={COST_NORM: B})
 
     return LayerOutput(name, "hsigmoid_cost", 1, [input, label], forward,
                        [wspec, bspec])

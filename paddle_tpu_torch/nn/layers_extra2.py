@@ -19,8 +19,8 @@ import numpy as np
 import torch
 
 import paddle_tpu_torch.ops as O
-from paddle_tpu_torch.nn.graph import (Act, LayerOutput, ParamAttr,
-                                       ParamSpec, next_name)
+from paddle_tpu_torch.nn.graph import (COST_NORM, Act, LayerOutput,
+                                       ParamAttr, ParamSpec, next_name)
 from paddle_tpu_torch.nn.layers import (AttrLike, _bias_attr, _inherit_meta,
                                         _pa, _seq_like, _spatial)
 from paddle_tpu_torch.utils.error import ConfigError
@@ -258,7 +258,8 @@ def lambda_cost(score: LayerOutput, label: LayerOutput, *,
         pair_mask = mask[:, :, None] * mask[:, None, :]
         loss = (torch.log1p(torch.exp(-torch.clamp(ds, -30, 30))) * rel_gt
                 * dndcg * pair_mask)
-        return Act(value=loss.sum() / torch.clamp(mask.sum(), min=1.0))
+        return Act(value=loss.sum() / torch.clamp(mask.sum(), min=1.0),
+                   state={COST_NORM: mask.sum()})
 
     return LayerOutput(name, "lambda_cost", 1, [score, label], forward, [])
 

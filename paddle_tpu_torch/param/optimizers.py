@@ -38,8 +38,12 @@ takes the masked path over the whole table; an int ``K`` gathers up to K
 touched rows, updates them (``row_apply``) and scatters them back, and a
 batch that touches more than K rows takes the masked path instead.
 
-Not ported here: the pserver's ``sparse_apply_rows`` and ``dedup_rows``
-and ``row_apply(oob_drop=True)`` (ROADMAP.md Queue 1 item 8).
+The pserver's push (``pserver/apply.py``) applies (ids, row-gradient)
+segments with ``sparse_apply_rows``: ``dedup_rows`` sums duplicate ids in
+stable id order, and ``row_apply(oob_drop=True)`` updates the unique live
+rows and drops the out-of-range ones (all-to-all padding sentinels).
+``inplace=True`` writes only the touched rows of the table and its slots,
+so the push never allocates a table-sized temporary.
 """
 
 from __future__ import annotations
@@ -50,13 +54,12 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
-from paddle_tpu_torch.utils.error import not_ported
 from paddle_tpu_torch.utils.registry import Registry
 
 __all__ = ["Optimizer", "SGD", "Momentum", "AdaGrad", "AdaDelta", "RMSProp",
            "DecayedAdaGrad", "Adam", "AdaMax", "OPTIMIZERS", "LR_SCHEDULES",
            "lr_schedule", "clip_by_global_norm", "clip_by_value",
-           "ParameterAverager", "commit", "slot_leaves"]
+           "ParameterAverager", "commit", "slot_leaves", "dedup_rows"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -123,13 +126,18 @@ def clip_by_value(grads: Mapping[str, torch.Tensor], threshold: float
             for k, g in grads.items()}
 
 
-def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float
+def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float,
+                        extra_sq=None
                         ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Scale every gradient by min(1, max_norm / global L2 norm) -> (new
     grads, the norm).  Squares are summed leaf by leaf in sorted-name order
-    (the reference's leaf order)."""
+    (the reference's leaf order).  ``extra_sq`` joins more sum-of-squares
+    mass into the norm without being scaled here: the pserver tier's
+    deduped row gradients, which the trainer scales by the same factor."""
     names = sorted(grads)
     sq = [grads[k].float().square().sum() for k in names]
+    if extra_sq is not None:
+        sq.append(extra_sq)
     total = sq[0]
     for s in sq[1:]:
         total = total + s
@@ -147,6 +155,31 @@ def _regularize(p: torch.Tensor, g: torch.Tensor, decay: float,
     if l1:
         g = g + l1 * torch.sign(p)
     return g
+
+
+def dedup_rows(ids: torch.Tensor, row_grads: torch.Tensor, *,
+               sentinel: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable-sorted segment sum of duplicate row ids -> ``(uids [N] int64,
+    ug [N, ...])``: the unique ids packed to the front (``sentinel`` in the
+    unused places) with their summed gradients beside them (zeros
+    elsewhere).  The sum runs in stable id order, the dense path's sorted
+    scatter-add order; the sparse apply and the clip norm's row mass share
+    it."""
+    n = ids.shape[0]
+    ids = ids.to(torch.long)
+    order = torch.argsort(ids, stable=True)
+    sids = ids[order]
+    sg = row_grads[order]
+    first = torch.ones(n, dtype=torch.bool, device=ids.device)
+    if n > 1:
+        first[1:] = sids[1:] != sids[:-1]
+    seg = torch.cumsum(first.to(torch.long), 0) - 1
+    uids = torch.full((n,), sentinel, dtype=torch.long, device=ids.device)
+    uids[seg] = sids
+    ug = torch.zeros((n,) + tuple(row_grads.shape[1:]),
+                     dtype=row_grads.dtype, device=row_grads.device)
+    ug.index_add_(0, seg, sg)
+    return uids, ug
 
 
 def slot_leaves(slots) -> List[torch.Tensor]:
@@ -316,10 +349,19 @@ class Optimizer:
         the ``live`` entries) of ``p`` and of each slot of its shape are
         gathered, updated with the gathered gradients ``g_rows`` and
         scattered back; an entry with ``live`` False keeps its value and
-        slots.  -> (new parameter, new slots), functional."""
+        slots.  ``oob_drop=True`` also drops entries whose row is out of
+        range (the sparse apply parks its dead entries past the end); they
+        gather zeros and write nothing.  -> (new parameter, new slots),
+        functional."""
         if oob_drop:
-            raise not_ported("row_apply(oob_drop=True) (the pserver's "
-                             "sparse apply)", 8)
+            keep = (rows >= 0) & (rows < p.shape[0])
+            rows = torch.where(keep, rows, torch.zeros_like(rows))
+            live = live & keep
+            # only live rows are written: a dead entry parked on row 0
+            # must not overwrite a live update of that row
+            idx = torch.nonzero(live).reshape(-1)
+            return self.row_apply(p, rows[idx], g_rows[idx], old_slots,
+                                  live[idx], lr_eff, step, decay=decay)
         live_col = live.reshape((-1,) + (1,) * (p.dim() - 1))
         p_r = p[rows]
         g_r = _regularize(p_r, g_rows, decay, self.l1_rate)
@@ -336,6 +378,49 @@ class Optimizer:
 
         return (p.index_copy(0, rows, p2_r.to(p.dtype)),
                 _map_slots(put, old_slots, s2_r))
+
+    @torch.no_grad()
+    def sparse_apply_rows(self, p, ids, row_grads, old_slots, *, lr_eff,
+                          step, decay: float = 0.0, inplace: bool = False,
+                          where: Optional[torch.Tensor] = None):
+        """Row-sparse apply from (ids, row-gradient) segments, the
+        pserver's push.  Duplicates are summed in stable id order
+        (``dedup_rows``), the dense masked path's (``sparse_rows=True``)
+        accumulation order; ids ``>= p.shape[0]`` (padding sentinels) and
+        all-zero segments are dropped: those rows and their slots do not
+        advance.  -> (new parameter, new slots).
+
+        ``inplace=True`` writes the touched rows of ``p`` and of its slots
+        in place and nothing else (no table-sized temporary); ``where``
+        (a bool scalar tensor) then keeps every bit where it is False, the
+        bad-step guard's selection on the device."""
+        v = p.shape[0]
+        uids, ug = dedup_rows(ids, row_grads, sentinel=v)
+        live = (uids < v) & (ug != 0).flatten(1).any(dim=1)
+        if not inplace:
+            return self.row_apply(p, uids, ug, old_slots, live, lr_eff, step,
+                                  decay=decay, oob_drop=True)
+        idx = torch.nonzero(live).reshape(-1)
+        rows, g = uids[idx], ug[idx]
+        p_r = p[rows]
+        s_r = _map_slots(lambda s: s[rows] if s.shape == p.shape else s,
+                         old_slots)
+        p2_r, s2_r = self.update_leaf(
+            p_r, _regularize(p_r, g, decay, self.l1_rate), s_r, lr_eff,
+            step)
+
+        def put(old, new_r, old_r):
+            if old.shape != p.shape:
+                return
+            if where is not None:
+                new_r = torch.where(where, new_r.to(old.dtype), old_r)
+            old.index_copy_(0, rows, new_r.to(old.dtype))
+
+        put(p, p2_r, p_r)
+        for old, new_r, old_r in zip(slot_leaves(old_slots),
+                                     slot_leaves(s2_r), slot_leaves(s_r)):
+            put(old, new_r, old_r)
+        return p, old_slots
 
 
 @OPTIMIZERS.register("sgd")

@@ -49,11 +49,31 @@ after any resume fast-forward; it is closed at pass end, at a preemption
 (the checkpoint counts the batches the step consumed, not the read-ahead)
 and on any exception.
 
+``mesh`` (a ``parallel.MeshConfig`` or a built ``parallel.Mesh``) runs the
+step on this rank of a launched world (``parallel/distributed.py``).  Every
+rank holds the full dense parameters; ``train_batch`` takes the global
+batch and steps on this rank's slice of it along ``data_axis`` (its rows
+must divide over the axis).  Each cost is scaled by this rank's share of
+the global batch (what it averages over, its ``COST_NORM``: rows, or a
+sequence cost's real tokens, over the axis's total), so one sum of the
+losses and gradients over the axis is the global batch's; every rank runs
+the same update (the reference's GSPMD step,
+``paddle_tpu/parallel/api.py:105-116``).  A layer of batch statistics
+(``batch_norm``, ``data_norm``) under a data axis of more than one rank is
+refused (item 8): each rank would normalise by its slice's statistics,
+where the reference uses the global batch's.  With the pserver axis in the mesh
+(``--pserver_axis``, default ``model``) every ``sparse_grad`` table is
+routed through the pserver tier (``pserver/tier.py``): sharded over that
+axis, looked up all-to-all, pushed row-sparse; it leaves ``params`` and the
+dense optimizer's state.  ``test`` and ``infer`` run the whole batch on
+every rank.  Only rank 0 writes checkpoints and publishes; a checkpoint
+gathers the tier's tables (every rank calls ``save``).
+
 Not ported here, and refused with a ``ConfigError`` naming the ROADMAP.md
-Queue 1 item that ports it: ``mesh`` (with it the pserver tier's sharded
-tables), ``data_axis``, ``sharding_rules``, ``pipeline`` and
-``device_specs`` (item 8); the gang, the SDC firewall and ``audit`` (item
-9).
+Queue 1 item that ports it: ``sharding_rules`` (tensor parallelism),
+``pipeline`` and ``device_specs`` (item 8); a mesh with a dcn axis (the
+hierarchy, item 8); batch statistics under a data axis (item 8); the
+gang, the SDC firewall and ``audit`` (item 9).
 
 ``publish`` cuts a gated, versioned deploy bundle from the newest verified
 checkpoint (``paddle_tpu_torch.publish``); ``train`` does so every
@@ -72,10 +92,11 @@ import torch
 
 from paddle_tpu_torch.data.feeder import (BatchPrefetcher, PreparedFeed,
                                           PrepareError)
-from paddle_tpu_torch.nn.graph import LayerOutput, Topology
+from paddle_tpu_torch.nn.graph import COST_NORM, Act, LayerOutput, Topology
 from paddle_tpu_torch.param.hooks import apply_masks, build_masks
 from paddle_tpu_torch.param.optimizers import (SGD, Optimizer,
-                                               ParameterAverager, commit)
+                                               ParameterAverager,
+                                               clip_by_global_norm, commit)
 from paddle_tpu_torch.resilience.checkpoint_io import (latest_pass,
                                                        load_checkpoint,
                                                        pass_dir,
@@ -87,11 +108,15 @@ from paddle_tpu_torch.resilience.guard import (guarded_update,
                                                scaled_guarded_update)
 from paddle_tpu_torch.resilience.signals import PreemptionHandler
 from paddle_tpu_torch.trainer import events as ev
-from paddle_tpu_torch.utils.error import not_ported
+from paddle_tpu_torch.utils.error import ConfigError, not_ported
 from paddle_tpu_torch.utils.flags import FLAGS
 from paddle_tpu_torch.utils.log import logger
 
 __all__ = ["SGDTrainer"]
+
+#: the key prefix of the pserver tier's row gradients among the gradients
+#: the bad-step guard checks
+_SEG = "pserver:"
 
 #: the manifest meta key of the port's random stream (the reference's is
 #: ``rng_key``, a JAX key, which the port does not use)
@@ -124,13 +149,30 @@ class SGDTrainer:
         remat: Optional[bool] = None,
         device: Optional[Union[str, torch.device]] = None,
     ) -> None:
-        for what, given in (("mesh", mesh is not None),
-                            ("data_axis", data_axis != "data"),
-                            ("sharding_rules", sharding_rules is not None),
+        for what, given in (("sharding_rules", sharding_rules is not None),
                             ("pipeline", pipeline is not None),
                             ("device_specs", device_specs is not None)):
             if given:
                 raise not_ported(f"SGDTrainer({what}=)", 8)
+        self.mesh = None
+        if mesh is not None:
+            from paddle_tpu_torch.parallel.mesh import MeshConfig, as_mesh
+
+            cfg = getattr(mesh, "config", mesh)
+            if (isinstance(cfg, MeshConfig) and cfg.dcn_axis
+                    and cfg.dcn_axis in cfg.shape):
+                raise not_ported("SGDTrainer(mesh=) with a dcn_axis (the "
+                                 "hierarchical all-reduce)", 8)
+            self.mesh = as_mesh(mesh, device)
+            cfg = self.mesh.config
+            if device is None:
+                device = self.mesh.device
+            if data_axis == "data":
+                data_axis = cfg.data_axis
+        self.data_axis = data_axis
+        #: the ranks of the data axis, each stepping its rows of the batch
+        self.n_data = (self.mesh.axis_size(data_axis)
+                       if self.mesh is not None else 1)
         if amp is not None and bool(amp) != bool(FLAGS.amp):
             # the bfloat16 dtype policy (ops/numerics) reads FLAGS.amp at
             # call time; a constructor override that disagrees would run
@@ -153,6 +195,15 @@ class SGDTrainer:
         self.cost_name = costs[0].name
         self.extra_names = [e.name for e in extra_outputs]
         self.topology = Topology([*costs, *extra_outputs], device=device)
+        stats = [l.name for l in self.topology.layers
+                 if l.layer_type in ("batch_norm", "data_norm")]
+        if self.n_data > 1 and stats:
+            # each rank would normalise by its slice's statistics, where
+            # the reference's global-batch step uses the whole batch's
+            raise not_ported(
+                f"SGDTrainer(mesh=) with a data axis of {self.n_data} ranks "
+                f"over the batch statistics of {stats} (synchronised batch "
+                f"statistics)", 8)
         self.device = self.topology.device
         self.optimizer = optimizer or SGD(learning_rate=0.01)
         self.averager = averager
@@ -179,7 +230,27 @@ class SGDTrainer:
                 self.pruning_ratios[name] = attr.pruning_ratio
 
         seed = FLAGS.seed if seed is None else seed
-        params, self.state = self.topology.init(seed)
+        # the pserver tier: with the pserver axis in the mesh, every
+        # sparse_grad table leaves the dense params and lives sharded
+        self.pserver = None
+        routed: set = set()
+        if self.mesh is not None and self.sparse_rows:
+            ps_axis = self.mesh.config.role_axis("pserver")
+            if ps_axis in self.mesh.axis_names:
+                from paddle_tpu_torch.pserver import PServerTier
+
+                tier = PServerTier(self.mesh, self.topology, self.optimizer,
+                                   axis=ps_axis, lr_scales=self.lr_scales,
+                                   decays=self.decays, seed=seed,
+                                   data_axis=self.data_axis)
+                if tier.active:
+                    self.pserver = tier
+                    routed = tier.param_names()
+                    for name in routed:
+                        self.sparse_rows.pop(name, None)
+                        self.lr_scales.pop(name, None)
+                        self.decays.pop(name, None)
+        params, self.state = self.topology.init(seed, skip=routed)
         # the stream each batch's apply seed is drawn from (checkpointed)
         self._gen = torch.Generator().manual_seed(seed)
         # StaticPruningHook analog: masks fixed from the initial magnitudes,
@@ -257,11 +328,38 @@ class SGDTrainer:
 
         return {k: put(v) for k, v in feed.items()}
 
-    def _total_cost(self, outs) -> torch.Tensor:
-        if len(self.cost_names) == 1 and self.cost_weights[0] == 1.0:
-            return outs[self.cost_name].value
-        return sum(w * outs[n].value
-                   for n, w in zip(self.cost_names, self.cost_weights))
+    def _overrides(self):
+        """The routed tables' stand-ins for a forward without gradients."""
+        return (self.pserver.make_overrides({}) if self.pserver is not None
+                else None)
+
+    @property
+    def _writer(self) -> bool:
+        """Whether this rank writes checkpoints and publishes (rank 0)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _total_cost(self, values: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The costs' weighted sum: the loss."""
+        if len(values) == 1 and self.cost_weights[0] == 1.0:
+            return values[0]
+        return sum(w * v for v, w in zip(values, self.cost_weights))
+
+    def _shares(self, costs: Sequence[Act]) -> List[torch.Tensor]:
+        """This rank's share of the global batch for each cost
+        (``loss_shares`` of its ``COST_NORM``).  Each cost scaled by its
+        share, the ranks' losses and gradients sum to the global
+        batch's."""
+        from paddle_tpu_torch.parallel.api import loss_shares
+
+        for name, c in zip(self.cost_names, costs):
+            if COST_NORM not in c.state:
+                raise ConfigError(
+                    f"cost layer {name!r} does not report what its value "
+                    f"averages over (Act.state[{COST_NORM!r}]), so the "
+                    f"{self.n_data} ranks of the data axis cannot weight "
+                    f"it to the global batch's cost")
+        return loss_shares(self.mesh, [c.state[COST_NORM] for c in costs],
+                           self.data_axis)
 
     def rebuild_masks(self) -> None:
         """Rebuild the pruning masks from the current parameter values
@@ -328,15 +426,29 @@ class SGDTrainer:
         (``_last_extras['amp_overflow']``, ``amp_overflows_total``); only a
         non-finite loss counts as a bad step."""
         feed = self._device_feed(feed)
+        if self.mesh is not None:
+            from paddle_tpu_torch.parallel.api import shard_batch
+
+            feed = shard_batch(self.mesh, feed, self.data_axis)
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=self._gen))
+        if self.n_data > 1:
+            # each slice of the batch draws its own dropout masks and
+            # noise, as rows of one global draw would
+            seed = (seed + 0x9E3779B97F4A7C15
+                    * self.mesh.axis_index(self.data_axis)) % 2 ** 62
         params = self.params
         amp_state = self.opt_state["amp"] if self.amp else None
+        tier = self.pserver
+        proxies = tier.make_proxies(feed) if tier is not None else {}
+        overrides = (tier.make_overrides(proxies) if tier is not None
+                     else None)
 
         def forward():
-            outs, new_state = self.topology.apply(params, self.state, feed,
-                                                  train=True, rng=seed)
+            outs, new_state = self.topology.apply(
+                params, self.state, feed, train=True, rng=seed,
+                param_overrides=overrides)
             extras = {k: outs[k].value for k in self.extra_names}
-            return self._total_cost(outs), new_state, extras
+            return [outs[n] for n in self.cost_names], new_state, extras
 
         with torch.enable_grad():
             if self.remat:
@@ -349,31 +461,70 @@ class SGDTrainer:
                 # early stop is an exception, which the layers' error
                 # scopes would wrap
                 with set_checkpoint_early_stop(False):
-                    loss, new_state, extras = checkpoint(
+                    costs, new_state, extras = checkpoint(
                         forward, use_reentrant=False,
                         preserve_rng_state=False)
             else:
-                loss, new_state, extras = forward()
+                costs, new_state, extras = forward()
+            values = [c.value for c in costs]
+            if self.n_data > 1:
+                values = [v * sh.to(v.dtype)
+                          for v, sh in zip(values, self._shares(costs))]
+            loss = self._total_cost(values)
             # dynamic loss scaling: the differentiated value is scale * loss
             # so bfloat16 gradients use the representable range; the
             # reported loss stays unscaled
             target = loss * amp_state["scale"] if self.amp else loss
-            grads = torch.autograd.grad(target, list(params.values()),
-                                        allow_unused=True)
+            wrt = list(params.values()) + list(proxies.values())
+            all_grads = torch.autograd.grad(target, wrt, allow_unused=True)
         grads = {k: (torch.zeros_like(p) if g is None else g)
-                 for (k, p), g in zip(params.items(), grads)}
+                 for (k, p), g in zip(params.items(), all_grads)}
+        px_grads = {k: (torch.zeros_like(p) if g is None else g)
+                    for (k, p), g in zip(proxies.items(),
+                                         all_grads[len(params):])}
         extras = {k: v.detach() for k, v in extras.items()}
+        loss = loss.detach()
+        if self.n_data > 1:
+            from paddle_tpu_torch.parallel.api import reduce_loss_and_grads
+
+            loss = reduce_loss_and_grads(self.mesh, loss, grads,
+                                         self.data_axis)
+        segments = (tier.segments(feed, px_grads) if tier is not None
+                    else {})
         opt_core = {k: v for k, v in self.opt_state.items() if k != "amp"}
+        if segments:
+            # the guard's finite check and the amp unscale see the row
+            # gradients too
+            grads = {**grads, **{_SEG + k: g
+                                 for k, (_, g) in segments.items()}}
 
         @torch.no_grad()
         def do_update(g: Dict[str, torch.Tensor],
                       where: Optional[torch.Tensor]) -> None:
+            dense = {k: g[k] for k in params}
+            segs = {k: (ids, g[_SEG + k]) for k, (ids, _) in
+                    segments.items()}
+            clip = True
+            thr = self.optimizer.gradient_clipping_threshold
+            if segs and thr > 0:
+                # clipping parity with one process: the norm includes the
+                # tables' deduped row gradients, and one scale hits both
+                dense, gnorm = clip_by_global_norm(
+                    dense, thr, extra_sq=tier.grad_norm_sq(segs))
+                scale = torch.clamp(thr / torch.clamp(gnorm, min=1e-12),
+                                    max=1.0)
+                segs = {k: (ids, sg * scale)
+                        for k, (ids, sg) in segs.items()}
+                clip = False
             new_p, new_o = self.optimizer.new_values(
-                params, g, opt_core, lr_scales=self.lr_scales,
+                params, dense, opt_core, lr_scales=self.lr_scales,
                 decays=self.decays, statics=self.statics,
-                sparse_rows=self.sparse_rows, fused=self.fused_apply)
+                sparse_rows=self.sparse_rows, clip=clip,
+                fused=self.fused_apply)
             commit(params, opt_core, apply_masks(new_p, self.masks), new_o,
                    where)
+            if segs:
+                tier.apply_grads(segs, where)
 
         if self.amp:
             # loss scaling needs the skip machinery, so the guard is always
@@ -489,7 +640,7 @@ class SGDTrainer:
         if preemption is not None:
             preemption.install()
         scrubber = None
-        if FLAGS.scrub_every_s > 0 and FLAGS.save_dir:
+        if FLAGS.scrub_every_s > 0 and FLAGS.save_dir and self._writer:
             from paddle_tpu_torch.resilience.integrity import ScrubDaemon
 
             scrubber = ScrubDaemon(FLAGS.save_dir,
@@ -625,7 +776,7 @@ class SGDTrainer:
                     if scrubber is not None:
                         scrubber.scrub_now()
                 if (FLAGS.publish_dir and FLAGS.publish_every
-                        and FLAGS.save_dir
+                        and FLAGS.save_dir and self._writer
                         and (pass_id + 1) % FLAGS.publish_every == 0):
                     # from the newest VERIFIED checkpoint bytes, never from
                     # live memory; a refusal is journaled, never fatal
@@ -714,7 +865,8 @@ class SGDTrainer:
             feed = self._device_feed(feeder(data_batch) if feeder
                                      else data_batch)
             outs, _ = self.topology.apply(params, self.state, feed,
-                                          train=False, outputs=want)
+                                          train=False, outputs=want,
+                                          param_overrides=self._overrides())
             costs = {n: outs[n].value for n in self.cost_names}
             totals = (costs if totals is None
                       else {n: totals[n] + costs[n] for n in totals})
@@ -763,7 +915,8 @@ class SGDTrainer:
         names = [l.name for l in output_layers]
         outs, _ = self.topology.apply(self.params, self.state,
                                       self._device_feed(feed), train=False,
-                                      outputs=names)
+                                      outputs=names,
+                                      param_overrides=self._overrides())
         return {k: outs[k].value.float().cpu().numpy() for k in names}
 
     # ------------------------------------------------------------------
@@ -792,10 +945,17 @@ class SGDTrainer:
             except Exception as e:  # noqa: BLE001 — never fail a save
                 logger.warning("data cursor not recorded: %s", e)
         extra = ({"avg_params": self.avg_params}
-                 if self.avg_params is not None else None)
+                 if self.avg_params is not None else {})
+        if self.pserver is not None:
+            # a collective: every rank gathers, rank 0 writes
+            extra["pserver"] = self.pserver.full_state()
+        if self.mesh is not None:
+            meta.setdefault("mesh", self.mesh.config.to_json())
+        if not self._writer:
+            return pass_dir(save_dir, pass_id)
         d = save_checkpoint(save_dir, pass_id, params=self.params,
                             state=self.state, opt_state=self.opt_state,
-                            extra=extra, meta=meta)
+                            extra=extra or None, meta=meta)
         self._obs_counters["checkpoints"].inc()
         return d
 
@@ -805,13 +965,18 @@ class SGDTrainer:
         ``CheckpointError`` on corruption.  Restores the random stream
         when the manifest carries the port's; returns the manifest."""
         extra_like = ({"avg_params": self.avg_params}
-                      if self.avg_params is not None else None)
+                      if self.avg_params is not None else {})
+        if self.pserver is not None:
+            extra_like["pserver"] = self.pserver.state()
         out = load_checkpoint(save_dir, pass_id, params=self.params,
                               state=self.state, opt_state=self.opt_state,
-                              extra_like=extra_like, validate=validate)
+                              extra_like=extra_like or None,
+                              validate=validate)
         params, self.state, self.opt_state = out[:3]
-        if extra_like is not None and "avg_params" in out[3]:
+        if extra_like and "avg_params" in out[3]:
             self.avg_params = out[3]["avg_params"]
+        if self.pserver is not None:
+            self.pserver.adopt(out[3]["pserver"])
         self._adopt_params(params)
         try:
             manifest = read_manifest(pass_dir(save_dir, pass_id))

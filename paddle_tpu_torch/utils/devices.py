@@ -7,10 +7,14 @@ from ``torch`` and ``FLAGS.device``: ``cuda`` (the default) is the card and
 raises without one, as every entry point of the port does; ``cpu`` runs the
 kernels' plain versions.
 
+``make_mesh`` builds a ``parallel.MeshConfig`` from a shape and names (or
+``--mesh_shape`` / ``--mesh_axes``) and binds it to this rank of the
+launched world (``parallel/mesh.py``).
+
 Not ported here, each raising a ``ConfigError`` naming its ROADMAP.md
-Queue 1 item: ``make_mesh`` and ``force_virtual_devices`` (item 8, the
-multi-device tier), and ``apply_numeric_traps`` (``--check_nan``, item 9,
-which ``init`` refuses as the command line does).
+Queue 1 item: ``force_virtual_devices`` (item 8), and
+``apply_numeric_traps`` (``--check_nan``, item 9, which ``init`` refuses as
+the command line does).
 """
 
 from __future__ import annotations
@@ -37,14 +41,15 @@ def init(argv: Optional[list] = None) -> list:
     (``--check_nan``, ``--mesh_shape``, ...) raises naming its ROADMAP.md
     item."""
     from paddle_tpu_torch.utils.error import not_ported
-    from paddle_tpu_torch.utils.flags import NOT_PORTED_FLAGS, parse_flags
+    from paddle_tpu_torch.utils.flags import (NOT_PORTED_FLAGS, flag_part,
+                                              parse_flags)
 
     rest = parse_flags(argv)
     for arg in rest:
         if arg.startswith("--"):
             name = arg[2:].split("=", 1)[0].replace("-", "_")
             if name in NOT_PORTED_FLAGS:
-                raise not_ported(f"--{name}", NOT_PORTED_FLAGS[name])
+                raise not_ported(flag_part(name), NOT_PORTED_FLAGS[name])
     return rest
 
 
@@ -88,13 +93,22 @@ def apply_numeric_traps() -> None:
 
 
 def make_mesh(shape=None, axis_names=None):
-    from paddle_tpu_torch.utils.error import not_ported
+    """The mesh of ``shape`` (default ``--mesh_shape``; empty: one axis over
+    the whole world) with ``axis_names`` (default ``--mesh_axes``), bound
+    to this rank of the launched world (a ``parallel.Mesh``)."""
+    from paddle_tpu_torch.parallel.distributed import world_size
+    from paddle_tpu_torch.parallel.mesh import MeshConfig, parse_mesh_shape
+    from paddle_tpu_torch.utils.flags import FLAGS
 
-    raise not_ported("devices.make_mesh (the device mesh)", 8)
+    if shape is None:
+        shape = parse_mesh_shape(FLAGS.mesh_shape, world_size())
+    if axis_names is None:
+        axis_names = FLAGS.mesh_axes.split(",")
+    return MeshConfig.named(shape, axis_names).build()
 
 
 def force_virtual_devices(n: int) -> None:
     from paddle_tpu_torch.utils.error import not_ported
 
-    raise not_ported("devices.force_virtual_devices (virtual devices for "
-                     "the mesh tier)", 8)
+    raise not_ported("devices.force_virtual_devices (virtual devices, left "
+                     "in the parallel tier)", 8)

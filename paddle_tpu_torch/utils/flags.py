@@ -36,7 +36,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
 __all__ = ["FLAGS", "Flags", "define_flag", "parse_flags", "flags_help",
-           "refuse_unparsed", "NOT_PORTED_FLAGS"]
+           "refuse_unparsed", "flag_part", "NOT_PORTED_FLAGS"]
 
 _ENV_PREFIX = "PADDLE_TPU_TORCH_"
 
@@ -165,7 +165,7 @@ def refuse_unparsed(rest: List[str], what: str = "") -> None:
         name = (arg[2:].split("=", 1)[0].replace("-", "_")
                 if arg.startswith("--") else None)
         if name in NOT_PORTED_FLAGS:
-            raise not_ported(f"--{name}", NOT_PORTED_FLAGS[name])
+            raise not_ported(flag_part(name), NOT_PORTED_FLAGS[name])
     if rest:
         raise ConfigError(f"{what}unrecognized arguments: {rest}")
 
@@ -422,12 +422,26 @@ define_flag("scrub_every_s", 0.0, "background checkpoint scrubber cadence: "
 define_flag("obs_journal", "", "directory for the rank-tagged structured "
             "event journal (append-only events-r*.jsonl; '' = off)")
 
+# --- parallelism and the pserver tier (parallel/, pserver/) -------------------
+
+define_flag("mesh_shape", "", "the mesh of the launched world, e.g. '2' or "
+            "'2x2' (empty = one data axis over every rank); its size must "
+            "equal the world size the launcher started")
+define_flag("mesh_axes", "data", "comma-separated mesh axis names, e.g. "
+            "'data,model'")
+define_flag("pserver_axis", "model", "mesh axis embedding tables marked "
+            "sparse_grad shard their vocab over; a trainer mesh carrying "
+            "this axis routes them through the pserver tier (all-to-all "
+            "lookup + row-sparse updates that never densify)")
+define_flag("pserver_pad_vocab", True, "pad table vocabs up to a shard "
+            "multiple with masked tail rows; off = a non-dividing vocab "
+            "raises a typed ConfigError naming the table")
+
 #: the reference's flags of parts the port does not have yet, and the
 #: ROADMAP.md Queue 1 item that ports each; the command line refuses them
 NOT_PORTED_FLAGS: Dict[str, int] = {
-    **dict.fromkeys(("pserver_axis", "pserver_pad_vocab", "mesh_shape",
-                     "mesh_axes", "num_virtual_devices", "dcn_axis",
-                     "dcn_compress", "dcn_timeout_s", "dcn_retries"), 8),
+    **dict.fromkeys(("num_virtual_devices", "dcn_axis", "dcn_compress",
+                     "dcn_timeout_s", "dcn_retries"), 8),
     **dict.fromkeys(("sdc_check_every", "obs_timeline",
                      "obs_peak_flops", "metrics_port",
                      "trace_sample", "trace_tail_p99", "profile_dir",
@@ -438,3 +452,17 @@ NOT_PORTED_FLAGS: Dict[str, int] = {
                      "gang_backoff_jitter", "deploy_lint",
                      "serve_preflight"), 9),
 }
+
+#: the part of its ROADMAP.md item a refused flag waits for
+_FLAG_PARTS: Dict[str, str] = {
+    **dict.fromkeys(("dcn_axis", "dcn_compress", "dcn_timeout_s",
+                     "dcn_retries"), "the dcn hierarchy, parallel/"
+                    "hierarchical.py"),
+    "num_virtual_devices": "force_virtual_devices",
+}
+
+
+def flag_part(name: str) -> str:
+    """``--name``, with the part of its item that ports it where known."""
+    part = _FLAG_PARTS.get(name)
+    return f"--{name} ({part})" if part else f"--{name}"

@@ -126,9 +126,10 @@ def test_cli_help_lists_the_ported_flags_only(capsys):
                  "--amp", "--loss_scale", "--loss_scale_growth",
                  "--loss_scale_max", "--remat", "--prefetch_depth",
                  "--publish_dir", "--publish_every", "--compile_cache_dir",
-                 "--scrub_every_s", "--obs_journal"):
+                 "--scrub_every_s", "--obs_journal", "--pserver_axis",
+                 "--mesh_shape", "--mesh_axes", "--pserver_pad_vocab"):
         assert f"{flag}=" in out, flag
-    for flag in ("--sdc_check_every", "--pserver_axis", "--mesh_shape"):
+    for flag in ("--sdc_check_every", "--dcn_axis"):
         assert f"{flag}=" not in out, flag
     assert "-m paddle_tpu_torch data {pack|verify}" in out
     assert "-m paddle_tpu_torch serve --serve_bundle=" in out
@@ -155,16 +156,23 @@ def test_cli_rejects_bad_args():
     ("--enable_timers", 9), ("--deploy_lint=false", 9),
     ("--serve_preflight", 9)])
 def test_cli_unported_flags_name_their_item(flag, item):
-    """Items 8 and 9 still refuse their flags; the continuous-delivery
-    flags are ported (``--compile_cache_dir``, ``--publish_dir``,
-    ``--publish_every``, ``--scrub_every_s``): each parses into ``FLAGS``
-    and is refused no more."""
+    """Item 9 still refuses its flags; the continuous-delivery flags
+    (``--compile_cache_dir``, ``--publish_dir``, ``--publish_every``,
+    ``--scrub_every_s``) and the mesh and pserver flags (``--mesh_shape``,
+    ``--mesh_axes``, ``--pserver_axis``) are ported: each parses into
+    ``FLAGS`` and is refused no more.  Item 8's ``--dcn_axis`` still names
+    its part (the dcn hierarchy)."""
     from paddle_tpu_torch.utils.flags import (FLAGS, NOT_PORTED_FLAGS,
                                               parse_flags)
 
     name, _, value = flag[2:].partition("=")
+    if name in ("mesh_axes", "mesh_shape"):
+        with pytest.raises(ConfigError, match="item 8.*hierarchy|"
+                           "hierarchy.*item 8"):
+            main(_args("--job=train", "--dcn_axis=dcn"))
     if name in ("compile_cache_dir", "publish_dir", "publish_every",
-                "scrub_every_s"):
+                "scrub_every_s", "mesh_axes", "pserver_axis",
+                "mesh_shape"):
         assert name not in NOT_PORTED_FLAGS
         before = getattr(FLAGS, name)
         try:

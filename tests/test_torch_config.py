@@ -174,8 +174,23 @@ def test_trainer_config_bytes_equal_the_reference_pb2():
     assert opt2.learning_rate_schedule == "poly"
     step = torch.tensor(100.0)
     assert float(opt2.lr_at(step)) == pytest.approx(float(opt.lr_at(step)))
-    with pytest.raises(ConfigError, match="Queue 1 item 8"):
-        dump_trainer_config(tt, opt, mesh=object())
+    # the mesh's axis names and sizes, as the reference writes a built mesh
+    from paddle_tpu_torch.parallel import MeshConfig
+
+    meshed = dump_trainer_config(tt, opt, mesh=MeshConfig.of(data=4,
+                                                             model=2))
+    assert list(meshed.mesh_axes) == ["data", "model"]
+    assert list(meshed.mesh_shape) == [4, 2]
+    assert parse_protostr(protostr(meshed), pb.TrainerConfig) == meshed
+    # the reference reads a built mesh's axis names and device array shape
+    from types import SimpleNamespace
+
+    theirs_meshed = jdump_trainer(
+        jt, jopt, mesh=SimpleNamespace(axis_names=("data", "model"),
+                                       devices=np.empty((4, 2))))
+    _blank(meshed.model)
+    _blank(theirs_meshed.model)
+    assert meshed.SerializeToString() == theirs_meshed.SerializeToString()
 
 
 _TEXT = st.text(st.characters(codec="utf-8", exclude_categories=("Cs",)),
@@ -363,7 +378,8 @@ def test_typed_fields_validated_and_optional():
     pinned = pb.ModelConfig()
     pinned.CopyFrom(mc)
     pinned.layers[1].device = "tp"
-    with pytest.raises(ConfigError, match="Queue 1 item 3"):
+    # device_pin waits for the pipeline part of item 8
+    with pytest.raises(ConfigError, match="pipeline.*Queue 1 item 8"):
         build_topology(pinned, device="cpu")
     reshaped = pb.ModelConfig()
     reshaped.CopyFrom(mc)

@@ -11,6 +11,9 @@ holds the kernels at the main path's full shapes; these hold them at small
 and ragged ones.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -3632,3 +3635,125 @@ def test_every_kernel_library_passes_its_smoke_call(dev):
     torch.cuda.synchronize()
     assert launch_counts() == before
     assert launch_counts().by_path == before.by_path
+
+
+# ---------------------------------------------------------------------------
+# data parallelism and the pserver tier (chip_smoke.py's phase 21), small
+# ---------------------------------------------------------------------------
+
+PAR_TEXTCLF_ENV = {"TORCH_TEXTCLF_VOCAB": "300", "TORCH_TEXTCLF_EMB": "16",
+                   "TORCH_TEXTCLF_HID": "32", "TORCH_TEXTCLF_BATCH": "16",
+                   "TORCH_TEXTCLF_T": "20", "TORCH_TEXTCLF_N": "64",
+                   "TORCH_TEXTCLF_TEST_N": "16"}
+
+
+@pytest.fixture
+def kept_flags():
+    from paddle_tpu_torch.utils.flags import FLAGS
+
+    before = FLAGS.as_dict()
+    yield
+    for k, v in before.items():
+        setattr(FLAGS, k, v)
+
+
+def test_parallel_textclf_cli_two_ranks_on_one_card(dev, tmp_path,
+                                                     monkeypatch,
+                                                     kept_flags):
+    """``python -m paddle_tpu_torch --job=train --mesh_shape=2`` on 2 gloo
+    ranks of this card (global batch 16, f32): the ranks' parameters
+    bit-equal, losses and rank 0's checkpoint against the same command in
+    this process (rtol 1e-5; rtol 1e-4 / atol 1e-6), K9r and K10 2 a step
+    on each rank."""
+    import json
+
+    from paddle_tpu_torch.__main__ import main
+    from paddle_tpu_torch.parallel import launch_local
+    from paddle_tpu_torch.resilience.checkpoint_io import pass_dir
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for k, v in PAR_TEXTCLF_ENV.items():
+        monkeypatch.setenv(k, v)
+    args = ["--job=train", f"--config={root}/tests/torch_textclf_conf.py",
+            "--num_passes=1", "--log_period=0", "--compute_dtype=float32"]
+    one = str(tmp_path / "one")
+    assert main(args + ["--device=cuda", f"--save_dir={one}"]) == 0
+    d = str(tmp_path / "world")
+    launcher = launch_local(
+        2, "-m", ["paddle_tpu_torch", *args, "--mesh_shape=2",
+                  f"--save_dir={d}/ck"],
+        env={**PAR_TEXTCLF_ENV, "PYTHONPATH": root},
+        coordinator=f"file://{d}/rendezvous", backend="gloo",
+        log_dir=f"{d}/logs", cwd=root)
+    codes = launcher.join(300)
+    assert codes == [0, 0], launcher.stderr_tails()
+    lines = []
+    for r in range(2):
+        with open(f"{d}/logs/rank-{r}.out") as f:
+            lines.append(json.loads(f.read().strip().splitlines()[-1]))
+    assert lines[0]["params_sha256"] == lines[1]["params_sha256"]
+    for x in lines:
+        assert x["launches"]["by_library"] == {"lstm_forward": 8,
+                                               "lstm_backward": 8}
+    for name in ("params",):
+        with np.load(os.path.join(pass_dir(one, 0), f"{name}.npz")) as z:
+            want = {k: z[k] for k in z.files}
+        with np.load(os.path.join(pass_dir(f"{d}/ck", 0),
+                                  f"{name}.npz")) as z:
+            got = {k: z[k] for k in z.files}
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4,
+                                       atol=1e-6, err_msg=k)
+
+
+def test_pserver_movielens_two_ranks_on_one_card(dev, tmp_path):
+    """``movielens_net(sparse_grad=True)`` with its tables on ``model=2``
+    (gloo, this card, f32) against the one-process masked path from the
+    same tables: losses rtol 1e-6, tables and Adam slots rtol 1e-6 / atol
+    1e-7, dirty rows exactly the rows whose slots moved."""
+    import paddle_tpu_torch.nn as tnn
+    from paddle_tpu_torch.models.recommender import movielens_net
+    from paddle_tpu_torch.param.optimizers import Adam, slot_leaves
+    from paddle_tpu_torch.trainer import SGDTrainer
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_dist import run_world
+
+    rng = np.random.RandomState(11)
+    feeds = [{"user_id": rng.randint(0, 300, (32, 1)).astype(np.int32),
+              "movie_id": rng.randint(0, 200, (32, 1)).astype(np.int32),
+              "score": (rng.rand(32, 1) * 5).astype(np.float32)}
+             for _ in range(3)]
+    tnn.reset_naming()
+    with compute_dtype_scope("float32"):
+        one = SGDTrainer(movielens_net(300, 200, emb_dim=16, hid_dim=16,
+                                       sparse_grad=True)[0],
+                         Adam(learning_rate=0.01), seed=0, device=dev)
+        p0 = {k: v.detach().cpu().numpy().copy()
+              for k, v in one.params.items()}
+        ref = [float(one.train_batch(f)) for f in feeds]
+    tables = ["_user_emb.w0", "_movie_emb.w0"]
+    inputs = {**{f"p.{k}": v for k, v in p0.items() if k not in tables},
+              **{f"t.{k}": p0[k] for k in tables},
+              **{f"feed{i}.{k}": v for i, f in enumerate(feeds)
+                 for k, v in f.items()}}
+    outs = run_world(tmp_path, 2, "trainer", inputs,
+                     {"net": "movielens", "n_users": 300, "n_movies": 200,
+                      "emb": 16, "hid": 16, "mesh": {"model": 2},
+                      "opt": "Adam", "opt_kw": {"learning_rate": 0.01},
+                      "adopt_tables": True, "n_feeds": 3,
+                      "feed_keys": ["user_id", "movie_id", "score"]},
+                     device="cuda")
+    arrays, meta = outs[0]
+    np.testing.assert_allclose(meta["losses"], ref, rtol=1e-6)
+    for k in tables:
+        v = one.params[k].detach().cpu().numpy()
+        np.testing.assert_allclose(arrays[f"t.{k}"][:v.shape[0]], v,
+                                   rtol=1e-6, atol=1e-7, err_msg=k)
+        slots = slot_leaves(one.opt_state["slots"][k])
+        for i, s in enumerate(slots):
+            np.testing.assert_allclose(arrays[f"s{i}.{k}"][:v.shape[0]],
+                                       s.cpu().numpy(), rtol=1e-6,
+                                       atol=1e-7, err_msg=f"{k} slot {i}")
+        moved = slots[0].ne(0).any(dim=1).cpu().numpy()
+        np.testing.assert_array_equal(arrays[f"d.{k}"][:v.shape[0]], moved)

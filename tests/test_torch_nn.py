@@ -190,22 +190,19 @@ def test_graph_errors_match_the_reference():
 @pytest.mark.parametrize("kind", ["triple", "device_pin", "device_specs",
                                   "param_overrides", "sparse_grad"])
 def test_unported_feeds_and_options_raise_config_error(kind):
-    """Each raises ``ConfigError`` naming the ROADMAP.md Queue 1 item that
-    ports it: 8 (parallel and pserver) for the pserver's table proxies (a
-    ``sparse_grad`` table handed in through ``param_overrides``), 3
-    (groups, feeds and config) for the rest.  Sparse data layers,
-    ``sparse_grad`` tables, nested and packed feeds themselves are ported
-    (``tests/test_torch_nested_seq.py``, ``tests/test_torch_packing.py``):
-    a 3-tuple fed to a data layer that is not nested is a typed
-    ``ConfigError`` that says so."""
-    item = 8 if kind in ("param_overrides", "sparse_grad") else 3
-    unported = rf"not ported.*Queue 1 item {item}\b"
+    """``device_pin`` and ``apply(device_specs=)`` raise ``ConfigError``
+    naming ROADMAP.md Queue 1 item 8 (the pipeline's model-parallel
+    placement); a 3-tuple fed to a data layer that is not nested is a
+    typed ``ConfigError`` that says so.  ``apply(param_overrides=)`` is
+    ported (the pserver tier's table proxies): an override replaces the
+    parameter for the call, and a ``sparse_grad`` table's override with a
+    ``pserver_lookup`` takes the embedding's lookup."""
+    unported = r"not ported.*Queue 1 item 8\b"
     tnn.reset_naming()
     words = tnn.data("w", size=10, is_seq=True, dtype="int32")
     emb = tnn.embedding(words, 4, sparse_grad=kind == "sparse_grad")
     if kind == "sparse_grad":
         assert emb.param_specs[0].attr.sparse_grad
-        kind = "param_overrides"
     if kind == "device_pin":
         with pytest.raises(ConfigError, match=unported):
             tnn.device_pin(emb, "tp")
@@ -214,16 +211,36 @@ def test_unported_feeds_and_options_raise_config_error(kind):
     p, st = topo.init(0)
     ids, lens = np.zeros((2, 3), np.int32), np.array([3, 2], np.int32)
     feed = {"w": (ids, lens)}
-    kw = {}
     if kind == "triple":
-        feed = {"w": (ids, lens, lens[:, None])}
-        unported = r"got a 3-tuple \(a nested feed needs data\(nested=True\)\)"
-    elif kind == "device_specs":
-        kw = {"device_specs": {"tp": None}}
-    else:
-        kw = {"param_overrides": {}}
-    with pytest.raises(ConfigError, match=unported):
-        topo.apply(p, st, feed, **kw)
+        with pytest.raises(ConfigError, match=r"got a 3-tuple \(a nested "
+                           r"feed needs data\(nested=True\)\)"):
+            topo.apply(p, st, {"w": (ids, lens, lens[:, None])})
+        return
+    if kind == "device_specs":
+        with pytest.raises(ConfigError, match=unported):
+            topo.apply(p, st, feed, device_specs={"tp": None})
+        return
+    name = emb.param_specs[0].name
+    base, _ = topo.apply(p, st, feed)
+    if kind == "param_overrides":
+        same, _ = topo.apply(p, st, feed, param_overrides={})
+        assert torch.equal(same[emb.name].value, base[emb.name].value)
+        twice, _ = topo.apply(p, st, feed,
+                              param_overrides={name: 2 * p[name]})
+        assert torch.allclose(twice[emb.name].value,
+                              2 * base[emb.name].value)
+        return
+
+    class Proxy:
+        calls = []
+
+        def pserver_lookup(self, ids, *, layer, pad_to_zero_id=None):
+            self.calls.append(layer)
+            return torch.ones(tuple(ids.shape) + (4,))
+
+    out, _ = topo.apply(p, st, feed, param_overrides={name: Proxy()})
+    assert Proxy.calls == [emb.name]
+    assert torch.equal(out[emb.name].value[0], torch.ones(3, 4))
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

@@ -20,7 +20,6 @@ from paddle_tpu.param import optimizers as J
 from paddle_tpu_torch.param import hooks as thooks
 from paddle_tpu_torch.param import optimizers as P
 from paddle_tpu_torch.param.optimizers import commit, slot_leaves
-from paddle_tpu_torch.utils.error import ConfigError
 
 RTOL, ATOL = 1e-6, 1e-7
 
@@ -261,17 +260,22 @@ def test_new_values_is_functional_and_commit_writes_in_place():
 def test_sparse_rows_and_row_apply_raise_item_8():
     """``sparse_rows`` and ``row_apply`` are ported (their parity:
     ``tests/test_torch_sparse.py``): an untouched row keeps its bits.  The
-    pserver's out-of-range drop (``oob_drop=True``) raises naming item
-    8."""
+    pserver's out-of-range drop (``oob_drop=True``) is ported too (its
+    parity: ``tests/test_torch_pserver.py``): rows past the end write
+    nothing, and the live rows update as without it."""
     opt = P.SGD()
     p = {"t": torch.zeros(4, 2)}
     g = torch.ones(4, 2)
     g[2] = 0.0
     opt.update(p, {"t": g}, opt.init_state(p), sparse_rows={"t": True})
     assert p["t"][2].tolist() == [0.0, 0.0] and p["t"][0, 0] < 0
-    with pytest.raises(ConfigError, match="Queue 1 item 8"):
-        opt.row_apply(p["t"], None, None, (), None, 0.1, None,
-                      oob_drop=True)
+    rows = torch.tensor([3, 7])
+    live = torch.tensor([True, True])
+    dropped, _ = opt.row_apply(p["t"], rows, torch.ones(2, 2), (), live,
+                               0.1, None, oob_drop=True)
+    kept, _ = opt.row_apply(p["t"], rows[:1], torch.ones(1, 2), (),
+                            live[:1], 0.1, None)
+    assert torch.equal(dropped, kept)
 
 
 @pytest.mark.parametrize("ratio", [0.0, 0.3, 0.5])

@@ -72,7 +72,12 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
                 "resilience/integrity.py", "publish/__init__.py",
                 "publish/publisher.py", "serving/reload.py",
                 "serving/fleet.py", "serving/tenancy.py",
-                "serving/router.py"):
+                "serving/router.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/distributed.py",
+                "parallel/launcher.py", "parallel/sharding.py",
+                "parallel/api.py", "parallel/embedding.py",
+                "pserver/__init__.py", "pserver/table.py",
+                "pserver/lookup.py", "pserver/apply.py", "pserver/tier.py"):
         assert mod in rel, mod
     bad = []
     for path in files:

@@ -395,12 +395,19 @@ def test_show_parameter_stats_and_test_period(monkeypatch, caplog):
 
 
 def test_unported_settings_raise_with_their_item(tmp_path):
+    from paddle_tpu_torch.parallel import MeshConfig
+
     cost = build(tnn, False)
-    for kw, item in (({"mesh": object()}, 8), ({"data_axis": "dp"}, 8),
-                     ({"sharding_rules": object()}, 8),
+    dcn = MeshConfig((("dcn", 1), ("data", 1)), dcn_axis="dcn")
+    for kw, item in (({"mesh": dcn}, 8), ({"sharding_rules": object()}, 8),
                      ({"pipeline": {}}, 8), ({"device_specs": {}}, 8)):
         with pytest.raises(ConfigError, match=f"Queue 1 item {item}"):
             SGDTrainer(cost, device="cpu", **kw)
+    # mesh= and data_axis= are ported (tests/test_torch_parallel.py); a
+    # mesh of another kind than a MeshConfig or a bound Mesh is refused
+    with pytest.raises(ConfigError, match="expected a MeshConfig"):
+        SGDTrainer(cost, device="cpu", mesh=object())
+    assert SGDTrainer(cost, device="cpu", data_axis="dp").data_axis == "dp"
     # amp and remat are ported: amp must agree with FLAGS.amp
     with pytest.raises(ValueError, match="disagrees with FLAGS.amp"):
         SGDTrainer(cost, device="cpu", amp=True)
@@ -419,11 +426,14 @@ def test_unported_settings_raise_with_their_item(tmp_path):
                  param_attr=tnn.ParamAttr(sparse_grad=True))
     cost = tnn.classification_cost(out, lab)
     # a sparse_grad table trains on one device (the masked row update);
-    # the pserver tier's sharded tables come with a mesh (item 8)
+    # a mesh with the pserver axis routes embedding tables through the
+    # pserver tier (tests/test_torch_pserver.py) and leaves an fc's
+    # sparse_grad weight on the masked update, as the reference does
     assert SGDTrainer(cost, device="cpu").sparse_rows == {
         f"_{out.name}.w0": True}
-    with pytest.raises(ConfigError, match="item 8"):
-        SGDTrainer(cost, device="cpu", mesh=object())
+    meshed = SGDTrainer(cost, device="cpu", mesh=MeshConfig.of(model=1))
+    assert meshed.pserver is None
+    assert meshed.sparse_rows == {f"_{out.name}.w0": True}
 
 
 def test_trainer_defaults_to_cuda_and_refuses_without_a_card():

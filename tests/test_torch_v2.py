@@ -637,10 +637,14 @@ def test_devices_init_and_queries():
     assert devices.device_count() == 1
     assert devices.default_backend() == "cpu"
     assert devices.on_tunnel_backend() is False
-    for argv, item in ((["--check_nan"], 9), (["--mesh_shape=2x2"], 8)):
+    for argv, item in ((["--check_nan"], 9), (["--dcn_axis=dcn"], 8)):
         with pytest.raises(ConfigError, match=f"item {item}"):
             paddle.init(argv)
-    for fn, item in ((devices.make_mesh, 8), (devices.apply_numeric_traps, 9),
+    # the mesh flags and make_mesh are ported (tests/test_torch_parallel.py)
+    assert paddle.init(["--mesh_shape=1", "--device=cpu"]) == []
+    assert devices.make_mesh().axis_names == ("data",)
+    FLAGS.mesh_shape = ""
+    for fn, item in ((devices.apply_numeric_traps, 9),
                      (lambda: devices.force_virtual_devices(8), 8)):
         with pytest.raises(ConfigError, match=f"item {item}"):
             fn()
